@@ -8,16 +8,17 @@ this module is imported; the first launch of a kernel builds it, and
 ``build_all`` builds every kernel at once, one nvcc process per source,
 all started together.
 
-Every C entry point has the signature
-``(qa, b, sa, sb, c, out, M, N, K, lda, ldb, ldc, stream) -> int`` and
-returns ``cudaGetLastError()`` after its launch; ``launch`` raises if that
-is not 0. ``LAUNCHES`` counts the launches of each kernel, one per call
-of ``launch`` and nowhere else, so a run can show which kernels its path
-went through.
+Every C entry point takes its own arguments (``Kernel.argtypes``:
+``c_void_p`` for each pointer and for the CUDA stream, which comes last)
+and returns ``cudaGetLastError()`` after its launch; ``launch`` raises if
+that is not 0. ``LAUNCHES`` counts the launches of each kernel, one per
+call of ``launch`` and nowhere else, so a run can show which kernels its
+path went through.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import pathlib
@@ -29,23 +30,45 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-HEADERS = ("int8_mma.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# kernel name -> source file; the C symbol has the kernel's name
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+@dataclasses.dataclass(frozen=True)
+class Kernel:
+    """One C entry point: its source under ``csrc/`` and its ctypes
+    argument types (the trailing stream included)."""
+    source: str
+    argtypes: tuple
+
+
+# (qa, b, sa, sb, c, out, M, N, K, lda, ldb, ldc, stream)
+_GEMM = (_P,) * 6 + (_I,) * 6 + (_P,)
+
+# kernel name -> Kernel; the C symbol has the kernel's name
 KERNELS = {
-    "int8_gemm_nn": "int8_gemm_nn.cu",
-    "int8_gemm_nt": "int8_gemm_nt.cu",
-    "w4a8_gemm": "w4a8_gemm.cu",
+    "int8_gemm_nn": Kernel("int8_gemm_nn.cu", _GEMM),
+    "int8_gemm_nt": Kernel("int8_gemm_nt.cu", _GEMM),
+    "w4a8_gemm": Kernel("w4a8_gemm.cu", _GEMM),
+    # c unused (may be null); out = f32(QA @ W4) * sa * sw
+    "w4a8_gemm_noc": Kernel("w4a8_gemm_noc.cu", _GEMM),
+    # (x, packed, sw, qa_scratch, sa_scratch, out, M, N, Kp, ldp, stream)
+    "w4a8_gemv_fq": Kernel("w4a8_gemv_fq.cu", (_P,) * 6 + (_I,) * 4
+                           + (_P,)),
+    # (cache, new, pos, mask, B, T, S, row_bytes, stream)
+    "kv_update": Kernel("kv_update.cu", (_P,) * 4 + (_I,) * 4 + (_P,)),
+    # (q, k_cache, v_cache, lengths, out, B, T, KVH, REP, D, bk, scale,
+    #  stream)
+    "decode_attention": Kernel("decode_attention.cu", (_P,) * 5
+                               + (_I,) * 6 + (_F, _P)),
 }
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 _LIBS: dict[str, ctypes.CDLL] = {}
-
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 6 + [_P]
 
 
 def reset_launches() -> None:
@@ -68,8 +91,8 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> pathlib.Path:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for f in (KERNELS[name], *HEADERS):
-        h.update((CSRC / f).read_bytes())
+    for f in (CSRC / KERNELS[name].source, *sorted(CSRC.glob("*.cuh"))):
+        h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -80,7 +103,8 @@ def _start_build(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name])]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           str(CSRC / KERNELS[name].source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -120,25 +144,28 @@ def _function(name: str):
             _finish_build(name, started)
         _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
     fn = getattr(_LIBS[name], name)
-    fn.argtypes = _ARGTYPES
+    fn.argtypes = KERNELS[name].argtypes
     fn.restype = _I
     return fn
 
 
-def launch(name: str, qa: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
-           sb: torch.Tensor, c: torch.Tensor, out: torch.Tensor,
-           m: int, n: int, k: int, lda: int, ldb: int, ldc: int) -> None:
-    """Launch kernel ``name`` on the current stream of ``out``'s device.
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` on the current stream of ``device``.
 
+    ``args`` are the C arguments before the stream, in order: a tensor
+    passes its ``data_ptr()``, ``None`` a null pointer, a number itself.
     The caller (a wrapper in ``ops/``) has checked devices, dtypes,
     shapes, contiguity and alignment. Raises RuntimeError if the launch
     was refused."""
     fn = _function(name)
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    with torch.cuda.device(out.device):
-        err = fn(qa.data_ptr(), b.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-                 c.data_ptr(), out.data_ptr(), m, n, k, lda, ldb, ldc,
-                 stream)
+    if len(args) != len(fn.argtypes) - 1:
+        raise TypeError(f"{name} takes {len(fn.argtypes) - 1} arguments "
+                        f"before the stream, got {len(args)}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+             for a in args]
+    with torch.cuda.device(device):
+        err = fn(*cargs, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     LAUNCHES[name] += 1

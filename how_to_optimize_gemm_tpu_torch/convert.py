@@ -1,10 +1,16 @@
-"""Carry a reference rung's prepared operands into the port.
+"""Carry the reference's operands and weights into the port.
 
-``from_jax_prepared`` takes the output of the JAX package's
-``Rung.prepare`` already converted to numpy arrays (``np.asarray`` on
-each element; this module imports no JAX) and returns the port's
-prepared tuple for the same rung, with the same layouts and dtypes, so
-both packages can be run on identical operands.
+This module imports no JAX: its inputs are the JAX package's outputs
+already converted to numpy arrays (``np.asarray`` on each leaf).
+
+- ``from_jax_prepared`` takes a ladder rung's ``Rung.prepare`` output
+  and returns the port's prepared tuple for the same rung;
+- ``params_from_jax`` takes a ``models/llama.init_params`` tree and
+  returns the port's tree;
+- ``to_device`` moves a port tree to another device.
+
+Layouts and dtypes are kept (packed int4 bytes are copied byte for
+byte), so both packages can be run on identical operands.
 """
 from __future__ import annotations
 
@@ -46,3 +52,32 @@ def from_jax_prepared(rung_name: str, arrays, device) -> tuple:
                             f"got {x.dtype}")
         out.append(torch.from_numpy(np.array(x, copy=True)).to(device))
     return tuple(out)
+
+
+def _tensor(x: np.ndarray, device) -> torch.Tensor:
+    """One numpy leaf as a tensor of the same dtype (bf16 arrays, whose
+    numpy dtype is ml_dtypes' ``bfloat16``, keep their bits)."""
+    if x.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(x.view(np.uint16), copy=True))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def params_from_jax(tree, device):
+    """A JAX ``llama.init_params`` tree with numpy leaves -> the port's
+    tree on ``device``: the same nesting and key names, each leaf a
+    tensor of the same dtype and shape."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax(v, device) for v in tree)
+    return _tensor(np.asarray(tree), device)
+
+
+def to_device(tree, device):
+    """A nested dict / list tree of tensors, each moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return tree.to(device)

@@ -38,7 +38,7 @@ __global__ void __launch_bounds__(htog::THREADS)
                         const float* sb, const float* c, float* out, int M,
                         int N, int K, int lda, int ldc) {
   __shared__ __align__(16) htog::Smem sm;
-  htog::gemm_nmajor_body(sm, qa, qb, sa, sb, c, out, M, N, K, lda, ldc);
+  htog::gemm_nmajor_body<true>(sm, qa, qb, sa, sb, c, out, M, N, K, lda, ldc);
 }
 
 }  // namespace

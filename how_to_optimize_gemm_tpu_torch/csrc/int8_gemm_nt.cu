@@ -52,7 +52,7 @@ __global__ void __launch_bounds__(htog::THREADS)
     cp_async_wait_all();
     __syncthreads();
   }
-  dequant_epilogue(acc, sa, sb, c, out, M, N, ldc, m0, n0, wm, wn, lane);
+  dequant_epilogue<true>(acc, sa, sb, c, out, M, N, ldc, m0, n0, wm, wn, lane);
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 // Shared building blocks of the int8 GEMM kernels (int8_gemm_nn.cu,
-// int8_gemm_nt.cu, w4a8_gemm.cu): block tiling, shared-memory staging,
-// the warp-level int8 tensor-core product and the dequant epilogue.
+// int8_gemm_nt.cu, w4a8_gemm.cu, w4a8_gemm_noc.cu): block tiling,
+// shared-memory staging, the warp-level int8 tensor-core product and the
+// dequant epilogue.
 //
 // Tiling: one 128x128 output tile per block of 256 threads (8 warps laid
 // out 2 x 4, each owning a 64x32 sub-tile = 4 x 4 fragments of
@@ -15,6 +16,7 @@
 // The epilogue is the reference's order, written with explicit rounding
 // intrinsics so nvcc cannot contract it into an FMA:
 //     out[i,j] = (float(acc) * sa[i]) * sb[j] + c[i,j]
+// (without the "+ c" for the no-C serving form, kAddC = false).
 // The int32 accumulation is exact, so each kernel equals its plain
 // PyTorch version bit for bit. c and out may be the same buffer (in-place
 // accumulate): each element is read and written by the same thread.
@@ -192,8 +194,10 @@ __device__ __forceinline__ void mma_stage(int (&acc)[4][4][4],
   }
 }
 
-// out[i,j] = (float(acc) * sa[i]) * sb[j] + c[i,j], masked to M x N.
-// c and out may alias (no __restrict__ on either).
+// out[i,j] = (float(acc) * sa[i]) * sb[j] (+ c[i,j] when kAddC), masked
+// to M x N. c and out may alias (no __restrict__ on either); c is not read
+// when kAddC is false.
+template <bool kAddC>
 __device__ __forceinline__ void dequant_epilogue(
     const int (&acc)[4][4][4], const float* sa, const float* sb,
     const float* c, float* out, int M, int N, int ldc, int m0, int n0,
@@ -217,17 +221,17 @@ __device__ __forceinline__ void dequant_epilogue(
           float v = __fmul_rn(
               __fmul_rn(__int2float_rn(acc[mi][ni][h * 2 + e]), s_row),
               sb[col]);
-          out[idx] = __fadd_rn(v, c[idx]);
+          out[idx] = kAddC ? __fadd_rn(v, c[idx]) : v;
         }
       }
     }
   }
 }
 
-// The whole kernel for an N-major B operand (K1 and K3): A through
-// cp.async, B through registers (load, decode, transpose, store), two
-// stages, the dequant epilogue at the end.
-template <class Src>
+// The whole kernel for an N-major B operand (K1, K3 and its no-C form): A
+// through cp.async, B through registers (load, decode, transpose, store),
+// two stages, the dequant epilogue at the end.
+template <bool kAddC, class Src>
 __device__ __forceinline__ void gemm_nmajor_body(
     Smem& sm, const int8_t* A, const Src& bsrc, const float* sa,
     const float* sb, const float* c, float* out, int M, int N, int K,
@@ -261,7 +265,8 @@ __device__ __forceinline__ void gemm_nmajor_body(
     cp_async_wait_all();
     __syncthreads();
   }
-  dequant_epilogue(acc, sa, sb, c, out, M, N, ldc, m0, n0, wm, wn, lane);
+  dequant_epilogue<kAddC>(acc, sa, sb, c, out, M, N, ldc, m0, n0, wm, wn,
+                          lane);
 }
 
 }  // namespace htog

@@ -14,40 +14,24 @@
 //
 // Design: Hopper has no int4 MMA, so the nibbles are decoded to s8 while
 // the packed tile is staged into shared memory, then the K1 path runs
-// unchanged (N-major -> K-major transpose, int8 mma.sync). K row k lives
-// in packed row (k / 512) * 256 + (k % 512) % 256: the low nibble in
-// offset binary, (b & 0xF) - 8, when k % 512 < 256, else the high nibble
-// in two's complement, (int8)b >> 4. A 64-deep K tile never straddles a
-// half block, so one tile is all low or all high nibbles and the decode
-// is two SIMD byte ops per word (__vsub4). Each packed byte is fetched
-// twice (once per half), the second time usually from L2.
+// unchanged (N-major -> K-major transpose, int8 mma.sync). The layout
+// and its decode (two SIMD byte ops per word, __vsub4) are in w4a8.cuh.
+// Each packed byte is fetched twice (once per half), the second time
+// usually from L2.
 #include "int8_mma.cuh"
+#include "w4a8.cuh"
 
 namespace {
 
-struct PackedW4 {
-  const int8_t* base;
-  int K;   // K rows of the logical weight that are read (<= Kp)
-  int ld;  // row pitch in bytes (a multiple of 16, >= N)
-  __device__ const int8_t* row(int k) const {
-    int prow = (k >> 9) * 256 + ((k & 511) & 255);
-    return base + (size_t)prow * ld;
-  }
-  __device__ uint32_t decode(uint32_t w, int k) const {
-    if ((k & 511) < 256) {
-      return __vsub4(w & 0x0F0F0F0Fu, 0x08080808u);
-    }
-    uint32_t u = (w >> 4) & 0x0F0F0F0Fu;
-    return __vsub4(u ^ 0x08080808u, 0x08080808u);
-  }
-};
+using htog::PackedW4;
 
 __global__ void __launch_bounds__(htog::THREADS)
     w4a8_gemm_kernel(const int8_t* qa, PackedW4 w, const float* sa,
                      const float* sw, const float* c, float* out, int M,
                      int N, int K, int lda, int ldc) {
   __shared__ __align__(16) htog::Smem sm;
-  htog::gemm_nmajor_body(sm, qa, w, sa, sw, c, out, M, N, K, lda, ldc);
+  htog::gemm_nmajor_body<true>(sm, qa, w, sa, sw, c, out, M, N, K, lda,
+                               ldc);
 }
 
 }  // namespace

@@ -109,7 +109,7 @@ def mmult_q(qa, sa, qb, sb, c):
     out = torch.empty_like(c)
     if m and n:
         kp = qa.shape[1]
-        _build.launch("int8_gemm_nn", qa, qb, sa, sb, c, out,
+        _build.launch("int8_gemm_nn", c.device, qa, qb, sa, sb, c, out,
                       m, n, kp, kp, qb.shape[1], n)
     return out
 
@@ -133,6 +133,6 @@ def mmult_q_bt(qa, sa, qbt, sb, c):
     check_operands("mmult_q_bt", qa, sa, qbt, sb, c)
     if m and n:
         kp = qa.shape[1]
-        _build.launch("int8_gemm_nt", qa, qbt, sa, sb, c, c,
+        _build.launch("int8_gemm_nt", c.device, qa, qbt, sa, sb, c, c,
                       m, n, kp, kp, kp, n)
     return c

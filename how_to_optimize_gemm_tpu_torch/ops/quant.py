@@ -25,8 +25,11 @@ def quantize_symmetric(x: torch.Tensor, axis: int | None, bits: int = 8):
         amax = x.abs().max()
     else:
         amax = x.abs().amax(dim=axis, keepdim=True)
-    scale = torch.clamp_min(amax.to(torch.float32), 1e-8) / qmax
-    q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int8)
+    amax = torch.clamp_min(amax.to(torch.float32), 1e-8)
+    # divide by a tensor: PyTorch's CUDA division by a Python scalar
+    # multiplies by its reciprocal, which is not IEEE division
+    scale = amax / torch.full_like(amax, qmax)
+    q =torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int8)
     return q, scale
 
 

@@ -52,3 +52,38 @@ def time_chained(run: Callable[..., torch.Tensor], prepared: tuple,
             cc = run(*prepared, cc)
         best = min(best, (time.perf_counter() - t0) / iters)
     return best
+
+
+def time_calls(fn: Callable[[], object], inner_iters: int = 20,
+               outer_repeats: int = 3, warmup: int = 2,
+               graph: bool = False) -> float:
+    """Per-call seconds of ``fn()`` on the card: the best of
+    ``outer_repeats`` CUDA-event windows of ``inner_iters`` calls.
+
+    graph=True captures the ``inner_iters`` calls in one CUDA graph and
+    times its replay: the device's time per call, without the host's
+    cost of issuing it (``fn`` must not synchronize)."""
+    for _ in range(warmup):
+        fn()
+    window = fn
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(inner_iters):
+                fn()
+        window = g.replay
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(outer_repeats):
+        start.record()
+        if graph:
+            window()
+        else:
+            for _ in range(inner_iters):
+                fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) * 1e-3 / inner_iters)
+    return best

@@ -26,6 +26,9 @@ _IMPORT_REF = re.compile(
 def test_port_modules_found():
     assert "how_to_optimize_gemm_tpu_torch.ops.int8" in MODULES
     assert "how_to_optimize_gemm_tpu_torch.harness.driver" in MODULES
+    for name in ("models.linear", "models.llama", "parallel.serving",
+                 "ops.kv_update", "ops.decode_attention"):
+        assert f"how_to_optimize_gemm_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 20
 
 
@@ -61,11 +64,23 @@ def test_every_port_module_imports_with_jax_blocked():
 
 
 def test_kernel_loader_imports_without_nvcc(monkeypatch):
+    """Every kernel has its source and its own C signature (ctypes
+    argtypes: pointers and the trailing stream as c_void_p), all known
+    without nvcc."""
+    import ctypes
     from how_to_optimize_gemm_tpu_torch import _build
-    assert set(_build.KERNELS) == {"int8_gemm_nn", "int8_gemm_nt",
-                                   "w4a8_gemm"}
-    for src in _build.KERNELS.values():
-        assert (_build.CSRC / src).exists()
+    assert set(_build.KERNELS) == {
+        "int8_gemm_nn", "int8_gemm_nt", "w4a8_gemm", "w4a8_gemm_noc",
+        "w4a8_gemv_fq", "kv_update", "decode_attention"}
+    for name, kernel in _build.KERNELS.items():
+        assert (_build.CSRC / kernel.source).exists(), name
+        assert kernel.argtypes[-1] is ctypes.c_void_p, name
+        assert set(kernel.argtypes) <= {ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_float}, name
+        text = (_build.CSRC / kernel.source).read_text()
+        assert f'extern "C" int {name}(' in text, name
+    assert len(_build.KERNELS["decode_attention"].argtypes) == 13
+    assert len(_build.KERNELS["kv_update"].argtypes) == 9
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", str(ROOT / "no-such-cuda"))
     with pytest.raises(RuntimeError, match="nvcc"):
