@@ -17,32 +17,41 @@ Phases (any failure raises and exits non-zero before the last line):
    at 4096 beside the plain version's, the library call's (where one
    PyTorch call computes the same function) and the card's bound;
 4. each serving kernel against its plain version at the Llama-2-7B
-   shapes the serve path gives it (EQUAL for w4a8_gemm_noc, w4a8_gemv_fq
-   and kv_update; within atol 2e-3 for decode_attention), timed beside
-   its plain version, the library call and its bound;
+   shapes the serve paths give it and at one ragged shape (EQUAL for
+   w4a8_gemm_noc, w4a8_gemv_fq, kv_update and int8_gemm_noc; within
+   W4A16_REL x max |y| for w4a16_gemm_noc and w4a16_gemv, whose fp32
+   sums run in another order; within atol 2e-3 for decode_attention and
+   decode_attention_q8), timed as CUDA-graph replays beside its plain
+   version, the library call (or null where no single PyTorch call
+   computes the same function) and its bound;
 5. the ladder's main path, with every launch count set to 0 just before
    it: the sweep driver on rungs 06v, 06, 14 and 07b at p = 1024 (fp64
    host oracle), 2048 and 4096 (fp64 device check), writing ``.m`` files
    to a temporary directory and printing the ``p gflops diff`` rows, then
    the headline bench's JSON line. Every ladder kernel must have been
    launched;
-6. the serving path, with every launch count set to 0 just before it:
-   ``ServingEngine`` on Llama-2-7B W4A8 (32 layers, random weights from
-   seed 0), 4 slots, greedy, window 8, serving 8 requests of 32-256
+6. the serving paths, each with every launch count set to 0 just before
+   it and read just after: ``ServingEngine`` on Llama-2-7B (32 layers,
+   random weights from seed 0) with W4A8 weights and a bf16 cache
+   (S-w4a8), int8 weights (S-int8, the serving CLI's default), int4
+   weights (S-int4, W4A16) and W4A8 weights over the KV8 cache (S-kv8),
+   each with 4 slots, greedy, window 8, serving 8 requests of 32-256
    prompt tokens and 32 new tokens each; every request must get its 32
-   tokens and every serving kernel must have been launched. Then the
-   time of one decode step at the same width;
+   tokens and every kernel of the path must have been launched. Then the
+   time of one decode step at the same width. Each model is freed before
+   the next one loads;
 7. parity at full width: the same engine at Llama-2-7B width with 2
    layers, on the same weights and 2 prompts, teacher-forced on the card
    and on the CPU, both on the kernel routes (the CPU through the
    kernels' plain versions), comparing the logits of the prefill and of
-   8 decode steps, for fp32 and for W4A8 weights. Float32 ops summed in
-   another order differ by about 1e-6 relative, and the model amplifies
-   that (bf16 cache and p roundings; W4A8 activation quantization moves
-   logits by a few %), so the bound is 3x what a 1e-6 relative
-   perturbation of the embeddings does on the CPU in the same run. The
-   CPU's default routes (the reference's eager attention, which rounds q
-   to bf16) are printed beside them;
+   8 decode steps, for fp32, W4A8, int8 and int4 weights and for W4A8
+   weights over the KV8 cache. Float32 ops summed in another order
+   differ by about 1e-6 relative, and the model amplifies that (bf16
+   cache and p roundings; activation and KV quantization move logits by
+   a few %), so the bound is 3x what a 1e-6 relative perturbation of the
+   embeddings does on the CPU in the same run. The CPU's default routes
+   (the reference's eager attention, which rounds q to bf16) are printed
+   beside them;
 8. one ``{"kernels": [...]}`` line, the card's line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -205,6 +214,9 @@ def main_path(out_dir: pathlib.Path) -> dict:
 CFG_7B = llama.llama2_7b("w4a8")
 SLOTS = 4
 DECODE_ATOL = 2e-3   # decode_attention vs its plain version (sum order, exp)
+# w4a16 kernels vs their plain version: exact products, fp32 sums in
+# another order (the GEMM's by the tensor cores), relative to max |y|
+W4A16_REL = 2e-5
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0
@@ -230,7 +242,35 @@ SERVE_KERNELS = [
                   "pallas_decode_attention.py:119",
          function="pallas_decode_attention._kernel_v3 + _kernel_v4 :207 "
                   "(decode_attention)"),
+    dict(name="int8_gemm_noc", source=SRC + "int8_gemm_noc.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_int8.py:46",
+         function="pallas_int8._kernel_noc (mmult_q_noc)"),
+    dict(name="w4a16_gemm_noc", source=SRC + "w4a16_gemm_noc.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_int4.py:71",
+         function="pallas_int4._kernel_noc + _decode_w4 :36 (mmult_q_noc, "
+                  "m > 64)"),
+    dict(name="w4a16_gemv", source=SRC + "w4a16_gemv.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_int4.py:89",
+         function="pallas_int4._kernel_noc_gemv (mmult_q_noc, m <= 64)"),
+    dict(name="decode_attention_q8", source=SRC + "decode_attention_q8.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/"
+                  "pallas_decode_attention.py:469",
+         function="pallas_decode_attention._kernel_q8_v3 + _kernel_q8_v4 "
+                  ":570 (decode_attention_q8)"),
 ]
+
+# The serving paths: (weight kind, cache kind) and the kernels each must
+# launch.
+SERVE_PATHS = {
+    "S-w4a8": ("w4a8", "bf16", ["w4a8_gemm_noc", "w4a8_gemv_fq",
+                                "kv_update", "decode_attention"]),
+    "S-int8": ("int8", "bf16", ["int8_gemm_noc", "kv_update",
+                                "decode_attention"]),
+    "S-int4": ("int4", "bf16", ["w4a16_gemm_noc", "w4a16_gemv",
+                                "kv_update", "decode_attention"]),
+    "S-kv8": ("w4a8", "int8", ["w4a8_gemm_noc", "w4a8_gemv_fq",
+                               "kv_update", "decode_attention_q8"]),
+}
 
 
 def nbytes(*tensors) -> int:
@@ -386,18 +426,134 @@ def check_decode_attention(gen: torch.Generator) -> dict:
     return results[0]
 
 
+def check_int8_noc(gen: torch.Generator) -> dict:
+    """int8_gemm_noc at the int8 path's prefill widths (M = 4 slots x a
+    256-token bucket) and at a ragged shape; the library call is
+    torch._int_mm plus the same epilogue (none at the ragged shape:
+    torch._int_mm takes K and N multiples of 8 only)."""
+    results = []
+    for m, k, n in ((SLOTS * 256, 4096, 11008), (SLOTS * 256, 11008, 4096),
+                    (1000, 1100, 1032)):
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randn((k, n), generator=gen, device="cuda")
+        qa, sa, qb, sb = int8.prepare(x, w)
+        args = (qa, sa, qb, sb)
+        shape = f"M={m} {k}->{n}"
+        err = _equal("int8_gemm_noc", shape, int8.mmult_q_noc(*args),
+                     int8.mmult_q_noc_ref(*args))
+        b = bound_ms(nbytes(*args) + 4 * m * n, 2.0 * m * n * k,
+                     PEAK_INT8_OPS)
+        results.append(timed(
+            "int8_gemm_noc", shape, lambda: int8.mmult_q_noc(*args),
+            lambda: int8.mmult_q_noc_ref(*args),
+            (lambda: torch._int_mm(qa, qb).to(torch.float32) * sa * sb)
+            if k % 8 == 0 and n % 8 == 0 else None, *b, err))
+    return results[0]
+
+
+def _close(name: str, shape: str, out, ref) -> float:
+    """max |out - ref|; raises beyond W4A16_REL x max |ref|."""
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    print(f"{name} {shape}: max|kernel - plain| = {err:.3e} = "
+          f"{err / scale:.3e} of max|y|")
+    if not err <= W4A16_REL * scale:
+        raise AssertionError(f"{name} {shape}: differs from its plain "
+                             f"version by {err} > {W4A16_REL} x {scale}")
+    return err
+
+
+def _w4a16_args(gen, m, k, n):
+    a = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((k, n), generator=gen, device="cuda")
+    _, _, packed, sw, _ = int4.prepare_w4a8(w[:1], w)
+    return a, packed, sw
+
+
+def check_w4a16(name: str, shapes, gen: torch.Generator) -> dict:
+    """A W4A16 kernel (the GEMM at m > 64, the GEMV at m <= 64) at the
+    int4 path's shapes and a ragged one. No single PyTorch call decodes
+    int4, so the library time is null."""
+    results = []
+    for m, k, n in shapes:
+        args = _w4a16_args(gen, m, k, n)
+        shape = f"m={m} {k}->{n}"
+        err = _close(name, shape, int4.mmult_q_noc(*args),
+                     int4.mmult_q_noc_ref(*args))
+        b = bound_ms(nbytes(*args) + 4 * m * n, 2.0 * m * n * k,
+                     PEAK_BF16_FLOPS)
+        results.append(timed(name, shape, lambda: int4.mmult_q_noc(*args),
+                             lambda: int4.mmult_q_noc_ref(*args), None,
+                             *b, err))
+    return results[0]
+
+
+def check_decode_attention_q8(gen: torch.Generator) -> dict:
+    """decode_attention_q8 over a 7B-width KV8 cache (kvh 32, d 128), a
+    GQA width (kvh 8, rep 4) and a ragged one (kvh 3, rep 2, d 64,
+    T = 1000, one chunk of 1000), slots of ragged lengths. No single
+    PyTorch call attends over an int8 cache with per-(token, head)
+    scales, so the library time is null."""
+    t7 = CFG_7B.max_seq
+    results = []
+    for kvh, rep, d, t, lens in ((32, 1, 128, t7, [1, 300, 1000, t7]),
+                                 (8, 4, 128, t7, [1, 300, 1000, t7]),
+                                 (3, 2, 64, 1000, [1, 999, 1000, 517])):
+        h = kvh * rep
+        q = torch.randn((len(lens), h, d), generator=gen, device="cuda")
+        cache = []
+        for _ in range(2):
+            cache += llama.quantize_kv(torch.randn(
+                (len(lens), t, kvh, d), generator=gen, device="cuda"))
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        shape = f"kvh={kvh} rep={rep} d={d} T={t} lengths {lens}"
+        out = decode_attention.decode_attention_q8(q, *cache, lengths)
+        ref = decode_attention.decode_attention_q8_ref(q, *cache, lengths)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if not err < DECODE_ATOL:
+            raise AssertionError(f"decode_attention_q8 {shape}: differs "
+                                 f"from its plain version by {err}")
+        live = sum(lens)
+        b_ms = bound_ms(nbytes(q, lengths) + 4 * q.numel()
+                        + 2 * live * kvh * (d + 4),
+                        4.0 * h * d * live, PEAK_BF16_FLOPS)
+        results.append(timed(
+            "decode_attention_q8", shape,
+            lambda: decode_attention.decode_attention_q8(q, *cache, lengths),
+            lambda: decode_attention.decode_attention_q8_ref(q, *cache,
+                                                             lengths),
+            None, *b_ms, err))
+    return results[0]
+
+
 SERVE_CHECKS = {"w4a8_gemm_noc": check_w4a8_noc,
                 "w4a8_gemv_fq": check_w4a8_gemv,
                 "kv_update": check_kv_update,
-                "decode_attention": check_decode_attention}
+                "decode_attention": check_decode_attention,
+                "int8_gemm_noc": check_int8_noc,
+                # (m, k, n): the int4 path's prefill and decode widths
+                # and a ragged shape each
+                "w4a16_gemm_noc": lambda gen: check_w4a16(
+                    "w4a16_gemm_noc", ((SLOTS * 256, 4096, 11008),
+                                       (SLOTS * 256, 11008, 4096),
+                                       (1000, 1100, 1032)), gen),
+                "w4a16_gemv": lambda gen: check_w4a16(
+                    "w4a16_gemv", ((SLOTS, 4096, 11008), (SLOTS, 4096, 4096),
+                                   (SLOTS, 11008, 4096), (1, 4096, 11008),
+                                   (5, 1100, 1032)), gen),
+                "decode_attention_q8": check_decode_attention_q8}
 
 
-def serve_path(gen: torch.Generator) -> dict:
-    """The serving path, launch counts set to 0 just before it and read
+def serve_path(gen: torch.Generator, path: str) -> dict:
+    """One serving path, launch counts set to 0 just before it and read
     just after; then one decode step's time at the same width."""
-    params = llama.init_params(gen, CFG_7B, "cuda")
-    eng = serving.ServingEngine(CFG_7B, params, batch_slots=SLOTS,
-                                device="cuda")
+    kind, cache_kind, kernels = SERVE_PATHS[path]
+    cfg = dataclasses.replace(CFG_7B, weight_kind=kind)
+    params = llama.init_params(gen, cfg, "cuda")
+    eng = serving.ServingEngine(cfg, params, batch_slots=SLOTS,
+                                cache_kind=cache_kind, device="cuda")
     reqs = serving.make_requests(8, 32, 32, seed=0, prompt_len_max=256)
     buckets = [eng._bucket(len(r.prompt)) for r in reqs]
     if max(buckets) >= llama.FLASH_MIN_S:
@@ -413,23 +569,23 @@ def serve_path(gen: torch.Generator) -> dict:
     stats = serving.summarize(reqs, seconds)
     short = [r.uid for r in reqs if len(r.out) != 32 or not r.done]
     if short:
-        raise AssertionError(f"requests {short} did not get 32 tokens")
-    missing = [s["name"] for s in SERVE_KERNELS
-               if launches[s["name"]] == 0]
+        raise AssertionError(f"{path}: requests {short} did not get 32 "
+                             "tokens")
+    missing = [k for k in kernels if launches[k] == 0]
     if missing:
-        raise AssertionError(f"serving path never launched {missing}")
-    steps = launches["decode_attention"] // CFG_7B.n_layers
-    print(f"serve: prompts {[len(r.prompt) for r in reqs]}, buckets "
+        raise AssertionError(f"{path} never launched {missing}")
+    attn = kernels[-1]
+    steps = launches[attn] // cfg.n_layers
+    print(f"{path}: prompts {[len(r.prompt) for r in reqs]}, buckets "
           f"{sorted(set(buckets))}")
-    print(f"serve: {stats['tokens']} tokens in {seconds:.3f} s = "
+    print(f"{path}: {stats['tokens']} tokens in {seconds:.3f} s = "
           f"{stats['tok_per_s']:.1f} tok/s; TTFT p50 "
           f"{stats['ttft_p50_ms']:.1f} ms max {stats['ttft_max_ms']:.1f} "
           f"ms; decode-only {stats['decode_tok_per_s']:.1f} tok/s")
-    print(f"serve: launches {launches}; {steps} decode steps, "
-          f"{launches['w4a8_gemv_fq'] / max(steps, 1):.1f} gemv + "
-          f"{launches['kv_update'] / max(steps, 1):.1f} kv_update + "
-          f"{launches['decode_attention'] / max(steps, 1):.1f} "
-          "decode_attention launches per step")
+    per_step = ", ".join(f"{launches[k] / max(steps, 1):.1f} {k}"
+                         for k in kernels)
+    print(f"{path}: launches {launches}; {steps} decode steps; per step "
+          f"{per_step}")
     # one decode step of 4 slots at position 512, timed alone
     tok = torch.ones((SLOTS, 1), dtype=torch.int32, device="cuda")
     pos = torch.full((SLOTS,), 512, dtype=torch.int32, device="cuda")
@@ -439,11 +595,12 @@ def serve_path(gen: torch.Generator) -> dict:
                        for lin in layer.values() if isinstance(lin, dict)
                        for t in lin.values())
     weight_bytes += nbytes(params["lm_head"]["fp32_w"])
-    print(f"serve: decode step {step_ms:.3f} ms at 4 slots, position 512 "
+    print(f"{path}: decode step {step_ms:.3f} ms at 4 slots, position 512 "
           f"(weights {weight_bytes / 1e9:.3f} GB: bound "
           f"{1e3 * weight_bytes / PEAK_BYTES:.3f} ms)")
     stats.update(step_ms=step_ms, steps=steps)
-    print(json.dumps({"serve": stats, "launches": launches}))
+    print(json.dumps({"serve": path, "weights": kind, "cache": cache_kind,
+                      **stats, "launches": launches}))
     del eng, params
     torch.cuda.empty_cache()
     return launches
@@ -465,13 +622,19 @@ def teacher_forced(eng, prompts, forced) -> torch.Tensor:
     return torch.stack(rows).float().cpu()
 
 
+# (weight kind, cache kind) of each parity run
+PARITY = (("fp32", "bf16"), ("w4a8", "bf16"), ("int8", "bf16"),
+          ("int4", "bf16"), ("w4a8", "int8"))
+
+
 def parity(gen: torch.Generator) -> None:
     """The engine at 7B width with 2 layers, on the card and on the CPU,
-    on the same weights and tokens, for fp32 and for w4a8 weights."""
+    on the same weights and tokens, for each of ``PARITY``."""
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, 30000, n).tolist() for n in (40, 64)]
     forced = rng.integers(1, 30000, (2, 8)).astype(np.int32)
-    for kind in ("fp32", "w4a8"):
+    for kind, cache_kind in PARITY:
+        label = kind if cache_kind == "bf16" else f"{kind}+kv8"
         cfg = dataclasses.replace(CFG_7B, n_layers=2, weight_kind=kind)
         params = llama.init_params(gen, cfg, "cuda")
         cpu = convert.to_device(params, "cpu")
@@ -487,6 +650,7 @@ def parity(gen: torch.Generator) -> None:
             if kind == "fp32" and side == "cpu eager":
                 continue
             eng = serving.ServingEngine(cfg, p, batch_slots=2, device=dev,
+                                        cache_kind=cache_kind,
                                         kernel_routes=routes)
             out[side] = teacher_forced(eng, prompts, forced)
             del eng
@@ -500,7 +664,7 @@ def parity(gen: torch.Generator) -> None:
             diffs[side] = float((other - ref).abs().max())
             agree = float((other.argmax(-1) == ref.argmax(-1)).float()
                           .mean())
-            print(f"parity {kind}: max|{side} - cpu| = {diffs[side]:.4e} "
+            print(f"parity {label}: max|{side} - cpu| = {diffs[side]:.4e} "
                   f"(max|logit| {scale:.3f}, rel "
                   f"{diffs[side] / scale:.3e}); greedy agreement "
                   f"{agree:.3f} over {ref.shape[0]} positions x "
@@ -508,7 +672,7 @@ def parity(gen: torch.Generator) -> None:
         limit = PARITY_SENSITIVITY * diffs["cpu perturbed"]
         if not (torch.isfinite(out["cuda"]).all()
                 and diffs["cuda"] <= limit):
-            raise AssertionError(f"parity {kind}: card and CPU logits "
+            raise AssertionError(f"parity {label}: card and CPU logits "
                                  f"differ by {diffs['cuda']} > {limit}")
         del params, cpu
         torch.cuda.empty_cache()
@@ -547,14 +711,20 @@ def main() -> int:
     if missing:
         raise AssertionError(f"ladder path never launched {missing}")
 
-    gen.manual_seed(0)
-    t0 = time.perf_counter()
-    serve_launches = serve_path(gen)
-    print(f"serving path: {time.perf_counter() - t0:.1f} s")
-    launches.update({s["name"]: serve_launches[s["name"]]
-                     for s in SERVE_KERNELS})
+    # each serving kernel's count: its launches summed over the serve
+    # paths, each path's counts read just after it
+    launches.update({s["name"]: 0 for s in SERVE_KERNELS})
+    for path in SERVE_PATHS:
+        gen.manual_seed(0)
+        t0 = time.perf_counter()
+        path_launches = serve_path(gen, path)
+        print(f"{path}: {time.perf_counter() - t0:.1f} s")
+        for spec in SERVE_KERNELS:
+            launches[spec["name"]] += path_launches[spec["name"]]
     gen.manual_seed(1)
+    t0 = time.perf_counter()
     parity(gen)
+    print(f"parity: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for spec in KERNELS + SERVE_KERNELS:

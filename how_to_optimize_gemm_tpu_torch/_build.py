@@ -65,6 +65,19 @@ KERNELS = {
     #  stream)
     "decode_attention": Kernel("decode_attention.cu", (_P,) * 5
                                + (_I,) * 6 + (_F, _P)),
+    # (qa, qb, sa, sb, out, M, N, K, lda, ldb, ldc, stream):
+    # out = f32(QA @ QB) * sa * sb
+    "int8_gemm_noc": Kernel("int8_gemm_noc.cu", (_P,) * 5 + (_I,) * 6
+                            + (_P,)),
+    # (a, packed, sw, out, M, N, K, lda, ldb, ldc, stream): bf16 A
+    "w4a16_gemm_noc": Kernel("w4a16_gemm_noc.cu", (_P,) * 4 + (_I,) * 6
+                             + (_P,)),
+    # (a, packed, sw, out, M, N, K, Kp, lda, ldp, stream): bf16 A
+    "w4a16_gemv": Kernel("w4a16_gemv.cu", (_P,) * 4 + (_I,) * 6 + (_P,)),
+    # (q, qk, sk, qv, sv, lengths, out, B, T, KVH, REP, D, bk, scale,
+    #  stream)
+    "decode_attention_q8": Kernel("decode_attention_q8.cu", (_P,) * 7
+                                  + (_I,) * 6 + (_F, _P)),
 }
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

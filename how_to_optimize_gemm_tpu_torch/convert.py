@@ -5,8 +5,11 @@ already converted to numpy arrays (``np.asarray`` on each leaf).
 
 - ``from_jax_prepared`` takes a ladder rung's ``Rung.prepare`` output
   and returns the port's prepared tuple for the same rung;
-- ``params_from_jax`` takes a ``models/llama.init_params`` tree and
+- ``params_from_jax`` takes a ``models/llama.init_params`` tree (every
+  weight kind: fp32, bf16, int8, packed int4 and w4a8 linears) and
   returns the port's tree;
+- ``kv_cache_from_jax`` takes a ``models/llama.init_kv_cache`` cache,
+  bf16 or KV8, and returns the port's;
 - ``to_device`` moves a port tree to another device.
 
 Layouts and dtypes are kept (packed int4 bytes are copied byte for
@@ -72,6 +75,26 @@ def params_from_jax(tree, device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
     return _tensor(np.asarray(tree), device)
+
+
+def kv_cache_from_jax(cache, device) -> list:
+    """A JAX contiguous KV cache with numpy leaves -> the port's cache on
+    ``device``: per layer (k, v) bf16 (B, T, KVH, D) as they are, or KV8
+    (qk, sk, qv, sv) with the scales cropped from the reference's
+    (B, T, 128) lanes to the port's (B, T, KVH)."""
+    out = []
+    for entry in cache:
+        entry = [np.asarray(x) for x in entry]
+        if len(entry) == 4:
+            kvh = entry[0].shape[2]
+            entry = [x if i % 2 == 0 else x[..., :kvh]
+                     for i, x in enumerate(entry)]
+        elif len(entry) != 2:
+            raise ValueError(f"a cache entry of {len(entry)} arrays is "
+                             "neither (k, v) nor (qk, sk, qv, sv)")
+        out.append(tuple(_tensor(np.ascontiguousarray(x), device)
+                         for x in entry))
+    return out
 
 
 def to_device(tree, device):

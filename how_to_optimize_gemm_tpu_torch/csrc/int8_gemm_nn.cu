@@ -23,15 +23,7 @@
 
 namespace {
 
-struct RowMajorInt8 {
-  const int8_t* base;
-  int K;   // rows
-  int ld;  // row pitch in bytes (a multiple of 16, >= N)
-  __device__ const int8_t* row(int k) const {
-    return base + (size_t)k * ld;
-  }
-  __device__ uint32_t decode(uint32_t w, int) const { return w; }
-};
+using htog::RowMajorInt8;
 
 __global__ void __launch_bounds__(htog::THREADS)
     int8_gemm_nn_kernel(const int8_t* qa, RowMajorInt8 qb, const float* sa,

@@ -48,7 +48,7 @@ __global__ void __launch_bounds__(htog::THREADS)
       load_kmajor_async(sm.b[s ^ 1], qbt, n0, N, (kt + 1) * BK, K, ldb);
       cp_async_commit();
     }
-    mma_stage(acc, sm.a[s], sm.b[s], wm, wn, lane);
+    mma_stage<MmaS8>(acc, sm.a[s], sm.b[s], wm, wn, lane);
     cp_async_wait_all();
     __syncthreads();
   }

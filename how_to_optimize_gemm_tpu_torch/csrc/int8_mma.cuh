@@ -1,7 +1,8 @@
-// Shared building blocks of the int8 GEMM kernels (int8_gemm_nn.cu,
-// int8_gemm_nt.cu, w4a8_gemm.cu, w4a8_gemm_noc.cu): block tiling,
-// shared-memory staging, the warp-level int8 tensor-core product and the
-// dequant epilogue.
+// Shared building blocks of the GEMM kernels (int8_gemm_nn.cu,
+// int8_gemm_nt.cu, int8_gemm_noc.cu, w4a8_gemm.cu, w4a8_gemm_noc.cu and,
+// for its tiling, staging and fragment walk, w4a16_gemm_noc.cu): block
+// tiling, shared-memory staging, the warp-level tensor-core product and
+// the dequant epilogue.
 //
 // Tiling: one 128x128 output tile per block of 256 threads (8 warps laid
 // out 2 x 4, each owning a 64x32 sub-tile = 4 x 4 fragments of
@@ -157,12 +158,24 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One 64-deep K step of the warp's 64x32 sub-tile from one stage.
-// Fragment layouts (PTX ISA, mma.m16n8k32 .s8): lane = 4*g + t;
-// A regs: (row g, k 4t..4t+3), (row g+8, same k), then both at k+16;
-// B regs: (col g, k 4t..4t+3), (col g, k+16..); acc: rows g and g+8,
-// columns 2t and 2t+1.
-__device__ __forceinline__ void mma_stage(int (&acc)[4][4][4],
+struct MmaS8 {
+  static __device__ __forceinline__ void mma(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+    mma_s8(d, a, b);
+  }
+};
+
+// One 64-byte K step of the warp's 64x32 sub-tile from one stage, the
+// product issued by Op::mma on 32-byte-deep fragments. Fragment layouts
+// (PTX ISA, mma.m16n8k32 .s8; lane = 4*g + t): A regs: (row g, bytes
+// 4t..4t+3), (row g+8, same bytes), then both at byte 16+; B regs:
+// (col g, bytes 4t..4t+3), (col g, bytes 16+); acc: rows g and g+8,
+// columns 2t and 2t+1. mma.m16n8k16 .bf16 reads the same bytes (two
+// bf16 per register, k = 2t, 2t+1 and k + 8) into the same accumulator
+// layout, so the walk serves both.
+template <class Op, class Acc>
+__device__ __forceinline__ void mma_stage(Acc (&acc)[4][4][4],
                                           const int8_t (*as)[LDS],
                                           const int8_t (*bs)[LDS], int wm,
                                           int wn, int lane) {
@@ -189,7 +202,7 @@ __device__ __forceinline__ void mma_stage(int (&acc)[4][4][4],
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
+      for (int ni = 0; ni < 4; ++ni) Op::mma(acc[mi][ni], a[mi], b[ni]);
     }
   }
 }
@@ -228,9 +241,21 @@ __device__ __forceinline__ void dequant_epilogue(
   }
 }
 
-// The whole kernel for an N-major B operand (K1, K3 and its no-C form): A
-// through cp.async, B through registers (load, decode, transpose, store),
-// two stages, the dequant epilogue at the end.
+// The N-major B operand of gemm_nmajor_body for a plain row-major int8
+// (K, N) matrix.
+struct RowMajorInt8 {
+  const int8_t* base;
+  int K;   // rows
+  int ld;  // row pitch in bytes (a multiple of 16, >= N)
+  __device__ const int8_t* row(int k) const {
+    return base + (size_t)k * ld;
+  }
+  __device__ uint32_t decode(uint32_t w, int) const { return w; }
+};
+
+// The whole kernel for an N-major B operand (K1 and its no-C form, K3
+// and its no-C form): A through cp.async, B through registers (load,
+// decode, transpose, store), two stages, the dequant epilogue at the end.
 template <bool kAddC, class Src>
 __device__ __forceinline__ void gemm_nmajor_body(
     Smem& sm, const int8_t* A, const Src& bsrc, const float* sa,
@@ -260,7 +285,7 @@ __device__ __forceinline__ void gemm_nmajor_body(
       cp_async_commit();
       load_nmajor_regs(breg, bsrc, (kt + 1) * BK, n0);
     }
-    mma_stage(acc, sm.a[s], sm.b[s], wm, wn, lane);
+    mma_stage<MmaS8>(acc, sm.a[s], sm.b[s], wm, wn, lane);
     if (more) store_nmajor_regs(sm.b[s ^ 1], breg);
     cp_async_wait_all();
     __syncthreads();

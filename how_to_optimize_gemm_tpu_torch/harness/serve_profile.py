@@ -1,11 +1,13 @@
 """Where a serving decode step's time goes on the card.
 
     python -m how_to_optimize_gemm_tpu_torch.harness.serve_profile \\
-        [--layers 32] [--slots 4] [--pos 512] [--steps 8]
+        [--weight-kind w4a8] [--cache-kind bf16] [--layers 32] \\
+        [--slots 4] [--pos 512] [--steps 8]
 
-Builds Llama-2-7B with W4A8 weights (random, seed 0) and a bf16 cache for
-``--slots`` slots, then times decode steps of one token per slot at
-position ``--pos`` (the cache's contents do not change the work):
+Builds Llama-2-7B with ``--weight-kind`` weights (random, seed 0) and a
+``--cache-kind`` cache (bf16, or int8 for KV8) for ``--slots`` slots,
+then times decode steps of one token per slot at position ``--pos`` (the
+cache's contents do not change the work):
 
 1. wall: the host clock around ``--steps`` steps ending in a
    synchronize, in ms per step;
@@ -14,8 +16,8 @@ position ``--pos`` (the cache's contents do not change the work):
    operator rows repeat their kernels' time), their count per step, and
    the busy share (kernel time over the unprofiled wall time; tracing
    slows the host);
-3. bound: the bytes one step must read (the packed weights, the lm head,
-   the live cache rows) over 3.35 TB/s.
+3. bound: the bytes one step must read (the weights, the lm head, the
+   live cache rows and, for KV8, their scales) over 3.35 TB/s.
 
 Prints one JSON line. Needs a CUDA device.
 """
@@ -30,38 +32,46 @@ import torch
 
 from how_to_optimize_gemm_tpu_torch import _build
 from how_to_optimize_gemm_tpu_torch.models import llama
+from how_to_optimize_gemm_tpu_torch.models.linear import KINDS
+from how_to_optimize_gemm_tpu_torch.parallel.serving import CACHE_KINDS
 from how_to_optimize_gemm_tpu_torch.utils.device import default_device
 
 PEAK_BYTES = 3.35e12   # H100 SXM HBM3, data sheet
 
 
 def step_bytes(params: dict, cfg: llama.LlamaConfig, slots: int,
-               pos: int) -> int:
+               pos: int, cache_kind: str = "bf16") -> int:
     """Bytes one decode step must read: every linear's leaves, the lm
-    head, and K and V of the live cache rows (bf16)."""
+    head, and K and V of the live cache rows (bf16: 2 bytes a value;
+    KV8: 1 byte a value and a 4-byte scale per row and head)."""
     def size(t):
         return t.numel() * t.element_size()
     n = sum(size(t) for layer in params["layers"] for lin in layer.values()
             if isinstance(lin, dict) for t in lin.values())
     n += size(params["lm_head"]["fp32_w"])
-    n += (2 * cfg.n_layers * slots * (pos + 1) * cfg.n_kv_heads
-          * cfg.d_head * 2)
+    row = (cfg.d_head * 2 if cache_kind == "bf16" else cfg.d_head + 4)
+    n += 2 * cfg.n_layers * slots * (pos + 1) * cfg.n_kv_heads * row
     return n
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--weight-kind", default="w4a8", choices=KINDS)
+    ap.add_argument("--cache-kind", default="bf16", choices=CACHE_KINDS)
     ap.add_argument("--layers", type=int, default=32)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--pos", type=int, default=512)
     ap.add_argument("--steps", type=int, default=8)
     args = ap.parse_args(argv)
     device = default_device()
-    cfg = dataclasses.replace(llama.llama2_7b("w4a8"), n_layers=args.layers)
+    cfg = dataclasses.replace(llama.llama2_7b(args.weight_kind),
+                              n_layers=args.layers)
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = llama.init_params(gen, cfg, device)
-    cache = llama.init_kv_cache(cfg, args.slots, device=device)
+    cache = llama.init_kv_cache(cfg, args.slots,
+                                quantized=args.cache_kind == "int8",
+                                device=device)
     tokens = torch.ones((args.slots, 1), dtype=torch.int32, device=device)
     pos = torch.full((args.slots,), args.pos, dtype=torch.int32,
                      device=device)
@@ -95,10 +105,11 @@ def main(argv=None) -> dict:
         kernels[ev.key] = (dev_us / 1e3 / args.steps, ev.count / args.steps)
     device_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    bound_ms = 1e3 * step_bytes(params, cfg, args.slots,
-                                args.pos) / PEAK_BYTES
+    bound_ms = 1e3 * step_bytes(params, cfg, args.slots, args.pos,
+                                args.cache_kind) / PEAK_BYTES
     record = {
         "card": torch.cuda.get_device_name(device),
+        "weights": args.weight_kind, "cache": args.cache_kind,
         "layers": args.layers, "slots": args.slots, "pos": args.pos,
         "wall_ms_per_step": wall_ms,
         "profiled_wall_ms_per_step": prof_wall_ms,

@@ -7,29 +7,35 @@ kind, as in the reference: ``{"fp32_w"}``, ``{"bf16_w"}``,
 ``{"int8_qw", "int8_sw"}``, ``{"int4_packed", "int4_sw", "int4_kdim"}``,
 ``{"w4a8_packed", "w4a8_sw", "w4a8_kdim"}``.
 
-Routes of ``apply_linear``, by the device of x (m = rows of x):
+Routes of ``apply_linear`` (m = rows of x). ``kernels`` is the
+counterpart of the reference's ``use_pallas``: None takes the kernel
+routes on the card and the reference's off-TPU emulation on the CPU;
+True on the CPU takes the kernel routes through the kernels' plain
+versions (``utils/device.kernel_routes_for``).
 
 - fp32: ``torch.matmul``, with TF32 off on the card.
 - bf16: the operands rounded to bf16, then an fp32 ``torch.matmul`` (the
   reference's ``preferred_element_type=float32``).
-- int8: rows of x quantized, an exact integer product, the dequant
-  epilogue: the reference's own off-TPU emulation. On the card only for
-  m < 256, where the reference also runs it; m >= 256 is the Pallas
-  kernel ``mmult_q_noc``, not ported yet (ROADMAP B10).
-- int4: dequantized to bf16, then an fp32 product, on the CPU. On the
-  card the reference runs the Pallas kernel ``mmult_q_noc`` at every m,
-  not ported yet (ROADMAP B11).
+- int8: rows of x quantized; on the kernel routes at m >= 256
+  ``int8.mmult_q_noc`` (kernel ``int8_gemm_noc``); otherwise an exact
+  integer product (``int8.int_matmul``: the library's int8 product on
+  the card, as the reference runs XLA's int8 dot there) and the dequant
+  epilogue.
+- int4 (W4A16): on the kernel routes ``int4.mmult_q_noc`` at every m on
+  bf16 x (kernel ``w4a16_gemv`` at m <= 64, ``w4a16_gemm_noc`` above);
+  otherwise W dequantized to bf16, then an fp32 product (the reference's
+  emulation).
 - w4a8: m <= 64 through ``mmult_w4a8_fused_noc`` (kernel
   ``w4a8_gemv_fq``), else the rows quantized and ``mmult_q_w4a8_noc``
   (kernel ``w4a8_gemm_noc``); on the CPU their plain versions, which are
-  the reference's emulation.
+  the reference's emulation bit for bit.
 """
 from __future__ import annotations
 
 import torch
 
-from how_to_optimize_gemm_tpu_torch.ops import bounds, int4, quant
-from how_to_optimize_gemm_tpu_torch.ops.int8 import int_matmul_exact
+from how_to_optimize_gemm_tpu_torch.ops import bounds, int4, int8, quant
+from how_to_optimize_gemm_tpu_torch.utils.device import kernel_routes_for
 
 INT4_BLOCK_K = int4.PACK_BLOCK
 KINDS = ("fp32", "bf16", "int8", "int4", "w4a8")
@@ -72,36 +78,36 @@ def _matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
-def apply_linear(lin: dict, x: torch.Tensor) -> torch.Tensor:
-    """y = x @ dequant(W): x (..., d_in) of any float dtype, y fp32."""
+def apply_linear(lin: dict, x: torch.Tensor, kernels=None) -> torch.Tensor:
+    """y = x @ dequant(W): x (..., d_in) of any float dtype, y fp32.
+
+    kernels: see the module docstring (False on the card raises)."""
     kind = linear_kind(lin)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     m = x2.shape[0]
-    cuda = x2.is_cuda
+    kernels = kernel_routes_for(x2, kernels)
     if kind == "fp32":
         y = _matmul_fp32(x2.to(torch.float32), lin["fp32_w"])
     elif kind == "bf16":
         y = _matmul_fp32(x2.to(torch.bfloat16).to(torch.float32),
                          lin["bf16_w"].to(torch.float32))
     elif kind == "int8":
-        if cuda and m >= INT8_KERNEL_MIN_M:
-            raise NotImplementedError(
-                f"int8 linear at m={m} >= {INT8_KERNEL_MIN_M}: the reference "
-                "runs the Pallas kernel mmult_q_noc here, not ported yet "
-                "(ROADMAP B10)")
         qa, sa = quant.quantize_symmetric(x2.to(torch.float32), axis=1)
-        acc = int_matmul_exact(qa, lin["int8_qw"])
-        y = acc.to(torch.float32) * sa * lin["int8_sw"]
+        if kernels and m >= INT8_KERNEL_MIN_M:
+            y = int8.mmult_q_noc(qa, sa, lin["int8_qw"], lin["int8_sw"])
+        else:
+            acc = int8.int_matmul(qa, lin["int8_qw"])
+            y = acc.to(torch.float32) * sa * lin["int8_sw"]
     elif kind == "int4":
-        if cuda:
-            raise NotImplementedError(
-                "int4 (W4A16) linear: the reference runs the Pallas kernel "
-                "mmult_q_noc at every m, not ported yet (ROADMAP B11)")
-        wq = quant.unpack_int4(lin["int4_packed"], INT4_BLOCK_K)
-        w = (wq.to(torch.float32) * lin["int4_sw"]).to(torch.bfloat16)
-        y = _matmul_fp32(x2.to(torch.bfloat16).to(torch.float32),
-                         w[:x2.shape[-1]].to(torch.float32))
+        if kernels:
+            y = int4.mmult_q_noc(x2.to(torch.bfloat16), lin["int4_packed"],
+                                 lin["int4_sw"])
+        else:
+            wq = quant.unpack_int4(lin["int4_packed"], INT4_BLOCK_K)
+            w = (wq.to(torch.float32) * lin["int4_sw"]).to(torch.bfloat16)
+            y = _matmul_fp32(x2.to(torch.bfloat16).to(torch.float32),
+                             w[:x2.shape[-1]].to(torch.float32))
     elif kind == "w4a8":
         if m <= int4.GEMV_MAX_M:
             y = int4.mmult_w4a8_fused_noc(x2.to(torch.float32),

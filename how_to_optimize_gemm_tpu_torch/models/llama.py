@@ -4,9 +4,16 @@ Counterpart: ``how_to_optimize_gemm_tpu/models/llama.py``. Pre-RMSNorm,
 rotary position embeddings, grouped-query attention, a SwiGLU MLP, sized
 by ``LlamaConfig`` (``llama2_7b()`` gives the real proportions). The
 parameters are plain nested dicts with the reference's key names, and the
-KV cache is the reference's time-major (B, T, KVH, D) bf16 layout, so
+KV cache is the reference's time-major layout, so
 ``convert.params_from_jax`` is a tree map and both packages can be run on
-the same weights.
+the same weights. Two caches (``init_kv_cache``):
+
+- bf16: per layer (k_cache, v_cache), each (B, T, KVH, D);
+- KV8 (``quantized=True``): per layer (qk, sk, qv, sv): int8 values
+  (B, T, KVH, D) and fp32 scales (B, T, KVH), one per (slot, token,
+  head), from ``quantize_kv``. The reference pads its scales to
+  (B, T, 128) lanes, a Mosaic tiling rule; the port keeps KVH
+  (``convert.kv_cache_from_jax`` crops the reference's).
 
 Routes, by the device of the activations (the reference's
 ``use_pallas=None`` routes: kernels on the accelerator, its plain XLA
@@ -14,24 +21,27 @@ formulations elsewhere). ``kernel_routes=True`` takes the kernel routes
 on the CPU too, through the kernels' plain versions (the reference's
 ``use_pallas=True`` in interpret mode); the card always takes them.
 
-- linears: ``models/linear.apply_linear``;
-- cache writes of at most 8 rows on the card: kernel ``kv_update``
-  (``ops/kv_update``), rows out of range dropped one by one; otherwise the
-  reference's indexing write, done in place (see ``_update_cache``);
-- decode (s == 1) on the card: kernel ``decode_attention``
-  (``ops/decode_attention``) at every cache size. The reference's cost
-  rule (``_route_decode``: eager below 24 MB of cache per layer) was
-  measured on a v5e and is not carried over;
+- linears: ``models/linear.apply_linear`` with ``kernels`` set from the
+  route;
+- cache writes of at most 8 rows on the kernel routes: kernel
+  ``kv_update`` (``ops/kv_update``; KV8 values and scales alike), rows
+  out of range dropped one by one; otherwise the reference's indexing
+  write, done in place (see ``_update_cache``);
+- decode (s == 1) on the kernel routes: kernel ``decode_attention``, or
+  ``decode_attention_q8`` over a KV8 cache (``ops/decode_attention``), at
+  every cache size. The reference's cost rule (``_route_decode``: eager
+  below 24 MB of cache per layer) was measured on a v5e and is not
+  carried over; off the kernel routes, ``_attention`` or
+  ``_attention_kv8``;
 - admission prefill: causal self-attention over the prompt
   (``_attention``). Prompts of 512 tokens or more with d_head 64 or 128,
   where the reference runs its Pallas flash kernel, raise
   ``NotImplementedError`` on the card (ROADMAP B18).
 
 Not ported yet, each raising ``NotImplementedError``: MoE layers
-(``n_experts > 0``, ROADMAP A11/B20), the KV8 cache (B16), paged caches
-(B14-paged, B17) and LoRA (A8). Unlike JAX arrays, the cache tensors are
-written in place: a step's returned cache is the same tensors it was
-given.
+(``n_experts > 0``, ROADMAP A11/B20), paged caches (B14-paged, B17) and
+LoRA (A8). Unlike JAX arrays, the cache tensors are written in place: a
+step's returned cache is the same tensors it was given.
 """
 from __future__ import annotations
 
@@ -42,9 +52,10 @@ import torch
 from how_to_optimize_gemm_tpu_torch.models.linear import (apply_linear,
                                                           make_linear)
 from how_to_optimize_gemm_tpu_torch.ops.decode_attention import (
-    decode_attention)
+    decode_attention, decode_attention_q8)
 from how_to_optimize_gemm_tpu_torch.ops.kv_update import kv_update
-from how_to_optimize_gemm_tpu_torch.utils.device import default_device
+from how_to_optimize_gemm_tpu_torch.utils.device import (default_device,
+                                                         kernel_routes_for)
 
 NEG_INF = -1e30
 # the reference's routing constants (models/llama.py:298, :350)
@@ -189,22 +200,12 @@ def _route_flash(x: torch.Tensor, s: int, dh: int) -> None:
             "runs the Pallas flash kernel here, not ported yet (ROADMAP B18)")
 
 
-def kernel_routes_for(x: torch.Tensor, kernel_routes=None) -> bool:
-    """Whether the cache write and decode attention take their kernel
-    routes: always on the card, on the CPU only when asked."""
-    if x.is_cuda:
-        if kernel_routes is False:
-            raise ValueError("on the card the model runs the kernel routes")
-        return True
-    return bool(kernel_routes)
-
-
 def _is_scalar(pos) -> bool:
     return not isinstance(pos, torch.Tensor) or pos.dim() == 0
 
 
 def _update_cache(cache, new, pos, write_mask=None, kernels=None):
-    """cache (B, T, KVH, D) <- new (B, S, KVH, D) at position ``pos`` (an
+    """cache (B, T, *rest) <- new (B, S, *rest) at position ``pos`` (an
     int or (B,) ints), IN PLACE; returns ``cache``. write_mask (B,) bools:
     slots with False keep their rows (the batched-prefill mechanism).
 
@@ -238,32 +239,70 @@ def _update_cache(cache, new, pos, write_mask=None, kernels=None):
     return cache
 
 
-def _lin(layer, name, x):
-    return apply_linear(layer[name], x)
+def quantize_kv(x: torch.Tensor):
+    """(B, S, G, D) -> int8 values and per-(b, s, g) fp32 scales (B, S, G):
+    ``scale = max(amax, 1e-8) / 127`` (IEEE division, as the reference
+    divides) and ``clip(round(x / scale), -127, 127)``, rounding half to
+    even."""
+    amax = torch.clamp_min(x.abs().amax(dim=-1, keepdim=True), 1e-8)
+    # divide by a tensor: CUDA divides by a Python scalar as a multiply
+    # by its reciprocal (ops/quant.quantize_symmetric)
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0].to(torch.float32)
 
 
-def _mlp(layer, y):
-    gate = _lin(layer, "w_gate", y)
-    up = _lin(layer, "w_up", y)
-    return _lin(layer, "w_down", torch.nn.functional.silu(gate) * up)
+def _attention_kv8(q, qk, sk, qv, sv, mask):
+    """Attention over the KV8 cache: q (B, S, H, D); qk, qv (B, T, KVH, D)
+    int8; sk, sv (B, T, KVH); mask as ``_attention``'s. The scales are
+    rank-1 in t, so they fold into the scores and the probabilities and
+    the cache is never dequantized. The reference's off-TPU arithmetic,
+    on every device: fp32 q, values and probabilities."""
+    b, s, h, d = q.shape
+    kvh = qk.shape[2]
+    rep = h // kvh
+    qg = q.reshape(b, s, kvh, rep, d).to(torch.float32)
+    logits = torch.einsum("bsgrd,btgd->bgrst", qg, qk.to(torch.float32))
+    logits = logits * sk.transpose(1, 2)[:, :, None, None, :]
+    logits = logits * d ** -0.5
+    if mask is not None:
+        if mask.dim() == 2:
+            mask = mask[None]
+        logits = logits.masked_fill(~mask[:, None, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    probs = probs * sv.transpose(1, 2)[:, :, None, None, :]
+    out = torch.einsum("bgrst,btgd->bsgrd", probs, qv.to(torch.float32))
+    return out.reshape(b, s, h * d)
+
+
+def _lin(layer, name, x, kernels):
+    return apply_linear(layer[name], x, kernels)
+
+
+def _mlp(layer, y, kernels):
+    gate = _lin(layer, "w_gate", y, kernels)
+    up = _lin(layer, "w_up", y, kernels)
+    return _lin(layer, "w_down", torch.nn.functional.silu(gate) * up,
+                kernels)
 
 
 def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None, mask=None,
            write_mask=None, prefill_self=False, kernel_routes=None):
     """One transformer block. kv None: full-sequence forward; kv =
-    (k_cache, v_cache, pos) for the cached step, pos an int or (B,) ints.
-    Returns (x, (k_cache, v_cache) or None)."""
+    (k_cache, v_cache, pos) for the cached step over a bf16 cache, or
+    (qk, sk, qv, sv, pos) over a KV8 cache, pos an int or (B,) ints.
+    Returns (x, the layer's cache tuple or None)."""
     kernels = kernel_routes_for(x, kernel_routes)
     b, s, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    if kv is not None and len(kv) != 3:
-        raise NotImplementedError("paged and KV8 caches are not ported yet "
-                                  "(ROADMAP B14-paged, B16, B17)")
+    if kv is not None and len(kv) not in (3, 5):
+        raise NotImplementedError("paged caches are not ported yet "
+                                  "(ROADMAP B14-paged, B17)")
 
     y = rmsnorm(x, layer["attn_norm"], cfg.norm_eps)
-    q = _lin(layer, "wq", y).reshape(b, s, h, dh)
-    k = _lin(layer, "wk", y).reshape(b, s, kvh, dh)
-    v = _lin(layer, "wv", y).reshape(b, s, kvh, dh)
+    q = _lin(layer, "wq", y, kernels).reshape(b, s, h, dh)
+    k = _lin(layer, "wk", y, kernels).reshape(b, s, kvh, dh)
+    v = _lin(layer, "wv", y, kernels).reshape(b, s, kvh, dh)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
@@ -272,10 +311,17 @@ def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None, mask=None,
         _route_flash(x, s, dh)
         attn = _attention(q, k, v, mask)
     else:
-        k_cache, v_cache, pos = kv
-        k_cache = _update_cache(k_cache, k, pos, write_mask, kernels)
-        v_cache = _update_cache(v_cache, v, pos, write_mask, kernels)
-        t = k_cache.shape[1]
+        *cache, pos = kv
+        kv8 = len(cache) == 4
+        if kv8:
+            kq, ks = quantize_kv(k)
+            vq, vs = quantize_kv(v)
+            new_rows = (kq, ks, vq, vs)
+        else:
+            new_rows = (k, v)
+        cache = tuple(_update_cache(c, n, pos, write_mask, kernels)
+                      for c, n in zip(cache, new_rows))
+        t = cache[0].shape[1]
         if prefill_self:
             # admission prefill: the slot starts at position 0, so its
             # attention is causal self-attention over the prompt
@@ -286,18 +332,22 @@ def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None, mask=None,
         elif s == 1 and kernels:
             lengths = torch.as_tensor(pos, device=x.device).to(
                 torch.int32).expand(b) + 1
-            attn = decode_attention(q[:, 0], k_cache, v_cache,
-                                    lengths)[:, None]
+            if kv8:
+                attn = decode_attention_q8(q[:, 0], *cache, lengths)
+            else:
+                attn = decode_attention(q[:, 0], *cache, lengths)
+            attn = attn[:, None]
         else:
             q_pos = (torch.as_tensor(pos, device=x.device)[..., None]
                      + torch.arange(s, device=x.device))
             valid = (torch.arange(t, device=x.device)
                      <= q_pos[..., None])          # (S, T) or (B, S, T)
-            attn = _attention(q, k_cache, v_cache, valid)
-        new_kv = (k_cache, v_cache)
-    x = x + _lin(layer, "wo", attn)
+            attn = (_attention_kv8(q, *cache, valid) if kv8
+                    else _attention(q, *cache, valid))
+        new_kv = cache
+    x = x + _lin(layer, "wo", attn, kernels)
     y = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
-    return x + _mlp(layer, y), new_kv
+    return x + _mlp(layer, y, kernels), new_kv
 
 
 # -------------------------------------------------------------- forward
@@ -320,12 +370,17 @@ def forward(params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
 def init_kv_cache(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
                   quantized: bool = False, device=None):
     """Per layer (k_cache, v_cache), each time-major (B, T, KVH, D)
-    zeros. The card's decode kernel reads bf16."""
-    if quantized:
-        raise NotImplementedError("the KV8 cache is not ported yet "
-                                  "(ROADMAP B16)")
+    zeros of ``dtype`` (the card's decode kernel reads bf16). quantized
+    (KV8): per layer (qk, sk, qv, sv), int8 (B, T, KVH, D) values and
+    fp32 (B, T, KVH) scales, half the bytes of a bf16 cache."""
     device = default_device(device)
     shape = (batch, cfg.max_seq, cfg.n_kv_heads, cfg.d_head)
+    if quantized:
+        def entry():
+            return (torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.zeros(shape[:3], dtype=torch.float32,
+                                device=device))
+        return [entry() + entry() for _ in range(cfg.n_layers)]
     return [(torch.zeros(shape, dtype=dtype, device=device),
              torch.zeros(shape, dtype=dtype, device=device))
             for _ in range(cfg.n_layers)]
@@ -337,7 +392,8 @@ def decode_step(params, cfg: LlamaConfig, cache, tokens: torch.Tensor, pos,
                 kernel_routes=None):
     """One cached step: tokens (B, S) at position ``pos`` (an int or (B,)
     ints on the tokens' device) -> (logits, cache), the cache written in
-    place. write_mask (B,) bools restricts which slots' caches are
+    place (bf16 or KV8 entries, as ``init_kv_cache`` makes them).
+    write_mask (B,) bools restricts which slots' caches are
     written; prefill_self: the written slots start at position 0 and
     attend only to the new tokens; logit_idx (B,) ints unembeds only that
     position of each row (logits (B, 1, vocab)). kernel_routes: see the

@@ -1,24 +1,32 @@
 """Length-aware single-query attention over a contiguous KV cache
-(kernel ``decode_attention``).
+(kernels ``decode_attention`` and, for the int8 KV8 cache,
+``decode_attention_q8``).
 
 Counterpart: ``how_to_optimize_gemm_tpu/ops/pallas_decode_attention.py``
-(``decode_attention``, kernels ``_kernel_v3`` and ``_kernel_v4``: one
-function at two TPU widths, one CUDA kernel here). q (B, H, D) holds one
-query per slot, k_cache and v_cache (B, T, KVH, D) are time-major, and
-lengths (B,) counts each slot's valid cache rows (the current token's
-K/V already written). Head h = g * rep + r attends KV head g (GQA,
-rep = H / KVH). Returns (B, H * D) float32.
+(``decode_attention``, kernels ``_kernel_v3`` and ``_kernel_v4``;
+``decode_attention_q8``, kernels ``_kernel_q8_v3`` and ``_kernel_q8_v4``:
+each one function at two TPU widths, one CUDA template here,
+``csrc/decode_attention.cuh``). q (B, H, D) holds one query per slot, the
+caches (B, T, KVH, D) are time-major, and lengths (B,) counts each slot's
+valid cache rows (the current token's K/V already written). Head
+h = g * rep + r attends KV head g (GQA, rep = H / KVH). Returns
+(B, H * D) float32.
 
 The arithmetic is the reference's chunk walk over ``ceil(len / bk)``
 chunks of bk keys: q in fp32 times D^-0.5; K cast to fp32; fp32 scores
 with keys at positions >= len set to -1e30; an online softmax in fp32;
-p rounded to the cache's dtype before the PV product, which accumulates
-in fp32; out = o / max(l, 1e-30). The TPU lane tricks (``_pair_heads``,
-v4's block-diagonal Q) compute the same function and are not ported.
+p rounded to bf16 before the PV product, which accumulates in fp32;
+out = o / max(l, 1e-30). The KV8 cache holds int8 values and fp32 scales
+sk, sv of layout (B, T, KVH), one per (slot, token, head): the scores are
+multiplied by sk[t, g] and the PV operand is bf16(p * sv[t, g]). The TPU
+lane tricks (``_pair_heads``, v4's block-diagonal Q, the one-hot scale
+selector, the scales' lane padding to 128) compute the same function and
+are not ported.
 
-``decode_attention`` launches ``csrc/decode_attention.cu`` for CUDA
-tensors and runs its plain version ``decode_attention_ref`` only for CPU
-tensors; the two sum in other orders and agree to rounding.
+``decode_attention`` and ``decode_attention_q8`` launch their kernels for
+CUDA tensors and run their plain versions (``*_ref``) only for CPU
+tensors; kernel and plain version sum in other orders and agree to
+rounding.
 """
 from __future__ import annotations
 
@@ -32,7 +40,7 @@ NEG_INF = -1e30
 # two ping-pong (bk, KVH, D) chunks of K and of V
 DEFAULT_BK = 512
 _CHUNK_BUDGET = 6 * 1024 * 1024
-# what the kernel's shared memory holds (csrc/decode_attention.cu)
+# what the kernels' shared memory holds (csrc/decode_attention.cuh)
 KERNEL_HEAD_DIMS = (32, 64, 128)
 _MAX_SCORES = 8192        # rep * bk
 _MAX_QELEMS = 2048        # rep * d
@@ -53,15 +61,15 @@ def pick_block(t: int, kvh: int, d: int, itemsize: int,
     return _divisor_block(t, min(bk, cap, t))
 
 
-def decode_attention_ref(q, k_cache, v_cache, lengths, bk=DEFAULT_BK):
-    """Plain version of ``decode_attention``: the same chunk walk, slot
-    by slot, in PyTorch ops."""
+def _chunk_walk(q, k_cache, v_cache, lengths, bk, sk=None, sv=None):
+    """The plain chunk walk, slot by slot, in PyTorch ops; sk, sv (B, T,
+    KVH) are the KV8 scales (None for a bf16 cache)."""
     b, h, d = q.shape
     _, t, kvh, _ = k_cache.shape
     rep = h // kvh
-    bk = pick_block(t, kvh, d, k_cache.element_size(), bk)
     nk_max = t // bk                     # bk divides t (or equals it)
     qg = q.reshape(b, kvh, rep, d).to(torch.float32) * d ** -0.5
+    p_dtype = torch.bfloat16 if sv is not None else v_cache.dtype
     out = torch.zeros((b, kvh, rep, d), dtype=torch.float32, device=q.device)
     for bi, length in enumerate(torch.as_tensor(lengths).tolist()):
         nk = min(-(-length // bk), nk_max) if length > 0 else 0
@@ -72,19 +80,74 @@ def decode_attention_ref(q, k_cache, v_cache, lengths, bk=DEFAULT_BK):
             rows = slice(c * bk, (c + 1) * bk)
             kb = k_cache[bi, rows].to(torch.float32)        # (bk, kvh, d)
             s = torch.einsum("grd,tgd->grt", qg[bi], kb)
+            if sk is not None:
+                s = s * sk[bi, rows].t()[:, None, :]
             k_pos = c * bk + torch.arange(kb.shape[0], device=q.device)
-            s = s.masked_fill(k_pos >= length, NEG_INF)
+            live = k_pos < length
+            s = s.masked_fill(~live, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             alpha = torch.exp(m - m_new)
             p = torch.exp(s - m_new)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
-            pv = torch.einsum("grt,tgd->grd",
-                              p.to(v_cache.dtype).to(torch.float32),
+            if sv is not None:
+                # rows past the length are never read (their p is 0)
+                p = torch.where(live, p * sv[bi, rows].t()[:, None, :], 0.0)
+            pv = torch.einsum("grt,tgd->grd", p.to(p_dtype).to(torch.float32),
                               v_cache[bi, rows].to(torch.float32))
             o = o * alpha + pv
             m = m_new
         out[bi] = o / torch.clamp_min(l, 1e-30)
     return out.reshape(b, h * d)
+
+
+def decode_attention_ref(q, k_cache, v_cache, lengths, bk=DEFAULT_BK):
+    """Plain version of ``decode_attention``: the same chunk walk, slot
+    by slot, in PyTorch ops."""
+    _, t, kvh, d = k_cache.shape
+    bk = pick_block(t, kvh, d, k_cache.element_size(), bk)
+    return _chunk_walk(q, k_cache, v_cache, lengths, bk)
+
+
+def decode_attention_q8_ref(q, qk, sk, qv, sv, lengths, bk=DEFAULT_BK):
+    """Plain version of ``decode_attention_q8``: the chunk walk over the
+    int8 cache with the scales folded in."""
+    _, t, kvh, d = qk.shape
+    bk = pick_block(t, kvh, d, qk.element_size(), bk)
+    return _chunk_walk(q, qk, qv, lengths, bk, sk, sv)
+
+
+def _check(name, q, caches, scales, lengths, bk, dtype):
+    """Raise on what the kernel does not take; returns (q as contiguous
+    fp32, lengths as int32, b, h, d, t, kvh, rep, bk)."""
+    b, h, d = q.shape
+    k_cache = caches[0]
+    _, t, kvh, dk = k_cache.shape
+    if (k_cache.shape[0] != b or dk != d or h % kvh
+            or any(c.shape != k_cache.shape for c in caches)
+            or any(tuple(s.shape) != (b, t, kvh) for s in scales)):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, caches "
+                         f"{[tuple(c.shape) for c in caches]}, scales "
+                         f"{[tuple(s.shape) for s in scales]}")
+    rep = h // kvh
+    bk = pick_block(t, kvh, d, k_cache.element_size(), bk)
+    if d not in KERNEL_HEAD_DIMS or rep * d > _MAX_QELEMS \
+            or rep * bk > _MAX_SCORES:
+        raise ValueError(f"{name}: the kernel takes d in "
+                         f"{KERNEL_HEAD_DIMS}, rep*d <= {_MAX_QELEMS}, "
+                         f"rep*bk <= {_MAX_SCORES}; got d={d}, rep={rep}, "
+                         f"bk={bk}")
+    for x, want in [(c, dtype) for c in caches] + [(s, torch.float32)
+                                                   for s in scales]:
+        if x.device != q.device:
+            raise ValueError(f"{name}: cache on {x.device}, q on {q.device}")
+        if x.dtype != want or not x.is_contiguous():
+            raise TypeError(f"{name}: expected contiguous {want}, got "
+                            f"{x.dtype}")
+    lengths = torch.as_tensor(lengths, device=q.device).to(torch.int32)
+    if tuple(lengths.shape) != (b,):
+        raise ValueError(f"{name}: lengths {tuple(lengths.shape)}")
+    return (q.to(torch.float32).contiguous(), lengths, b, h, d, t, kvh, rep,
+            bk)
 
 
 def decode_attention(q, k_cache, v_cache, lengths, bk=DEFAULT_BK):
@@ -97,33 +160,30 @@ def decode_attention(q, k_cache, v_cache, lengths, bk=DEFAULT_BK):
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, lengths, bk)
     require_cuda("decode_attention", q)
-    b, h, d = q.shape
-    _, t, kvh, dk = k_cache.shape
-    if (k_cache.shape[0] != b or dk != d or h % kvh
-            or v_cache.shape != k_cache.shape):
-        raise ValueError(f"decode_attention: q {tuple(q.shape)}, caches "
-                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
-    rep = h // kvh
-    bk = pick_block(t, kvh, d, k_cache.element_size(), bk)
-    if d not in KERNEL_HEAD_DIMS or rep * d > _MAX_QELEMS \
-            or rep * bk > _MAX_SCORES:
-        raise ValueError(f"decode_attention: the kernel takes d in "
-                         f"{KERNEL_HEAD_DIMS}, rep*d <= {_MAX_QELEMS}, "
-                         f"rep*bk <= {_MAX_SCORES}; got d={d}, rep={rep}, "
-                         f"bk={bk}")
-    for x in (k_cache, v_cache):
-        if x.device != q.device:
-            raise ValueError(f"decode_attention: cache on {x.device}, q on "
-                             f"{q.device}")
-        if x.dtype != torch.bfloat16 or not x.is_contiguous():
-            raise TypeError("decode_attention: caches must be contiguous "
-                            "bf16")
-    q = q.to(torch.float32).contiguous()
-    lengths = torch.as_tensor(lengths, device=q.device).to(torch.int32)
-    if tuple(lengths.shape) != (b,):
-        raise ValueError(f"decode_attention: lengths {tuple(lengths.shape)}")
+    q, lengths, b, h, d, t, kvh, rep, bk = _check(
+        "decode_attention", q, (k_cache, v_cache), (), lengths, bk,
+        torch.bfloat16)
     out = torch.empty((b, h * d), dtype=torch.float32, device=q.device)
     if b and t and kvh:
         _build.launch("decode_attention", q.device, q, k_cache, v_cache,
+                      lengths, out, b, t, kvh, rep, d, bk, d ** -0.5)
+    return out
+
+
+def decode_attention_q8(q, qk, sk, qv, sv, lengths, bk=DEFAULT_BK):
+    """(B, H, D) queries over the KV8 cache: qk, qv (B, T, KVH, D) int8,
+    sk, sv (B, T, KVH) float32 -> (B, H * D) fp32.
+
+    The chunk length is the reference's for a 1-byte cache
+    (``pick_block``); the kernel's limits are ``decode_attention``'s."""
+    if q.device.type == "cpu":
+        return decode_attention_q8_ref(q, qk, sk, qv, sv, lengths, bk)
+    require_cuda("decode_attention_q8", q)
+    q, lengths, b, h, d, t, kvh, rep, bk = _check(
+        "decode_attention_q8", q, (qk, qv), (sk, sv), lengths, bk,
+        torch.int8)
+    out = torch.empty((b, h * d), dtype=torch.float32, device=q.device)
+    if b and t and kvh:
+        _build.launch("decode_attention_q8", q.device, q, qk, sk, qv, sv,
                       lengths, out, b, t, kvh, rep, d, bk, d ** -0.5)
     return out

@@ -1,9 +1,9 @@
-"""W4A8 GEMMs: int8 activations x packed int4 weights.
+"""int4-weight GEMMs: W4A8 (int8 activations) and W4A16 (bf16 ones).
 
 Counterpart: ``how_to_optimize_gemm_tpu/ops/pallas_int4.py``
 (``PACK_BLOCK``, ``prepare_w4a8``, ``mmult_q_w4a8``, ``mmult_q_w4a8_noc``,
-``mmult_w4a8_fused_noc``). W is decoded from nibbles packed two per byte
-in 512-row pack blocks (``ops/quant.py``).
+``mmult_w4a8_fused_noc``, ``mmult_q_noc``). W is decoded from nibbles
+packed two per byte in 512-row pack blocks (``ops/quant.py``).
 
 - ``mmult_q_w4a8`` (rung 07b, K3, ``csrc/w4a8_gemm.cu``):
   ``C = f32(QA @ W as int32) * sa[i] * sw[j] + C``, IN PLACE on ``c`` as
@@ -13,10 +13,17 @@ in 512-row pack blocks (``ops/quant.py``).
 - ``mmult_w4a8_fused_noc`` (the serving linear at m <= 64, kernel
   ``w4a8_gemv_fq``): the same with the activation quantization of float
   rows done on the card, ``quantize_symmetric(x, axis=1)`` first.
+- ``mmult_q_noc`` (W4A16, the int4 serving linear):
+  ``y = (A_bf16 @ W) * sw[j]`` with fp32 sums; kernel ``w4a16_gemv`` at
+  m <= 64, ``w4a16_gemm_noc`` above.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
-version (``*_ref``) only for CPU tensors; each kernel equals its plain
-version bit for bit (exact int32 sums, the epilogue in the same order).
+version (``*_ref``) only for CPU tensors. The W4A8 kernels equal their
+plain versions bit for bit (exact int32 sums, the epilogue in the same
+order). The W4A16 kernels' products are exact in fp32 but summed in
+another order (the GEMM's by the tensor cores), so they agree with
+``mmult_q_noc_ref`` to rounding: within 2e-5 of max |y| on the card's
+tests.
 """
 from __future__ import annotations
 
@@ -145,4 +152,60 @@ def mmult_w4a8_fused_noc(x, packed, sw):
     if m and n:
         _build.launch("w4a8_gemv_fq", out.device, x, packed, sw, qa, sa, out,
                       m, n, kp, packed.shape[1])
+    return out
+
+
+# ------------------------------------------------------------------ W4A16
+
+def mmult_q_noc_ref(a, packed, sw):
+    """Plain version of ``mmult_q_noc``: ``(f32(A) @ f32(W)) * sw``, every
+    product exact in fp32, the sums in PyTorch's order."""
+    w = quant.unpack_int4(packed, PACK_BLOCK)[: a.shape[1]]
+    return torch.matmul(a.to(torch.float32), w.to(torch.float32)) * sw
+
+
+def mmult_q_noc(a, packed, sw):
+    """y = (A @ dequant(W4)) in fp32, a fresh (M, N) float32: the W4A16
+    serving linear (int4 weights, bf16 activations).
+
+    a (M, K) bf16, packed (Kp/2, N) int8 with Kp a multiple of 512 and
+    K <= Kp (columns of A past K count as zero), sw (1, N) float32. m <= 64
+    launches ``w4a16_gemv``, larger m ``w4a16_gemm_noc``."""
+    if a.device.type == "cpu":
+        return mmult_q_noc_ref(a, packed, sw)
+    require_cuda("mmult_q_noc", a)
+    m, k = a.shape
+    n = sw.shape[-1]
+    kp = _check_packed("mmult_q_noc", packed, k, n)
+    if a.dtype != torch.bfloat16 or packed.dtype != torch.int8 \
+            or sw.dtype != torch.float32:
+        raise TypeError(f"mmult_q_noc: expected bf16 a, int8 packed, "
+                        f"float32 sw; got {a.dtype}, {packed.dtype}, "
+                        f"{sw.dtype}")
+    if tuple(sw.shape) != (1, n):
+        raise ValueError(f"mmult_q_noc: sw {tuple(sw.shape)} vs (1, {n})")
+    for t in (packed, sw):
+        if t.device != a.device:
+            raise ValueError(f"mmult_q_noc: tensors on {t.device} and "
+                             f"{a.device}")
+        if not t.is_contiguous():
+            raise ValueError("mmult_q_noc: operands must be contiguous")
+    packed = bounds.pad_dim(packed, 1, ALIGN)
+    if packed.data_ptr() % ALIGN:
+        raise ValueError(f"mmult_q_noc: packed not {ALIGN}-byte aligned")
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if not (m and n):
+        return out
+    if m <= GEMV_MAX_M:
+        a = a.contiguous()
+        _build.launch("w4a16_gemv", a.device, a, packed, sw, out, m, n, k,
+                      kp, k, packed.shape[1])
+    else:
+        # rows of A start on 16-byte boundaries: K padded to 8 bf16
+        a = bounds.pad_dim(a.contiguous(), 1, ALIGN // 2)
+        if a.data_ptr() % ALIGN:
+            raise ValueError(f"mmult_q_noc: a not {ALIGN}-byte aligned")
+        ka = a.shape[1]
+        _build.launch("w4a16_gemm_noc", a.device, a, packed, sw, out, m, n,
+                      ka, ka, packed.shape[1], n)
     return out

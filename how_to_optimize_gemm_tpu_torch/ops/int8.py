@@ -1,18 +1,26 @@
-"""int8 symmetric GEMM: rungs 06 (kernel K1) and 14 (kernel K2).
+"""int8 symmetric GEMM: rungs 06 (kernel K1) and 14 (kernel K2), and the
+int8 serving linear at prefill widths (kernel ``int8_gemm_noc``).
 
 Counterparts: ``how_to_optimize_gemm_tpu/ops/pallas_int8.py`` (``prepare``,
-``mmult_q``, ``mmult_q_bt``) and ``pallas_manual_dma.prepare_packed``.
-Both compute ``C' = f32(QA @ QB as int32) * sa[i] * sb[j] + C``:
+``mmult_q``, ``mmult_q_bt``, ``mmult_q_noc``) and
+``pallas_manual_dma.prepare_packed``. The first two compute
+``C' = f32(QA @ QB as int32) * sa[i] * sb[j] + C``:
 
 - ``mmult_q`` (K1, ``csrc/int8_gemm_nn.cu``) takes B as (K, N) and
   returns a fresh output;
 - ``mmult_q_bt`` (K2, ``csrc/int8_gemm_nt.cu``) takes B packed
-  transposed as (N, K) and accumulates IN PLACE into ``c``.
+  transposed as (N, K) and accumulates IN PLACE into ``c``;
+- ``mmult_q_noc`` (``csrc/int8_gemm_noc.cu``, K1's template without the
+  "+ C") returns ``f32(QA @ QB as int32) * sa[i] * sb[j]``.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
-version (``mmult_q_ref``, ``mmult_q_bt_ref``) only for CPU tensors. The
-kernels equal their plain versions bit for bit: the int32 accumulator is
-exact and both apply the epilogue in the same order.
+version (``mmult_q_ref``, ``mmult_q_bt_ref``, ``mmult_q_noc_ref``) only
+for CPU tensors. The kernels equal their plain versions bit for bit: the
+int32 accumulator is exact and both apply the epilogue in the same order.
+
+``int_matmul`` is the int8 linear's product below the kernel's widths,
+the counterpart of the reference's XLA int8 dot (``models/linear.py``'s
+non-Pallas branch).
 """
 from __future__ import annotations
 
@@ -51,6 +59,28 @@ def int_matmul_exact(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     There is no int32 matmul on CUDA; fp64 is exact here because
     |acc| <= 127 * 127 * K is far below 2**53."""
     return (x.to(torch.float64) @ y.to(torch.float64)).to(torch.int32)
+
+
+# torch._int_mm (cuBLASLt) takes more than 16 rows and k, n multiples of 8
+INT_MM_MIN_ROWS = 32
+INT_MM_MULTIPLE = 8
+
+
+def int_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """int8 (m, k) @ int8 (k, n) -> int32, exact, on any device.
+
+    On the card, where k and n are multiples of 8, ``torch._int_mm`` with
+    the rows zero-padded to at least 32 (the library's int8 product, as
+    the reference leaves this product to XLA's int8 dot); elsewhere
+    ``int_matmul_exact``."""
+    m, k = x.shape
+    n = y.shape[1]
+    if (x.is_cuda and k and n and k % INT_MM_MULTIPLE == 0
+            and n % INT_MM_MULTIPLE == 0):
+        if m < INT_MM_MIN_ROWS:
+            x = torch.cat([x, x.new_zeros((INT_MM_MIN_ROWS - m, k))])
+        return torch._int_mm(x.contiguous(), y.contiguous())[:m]
+    return int_matmul_exact(x, y)
 
 
 def mmult_q_ref(qa, sa, qb, sb, c):
@@ -136,3 +166,31 @@ def mmult_q_bt(qa, sa, qbt, sb, c):
         _build.launch("int8_gemm_nt", c.device, qa, qbt, sa, sb, c, c,
                       m, n, kp, kp, kp, n)
     return c
+
+
+def mmult_q_noc_ref(qa, sa, qb, sb):
+    """Plain version of ``mmult_q_noc``: ``(f32(QA @ QB) * sa) * sb``."""
+    return int_matmul_exact(qa, qb).to(torch.float32) * sa * sb
+
+
+def mmult_q_noc(qa, sa, qb, sb):
+    """y = f32(QA @ QB as int32) * sa * sb, a fresh (M, N) float32.
+
+    qa (M, K) int8, sa (M, 1), qb (K, N) int8, sb (1, N) float32. No C is
+    read or added: the int8 serving linear at prefill widths."""
+    if qa.device.type == "cpu":
+        return mmult_q_noc_ref(qa, sa, qb, sb)
+    require_cuda("mmult_q_noc", qa)
+    m, k = qa.shape
+    n = qb.shape[1]
+    if qb.shape[0] != k:
+        raise ValueError(f"mmult_q_noc: qb {tuple(qb.shape)} vs K={k}")
+    qa = bounds.pad_dim(qa, 1, ALIGN)
+    qb = bounds.pad_dim(bounds.pad_dim(qb, 0, ALIGN), 1, ALIGN)
+    out = torch.empty((m, n), dtype=torch.float32, device=qa.device)
+    check_operands("mmult_q_noc", qa, sa, qb, sb, out)
+    if m and n:
+        kp = qa.shape[1]
+        _build.launch("int8_gemm_noc", out.device, qa, qb, sa, sb, out,
+                      m, n, kp, kp, qb.shape[1], n)
+    return out

@@ -3,7 +3,8 @@
 Counterpart: ``how_to_optimize_gemm_tpu/parallel/serving.py``
 (``Request``, ``filter_logits``, ``make_sampler``, ``ServingEngine``) and
 the flow of ``examples/serve.py`` (``main``). The engine keeps one slot
-per concurrent request over a contiguous bf16 KV cache:
+per concurrent request over a contiguous KV cache, bf16 or int8 with
+per-(token, head) scales (``cache_kind="int8"``, KV8):
 
 1. admission fills every empty slot from the queue in one masked prefill
    (``_admit``): the prompts, padded to a power-of-two bucket, go through
@@ -18,8 +19,8 @@ per concurrent request over a contiguous bf16 KV cache:
 
 Not ported yet, each raising ``NotImplementedError``: paged caches and
 the prefix cache (ROADMAP A9, B14-paged, B17), LoRA (A8), meshes (A12),
-chunked prefill and ``lookahead > 1`` (A9), speculative decoding
-(``run_spec*``, A9), and the KV8 cache (B16).
+chunked prefill and ``lookahead > 1`` (A9), and speculative decoding
+(``run_spec*``, A9).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from how_to_optimize_gemm_tpu_torch.models import llama
 from how_to_optimize_gemm_tpu_torch.models.linear import KINDS
 from how_to_optimize_gemm_tpu_torch.utils.device import default_device
 
+CACHE_KINDS = ("bf16", "int8")
 
 @dataclasses.dataclass
 class Request:
@@ -108,6 +110,7 @@ class ServingEngine:
         """params: an ``llama.init_params`` tree on ``device`` (the card
         unless ``device="cpu"`` is asked for). sample: a ``make_sampler``
         sampler, greedy by default; ``seed`` seeds its generator.
+        cache_kind: "bf16", or "int8" for the KV8 cache.
         kernel_routes: ``llama.decode_step``'s (True on the CPU runs the
         kernels' plain versions)."""
         if mesh is not None:
@@ -119,8 +122,9 @@ class ServingEngine:
             _not_ported("LoRA serving", "A8")
         if prefill_chunk is not None:
             _not_ported("chunked prefill", "A9")
-        if cache_kind != "bf16":
-            _not_ported(f"the {cache_kind} KV cache (KV8)", "B16")
+        if cache_kind not in CACHE_KINDS:
+            raise ValueError(f"cache_kind {cache_kind!r} not in "
+                             f"{CACHE_KINDS}")
         self.cfg = cfg
         self.kernel_routes = kernel_routes
         self.batch = batch_slots
@@ -130,6 +134,7 @@ class ServingEngine:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.cache = llama.init_kv_cache(cfg, batch_slots,
+                                         quantized=cache_kind == "int8",
                                          device=self.device)
         self.slot_req: list[Request | None] = [None] * batch_slots
         self.slot_pos = np.zeros(batch_slots, np.int32)
@@ -333,7 +338,8 @@ def main(argv=None):
                     help="the model's proportions (else the --d-model ... "
                          "flags)")
     ap.add_argument("--weight-kind", default="int8", choices=KINDS)
-    ap.add_argument("--cache-kind", default="bf16", choices=["bf16", "int8"])
+    ap.add_argument("--cache-kind", default="bf16", choices=CACHE_KINDS,
+                    help="int8: the KV8 cache (int8 values, fp32 scales)")
     ap.add_argument("--d-model", type=int, default=2048)
     ap.add_argument("--n-layers", type=int, default=None,
                     help="depth (default: the preset's, else 8)")

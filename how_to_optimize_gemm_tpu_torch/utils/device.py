@@ -25,3 +25,14 @@ def default_device(device=None) -> torch.device:
             "no CUDA device; pass device='cpu' to run the plain PyTorch "
             "versions on the host")
     return torch.device("cuda")
+
+
+def kernel_routes_for(x: torch.Tensor, kernel_routes=None) -> bool:
+    """Whether a computation on ``x`` takes its kernel routes (the
+    reference's ``use_pallas``): always on the card, on the CPU only when
+    asked (through the kernels' plain versions)."""
+    if x.is_cuda:
+        if kernel_routes is False:
+            raise ValueError("on the card the model runs the kernel routes")
+        return True
+    return bool(kernel_routes)

@@ -222,32 +222,146 @@ def test_decode_attention_matches_plain_version(cuda, kvh, rep, d):
     assert err < 2e-3, err
 
 
+# Slice 3's kernels. int8_gemm_noc must EQUAL its plain version (exact
+# int32 sums, the same epilogue). The W4A16 kernels' products are exact in
+# fp32 but summed in another order (by the tensor cores for the GEMM, whose
+# fp32 adds do not round as IEEE does): within W4A16_REL of max |y|.
+# decode_attention_q8 as decode_attention: atol 2e-3.
+W4A16_REL = 2e-5
+
+
+@pytest.mark.parametrize("m,n,k", [(256, 256, 256), (300, 136, 72),
+                                   (1, 9, 40), (1000, 1032, 1100),
+                                   (1024, 11008, 4096)])
+def test_int8_gemm_noc_equals_plain_version(cuda, m, n, k):
+    x = _activations(m, k, m + n, cuda)
+    qa, sa = int8.quant.quantize_symmetric(x, axis=1)
+    w = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (k, n)).astype(np.float32)).to(cuda)
+    qb, sb = int8.quant.quantize_symmetric(w, axis=0)
+    before = _build.LAUNCHES["int8_gemm_noc"]
+    out = int8.mmult_q_noc(qa, sa, qb, sb)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["int8_gemm_noc"] == before + 1
+    ref = int8.mmult_q_noc_ref(qa, sa, qb, sb)
+    assert out.shape == (m, n)
+    assert torch.equal(out, ref), float((out - ref).abs().max())
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 40, 8), (3, 4096, 4096),
+                                   (17, 72, 136), (100, 1100, 1032),
+                                   (5, 70, 30)])
+def test_int_matmul_equals_exact_product(cuda, m, k, n):
+    """The int8 linear's product below the kernel widths (torch._int_mm
+    with rows padded to 32 where k and n are multiples of 8, else the fp64
+    product): the int32 accumulators equal the fp64 path's."""
+    rng = np.random.default_rng(m * k)
+    x = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    y = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
+    got = int8.int_matmul(x.to(cuda), y.to(cuda))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, int8.int_matmul_exact(x.to(cuda), y.to(cuda)))
+
+
+def _w4a16_case(m, n, k, seed, device):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    packed, sw = _w4a8_weights(k, n, seed + 1, device)
+    return a.to(device=device, dtype=torch.bfloat16), packed, sw
+
+
+@pytest.mark.parametrize("m,n,k", [(1, 9, 40), (4, 11008, 4096),
+                                   (4, 4096, 11008), (5, 1032, 1100),
+                                   (64, 384, 700), (65, 384, 700),
+                                   (300, 136, 72), (1000, 1032, 1100),
+                                   (1024, 11008, 4096)])
+def test_w4a16_kernels_match_plain_version(cuda, m, n, k):
+    a, packed, sw = _w4a16_case(m, n, k, m + n + k, cuda)
+    name = "w4a16_gemv" if m <= int4.GEMV_MAX_M else "w4a16_gemm_noc"
+    before = _build.LAUNCHES[name]
+    out = int4.mmult_q_noc(a, packed, sw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1
+    ref = int4.mmult_q_noc_ref(a, packed, sw)
+    assert out.shape == (m, n)
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    print(f"{name} m={m} n={n} k={k}: max|kernel - plain| = {err:.3e} "
+          f"of max|y| {scale:.3e}")
+    assert err <= W4A16_REL * scale, err / scale
+
+
+@pytest.mark.parametrize("kvh,rep,d", [(2, 2, 128), (16, 1, 128),
+                                       (4, 4, 64), (8, 4, 128), (3, 2, 32)])
+def test_decode_attention_q8_matches_plain_version(cuda, kvh, rep, d):
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    b, t = 4, 256
+    rng = np.random.default_rng(kvh * rep * d)
+    q = torch.from_numpy(rng.standard_normal((b, kvh * rep, d)).astype(
+        np.float32)).to(cuda)
+    cache = []
+    for _ in "kv":
+        x = torch.from_numpy(rng.standard_normal((b, t, kvh, d)).astype(
+            np.float32)).to(cuda)
+        cache += llama.quantize_kv(x)
+    lengths = torch.tensor([1, 129, 256, 0], dtype=torch.int32,
+                           device=cuda)
+    bk = 128
+    # rows past each slot's last live chunk are never read: garbage (and
+    # NaN scales) there must not reach the output
+    for c in cache:
+        c[0, bk:] = float("nan") if c.is_floating_point() else 77
+        c[3] = float("nan") if c.is_floating_point() else -77
+    before = _build.LAUNCHES["decode_attention_q8"]
+    out = decode_attention.decode_attention_q8(q, *cache, lengths, bk=bk)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode_attention_q8"] == before + 1
+    ref = decode_attention.decode_attention_q8_ref(q, *cache, lengths, bk=bk)
+    assert out.shape == (b, kvh * rep * d)
+    assert torch.isfinite(out).all()
+    err = float((out - ref).abs().max())
+    print(f"decode_attention_q8 kvh={kvh} rep={rep} d={d}: max|kernel - "
+          f"plain| = {err}")
+    assert err < 2e-3, err
+
+
 # ------------------------------------------------------------ model path
 
 def test_unported_routes_raise_on_the_card(cuda):
-    """Where the reference runs a Pallas kernel this port has not written
-    yet, the card raises instead of falling back."""
+    """The int8 and int4 linears take their kernels on the card (int8 at
+    m >= 256, int4 at every m: the GEMV at m <= 64); where the reference
+    runs a Pallas kernel this port has not written yet (flash prefill),
+    the card raises instead of falling back."""
     from how_to_optimize_gemm_tpu_torch.models import linear, llama
     w = torch.ones((16, 8), device=cuda)
-    with pytest.raises(NotImplementedError, match="B11"):
-        linear.apply_linear(linear.make_linear(w, "int4"),
-                            torch.ones((2, 16), device=cuda))
+    lin4 = linear.make_linear(w, "int4")
     lin8 = linear.make_linear(w, "int8")
+    for lin, m, name in ((lin4, 2, "w4a16_gemv"),
+                         (lin4, 100, "w4a16_gemm_noc"),
+                         (lin8, 256, "int8_gemm_noc")):
+        before = dict(_build.LAUNCHES)
+        y = linear.apply_linear(lin, torch.ones((m, 16), device=cuda))
+        torch.cuda.synchronize()
+        assert y.shape == (m, 8)
+        assert _build.LAUNCHES[name] == before[name] + 1, name
+    before = dict(_build.LAUNCHES)
     assert linear.apply_linear(lin8, torch.ones((3, 16),
                                                 device=cuda)).shape == (3, 8)
-    with pytest.raises(NotImplementedError, match="B10"):
-        linear.apply_linear(lin8, torch.ones((256, 16), device=cuda))
+    assert _build.LAUNCHES == before     # the library's int8 product
     with pytest.raises(NotImplementedError, match="B18"):
         llama._route_flash(torch.ones(1, device=cuda), 512, 128)
     with pytest.raises(ValueError):
         llama.kernel_routes_for(torch.ones(1, device=cuda), False)
+    with pytest.raises(ValueError):
+        linear.apply_linear(lin4, torch.ones((2, 16), device=cuda), False)
 
 
-def _teacher_forced(params, cfg, device, tokens, forced):
+def _teacher_forced(params, cfg, device, tokens, forced, quantized=False):
     """Logits of a masked prefill of ``tokens`` and of decode steps fed
     ``forced``, on the kernel routes (the CPU: their plain versions)."""
     from how_to_optimize_gemm_tpu_torch.models import llama
-    cache = llama.init_kv_cache(cfg, tokens.shape[0], device=device)
+    cache = llama.init_kv_cache(cfg, tokens.shape[0], quantized=quantized,
+                                device=device)
     s = tokens.shape[1]
     pos = torch.zeros(tokens.shape[0], dtype=torch.int32, device=device)
     rows = [llama.decode_step(params, cfg, cache,
@@ -263,15 +377,27 @@ def _teacher_forced(params, cfg, device, tokens, forced):
     return torch.stack(rows).float().cpu()
 
 
-@pytest.mark.parametrize("kind", ["fp32", "w4a8"])
-def test_tiny_model_on_the_card_matches_its_cpu_kernel_routes(cuda, kind):
-    """Teacher-forced logits of a masked 48-token prefill (m = 96: the
-    prefill-width linear) and 4 decode steps, the card (kernels) against
-    the CPU on the same routes (their plain versions). Float32 ops summed
-    in another order differ by about 1e-6 relative, which the model
-    amplifies (bf16 cache and p roundings, w4a8 activation quantization),
-    so the bound is 3x what a 1e-6 relative perturbation of the
-    embeddings does on the CPU. Then the engine serves on the card."""
+# the kernels each (weight kind, KV8?) must launch, beside kv_update
+TINY_KERNELS = {
+    ("fp32", False): ["decode_attention"],
+    ("w4a8", False): ["decode_attention", "w4a8_gemm_noc", "w4a8_gemv_fq"],
+    ("int8", False): ["decode_attention", "int8_gemm_noc"],
+    ("int4", False): ["decode_attention", "w4a16_gemm_noc", "w4a16_gemv"],
+    ("w4a8", True): ["decode_attention_q8", "w4a8_gemm_noc", "w4a8_gemv_fq"],
+}
+
+
+@pytest.mark.parametrize("kind,kv8", list(TINY_KERNELS))
+def test_tiny_model_on_the_card_matches_its_cpu_kernel_routes(cuda, kind,
+                                                              kv8):
+    """Teacher-forced logits of a masked 128-token prefill (m = 256: the
+    prefill-width linears, the int8 kernel's threshold included) and 4
+    decode steps, the card (kernels) against the CPU on the same routes
+    (their plain versions). Float32 ops summed in another order differ by
+    about 1e-6 relative, which the model amplifies (bf16 cache and p
+    roundings, int8 KV and activation quantization), so the bound is 3x
+    what a 1e-6 relative perturbation of the embeddings does on the CPU.
+    Then the engine serves on the card."""
     from how_to_optimize_gemm_tpu_torch.models import llama
     from how_to_optimize_gemm_tpu_torch.parallel import serving
     cfg = llama.LlamaConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
@@ -280,27 +406,25 @@ def test_tiny_model_on_the_card_matches_its_cpu_kernel_routes(cuda, kind):
     params = llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     on_card = convert.to_device(params, cuda)
     rng = np.random.default_rng(0)
-    tokens = rng.integers(0, cfg.vocab, (2, 48)).astype(np.int32)
+    tokens = rng.integers(0, cfg.vocab, (2, 128)).astype(np.int32)
     forced = rng.integers(0, cfg.vocab, (2, 4)).astype(np.int32)
     before = dict(_build.LAUNCHES)
-    card = _teacher_forced(on_card, cfg, cuda, tokens, forced)
-    kernels = ["kv_update", "decode_attention"]
-    if kind == "w4a8":
-        kernels += ["w4a8_gemm_noc", "w4a8_gemv_fq"]
-    for k in kernels:
+    card = _teacher_forced(on_card, cfg, cuda, tokens, forced, kv8)
+    for k in ["kv_update"] + TINY_KERNELS[kind, kv8]:
         assert _build.LAUNCHES[k] > before[k], k
-    cpu = _teacher_forced(params, cfg, "cpu", tokens, forced)
+    cpu = _teacher_forced(params, cfg, "cpu", tokens, forced, kv8)
     scale = float(cpu.abs().max())
     diff = float((card - cpu).abs().max())
     noise = torch.randn(params["embed"].shape,
                         generator=torch.Generator().manual_seed(1))
     moved = {**params, "embed": params["embed"] * (1 + 1e-6 * noise)}
     limit = 3 * float((_teacher_forced(moved, cfg, "cpu", tokens,
-                                       forced) - cpu).abs().max())
-    print(f"tiny model {kind}: max|card - cpu| = {diff} of {scale} "
-          f"(limit {limit})")
+                                       forced, kv8) - cpu).abs().max())
+    print(f"tiny model {kind} kv8={kv8}: max|card - cpu| = {diff} of "
+          f"{scale} (limit {limit})")
     assert diff <= limit, diff
-    eng = serving.ServingEngine(cfg, on_card, batch_slots=2, device=cuda)
+    eng = serving.ServingEngine(cfg, on_card, batch_slots=2, device=cuda,
+                                cache_kind="int8" if kv8 else "bf16")
     done = eng.run([serving.Request(uid=i, prompt=[i + 1] * (5 + 7 * i),
                                     max_new=6) for i in range(3)])
     assert all(r.done and len(r.out) == 6 for r in done)

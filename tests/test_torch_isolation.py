@@ -71,7 +71,8 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
     from how_to_optimize_gemm_tpu_torch import _build
     assert set(_build.KERNELS) == {
         "int8_gemm_nn", "int8_gemm_nt", "w4a8_gemm", "w4a8_gemm_noc",
-        "w4a8_gemv_fq", "kv_update", "decode_attention"}
+        "w4a8_gemv_fq", "kv_update", "decode_attention", "int8_gemm_noc",
+        "w4a16_gemm_noc", "w4a16_gemv", "decode_attention_q8"}
     for name, kernel in _build.KERNELS.items():
         assert (_build.CSRC / kernel.source).exists(), name
         assert kernel.argtypes[-1] is ctypes.c_void_p, name
@@ -80,7 +81,10 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
         text = (_build.CSRC / kernel.source).read_text()
         assert f'extern "C" int {name}(' in text, name
     assert len(_build.KERNELS["decode_attention"].argtypes) == 13
+    assert len(_build.KERNELS["decode_attention_q8"].argtypes) == 15
     assert len(_build.KERNELS["kv_update"].argtypes) == 9
+    for name in ("int8_gemm_noc", "w4a16_gemm_noc", "w4a16_gemv"):
+        assert ctypes.c_float not in _build.KERNELS[name].argtypes, name
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", str(ROOT / "no-such-cuda"))
     with pytest.raises(RuntimeError, match="nvcc"):

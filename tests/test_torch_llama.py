@@ -175,7 +175,7 @@ def test_init_params_is_seeded_and_shaped():
     assert a["lm_head"]["fp32_w"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("what", ["moe", "kv8", "table", "lora"])
+@pytest.mark.parametrize("what", ["moe", "table", "lora"])
 def test_unported_parts_raise(model, what):
     _, _, cfg, params = model
     tokens = torch.zeros((1, 1), dtype=torch.int64)
@@ -183,8 +183,6 @@ def test_unported_parts_raise(model, what):
         if what == "moe":
             llama.init_params(torch.Generator(), dataclasses.replace(
                 cfg, n_experts=4), "cpu")
-        elif what == "kv8":
-            llama.init_kv_cache(cfg, 1, quantized=True, device="cpu")
         else:
             cache = llama.init_kv_cache(cfg, 1, device="cpu")
             kw = ({"table": torch.zeros((1, 1))} if what == "table"

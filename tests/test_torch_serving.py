@@ -4,7 +4,8 @@ The same requests (more than the slots, so slots are released and
 refilled) go through the JAX ``ServingEngine(use_pallas=False)`` and the
 port's ``ServingEngine`` on the CPU, both greedy, on the same weights
 (``convert.params_from_jax``). Tolerance: none, the token streams must be
-IDENTICAL, for fp32 and for w4a8 weights.
+IDENTICAL, for fp32, w4a8, int8 and int4 weights over a bf16 cache and
+for w4a8 weights over the KV8 cache (``cache_kind="int8"``).
 """
 import jax
 import numpy as np
@@ -30,18 +31,26 @@ def _requests(mod, n=len(PROMPTS)):
             for i in range(n)]
 
 
-@pytest.fixture(scope="module", params=["fp32", "w4a8"])
+# (weight kind, cache kind) of each engine pair
+ENGINES = {"fp32": ("fp32", "bf16"), "w4a8": ("w4a8", "bf16"),
+           "int8": ("int8", "bf16"), "int4": ("int4", "bf16"),
+           "w4a8-kv8": ("w4a8", "int8")}
+
+
+@pytest.fixture(scope="module", params=list(ENGINES))
 def engines(request):
-    jcfg = jllama.LlamaConfig(**CFG, weight_kind=request.param)
-    cfg = llama.LlamaConfig(**CFG, weight_kind=request.param)
+    kind, cache_kind = ENGINES[request.param]
+    jcfg = jllama.LlamaConfig(**CFG, weight_kind=kind)
+    cfg = llama.LlamaConfig(**CFG, weight_kind=kind)
     jparams = jllama.init_params(jax.random.PRNGKey(7), jcfg)
     params = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
                                      "cpu")
     jeng = jserving.ServingEngine(jcfg, jparams, batch_slots=2,
-                                  use_pallas=False)
+                                  use_pallas=False, cache_kind=cache_kind)
     ref = jeng.run(_requests(jserving))
 
     def port(**kw):
+        kw.setdefault("cache_kind", cache_kind)
         return serving.ServingEngine(cfg, params, batch_slots=2,
                                      device="cpu", **kw)
     return ref, port, cfg
@@ -102,8 +111,7 @@ def test_filter_logits_matches_jax():
 
 @pytest.mark.parametrize("kw", [dict(paged=True), dict(prefix_cache=True),
                                 dict(lora={}), dict(mesh=object()),
-                                dict(prefill_chunk=4),
-                                dict(cache_kind="int8")])
+                                dict(prefill_chunk=4)])
 def test_unported_options_raise(engines, kw):
     _, port, _ = engines
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -122,6 +130,15 @@ def test_unported_modes_raise(engines, call):
             getattr(eng, call)(_requests(serving, 1))
 
 
+def test_engine_cache_kinds():
+    cfg = llama.LlamaConfig(**CFG, weight_kind="w4a8")
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    eng = serving.ServingEngine(cfg, params, device="cpu", cache_kind="int8")
+    assert [c.dtype for c in eng.cache[0]] == [torch.int8, torch.float32] * 2
+    with pytest.raises(ValueError):
+        serving.ServingEngine(cfg, params, device="cpu", cache_kind="fp8")
+
+
 def test_make_requests_is_seeded():
     a = serving.make_requests(8, 32, 4, seed=0, prompt_len_max=256)
     b = serving.make_requests(8, 32, 4, seed=0, prompt_len_max=256)
@@ -130,8 +147,11 @@ def test_make_requests_is_seeded():
     assert all(1 <= t < 30000 for r in a for t in r.prompt)
 
 
-def test_cli_runs_on_the_cpu_when_asked(capsys):
-    stats = serving.main(["--weight-kind", "w4a8", "--d-model", "64",
+@pytest.mark.parametrize("kinds", [("w4a8", "bf16"), ("int8", "bf16"),
+                                   ("int4", "bf16"), ("w4a8", "int8")])
+def test_cli_runs_on_the_cpu_when_asked(capsys, kinds):
+    stats = serving.main(["--weight-kind", kinds[0], "--cache-kind",
+                          kinds[1], "--d-model", "64",
                           "--n-heads", "4", "--n-kv-heads", "2",
                           "--n-layers", "1", "--max-seq", "64",
                           "--requests", "3", "--slots", "2",
