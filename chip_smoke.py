@@ -17,7 +17,8 @@ Phases (any failure raises and exits non-zero before the last line):
    at 4096 beside the plain version's, the library call's (where one
    PyTorch call computes the same function) and the card's bound;
 4. each serving kernel against its plain version at the Llama-2-7B
-   shapes the serve paths give it and at one ragged shape (EQUAL for
+   shapes the serve paths give it (``kv_update`` on each row kind: bf16
+   values, int8 values and fp32 scales) and at one ragged shape (EQUAL for
    w4a8_gemm_noc, w4a8_gemv_fq, kv_update and int8_gemm_noc; within
    W4A16_REL x max |y| for w4a16_gemm_noc and w4a16_gemv, whose fp32
    sums run in another order; within atol 2e-3 for decode_attention and
@@ -41,15 +42,19 @@ Phases (any failure raises and exits non-zero before the last line):
    time of one decode step at the same width. Each model is freed before
    the next one loads;
 7. parity at full width: the same engine at Llama-2-7B width with 2
-   layers, on the same weights and 2 prompts, teacher-forced on the card
-   and on the CPU, both on the kernel routes (the CPU through the
-   kernels' plain versions), comparing the logits of the prefill and of
-   8 decode steps, for fp32, W4A8, int8 and int4 weights and for W4A8
-   weights over the KV8 cache. Float32 ops summed in another order
-   differ by about 1e-6 relative, and the model amplifies that (bf16
-   cache and p roundings; activation and KV quantization move logits by
-   a few %), so the bound is 3x what a 1e-6 relative perturbation of the
-   embeddings does on the CPU in the same run. The CPU's default routes
+   layers, on the same weights and 2 prompts (100 and 128 tokens, so the
+   admission prefill runs at m = 2 x 128 = 256 and takes the prefill
+   kernels), teacher-forced on the card and on the CPU, both on the
+   kernel routes (the CPU through the kernels' plain versions), comparing
+   the logits of the prefill and of 8 decode steps, for fp32, W4A8, int8
+   and int4 weights and for W4A8 weights over the KV8 cache. The card
+   side runs with every launch count set to 0 just before it and must
+   launch every kernel its serve path launches. Float32 ops summed in
+   another order differ by about 1e-6 relative, and the model amplifies
+   that (bf16 cache and p roundings; activation and KV quantization move
+   logits by a few %), so the bound is 3x what a 1e-6 relative
+   perturbation of the embeddings does on the CPU in the same run. The
+   CPU's default routes
    (the reference's eager attention, which rounds q to bf16) are printed
    beside them;
 8. one ``{"kernels": [...]}`` line, the card's line again, and last
@@ -360,30 +365,43 @@ def check_w4a8_gemv(gen: torch.Generator) -> dict:
 
 
 def check_kv_update(gen: torch.Generator) -> dict:
-    """Kernel 4 on one layer's 7B cache, one token per slot: slot 2's row
-    lies past T (dropped), slot 3 is masked (kept)."""
+    """Kernel 4 on one layer's 7B cache, one token per slot, for each row
+    kind the serve paths write: the bf16 cache (B, T, KVH, D), and the KV8
+    cache's int8 values (B, T, KVH, D) and fp32 scales (B, T, KVH), both
+    made by ``llama.quantize_kv``. Slot 2's row lies past T (dropped),
+    slot 3 is masked (kept). The JSON line reports the bf16 cache."""
     b, t = SLOTS, CFG_7B.max_seq
-    shape4 = (CFG_7B.n_kv_heads, CFG_7B.d_head)
-    cache = torch.randn((b, t, *shape4), generator=gen,
-                        device="cuda").to(torch.bfloat16)
-    new = torch.randn((b, 1, *shape4), generator=gen,
-                      device="cuda").to(torch.bfloat16)
+    heads = (CFG_7B.n_kv_heads, CFG_7B.d_head)
     pos = torch.tensor([5, 300, t, 1000], dtype=torch.int32, device="cuda")
     mask = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device="cuda")
-    got, ref = cache.clone(), cache.clone()
-    shape = f"cache {tuple(cache.shape)} bf16"
-    err = _equal("kv_update", shape, kv_update.kv_update(got, new, pos, mask),
-                 kv_update.kv_update_ref(ref, new, pos, mask))
     written = [i for i in range(b) if mask[i] and 0 <= pos[i] < t]
     rows_b = torch.tensor(written, device="cuda")
     rows_t = pos[rows_b].long()
-    vals = new[rows_b, 0]
-    b_ms = bound_ms(2 * nbytes(vals) + nbytes(pos, mask), 0.0,
-                    PEAK_INT8_OPS)
-    return timed("kv_update", shape,
-                 lambda: kv_update.kv_update(got, new, pos, mask),
-                 lambda: kv_update.kv_update_ref(ref, new, pos, mask),
-                 lambda: got.index_put_((rows_b, rows_t), vals), *b_ms, err)
+
+    def rows(s: int) -> torch.Tensor:
+        return torch.randn((b, s, *heads), generator=gen, device="cuda")
+
+    q_cache, s_cache = llama.quantize_kv(rows(t))
+    q_new, s_new = llama.quantize_kv(rows(1))
+    results = []
+    for label, cache, new in (("bf16", rows(t).to(torch.bfloat16),
+                               rows(1).to(torch.bfloat16)),
+                              ("int8", q_cache, q_new),
+                              ("fp32 scales", s_cache, s_new)):
+        got, ref = cache.clone(), cache.clone()
+        shape = f"cache {tuple(cache.shape)} {label}"
+        err = _equal("kv_update", shape,
+                     kv_update.kv_update(got, new, pos, mask),
+                     kv_update.kv_update_ref(ref, new, pos, mask))
+        vals = new[rows_b, 0]
+        b_ms = bound_ms(2 * nbytes(vals) + nbytes(pos, mask), 0.0,
+                        PEAK_INT8_OPS)
+        results.append(timed(
+            "kv_update", shape,
+            lambda: kv_update.kv_update(got, new, pos, mask),
+            lambda: kv_update.kv_update_ref(ref, new, pos, mask),
+            lambda: got.index_put_((rows_b, rows_t), vals), *b_ms, err))
+    return results[0]
 
 
 def check_decode_attention(gen: torch.Generator) -> dict:
@@ -622,18 +640,24 @@ def teacher_forced(eng, prompts, forced) -> torch.Tensor:
     return torch.stack(rows).float().cpu()
 
 
-# (weight kind, cache kind) of each parity run
-PARITY = (("fp32", "bf16"), ("w4a8", "bf16"), ("int8", "bf16"),
-          ("int4", "bf16"), ("w4a8", "int8"))
+# (weight kind, cache kind, kernels the card side must launch) of each
+# parity run
+PARITY = (("fp32", "bf16", ["kv_update", "decode_attention"]),
+          *SERVE_PATHS.values())
+# 2 slots x a 128-token bucket: the admission prefill runs at
+# m = 256 = INT8_KERNEL_MIN_M, so it takes the prefill kernels
+PARITY_PROMPTS = (100, 128)
 
 
 def parity(gen: torch.Generator) -> None:
     """The engine at 7B width with 2 layers, on the card and on the CPU,
-    on the same weights and tokens, for each of ``PARITY``."""
+    on the same weights and tokens, for each of ``PARITY``; the card side
+    runs with every launch count set to 0 just before it and must launch
+    each kernel of its row."""
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, 30000, n).tolist() for n in (40, 64)]
+    prompts = [rng.integers(1, 30000, n).tolist() for n in PARITY_PROMPTS]
     forced = rng.integers(1, 30000, (2, 8)).astype(np.int32)
-    for kind, cache_kind in PARITY:
+    for kind, cache_kind, kernels in PARITY:
         label = kind if cache_kind == "bf16" else f"{kind}+kv8"
         cfg = dataclasses.replace(CFG_7B, n_layers=2, weight_kind=kind)
         params = llama.init_params(gen, cfg, "cuda")
@@ -652,7 +676,13 @@ def parity(gen: torch.Generator) -> None:
             eng = serving.ServingEngine(cfg, p, batch_slots=2, device=dev,
                                         cache_kind=cache_kind,
                                         kernel_routes=routes)
+            _build.reset_launches()
             out[side] = teacher_forced(eng, prompts, forced)
+            if dev == "cuda":
+                missing = [k for k in kernels if _build.LAUNCHES[k] == 0]
+                if missing:
+                    raise AssertionError(f"parity {label}: the card side "
+                                         f"never launched {missing}")
             del eng
         ref = out["cpu"]
         scale = float(ref.abs().max())

@@ -67,20 +67,24 @@ INT_MM_MULTIPLE = 8
 
 
 def int_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """int8 (m, k) @ int8 (k, n) -> int32, exact, on any device.
+    """int8 (m, k) @ int8 (k, n) -> int32, exact.
 
-    On the card, where k and n are multiples of 8, ``torch._int_mm`` with
-    the rows zero-padded to at least 32 (the library's int8 product, as
-    the reference leaves this product to XLA's int8 dot); elsewhere
-    ``int_matmul_exact``."""
+    On the card ``torch._int_mm``, the library's int8 product (the
+    reference leaves this product to XLA's int8 dot), with k and n
+    zero-padded to multiples of 8 and the rows to at least 32: zeros add
+    nothing to an integer sum. For CPU tensors ``int_matmul_exact``."""
+    if not x.is_cuda:
+        return int_matmul_exact(x, y)
     m, k = x.shape
     n = y.shape[1]
-    if (x.is_cuda and k and n and k % INT_MM_MULTIPLE == 0
-            and n % INT_MM_MULTIPLE == 0):
-        if m < INT_MM_MIN_ROWS:
-            x = torch.cat([x, x.new_zeros((INT_MM_MIN_ROWS - m, k))])
-        return torch._int_mm(x.contiguous(), y.contiguous())[:m]
-    return int_matmul_exact(x, y)
+    pad_k = -k % INT_MM_MULTIPLE
+    pad_n = -n % INT_MM_MULTIPLE
+    pad_m = max(INT_MM_MIN_ROWS - m, 0)
+    if pad_k or pad_m:
+        x = torch.nn.functional.pad(x, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        y = torch.nn.functional.pad(y, (0, pad_n, 0, pad_k))
+    return torch._int_mm(x.contiguous(), y.contiguous())[:m, :n]
 
 
 def mmult_q_ref(qa, sa, qb, sb, c):

@@ -253,8 +253,8 @@ def test_int8_gemm_noc_equals_plain_version(cuda, m, n, k):
                                    (5, 70, 30)])
 def test_int_matmul_equals_exact_product(cuda, m, k, n):
     """The int8 linear's product below the kernel widths (torch._int_mm
-    with rows padded to 32 where k and n are multiples of 8, else the fp64
-    product): the int32 accumulators equal the fp64 path's."""
+    with k and n zero-padded to multiples of 8 and the rows to 32): the
+    int32 accumulators equal the fp64 product's."""
     rng = np.random.default_rng(m * k)
     x = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
     y = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
