@@ -17,14 +17,17 @@ Phases (any failure raises and exits non-zero before the last line):
    at 4096 beside the plain version's, the library call's (where one
    PyTorch call computes the same function) and the card's bound;
 4. each serving kernel against its plain version at the Llama-2-7B
-   shapes the serve paths give it (``kv_update`` on each row kind: bf16
-   values, int8 values and fp32 scales) and at one ragged shape (EQUAL for
-   w4a8_gemm_noc, w4a8_gemv_fq, kv_update and int8_gemm_noc; within
+   shapes the serve paths give it (``kv_update`` and ``paged_kv_update``
+   on each row kind: bf16 values, int8 values and fp32 scales; the paged
+   attention kernels over a shuffled block table, pages of 128 (bf16) and
+   384 (KV8)) and at one ragged shape (EQUAL for w4a8_gemm_noc,
+   w4a8_gemv_fq, kv_update, paged_kv_update and int8_gemm_noc; within
    W4A16_REL x max |y| for w4a16_gemm_noc and w4a16_gemv, whose fp32
-   sums run in another order; within atol 2e-3 for decode_attention and
-   decode_attention_q8), timed as CUDA-graph replays beside its plain
-   version, the library call (or null where no single PyTorch call
-   computes the same function) and its bound;
+   sums run in another order; within atol 2e-3 for the four attention
+   kernels), timed as CUDA-graph replays beside its plain version, the
+   library call (or null where no single PyTorch call computes the same
+   function) and its bound; each paged attention kernel also beside the
+   contiguous kernel on the same logical cache;
 5. the ladder's main path, with every launch count set to 0 just before
    it: the sweep driver on rungs 06v, 06, 14 and 07b at p = 1024 (fp64
    host oracle), 2048 and 4096 (fp64 device check), writing ``.m`` files
@@ -37,17 +40,25 @@ Phases (any failure raises and exits non-zero before the last line):
    (S-w4a8), int8 weights (S-int8, the serving CLI's default), int4
    weights (S-int4, W4A16) and W4A8 weights over the KV8 cache (S-kv8),
    each with 4 slots, greedy, window 8, serving 8 requests of 32-256
-   prompt tokens and 32 new tokens each; every request must get its 32
-   tokens and every kernel of the path must have been launched. Then the
-   time of one decode step at the same width. Each model is freed before
-   the next one loads;
+   prompt tokens and 32 new tokens each; then the paged engine: S-paged
+   (W4A8 weights, a bf16 pool of 128-token pages, the prefix cache; 8
+   requests of a shared 128-token prefix and 16-128 more tokens, which
+   must hit the cache) and S-paged-kv8 (W4A8 weights, a KV8 pool of
+   384-token pages, chunked prefill of 256 tokens; 8 requests of 300-700
+   prompt tokens, so prompts of 512 tokens or more are served through
+   chunks, in a pool small enough that a slot is preempted). Every
+   request must get its 32 tokens and every kernel of the path must have
+   been launched. Then the time of one decode step at the same width.
+   Each model is freed before the next one loads;
 7. parity at full width: the same engine at Llama-2-7B width with 2
    layers, on the same weights and 2 prompts (100 and 128 tokens, so the
    admission prefill runs at m = 2 x 128 = 256 and takes the prefill
    kernels), teacher-forced on the card and on the CPU, both on the
    kernel routes (the CPU through the kernels' plain versions), comparing
    the logits of the prefill and of 8 decode steps, for fp32, W4A8, int8
-   and int4 weights and for W4A8 weights over the KV8 cache. The card
+   and int4 weights, for W4A8 weights over the KV8 cache, and for W4A8
+   weights over a paged bf16 pool (pages of 128) and a paged KV8 pool
+   (pages of 384). The card
    side runs with every launch count set to 0 just before it and must
    launch every kernel its serve path launches. Float32 ops summed in
    another order differ by about 1e-6 relative, and the model amplifies
@@ -83,7 +94,8 @@ from how_to_optimize_gemm_tpu_torch.harness.driver import run_sweep
 from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
 from how_to_optimize_gemm_tpu_torch.models import llama
 from how_to_optimize_gemm_tpu_torch.ops import (decode_attention, int4, int8,
-                                               kv_update, registry)
+                                               kv_update, paged_attention,
+                                               registry)
 from how_to_optimize_gemm_tpu_torch.parallel import serving
 from how_to_optimize_gemm_tpu_torch.utils.matrices import make_abc
 from how_to_optimize_gemm_tpu_torch.utils.timing import (time_calls,
@@ -262,20 +274,49 @@ SERVE_KERNELS = [
                   "pallas_decode_attention.py:469",
          function="pallas_decode_attention._kernel_q8_v3 + _kernel_q8_v4 "
                   ":570 (decode_attention_q8)"),
+    dict(name="paged_kv_update", source=SRC + "paged_kv_update.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_kv_update.py:137",
+         function="pallas_kv_update._kernel_paged (paged_kv_update)"),
+    dict(name="paged_decode_attention",
+         source=SRC + "paged_decode_attention.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/"
+                  "pallas_paged_attention.py:59",
+         function="pallas_paged_attention._kernel_v4_paged + "
+                  "_kernel_v3_paged :154 (paged_decode_attention)"),
+    dict(name="paged_decode_attention_q8",
+         source=SRC + "paged_decode_attention_q8.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/"
+                  "pallas_paged_attention.py:350",
+         function="pallas_paged_attention._kernel_q8_v4_paged + "
+                  "_kernel_q8_v3_paged :455 (paged_decode_attention_q8)"),
 ]
 
-# The serving paths: (weight kind, cache kind) and the kernels each must
-# launch.
+# The serving paths: (weight kind, cache kind, the kernels each must
+# launch, the engine's paged options). The paged paths' requests and pool
+# are made by ``paged_requests``.
+W4A8_PAGED = ["w4a8_gemm_noc", "w4a8_gemv_fq", "paged_kv_update"]
 SERVE_PATHS = {
     "S-w4a8": ("w4a8", "bf16", ["w4a8_gemm_noc", "w4a8_gemv_fq",
-                                "kv_update", "decode_attention"]),
+                                "kv_update", "decode_attention"], {}),
     "S-int8": ("int8", "bf16", ["int8_gemm_noc", "kv_update",
-                                "decode_attention"]),
+                                "decode_attention"], {}),
     "S-int4": ("int4", "bf16", ["w4a16_gemm_noc", "w4a16_gemv",
-                                "kv_update", "decode_attention"]),
+                                "kv_update", "decode_attention"], {}),
     "S-kv8": ("w4a8", "int8", ["w4a8_gemm_noc", "w4a8_gemv_fq",
-                               "kv_update", "decode_attention_q8"]),
+                               "kv_update", "decode_attention_q8"], {}),
+    "S-paged": ("w4a8", "bf16", W4A8_PAGED + ["paged_decode_attention"],
+                dict(paged=True, prefix_cache=True)),
+    "S-paged-kv8": ("w4a8", "int8",
+                    W4A8_PAGED + ["paged_decode_attention_q8"],
+                    dict(paged=True, prefill_chunk=256)),
 }
+# S-paged-kv8's prompts: make_requests(8, 300, 32, seed=3, 700) gives
+# 625, 334, 371, 394, 372, 621, 648 and 533 tokens. The first four hold
+# 2 + 1 + 1 + 2 = 6 pages of 384 at admission, and the 371-token prompt
+# needs a second page 13 tokens into its decode; with 6 pages besides the
+# trash page (cache_pages = 7) the pool is dry then, and the newest other
+# slot is preempted. ``paged_requests`` works this out from the lengths.
+PAGED_KV8_SEED = 3
 
 
 def nbytes(*tensors) -> int:
@@ -546,6 +587,125 @@ def check_decode_attention_q8(gen: torch.Generator) -> dict:
     return results[0]
 
 
+def _shuffled_table(lens, ps: int, np_max: int, seed: int):
+    """(NP, a (slots, np_max) int32 block table on the card): pages
+    1 .. NP-1 handed out in a random order, chunks past a slot's length
+    0 (unallocated)."""
+    rng = np.random.default_rng(seed)
+    n_pages = len(lens) * np_max + 1
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    table = np.zeros((len(lens), np_max), np.int32)
+    for b, n in enumerate(lens):
+        for c in range(-(-n // ps)):
+            table[b, c] = free.pop()
+    return n_pages, torch.from_numpy(table).to("cuda")
+
+
+def check_paged_kv_update(gen: torch.Generator) -> dict:
+    """paged_kv_update, one token per slot, into one layer's 7B pools as
+    the paged serve paths make them: bf16 (129, 128, 32, 128), and KV8
+    int8 values (45, 384, 32, 128) and fp32 scales (45, 384, 32). Slot 1's
+    row is on the trash page (skipped), slot 3 is masked (kept). The JSON
+    line reports the bf16 pool; the library call is ``index_put_`` of the
+    written rows."""
+    heads = (CFG_7B.n_kv_heads, CFG_7B.d_head)
+    mask = torch.tensor([1, 1, 1, 0], dtype=torch.int32, device="cuda")
+    written = torch.tensor([0, 2], device="cuda")
+    results = []
+    for label, ps in (("bf16", 128), ("int8", 384), ("fp32 scales", 384)):
+        n_pages = SLOTS * -(-CFG_7B.max_seq // ps) + 1
+        pool = torch.randn((n_pages, ps, *heads), generator=gen,
+                           device="cuda")
+        new = torch.randn((SLOTS, 1, *heads), generator=gen, device="cuda")
+        if label == "bf16":
+            pool, new = pool.to(torch.bfloat16), new.to(torch.bfloat16)
+        else:
+            (pool, spool), (new, snew) = (llama.quantize_kv(pool),
+                                          llama.quantize_kv(new))
+            if label == "fp32 scales":
+                pool, new = spool, snew
+        pages = torch.tensor([[7], [0], [n_pages - 1], [3]],
+                             dtype=torch.int32, device="cuda")
+        offs = torch.tensor([[5], [9], [ps - 1], [0]], dtype=torch.int32,
+                            device="cuda")
+        got, ref = pool.clone(), pool.clone()
+        shape = f"pool {tuple(pool.shape)} {label}"
+        err = _equal("paged_kv_update", shape,
+                     kv_update.paged_kv_update(got, new, pages, offs, mask),
+                     kv_update.paged_kv_update_ref(ref, new, pages, offs,
+                                                   mask))
+        if not torch.equal(got[0], pool[0]):
+            raise AssertionError(f"paged_kv_update {shape}: wrote page 0")
+        vals = new[written, 0]
+        idx = (pages[written, 0].long(), offs[written, 0].long())
+        b_ms = bound_ms(2 * nbytes(vals) + nbytes(pages, offs, mask), 0.0,
+                        PEAK_INT8_OPS)
+        results.append(timed(
+            "paged_kv_update", shape,
+            lambda: kv_update.paged_kv_update(got, new, pages, offs, mask),
+            lambda: kv_update.paged_kv_update_ref(ref, new, pages, offs,
+                                                  mask),
+            lambda: got.index_put_(idx, vals), *b_ms, err))
+    return results[0]
+
+
+def check_paged_attention(gen: torch.Generator, q8: bool) -> dict:
+    """A paged attention kernel at the 7B width (4 slots, 32 heads of
+    128, lengths 1, 300, 1000 and 4096) over a shuffled block table of
+    128-token bf16 pages or 384-token KV8 pages (np_max * PS = 4,224 >
+    max_seq), and at a ragged shape (kvh 3, rep 2, d 32, pages of 96).
+    The contiguous kernel on the same logical cache (the pages gathered
+    and cut to max_seq, as the contiguous engine holds it) is timed
+    beside it. No single PyTorch call reads through a block table, so
+    the library time is null."""
+    name = "paged_decode_attention_q8" if q8 else "paged_decode_attention"
+    kernel = getattr(paged_attention, name)
+    plain = getattr(paged_attention, name + "_ref")
+    contiguous = (decode_attention.decode_attention_q8 if q8
+                  else decode_attention.decode_attention)
+    t7 = CFG_7B.max_seq
+    results = []
+    for kvh, rep, d, ps, t, lens in (
+            (32, 1, 128, 384 if q8 else 128, t7, [1, 300, 1000, t7]),
+            (3, 2, 32, 96, 1000, [1, 999, 1000, 517])):
+        np_max = -(-t // ps)
+        n_pages, table = _shuffled_table(lens, ps, np_max, ps + kvh)
+        q = torch.randn((len(lens), kvh * rep, d), generator=gen,
+                        device="cuda")
+        pools = []
+        for _ in "kv":
+            x = torch.randn((n_pages, ps, kvh, d), generator=gen,
+                            device="cuda")
+            pools += (list(llama.quantize_kv(x)) if q8
+                      else [x.to(torch.bfloat16)])
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        shape = (f"kvh={kvh} rep={rep} d={d} page={ps} np_max={np_max} "
+                 f"lengths {lens}")
+        out = kernel(q, *pools, table, lengths)
+        ref = plain(q, *pools, table, lengths)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if not (err < DECODE_ATOL and torch.isfinite(out).all()):
+            raise AssertionError(f"{name} {shape}: differs from its plain "
+                                 f"version by {err}")
+        live = sum(lens)
+        row = 2 * kvh * (d + 4) if q8 else 2 * kvh * d * 2
+        b_ms = bound_ms(nbytes(q, lengths, table) + 4 * q.numel()
+                        + live * row, 4.0 * kvh * rep * d * live,
+                        PEAK_BF16_FLOPS)
+        results.append(timed(name, shape,
+                             lambda: kernel(q, *pools, table, lengths),
+                             lambda: plain(q, *pools, table, lengths), None,
+                             *b_ms, err))
+        flat = [paged_attention.gather_paged(c, table)[:, :t].contiguous()
+                for c in pools]
+        c_ms = time_calls(lambda: contiguous(q, *flat, lengths),
+                          graph=True) * 1e3
+        print(f"{name} {shape}: the contiguous kernel on the same cache "
+              f"(T={t}) {c_ms:.4f} ms, paged {results[-1]['ms']:.4f} ms")
+    return results[0]
+
+
 SERVE_CHECKS = {"w4a8_gemm_noc": check_w4a8_noc,
                 "w4a8_gemv_fq": check_w4a8_gemv,
                 "kv_update": check_kv_update,
@@ -561,29 +721,77 @@ SERVE_CHECKS = {"w4a8_gemm_noc": check_w4a8_noc,
                     "w4a16_gemv", ((SLOTS, 4096, 11008), (SLOTS, 4096, 4096),
                                    (SLOTS, 11008, 4096), (1, 4096, 11008),
                                    (5, 1100, 1032)), gen),
-                "decode_attention_q8": check_decode_attention_q8}
+                "decode_attention_q8": check_decode_attention_q8,
+                "paged_kv_update": check_paged_kv_update,
+                "paged_decode_attention": lambda gen: check_paged_attention(
+                    gen, q8=False),
+                "paged_decode_attention_q8":
+                    lambda gen: check_paged_attention(gen, q8=True)}
+
+
+def paged_requests(path: str, page: int):
+    """The paged paths' requests and pool: S-paged, a shared 128-token
+    prefix and 16-128 more random tokens (numpy seed 0), the default pool;
+    S-paged-kv8, 300-700 random tokens and a pool of just the pages the
+    first four prompts hold at admission (plus the trash page), checked
+    to make a slot grow into a dry pool during its 32 decode tokens."""
+    if path == "S-paged":
+        rng = np.random.default_rng(0)
+        shared = rng.integers(1, 30000, 128).tolist()
+        tails = rng.integers(16, 129, 8)
+        return [serving.Request(uid=i, prompt=shared + rng.integers(
+            1, 30000, int(n)).tolist(), max_new=32)
+            for i, n in enumerate(tails)], None
+    reqs = serving.make_requests(8, 300, 32, seed=PAGED_KV8_SEED,
+                                 prompt_len_max=700)
+    lens = [len(r.prompt) for r in reqs[:SLOTS]]
+    held = [-(-n // page) for n in lens]
+    if not any(-(-(n + 32) // page) > h for n, h in zip(lens, held)):
+        raise AssertionError(f"{path}: no prompt of {lens} grows a page "
+                             "in decode, so nothing would be preempted")
+    return reqs, 1 + sum(held)
 
 
 def serve_path(gen: torch.Generator, path: str) -> dict:
     """One serving path, launch counts set to 0 just before it and read
     just after; then one decode step's time at the same width."""
-    kind, cache_kind, kernels = SERVE_PATHS[path]
+    kind, cache_kind, kernels, paged = SERVE_PATHS[path]
     cfg = dataclasses.replace(CFG_7B, weight_kind=kind)
     params = llama.init_params(gen, cfg, "cuda")
+    cache_pages = None
+    if paged:
+        page = paged_attention.good_page_size(
+            cfg.n_kv_heads, cfg.d_head, 1 if cache_kind == "int8" else 2)
+        reqs, cache_pages = paged_requests(path, page)
+    else:
+        reqs = serving.make_requests(8, 32, 32, seed=0, prompt_len_max=256)
     eng = serving.ServingEngine(cfg, params, batch_slots=SLOTS,
-                                cache_kind=cache_kind, device="cuda")
-    reqs = serving.make_requests(8, 32, 32, seed=0, prompt_len_max=256)
-    buckets = [eng._bucket(len(r.prompt)) for r in reqs]
+                                cache_kind=cache_kind, device="cuda",
+                                cache_pages=cache_pages, **paged)
+    # count preemptions without touching the engine: wrap its method
+    preempted = []
+    preempt = eng._preempt_newest
+
+    def counting(protect, queue):
+        ok = preempt(protect, queue)
+        preempted.append(ok)
+        return ok
+    eng._preempt_newest = counting
+    chunk = paged.get("prefill_chunk")
+    buckets = [chunk or eng._bucket(len(r.prompt)) for r in reqs]
     if max(buckets) >= llama.FLASH_MIN_S:
         raise AssertionError(f"a prompt bucket {max(buckets)} would take "
                              "the unported flash route")
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
     t0 = time.perf_counter()
     eng.run(reqs, window=8)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    del eng._preempt_newest        # the wrapper refers to the engine
     launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     stats = serving.summarize(reqs, seconds)
     short = [r.uid for r in reqs if len(r.out) != 32 or not r.done]
     if short:
@@ -596,6 +804,14 @@ def serve_path(gen: torch.Generator, path: str) -> dict:
     steps = launches[attn] // cfg.n_layers
     print(f"{path}: prompts {[len(r.prompt) for r in reqs]}, buckets "
           f"{sorted(set(buckets))}")
+    if paged:
+        print(f"{path}: pool {eng.n_pages - 1} pages x {eng.page} tokens "
+              f"(+ trash page), prefix hits {eng.prefix_hit_tokens} tokens, "
+              f"{sum(preempted)} preemptions, peak {peak_gb:.2f} GB")
+        if paged.get("prefix_cache") and not eng.prefix_hit_tokens > 0:
+            raise AssertionError(f"{path}: no prefix-cache hit")
+        if cache_pages is not None and not any(preempted):
+            raise AssertionError(f"{path}: no slot was preempted")
     print(f"{path}: {stats['tokens']} tokens in {seconds:.3f} s = "
           f"{stats['tok_per_s']:.1f} tok/s; TTFT p50 "
           f"{stats['ttft_p50_ms']:.1f} ms max {stats['ttft_max_ms']:.1f} "
@@ -604,10 +820,16 @@ def serve_path(gen: torch.Generator, path: str) -> dict:
                          for k in kernels)
     print(f"{path}: launches {launches}; {steps} decode steps; per step "
           f"{per_step}")
-    # one decode step of 4 slots at position 512, timed alone
+    # one decode step of 4 slots at position 512, timed alone; a paged
+    # engine reads through a table of the pool's pages, taken in turn
     tok = torch.ones((SLOTS, 1), dtype=torch.int32, device="cuda")
     pos = torch.full((SLOTS,), 512, dtype=torch.int32, device="cuda")
-    step_ms = time_calls(lambda: eng.step(tok, pos), inner_iters=8,
+    kw = {}
+    if paged:
+        kw["table"] = (1 + torch.arange(SLOTS * eng.np_max, device="cuda")
+                       % (eng.n_pages - 1)).to(torch.int32).reshape(
+                           SLOTS, eng.np_max)
+    step_ms = time_calls(lambda: eng.step(tok, pos, **kw), inner_iters=8,
                          outer_repeats=3, warmup=2) * 1e3
     weight_bytes = sum(nbytes(t) for layer in params["layers"]
                        for lin in layer.values() if isinstance(lin, dict)
@@ -616,7 +838,10 @@ def serve_path(gen: torch.Generator, path: str) -> dict:
     print(f"{path}: decode step {step_ms:.3f} ms at 4 slots, position 512 "
           f"(weights {weight_bytes / 1e9:.3f} GB: bound "
           f"{1e3 * weight_bytes / PEAK_BYTES:.3f} ms)")
-    stats.update(step_ms=step_ms, steps=steps)
+    stats.update(step_ms=step_ms, steps=steps, peak_gb=peak_gb)
+    if paged:
+        stats.update(prefix_hit_tokens=eng.prefix_hit_tokens,
+                     preemptions=sum(preempted))
     print(json.dumps({"serve": path, "weights": kind, "cache": cache_kind,
                       **stats, "launches": launches}))
     del eng, params
@@ -627,23 +852,40 @@ def serve_path(gen: torch.Generator, path: str) -> dict:
 def teacher_forced(eng, prompts, forced) -> torch.Tensor:
     """Logits of the engine's admission prefill of ``prompts`` (one per
     slot) and of decode steps fed ``forced`` (slots, steps) tokens ->
-    (1 + steps, slots, vocab) on the CPU."""
+    (1 + steps, slots, vocab) on the CPU. A paged engine first gives each
+    slot the pages of all its positions."""
     reqs = [serving.Request(uid=i, prompt=p, max_new=1)
             for i, p in enumerate(prompts)]
-    first = eng._dispatch_prefill(list(enumerate(reqs)))
+    if eng.paged:
+        for s, p in enumerate(prompts):
+            if not eng.alloc.grow(s, len(p) + forced.shape[1]):
+                raise AssertionError("parity: the pool is too small")
+    table = eng._table()
+    kw = {} if table is None else {"table": table}
+    first = eng._dispatch_prefill([(s, r, 0) for s, r in enumerate(reqs)],
+                                  table)
     rows = [torch.cat([first[s] for s in range(len(prompts))])]
     pos = np.array([len(p) for p in prompts], np.int32)
     for j in range(forced.shape[1]):
-        logits = eng.step(eng._tensor(forced[:, j:j + 1]), eng._tensor(pos))
+        logits = eng.step(eng._tensor(forced[:, j:j + 1]), eng._tensor(pos),
+                          **kw)
         rows.append(logits[:, -1])
         pos = pos + 1
     return torch.stack(rows).float().cpu()
 
 
-# (weight kind, cache kind, kernels the card side must launch) of each
-# parity run
-PARITY = (("fp32", "bf16", ["kv_update", "decode_attention"]),
-          *SERVE_PATHS.values())
+# (label, weight kind, cache kind, kernels the card side must launch, the
+# engine's paged options) of each parity run
+PARITY = (("fp32", "fp32", "bf16", ["kv_update", "decode_attention"], {}),
+          *((kind if cache_kind == "bf16" else f"{kind}+kv8", kind,
+             cache_kind, kernels, paged)
+            for kind, cache_kind, kernels, paged in (
+                SERVE_PATHS[path] for path in ("S-w4a8", "S-int8", "S-int4",
+                                               "S-kv8"))),
+          ("w4a8 paged", "w4a8", "bf16",
+           W4A8_PAGED + ["paged_decode_attention"], dict(paged=True)),
+          ("w4a8+kv8 paged", "w4a8", "int8",
+           W4A8_PAGED + ["paged_decode_attention_q8"], dict(paged=True)))
 # 2 slots x a 128-token bucket: the admission prefill runs at
 # m = 256 = INT8_KERNEL_MIN_M, so it takes the prefill kernels
 PARITY_PROMPTS = (100, 128)
@@ -657,8 +899,7 @@ def parity(gen: torch.Generator) -> None:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, 30000, n).tolist() for n in PARITY_PROMPTS]
     forced = rng.integers(1, 30000, (2, 8)).astype(np.int32)
-    for kind, cache_kind, kernels in PARITY:
-        label = kind if cache_kind == "bf16" else f"{kind}+kv8"
+    for label, kind, cache_kind, kernels, paged in PARITY:
         cfg = dataclasses.replace(CFG_7B, n_layers=2, weight_kind=kind)
         params = llama.init_params(gen, cfg, "cuda")
         cpu = convert.to_device(params, "cpu")
@@ -675,7 +916,7 @@ def parity(gen: torch.Generator) -> None:
                 continue
             eng = serving.ServingEngine(cfg, p, batch_slots=2, device=dev,
                                         cache_kind=cache_kind,
-                                        kernel_routes=routes)
+                                        kernel_routes=routes, **paged)
             _build.reset_launches()
             out[side] = teacher_forced(eng, prompts, forced)
             if dev == "cuda":

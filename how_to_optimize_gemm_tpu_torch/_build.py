@@ -78,6 +78,17 @@ KERNELS = {
     #  stream)
     "decode_attention_q8": Kernel("decode_attention_q8.cu", (_P,) * 7
                                   + (_I,) * 6 + (_F, _P)),
+    # (pool, new, tab, mask, B, S, NP, PS, row_bytes, stream)
+    "paged_kv_update": Kernel("paged_kv_update.cu", (_P,) * 4 + (_I,) * 5
+                              + (_P,)),
+    # (q, k_pool, v_pool, table, lengths, out, B, NP, PS, np_max, KVH, REP,
+    #  D, scale, stream)
+    "paged_decode_attention": Kernel("paged_decode_attention.cu", (_P,) * 6
+                                     + (_I,) * 7 + (_F, _P)),
+    # (q, qk, sk, qv, sv, table, lengths, out, B, NP, PS, np_max, KVH, REP,
+    #  D, scale, stream)
+    "paged_decode_attention_q8": Kernel("paged_decode_attention_q8.cu",
+                                        (_P,) * 8 + (_I,) * 7 + (_F, _P)),
 }
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -9,7 +9,8 @@ already converted to numpy arrays (``np.asarray`` on each leaf).
   weight kind: fp32, bf16, int8, packed int4 and w4a8 linears) and
   returns the port's tree;
 - ``kv_cache_from_jax`` takes a ``models/llama.init_kv_cache`` cache,
-  bf16 or KV8, and returns the port's;
+  bf16 or KV8, and returns the port's; ``paged_cache_from_jax`` does the
+  same for an ``init_paged_kv_cache`` pool;
 - ``to_device`` moves a port tree to another device.
 
 Layouts and dtypes are kept (packed int4 bytes are copied byte for
@@ -81,7 +82,9 @@ def kv_cache_from_jax(cache, device) -> list:
     """A JAX contiguous KV cache with numpy leaves -> the port's cache on
     ``device``: per layer (k, v) bf16 (B, T, KVH, D) as they are, or KV8
     (qk, sk, qv, sv) with the scales cropped from the reference's
-    (B, T, 128) lanes to the port's (B, T, KVH)."""
+    (B, T, 128) lanes to the port's (B, T, KVH). Only the trailing axes
+    matter, so a paged pool converts the same way
+    (``paged_cache_from_jax``)."""
     out = []
     for entry in cache:
         entry = [np.asarray(x) for x in entry]
@@ -95,6 +98,14 @@ def kv_cache_from_jax(cache, device) -> list:
         out.append(tuple(_tensor(np.ascontiguousarray(x), device)
                          for x in entry))
     return out
+
+
+def paged_cache_from_jax(pools, device) -> list:
+    """A JAX ``init_paged_kv_cache`` pool with numpy leaves -> the port's
+    on ``device``: per layer (k_pool, v_pool) bf16 (NP, PS, KVH, D) as
+    they are, or KV8 (qk, sk, qv, sv) with the scales cropped from
+    (NP, PS, 128) lanes to (NP, PS, KVH)."""
+    return kv_cache_from_jax(pools, device)
 
 
 def to_device(tree, device):

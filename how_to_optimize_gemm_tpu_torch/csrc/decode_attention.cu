@@ -27,6 +27,6 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int KVH, int REP, int D, int bk, float scale,
                                 void* stream) {
   return htog::launch_decode_attention<__nv_bfloat16>(
-      q, k, nullptr, v, nullptr, lengths, out, B, T, KVH, REP, D, bk, scale,
-      stream);
+      q, k, nullptr, v, nullptr, lengths, out, B, KVH, REP, D,
+      htog::ContiguousChunks{T, bk}, scale, stream);
 }

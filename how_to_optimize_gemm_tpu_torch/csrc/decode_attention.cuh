@@ -1,11 +1,19 @@
 // The decode-attention kernel template shared by decode_attention.cu (bf16
-// cache) and decode_attention_q8.cu (int8 cache with fp32 scales per
-// (token, head)). Each source states what it replaces and its bound.
+// cache), decode_attention_q8.cu (int8 cache with fp32 scales per (token,
+// head)) and their paged forms paged_decode_attention.cu and
+// paged_decode_attention_q8.cu. Each source states what it replaces and its
+// bound.
 //
-// q (B, KVH*REP, D) float32, head h = g*REP + r; the caches (B, T, KVH, D)
-// time-major, bf16 or int8; for int8, sk and sv (B, T, KVH) float32;
-// lengths (B) int32, the valid cache rows of each slot; out (B, KVH*REP*D)
-// float32. D in {32, 64, 128}.
+// q (B, KVH*REP, D) float32, head h = g*REP + r; the cache rows (R, KVH, D),
+// bf16 or int8; for int8, sk and sv (R, KVH) float32; lengths (B) int32,
+// the valid cache rows of each slot; out (B, KVH*REP*D) float32. D in
+// {32, 64, 128}. Key j of chunk t of slot b lives in cache row
+// chunks.row0(b, t) + j, the policy being where the sources differ:
+// - ContiguousChunks: a time-major (B, T, KVH, D) cache, R = B*T, row
+//   b*T + t*bk + j, ceil(T / bk) chunks;
+// - PagedChunks: a page pool (NP, PS, KVH, D), R = NP*PS, bk = PS, row
+//   min(table[b*np_max + t], NP - 1) * PS + j (the reference's clamp),
+//   np_max chunks. A chunk is one page.
 //
 // Arithmetic (the reference's, chunk by chunk): q in fp32 times D^-0.5;
 // K cast to fp32; fp32 scores, times sk[t, g] for an int8 cache; keys at
@@ -14,8 +22,9 @@
 // p = exp(s - m_new), l = l * alpha + sum p); the PV operand is p rounded
 // to bf16 (for int8: p * sv[t, g] rounded to bf16), times V cast to fp32,
 // accumulated in fp32; o = o * alpha + pv; out = o / max(l, 1e-30). Only
-// ceil(len / bk) chunks of a slot are read. Sums are taken in another
-// order than the plain version's, so the two agree to rounding.
+// min(ceil(len / bk), chunks.count()) chunks of a slot are read, and a slot
+// of length 0 outputs 0. Sums are taken in another order than the plain
+// version's, so the two agree to rounding.
 //
 // Design: one block of 128 threads (4 warps) per (kv head, slot), walking
 // the slot's live chunks. Per chunk: (1) each warp takes keys in runs of
@@ -46,6 +55,24 @@ constexpr int ATTN_U = 4;              // key rows in flight per warp
 constexpr int MAX_SCORES = 8192;       // rep * bk, and WARPS * rep * D
 constexpr int MAX_QELEMS = 2048;       // rep * d
 constexpr float ATTN_NEG_INF = -1e30f;
+
+// Where each chunk of a slot starts among the cache rows.
+struct ContiguousChunks {
+  int T, bk;
+  __device__ int count() const { return (T + bk - 1) / bk; }
+  __device__ size_t row0(int b, int t) const {
+    return (size_t)b * T + (size_t)t * bk;
+  }
+};
+
+struct PagedChunks {
+  const int* table;   // (B, np_max) int32
+  int np_max, n_pages, bk;   // bk = PS
+  __device__ int count() const { return np_max; }
+  __device__ size_t row0(int b, int t) const {
+    return (size_t)min(table[(size_t)b * np_max + t], n_pages - 1) * bk;
+  }
+};
 
 // PER_LANE consecutive elements of a cache row (aligned) -> float
 template <int PER_LANE>
@@ -87,7 +114,8 @@ __device__ __forceinline__ void load_row(const int8_t* p,
 }
 
 // Elem: __nv_bfloat16, or int8_t with the scales sk, sv (null for bf16).
-template <int D, class Elem>
+// Chunks: ContiguousChunks or PagedChunks.
+template <int D, class Elem, class Chunks>
 __global__ void __launch_bounds__(ATTN_THREADS)
     decode_attention_kernel(const float* __restrict__ q,
                             const Elem* __restrict__ kc,
@@ -95,8 +123,8 @@ __global__ void __launch_bounds__(ATTN_THREADS)
                             const Elem* __restrict__ vc,
                             const float* __restrict__ sv,
                             const int* __restrict__ lengths,
-                            float* __restrict__ out, int T, int KVH, int REP,
-                            int bk, float scale) {
+                            float* __restrict__ out, Chunks chunks, int KVH,
+                            int REP, float scale) {
   constexpr bool kScaled = std::is_same<Elem, int8_t>::value;
   constexpr int THREADS = ATTN_THREADS;
   constexpr int WARPS = ATTN_WARPS;
@@ -113,8 +141,8 @@ __global__ void __launch_bounds__(ATTN_THREADS)
   int warp = threadIdx.x >> 5;
   int lane = threadIdx.x & 31;
   int len = lengths[b];
-  int nk_max = (T + bk - 1) / bk;
-  int nk = len > 0 ? min((len + bk - 1) / bk, nk_max) : 0;
+  const int bk = chunks.bk;
+  int nk = len > 0 ? min((len + bk - 1) / bk, chunks.count()) : 0;
 
   const float* qb = q + ((size_t)b * KVH + g) * REP * D;
   for (int e = threadIdx.x; e < REP * D; e += THREADS) {
@@ -131,17 +159,18 @@ __global__ void __launch_bounds__(ATTN_THREADS)
     for (int e = 0; e < PER_LANE; ++e) o[r][e] = 0.0f;
   __syncthreads();
 
-  size_t row_stride = (size_t)KVH * D;   // elements between time rows
-  const Elem* kb = kc + (size_t)b * T * row_stride + (size_t)g * D
-                   + lane * PER_LANE;
-  const Elem* vb = vc + (size_t)b * T * row_stride + (size_t)g * D
-                   + lane * PER_LANE;
-  // scale of (slot b, time t, head g) at scale_b[t * KVH]
-  size_t scale_b = (size_t)b * T * KVH + g;
+  size_t row_stride = (size_t)KVH * D;   // elements between cache rows
+  const Elem* kg = kc + (size_t)g * D + lane * PER_LANE;
+  const Elem* vg = vc + (size_t)g * D + lane * PER_LANE;
 
   for (int t = 0; t < nk; ++t) {
     int t0 = t * bk;
     int nvalid = min(bk, len - t0);   // >= 1 for a live chunk
+    size_t r0 = chunks.row0(b, t);    // the chunk's first cache row
+    const Elem* kb = kg + r0 * row_stride;
+    const Elem* vb = vg + r0 * row_stride;
+    // scale of (cache row r0 + j, head g) at scale_b[j * KVH]
+    size_t scale_b = r0 * KVH + g;
     // (1) scores; keys past the slot's length are -1e30
     for (int j0 = warp * U; j0 < bk; j0 += WARPS * U) {
       float kf[U][PER_LANE];
@@ -149,9 +178,9 @@ __global__ void __launch_bounds__(ATTN_THREADS)
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (j0 + u < nvalid) {
-          load_row<PER_LANE>(kb + (size_t)(t0 + j0 + u) * row_stride, kf[u]);
+          load_row<PER_LANE>(kb + (size_t)(j0 + u) * row_stride, kf[u]);
           if constexpr (kScaled) {
-            s_k[u] = sk[scale_b + (size_t)(t0 + j0 + u) * KVH];
+            s_k[u] = sk[scale_b + (size_t)(j0 + u) * KVH];
           }
         }
       }
@@ -201,7 +230,7 @@ __global__ void __launch_bounds__(ATTN_THREADS)
         if constexpr (kScaled) {
           // rows past the length are never read (their p is 0)
           operand = j < nvalid
-              ? __fmul_rn(p, sv[scale_b + (size_t)(t0 + j) * KVH]) : 0.0f;
+              ? __fmul_rn(p, sv[scale_b + (size_t)j * KVH]) : 0.0f;
         }
         srow[j] = __bfloat162float(__float2bfloat16_rn(operand));
       }
@@ -230,7 +259,7 @@ __global__ void __launch_bounds__(ATTN_THREADS)
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (j0 + u < nvalid) {
-          load_row<PER_LANE>(vb + (size_t)(t0 + j0 + u) * row_stride, vf[u]);
+          load_row<PER_LANE>(vb + (size_t)(j0 + u) * row_stride, vf[u]);
         }
       }
 #pragma unroll
@@ -270,11 +299,11 @@ __global__ void __launch_bounds__(ATTN_THREADS)
 
 // Launch over grid (KVH, B) on ``stream``; D in {32, 64, 128}, REP * bk <=
 // 8192 and REP * D <= 2048 (the wrappers check). Returns the launch error.
-template <class Elem>
+template <class Elem, class Chunks>
 int launch_decode_attention(const void* q, const void* k, const void* sk,
                             const void* v, const void* sv,
-                            const void* lengths, void* out, int B, int T,
-                            int KVH, int REP, int D, int bk, float scale,
+                            const void* lengths, void* out, int B, int KVH,
+                            int REP, int D, Chunks chunks, float scale,
                             void* stream) {
   dim3 grid(KVH, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -283,12 +312,12 @@ int launch_decode_attention(const void* q, const void* k, const void* sk,
         static_cast<const float*>(q), static_cast<const Elem*>(k),
         static_cast<const float*>(sk), static_cast<const Elem*>(v),
         static_cast<const float*>(sv), static_cast<const int*>(lengths),
-        static_cast<float*>(out), T, KVH, REP, bk, scale);
+        static_cast<float*>(out), chunks, KVH, REP, scale);
   };
   switch (D) {
-    case 32: args(decode_attention_kernel<32, Elem>); break;
-    case 64: args(decode_attention_kernel<64, Elem>); break;
-    case 128: args(decode_attention_kernel<128, Elem>); break;
+    case 32: args(decode_attention_kernel<32, Elem, Chunks>); break;
+    case 64: args(decode_attention_kernel<64, Elem, Chunks>); break;
+    case 128: args(decode_attention_kernel<128, Elem, Chunks>); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

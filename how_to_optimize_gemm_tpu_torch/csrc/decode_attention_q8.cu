@@ -33,7 +33,7 @@ extern "C" int decode_attention_q8(const void* q, const void* qk,
                                    const void* sv, const void* lengths,
                                    void* out, int B, int T, int KVH, int REP,
                                    int D, int bk, float scale, void* stream) {
-  return htog::launch_decode_attention<int8_t>(q, qk, sk, qv, sv, lengths,
-                                               out, B, T, KVH, REP, D, bk,
-                                               scale, stream);
+  return htog::launch_decode_attention<int8_t>(
+      q, qk, sk, qv, sv, lengths, out, B, KVH, REP, D,
+      htog::ContiguousChunks{T, bk}, scale, stream);
 }

@@ -2,12 +2,15 @@
 
     python -m how_to_optimize_gemm_tpu_torch.harness.serve_profile \\
         [--weight-kind w4a8] [--cache-kind bf16] [--layers 32] \\
-        [--slots 4] [--pos 512] [--steps 8]
+        [--slots 4] [--pos 512] [--steps 8] [--paged] [--page N]
 
 Builds Llama-2-7B with ``--weight-kind`` weights (random, seed 0) and a
 ``--cache-kind`` cache (bf16, or int8 for KV8) for ``--slots`` slots,
-then times decode steps of one token per slot at position ``--pos`` (the
-cache's contents do not change the work):
+contiguous or, with ``--paged``, a page pool of ``--page`` tokens a page
+(default ``good_page_size``) with every slot's table allocated in order
+(the reference's paged-vs-contiguous setup), then times decode steps of
+one token per slot at position ``--pos`` (the cache's contents do not
+change the work):
 
 1. wall: the host clock around ``--steps`` steps ending in a
    synchronize, in ms per step;
@@ -33,6 +36,7 @@ import torch
 from how_to_optimize_gemm_tpu_torch import _build
 from how_to_optimize_gemm_tpu_torch.models import llama
 from how_to_optimize_gemm_tpu_torch.models.linear import KINDS
+from how_to_optimize_gemm_tpu_torch.ops.paged_attention import good_page_size
 from how_to_optimize_gemm_tpu_torch.parallel.serving import CACHE_KINDS
 from how_to_optimize_gemm_tpu_torch.utils.device import default_device
 
@@ -62,6 +66,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--pos", type=int, default=512)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--paged", action="store_true",
+                    help="a page pool read through a block table")
+    ap.add_argument("--page", type=int, default=None,
+                    help="tokens a page (default: good_page_size)")
     args = ap.parse_args(argv)
     device = default_device()
     cfg = dataclasses.replace(llama.llama2_7b(args.weight_kind),
@@ -69,16 +77,27 @@ def main(argv=None) -> dict:
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = llama.init_params(gen, cfg, device)
-    cache = llama.init_kv_cache(cfg, args.slots,
-                                quantized=args.cache_kind == "int8",
-                                device=device)
+    quantized = args.cache_kind == "int8"
+    kw = {}
+    if args.paged:
+        page = args.page or good_page_size(cfg.n_kv_heads, cfg.d_head,
+                                           1 if quantized else 2)
+        np_max = -(-cfg.max_seq // page)
+        cache = llama.init_paged_kv_cache(cfg, args.slots * np_max + 1, page,
+                                          quantized=quantized, device=device)
+        kw["table"] = torch.arange(
+            1, args.slots * np_max + 1, dtype=torch.int32,
+            device=device).reshape(args.slots, np_max)
+    else:
+        cache = llama.init_kv_cache(cfg, args.slots, quantized=quantized,
+                                    device=device)
     tokens = torch.ones((args.slots, 1), dtype=torch.int32, device=device)
     pos = torch.full((args.slots,), args.pos, dtype=torch.int32,
                      device=device)
 
     def steps(n):
         for _ in range(n):
-            llama.decode_step(params, cfg, cache, tokens, pos)
+            llama.decode_step(params, cfg, cache, tokens, pos, **kw)
 
     steps(2)                                     # warm up, builds kernels
     torch.cuda.synchronize()
@@ -110,6 +129,7 @@ def main(argv=None) -> dict:
     record = {
         "card": torch.cuda.get_device_name(device),
         "weights": args.weight_kind, "cache": args.cache_kind,
+        "page": cache[0][0].shape[1] if args.paged else None,
         "layers": args.layers, "slots": args.slots, "pos": args.pos,
         "wall_ms_per_step": wall_ms,
         "profiled_wall_ms_per_step": prof_wall_ms,

@@ -15,6 +15,11 @@ the same weights. Two caches (``init_kv_cache``):
   (B, T, 128) lanes, a Mosaic tiling rule; the port keeps KVH
   (``convert.kv_cache_from_jax`` crops the reference's).
 
+Each has a paged form (``init_paged_kv_cache``): the same entries as page
+pools (NP, PS, KVH, D) and scales (NP, PS, KVH), read and written through
+a block table (B, np_max) that ``decode_step(table=...)`` takes (one
+table for every layer; the engine owns it). Page 0 is the trash page.
+
 Routes, by the device of the activations (the reference's
 ``use_pallas=None`` routes: kernels on the accelerator, its plain XLA
 formulations elsewhere). ``kernel_routes=True`` takes the kernel routes
@@ -25,23 +30,29 @@ on the CPU too, through the kernels' plain versions (the reference's
   route;
 - cache writes of at most 8 rows on the kernel routes: kernel
   ``kv_update`` (``ops/kv_update``; KV8 values and scales alike), rows
-  out of range dropped one by one; otherwise the reference's indexing
-  write, done in place (see ``_update_cache``);
+  out of range dropped one by one, or over a paged cache kernel
+  ``paged_kv_update``, trash-page rows skipped; otherwise the
+  reference's indexing write, done in place (see ``_update_cache`` and
+  ``_update_paged_cache``);
 - decode (s == 1) on the kernel routes: kernel ``decode_attention``, or
-  ``decode_attention_q8`` over a KV8 cache (``ops/decode_attention``), at
-  every cache size. The reference's cost rule (``_route_decode``: eager
+  ``decode_attention_q8`` over a KV8 cache (``ops/decode_attention``),
+  or their paged forms ``paged_decode_attention`` and
+  ``paged_decode_attention_q8`` (``ops/paged_attention``), at every
+  cache size. The reference's cost rule (``_route_decode``: eager
   below 24 MB of cache per layer) was measured on a v5e and is not
   carried over; off the kernel routes, ``_attention`` or
-  ``_attention_kv8``;
+  ``_attention_kv8`` (over ``gather_paged`` copies of a paged cache);
 - admission prefill: causal self-attention over the prompt
   (``_attention``). Prompts of 512 tokens or more with d_head 64 or 128,
   where the reference runs its Pallas flash kernel, raise
-  ``NotImplementedError`` on the card (ROADMAP B18).
+  ``NotImplementedError`` on the card (ROADMAP B18); the engine's chunked
+  prefill keeps every chunk below that. Prefix-hit suffixes and later
+  chunks (s > 1, not at position 0) take the eager cached route.
 
 Not ported yet, each raising ``NotImplementedError``: MoE layers
-(``n_experts > 0``, ROADMAP A11/B20), paged caches (B14-paged, B17) and
-LoRA (A8). Unlike JAX arrays, the cache tensors are written in place: a
-step's returned cache is the same tensors it was given.
+(``n_experts > 0``, ROADMAP A11/B20) and LoRA (A8). Unlike JAX arrays,
+the cache tensors are written in place: a step's returned cache is the
+same tensors it was given.
 """
 from __future__ import annotations
 
@@ -53,7 +64,10 @@ from how_to_optimize_gemm_tpu_torch.models.linear import (apply_linear,
                                                           make_linear)
 from how_to_optimize_gemm_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_q8)
-from how_to_optimize_gemm_tpu_torch.ops.kv_update import kv_update
+from how_to_optimize_gemm_tpu_torch.ops.kv_update import (kv_update,
+                                                          paged_kv_update)
+from how_to_optimize_gemm_tpu_torch.ops.paged_attention import (
+    gather_paged, paged_decode_attention, paged_decode_attention_q8)
 from how_to_optimize_gemm_tpu_torch.utils.device import (default_device,
                                                          kernel_routes_for)
 
@@ -239,6 +253,57 @@ def _update_cache(cache, new, pos, write_mask=None, kernels=None):
     return cache
 
 
+def _paged_rows(pos, s: int, table: torch.Tensor, ps: int,
+                write_mask=None):
+    """The physical (pages, offs), each (B, S) int32, of positions
+    pos .. pos + S - 1 (pos an int or (B,) ints) through the block table
+    (B, np_max): chunk ``p // ps``, offset ``p % ps``. Masked slots
+    (write_mask False) and positions outside [0, np_max * ps) go to the
+    trash page 0. Every layer of a step writes the same rows, so
+    ``decode_step`` computes them once.
+
+    The reference clips the chunk index to [0, np_max - 1] instead, which
+    lands bucket padding that passes the table in the slot's last page,
+    on top of live rows there (ROADMAP C.4); no live position lies
+    outside the table, so the port sends such rows to the trash page."""
+    b, np_max = table.shape
+    dev = table.device
+    posv = torch.as_tensor(pos, device=dev).to(torch.int64).expand(b)
+    positions = posv[:, None] + torch.arange(s, device=dev)
+    chunk = torch.div(positions, ps, rounding_mode="floor")
+    inside = (positions >= 0) & (chunk < np_max)
+    pages = torch.gather(table.to(torch.int64), 1, chunk.clamp(0, np_max - 1))
+    if write_mask is not None:
+        inside &= torch.as_tensor(write_mask, device=dev).to(
+            torch.bool).expand(b)[:, None]
+    return (pages.masked_fill(~inside, 0).to(torch.int32),
+            positions.remainder(ps).to(torch.int32))
+
+
+def _write_paged(pool, new, pages, offs, kernels=None):
+    """pool (NP, PS, *rest) <- new (B, S, *rest) at the (pages, offs) of
+    ``_paged_rows``, IN PLACE; returns ``pool``. At most 8 rows on the
+    kernel route: ``paged_kv_update``, which skips trash-page rows;
+    otherwise the reference's scatter, which writes them to page 0."""
+    new = new.to(pool.dtype)
+    b, s = new.shape[:2]
+    if kernel_routes_for(pool, kernels) and s <= KV_KERNEL_MAX_S:
+        return paged_kv_update(pool, new, pages, offs)
+    pool[pages.reshape(-1), offs.reshape(-1)] = new.reshape(
+        (b * s,) + new.shape[2:])
+    return pool
+
+
+def _update_paged_cache(pool, new, pos, table, write_mask=None,
+                        kernels=None):
+    """Paged-cache write: pool (NP, PS, *rest) <- new (B, S, *rest) at
+    positions pos .. pos + S - 1 through the block table, IN PLACE;
+    returns ``pool`` (``_paged_rows``, then ``_write_paged``)."""
+    pages, offs = _paged_rows(pos, new.shape[1], table, pool.shape[1],
+                              write_mask)
+    return _write_paged(pool, new, pages, offs, kernels)
+
+
 def quantize_kv(x: torch.Tensor):
     """(B, S, G, D) -> int8 values and per-(b, s, g) fp32 scales (B, S, G):
     ``scale = max(amax, 1e-8) / 127`` (IEEE division, as the reference
@@ -287,17 +352,20 @@ def _mlp(layer, y, kernels):
 
 
 def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None, mask=None,
-           write_mask=None, prefill_self=False, kernel_routes=None):
+           write_mask=None, prefill_self=False, kernel_routes=None,
+           paged_rows=None):
     """One transformer block. kv None: full-sequence forward; kv =
     (k_cache, v_cache, pos) for the cached step over a bf16 cache, or
-    (qk, sk, qv, sv, pos) over a KV8 cache, pos an int or (B,) ints.
+    (qk, sk, qv, sv, pos) over a KV8 cache, pos an int or (B,) ints; a
+    paged cache's entries are its pools followed by the block table:
+    (k_pool, v_pool, table, pos) or (qk, sk, qv, sv, table, pos), and
+    paged_rows the step's ``_paged_rows``.
     Returns (x, the layer's cache tuple or None)."""
     kernels = kernel_routes_for(x, kernel_routes)
     b, s, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    if kv is not None and len(kv) not in (3, 5):
-        raise NotImplementedError("paged caches are not ported yet "
-                                  "(ROADMAP B14-paged, B17)")
+    if kv is not None and len(kv) not in (3, 4, 5, 6):
+        raise ValueError(f"a cache entry of {len(kv)} items")
 
     y = rmsnorm(x, layer["attn_norm"], cfg.norm_eps)
     q = _lin(layer, "wq", y, kernels).reshape(b, s, h, dh)
@@ -312,6 +380,7 @@ def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None, mask=None,
         attn = _attention(q, k, v, mask)
     else:
         *cache, pos = kv
+        table = cache.pop() if len(kv) in (4, 6) else None
         kv8 = len(cache) == 4
         if kv8:
             kq, ks = quantize_kv(k)
@@ -319,9 +388,13 @@ def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None, mask=None,
             new_rows = (kq, ks, vq, vs)
         else:
             new_rows = (k, v)
-        cache = tuple(_update_cache(c, n, pos, write_mask, kernels)
-                      for c, n in zip(cache, new_rows))
-        t = cache[0].shape[1]
+        if table is None:
+            cache = tuple(_update_cache(c, n, pos, write_mask, kernels)
+                          for c, n in zip(cache, new_rows))
+        else:
+            pages, offs = paged_rows
+            cache = tuple(_write_paged(c, n, pages, offs, kernels)
+                          for c, n in zip(cache, new_rows))
         if prefill_self:
             # admission prefill: the slot starts at position 0, so its
             # attention is causal self-attention over the prompt
@@ -332,18 +405,27 @@ def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None, mask=None,
         elif s == 1 and kernels:
             lengths = torch.as_tensor(pos, device=x.device).to(
                 torch.int32).expand(b) + 1
-            if kv8:
+            if table is not None:
+                fn = (paged_decode_attention_q8 if kv8
+                      else paged_decode_attention)
+                attn = fn(q[:, 0], *cache, table, lengths)
+            elif kv8:
                 attn = decode_attention_q8(q[:, 0], *cache, lengths)
             else:
                 attn = decode_attention(q[:, 0], *cache, lengths)
             attn = attn[:, None]
         else:
+            # eager cached route; a paged cache is gathered into a
+            # slot-contiguous (B, np_max * PS, ...) copy first
+            view = (cache if table is None
+                    else [gather_paged(c, table) for c in cache])
+            t = view[0].shape[1]
             q_pos = (torch.as_tensor(pos, device=x.device)[..., None]
                      + torch.arange(s, device=x.device))
             valid = (torch.arange(t, device=x.device)
                      <= q_pos[..., None])          # (S, T) or (B, S, T)
-            attn = (_attention_kv8(q, *cache, valid) if kv8
-                    else _attention(q, *cache, valid))
+            attn = (_attention_kv8(q, *view, valid) if kv8
+                    else _attention(q, *view, valid))
         new_kv = cache
     x = x + _lin(layer, "wo", attn, kernels)
     y = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
@@ -386,22 +468,42 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
             for _ in range(cfg.n_layers)]
 
 
+def init_paged_kv_cache(cfg: LlamaConfig, n_pages: int, page: int,
+                        dtype=torch.bfloat16, quantized: bool = False,
+                        device=None):
+    """Page-pool cache: per layer (k_pool, v_pool), each (n_pages, page,
+    KVH, D) zeros of ``dtype``; quantized (KV8): per layer (qk, sk, qv,
+    sv), int8 (n_pages, page, KVH, D) values and fp32 (n_pages, page, KVH)
+    scales. Page 0 is the trash page; the block table lives with the
+    engine and is passed to ``decode_step``."""
+    device = default_device(device)
+    shape = (n_pages, page, cfg.n_kv_heads, cfg.d_head)
+    if quantized:
+        def entry():
+            return (torch.zeros(shape, dtype=torch.int8, device=device),
+                    torch.zeros(shape[:3], dtype=torch.float32,
+                                device=device))
+        return [entry() + entry() for _ in range(cfg.n_layers)]
+    return [(torch.zeros(shape, dtype=dtype, device=device),
+             torch.zeros(shape, dtype=dtype, device=device))
+            for _ in range(cfg.n_layers)]
+
+
 def decode_step(params, cfg: LlamaConfig, cache, tokens: torch.Tensor, pos,
                 write_mask=None, prefill_self: bool = False,
                 table=None, lora=None, lora_idx=None, logit_idx=None,
                 kernel_routes=None):
     """One cached step: tokens (B, S) at position ``pos`` (an int or (B,)
     ints on the tokens' device) -> (logits, cache), the cache written in
-    place (bf16 or KV8 entries, as ``init_kv_cache`` makes them).
+    place (bf16 or KV8 entries, as ``init_kv_cache`` makes them, or their
+    page pools from ``init_paged_kv_cache`` with ``table`` the (B, np_max)
+    int32 block table on the tokens' device).
     write_mask (B,) bools restricts which slots' caches are
     written; prefill_self: the written slots start at position 0 and
     attend only to the new tokens; logit_idx (B,) ints unembeds only that
     position of each row (logits (B, 1, vocab)). kernel_routes: see the
     module docstring."""
     _require_dense(cfg)
-    if table is not None:
-        raise NotImplementedError("paged caches are not ported yet "
-                                  "(ROADMAP B14-paged, B17)")
     if lora is not None or lora_idx is not None:
         raise NotImplementedError("LoRA is not ported yet (ROADMAP A8)")
     b, s = tokens.shape
@@ -410,11 +512,14 @@ def decode_step(params, cfg: LlamaConfig, cache, tokens: torch.Tensor, pos,
     positions = (pos + offsets if _is_scalar(pos)
                  else pos[..., None] + offsets)
     cos, sin = _rope_freqs(cfg, torch.as_tensor(positions))
+    rows = (None if table is None else
+            _paged_rows(pos, s, table, cache[0][0].shape[1], write_mask))
     new_cache = []
     for layer, entry in zip(params["layers"], cache):
-        x, kv = _block(layer, cfg, x, cos, sin, kv=(*entry, pos),
+        kv = (*entry, pos) if table is None else (*entry, table, pos)
+        x, kv = _block(layer, cfg, x, cos, sin, kv=kv,
                        write_mask=write_mask, prefill_self=prefill_self,
-                       kernel_routes=kernel_routes)
+                       kernel_routes=kernel_routes, paged_rows=rows)
         new_cache.append(kv)
     if logit_idx is not None:
         x = x[torch.arange(b, device=x.device), logit_idx][:, None]

@@ -61,13 +61,30 @@ def pick_block(t: int, kvh: int, d: int, itemsize: int,
     return _divisor_block(t, min(bk, cap, t))
 
 
-def _chunk_walk(q, k_cache, v_cache, lengths, bk, sk=None, sv=None):
+def _chunk_walk(q, k_cache, v_cache, lengths, bk, sk=None, sv=None,
+                table=None):
     """The plain chunk walk, slot by slot, in PyTorch ops; sk, sv (B, T,
-    KVH) are the KV8 scales (None for a bf16 cache)."""
+    KVH) are the KV8 scales (None for a bf16 cache).
+
+    table None: the caches are (B, T, KVH, D) and chunk c of slot b is
+    rows [c*bk, (c+1)*bk) of cache b. table (B, np_max): the caches (and
+    scales) are page pools (NP, PS, ...) with bk = PS, and chunk c of slot
+    b is page min(table[b, c], NP - 1), as the paged kernels read it."""
     b, h, d = q.shape
-    _, t, kvh, _ = k_cache.shape
+    kvh = k_cache.shape[2]
     rep = h // kvh
-    nk_max = t // bk                     # bk divides t (or equals it)
+    if table is None:
+        nk_max = k_cache.shape[1] // bk  # bk divides t (or equals it)
+
+        def rows_of(x, bi, c):
+            return x[bi, c * bk:(c + 1) * bk]
+    else:
+        nk_max = table.shape[1]
+        pages = torch.as_tensor(table).clamp(max=k_cache.shape[0] - 1)
+        pages = pages.tolist()
+
+        def rows_of(x, bi, c):
+            return x[pages[bi][c]]
     qg = q.reshape(b, kvh, rep, d).to(torch.float32) * d ** -0.5
     p_dtype = torch.bfloat16 if sv is not None else v_cache.dtype
     out = torch.zeros((b, kvh, rep, d), dtype=torch.float32, device=q.device)
@@ -77,11 +94,10 @@ def _chunk_walk(q, k_cache, v_cache, lengths, bk, sk=None, sv=None):
         m = torch.full((kvh, rep, 1), NEG_INF, device=q.device)
         l = torch.zeros((kvh, rep, 1), device=q.device)
         for c in range(nk):
-            rows = slice(c * bk, (c + 1) * bk)
-            kb = k_cache[bi, rows].to(torch.float32)        # (bk, kvh, d)
+            kb = rows_of(k_cache, bi, c).to(torch.float32)  # (bk, kvh, d)
             s = torch.einsum("grd,tgd->grt", qg[bi], kb)
             if sk is not None:
-                s = s * sk[bi, rows].t()[:, None, :]
+                s = s * rows_of(sk, bi, c).t()[:, None, :]
             k_pos = c * bk + torch.arange(kb.shape[0], device=q.device)
             live = k_pos < length
             s = s.masked_fill(~live, NEG_INF)
@@ -91,9 +107,10 @@ def _chunk_walk(q, k_cache, v_cache, lengths, bk, sk=None, sv=None):
             l = l * alpha + p.sum(dim=-1, keepdim=True)
             if sv is not None:
                 # rows past the length are never read (their p is 0)
-                p = torch.where(live, p * sv[bi, rows].t()[:, None, :], 0.0)
+                p = torch.where(live, p * rows_of(sv, bi, c).t()[:, None, :],
+                                0.0)
             pv = torch.einsum("grt,tgd->grd", p.to(p_dtype).to(torch.float32),
-                              v_cache[bi, rows].to(torch.float32))
+                              rows_of(v_cache, bi, c).to(torch.float32))
             o = o * alpha + pv
             m = m_new
         out[bi] = o / torch.clamp_min(l, 1e-30)

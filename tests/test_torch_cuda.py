@@ -20,7 +20,8 @@ from how_to_optimize_gemm_tpu_torch import _build, convert
 from how_to_optimize_gemm_tpu_torch.harness.driver import run_sweep
 from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
 from how_to_optimize_gemm_tpu_torch.ops import (decode_attention, int4, int8,
-                                               kv_update, registry)
+                                               kv_update, paged_attention,
+                                               registry)
 
 pytestmark = pytest.mark.cuda
 
@@ -323,6 +324,187 @@ def test_decode_attention_q8_matches_plain_version(cuda, kvh, rep, d):
     print(f"decode_attention_q8 kvh={kvh} rep={rep} d={d}: max|kernel - "
           f"plain| = {err}")
     assert err < 2e-3, err
+
+
+# Slice 4's kernels, over page pools through block tables.
+# paged_kv_update must EQUAL its plain version (byte copies; trash-page and
+# masked rows skipped by both). The paged attention kernels sum as the
+# contiguous ones do: atol 2e-3 against their plain versions.
+
+def _shuffled_table(lengths, ps, np_max, seed):
+    """Pages 1 .. NP-1 handed out in a shuffled order; chunks past a
+    slot's length stay 0."""
+    rng = np.random.default_rng(seed)
+    n_pages = len(lengths) * np_max + 1
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    table = np.zeros((len(lengths), np_max), np.int32)
+    for b, n in enumerate(lengths):
+        for c in range(-(-n // ps)):
+            table[b, c] = free.pop()
+    return n_pages, table
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp32 scales", "odd"])
+@pytest.mark.parametrize("s", [1, 4])
+def test_paged_kv_update_equals_plain_version(cuda, kind, s):
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    n_pages, ps, kvh, d, b = 16, 16, 4, 128, 3
+    rng = np.random.default_rng(s)
+    x = torch.from_numpy(rng.standard_normal(
+        (n_pages, ps, kvh, d)).astype(np.float32)).to(cuda)
+    new = torch.from_numpy(rng.standard_normal(
+        (b, s, kvh, d)).astype(np.float32)).to(cuda)
+    if kind == "bf16":
+        pool = x.to(torch.bfloat16)
+    elif kind == "odd":                  # a 3 x 5 fp32 row: byte copies
+        pool = x[:, :, 0, :15].reshape(n_pages, ps, 3, 5).contiguous()
+        new = new[:, :, 0, :15].reshape(b, s, 3, 5)
+    else:
+        (pool, spool), (new, snew) = llama.quantize_kv(x), \
+            llama.quantize_kv(new)
+        if kind == "fp32 scales":
+            pool, new = spool, snew
+    perm = rng.permutation(np.arange(1, n_pages))
+    pages = torch.from_numpy(perm[:b * s].reshape(b, s).astype(np.int32))
+    pages[0, 0] = 0                                 # a trash-page row
+    offs = torch.from_numpy(rng.integers(0, ps, (b, s)).astype(np.int32))
+    mask = torch.tensor([True, False, True], device=cuda)
+    pages, offs = pages.to(cuda), offs.to(cuda)
+    for wm in (None, mask):
+        got = pool.clone()
+        before = _build.LAUNCHES["paged_kv_update"]
+        out = kv_update.paged_kv_update(got, new, pages, offs, wm)
+        torch.cuda.synchronize()
+        assert out.data_ptr() == got.data_ptr()
+        assert _build.LAUNCHES["paged_kv_update"] == before + 1
+        ref = kv_update.paged_kv_update_ref(pool.clone(), new, pages, offs,
+                                            wm)
+        assert torch.equal(got, ref)
+        assert torch.equal(got[0], pool[0])         # page 0 untouched
+        assert not torch.equal(got, pool)
+
+
+# (kvh, rep, d, page, lengths): GQA and wide widths, pages of 16 and 128,
+# and KV8-sized pages whose table (np_max * PS = 288) passes a 256-token
+# max_seq
+PAGED_CASES = [(2, 2, 128, 16, [1, 40, 64, 0]),
+               (32, 1, 128, 128, [1, 300, 512, 129]),
+               (4, 4, 64, 16, [17, 64, 3, 33]),
+               (3, 2, 32, 96, [1, 200, 256, 0])]
+
+
+def _nan_outside_the_tables(pools, table):
+    """NaN (int8: 77) in page 0 and every page no table row holds: a
+    kernel that reads one of them shows it."""
+    unused = sorted(set(range(pools[0].shape[0])) - set(table.flatten())
+                    | {0})
+    for c in pools:
+        c[unused] = float("nan") if c.is_floating_point() else 77
+
+
+@pytest.mark.parametrize("kvh,rep,d,ps,lens", PAGED_CASES)
+def test_paged_decode_attention_matches_plain_version(cuda, kvh, rep, d, ps,
+                                                      lens):
+    np_max = -(-max(lens) // ps) + 1
+    n_pages, table = _shuffled_table(lens, ps, np_max, kvh + d)
+    rng = np.random.default_rng(ps)
+    q = torch.from_numpy(rng.standard_normal(
+        (len(lens), kvh * rep, d)).astype(np.float32)).to(cuda)
+    k, v = (torch.from_numpy(rng.standard_normal(
+        (n_pages, ps, kvh, d)).astype(np.float32)).to(
+            device=cuda, dtype=torch.bfloat16) for _ in "kv")
+    _nan_outside_the_tables((k, v), table)
+    table = torch.from_numpy(table).to(cuda)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = _build.LAUNCHES["paged_decode_attention"]
+    out = paged_attention.paged_decode_attention(q, k, v, table, lengths)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["paged_decode_attention"] == before + 1
+    ref = paged_attention.paged_decode_attention_ref(q, k, v, table,
+                                                     lengths)
+    assert torch.isfinite(out).all()
+    err = float((out - ref).abs().max())
+    print(f"paged_decode_attention kvh={kvh} rep={rep} d={d} ps={ps}: "
+          f"max|kernel - plain| = {err}")
+    assert err < 2e-3, err
+
+
+@pytest.mark.parametrize("kvh,rep,d,ps,lens", PAGED_CASES)
+def test_paged_decode_attention_q8_matches_plain_version(cuda, kvh, rep, d,
+                                                         ps, lens):
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    np_max = -(-max(lens) // ps) + 1
+    n_pages, table = _shuffled_table(lens, ps, np_max, kvh + d + 1)
+    rng = np.random.default_rng(ps + 1)
+    q = torch.from_numpy(rng.standard_normal(
+        (len(lens), kvh * rep, d)).astype(np.float32)).to(cuda)
+    pools = []
+    for _ in "kv":
+        pools += llama.quantize_kv(torch.from_numpy(rng.standard_normal(
+            (n_pages, ps, kvh, d)).astype(np.float32)).to(cuda))
+    _nan_outside_the_tables(pools, table)
+    table = torch.from_numpy(table).to(cuda)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = _build.LAUNCHES["paged_decode_attention_q8"]
+    out = paged_attention.paged_decode_attention_q8(q, *pools, table,
+                                                    lengths)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["paged_decode_attention_q8"] == before + 1
+    ref = paged_attention.paged_decode_attention_q8_ref(q, *pools, table,
+                                                        lengths)
+    assert torch.isfinite(out).all()
+    err = float((out - ref).abs().max())
+    print(f"paged_decode_attention_q8 kvh={kvh} rep={rep} d={d} ps={ps}: "
+          f"max|kernel - plain| = {err}")
+    assert err < 2e-3, err
+
+
+def test_paged_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((2, 4, 128), device=cuda)
+    pool = torch.zeros((5, 16, 2, 128), dtype=torch.bfloat16, device=cuda)
+    table = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    lengths = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):                  # an int64 table
+        paged_attention.paged_decode_attention(q, pool, pool, table.long(),
+                                               lengths)
+    with pytest.raises(ValueError):                 # rep * PS > 8192
+        big = torch.zeros((2, 8192, 1, 128), dtype=torch.bfloat16,
+                          device=cuda)
+        paged_attention.paged_decode_attention(q[:, :2], big, big, table,
+                                               lengths)
+    with pytest.raises(ValueError):                 # pages of another shape
+        kv_update.paged_kv_update(pool, torch.zeros((2, 1, 2, 64),
+                                                    device=cuda),
+                                  table[:, :1], table[:, :1])
+
+
+@pytest.mark.parametrize("kv8", [False, True])
+def test_tiny_paged_engine_on_the_card(cuda, kv8):
+    """The paged engine serves on the card with the prefix cache,
+    chunked prefill and a pool small enough to preempt; every request
+    completes and the paged kernels run."""
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    from how_to_optimize_gemm_tpu_torch.parallel import serving
+    cfg = llama.LlamaConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=512, max_seq=256,
+                            weight_kind="w4a8")
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    on_card = convert.to_device(params, cuda)
+    shared = list(range(1, 33))
+    prompts = [shared + [40 + i] * (3 + 9 * i) for i in range(4)]
+    before = dict(_build.LAUNCHES)
+    eng = serving.ServingEngine(cfg, on_card, batch_slots=2, device=cuda,
+                                cache_kind="int8" if kv8 else "bf16",
+                                paged=True, page=16, cache_pages=9,
+                                prefix_cache=True, prefill_chunk=24)
+    done = eng.run([serving.Request(uid=i, prompt=p, max_new=40)
+                    for i, p in enumerate(prompts)])
+    assert all(r.done and len(r.out) == 40 for r in done)
+    assert eng.prefix_hit_tokens > 0
+    attn = "paged_decode_attention_q8" if kv8 else "paged_decode_attention"
+    for k in ("paged_kv_update", attn, "w4a8_gemv_fq"):
+        assert _build.LAUNCHES[k] > before[k], k
+    assert not any(eng.slot_pages)
 
 
 # ------------------------------------------------------------ model path

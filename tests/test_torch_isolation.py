@@ -27,7 +27,8 @@ def test_port_modules_found():
     assert "how_to_optimize_gemm_tpu_torch.ops.int8" in MODULES
     assert "how_to_optimize_gemm_tpu_torch.harness.driver" in MODULES
     for name in ("models.linear", "models.llama", "parallel.serving",
-                 "ops.kv_update", "ops.decode_attention"):
+                 "ops.kv_update", "ops.decode_attention",
+                 "ops.paged_attention", "parallel.kv_alloc", "utils.native"):
         assert f"how_to_optimize_gemm_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 20
 
@@ -72,7 +73,9 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
     assert set(_build.KERNELS) == {
         "int8_gemm_nn", "int8_gemm_nt", "w4a8_gemm", "w4a8_gemm_noc",
         "w4a8_gemv_fq", "kv_update", "decode_attention", "int8_gemm_noc",
-        "w4a16_gemm_noc", "w4a16_gemv", "decode_attention_q8"}
+        "w4a16_gemm_noc", "w4a16_gemv", "decode_attention_q8",
+        "paged_kv_update", "paged_decode_attention",
+        "paged_decode_attention_q8"}
     for name, kernel in _build.KERNELS.items():
         assert (_build.CSRC / kernel.source).exists(), name
         assert kernel.argtypes[-1] is ctypes.c_void_p, name
@@ -83,6 +86,9 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
     assert len(_build.KERNELS["decode_attention"].argtypes) == 13
     assert len(_build.KERNELS["decode_attention_q8"].argtypes) == 15
     assert len(_build.KERNELS["kv_update"].argtypes) == 9
+    assert len(_build.KERNELS["paged_kv_update"].argtypes) == 10
+    assert len(_build.KERNELS["paged_decode_attention"].argtypes) == 15
+    assert len(_build.KERNELS["paged_decode_attention_q8"].argtypes) == 17
     for name in ("int8_gemm_noc", "w4a16_gemm_noc", "w4a16_gemv"):
         assert ctypes.c_float not in _build.KERNELS[name].argtypes, name
     monkeypatch.setenv("PATH", "")

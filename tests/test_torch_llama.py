@@ -175,7 +175,7 @@ def test_init_params_is_seeded_and_shaped():
     assert a["lm_head"]["fp32_w"].dtype == torch.float32
 
 
-@pytest.mark.parametrize("what", ["moe", "table", "lora"])
+@pytest.mark.parametrize("what", ["moe", "lora"])
 def test_unported_parts_raise(model, what):
     _, _, cfg, params = model
     tokens = torch.zeros((1, 1), dtype=torch.int64)
@@ -185,9 +185,7 @@ def test_unported_parts_raise(model, what):
                 cfg, n_experts=4), "cpu")
         else:
             cache = llama.init_kv_cache(cfg, 1, device="cpu")
-            kw = ({"table": torch.zeros((1, 1))} if what == "table"
-                  else {"lora": {}})
-            llama.decode_step(params, cfg, cache, tokens, 0, **kw)
+            llama.decode_step(params, cfg, cache, tokens, 0, lora={})
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked():

@@ -109,9 +109,7 @@ def test_filter_logits_matches_jax():
         np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("kw", [dict(paged=True), dict(prefix_cache=True),
-                                dict(lora={}), dict(mesh=object()),
-                                dict(prefill_chunk=4)])
+@pytest.mark.parametrize("kw", [dict(lora={}), dict(mesh=object())])
 def test_unported_options_raise(engines, kw):
     _, port, _ = engines
     with pytest.raises(NotImplementedError, match="ROADMAP"):
