@@ -20,11 +20,19 @@ Phases (any failure raises and exits non-zero before the last line):
    shapes the serve paths give it (``kv_update`` and ``paged_kv_update``
    on each row kind: bf16 values, int8 values and fp32 scales; the paged
    attention kernels over a shuffled block table, pages of 128 (bf16) and
-   384 (KV8)) and at one ragged shape (EQUAL for w4a8_gemm_noc,
-   w4a8_gemv_fq, kv_update, paged_kv_update and int8_gemm_noc; within
-   W4A16_REL x max |y| for w4a16_gemm_noc and w4a16_gemv, whose fp32
-   sums run in another order; within atol 2e-3 for the four attention
-   kernels), timed as CUDA-graph replays beside its plain version, the
+   384 (KV8); ``flash_attention`` at the 7B prefill, B 4 x 32 heads of
+   128 at S = T = 4,096 causal, at 2,048 and at 1,024) and at ragged
+   shapes (EQUAL
+   for w4a8_gemm_noc, w4a8_gemv_fq, kv_update, paged_kv_update and
+   int8_gemm_noc; within W4A16_REL x max |y| for w4a16_gemm_noc and
+   w4a16_gemv, whose fp32 sums run in another order; within atol 2e-3 for
+   the four decode attention kernels; for flash_attention, every row
+   within FLASH_ULPS bf16 ulps of its own max |plain|, against its plain
+   version at the kernel's 64-key tiles, at 4,096 and 2,048 on transposed
+   (B, S, H, D) views as the model passes them, at 1,024, and on GQA rep
+   4, D 64, S = 700 of T = 1,000, non-causal and T = 9,000; the same rule
+   must refuse the plain version with one key tile skipped), timed as
+   CUDA-graph replays beside its plain version, the
    library call (or null where no single PyTorch call computes the same
    function) and its bound; each paged attention kernel also beside the
    contiguous kernel on the same logical cache;
@@ -46,9 +54,13 @@ Phases (any failure raises and exits non-zero before the last line):
    must hit the cache) and S-paged-kv8 (W4A8 weights, a KV8 pool of
    384-token pages, chunked prefill of 256 tokens; 8 requests of 300-700
    prompt tokens, so prompts of 512 tokens or more are served through
-   chunks, in a pool small enough that a slot is preempted). Every
-   request must get its 32 tokens and every kernel of the path must have
-   been launched. Then the time of one decode step at the same width.
+   chunks, in a pool small enough that a slot is preempted); then S-long
+   (W4A8 weights, a bf16 cache, 8 requests of 512-3,500 prompt tokens
+   admitted without chunking, one dispatch at a bucket of 2,048 or 4,096
+   per admission). Every request must get its 32 tokens, every kernel of
+   the path must have been launched, and ``flash_attention`` exactly once
+   per layer in every admission of 512 tokens or more. Then the time of
+   one decode step at the same width.
    Each model is freed before the next one loads;
 7. parity at full width: the same engine at Llama-2-7B width with 2
    layers, on the same weights and 2 prompts (100 and 128 tokens, so the
@@ -56,9 +68,11 @@ Phases (any failure raises and exits non-zero before the last line):
    kernels), teacher-forced on the card and on the CPU, both on the
    kernel routes (the CPU through the kernels' plain versions), comparing
    the logits of the prefill and of 8 decode steps, for fp32, W4A8, int8
-   and int4 weights, for W4A8 weights over the KV8 cache, and for W4A8
+   and int4 weights, for W4A8 weights over the KV8 cache, for W4A8
    weights over a paged bf16 pool (pages of 128) and a paged KV8 pool
-   (pages of 384). The card
+   (pages of 384), and "w4a8 long": prompts of 400 and 512 tokens, so the
+   admission runs at s = 512 and takes ``flash_attention`` (on the CPU its
+   plain version). The card
    side runs with every launch count set to 0 just before it and must
    launch every kernel its serve path launches. Float32 ops summed in
    another order differ by about 1e-6 relative, and the model amplifies
@@ -68,7 +82,8 @@ Phases (any failure raises and exits non-zero before the last line):
    CPU's default routes
    (the reference's eager attention, which rounds q to bf16) are printed
    beside them;
-8. one ``{"kernels": [...]}`` line, the card's line again, and last
+8. one ``{"kernels": [...]}`` line (15 kernels), the card's line again,
+   and last
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -93,9 +108,9 @@ from how_to_optimize_gemm_tpu_torch.harness import mfile
 from how_to_optimize_gemm_tpu_torch.harness.driver import run_sweep
 from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
 from how_to_optimize_gemm_tpu_torch.models import llama
-from how_to_optimize_gemm_tpu_torch.ops import (decode_attention, int4, int8,
-                                               kv_update, paged_attention,
-                                               registry)
+from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
+                                               int4, int8, kv_update,
+                                               paged_attention, registry)
 from how_to_optimize_gemm_tpu_torch.parallel import serving
 from how_to_optimize_gemm_tpu_torch.utils.matrices import make_abc
 from how_to_optimize_gemm_tpu_torch.utils.timing import (time_calls,
@@ -234,6 +249,12 @@ DECODE_ATOL = 2e-3   # decode_attention vs its plain version (sum order, exp)
 # w4a16 kernels vs their plain version: exact products, fp32 sums in
 # another order (the GEMM's by the tensor cores), relative to max |y|
 W4A16_REL = 2e-5
+# flash_attention vs its plain version at the kernel's 64-key tiles: in
+# every row, max |kernel - plain| within FLASH_ULPS bf16 ulps of that row's
+# max |plain| (attention.bf16_row_ulps). fp32 sums in another order can
+# flip the bf16 rounding of p or of an output by one ulp; one 64-key tile
+# skipped reads tens of ulps, and the check plants that fault to show it
+FLASH_ULPS = 2.0
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0
@@ -289,6 +310,10 @@ SERVE_KERNELS = [
                   "pallas_paged_attention.py:350",
          function="pallas_paged_attention._kernel_q8_v4_paged + "
                   "_kernel_q8_v3_paged :455 (paged_decode_attention_q8)"),
+    dict(name="flash_attention", source=SRC + "flash_attention.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_attention.py:35",
+         function="pallas_attention._stream_kernel (flash_attention, "
+                  "mha_flash)"),
 ]
 
 # The serving paths: (weight kind, cache kind, the kernels each must
@@ -309,6 +334,9 @@ SERVE_PATHS = {
     "S-paged-kv8": ("w4a8", "int8",
                     W4A8_PAGED + ["paged_decode_attention_q8"],
                     dict(paged=True, prefill_chunk=256)),
+    "S-long": ("w4a8", "bf16", ["w4a8_gemm_noc", "w4a8_gemv_fq",
+                                "kv_update", "flash_attention",
+                                "decode_attention"], {}),
 }
 # S-paged-kv8's prompts: make_requests(8, 300, 32, seed=3, 700) gives
 # 625, 334, 371, 394, 372, 621, 648 and 533 tokens. The first four hold
@@ -317,6 +345,12 @@ SERVE_PATHS = {
 # trash page (cache_pages = 7) the pool is dry then, and the newest other
 # slot is preempted. ``paged_requests`` works this out from the lengths.
 PAGED_KV8_SEED = 3
+# S-long's prompts: make_requests(8, 512, 32, seed=0, 3500) gives 3,054,
+# 2,415, 2,039, 1,318, 1,432, 634, 736 and 561 tokens. The first four are
+# admitted in one dispatch at bucket 4,096 (m = 16,384 rows), the last four
+# at 2,048, without chunking: every layer of each admission launches
+# flash_attention.
+LONG_SEED = 0
 
 
 def nbytes(*tensors) -> int:
@@ -706,6 +740,93 @@ def check_paged_attention(gen: torch.Generator, q8: bool) -> dict:
     return results[0]
 
 
+# (B, H, KVH, S, T, D, causal, model layout): the 7B prefill (the JSON
+# row) and the same at 2,048, S-long's two buckets, as mha_flash passes
+# them (transposed views of (B, S, H, D) tensors); 1,024 on contiguous
+# tensors; then GQA rep 4 (the serving CLI's 16 heads over 4), D 64 with
+# the queries the last 700 of 1,000 positions, not causal, and T = 9,000
+# past the reference's 8,192-key strip
+FLASH_SHAPES = ((4, 32, 32, 4096, 4096, 128, True, True),
+                (4, 32, 32, 2048, 2048, 128, True, True),
+                (4, 32, 32, 1024, 1024, 128, True, False),
+                (2, 16, 4, 1000, 1000, 128, True, False),
+                (1, 8, 8, 700, 1000, 64, True, False),
+                (2, 8, 8, 700, 1000, 128, False, False),
+                (1, 4, 4, 64, 9000, 128, False, False))
+
+
+def skipped_tile_ulps(q, k, v, ref) -> float:
+    """The flash check's reading on a planted fault: the plain version of
+    the last 64 queries with one 64-key tile before them (at T / 2)
+    skipped, held to the true output's rows. The queries are the last S of
+    T positions, so dropping the tile's keys from k and v leaves every
+    other key visible to them as before."""
+    bk = attention.KERNEL_BLOCK
+    t = k.shape[2]
+    j0 = t // 2 // bk * bk
+    keep = torch.cat([torch.arange(j0, device=k.device),
+                      torch.arange(j0 + bk, t, device=k.device)])
+    faulty = attention.flash_attention_ref(
+        q[:, :, -bk:], k[:, :, keep], v[:, :, keep], causal=True, bk=bk)
+    return float(attention.bf16_row_ulps(faulty, ref[:, :, -bk:]).max())
+
+
+def check_flash_attention(gen: torch.Generator) -> dict:
+    """flash_attention against its plain version at the kernel's 64-key
+    tiles (every row within FLASH_ULPS bf16 ulps of its max |plain|); on
+    each causal shape the same rule must refuse the plain version with one
+    key tile skipped. The bound counts the query-key pairs this run's
+    shape visits; the library call is SDPA on the same (B, H, S, D)
+    tensors where it computes the same function (S = T, or not causal:
+    its causal mask is aligned to the first query, not the last)."""
+    results = []
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def make(b, heads, n, d, model_layout):
+        x = torch.randn((b, n, heads, d), generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+        return x if model_layout else x.contiguous()
+    for b, h, kvh, s, t, d, causal, model_layout in FLASH_SHAPES:
+        q = make(b, h, s, d, model_layout)
+        k, v = (make(b, kvh, t, d, model_layout) for _ in "kv")
+        shape = (f"B={b} H={h} KVH={kvh} S={s} T={t} D={d} causal={causal}"
+                 f"{' (B, S, H, D) views' if model_layout else ''}")
+
+        def kernel():
+            return attention.flash_attention(q, k, v, causal=causal)
+
+        def plain():
+            return attention.flash_attention_ref(
+                q, k, v, causal=causal, bk=attention.KERNEL_BLOCK)
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        if out.stride() != q.stride():
+            raise AssertionError(f"flash_attention {shape}: out strides "
+                                 f"{out.stride()}, q's {q.stride()}")
+        err = float((out.float() - ref.float()).abs().max())
+        ulps = float(attention.bf16_row_ulps(out, ref).max())
+        fault = skipped_tile_ulps(q, k, v, ref) if causal else math.inf
+        print(f"flash_attention {shape}: max|kernel - plain| = {err:.3e}, "
+              f"{ulps:.3f} bf16 ulps of its row's max |plain| (bound "
+              f"{FLASH_ULPS}); one key tile skipped reads {fault:.3f}")
+        if not (ulps <= FLASH_ULPS and torch.isfinite(out).all()):
+            raise AssertionError(f"flash_attention {shape}: differs from "
+                                 f"its plain version by {ulps} ulps")
+        if not fault > FLASH_ULPS:
+            raise AssertionError(f"flash_attention {shape}: the check "
+                                 f"passes a skipped key tile ({fault})")
+        pairs = s * (t - s) + s * (s + 1) // 2 if causal else s * t
+        b_ms = bound_ms(nbytes(q, q, k, v), 4.0 * b * h * d * pairs,
+                        PEAK_BF16_FLOPS)
+        library = None
+        if s == t or not causal:
+            def library():
+                return sdpa(q, k, v, is_causal=causal, enable_gqa=h != kvh)
+        results.append(timed("flash_attention", shape, kernel, plain,
+                             library, *b_ms, err))
+    return results[0]
+
+
 SERVE_CHECKS = {"w4a8_gemm_noc": check_w4a8_noc,
                 "w4a8_gemv_fq": check_w4a8_gemv,
                 "kv_update": check_kv_update,
@@ -726,7 +847,8 @@ SERVE_CHECKS = {"w4a8_gemm_noc": check_w4a8_noc,
                 "paged_decode_attention": lambda gen: check_paged_attention(
                     gen, q8=False),
                 "paged_decode_attention_q8":
-                    lambda gen: check_paged_attention(gen, q8=True)}
+                    lambda gen: check_paged_attention(gen, q8=True),
+                "flash_attention": check_flash_attention}
 
 
 def paged_requests(path: str, page: int):
@@ -763,6 +885,9 @@ def serve_path(gen: torch.Generator, path: str) -> dict:
         page = paged_attention.good_page_size(
             cfg.n_kv_heads, cfg.d_head, 1 if cache_kind == "int8" else 2)
         reqs, cache_pages = paged_requests(path, page)
+    elif path == "S-long":
+        reqs = serving.make_requests(8, 512, 32, seed=LONG_SEED,
+                                     prompt_len_max=3500)
     else:
         reqs = serving.make_requests(8, 32, 32, seed=0, prompt_len_max=256)
     eng = serving.ServingEngine(cfg, params, batch_slots=SLOTS,
@@ -777,11 +902,16 @@ def serve_path(gen: torch.Generator, path: str) -> dict:
         preempted.append(ok)
         return ok
     eng._preempt_newest = counting
-    chunk = paged.get("prefill_chunk")
-    buckets = [chunk or eng._bucket(len(r.prompt)) for r in reqs]
-    if max(buckets) >= llama.FLASH_MIN_S:
-        raise AssertionError(f"a prompt bucket {max(buckets)} would take "
-                             "the unported flash route")
+    # record every prefill dispatch (s > 1): its shape, and whether it is
+    # causal self-attention over the prompt (prefill_self)
+    dispatches = []
+    step = eng.step
+
+    def recording(tokens, pos, **kw):
+        if tokens.shape[1] > 1:
+            dispatches.append((*tokens.shape, kw.get("prefill_self", False)))
+        return step(tokens, pos, **kw)
+    eng.step = recording
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -789,7 +919,7 @@ def serve_path(gen: torch.Generator, path: str) -> dict:
     eng.run(reqs, window=8)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    del eng._preempt_newest        # the wrapper refers to the engine
+    del eng._preempt_newest, eng.step    # the wrappers refer to the engine
     launches = dict(_build.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     stats = serving.summarize(reqs, seconds)
@@ -802,12 +932,22 @@ def serve_path(gen: torch.Generator, path: str) -> dict:
         raise AssertionError(f"{path} never launched {missing}")
     attn = kernels[-1]
     steps = launches[attn] // cfg.n_layers
-    print(f"{path}: prompts {[len(r.prompt) for r in reqs]}, buckets "
-          f"{sorted(set(buckets))}")
+    print(f"{path}: prompts {[len(r.prompt) for r in reqs]}, prefill "
+          f"dispatches {dispatches}, peak {peak_gb:.2f} GB")
+    # causal self-attention of 512 tokens or more takes the flash kernel,
+    # once a layer, in every such dispatch
+    flash = sum(1 for _, n, self_attn in dispatches
+                if self_attn and n >= llama.FLASH_MIN_S)
+    if launches["flash_attention"] != flash * cfg.n_layers:
+        raise AssertionError(f"{path}: {launches['flash_attention']} flash "
+                             f"launches for {flash} long dispatches")
+    if path == "S-long" and (not flash or flash != len(dispatches)):
+        raise AssertionError(f"{path}: dispatches {dispatches} are not all "
+                             "long admissions")
     if paged:
         print(f"{path}: pool {eng.n_pages - 1} pages x {eng.page} tokens "
               f"(+ trash page), prefix hits {eng.prefix_hit_tokens} tokens, "
-              f"{sum(preempted)} preemptions, peak {peak_gb:.2f} GB")
+              f"{sum(preempted)} preemptions")
         if paged.get("prefix_cache") and not eng.prefix_hit_tokens > 0:
             raise AssertionError(f"{path}: no prefix-cache hit")
         if cache_pages is not None and not any(preempted):
@@ -874,21 +1014,27 @@ def teacher_forced(eng, prompts, forced) -> torch.Tensor:
     return torch.stack(rows).float().cpu()
 
 
+# 2 slots x a 128-token bucket: the admission prefill runs at
+# m = 256 = INT8_KERNEL_MIN_M, so it takes the prefill kernels
+PARITY_PROMPTS = (100, 128)
+# 2 slots x a 512-token bucket: the admission's attention takes flash
+LONG_PARITY_PROMPTS = (400, 512)
 # (label, weight kind, cache kind, kernels the card side must launch, the
-# engine's paged options) of each parity run
-PARITY = (("fp32", "fp32", "bf16", ["kv_update", "decode_attention"], {}),
+# engine's paged options, prompt lengths) of each parity run
+PARITY = (("fp32", "fp32", "bf16", ["kv_update", "decode_attention"], {},
+           PARITY_PROMPTS),
           *((kind if cache_kind == "bf16" else f"{kind}+kv8", kind,
-             cache_kind, kernels, paged)
+             cache_kind, kernels, paged, PARITY_PROMPTS)
             for kind, cache_kind, kernels, paged in (
                 SERVE_PATHS[path] for path in ("S-w4a8", "S-int8", "S-int4",
                                                "S-kv8"))),
           ("w4a8 paged", "w4a8", "bf16",
-           W4A8_PAGED + ["paged_decode_attention"], dict(paged=True)),
+           W4A8_PAGED + ["paged_decode_attention"], dict(paged=True),
+           PARITY_PROMPTS),
           ("w4a8+kv8 paged", "w4a8", "int8",
-           W4A8_PAGED + ["paged_decode_attention_q8"], dict(paged=True)))
-# 2 slots x a 128-token bucket: the admission prefill runs at
-# m = 256 = INT8_KERNEL_MIN_M, so it takes the prefill kernels
-PARITY_PROMPTS = (100, 128)
+           W4A8_PAGED + ["paged_decode_attention_q8"], dict(paged=True),
+           PARITY_PROMPTS),
+          ("w4a8 long", *SERVE_PATHS["S-long"], LONG_PARITY_PROMPTS))
 
 
 def parity(gen: torch.Generator) -> None:
@@ -896,10 +1042,10 @@ def parity(gen: torch.Generator) -> None:
     on the same weights and tokens, for each of ``PARITY``; the card side
     runs with every launch count set to 0 just before it and must launch
     each kernel of its row."""
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(1, 30000, n).tolist() for n in PARITY_PROMPTS]
-    forced = rng.integers(1, 30000, (2, 8)).astype(np.int32)
-    for label, kind, cache_kind, kernels, paged in PARITY:
+    for label, kind, cache_kind, kernels, paged, lens in PARITY:
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(1, 30000, n).tolist() for n in lens]
+        forced = rng.integers(1, 30000, (2, 8)).astype(np.int32)
         cfg = dataclasses.replace(CFG_7B, n_layers=2, weight_kind=kind)
         params = llama.init_params(gen, cfg, "cuda")
         cpu = convert.to_device(params, "cpu")

@@ -89,6 +89,10 @@ KERNELS = {
     #  D, scale, stream)
     "paged_decode_attention_q8": Kernel("paged_decode_attention_q8.cu",
                                         (_P,) * 8 + (_I,) * 7 + (_F, _P)),
+    # (q, k, v, out, B, H, KVH, S, T, D, causal, then the (b, h, row)
+    #  element strides of q, k, v and out, scale, stream)
+    "flash_attention": Kernel("flash_attention.cu", (_P,) * 4 + (_I,) * 19
+                              + (_F, _P)),
 }
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -1,8 +1,10 @@
-"""Where a serving decode step's time goes on the card.
+"""Where a serving decode step's, or an admission prefill's, time goes on
+the card.
 
     python -m how_to_optimize_gemm_tpu_torch.harness.serve_profile \\
         [--weight-kind w4a8] [--cache-kind bf16] [--layers 32] \\
-        [--slots 4] [--pos 512] [--steps 8] [--paged] [--page N]
+        [--slots 4] [--pos 512] [--steps 8] [--paged] [--page N] \\
+        [--prefill S] [--device cpu]
 
 Builds Llama-2-7B with ``--weight-kind`` weights (random, seed 0) and a
 ``--cache-kind`` cache (bf16, or int8 for KV8) for ``--slots`` slots,
@@ -10,7 +12,10 @@ contiguous or, with ``--paged``, a page pool of ``--page`` tokens a page
 (default ``good_page_size``) with every slot's table allocated in order
 (the reference's paged-vs-contiguous setup), then times decode steps of
 one token per slot at position ``--pos`` (the cache's contents do not
-change the work):
+change the work) or, with ``--prefill S``, admission prefills instead:
+one dispatch of every slot's S-token prompt from position 0 (causal
+self-attention, so ``flash_attention`` at S >= 512), as the engine
+admits a full batch at bucket S:
 
 1. wall: the host clock around ``--steps`` steps ending in a
    synchronize, in ms per step;
@@ -19,10 +24,15 @@ change the work):
    operator rows repeat their kernels' time), their count per step, and
    the busy share (kernel time over the unprofiled wall time; tracing
    slows the host);
-3. bound: the bytes one step must read (the weights, the lm head, the
-   live cache rows and, for KV8, their scales) over 3.35 TB/s.
+3. bound: for a decode step, the bytes it must read (the weights, the lm
+   head, the live cache rows and, for KV8, their scales) over 3.35 TB/s;
+   for a prefill, its operations (every linear's multiply-adds at the
+   weights' tensor-core peak, int8 for int8 and W4A8 weights, bf16
+   otherwise, and the causal attention's at the bf16 peak).
 
-Prints one JSON line. Needs a CUDA device.
+Prints one JSON line. Runs on the card unless ``--device cpu`` is given;
+the CPU runs the kernels' plain versions (kernel routes) and reports no
+device time.
 """
 from __future__ import annotations
 
@@ -40,7 +50,11 @@ from how_to_optimize_gemm_tpu_torch.ops.paged_attention import good_page_size
 from how_to_optimize_gemm_tpu_torch.parallel.serving import CACHE_KINDS
 from how_to_optimize_gemm_tpu_torch.utils.device import default_device
 
-PEAK_BYTES = 3.35e12   # H100 SXM HBM3, data sheet
+# H100 SXM data sheet: HBM3 bandwidth, dense int8 and bf16 tensor-core
+# peaks
+PEAK_BYTES = 3.35e12
+PEAK_INT8_OPS = 1.979e15
+PEAK_BF16_FLOPS = 0.989e15
 
 
 def step_bytes(params: dict, cfg: llama.LlamaConfig, slots: int,
@@ -58,6 +72,22 @@ def step_bytes(params: dict, cfg: llama.LlamaConfig, slots: int,
     return n
 
 
+def prefill_bound_ms(cfg: llama.LlamaConfig, slots: int, s: int) -> float:
+    """The least time of one admission prefill of ``slots`` prompts of s
+    tokens: the linears' 2 * m * d_in * d_out operations (m = slots * s)
+    at the weights' tensor-core peak, plus causal attention's
+    4 * d_head * s (s + 1) / 2 per head and slot at the bf16 peak."""
+    d, dh = cfg.d_model, cfg.d_head
+    per_row = (d * (cfg.n_heads + 2 * cfg.n_kv_heads) * dh
+               + cfg.n_heads * dh * d + 3 * d * cfg.d_ff)
+    linear_ops = 2.0 * slots * s * per_row * cfg.n_layers
+    peak = (PEAK_INT8_OPS if cfg.weight_kind in ("int8", "w4a8")
+            else PEAK_BF16_FLOPS)
+    attn_ops = (4.0 * dh * s * (s + 1) / 2 * cfg.n_heads * slots
+                * cfg.n_layers)
+    return 1e3 * (linear_ops / peak + attn_ops / PEAK_BF16_FLOPS)
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--weight-kind", default="w4a8", choices=KINDS)
@@ -70,8 +100,14 @@ def main(argv=None) -> dict:
                     help="a page pool read through a block table")
     ap.add_argument("--page", type=int, default=None,
                     help="tokens a page (default: good_page_size)")
+    ap.add_argument("--prefill", type=int, default=None, metavar="S",
+                    help="profile admission prefills of S tokens a slot "
+                         "instead of decode steps")
+    ap.add_argument("--device", default=None,
+                    help="default: the card; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
-    device = default_device()
+    device = default_device(args.device)
+    on_card = device.type == "cuda"
     cfg = dataclasses.replace(llama.llama2_7b(args.weight_kind),
                               n_layers=args.layers)
     gen = torch.Generator(device=device)
@@ -91,28 +127,43 @@ def main(argv=None) -> dict:
     else:
         cache = llama.init_kv_cache(cfg, args.slots, quantized=quantized,
                                     device=device)
-    tokens = torch.ones((args.slots, 1), dtype=torch.int32, device=device)
-    pos = torch.full((args.slots,), args.pos, dtype=torch.int32,
-                     device=device)
+    if args.prefill:
+        s = args.prefill
+        tokens = torch.ones((args.slots, s), dtype=torch.int32, device=device)
+        pos = torch.zeros(args.slots, dtype=torch.int32, device=device)
+        kw.update(write_mask=torch.ones(args.slots, dtype=torch.bool,
+                                        device=device),
+                  prefill_self=True, logit_idx=pos + s - 1)
+    else:
+        tokens = torch.ones((args.slots, 1), dtype=torch.int32,
+                            device=device)
+        pos = torch.full((args.slots,), args.pos, dtype=torch.int32,
+                         device=device)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
 
     def steps(n):
         for _ in range(n):
-            llama.decode_step(params, cfg, cache, tokens, pos, **kw)
+            llama.decode_step(params, cfg, cache, tokens, pos,
+                              kernel_routes=True, **kw)
 
-    steps(2)                                     # warm up, builds kernels
-    torch.cuda.synchronize()
+    steps(1 if args.prefill else 2)              # warm up, builds kernels
+    sync()
     t0 = time.perf_counter()
     steps(args.steps)
-    torch.cuda.synchronize()
+    sync()
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
     _build.reset_launches()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if on_card:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         steps(args.steps)
-        torch.cuda.synchronize()
+        sync()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
     kernels = {}
     for ev in prof.key_averages():
@@ -124,13 +175,18 @@ def main(argv=None) -> dict:
         kernels[ev.key] = (dev_us / 1e3 / args.steps, ev.count / args.steps)
     device_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    bound_ms = 1e3 * step_bytes(params, cfg, args.slots, args.pos,
-                                args.cache_kind) / PEAK_BYTES
+    if args.prefill:
+        bound_ms = prefill_bound_ms(cfg, args.slots, args.prefill)
+    else:
+        bound_ms = 1e3 * step_bytes(params, cfg, args.slots, args.pos,
+                                    args.cache_kind) / PEAK_BYTES
     record = {
-        "card": torch.cuda.get_device_name(device),
+        "card": torch.cuda.get_device_name(device) if on_card else "cpu",
         "weights": args.weight_kind, "cache": args.cache_kind,
         "page": cache[0][0].shape[1] if args.paged else None,
-        "layers": args.layers, "slots": args.slots, "pos": args.pos,
+        "layers": args.layers, "slots": args.slots,
+        "pos": None if args.prefill else args.pos,
+        "prefill": args.prefill,
         "wall_ms_per_step": wall_ms,
         "profiled_wall_ms_per_step": prof_wall_ms,
         "device_ms_per_step": device_ms if kernels else None,
@@ -139,6 +195,9 @@ def main(argv=None) -> dict:
         "hand_kernel_launches_per_step": {
             k: v / args.steps for k, v in _build.LAUNCHES.items() if v},
         "bound_ms_per_step": bound_ms,
+        "flash_attention_ms_per_step": (
+            sum(ms for k, (ms, _) in kernels.items() if "flash_attention" in k)
+            if kernels else None),
         "top_kernels_ms_per_step": {k[:80]: round(ms, 5)
                                     for k, (ms, _) in top},
     }

@@ -42,12 +42,14 @@ on the CPU too, through the kernels' plain versions (the reference's
   below 24 MB of cache per layer) was measured on a v5e and is not
   carried over; off the kernel routes, ``_attention`` or
   ``_attention_kv8`` (over ``gather_paged`` copies of a paged cache);
-- admission prefill: causal self-attention over the prompt
-  (``_attention``). Prompts of 512 tokens or more with d_head 64 or 128,
-  where the reference runs its Pallas flash kernel, raise
-  ``NotImplementedError`` on the card (ROADMAP B18); the engine's chunked
-  prefill keeps every chunk below that. Prefix-hit suffixes and later
-  chunks (s > 1, not at position 0) take the eager cached route.
+- causal self-attention over the prompt (``forward``, and the admission
+  prefill ``prefill_self`` over every cache kind): on the kernel routes,
+  at s >= 512 with d_head 64 or 128, kernel ``flash_attention``
+  (``ops/attention.mha_flash``) over the fresh bf16 k and v, as the
+  reference runs its Pallas flash kernel there (also for the KV8 and
+  paged caches, which it does not read); otherwise ``_attention``.
+  Prefix-hit suffixes and chunks after the first (s > 1, not at position
+  0) take the eager cached route, as in the reference.
 
 Not ported yet, each raising ``NotImplementedError``: MoE layers
 (``n_experts > 0``, ROADMAP A11/B20) and LoRA (A8). Unlike JAX arrays,
@@ -62,6 +64,7 @@ import torch
 
 from how_to_optimize_gemm_tpu_torch.models.linear import (apply_linear,
                                                           make_linear)
+from how_to_optimize_gemm_tpu_torch.ops.attention import mha_flash
 from how_to_optimize_gemm_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_q8)
 from how_to_optimize_gemm_tpu_torch.ops.kv_update import (kv_update,
@@ -206,12 +209,23 @@ def _attention(q, k, v, mask):
     return out.reshape(b, s, h * d)
 
 
-def _route_flash(x: torch.Tensor, s: int, dh: int) -> None:
-    """Raise where the reference would run its Pallas flash kernel."""
-    if x.is_cuda and s >= FLASH_MIN_S and dh in FLASH_HEAD_DIMS:
-        raise NotImplementedError(
-            f"prefill attention at s={s} >= {FLASH_MIN_S}: the reference "
-            "runs the Pallas flash kernel here, not ported yet (ROADMAP B18)")
+def _route_flash(kernels: bool, s: int, dh: int) -> bool:
+    """Whether causal self-attention over s tokens takes the flash kernel:
+    the reference's predicate (a kernel route, s >= 512, d_head 64 or
+    128)."""
+    return kernels and s >= FLASH_MIN_S and dh in FLASH_HEAD_DIMS
+
+
+def _self_attention(q, k, v, kernels: bool):
+    """Causal self-attention over the step's own tokens: ``mha_flash`` on
+    bf16 k and v where ``_route_flash`` says so, else ``_attention`` under
+    an (S, S) causal mask, which only that branch builds."""
+    s, dh = q.shape[1], q.shape[3]
+    if _route_flash(kernels, s, dh):
+        return mha_flash(q, k.to(torch.bfloat16), v.to(torch.bfloat16),
+                         causal=True)
+    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+    return _attention(q, k, v, mask)
 
 
 def _is_scalar(pos) -> bool:
@@ -351,7 +365,7 @@ def _mlp(layer, y, kernels):
                 kernels)
 
 
-def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None, mask=None,
+def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None,
            write_mask=None, prefill_self=False, kernel_routes=None,
            paged_rows=None):
     """One transformer block. kv None: full-sequence forward; kv =
@@ -376,8 +390,7 @@ def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None, mask=None,
 
     new_kv = None
     if kv is None:
-        _route_flash(x, s, dh)
-        attn = _attention(q, k, v, mask)
+        attn = _self_attention(q, k, v, kernels)
     else:
         *cache, pos = kv
         table = cache.pop() if len(kv) in (4, 6) else None
@@ -398,10 +411,7 @@ def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None, mask=None,
         if prefill_self:
             # admission prefill: the slot starts at position 0, so its
             # attention is causal self-attention over the prompt
-            _route_flash(x, s, dh)
-            causal = torch.tril(torch.ones((s, s), dtype=torch.bool,
-                                           device=x.device))
-            attn = _attention(q, k, v, causal)
+            attn = _self_attention(q, k, v, kernels)
         elif s == 1 and kernels:
             lengths = torch.as_tensor(pos, device=x.device).to(
                 torch.int32).expand(b) + 1
@@ -434,17 +444,18 @@ def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None, mask=None,
 
 # -------------------------------------------------------------- forward
 
-def forward(params, cfg: LlamaConfig, tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) -> logits (B, S, vocab)."""
+def forward(params, cfg: LlamaConfig, tokens: torch.Tensor,
+            kernel_routes=None) -> torch.Tensor:
+    """Full-sequence forward: tokens (B, S) -> logits (B, S, vocab).
+    kernel_routes: see the module docstring (the reference's
+    ``use_pallas``)."""
     _require_dense(cfg)
     _, s = tokens.shape
     x = params["embed"][tokens]
     pos = torch.arange(s, device=tokens.device)
     cos, sin = _rope_freqs(cfg, pos)
-    mask = torch.tril(torch.ones((s, s), dtype=torch.bool,
-                                 device=tokens.device))
     for layer in params["layers"]:
-        x, _ = _block(layer, cfg, x, cos, sin, mask=mask)
+        x, _ = _block(layer, cfg, x, cos, sin, kernel_routes=kernel_routes)
     x = rmsnorm(x, params["out_norm"], cfg.norm_eps)
     return apply_linear(params["lm_head"], x)
 

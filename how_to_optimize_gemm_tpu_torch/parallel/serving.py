@@ -12,7 +12,10 @@ slots through a block table (``parallel/kv_alloc.py`` owns the table):
    (``_admit``): the prompts, padded to a power-of-two bucket (or cut into
    ``prefill_chunk``-token chunks), go through ``llama.decode_step`` as
    one (slots, bucket) batch whose write mask selects the admitted slots;
-   each admitted slot samples its first token. A paged engine admits only
+   each admitted slot samples its first token. A fresh batch's attention
+   is causal self-attention over the prompts, which takes the
+   ``flash_attention`` kernel at buckets of 512 or more (up to max_seq),
+   so long prompts need no chunking. A paged engine admits only
    what the pool can hold; with ``prefix_cache`` a prompt first attaches
    the cached pages of its prefix and prefills only the rest;
 2. decode runs in windows of ``window`` steps (``_run_steps``): a Python
@@ -553,7 +556,9 @@ def main(argv=None):
                     choices=sorted(BACKENDS),
                     help="the page allocator (parallel/kv_alloc)")
     ap.add_argument("--prefill-chunk", type=int, default=None,
-                    help="admit prompts in chunks of this many tokens")
+                    help="admit prompts in chunks of this many tokens "
+                         "(default: one dispatch at the bucketed length, "
+                         "through flash attention from 512 tokens)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain versions")

@@ -19,9 +19,9 @@ import torch
 from how_to_optimize_gemm_tpu_torch import _build, convert
 from how_to_optimize_gemm_tpu_torch.harness.driver import run_sweep
 from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
-from how_to_optimize_gemm_tpu_torch.ops import (decode_attention, int4, int8,
-                                               kv_update, paged_attention,
-                                               registry)
+from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
+                                               int4, int8, kv_update,
+                                               paged_attention, registry)
 
 pytestmark = pytest.mark.cuda
 
@@ -511,9 +511,9 @@ def test_tiny_paged_engine_on_the_card(cuda, kv8):
 
 def test_unported_routes_raise_on_the_card(cuda):
     """The int8 and int4 linears take their kernels on the card (int8 at
-    m >= 256, int4 at every m: the GEMV at m <= 64); where the reference
-    runs a Pallas kernel this port has not written yet (flash prefill),
-    the card raises instead of falling back."""
+    m >= 256, int4 at every m: the GEMV at m <= 64), and causal
+    self-attention of 512 tokens or more takes the flash kernel; the
+    kernel routes cannot be turned off on the card."""
     from how_to_optimize_gemm_tpu_torch.models import linear, llama
     w = torch.ones((16, 8), device=cuda)
     lin4 = linear.make_linear(w, "int4")
@@ -530,8 +530,9 @@ def test_unported_routes_raise_on_the_card(cuda):
     assert linear.apply_linear(lin8, torch.ones((3, 16),
                                                 device=cuda)).shape == (3, 8)
     assert _build.LAUNCHES == before     # the library's int8 product
-    with pytest.raises(NotImplementedError, match="B18"):
-        llama._route_flash(torch.ones(1, device=cuda), 512, 128)
+    on_card = llama.kernel_routes_for(torch.ones(1, device=cuda))
+    assert llama._route_flash(on_card, 512, 128)      # the flash kernel
+    assert not llama._route_flash(on_card, 511, 128)
     with pytest.raises(ValueError):
         llama.kernel_routes_for(torch.ones(1, device=cuda), False)
     with pytest.raises(ValueError):
@@ -610,3 +611,119 @@ def test_tiny_model_on_the_card_matches_its_cpu_kernel_routes(cuda, kind,
     done = eng.run([serving.Request(uid=i, prompt=[i + 1] * (5 + 7 * i),
                                     max_new=6) for i in range(3)])
     assert all(r.done and len(r.out) == 6 for r in done)
+
+
+# ------------------------------------------------------------ flash prefill
+# flash_attention sums in another order than its plain version (the
+# tensor cores' fp32 sums, quad shuffles for the row sums), and an exp or
+# a score one ulp apart can flip the bf16 rounding of p or of an output:
+# in every row, max |kernel - plain| <= 2 bf16 ulps of that row's max
+# |plain| (attention.bf16_row_ulps). The plain version walks the kernel's
+# 64-key tiles.
+FLASH_ULPS = 2.0
+
+# (B, H, KVH, S, T, D, causal): GQA rep 4 (the serving CLI's 16 heads over
+# 4), D 64, the last 700 of 1000 positions, not causal, T = 9000 past the
+# reference's 8192-key strip, and tails of one row and one key
+FLASH_CASES = [(2, 16, 4, 1024, 1024, 128, True),
+               (1, 8, 8, 700, 1000, 64, True),
+               (2, 4, 2, 700, 1000, 128, False),
+               (1, 4, 4, 64, 9000, 128, False),
+               (1, 4, 1, 129, 129, 64, True),
+               (3, 2, 2, 1, 65, 128, True)]
+
+
+def _flash_inputs(b, h, kvh, s, t, d, seed, device, model_layout=False):
+    """bf16 q (B, H, S, D), k, v (B, KVH, T, D); with model_layout, views
+    of (B, S, H, D) and (B, T, KVH, D) tensors, as mha_flash passes."""
+    rng = np.random.default_rng(seed)
+
+    def make(heads, n):
+        x = torch.from_numpy(rng.standard_normal((b, n, heads, d)).astype(
+            np.float32)).to(device=device, dtype=torch.bfloat16)
+        x = x.transpose(1, 2)
+        return x if model_layout else x.contiguous()
+    return make(h, s), make(kvh, t), make(kvh, t)
+
+
+@pytest.mark.parametrize("model_layout", [False, True])
+@pytest.mark.parametrize("b,h,kvh,s,t,d,causal", FLASH_CASES)
+def test_flash_attention_matches_plain_version(cuda, b, h, kvh, s, t, d,
+                                               causal, model_layout):
+    q, k, v = _flash_inputs(b, h, kvh, s, t, d, s + t + d, cuda,
+                            model_layout)
+    before = _build.LAUNCHES["flash_attention"]
+    out = attention.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    assert out.stride() == q.stride() and out.dtype == torch.bfloat16
+    ref = attention.flash_attention_ref(q, k, v, causal=causal,
+                                        bk=attention.KERNEL_BLOCK)
+    assert torch.isfinite(out).all()
+    err = float((out.float() - ref.float()).abs().max())
+    ulps = float(attention.bf16_row_ulps(out, ref).max())
+    print(f"flash_attention {(b, h, kvh, s, t, d, causal)}: max|kernel - "
+          f"plain| = {err:.3e}, {ulps:.3f} bf16 ulps of its row's max")
+    assert ulps <= FLASH_ULPS, ulps
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = _flash_inputs(1, 2, 1, 64, 64, 64, 0, cuda)
+    with pytest.raises(ValueError):                 # the kernel's tiles
+        attention.flash_attention(q, k, v, bk=512)
+    with pytest.raises(ValueError):                 # causal S > T
+        attention.flash_attention(k.repeat(1, 2, 2, 1), q[:, :1], q[:, :1])
+    with pytest.raises(TypeError):
+        attention.flash_attention(q.float(), k, v)
+
+
+def _prefill_cache(cfg, kind, b, device):
+    """A cache of each kind for ``decode_step`` and its keyword arguments
+    (a block table for the paged pools)."""
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    quantized = kind.endswith("kv8")
+    if not kind.startswith("paged"):
+        return llama.init_kv_cache(cfg, b, quantized=quantized,
+                                   device=device), {}
+    page = 128
+    np_max = cfg.max_seq // page
+    cache = llama.init_paged_kv_cache(cfg, b * np_max + 1, page,
+                                      quantized=quantized, device=device)
+    table = torch.arange(1, b * np_max + 1, dtype=torch.int32,
+                         device=device).reshape(b, np_max)
+    return cache, {"table": table}
+
+
+@pytest.mark.parametrize("kind", ["bf16", "kv8", "paged", "paged-kv8"])
+def test_long_prefill_takes_flash_and_matches_cpu(cuda, kind):
+    """An admission prefill of 512 tokens (2 slots, prefill_self) on each
+    cache kind: the card launches flash_attention once per layer, and its
+    last-position logits stay within 3x what a 1e-6 relative perturbation
+    of the embeddings does to the CPU's kernel routes (their plain
+    versions, flash included)."""
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    cfg = llama.LlamaConfig(vocab=512, d_model=256, n_layers=2, n_heads=4,
+                            n_kv_heads=2, d_ff=512, max_seq=1024,
+                            weight_kind="fp32")
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab, (2, 512))
+
+    def prefill(p, device):
+        cache, kw = _prefill_cache(cfg, kind, 2, device)
+        pos = torch.zeros(2, dtype=torch.int32, device=device)
+        logits, _ = llama.decode_step(
+            p, cfg, cache, torch.from_numpy(tokens).to(device), pos,
+            prefill_self=True, logit_idx=pos + 511, kernel_routes=True, **kw)
+        return logits.float().cpu()
+    before = _build.LAUNCHES["flash_attention"]
+    card = prefill(convert.to_device(params, cuda), cuda)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + cfg.n_layers
+    cpu = prefill(params, "cpu")
+    noise = torch.randn(params["embed"].shape,
+                        generator=torch.Generator().manual_seed(1))
+    moved = {**params, "embed": params["embed"] * (1 + 1e-6 * noise)}
+    limit = 3 * float((prefill(moved, "cpu") - cpu).abs().max())
+    diff = float((card - cpu).abs().max())
+    print(f"prefill 512 {kind}: max|card - cpu| = {diff} (limit {limit})")
+    assert diff <= limit, diff

@@ -28,7 +28,8 @@ def test_port_modules_found():
     assert "how_to_optimize_gemm_tpu_torch.harness.driver" in MODULES
     for name in ("models.linear", "models.llama", "parallel.serving",
                  "ops.kv_update", "ops.decode_attention",
-                 "ops.paged_attention", "parallel.kv_alloc", "utils.native"):
+                 "ops.paged_attention", "ops.attention", "parallel.kv_alloc",
+                 "utils.native"):
         assert f"how_to_optimize_gemm_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 20
 
@@ -75,7 +76,7 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
         "w4a8_gemv_fq", "kv_update", "decode_attention", "int8_gemm_noc",
         "w4a16_gemm_noc", "w4a16_gemv", "decode_attention_q8",
         "paged_kv_update", "paged_decode_attention",
-        "paged_decode_attention_q8"}
+        "paged_decode_attention_q8", "flash_attention"}
     for name, kernel in _build.KERNELS.items():
         assert (_build.CSRC / kernel.source).exists(), name
         assert kernel.argtypes[-1] is ctypes.c_void_p, name
@@ -89,6 +90,7 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
     assert len(_build.KERNELS["paged_kv_update"].argtypes) == 10
     assert len(_build.KERNELS["paged_decode_attention"].argtypes) == 15
     assert len(_build.KERNELS["paged_decode_attention_q8"].argtypes) == 17
+    assert len(_build.KERNELS["flash_attention"].argtypes) == 25
     for name in ("int8_gemm_noc", "w4a16_gemm_noc", "w4a16_gemv"):
         assert ctypes.c_float not in _build.KERNELS[name].argtypes, name
     monkeypatch.setenv("PATH", "")
