@@ -12,10 +12,17 @@ Phases (any failure raises and exits non-zero before the last line):
    nvcc (one process per source, all started together), with ptxas's
    register and spill counts;
 3. each ladder kernel against its plain PyTorch version on the card, at
-   M=N=K=4096 and at an unaligned shape: the outputs must be EQUAL, and
-   under gate_rel 1e-4 against an fp64 oracle on the card; then its time
-   at 4096 beside the plain version's, the library call's (where one
-   PyTorch call computes the same function) and the card's bound;
+   M=N=K=4096 and at an unaligned shape: the int8 kernels' outputs must
+   be EQUAL, the bf16 and W4A16 kernels' within W4A16_REL and the FFMA
+   kernels' within FP32_REL of max |plain| (fp32 sums in another order),
+   and every output under its rung's gate_rel against an fp64 oracle on
+   the card; then its time at 4096 beside the plain version's, the
+   library call's (where one PyTorch call computes the same function:
+   ``torch._int_mm`` and the epilogue for int8, the vendor bars 01b and
+   01 for the bf16 and fp32 kernels) and the card's bound at the peak of
+   the kernel's type (int8; bf16 for bf16 and W4A16; for fp32 the fastest
+   route that meets gate 1e-4, 3xTF32 at a third of the TF32 peak, with
+   the FFMA ceiling printed beside it);
 4. each serving kernel against its plain version at the Llama-2-7B
    shapes the serve paths give it (``kv_update`` and ``paged_kv_update``
    on each row kind: bf16 values, int8 values and fp32 scales; the paged
@@ -37,11 +44,12 @@ Phases (any failure raises and exits non-zero before the last line):
    function) and its bound; each paged attention kernel also beside the
    contiguous kernel on the same logical cache;
 5. the ladder's main path, with every launch count set to 0 just before
-   it: the sweep driver on rungs 06v, 06, 14 and 07b at p = 1024 (fp64
-   host oracle), 2048 and 4096 (fp64 device check), writing ``.m`` files
-   to a temporary directory and printing the ``p gflops diff`` rows, then
-   the headline bench's JSON line. Every ladder kernel must have been
-   launched;
+   it: the sweep driver on rungs 06v, 06, 14, 07b, 01, 01b, 04, 05, 07, 15
+   and 16 at p = 1024 (fp64 host oracle), 2048 and 4096 (fp64 device
+   check), writing ``.m`` files to a temporary directory and printing the
+   ``p gflops diff`` rows, then the headline bench's JSON line (the int8
+   rungs of the top-level ``bench.py``). Every ladder kernel must have
+   been launched;
 6. the serving paths, each with every launch count set to 0 just before
    it and read just after: ``ServingEngine`` on Llama-2-7B (32 layers,
    random weights from seed 0) with W4A8 weights and a bf16 cache
@@ -82,7 +90,7 @@ Phases (any failure raises and exits non-zero before the last line):
    CPU's default routes
    (the reference's eager attention, which rounds q to bf16) are printed
    beside them;
-8. one ``{"kernels": [...]}`` line (15 kernels), the card's line again,
+8. one ``{"kernels": [...]}`` line (20 kernels), the card's line again,
    and last
    ``{"ok": true, "device": {...}}``.
 
@@ -110,24 +118,40 @@ from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
 from how_to_optimize_gemm_tpu_torch.models import llama
 from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
                                                int4, int8, kv_update,
-                                               paged_attention, registry)
+                                               paged_attention, registry,
+                                               tuned, vendor)
 from how_to_optimize_gemm_tpu_torch.parallel import serving
 from how_to_optimize_gemm_tpu_torch.utils.matrices import make_abc
 from how_to_optimize_gemm_tpu_torch.utils.timing import (time_calls,
                                                          time_chained)
 
 # H100 SXM data sheet: dense int8 and bf16 tensor-core peaks, HBM3
-# bandwidth.
+# bandwidth. fp32 at the rungs' gate (1e-4): the fastest route that meets
+# it is a 3xTF32 split on the tensor cores, a third of the 495 TFLOP/s
+# TF32 peak (plain TF32 does not meet it); FFMA tops out at 67 TFLOP/s.
 PEAK_INT8_OPS = 1.979e15
 PEAK_BF16_FLOPS = 0.989e15
+PEAK_FP32_FLOPS = 0.495e15 / 3
+PEAK_FFMA_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-GATE_REL = 1e-4
+PEAKS = {"int8": PEAK_INT8_OPS, "bf16": PEAK_BF16_FLOPS,
+         "fp32": PEAK_FP32_FLOPS}
 P_FULL = 4096
 MAIN_RUNGS = ("06v_xla_int8", "06_pallas_int8", "14_packed_alias_int8",
-              "07b_pallas_w4a8")
+              "07b_pallas_w4a8", "01_xla_fp32", "01b_xla_bf16",
+              "04_pallas_tuned_fp32", "05_pallas_bf16", "07_pallas_int4",
+              "15_packed_alias_bf16", "16_packed_alias_fp32")
+# w4a16 and bf16 kernels vs their plain version: exact products, fp32 sums
+# in another order (the GEMM's by the tensor cores), relative to max |y|
+W4A16_REL = 2e-5
+# the FFMA kernels vs their plain version: one fmaf chain over K against
+# cuBLAS's fp32 order, relative to max |y|
+FP32_REL = 1e-5
 
 SRC = "how_to_optimize_gemm_tpu_torch/csrc/"
-# Each kernel with the rung whose prepare/effective give its operands.
+# Each kernel with the rung whose prepare/effective give its operands, its
+# tolerance against its plain version (relative to max |plain|; 0: EQUAL)
+# and the peak its bound takes.
 KERNELS = [
     dict(name="int8_gemm_nn", source=SRC + "int8_gemm_nn.cu",
          replaces="how_to_optimize_gemm_tpu/ops/pallas_int8.py:29",
@@ -136,7 +160,7 @@ KERNELS = [
          plain=int8.mmult_q_ref,
          library=lambda qa, sa, qb, sb, c: int8.dequant_epilogue(
              torch._int_mm(qa, qb), sa, sb, c),
-         unaligned=(1000, 1032, 1100)),
+         unaligned=(1000, 1032, 1100), tol=0.0, peak="int8"),
     dict(name="int8_gemm_nt", source=SRC + "int8_gemm_nt.cu",
          replaces="how_to_optimize_gemm_tpu/ops/pallas_int8.py:212",
          function="pallas_int8._kernel_bt + _kernel_bt_1k :259 "
@@ -145,7 +169,7 @@ KERNELS = [
          plain=int8.mmult_q_bt_ref,
          library=lambda qa, sa, qbt, sb, c: int8.dequant_epilogue(
              torch._int_mm(qa, qbt.t()), sa, sb, c),
-         unaligned=(1000, 1032, 1100)),
+         unaligned=(1000, 1032, 1100), tol=0.0, peak="int8"),
     dict(name="w4a8_gemm", source=SRC + "w4a8_gemm.cu",
          replaces="how_to_optimize_gemm_tpu/ops/pallas_int4.py:342",
          function="pallas_int4._kernel_w4a8 + _decode_w4 :36 "
@@ -153,7 +177,42 @@ KERNELS = [
          rung="07b_pallas_w4a8", wrapper=int4.mmult_q_w4a8,
          plain=int4.mmult_q_w4a8_ref,
          library=None,   # no single PyTorch call decodes int4
-         unaligned=(1000, 1032, 3584)),
+         unaligned=(1000, 1032, 3584), tol=0.0, peak="int8"),
+    dict(name="bf16_gemm_nt", source=SRC + "bf16_gemm_nt.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_tuned.py:178",
+         function="pallas_tuned._kernel_bf16_bt (mmult_bf16_bt, rung 15)",
+         rung="15_packed_alias_bf16", wrapper=tuned.mmult_bf16_bt,
+         plain=tuned.mmult_bf16_bt_ref,
+         library=lambda a16, bt16, c: vendor.mmult_bf16(a16, bt16.t(), c),
+         unaligned=(1000, 1032, 1100), tol=W4A16_REL, peak="bf16"),
+    dict(name="fp32_gemm_nt", source=SRC + "fp32_gemm_nt.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_tuned.py:160",
+         function="pallas_tuned._make_kernel_bt(HIGHEST) (mmult_fp32_bt, "
+                  "rung 16)",
+         rung="16_packed_alias_fp32", wrapper=tuned.mmult_fp32_bt,
+         plain=tuned.mmult_fp32_bt_ref,
+         library=lambda a, bt, c: vendor.mmult(a, bt.t(), c),
+         unaligned=(1000, 1032, 1100), tol=FP32_REL, peak="fp32"),
+    dict(name="w4a16_gemm", source=SRC + "w4a16_gemm.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_int4.py:55",
+         function="pallas_int4._kernel + _decode_w4 :36 (mmult_q, rung 07)",
+         rung="07_pallas_int4", wrapper=int4.mmult_q, plain=int4.mmult_q_ref,
+         library=None,   # no single PyTorch call decodes int4
+         unaligned=(1000, 1032, 3584), tol=W4A16_REL, peak="bf16"),
+    dict(name="bf16_gemm_nn", source=SRC + "bf16_gemm_nn.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_tuned.py:75",
+         function="pallas_tuned._make_kernel(DEFAULT) (mmult_bf16 / "
+                  "_mmult_impl :128, rung 05)",
+         rung="05_pallas_bf16", wrapper=tuned.mmult_bf16,
+         plain=tuned.mmult_bf16_ref, library=vendor.mmult_bf16,
+         unaligned=(1000, 1032, 1100), tol=W4A16_REL, peak="bf16"),
+    dict(name="fp32_gemm_nn", source=SRC + "fp32_gemm_nn.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_tuned.py:75",
+         function="pallas_tuned._make_kernel(HIGHEST) (mmult / "
+                  "_mmult_impl :128, rung 04)",
+         rung="04_pallas_tuned_fp32", wrapper=tuned.mmult,
+         plain=tuned.mmult_ref, library=vendor.mmult,
+         unaligned=(1000, 1032, 1100), tol=FP32_REL, peak="fp32"),
 ]
 
 
@@ -164,13 +223,14 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def bound(ops, m: int, n: int, k: int):
+def bound(ops, m: int, n: int, k: int, peak: float = PEAK_INT8_OPS):
     """(ms, "bytes" | "operations"): the least time for this work, each
-    input read once and the output written once."""
+    input read once and the output written once, the operations at
+    ``peak`` per second."""
     nbytes = sum(t.numel() * t.element_size() for t in ops)
     nbytes += 2 * 4 * m * n                     # C read, output written
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = 2.0 * m * n * k / PEAK_INT8_OPS
+    t_ops = 2.0 * m * n * k / peak
     return (1e3 * max(t_bytes, t_ops),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -183,18 +243,21 @@ def check_kernel(spec: dict, gen: torch.Generator) -> dict:
     for m, n, k in (spec["unaligned"], (P_FULL, P_FULL, P_FULL)):
         a, b, c = make_abc(gen, m, n, k, "cuda")
         prepared = rung.prepare(a, b)
-        ops = prepared[:4]   # 07b's prepare adds kdim, no kernel operand
+        # the kernel's operands: 07b's and 07's prepare add kdim
+        ops = [x for x in prepared if isinstance(x, torch.Tensor)]
         out = spec["wrapper"](*ops, c.clone())
         ref = spec["plain"](*ops, c)
         torch.cuda.synchronize()
         max_abs = float((out - ref).abs().max())
+        scale = float(ref.abs().max())
         ae, be = rung.effective(prepared)
         oracle = ae.double() @ be.double() + c.double()
         rel = float((out.double() - oracle).abs().max()
                     / oracle.abs().max().clamp_min(1e-30))
-        print(f"{name} {m}x{n}x{k}: max|kernel - plain| = {max_abs}, "
-              f"rel vs fp64 = {rel:.3e}")
-        if max_abs != 0.0 or not rel < GATE_REL:
+        print(f"{name} {m}x{n}x{k}: max|kernel - plain| = {max_abs} = "
+              f"{max_abs / scale:.3e} of max|plain| (bound {spec['tol']}), "
+              f"rel vs fp64 = {rel:.3e} (gate {rung.gate_rel})")
+        if not (max_abs <= spec["tol"] * scale and rel < rung.gate_rel):
             raise AssertionError(f"{name} {m}x{n}x{k} disagrees: "
                                  f"max_abs {max_abs}, rel {rel}")
         result["max_abs_err"] = max(result["max_abs_err"], max_abs)
@@ -206,12 +269,18 @@ def check_kernel(spec: dict, gen: torch.Generator) -> dict:
     if spec["library"] is not None:
         lib_ms = time_chained(spec["library"], ops, c, inner_iters=20,
                               outer_repeats=3, warmup=2) * 1e3
-    bound_ms, bound_by = bound(ops, P_FULL, P_FULL, P_FULL)
+    bound_ms, bound_by = bound(ops, P_FULL, P_FULL, P_FULL,
+                               PEAKS[spec["peak"]])
     result.update(ms=t["wrapper"], plain_ms=t["plain"], bound_ms=bound_ms,
                   bound_by=bound_by, library_ms=lib_ms)
-    print(f"{name} p={P_FULL}: {result['ms']:.4f} ms (plain "
-          f"{result['plain_ms']:.4f}, library {lib_ms}, bound "
-          f"{bound_ms:.4f} by {bound_by})")
+    ffma = ""
+    if spec["peak"] == "fp32":
+        ffma_ms = bound(ops, P_FULL, P_FULL, P_FULL, PEAK_FFMA_FLOPS)[0]
+        ffma = f"; the FFMA ceiling {ffma_ms:.4f}"
+    tops = 2.0 * P_FULL ** 3 / result["ms"] * 1e-9
+    print(f"{name} p={P_FULL}: {result['ms']:.4f} ms = {tops:.1f} Tops/s "
+          f"(plain {result['plain_ms']:.4f}, library {lib_ms}, bound "
+          f"{bound_ms:.4f} by {bound_by} at the {spec['peak']} peak{ffma})")
     return result
 
 
@@ -232,9 +301,10 @@ def main_path(out_dir: pathlib.Path) -> dict:
                                                              rows]:
                 raise AssertionError(f"{rung}: .m file does not hold "
                                      "the sweep's rows")
+        gate = registry.get(rung).gate_rel
         for r in host + dev:
             if not (math.isfinite(r.gflops) and r.gflops > 0
-                    and r.kernel_rel < GATE_REL):
+                    and r.kernel_rel < gate):
                 raise AssertionError(f"{rung} p={r.p}: bad row {r}")
     record = bench.measure()
     print(json.dumps(record))
@@ -246,9 +316,6 @@ def main_path(out_dir: pathlib.Path) -> dict:
 CFG_7B = llama.llama2_7b("w4a8")
 SLOTS = 4
 DECODE_ATOL = 2e-3   # decode_attention vs its plain version (sum order, exp)
-# w4a16 kernels vs their plain version: exact products, fp32 sums in
-# another order (the GEMM's by the tensor cores), relative to max |y|
-W4A16_REL = 2e-5
 # flash_attention vs its plain version at the kernel's 64-key tiles: in
 # every row, max |kernel - plain| within FLASH_ULPS bf16 ulps of that row's
 # max |plain| (attention.bf16_row_ulps). fp32 sums in another order can

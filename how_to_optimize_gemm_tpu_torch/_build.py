@@ -48,6 +48,8 @@ class Kernel:
 
 # (qa, b, sa, sb, c, out, M, N, K, lda, ldb, ldc, stream)
 _GEMM = (_P,) * 6 + (_I,) * 6 + (_P,)
+# (a, b, c, out, M, N, K, lda, ldb, ldc, stream)
+_FLOAT_GEMM = (_P,) * 4 + (_I,) * 6 + (_P,)
 
 # kernel name -> Kernel; the C symbol has the kernel's name
 KERNELS = {
@@ -93,6 +95,15 @@ KERNELS = {
     #  element strides of q, k, v and out, scale, stream)
     "flash_attention": Kernel("flash_attention.cu", (_P,) * 4 + (_I,) * 19
                               + (_F, _P)),
+    # (a, b, c, out, M, N, K, lda, ldb, ldc, stream), b as BT (N, K) for
+    # the _nt kernels and (K, N) for the _nn ones; c and out may alias
+    "bf16_gemm_nt": Kernel("bf16_gemm_nt.cu", _FLOAT_GEMM),
+    "bf16_gemm_nn": Kernel("bf16_gemm_nn.cu", _FLOAT_GEMM),
+    "fp32_gemm_nt": Kernel("fp32_gemm_nt.cu", _FLOAT_GEMM),
+    "fp32_gemm_nn": Kernel("fp32_gemm_nn.cu", _FLOAT_GEMM),
+    # (a, packed, sw, c, out, M, N, K, lda, ldb, ldc, stream): bf16 A,
+    # out = (A @ W4) * sw + C
+    "w4a16_gemm": Kernel("w4a16_gemm.cu", (_P,) * 5 + (_I,) * 6 + (_P,)),
 }
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -22,7 +22,15 @@ import numpy as np
 import torch
 
 # Prepared-tuple dtypes per rung; ``int`` marks a Python int kept as is.
+_F32, _BF16 = (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)
 _LAYOUTS = {
+    "01_xla_fp32": _F32,
+    "01b_xla_bf16": _BF16,
+    "04_pallas_tuned_fp32": _F32,
+    "05_pallas_bf16": _BF16,
+    "15_packed_alias_bf16": _BF16,
+    "16_packed_alias_fp32": _F32,
+    "07_pallas_int4": (torch.bfloat16, torch.int8, torch.float32, int),
     "06v_xla_int8": (torch.int8, torch.float32, torch.int8, torch.float32),
     "06_pallas_int8": (torch.int8, torch.float32, torch.int8, torch.float32),
     "14_packed_alias_int8": (torch.int8, torch.float32, torch.int8,
@@ -31,13 +39,16 @@ _LAYOUTS = {
                         torch.float32, int),
 }
 
-_NUMPY = {torch.int8: np.int8, torch.float32: np.float32}
+# numpy dtype names (bf16 arrays carry ml_dtypes' ``bfloat16``)
+_NUMPY = {torch.int8: "int8", torch.float32: "float32",
+          torch.bfloat16: "bfloat16"}
 
 
 def from_jax_prepared(rung_name: str, arrays, device) -> tuple:
     """Reference rung ``rung_name``'s prepared operands (numpy arrays,
-    and ``kdim`` as an int for 07b) -> the port's prepared tuple on
-    ``device``. Raises on a dtype the port's rung does not take."""
+    and ``kdim`` as an int for 07 and 07b) -> the port's prepared tuple on
+    ``device``, bf16 arrays bit for bit. Raises on a dtype the port's rung
+    does not take."""
     if rung_name not in _LAYOUTS:
         raise KeyError(f"no layout for rung {rung_name!r}; "
                        f"available: {sorted(_LAYOUTS)}")
@@ -51,10 +62,10 @@ def from_jax_prepared(rung_name: str, arrays, device) -> tuple:
             out.append(int(x))
             continue
         x = np.asarray(x)
-        if x.dtype != _NUMPY[dt]:
+        if x.dtype.name != _NUMPY[dt]:
             raise TypeError(f"{rung_name}: expected {_NUMPY[dt]}, "
                             f"got {x.dtype}")
-        out.append(torch.from_numpy(np.array(x, copy=True)).to(device))
+        out.append(_tensor(x, device))
     return tuple(out)
 
 

@@ -1,8 +1,9 @@
 // Shared building blocks of the GEMM kernels (int8_gemm_nn.cu,
 // int8_gemm_nt.cu, int8_gemm_noc.cu, w4a8_gemm.cu, w4a8_gemm_noc.cu and,
-// for its tiling, staging and fragment walk, w4a16_gemm_noc.cu): block
-// tiling, shared-memory staging, the warp-level tensor-core product and
-// the dequant epilogue.
+// for their tiling, staging and fragment walk, the bf16 tensor-core
+// kernels of bf16_gemm.cuh and w4a16_gemm.cuh): block tiling,
+// shared-memory staging, the warp-level tensor-core product and the
+// dequant epilogue.
 //
 // Tiling: one 128x128 output tile per block of 256 threads (8 warps laid
 // out 2 x 4, each owning a 64x32 sub-tile = 4 x 4 fragments of
@@ -166,19 +167,38 @@ struct MmaS8 {
   }
 };
 
+// B fragments of one 32-byte-deep step (bytes kk..kk+31) from a K-major
+// stage: for each of the warp's four 8-column tiles, (col g, bytes
+// 4t..4t+3) and (col g, bytes 16+).
+struct KMajorFrags {
+  const int8_t (*bs)[LDS];
+  __device__ __forceinline__ void operator()(uint32_t (&b)[4][2], int kk,
+                                             int wn, int lane) const {
+    int g = lane >> 2;
+    int t = lane & 3;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      int n = wn * 32 + ni * 8 + g;
+      b[ni][0] = lds32(&bs[n][kk + t * 4]);
+      b[ni][1] = lds32(&bs[n][kk + 16 + t * 4]);
+    }
+  }
+};
+
 // One 64-byte K step of the warp's 64x32 sub-tile from one stage, the
-// product issued by Op::mma on 32-byte-deep fragments. Fragment layouts
+// product issued by Op::mma on 32-byte-deep fragments, the B fragments
+// given by BFrags (KMajorFrags for a K-major stage). Fragment layouts
 // (PTX ISA, mma.m16n8k32 .s8; lane = 4*g + t): A regs: (row g, bytes
 // 4t..4t+3), (row g+8, same bytes), then both at byte 16+; B regs:
 // (col g, bytes 4t..4t+3), (col g, bytes 16+); acc: rows g and g+8,
 // columns 2t and 2t+1. mma.m16n8k16 .bf16 reads the same bytes (two
 // bf16 per register, k = 2t, 2t+1 and k + 8) into the same accumulator
 // layout, so the walk serves both.
-template <class Op, class Acc>
-__device__ __forceinline__ void mma_stage(Acc (&acc)[4][4][4],
-                                          const int8_t (*as)[LDS],
-                                          const int8_t (*bs)[LDS], int wm,
-                                          int wn, int lane) {
+template <class Op, class Acc, class BFrags>
+__device__ __forceinline__ void mma_stage_with(Acc (&acc)[4][4][4],
+                                               const int8_t (*as)[LDS],
+                                               const BFrags& bfrags, int wm,
+                                               int wn, int lane) {
   int g = lane >> 2;
   int t = lane & 3;
 #pragma unroll
@@ -193,18 +213,22 @@ __device__ __forceinline__ void mma_stage(Acc (&acc)[4][4][4],
       a[mi][2] = lds32(&as[r][kk + 16 + t * 4]);
       a[mi][3] = lds32(&as[r + 8][kk + 16 + t * 4]);
     }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      int n = wn * 32 + ni * 8 + g;
-      b[ni][0] = lds32(&bs[n][kk + t * 4]);
-      b[ni][1] = lds32(&bs[n][kk + 16 + t * 4]);
-    }
+    bfrags(b, kk, wn, lane);
 #pragma unroll
     for (int mi = 0; mi < 4; ++mi) {
 #pragma unroll
       for (int ni = 0; ni < 4; ++ni) Op::mma(acc[mi][ni], a[mi], b[ni]);
     }
   }
+}
+
+// mma_stage_with on a K-major B stage.
+template <class Op, class Acc>
+__device__ __forceinline__ void mma_stage(Acc (&acc)[4][4][4],
+                                          const int8_t (*as)[LDS],
+                                          const int8_t (*bs)[LDS], int wm,
+                                          int wn, int lane) {
+  mma_stage_with<Op>(acc, as, KMajorFrags{bs}, wm, wn, lane);
 }
 
 // out[i,j] = (float(acc) * sa[i]) * sb[j] (+ c[i,j] when kAddC), masked

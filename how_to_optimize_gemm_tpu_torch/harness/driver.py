@@ -6,12 +6,15 @@ run the rung once against the oracle, fail hard on a gate trip
 (``DiffGateError``), time the rung on CUDA events, and write the rows to
 an Octave ``.m`` file.
 
-Rungs 14 and 07b accumulate into C in place, so the driver hands every
-run the oracle reads a clone of C, and the timing loop works on its own
-copy: the C the oracle adds is always the C the rung started from.
+Rungs 07, 07b, 14, 15 and 16 accumulate into C in place, so the driver
+hands every run the oracle reads a clone of C, and the timing loop works
+on its own copy: the C the oracle adds is always the C the rung started
+from.
 
     python -m how_to_optimize_gemm_tpu_torch.harness.driver \\
         --new 14_packed_alias_int8 --old 06v_xla_int8 --quick
+    python -m how_to_optimize_gemm_tpu_torch.harness.driver \\
+        --new 15_packed_alias_bf16 --old 01b_xla_bf16 --quick
 """
 from __future__ import annotations
 

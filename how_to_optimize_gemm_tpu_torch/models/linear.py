@@ -13,8 +13,9 @@ routes on the card and the reference's off-TPU emulation on the CPU;
 True on the CPU takes the kernel routes through the kernels' plain
 versions (``utils/device.kernel_routes_for``).
 
-- fp32: ``torch.matmul``, with TF32 off on the card.
-- bf16: the operands rounded to bf16, then an fp32 ``torch.matmul`` (the
+- fp32: ``vendor.fp32_matmul``: TF32 off for the product only, as the
+  reference's fp32 dot carries its precision per call.
+- bf16: the operands rounded to bf16, then an fp32 ``fp32_matmul`` (the
   reference's ``preferred_element_type=float32``).
 - int8: rows of x quantized; on the kernel routes at m >= 256
   ``int8.mmult_q_noc`` (kernel ``int8_gemm_noc``); otherwise an exact
@@ -35,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from how_to_optimize_gemm_tpu_torch.ops import bounds, int4, int8, quant
+from how_to_optimize_gemm_tpu_torch.ops.vendor import fp32_matmul
 from how_to_optimize_gemm_tpu_torch.utils.device import kernel_routes_for
 
 INT4_BLOCK_K = int4.PACK_BLOCK
@@ -70,14 +72,6 @@ def linear_kind(lin: dict) -> str:
     raise ValueError("empty linear")
 
 
-def _matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    if x.is_cuda:
-        # full fp32 products, as the reference's fp32 dot (TF32 keeps
-        # about three decimal digits)
-        torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.matmul(x, w)
-
-
 def apply_linear(lin: dict, x: torch.Tensor, kernels=None) -> torch.Tensor:
     """y = x @ dequant(W): x (..., d_in) of any float dtype, y fp32.
 
@@ -88,9 +82,9 @@ def apply_linear(lin: dict, x: torch.Tensor, kernels=None) -> torch.Tensor:
     m = x2.shape[0]
     kernels = kernel_routes_for(x2, kernels)
     if kind == "fp32":
-        y = _matmul_fp32(x2.to(torch.float32), lin["fp32_w"])
+        y = fp32_matmul(x2.to(torch.float32), lin["fp32_w"])
     elif kind == "bf16":
-        y = _matmul_fp32(x2.to(torch.bfloat16).to(torch.float32),
+        y = fp32_matmul(x2.to(torch.bfloat16).to(torch.float32),
                          lin["bf16_w"].to(torch.float32))
     elif kind == "int8":
         qa, sa = quant.quantize_symmetric(x2.to(torch.float32), axis=1)
@@ -106,7 +100,7 @@ def apply_linear(lin: dict, x: torch.Tensor, kernels=None) -> torch.Tensor:
         else:
             wq = quant.unpack_int4(lin["int4_packed"], INT4_BLOCK_K)
             w = (wq.to(torch.float32) * lin["int4_sw"]).to(torch.bfloat16)
-            y = _matmul_fp32(x2.to(torch.bfloat16).to(torch.float32),
+            y = fp32_matmul(x2.to(torch.bfloat16).to(torch.float32),
                              w[:x2.shape[-1]].to(torch.float32))
     elif kind == "w4a8":
         if m <= int4.GEMV_MAX_M:

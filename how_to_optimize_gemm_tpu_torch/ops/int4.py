@@ -16,13 +16,16 @@ packed two per byte in 512-row pack blocks (``ops/quant.py``).
 - ``mmult_q_noc`` (W4A16, the int4 serving linear):
   ``y = (A_bf16 @ W) * sw[j]`` with fp32 sums; kernel ``w4a16_gemv`` at
   m <= 64, ``w4a16_gemm_noc`` above.
+- ``mmult_q`` (rung 07, W4A16, kernel ``w4a16_gemm``, the template of
+  ``w4a16_gemm_noc`` with "+ C"): ``C = (A_bf16 @ W) * sw[j] + C``, IN
+  PLACE on ``c``; ``prepare`` makes its operands.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``*_ref``) only for CPU tensors. The W4A8 kernels equal their
 plain versions bit for bit (exact int32 sums, the epilogue in the same
 order). The W4A16 kernels' products are exact in fp32 but summed in
 another order (the GEMM's by the tensor cores), so they agree with
-``mmult_q_noc_ref`` to rounding: within 2e-5 of max |y| on the card's
+their plain versions to rounding: within 2e-5 of max |y| on the card's
 tests.
 """
 from __future__ import annotations
@@ -33,6 +36,7 @@ from how_to_optimize_gemm_tpu_torch import _build
 from how_to_optimize_gemm_tpu_torch.ops import bounds, quant
 from how_to_optimize_gemm_tpu_torch.ops.int8 import (
     ALIGN, require_cuda, check_operands, dequant_epilogue, int_matmul_exact)
+from how_to_optimize_gemm_tpu_torch.ops.vendor import fp32_matmul
 
 # K rows per pack block: rows [g*512, g*512+256) of W live in the low
 # nibbles and [g*512+256, g*512+512) in the high nibbles of packed rows
@@ -40,15 +44,26 @@ from how_to_optimize_gemm_tpu_torch.ops.int8 import (
 PACK_BLOCK = 512
 
 
-def prepare_w4a8(a: torch.Tensor, b: torch.Tensor):
-    """A -> int8 per row; B -> int4 per column, zero-padded to whole pack
-    blocks and packed. Returns ``(qa, sa, packed, sw, kdim)``."""
-    qa, sa = quant.quantize_symmetric(a, axis=1)          # (M,K) int8
+def _pack_weights(b: torch.Tensor):
+    """B -> int4 per column, zero-padded to whole pack blocks and packed:
+    ``(packed, sw, kdim)``."""
     kdim = b.shape[0]
     bp = bounds.pad_dim(b, 0, PACK_BLOCK)
     qw, sw = quant.quantize_symmetric(bp, axis=0, bits=4)
-    packed = quant.pack_int4(qw, PACK_BLOCK)
-    return qa, sa, packed, sw, kdim
+    return quant.pack_int4(qw, PACK_BLOCK), sw, kdim
+
+
+def prepare_w4a8(a: torch.Tensor, b: torch.Tensor):
+    """A -> int8 per row; B -> packed int4 per column. Returns
+    ``(qa, sa, packed, sw, kdim)``."""
+    qa, sa = quant.quantize_symmetric(a, axis=1)          # (M,K) int8
+    return (qa, sa, *_pack_weights(b))
+
+
+def prepare(a: torch.Tensor, b: torch.Tensor):
+    """Rung 07 (W4A16): A -> bf16; B -> packed int4 per column. Returns
+    ``(a16, packed, sw, kdim)``."""
+    return (a.to(torch.bfloat16), *_pack_weights(b))
 
 
 def mmult_q_w4a8_ref(qa, sa, packed, sw, c):
@@ -161,7 +176,46 @@ def mmult_q_noc_ref(a, packed, sw):
     """Plain version of ``mmult_q_noc``: ``(f32(A) @ f32(W)) * sw``, every
     product exact in fp32, the sums in PyTorch's order."""
     w = quant.unpack_int4(packed, PACK_BLOCK)[: a.shape[1]]
-    return torch.matmul(a.to(torch.float32), w.to(torch.float32)) * sw
+    return fp32_matmul(a.to(torch.float32), w.to(torch.float32)) * sw
+
+
+def mmult_q_ref(a16, packed, sw, c):
+    """Plain version of rung 07, out of place: ``(A @ W) * sw + C``, the
+    reference's flush order."""
+    return mmult_q_noc_ref(a16, packed, sw) + c
+
+
+def _w4a16_operands(name: str, a, packed, sw, n: int):
+    """Raise on what the W4A16 kernels do not take; returns ``(kp,
+    packed)`` with the packed pitch padded to 16 bytes."""
+    k = a.shape[1]
+    kp = _check_packed(name, packed, k, n)
+    if a.dtype != torch.bfloat16 or packed.dtype != torch.int8 \
+            or sw.dtype != torch.float32:
+        raise TypeError(f"{name}: expected bf16 a, int8 packed, "
+                        f"float32 sw; got {a.dtype}, {packed.dtype}, "
+                        f"{sw.dtype}")
+    if tuple(sw.shape) != (1, n):
+        raise ValueError(f"{name}: sw {tuple(sw.shape)} vs (1, {n})")
+    for t in (packed, sw):
+        if t.device != a.device:
+            raise ValueError(f"{name}: tensors on {t.device} and "
+                             f"{a.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    packed = bounds.pad_dim(packed, 1, ALIGN)
+    if packed.data_ptr() % ALIGN:
+        raise ValueError(f"{name}: packed not {ALIGN}-byte aligned")
+    return kp, packed
+
+
+def _rows_aligned(name: str, a):
+    """A contiguous with rows starting on 16-byte boundaries: K padded to
+    8 bf16 with zero columns."""
+    a = bounds.pad_dim(a.contiguous(), 1, ALIGN // 2)
+    if a.data_ptr() % ALIGN:
+        raise ValueError(f"{name}: a not {ALIGN}-byte aligned")
+    return a
 
 
 def mmult_q_noc(a, packed, sw):
@@ -176,23 +230,7 @@ def mmult_q_noc(a, packed, sw):
     require_cuda("mmult_q_noc", a)
     m, k = a.shape
     n = sw.shape[-1]
-    kp = _check_packed("mmult_q_noc", packed, k, n)
-    if a.dtype != torch.bfloat16 or packed.dtype != torch.int8 \
-            or sw.dtype != torch.float32:
-        raise TypeError(f"mmult_q_noc: expected bf16 a, int8 packed, "
-                        f"float32 sw; got {a.dtype}, {packed.dtype}, "
-                        f"{sw.dtype}")
-    if tuple(sw.shape) != (1, n):
-        raise ValueError(f"mmult_q_noc: sw {tuple(sw.shape)} vs (1, {n})")
-    for t in (packed, sw):
-        if t.device != a.device:
-            raise ValueError(f"mmult_q_noc: tensors on {t.device} and "
-                             f"{a.device}")
-        if not t.is_contiguous():
-            raise ValueError("mmult_q_noc: operands must be contiguous")
-    packed = bounds.pad_dim(packed, 1, ALIGN)
-    if packed.data_ptr() % ALIGN:
-        raise ValueError(f"mmult_q_noc: packed not {ALIGN}-byte aligned")
+    kp, packed = _w4a16_operands("mmult_q_noc", a, packed, sw, n)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if not (m and n):
         return out
@@ -201,11 +239,36 @@ def mmult_q_noc(a, packed, sw):
         _build.launch("w4a16_gemv", a.device, a, packed, sw, out, m, n, k,
                       kp, k, packed.shape[1])
     else:
-        # rows of A start on 16-byte boundaries: K padded to 8 bf16
-        a = bounds.pad_dim(a.contiguous(), 1, ALIGN // 2)
-        if a.data_ptr() % ALIGN:
-            raise ValueError(f"mmult_q_noc: a not {ALIGN}-byte aligned")
+        a = _rows_aligned("mmult_q_noc", a)
         ka = a.shape[1]
         _build.launch("w4a16_gemm_noc", a.device, a, packed, sw, out, m, n,
                       ka, ka, packed.shape[1], n)
     return out
+
+
+def mmult_q(a16, packed, sw, c):
+    """Rung 07: C = (A_bf16 @ dequant(W4)) * sw + C with fp32 sums, IN
+    PLACE on ``c`` (returned), as the reference aliases C into its output.
+
+    a16 (M, K) bf16, packed (Kp/2, N) int8 with Kp a multiple of 512 and
+    K <= Kp, sw (1, N), c (M, N) float32. Kernel ``w4a16_gemm`` at every
+    m, as the reference's rung runs one kernel."""
+    if c.device.type == "cpu":
+        c.copy_(mmult_q_ref(a16, packed, sw, c))
+        return c
+    require_cuda("mmult_q", c)
+    m, n = c.shape
+    if a16.dim() != 2 or a16.shape[0] != m:
+        raise ValueError(f"mmult_q: a {tuple(a16.shape)} vs c "
+                         f"{tuple(c.shape)}")
+    _, packed = _w4a16_operands("mmult_q", a16, packed, sw, n)
+    if c.dtype != torch.float32 or c.device != a16.device \
+            or not c.is_contiguous():
+        raise ValueError(f"mmult_q: c must be a contiguous float32 tensor "
+                         f"on {a16.device}")
+    a = _rows_aligned("mmult_q", a16)
+    if m and n:
+        ka = a.shape[1]
+        _build.launch("w4a16_gemm", c.device, a, packed, sw, c, c, m, n, ka,
+                      ka, packed.shape[1], n)
+    return c

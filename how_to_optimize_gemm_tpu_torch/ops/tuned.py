@@ -1,0 +1,146 @@
+"""bf16 and fp32 GEMMs of the ladder: rungs 04, 05, 15 and 16.
+
+Counterpart: ``how_to_optimize_gemm_tpu/ops/pallas_tuned.py`` (``mmult``,
+``mmult_bf16``, ``prepare_bf16_bt``, ``mmult_bf16_bt``,
+``prepare_fp32_bt``, ``mmult_fp32_bt``). Each computes ``A @ B + C`` with
+fp32 sums:
+
+- ``mmult`` (rung 04, kernel ``fp32_gemm_nn``) on fp32 A (M, K) and B
+  (K, N) at full fp32 accuracy, and ``mmult_bf16`` (rung 05,
+  ``bf16_gemm_nn``) on bf16 ones: the accumulator is seeded with C, as the
+  reference's ``_make_kernel`` does; a fresh output;
+- ``mmult_bf16_bt`` (rung 15, ``bf16_gemm_nt``) and ``mmult_fp32_bt``
+  (rung 16, ``fp32_gemm_nt``) on B packed transposed offline, (N, K)
+  (``prepare_bf16_bt``, ``prepare_fp32_bt``): the accumulator starts at 0
+  and C is added at the flush, IN PLACE on ``c``, as the reference aliases
+  C into its output.
+
+The reference's VMEM block choosers are not ported: each kernel keeps a
+fixed 128 x 128 tile. Each wrapper launches its kernel for CUDA tensors
+and runs its plain version (``*_ref``) only for CPU tensors. Products of
+bf16 values are exact in fp32, and every kernel sums in another order
+than its plain version (the tensor cores, or one fmaf chain over K), so
+the two agree to rounding.
+"""
+from __future__ import annotations
+
+import torch
+
+from how_to_optimize_gemm_tpu_torch import _build
+from how_to_optimize_gemm_tpu_torch.ops import bounds
+from how_to_optimize_gemm_tpu_torch.ops.int8 import ALIGN, require_cuda
+from how_to_optimize_gemm_tpu_torch.ops.vendor import fp32_matmul
+
+
+def prepare_bf16_bt(a: torch.Tensor, b: torch.Tensor):
+    """Offline pack of rung 15: A to bf16, B transposed to a contiguous
+    (N, K) bf16."""
+    return (a.to(torch.bfloat16),
+            b.to(torch.bfloat16).t().contiguous())
+
+
+def prepare_fp32_bt(a: torch.Tensor, b: torch.Tensor):
+    """Offline pack of rung 16: B transposed to a contiguous (N, K)."""
+    return a, b.t().contiguous()
+
+
+def mmult_ref(a, b, c):
+    """Plain version of rung 04: ``C + A @ B`` in fp32, a fresh output."""
+    return c + fp32_matmul(a, b)
+
+
+def mmult_bf16_ref(a16, b16, c):
+    """Plain version of rung 05: ``C + A @ B`` on bf16 values, fp32 sums."""
+    return c + fp32_matmul(a16.to(torch.float32), b16.to(torch.float32))
+
+
+def mmult_bf16_bt_ref(a16, bt16, c):
+    """Plain version of rung 15, out of place: ``A @ BT^T + C``."""
+    return fp32_matmul(a16.to(torch.float32),
+                       bt16.to(torch.float32).t()) + c
+
+
+def mmult_fp32_bt_ref(a, bt, c):
+    """Plain version of rung 16, out of place: ``A @ BT^T + C``."""
+    return fp32_matmul(a, bt.t()) + c
+
+
+def _launch(name: str, kernel: str, a, b, c, out, dtype, bt: bool):
+    """Check the operands, zero-pad K (and an N-major B's columns) so that
+    every row starts on a 16-byte boundary (exact: zeros add nothing),
+    launch ``kernel`` and return ``out``."""
+    m, n = c.shape
+    k = a.shape[1] if a.dim() == 2 else -1
+    b_shape = (n, k) if bt else (k, n)
+    if a.dim() != 2 or a.shape[0] != m or tuple(b.shape) != b_shape:
+        raise ValueError(f"{name}: a {tuple(a.shape)}, b {tuple(b.shape)} "
+                         f"and c {tuple(c.shape)} do not match (b as "
+                         f"{'(N, K)' if bt else '(K, N)'})")
+    per_row = ALIGN // dtype.itemsize
+    a = bounds.pad_dim(a, 1, per_row)
+    b = bounds.pad_dim(b, 1, per_row)
+    if not bt:
+        b = bounds.pad_dim(b, 0, per_row)
+    for t, dt in ((a, dtype), (b, dtype), (c, torch.float32),
+                  (out, torch.float32)):
+        if t.dtype != dt:
+            raise TypeError(f"{name}: expected {dt}, got {t.dtype}")
+        if t.device != c.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {c.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    for t in (a, b):
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name}: operand not {ALIGN}-byte aligned")
+    if m and n:
+        kp = a.shape[1]
+        _build.launch(kernel, c.device, a, b, c, out, m, n, kp, kp,
+                      b.shape[1], n)
+    return out
+
+
+def mmult(a, b, c):
+    """Rung 04: ``C' = C + A @ B`` in fp32 at full fp32 accuracy, a fresh
+    (M, N) output (kernel ``fp32_gemm_nn``); ``c`` is not modified."""
+    if c.device.type == "cpu":
+        return mmult_ref(a, b, c)
+    require_cuda("mmult", c)
+    return _launch("mmult", "fp32_gemm_nn", a, b, c, torch.empty_like(c),
+                   torch.float32, bt=False)
+
+
+def mmult_bf16(a, b, c):
+    """Rung 05: ``C' = C + A_bf16 @ B_bf16`` with fp32 sums, a fresh
+    (M, N) output (kernel ``bf16_gemm_nn``). A and B are cast to bf16 as
+    the reference's ``mmult_bf16`` does (no copy when they already are)."""
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if c.device.type == "cpu":
+        return mmult_bf16_ref(a, b, c)
+    require_cuda("mmult_bf16", c)
+    return _launch("mmult_bf16", "bf16_gemm_nn", a, b, c,
+                   torch.empty_like(c), torch.bfloat16, bt=False)
+
+
+def mmult_bf16_bt(a16, bt16, c):
+    """Rung 15: ``C = A_bf16 @ BT_bf16^T + C`` with fp32 sums, BT (N, K).
+
+    IN PLACE: the result is written into ``c``, which is returned
+    (kernel ``bf16_gemm_nt``)."""
+    if c.device.type == "cpu":
+        c.copy_(mmult_bf16_bt_ref(a16, bt16, c))
+        return c
+    require_cuda("mmult_bf16_bt", c)
+    return _launch("mmult_bf16_bt", "bf16_gemm_nt", a16, bt16, c, c,
+                   torch.bfloat16, bt=True)
+
+
+def mmult_fp32_bt(a, bt, c):
+    """Rung 16: ``C = A @ BT^T + C`` in fp32 at full fp32 accuracy, BT
+    (N, K). IN PLACE on ``c``, which is returned (kernel
+    ``fp32_gemm_nt``)."""
+    if c.device.type == "cpu":
+        c.copy_(mmult_fp32_bt_ref(a, bt, c))
+        return c
+    require_cuda("mmult_fp32_bt", c)
+    return _launch("mmult_fp32_bt", "fp32_gemm_nt", a, bt, c, c,
+                   torch.float32, bt=True)

@@ -37,12 +37,18 @@ def _abc(shape, seed):
                  for s in ((m, k), (k, n), (m, n)))
 
 
+# the float and W4A16 rungs and their vendor bars (tests/test_torch_tuned.py)
+FLOAT_RUNGS = ["01_xla_fp32", "01b_xla_bf16", "04_pallas_tuned_fp32",
+               "05_pallas_bf16", "07_pallas_int4", "15_packed_alias_bf16",
+               "16_packed_alias_fp32"]
+
+
 def test_port_registry_holds_the_headline_rungs():
-    assert registry.names() == sorted(RUNGS)
-    for name in RUNGS:
+    assert registry.names() == sorted(RUNGS + FLOAT_RUNGS)
+    for name in RUNGS + FLOAT_RUNGS:
         assert registry.get(name).gate_rel == jregistry.get(name).gate_rel
     with pytest.raises(KeyError):
-        registry.get("05_pallas_bf16")
+        registry.get("02_pallas_mn_tile")
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -131,7 +137,7 @@ def test_w4a8_wrapper_refuses_other_devices():
 
 def test_convert_rejects_wrong_layouts():
     with pytest.raises(KeyError):
-        convert.from_jax_prepared("05_pallas_bf16", [], "cpu")
+        convert.from_jax_prepared("02_pallas_mn_tile", [], "cpu")
     with pytest.raises(TypeError):
         convert.from_jax_prepared(
             "06_pallas_int8",

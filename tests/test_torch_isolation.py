@@ -29,7 +29,7 @@ def test_port_modules_found():
     for name in ("models.linear", "models.llama", "parallel.serving",
                  "ops.kv_update", "ops.decode_attention",
                  "ops.paged_attention", "ops.attention", "parallel.kv_alloc",
-                 "utils.native"):
+                 "utils.native", "ops.tuned", "ops.vendor"):
         assert f"how_to_optimize_gemm_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 20
 
@@ -76,7 +76,8 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
         "w4a8_gemv_fq", "kv_update", "decode_attention", "int8_gemm_noc",
         "w4a16_gemm_noc", "w4a16_gemv", "decode_attention_q8",
         "paged_kv_update", "paged_decode_attention",
-        "paged_decode_attention_q8", "flash_attention"}
+        "paged_decode_attention_q8", "flash_attention", "bf16_gemm_nt",
+        "bf16_gemm_nn", "fp32_gemm_nt", "fp32_gemm_nn", "w4a16_gemm"}
     for name, kernel in _build.KERNELS.items():
         assert (_build.CSRC / kernel.source).exists(), name
         assert kernel.argtypes[-1] is ctypes.c_void_p, name
@@ -91,8 +92,14 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
     assert len(_build.KERNELS["paged_decode_attention"].argtypes) == 15
     assert len(_build.KERNELS["paged_decode_attention_q8"].argtypes) == 17
     assert len(_build.KERNELS["flash_attention"].argtypes) == 25
-    for name in ("int8_gemm_noc", "w4a16_gemm_noc", "w4a16_gemv"):
+    for name in ("int8_gemm_noc", "w4a16_gemm_noc", "w4a16_gemv",
+                 "bf16_gemm_nt", "bf16_gemm_nn", "fp32_gemm_nt",
+                 "fp32_gemm_nn", "w4a16_gemm"):
         assert ctypes.c_float not in _build.KERNELS[name].argtypes, name
+    for name in ("bf16_gemm_nt", "bf16_gemm_nn", "fp32_gemm_nt",
+                 "fp32_gemm_nn"):
+        assert len(_build.KERNELS[name].argtypes) == 11, name
+    assert len(_build.KERNELS["w4a16_gemm"].argtypes) == 12
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", str(ROOT / "no-such-cuda"))
     with pytest.raises(RuntimeError, match="nvcc"):
