@@ -14,7 +14,8 @@ Phases (any failure raises and exits non-zero before the last line):
 3. each ladder kernel against its plain PyTorch version on the card, at
    M=N=K=4096 and at an unaligned shape: the int8 kernels' outputs must
    be EQUAL, the bf16 and W4A16 kernels' within W4A16_REL and the FFMA
-   kernels' within FP32_REL of max |plain| (fp32 sums in another order),
+   kernels' (rungs 16, 04, 03/03b, 02 and the naive rung 00) within
+   FP32_REL of max |plain| (fp32 sums in another order),
    and every output under its rung's gate_rel against an fp64 oracle on
    the card; then its time at 4096 beside the plain version's, the
    library call's (where one PyTorch call computes the same function:
@@ -44,12 +45,15 @@ Phases (any failure raises and exits non-zero before the last line):
    function) and its bound; each paged attention kernel also beside the
    contiguous kernel on the same logical cache;
 5. the ladder's main path, with every launch count set to 0 just before
-   it: the sweep driver on rungs 06v, 06, 14, 07b, 01, 01b, 04, 05, 07, 15
-   and 16 at p = 1024 (fp64 host oracle), 2048 and 4096 (fp64 device
-   check), writing ``.m`` files to a temporary directory and printing the
-   ``p gflops diff`` rows, then the headline bench's JSON line (the int8
-   rungs of the top-level ``bench.py``). Every ladder kernel must have
-   been launched;
+   it: the sweep driver on rungs 06v, 06, 14, 07b, 01, 01b, 04, 05, 07,
+   15, 16, 00, 02, 03 and 03b at p = 1024 (fp64 host oracle), 2048 and
+   4096 (fp64 device check), writing ``.m`` files to a temporary
+   directory and printing the ``p gflops diff`` rows, then the headline
+   bench's JSON line (the int8 rungs of the top-level ``bench.py``), then
+   the driver's CLI, ``--new 03_pallas_k_blocked --old 02_pallas_mn_tile
+   --roofline --trace`` at p = 2048, whose per-kernel device profile of
+   each rung must name that rung's hand kernel and no other. Every ladder
+   kernel must have been launched;
 6. the serving paths, each with every launch count set to 0 just before
    it and read just after: ``ServingEngine`` on Llama-2-7B (32 layers,
    random weights from seed 0) with W4A8 weights and a bf16 cache
@@ -90,7 +94,7 @@ Phases (any failure raises and exits non-zero before the last line):
    CPU's default routes
    (the reference's eager attention, which rounds q to bf16) are printed
    beside them;
-8. one ``{"kernels": [...]}`` line (20 kernels), the card's line again,
+8. one ``{"kernels": [...]}`` line (23 kernels), the card's line again,
    and last
    ``{"ok": true, "device": {...}}``.
 
@@ -112,12 +116,20 @@ import numpy as np
 import torch
 
 from how_to_optimize_gemm_tpu_torch import _build, bench, convert
-from how_to_optimize_gemm_tpu_torch.harness import mfile
+from how_to_optimize_gemm_tpu_torch.harness import driver, mfile
 from how_to_optimize_gemm_tpu_torch.harness.driver import run_sweep
 from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
+# H100 SXM data sheet: dense int8 and bf16 tensor-core peaks, HBM3
+# bandwidth. fp32 at the rungs' gate (1e-4): the fastest route that meets
+# it is a 3xTF32 split on the tensor cores, a third of the 495 TFLOP/s
+# TF32 peak (plain TF32 does not meet it); FFMA tops out at 67 TFLOP/s.
+from how_to_optimize_gemm_tpu_torch.harness.profiling import (
+    PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FFMA_FLOPS, PEAK_FP32_FLOPS,
+    PEAK_INT8_OPS)
 from how_to_optimize_gemm_tpu_torch.models import llama
 from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
-                                               int4, int8, kv_update,
+                                               int4, int8, k_blocked,
+                                               kv_update, mn_tile, naive,
                                                paged_attention, registry,
                                                tuned, vendor)
 from how_to_optimize_gemm_tpu_torch.parallel import serving
@@ -125,22 +137,20 @@ from how_to_optimize_gemm_tpu_torch.utils.matrices import make_abc
 from how_to_optimize_gemm_tpu_torch.utils.timing import (time_calls,
                                                          time_chained)
 
-# H100 SXM data sheet: dense int8 and bf16 tensor-core peaks, HBM3
-# bandwidth. fp32 at the rungs' gate (1e-4): the fastest route that meets
-# it is a 3xTF32 split on the tensor cores, a third of the 495 TFLOP/s
-# TF32 peak (plain TF32 does not meet it); FFMA tops out at 67 TFLOP/s.
-PEAK_INT8_OPS = 1.979e15
-PEAK_BF16_FLOPS = 0.989e15
-PEAK_FP32_FLOPS = 0.495e15 / 3
-PEAK_FFMA_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 PEAKS = {"int8": PEAK_INT8_OPS, "bf16": PEAK_BF16_FLOPS,
          "fp32": PEAK_FP32_FLOPS}
 P_FULL = 4096
 MAIN_RUNGS = ("06v_xla_int8", "06_pallas_int8", "14_packed_alias_int8",
               "07b_pallas_w4a8", "01_xla_fp32", "01b_xla_bf16",
               "04_pallas_tuned_fp32", "05_pallas_bf16", "07_pallas_int4",
-              "15_packed_alias_bf16", "16_packed_alias_fp32")
+              "15_packed_alias_bf16", "16_packed_alias_fp32",
+              "00_naive_vpu", "02_pallas_mn_tile", "03_pallas_k_blocked",
+              "03b_pallas_small_blocks")
+# the driver's CLI with --roofline and --trace, as a user runs it: each
+# rung's trace must name its hand kernel and no other
+DRIVER_RUNGS = {"02_pallas_mn_tile": "fp32_gemm_mn_tile",
+                "03_pallas_k_blocked": "fp32_gemm_k_blocked"}
+P_DRIVER = 2048
 # w4a16 and bf16 kernels vs their plain version: exact products, fp32 sums
 # in another order (the GEMM's by the tensor cores), relative to max |y|
 W4A16_REL = 2e-5
@@ -213,6 +223,26 @@ KERNELS = [
          rung="04_pallas_tuned_fp32", wrapper=tuned.mmult,
          plain=tuned.mmult_ref, library=vendor.mmult,
          unaligned=(1000, 1032, 1100), tol=FP32_REL, peak="fp32"),
+    # the rungs below 04, on the CUDA cores; an unaligned shape whose K
+    # and N rows are not 16-byte multiples (03's wrapper pads them)
+    dict(name="naive_gemm", source=SRC + "naive_gemm.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/naive_vpu.py:21",
+         function="naive_vpu.mmult (plain JAX, K rank-1 updates; rung 00)",
+         rung="00_naive_vpu", wrapper=naive.mmult, plain=naive.naive_ref,
+         library=vendor.mmult, unaligned=(999, 1030, 1101), tol=FP32_REL,
+         peak="fp32"),
+    dict(name="fp32_gemm_mn_tile", source=SRC + "fp32_gemm_mn_tile.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_mn_tile.py:24",
+         function="pallas_mn_tile._kernel (mmult, rung 02)",
+         rung="02_pallas_mn_tile", wrapper=mn_tile.mmult,
+         plain=mn_tile.mn_tile_ref, library=vendor.mmult,
+         unaligned=(999, 1030, 1101), tol=FP32_REL, peak="fp32"),
+    dict(name="fp32_gemm_k_blocked", source=SRC + "fp32_gemm_k_blocked.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_k_blocked.py:31",
+         function="pallas_k_blocked._kernel (mmult, rungs 03 and 03b)",
+         rung="03_pallas_k_blocked", wrapper=k_blocked.mmult,
+         plain=k_blocked.k_blocked_ref, library=vendor.mmult,
+         unaligned=(999, 1030, 1101), tol=FP32_REL, peak="fp32"),
 ]
 
 
@@ -308,7 +338,28 @@ def main_path(out_dir: pathlib.Path) -> dict:
                 raise AssertionError(f"{rung} p={r.p}: bad row {r}")
     record = bench.measure()
     print(json.dumps(record))
+    drive_cli(out_dir / "driver")
     return record
+
+
+def drive_cli(out_dir: pathlib.Path) -> None:
+    """``driver --new 03 --old 02 --roofline --trace`` at P_DRIVER: both
+    rungs' rows gated, their .m files written, and each trace naming its
+    rung's hand kernel and no other kernel (no library GEMM)."""
+    old, new = DRIVER_RUNGS
+    results = driver.main(["--new", new, "--old", old, "--pfirst",
+                           str(P_DRIVER), "--plast", str(P_DRIVER),
+                           "--pinc", "1", "--output-dir", str(out_dir),
+                           "--roofline", "--trace"])
+    for rung, kernel in DRIVER_RUNGS.items():
+        names = [op.name for op in results[rung]["trace"]]
+        if not names or any(kernel not in name for name in names):
+            raise AssertionError(f"driver --trace of {rung}: kernels "
+                                 f"{names}, expected only {kernel}")
+        rows = results[rung]["rows"]
+        if [r.p for r in rows] != [P_DRIVER] or not (
+                (out_dir / f"output_{rung}.m").exists()):
+            raise AssertionError(f"driver {rung}: rows {rows}")
 
 
 # ------------------------------------------------------------- serving

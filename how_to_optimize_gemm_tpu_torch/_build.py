@@ -104,6 +104,14 @@ KERNELS = {
     # (a, packed, sw, c, out, M, N, K, lda, ldb, ldc, stream): bf16 A,
     # out = (A @ W4) * sw + C
     "w4a16_gemm": Kernel("w4a16_gemm.cu", (_P,) * 5 + (_I,) * 6 + (_P,)),
+    # the fp32 rungs below rung 04, on the CUDA cores: (a, b, c, out, M, N,
+    # K, lda, ldb, ldc, stream) with b (K, N), out fresh
+    "naive_gemm": Kernel("naive_gemm.cu", _FLOAT_GEMM),
+    "fp32_gemm_mn_tile": Kernel("fp32_gemm_mn_tile.cu", _FLOAT_GEMM),
+    # (a, b, c, out, M, N, K, lda, ldb, ldc, block, stream): block is the
+    # C tile edge, 128 (rung 03) or 64 (rung 03b)
+    "fp32_gemm_k_blocked": Kernel("fp32_gemm_k_blocked.cu",
+                                  _FLOAT_GEMM[:-1] + (_I, _P)),
 }
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

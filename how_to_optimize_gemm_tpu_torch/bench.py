@@ -21,12 +21,13 @@ import torch
 
 from how_to_optimize_gemm_tpu_torch.harness.driver import run_sweep
 from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
+from how_to_optimize_gemm_tpu_torch.harness.profiling import PEAK_INT8_OPS
 from how_to_optimize_gemm_tpu_torch.utils.device import default_device
 
 REFERENCE_BEST_GFLOPS = 22418.0  # cuda_12 sweep peak (BASELINE.md)
 # H100 SXM dense int8 tensor-core peak (NVIDIA data sheet, 1,979 TOP/s at
 # the full 700 W power limit): no honest reading of an int8 GEMM exceeds it.
-PEAK_INT8_GFLOPS = 1_979_000.0
+PEAK_INT8_GFLOPS = PEAK_INT8_OPS / 1e9
 # The headline population and the sizes each rung is timed at: the same
 # rungs and sizes as the top-level bench.py.
 RUNGS = {

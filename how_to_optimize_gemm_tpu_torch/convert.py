@@ -24,7 +24,11 @@ import torch
 # Prepared-tuple dtypes per rung; ``int`` marks a Python int kept as is.
 _F32, _BF16 = (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)
 _LAYOUTS = {
+    "00_naive_vpu": _F32,
     "01_xla_fp32": _F32,
+    "02_pallas_mn_tile": _F32,
+    "03_pallas_k_blocked": _F32,
+    "03b_pallas_small_blocks": _F32,
     "01b_xla_bf16": _BF16,
     "04_pallas_tuned_fp32": _F32,
     "05_pallas_bf16": _BF16,

@@ -15,6 +15,14 @@ from.
         --new 14_packed_alias_int8 --old 06v_xla_int8 --quick
     python -m how_to_optimize_gemm_tpu_torch.harness.driver \\
         --new 15_packed_alias_bf16 --old 01b_xla_bf16 --quick
+    python -m how_to_optimize_gemm_tpu_torch.harness.driver \\
+        --new 03_pallas_k_blocked --old 02_pallas_mn_tile \\
+        --pfirst 2048 --plast 2048 --pinc 1 --roofline --trace
+
+``--roofline`` prints each rung's analytic roofline table and ``--trace``
+its measured per-kernel device profile at the largest sweep size
+(``harness/profiling.py``); ``--device cpu`` runs everything on the host
+through the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ import shutil
 
 import torch
 
-from how_to_optimize_gemm_tpu_torch.harness import mfile, oracle
+from how_to_optimize_gemm_tpu_torch.harness import mfile, oracle, profiling
 from how_to_optimize_gemm_tpu_torch.harness.parameters import (
     CUDA_SWEEP, QUICK_SWEEP, SweepConfig)
 from how_to_optimize_gemm_tpu_torch.ops import registry
@@ -126,7 +134,9 @@ def run_sweep(rung_name: str, config: SweepConfig | None = None,
     return rows
 
 
-def main(argv=None):
+def main(argv=None) -> dict:
+    """The CLI. Returns, per swept rung, its rows and (with ``--trace``)
+    its profiled ops."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--new", required=True, choices=registry.names(),
                     help="rung under test (makefile NEW)")
@@ -142,6 +152,16 @@ def main(argv=None):
     ap.add_argument("--pinc", type=int, default=None)
     ap.add_argument("--nrepeats", type=int, default=None)
     ap.add_argument("--no-strict", action="store_true")
+    ap.add_argument("--roofline", action="store_true",
+                    help="print ANALYTIC top-down roofline attribution "
+                         "per rung (harness/profiling.py)")
+    ap.add_argument("--trace", action="store_true",
+                    help="capture a MEASURED per-kernel device profile of "
+                         "each rung at the largest sweep size "
+                         "(torch.profiler) and print its table")
+    ap.add_argument("--device", default=None,
+                    help="the card unless 'cpu' is asked for (the "
+                         "kernels' plain versions on the host)")
     args = ap.parse_args(argv)
 
     config = QUICK_SWEEP if args.quick else (
@@ -153,14 +173,30 @@ def main(argv=None):
         config = dataclasses.replace(config, **overrides)
 
     out_dir = pathlib.Path(args.output_dir)
+    results = {}
     for name, tag in ((args.old, "old"), (args.new, "new")):
         if name is None:
             continue
         print(f"== {tag}: {name} ==")
-        run_sweep(name, config, out_dir, strict=not args.no_strict)
+        rows = run_sweep(name, config, out_dir, strict=not args.no_strict,
+                         device=args.device)
+        results[name] = {"rows": rows}
         # old/new A-B snapshot convention (aarch64/makefile:43-44)
         shutil.copy(out_dir / f"output_{name}.m",
                     out_dir / f"output_{tag}.m")
+        if args.roofline:
+            print(profiling.roofline_report(rows, name))
+        if args.trace:
+            rung = registry.get(name)
+            p_max = max(r.p for r in rows)
+            ops, path = profiling.trace_rung(
+                name, p_max, logdir=out_dir / "profiles",
+                device=args.device)
+            results[name]["trace"] = ops
+            print(profiling.trace_table(
+                ops, compute_dtype=rung.compute_dtype or rung.dtype,
+                total_note=f" [{name} p={p_max}, capture: {path}]"))
+    return results
 
 
 if __name__ == "__main__":

@@ -44,17 +44,13 @@ import time
 import torch
 
 from how_to_optimize_gemm_tpu_torch import _build
+from how_to_optimize_gemm_tpu_torch.harness.profiling import (
+    PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_INT8_OPS)
 from how_to_optimize_gemm_tpu_torch.models import llama
 from how_to_optimize_gemm_tpu_torch.models.linear import KINDS
 from how_to_optimize_gemm_tpu_torch.ops.paged_attention import good_page_size
 from how_to_optimize_gemm_tpu_torch.parallel.serving import CACHE_KINDS
 from how_to_optimize_gemm_tpu_torch.utils.device import default_device
-
-# H100 SXM data sheet: HBM3 bandwidth, dense int8 and bf16 tensor-core
-# peaks
-PEAK_BYTES = 3.35e12
-PEAK_INT8_OPS = 1.979e15
-PEAK_BF16_FLOPS = 0.989e15
 
 
 def step_bytes(params: dict, cfg: llama.LlamaConfig, slots: int,

@@ -1,12 +1,13 @@
 """The rung registry: each rung under its stable name.
 
 Counterpart of ``how_to_optimize_gemm_tpu/ops/registry.py``, with its
-rungs 01, 01b, 04, 05, 06v, 06, 07, 07b, 14, 15 and 16 under the same
-names, gates and byte widths. Each rung carries the timed entry point
-``run(*prepared, c)`` (returns ``A@B + C`` in float32), the untimed
-``prepare(a, b)`` (cast, quantize and pack), and ``effective(prepared)``:
-the float32 operands the kernel actually consumed, which the oracle
-multiplies in fp64, so quantization error never masks an indexing bug.
+rungs 00, 01, 01b, 02, 03, 03b, 04, 05, 06v, 06, 07, 07b, 14, 15 and 16
+under the same names, gates, byte widths and regression flags. Each rung
+carries the timed entry point ``run(*prepared, c)`` (returns ``A@B + C``
+in float32), the untimed ``prepare(a, b)`` (cast, quantize and pack), and
+``effective(prepared)``: the float32 operands the kernel actually
+consumed, which the oracle multiplies in fp64, so quantization error
+never masks an indexing bug.
 
 Rungs 07, 07b, 14, 15 and 16 accumulate into ``c`` in place; callers
 that need C afterwards keep a copy (``harness/driver.run_sweep`` does).
@@ -18,7 +19,9 @@ from typing import Callable
 
 import torch
 
-from how_to_optimize_gemm_tpu_torch.ops import int4, int8, quant, tuned, vendor
+from how_to_optimize_gemm_tpu_torch.ops import (int4, int8, k_blocked,
+                                               mn_tile, naive, quant, tuned,
+                                               vendor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,11 +33,15 @@ class Rung:
     effective: Callable[[tuple], tuple]  # prepared -> (a_eff, b_eff) fp32
     gate_rel: float                   # max |C-Cref| / max|Cref| allowed
     doc: str
-    bytes_per_input_elt: float = 4.0  # for bandwidth accounting
+    regression: bool = False          # honest negative result, kept
+    bytes_per_input_elt: float = 4.0  # for roofline/bandwidth accounting
     # Per-operand byte widths when A and B are stored in different
     # dtypes: in_bytes = m*k*bytes_a + k*n*bytes_b.
     bytes_a: float | None = None
     bytes_b: float | None = None
+    # the arithmetic the kernel computes in, for the roofline's ceiling;
+    # None = the family of ``dtype`` (harness/profiling.py)
+    compute_dtype: str | None = None
 
 
 def _identity_prepare(a, b):
@@ -90,6 +97,15 @@ def _register(rung: Rung) -> Rung:
 
 
 _register(Rung(
+    name="00_naive_vpu", dtype="fp32",
+    run=naive.mmult,
+    prepare=_identity_prepare, effective=_identity_effective,
+    gate_rel=1e-4,
+    doc="naive: one thread per output, its own fmaf chain over K from C, "
+        "A and B read from global memory (MMult_cuda_1/2 analogue; "
+        "kernel naive_gemm)"))
+
+_register(Rung(
     name="01_xla_fp32", dtype="fp32",
     run=vendor.mmult,
     prepare=_identity_prepare, effective=_identity_effective,
@@ -104,6 +120,36 @@ _register(Rung(
     gate_rel=1e-3, bytes_per_input_elt=2.0,
     doc="bf16 vendor bar: the library's bf16 matmul with fp32 output "
         "(torch.mm out_dtype=float32) + C"))
+
+_register(Rung(
+    name="02_pallas_mn_tile", dtype="fp32",
+    run=mn_tile.mmult,
+    prepare=_identity_prepare, effective=_identity_effective,
+    gate_rel=1e-4,
+    doc="one 32x32 C tile a block, one output a thread, K tiles of 32 "
+        "staged in shared memory, + C at the end (cuda_3; kernel "
+        "fp32_gemm_mn_tile)"))
+
+_register(Rung(
+    name="03_pallas_k_blocked", dtype="fp32",
+    run=k_blocked.mmult,
+    prepare=_identity_prepare, effective=_identity_effective,
+    gate_rel=1e-4,
+    doc="128x128 block, 8x8 register accumulator a thread seeded with C, "
+        "K steps of 8 staged by synchronous loads (cuda_9; kernel "
+        "fp32_gemm_k_blocked)"))
+
+_register(Rung(
+    name="03b_pallas_small_blocks", dtype="fp32",
+    run=k_blocked.mmult_small,
+    prepare=_identity_prepare, effective=_identity_effective,
+    gate_rel=1e-4, regression=True,
+    doc="REGRESSION (kept honestly, like cuda_6/4x4_15/vk_3): rung 03 at "
+        "half the block edge (64x64, kernel fp32_gemm_k_blocked): more "
+        "blocks, half the reuse of each staged tile. On an NVIDIA H100 "
+        "80GB HBM3 at 700 W (chip_smoke.py) slower than 03 at p=2048 and "
+        "4096 (19,962 and 27,686 vs 32,516 and 34,413 GFLOPS), faster at "
+        "1024 (16,603 vs 12,517), where 03's 64 blocks leave SMs idle"))
 
 _register(Rung(
     name="04_pallas_tuned_fp32", dtype="fp32",
@@ -143,7 +189,7 @@ _register(Rung(
         qa, sa, packed, sw, c),
     prepare=int4.prepare_w4a8, effective=_w4a8_effective,
     gate_rel=1e-4, bytes_per_input_elt=0.75,
-    bytes_a=1.0, bytes_b=0.5,
+    bytes_a=1.0, bytes_b=0.5, compute_dtype="int8",
     doc="W4A8: int8 activations x int4 weights decoded to s8 on their way "
         "into shared memory, int8 tensor-core product, C in place "
         "(kernel w4a8_gemm)"))

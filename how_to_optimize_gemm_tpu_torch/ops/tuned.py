@@ -65,10 +65,15 @@ def mmult_fp32_bt_ref(a, bt, c):
     return fp32_matmul(a, bt.t()) + c
 
 
-def _launch(name: str, kernel: str, a, b, c, out, dtype, bt: bool):
-    """Check the operands, zero-pad K (and an N-major B's columns) so that
-    every row starts on a 16-byte boundary (exact: zeros add nothing),
-    launch ``kernel`` and return ``out``."""
+def launch_gemm(name: str, kernel: str, a, b, c, out, dtype, bt: bool,
+                align: bool = True, extra: tuple = ()):
+    """Check the operands, launch ``kernel`` on (a, b, c, out, M, N, K,
+    lda, ldb, ldc, *extra) and return ``out``.
+
+    align: zero-pad K (and an N-major B's columns) so that every row
+    starts on a 16-byte boundary (exact: zeros add nothing), for kernels
+    that stage rows by 16-byte loads; without it the operands are passed
+    as they lie."""
     m, n = c.shape
     k = a.shape[1] if a.dim() == 2 else -1
     b_shape = (n, k) if bt else (k, n)
@@ -76,11 +81,12 @@ def _launch(name: str, kernel: str, a, b, c, out, dtype, bt: bool):
         raise ValueError(f"{name}: a {tuple(a.shape)}, b {tuple(b.shape)} "
                          f"and c {tuple(c.shape)} do not match (b as "
                          f"{'(N, K)' if bt else '(K, N)'})")
-    per_row = ALIGN // dtype.itemsize
-    a = bounds.pad_dim(a, 1, per_row)
-    b = bounds.pad_dim(b, 1, per_row)
-    if not bt:
-        b = bounds.pad_dim(b, 0, per_row)
+    if align:
+        per_row = ALIGN // dtype.itemsize
+        a = bounds.pad_dim(a, 1, per_row)
+        b = bounds.pad_dim(b, 1, per_row)
+        if not bt:
+            b = bounds.pad_dim(b, 0, per_row)
     for t, dt in ((a, dtype), (b, dtype), (c, torch.float32),
                   (out, torch.float32)):
         if t.dtype != dt:
@@ -89,13 +95,15 @@ def _launch(name: str, kernel: str, a, b, c, out, dtype, bt: bool):
             raise ValueError(f"{name}: tensors on {t.device} and {c.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-    for t in (a, b):
-        if t.data_ptr() % ALIGN:
-            raise ValueError(f"{name}: operand not {ALIGN}-byte aligned")
+    if align:
+        for t in (a, b):
+            if t.data_ptr() % ALIGN:
+                raise ValueError(f"{name}: operand not {ALIGN}-byte "
+                                 "aligned")
     if m and n:
         kp = a.shape[1]
         _build.launch(kernel, c.device, a, b, c, out, m, n, kp, kp,
-                      b.shape[1], n)
+                      b.shape[1], n, *extra)
     return out
 
 
@@ -105,8 +113,8 @@ def mmult(a, b, c):
     if c.device.type == "cpu":
         return mmult_ref(a, b, c)
     require_cuda("mmult", c)
-    return _launch("mmult", "fp32_gemm_nn", a, b, c, torch.empty_like(c),
-                   torch.float32, bt=False)
+    return launch_gemm("mmult", "fp32_gemm_nn", a, b, c,
+                       torch.empty_like(c), torch.float32, bt=False)
 
 
 def mmult_bf16(a, b, c):
@@ -117,8 +125,8 @@ def mmult_bf16(a, b, c):
     if c.device.type == "cpu":
         return mmult_bf16_ref(a, b, c)
     require_cuda("mmult_bf16", c)
-    return _launch("mmult_bf16", "bf16_gemm_nn", a, b, c,
-                   torch.empty_like(c), torch.bfloat16, bt=False)
+    return launch_gemm("mmult_bf16", "bf16_gemm_nn", a, b, c,
+                       torch.empty_like(c), torch.bfloat16, bt=False)
 
 
 def mmult_bf16_bt(a16, bt16, c):
@@ -130,8 +138,8 @@ def mmult_bf16_bt(a16, bt16, c):
         c.copy_(mmult_bf16_bt_ref(a16, bt16, c))
         return c
     require_cuda("mmult_bf16_bt", c)
-    return _launch("mmult_bf16_bt", "bf16_gemm_nt", a16, bt16, c, c,
-                   torch.bfloat16, bt=True)
+    return launch_gemm("mmult_bf16_bt", "bf16_gemm_nt", a16, bt16, c, c,
+                       torch.bfloat16, bt=True)
 
 
 def mmult_fp32_bt(a, bt, c):
@@ -142,5 +150,5 @@ def mmult_fp32_bt(a, bt, c):
         c.copy_(mmult_fp32_bt_ref(a, bt, c))
         return c
     require_cuda("mmult_fp32_bt", c)
-    return _launch("mmult_fp32_bt", "fp32_gemm_nt", a, bt, c, c,
-                   torch.float32, bt=True)
+    return launch_gemm("mmult_fp32_bt", "fp32_gemm_nt", a, bt, c, c,
+                       torch.float32, bt=True)

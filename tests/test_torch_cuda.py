@@ -20,7 +20,8 @@ from how_to_optimize_gemm_tpu_torch import _build, convert
 from how_to_optimize_gemm_tpu_torch.harness.driver import run_sweep
 from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
 from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
-                                               int4, int8, kv_update,
+                                               int4, int8, k_blocked,
+                                               kv_update, mn_tile, naive,
                                                paged_attention, registry,
                                                tuned, vendor)
 
@@ -146,6 +147,55 @@ def test_rung_sweep_on_card(cuda, name):
                                        nrepeats=2, warmup=1),
                      verbose=False, device=cuda)
     assert all(r.kernel_rel < registry.get(name).gate_rel for r in rows)
+
+
+# The fp32 rungs below 04 (00, 02, 03 and 03b): each output one fmaf
+# chain over K, against the plain version's cuBLAS fp32 order: within
+# FP32_REL of max |plain|. (rung, kernel, wrapper, plain version)
+BASE_RUNGS = {
+    "00_naive_vpu": ("naive_gemm", naive.mmult, naive.naive_ref),
+    "02_pallas_mn_tile": ("fp32_gemm_mn_tile", mn_tile.mmult,
+                          mn_tile.mn_tile_ref),
+    "03_pallas_k_blocked": ("fp32_gemm_k_blocked", k_blocked.mmult,
+                            k_blocked.k_blocked_ref),
+    "03b_pallas_small_blocks": ("fp32_gemm_k_blocked",
+                                k_blocked.mmult_small,
+                                k_blocked.k_blocked_ref),
+}
+# K and N rows not 16-byte multiples; p = 1024; edges smaller than one
+# block (and than a warp); one block edge and a bit
+BASE_SHAPES = [(999, 1030, 1101), (1024, 1024, 1024), (17, 9, 40),
+               (130, 260, 300)]
+
+
+@pytest.mark.parametrize("shape", BASE_SHAPES)
+@pytest.mark.parametrize("rung_name", sorted(BASE_RUNGS))
+def test_ladder_base_kernels_equal_plain_version(cuda, rung_name, shape):
+    kernel, wrapper, plain = BASE_RUNGS[rung_name]
+    a, b, c = _abc(shape, 50 + BASE_SHAPES.index(shape), cuda)
+    c_in = c.clone()
+    before = _build.LAUNCHES[kernel]
+    out = wrapper(a, b, c)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[kernel] == before + 1
+    assert torch.equal(c, c_in)                  # a fresh output
+    ref = plain(a, b, c)
+    err = float((out - ref).abs().max())
+    scale = float(ref.abs().max())
+    print(f"{rung_name} {shape}: max|kernel - plain| = {err:.3e} of "
+          f"max|y| {scale:.3e}")
+    assert err <= FP32_REL * scale, err / scale
+    oracle = a.double() @ b.double() + c.double()
+    rel = float((out.double() - oracle).abs().max() / oracle.abs().max())
+    assert rel < registry.get(rung_name).gate_rel, rel
+
+
+def test_k_blocked_refuses_other_blocks(cuda):
+    a, b, c = _abc((64, 64, 64), 4, cuda)
+    with pytest.raises(ValueError):
+        k_blocked.mmult(a, b, c, block=32)
+    with pytest.raises(ValueError):
+        naive.mmult(a, b[:32], c)                  # K mismatch
 
 
 # ---------------------------------------------------------------- serving

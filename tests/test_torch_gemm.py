@@ -38,17 +38,22 @@ def _abc(shape, seed):
 
 
 # the float and W4A16 rungs and their vendor bars (tests/test_torch_tuned.py)
+# and the float ladder's base (tests/test_torch_ladder_base.py)
 FLOAT_RUNGS = ["01_xla_fp32", "01b_xla_bf16", "04_pallas_tuned_fp32",
                "05_pallas_bf16", "07_pallas_int4", "15_packed_alias_bf16",
-               "16_packed_alias_fp32"]
+               "16_packed_alias_fp32", "00_naive_vpu", "02_pallas_mn_tile",
+               "03_pallas_k_blocked", "03b_pallas_small_blocks"]
+# a rung the port does not have yet (the hand-pipeline record)
+UNPORTED = "08_manual_dma_int8"
 
 
 def test_port_registry_holds_the_headline_rungs():
     assert registry.names() == sorted(RUNGS + FLOAT_RUNGS)
     for name in RUNGS + FLOAT_RUNGS:
         assert registry.get(name).gate_rel == jregistry.get(name).gate_rel
+    jregistry.get(UNPORTED)
     with pytest.raises(KeyError):
-        registry.get("02_pallas_mn_tile")
+        registry.get(UNPORTED)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -137,7 +142,7 @@ def test_w4a8_wrapper_refuses_other_devices():
 
 def test_convert_rejects_wrong_layouts():
     with pytest.raises(KeyError):
-        convert.from_jax_prepared("02_pallas_mn_tile", [], "cpu")
+        convert.from_jax_prepared(UNPORTED, [], "cpu")
     with pytest.raises(TypeError):
         convert.from_jax_prepared(
             "06_pallas_int8",

@@ -29,7 +29,9 @@ def test_port_modules_found():
     for name in ("models.linear", "models.llama", "parallel.serving",
                  "ops.kv_update", "ops.decode_attention",
                  "ops.paged_attention", "ops.attention", "parallel.kv_alloc",
-                 "utils.native", "ops.tuned", "ops.vendor"):
+                 "utils.native", "ops.tuned", "ops.vendor", "ops.naive",
+                 "ops.mn_tile", "ops.k_blocked", "harness.profiling",
+                 "viz.plot", "viz.transitions"):
         assert f"how_to_optimize_gemm_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 20
 
@@ -65,6 +67,30 @@ def test_every_port_module_imports_with_jax_blocked():
     assert res.stdout.startswith("ok")
 
 
+def test_only_viz_imports_matplotlib():
+    """matplotlib is imported by ``viz/`` alone: a fresh interpreter where
+    ``import matplotlib`` fails imports every other port module and the
+    chip smoke script (the card's machine need not have it)."""
+    viz = "how_to_optimize_gemm_tpu_torch.viz"
+    for path in PORT.rglob("*.py"):
+        if "viz" not in path.relative_to(PORT).parts:
+            assert "matplotlib" not in path.read_text(), path
+            assert viz not in path.read_text(), path
+    assert viz not in (ROOT / "chip_smoke.py").read_text()
+    others = [m for m in MODULES if not m.startswith(viz)]
+    code = "\n".join([
+        "import importlib, sys",
+        "sys.modules['matplotlib'] = None",
+        f"for name in {others!r} + ['chip_smoke']:",
+        "    importlib.import_module(name)",
+        "print('ok')",
+    ])
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")
+
+
 def test_kernel_loader_imports_without_nvcc(monkeypatch):
     """Every kernel has its source and its own C signature (ctypes
     argtypes: pointers and the trailing stream as c_void_p), all known
@@ -77,7 +103,8 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
         "w4a16_gemm_noc", "w4a16_gemv", "decode_attention_q8",
         "paged_kv_update", "paged_decode_attention",
         "paged_decode_attention_q8", "flash_attention", "bf16_gemm_nt",
-        "bf16_gemm_nn", "fp32_gemm_nt", "fp32_gemm_nn", "w4a16_gemm"}
+        "bf16_gemm_nn", "fp32_gemm_nt", "fp32_gemm_nn", "w4a16_gemm",
+        "naive_gemm", "fp32_gemm_mn_tile", "fp32_gemm_k_blocked"}
     for name, kernel in _build.KERNELS.items():
         assert (_build.CSRC / kernel.source).exists(), name
         assert kernel.argtypes[-1] is ctypes.c_void_p, name
@@ -94,12 +121,15 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
     assert len(_build.KERNELS["flash_attention"].argtypes) == 25
     for name in ("int8_gemm_noc", "w4a16_gemm_noc", "w4a16_gemv",
                  "bf16_gemm_nt", "bf16_gemm_nn", "fp32_gemm_nt",
-                 "fp32_gemm_nn", "w4a16_gemm"):
+                 "fp32_gemm_nn", "w4a16_gemm", "naive_gemm",
+                 "fp32_gemm_mn_tile", "fp32_gemm_k_blocked"):
         assert ctypes.c_float not in _build.KERNELS[name].argtypes, name
     for name in ("bf16_gemm_nt", "bf16_gemm_nn", "fp32_gemm_nt",
-                 "fp32_gemm_nn"):
+                 "fp32_gemm_nn", "naive_gemm", "fp32_gemm_mn_tile"):
         assert len(_build.KERNELS[name].argtypes) == 11, name
     assert len(_build.KERNELS["w4a16_gemm"].argtypes) == 12
+    # the float GEMM's arguments and the block edge before the stream
+    assert len(_build.KERNELS["fp32_gemm_k_blocked"].argtypes) == 12
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", str(ROOT / "no-such-cuda"))
     with pytest.raises(RuntimeError, match="nvcc"):
