@@ -91,12 +91,35 @@ Phases (any failure raises and exits non-zero before the last line):
    that (bf16 cache and p roundings; activation and KV quantization move
    logits by a few %), so the bound is 3x what a 1e-6 relative
    perturbation of the embeddings does on the CPU in the same run. The
-   CPU's default routes
-   (the reference's eager attention, which rounds q to bf16) are printed
-   beside them;
-8. one ``{"kernels": [...]}`` line (23 kernels), the card's line again,
-   and last
-   ``{"ok": true, "device": {...}}``.
+   CPU's default routes (the reference's eager attention, which rounds q
+   to bf16) are printed beside the "w4a8" row only;
+8. (run beside the checks of phases 3 and 4) the training attention's
+   three kernels (``flash_attention_fwd_lse``, ``flash_attention_bwd_dq``,
+   ``flash_attention_bwd_dkv``) against their plain versions at the soak's
+   shape (B 8, H 32, KVH 4, S = 1,024, D 64, causal), at D 128 with rep 1
+   and S = 2,048, and at S = 520 (not causal) and 130: out, dq, dk and dv
+   each per row within a bound of their own row's max |plain|, lse within
+   an absolute bound, and the same rule must refuse planted faults (a key
+   tile skipped, a query head dropped from the dK/dV sum); timed as
+   CUDA-graph replays beside the plain versions, the bounds and SDPA (its
+   forward; its whole backward on the dK/dV row);
+9. the training path, ``training.soak_main`` on the TinyLlama-1.1B-shaped
+   soak model at full width and depth (22 layers) with --flash-train
+   --seq 1025 --batch 8, each run with every launch count set to 0 just
+   before it: 8 steps with a checkpoint at step 4 (in a temporary
+   directory), the same run resumed from it (its losses must equal the
+   first run's bit for bit; the first run profiles one more step with
+   torch.profiler), and 2 steps with --remat; every loss finite,
+   each training kernel launched 22 times a step (the forward 44 under
+   remat); tokens/s, MFU, step time, peak memory and losses printed;
+10. training parity: two AdamW steps of the soak's model at full width
+   with 2 layers (bf16 linears, batch 2 x 513 tokens, so s = 512 takes the
+   flash kernels) on the card and on the CPU (their plain versions) from
+   the same weights and batches: the losses and the weights after step 2
+   within 3x what a 1e-6 relative perturbation of the embedding does on
+   the CPU;
+11. one ``{"kernels": [...]}`` line (26 kernels), the card's line again,
+   and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -132,7 +155,7 @@ from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
                                                kv_update, mn_tile, naive,
                                                paged_attention, registry,
                                                tuned, vendor)
-from how_to_optimize_gemm_tpu_torch.parallel import serving
+from how_to_optimize_gemm_tpu_torch.parallel import serving, training
 from how_to_optimize_gemm_tpu_torch.utils.matrices import make_abc
 from how_to_optimize_gemm_tpu_torch.utils.timing import (time_calls,
                                                          time_chained)
@@ -1137,6 +1160,8 @@ def teacher_forced(eng, prompts, forced) -> torch.Tensor:
 PARITY_PROMPTS = (100, 128)
 # 2 slots x a 512-token bucket: the admission's attention takes flash
 LONG_PARITY_PROMPTS = (400, 512)
+# the one parity row that also prints the CPU's default (eager) routes
+EAGER_PARITY_ROW = "w4a8"
 # (label, weight kind, cache kind, kernels the card side must launch, the
 # engine's paged options, prompt lengths) of each parity run
 PARITY = (("fp32", "fp32", "bf16", ["kv_update", "decode_attention"], {},
@@ -1176,7 +1201,7 @@ def parity(gen: torch.Generator) -> None:
                  "cpu eager": (cpu, "cpu", None)}
         out = {}
         for side, (p, dev, routes) in sides.items():
-            if kind == "fp32" and side == "cpu eager":
+            if side == "cpu eager" and label != EAGER_PARITY_ROW:
                 continue
             eng = serving.ServingEngine(cfg, p, batch_slots=2, device=dev,
                                         cache_kind=cache_kind,
@@ -1212,6 +1237,304 @@ def parity(gen: torch.Generator) -> None:
         del params, cpu
         torch.cuda.empty_cache()
 
+
+# ------------------------------------------------------------- training
+
+# The training attention's kernels (B19) vs their plain versions, each
+# output held per row to its own max |plain| (attention.row_rel_err, rows
+# raised to 1% of the tensor's max). out: p is rounded to bf16 before
+# p @ v, and the kernel's scores (q split into two bf16 halves, 2^-17
+# relative) can move a p across a bf16 rounding: a row moves by up to about
+# one bf16 ulp of its largest value (measured up to 4.1e-3). dq, dk, dv:
+# fp32 throughout, the split operands' 2^-17 and fp32 sums in another order
+# (measured up to 7.6e-4 for dq, whose ds = p (dp - delta) cancels; 4.6e-5
+# for dk and dv). lse: absolute, a few fp32 ulps of m + log l (measured up
+# to 1.1e-5). Each bound is 2.4 to 4.5 times the largest reading on an H100
+# (PERF.md, section 6); a planted fault reads 0.67 or more.
+TRAIN_OUT_REL = 8e-3
+TRAIN_GRAD_REL = 2e-3
+TRAIN_LSE_ATOL = 5e-5
+# (B, H, KVH, S, D, causal): the soak's shape (the JSON row), the
+# Llama-2-7B width (rep 1, D 128) at S = 2,048, and ragged shapes
+TRAIN_SHAPES = ((8, 32, 4, 1024, 64, True), (2, 32, 32, 2048, 128, True),
+                (1, 8, 2, 520, 128, False), (2, 4, 1, 130, 64, True))
+TRAIN_KERNELS = [
+    dict(name="flash_attention_fwd_lse",
+         source=SRC + "flash_attention_fwd_lse.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_attention.py:311",
+         function="pallas_attention._fwd_kernel_lse (_flash_fwd_lse :570; "
+                  "flash_attention_train, mha_flash_train)"),
+    dict(name="flash_attention_bwd_dq",
+         source=SRC + "flash_attention_bwd_dq.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_attention.py:405",
+         function="pallas_attention._bwd_dq_kernel (_flash_bwd :635)"),
+    dict(name="flash_attention_bwd_dkv",
+         source=SRC + "flash_attention_bwd_dkv.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_attention.py:482",
+         function="pallas_attention._bwd_dkv_kernel (_flash_bwd :675); "
+                  "library_ms: SDPA's whole backward (dq, dk, dv)"),
+]
+# the training path: the soak at full width and depth, through flash
+TRAIN_LAYERS = 22
+TRAIN_ARGS = ["--flash-train", "--seq", "1025", "--batch", "8",
+              "--n-layers", str(TRAIN_LAYERS), "--sync-every", "1"]
+TRAIN_STEPS = 8
+TRAIN_CKPT = 4
+
+
+def _train_faults(q, k, v, do, lse, delta, causal, ref):
+    """Readings of the training check's rule on planted faults of the
+    plain versions: out and dq of the last 64 queries with one 64-key tile
+    before them skipped (the queries are the last S of T positions in the
+    plain versions, so the other keys stay visible as before), and dk, dv
+    with the first query head of every group dropped from the sum (its do
+    and delta set to 0)."""
+    bk = attention.KERNEL_BLOCK
+    s = k.shape[2]
+    j0 = s // 2 // bk * bk
+    keep = torch.cat([torch.arange(j0, device=k.device),
+                      torch.arange(j0 + bk, s, device=k.device)])
+    last = slice(s - bk, s)
+    out_f, _ = attention.flash_attention_fwd_lse_ref(
+        q[:, :, last], k[:, :, keep], v[:, :, keep], causal=causal, bk=bk)
+    dq_f = attention.flash_attention_bwd_dq_ref(
+        q[:, :, last], k[:, :, keep], v[:, :, keep], do[:, :, last],
+        lse[:, :, last], delta[:, :, last], causal=causal)
+    rep = q.shape[1] // k.shape[1]
+    do_f, delta_f = do.clone(), delta.clone()
+    do_f[:, ::rep] = 0.0
+    delta_f[:, ::rep] = 0.0
+    dk_f, dv_f = attention.flash_attention_bwd_dkv_ref(
+        q, k, v, do_f, lse, delta_f, causal=causal)
+    rel = attention.row_rel_err
+    return {"out": float(rel(out_f, ref["out"][:, :, last]).max()),
+            "dq": float(rel(dq_f, ref["dq"][:, :, last]).max()),
+            "dk": float(rel(dk_f, ref["dk"]).max()),
+            "dv": float(rel(dv_f, ref["dv"]).max())}
+
+
+def check_flash_train(gen: torch.Generator) -> dict:
+    """The three training kernels against their plain versions (the
+    forward at the kernel's 64-key tiles, whose bf16 p depends on the
+    block), all on the plain version's lse and delta, at ``TRAIN_SHAPES``
+    on (B, S, H, D) views as ``mha_flash_train`` passes them; the rule
+    must refuse each planted fault (``_train_faults``). Timed at the first
+    two shapes as CUDA-graph replays, beside the plain versions, the bound
+    (the operations of the products at the bf16 peak, the split operands'
+    extra MMAs not counted; the bytes of the kernel's inputs and outputs
+    once) and SDPA: its forward on bf16 q for the forward kernel, its
+    whole backward (dq, dk and dv, eager) on the dK/dV row. Returns the
+    first shape's results by kernel."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rel = attention.row_rel_err
+    fwd, dq_k, dkv_k = (s["name"] for s in TRAIN_KERNELS)
+    results = {}
+    for i, (b, h, kvh, s, d, causal) in enumerate(TRAIN_SHAPES):
+        def rows(heads, dtype=torch.float32):
+            return torch.randn((b, s, heads, d), generator=gen,
+                               device="cuda").to(dtype).transpose(1, 2)
+        q, k, v, do = (rows(h), rows(kvh, torch.bfloat16),
+                       rows(kvh, torch.bfloat16), rows(h))
+        shape = f"B={b} H={h} KVH={kvh} S={s} D={d} causal={causal}"
+        out, lse = attention.flash_attention_fwd_lse(q, k, v, causal=causal)
+        ref = {}
+        ref["out"], ref_lse = attention.flash_attention_fwd_lse_ref(
+            q, k, v, causal=causal, bk=attention.KERNEL_BLOCK)
+        delta = (do * ref["out"]).sum(dim=-1)
+        args = (q, k, v, do, ref_lse, delta)
+        dq = attention.flash_attention_bwd_dq(*args, causal=causal)
+        ref["dq"] = attention.flash_attention_bwd_dq_ref(*args, causal=causal)
+        dk, dv = attention.flash_attention_bwd_dkv(*args, causal=causal)
+        ref["dk"], ref["dv"] = attention.flash_attention_bwd_dkv_ref(
+            *args, causal=causal)
+        torch.cuda.synchronize()
+        got = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+        errs = {n: float(rel(got[n], ref[n]).max()) for n in got}
+        lse_err = float((lse - ref_lse).abs().max())
+        faults = _train_faults(*args, causal, ref)
+        bounds = {"out": TRAIN_OUT_REL, "dq": TRAIN_GRAD_REL,
+                  "dk": TRAIN_GRAD_REL, "dv": TRAIN_GRAD_REL}
+        print(f"flash train {shape}: per-row error over max |plain| "
+              + ", ".join(f"{n} {errs[n]:.3e} (bound {bounds[n]}, a "
+                          f"planted fault reads {faults[n]:.3e})"
+                          for n in errs)
+              + f"; lse max abs {lse_err:.3e} (bound {TRAIN_LSE_ATOL})")
+        finite = all(bool(torch.isfinite(x).all()) for x in (*got.values(),
+                                                            lse))
+        bad = [n for n in errs if not errs[n] <= bounds[n]]
+        if bad or not finite or not lse_err <= TRAIN_LSE_ATOL:
+            raise AssertionError(f"flash train {shape}: {bad or 'lse'} "
+                                 f"differ from the plain versions")
+        passed = [n for n in faults if not faults[n] > bounds[n]]
+        if passed:
+            raise AssertionError(f"flash train {shape}: the rule passes the "
+                                 f"planted faults of {passed}")
+        if i >= 2:
+            continue
+        pairs = s * (s + 1) // 2 if causal else s * s
+        ops = 2.0 * b * h * d * pairs            # one product's FLOPs
+        rows_bytes = nbytes(lse, delta)
+        q16, do16 = q.to(torch.bfloat16), do.to(torch.bfloat16)
+        bounds_ms = {
+            fwd: bound_ms(nbytes(q, k, v, out, lse), 2 * ops,
+                          PEAK_BF16_FLOPS),
+            dq_k: bound_ms(nbytes(q, k, v, do, dq) + rows_bytes, 3 * ops,
+                           PEAK_BF16_FLOPS),
+            dkv_k: bound_ms(nbytes(q16, k, v, do16, dk, dv) + rows_bytes,
+                            4 * ops, PEAK_BF16_FLOPS)}
+        qb = q16.detach().requires_grad_()
+        kb, vb = (x.detach().requires_grad_() for x in (k, v))
+        o16 = sdpa(qb, kb, vb, is_causal=causal, enable_gqa=h != kvh)
+        lib_bwd_ms = time_calls(lambda: torch.autograd.grad(
+            o16, (qb, kb, vb), do16, retain_graph=True), inner_iters=10) * 1e3
+        print(f"flash train {shape}: SDPA's backward (dq, dk, dv; called "
+              f"from Python) {lib_bwd_ms:.4f} ms")
+        cases = {
+            fwd: (lambda: attention.flash_attention_fwd_lse(
+                      q, k, v, causal=causal),
+                  lambda: attention.flash_attention_fwd_lse_ref(
+                      q, k, v, causal=causal, bk=attention.KERNEL_BLOCK),
+                  lambda: sdpa(q16, k, v, is_causal=causal,
+                               enable_gqa=h != kvh),
+                  max(errs["out"], lse_err)),
+            dq_k: (lambda: attention.flash_attention_bwd_dq(
+                       *args, causal=causal),
+                   lambda: attention.flash_attention_bwd_dq_ref(
+                       *args, causal=causal), None, errs["dq"]),
+            dkv_k: (lambda: attention.flash_attention_bwd_dkv(
+                        *args, causal=causal),
+                    lambda: attention.flash_attention_bwd_dkv_ref(
+                        *args, causal=causal), None,
+                    max(errs["dk"], errs["dv"]))}
+        for name, (kernel, plain, library, err) in cases.items():
+            r = timed(name, shape, kernel, plain, library, *bounds_ms[name],
+                      err)
+            if name == dkv_k:
+                r["library_ms"] = lib_bwd_ms
+            results.setdefault(name, r)
+        del qb, kb, vb, o16
+    return results
+
+
+def train_path(tmp: pathlib.Path) -> dict:
+    """The soak as a user runs it (``training.soak_main``), each run with
+    every launch count set to 0 just before it and read just after: 8
+    steps with a checkpoint at step 4, then one more step under
+    torch.profiler; the same run resumed from that checkpoint, whose
+    losses must equal the first run's bit for bit; two steps with
+    --remat. Every loss finite; each training kernel launched
+    once per layer a step, the forward twice under remat. Returns the
+    first run's launches."""
+    names = [spec["name"] for spec in TRAIN_KERNELS]
+    ck, art = tmp / "ckpt", tmp / "train_soak.json"
+
+    def run(extra, remat=False, profiled=0):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        a = training.soak_main(TRAIN_ARGS + extra)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {n: _build.LAUNCHES[n] for n in names}
+        steps = a["config"]["steps"] - a["start_step"] + profiled
+        per_step = dict.fromkeys(names, TRAIN_LAYERS)
+        if remat:
+            per_step[names[0]] *= 2
+        want = {n: per_step[n] * steps for n in names}
+        print(json.dumps({"train": "remat" if remat else "flash",
+                          **{k: a[k] for k in ("start_step", "losses",
+                                               "tokens_per_s", "mfu_pct",
+                                               "step_ms", "peak_gb",
+                                               "checkpoint_s", "sync_marks")},
+                          "profiled_step": a["profile"] and {
+                              k: a["profile"][k] for k in ("wall_ms",
+                                                           "device_ms",
+                                                           "busy")},
+                          "bitexact_resume": a.get("bitexact_resume"),
+                          "launches": launches, "seconds": seconds}))
+        if launches != want:
+            raise AssertionError(f"training launches {launches}, expected "
+                                 f"{want} ({steps} steps)")
+        if not all(math.isfinite(x) for x in a["losses"]):
+            raise AssertionError(f"training losses {a['losses']}")
+        torch.cuda.empty_cache()
+        return a, launches
+
+    common = ["--steps", str(TRAIN_STEPS), "--checkpoint-every",
+              str(TRAIN_CKPT), "--ckpt-dir", str(ck), "--artifact", str(art)]
+    first, launches = run(common + ["--profile"], profiled=1)
+    for k in first["profile"]["kernels"]:
+        print(f"train step profile: {k['ms']:.3f} ms x{k['count']} "
+              f"{k['name']}")
+    resumed, _ = run(common + ["--resume-from",
+                               str(ck / f"step_{TRAIN_CKPT:06d}")])
+    if not resumed["bitexact_resume"]:
+        raise AssertionError("the resumed run's losses differ from the "
+                             "first run's")
+    run(["--remat", "--steps", "2", "--checkpoint-every", "0",
+         "--artifact", str(tmp / "train_remat.json")], remat=True)
+    return launches
+
+
+def train_parity(gen: torch.Generator) -> None:
+    """Two AdamW steps of the soak's model at full width with 2 layers on
+    the card and on the CPU, on the same weights (bf16 linears) and
+    batches (2 x 513 tokens: s = 512, so the card runs the flash kernels
+    and the CPU their plain versions): the losses and the weights after
+    step 2 must each be within PARITY_SENSITIVITY x what a PERTURB
+    relative perturbation of the embedding does on the CPU."""
+    cfg = llama.LlamaConfig(vocab=32000, d_model=2048, n_layers=2,
+                            n_heads=32, n_kv_heads=4, d_ff=5632, max_seq=513,
+                            weight_kind="bf16")
+    params = llama.init_params(gen, cfg, "cuda")
+    pert = convert.to_device(params, "cpu")
+    noise = torch.randn(pert["embed"].shape,
+                        generator=torch.Generator().manual_seed(1))
+    pert["embed"] = pert["embed"] * (1 + PERTURB * noise)
+    batches = [torch.from_numpy(training._affine_batch(
+        np.random.default_rng(1234 + i), 2, 513, cfg.vocab))
+        for i in range(2)]
+    names = [spec["name"] for spec in TRAIN_KERNELS]
+    out = {}
+    for side, tree in (("cuda", params),
+                       ("cpu", convert.to_device(params, "cpu")),
+                       ("cpu perturbed", pert)):
+        dev = "cuda" if side == "cuda" else "cpu"
+        opt = training.make_optimizer()
+        state = training.init_train_state(tree, opt)
+        step = training.make_train_step(cfg, opt, flash_train=True)
+        _build.reset_launches()
+        losses = []
+        for tokens in batches:
+            state, loss = step(state, tokens.to(dev))
+            losses.append(float(loss))
+        if dev == "cuda" and any(_build.LAUNCHES[n] != 2 * cfg.n_layers
+                                 for n in names):
+            raise AssertionError(f"train parity: card launches "
+                                 f"{ {n: _build.LAUNCHES[n] for n in names} }")
+        floats, _ = training.split_trainable(state.params)
+        out[side] = (torch.tensor(losses, dtype=torch.float64),
+                     [f.detach().float().cpu() for f in floats])
+        del state, tree
+    del params
+    torch.cuda.empty_cache()
+    ref_loss, ref_w = out["cpu"]
+    diffs = {}
+    for side in ("cuda", "cpu perturbed"):
+        loss, w = out[side]
+        diffs[side] = (float((loss - ref_loss).abs().max()),
+                       max(float((a - c).abs().max())
+                           for a, c in zip(w, ref_w)))
+        print(f"train parity: {side} losses {loss.tolist()} (cpu "
+              f"{ref_loss.tolist()}): max|loss - cpu| {diffs[side][0]:.4e}, "
+              f"max|weights - cpu| after step 2 {diffs[side][1]:.4e}")
+    limit = [PARITY_SENSITIVITY * x for x in diffs["cpu perturbed"]]
+    if not (all(math.isfinite(x) for x in out["cuda"][0].tolist())
+            and all(c <= lim for c, lim in zip(diffs["cuda"], limit))):
+        raise AssertionError(f"train parity: card vs CPU {diffs['cuda']} "
+                             f"beyond {limit}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1233,6 +1556,7 @@ def main() -> int:
     checks = {spec["name"]: check_kernel(spec, gen) for spec in KERNELS}
     for spec in SERVE_KERNELS:
         checks[spec["name"]] = SERVE_CHECKS[spec["name"]](gen)
+    checks.update(check_flash_train(gen))
 
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -1261,8 +1585,17 @@ def main() -> int:
     parity(gen)
     print(f"parity: {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(train_path(pathlib.Path(tmp)))
+    print(f"training path: {time.perf_counter() - t0:.1f} s")
+    gen.manual_seed(2)
+    t0 = time.perf_counter()
+    train_parity(gen)
+    print(f"train parity: {time.perf_counter() - t0:.1f} s")
+
     kernels = []
-    for spec in KERNELS + SERVE_KERNELS:
+    for spec in KERNELS + SERVE_KERNELS + TRAIN_KERNELS:
         r = checks[spec["name"]]
         kernels.append({
             "name": spec["name"], "route": "cuda", "source": spec["source"],

@@ -11,7 +11,10 @@ all started together.
 Every C entry point takes its own arguments (``Kernel.argtypes``:
 ``c_void_p`` for each pointer and for the CUDA stream, which comes last)
 and returns ``cudaGetLastError()`` after its launch; ``launch`` raises if
-that is not 0. ``LAUNCHES`` counts the launches of each kernel, one per
+that is not 0. A launch runs outside autograd, so ``launch`` also raises
+when grad mode is on and a tensor argument requires grad
+(``require_no_grad``): a kernel with a backward is launched from its
+``torch.autograd.Function``, where grad mode is off. ``LAUNCHES`` counts the launches of each kernel, one per
 call of ``launch`` and nowhere else, so a run can show which kernels its
 path went through.
 """
@@ -95,6 +98,19 @@ KERNELS = {
     #  element strides of q, k, v and out, scale, stream)
     "flash_attention": Kernel("flash_attention.cu", (_P,) * 4 + (_I,) * 19
                               + (_F, _P)),
+    # the training attention, self-attention of S tokens: (q, k, v, out,
+    # lse, B, H, KVH, S, D, causal, the (b, h, row) element strides of q, k,
+    # v and out, scale, stream)
+    "flash_attention_fwd_lse": Kernel("flash_attention_fwd_lse.cu",
+                                      (_P,) * 5 + (_I,) * 18 + (_F, _P)),
+    # (q, k, v, do, lse, delta, dq, B, H, KVH, S, D, causal, the strides of
+    #  q, k, v, do and dq, scale, stream)
+    "flash_attention_bwd_dq": Kernel("flash_attention_bwd_dq.cu",
+                                     (_P,) * 7 + (_I,) * 21 + (_F, _P)),
+    # (q, k, v, do, lse, delta, dk, dv, B, H, KVH, S, D, causal, the strides
+    #  of q, k, v, do, dk and dv, scale, stream)
+    "flash_attention_bwd_dkv": Kernel("flash_attention_bwd_dkv.cu",
+                                      (_P,) * 8 + (_I,) * 24 + (_F, _P)),
     # (a, b, c, out, M, N, K, lda, ldb, ldc, stream), b as BT (N, K) for
     # the _nt kernels and (K, N) for the _nn ones; c and out may alias
     "bf16_gemm_nt": Kernel("bf16_gemm_nt.cu", _FLOAT_GEMM),
@@ -196,6 +212,16 @@ def _function(name: str):
     return fn
 
 
+def require_no_grad(name: str, *args) -> None:
+    """Raise when grad mode is on and a tensor of ``args`` requires grad:
+    ``name`` has no backward, and its output would carry no gradient
+    back to that tensor, silently."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        raise RuntimeError(f"{name} has no backward: called on a tensor that "
+                           "requires grad, with grad mode on")
+
+
 def launch(name: str, device: torch.device, *args) -> None:
     """Launch kernel ``name`` on the current stream of ``device``.
 
@@ -203,7 +229,8 @@ def launch(name: str, device: torch.device, *args) -> None:
     passes its ``data_ptr()``, ``None`` a null pointer, a number itself.
     The caller (a wrapper in ``ops/``) has checked devices, dtypes,
     shapes, contiguity and alignment. Raises RuntimeError if the launch
-    was refused."""
+    was refused, or if the call needed a gradient (``require_no_grad``)."""
+    require_no_grad(name, *args)
     fn = _function(name)
     if len(args) != len(fn.argtypes) - 1:
         raise TypeError(f"{name} takes {len(fn.argtypes) - 1} arguments "

@@ -42,20 +42,17 @@
 // mma.sync rather than wgmma, cp.async rather than TMA, no warp
 // specialisation, the output written from the accumulators without
 // staging.
-#include <cuda_bf16.h>
-
-#include "int8_mma.cuh"
+#include "flash_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace htog::fa;
 
 constexpr int BQ = 64;          // query rows per block, 16 per warp
 constexpr int BKV = 64;         // keys per tile
 static_assert(BQ == BKV, "load_tile stages tiles of BQ rows");
 constexpr int WARPS = BQ / 16;
 constexpr int FA_THREADS = WARPS * 32;
-constexpr float NEG_INF = -1e30f;
 
 template <int D>
 struct Smem {
@@ -91,36 +88,6 @@ __device__ __forceinline__ void load_tile(bf16 (*dst)[D + 8], const bf16* base,
     const bf16* p = valid ? base + gr * stride + col : base;
     htog::cp_async16(&dst[r][col], p, valid);
   }
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p,
-                                            bool trans) {
-  unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  if (trans) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-  } else {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(a));
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // Accumulator layout of an m16n8 tile (and of each 8 columns below): lane

@@ -41,6 +41,8 @@ from how_to_optimize_gemm_tpu_torch.utils.device import kernel_routes_for
 
 INT4_BLOCK_K = int4.PACK_BLOCK
 KINDS = ("fp32", "bf16", "int8", "int4", "w4a8")
+# the kinds with kernel routes (fp32 and bf16 have one route everywhere)
+QUANTIZED_KINDS = ("int8", "int4", "w4a8")
 # the reference's routing threshold (models/linear.py:90); the w4a8 one
 # (:119) is int4.GEMV_MAX_M
 INT8_KERNEL_MIN_M = 256
@@ -75,12 +77,14 @@ def linear_kind(lin: dict) -> str:
 def apply_linear(lin: dict, x: torch.Tensor, kernels=None) -> torch.Tensor:
     """y = x @ dequant(W): x (..., d_in) of any float dtype, y fp32.
 
-    kernels: see the module docstring (False on the card raises)."""
+    kernels: see the module docstring (False on the card raises for the
+    quantized kinds; fp32 and bf16 have one route on every device)."""
     kind = linear_kind(lin)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     m = x2.shape[0]
-    kernels = kernel_routes_for(x2, kernels)
+    if kind in QUANTIZED_KINDS:
+        kernels = kernel_routes_for(x2, kernels)
     if kind == "fp32":
         y = fp32_matmul(x2.to(torch.float32), lin["fp32_w"])
     elif kind == "bf16":

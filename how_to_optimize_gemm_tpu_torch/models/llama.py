@@ -51,6 +51,22 @@ on the CPU too, through the kernels' plain versions (the reference's
   Prefix-hit suffixes and chunks after the first (s > 1, not at position
   0) take the eager cached route, as in the reference.
 
+Training (``loss_fn``, ``forward(remat=, flash_train=)``,
+``sgd_train_step``; the optimizer loop is ``parallel/training.py``): the
+reference's ``use_pallas=False`` routes with autograd through them. The
+linears take their emulation (fp32 and bf16 have one route), attention is
+``_attention`` under the causal mask unless ``flash_train`` routes causal
+self-attention of s >= 512 with d_head 64 or 128 to the differentiable
+``ops/attention.mha_flash_train`` (three kernels under a
+``torch.autograd.Function``) on every device. The quantized linears'
+kernels have no backward, so on the card ``loss_fn`` refuses int8, int4
+and w4a8 weights (``NotImplementedError``, ROADMAP A15); on the CPU they
+train their float scales through the emulation, as in the reference.
+``remat`` wraps each block in ``torch.utils.checkpoint`` (non-reentrant):
+its activations are recomputed in the backward pass. The embedding is
+looked up with ``torch.nn.functional.embedding``, whose backward on the
+card is deterministic (indexing's is an accumulating ``index_put_``).
+
 Not ported yet, each raising ``NotImplementedError``: MoE layers
 (``n_experts > 0``, ROADMAP A11/B20) and LoRA (A8). Unlike JAX arrays,
 the cache tensors are written in place: a step's returned cache is the
@@ -61,10 +77,15 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from how_to_optimize_gemm_tpu_torch.models.linear import (apply_linear,
+from how_to_optimize_gemm_tpu_torch.models.linear import (QUANTIZED_KINDS,
+                                                          apply_linear,
+                                                          linear_kind,
                                                           make_linear)
-from how_to_optimize_gemm_tpu_torch.ops.attention import mha_flash
+from how_to_optimize_gemm_tpu_torch.ops.attention import (mha_flash,
+                                                          mha_flash_train)
 from how_to_optimize_gemm_tpu_torch.ops.decode_attention import (
     decode_attention, decode_attention_q8)
 from how_to_optimize_gemm_tpu_torch.ops.kv_update import (kv_update,
@@ -216,11 +237,16 @@ def _route_flash(kernels: bool, s: int, dh: int) -> bool:
     return kernels and s >= FLASH_MIN_S and dh in FLASH_HEAD_DIMS
 
 
-def _self_attention(q, k, v, kernels: bool):
-    """Causal self-attention over the step's own tokens: ``mha_flash`` on
-    bf16 k and v where ``_route_flash`` says so, else ``_attention`` under
-    an (S, S) causal mask, which only that branch builds."""
+def _self_attention(q, k, v, kernels: bool, flash_train: bool = False):
+    """Causal self-attention over the step's own tokens: with
+    ``flash_train``, ``mha_flash_train`` where the flash predicate holds on
+    any route (the reference's ``_route_flash(True, ...)``); else
+    ``mha_flash`` on bf16 k and v where ``_route_flash`` says so; else
+    ``_attention`` under an (S, S) causal mask, which only that branch
+    builds."""
     s, dh = q.shape[1], q.shape[3]
+    if flash_train and _route_flash(True, s, dh):
+        return mha_flash_train(q, k, v, causal=True)
     if _route_flash(kernels, s, dh):
         return mha_flash(q, k.to(torch.bfloat16), v.to(torch.bfloat16),
                          causal=True)
@@ -367,15 +393,19 @@ def _mlp(layer, y, kernels):
 
 def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None,
            write_mask=None, prefill_self=False, kernel_routes=None,
-           paged_rows=None):
-    """One transformer block. kv None: full-sequence forward; kv =
+           paged_rows=None, flash_train=False, kernels=None):
+    """One transformer block. kv None: full-sequence forward (attention by
+    ``_self_attention``, ``flash_train`` passed on); kv =
     (k_cache, v_cache, pos) for the cached step over a bf16 cache, or
     (qk, sk, qv, sv, pos) over a KV8 cache, pos an int or (B,) ints; a
     paged cache's entries are its pools followed by the block table:
     (k_pool, v_pool, table, pos) or (qk, sk, qv, sv, table, pos), and
-    paged_rows the step's ``_paged_rows``.
+    paged_rows the step's ``_paged_rows``. ``kernels``, when given, is the
+    route already decided (``loss_fn`` passes False on every device: the
+    reference's ``use_pallas=False``) and ``kernel_routes`` is not read.
     Returns (x, the layer's cache tuple or None)."""
-    kernels = kernel_routes_for(x, kernel_routes)
+    if kernels is None:
+        kernels = kernel_routes_for(x, kernel_routes)
     b, s, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     if kv is not None and len(kv) not in (3, 4, 5, 6):
@@ -390,7 +420,7 @@ def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None,
 
     new_kv = None
     if kv is None:
-        attn = _self_attention(q, k, v, kernels)
+        attn = _self_attention(q, k, v, kernels, flash_train)
     else:
         *cache, pos = kv
         table = cache.pop() if len(kv) in (4, 6) else None
@@ -445,19 +475,34 @@ def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None,
 # -------------------------------------------------------------- forward
 
 def forward(params, cfg: LlamaConfig, tokens: torch.Tensor,
-            kernel_routes=None) -> torch.Tensor:
+            kernel_routes=None, remat: bool = False,
+            flash_train: bool = False) -> torch.Tensor:
     """Full-sequence forward: tokens (B, S) -> logits (B, S, vocab).
     kernel_routes: see the module docstring (the reference's
-    ``use_pallas``)."""
+    ``use_pallas``); remat and flash_train: see its training section."""
+    return _forward(params, cfg, tokens,
+                    kernel_routes_for(tokens, kernel_routes), remat,
+                    flash_train)
+
+
+def _forward(params, cfg: LlamaConfig, tokens, kernels: bool, remat: bool,
+             flash_train: bool) -> torch.Tensor:
+    """``forward`` on a route already decided (``kernels``)."""
     _require_dense(cfg)
     _, s = tokens.shape
-    x = params["embed"][tokens]
+    x = F.embedding(tokens, params["embed"])
     pos = torch.arange(s, device=tokens.device)
     cos, sin = _rope_freqs(cfg, pos)
+
+    def block(layer, x):
+        return _block(layer, cfg, x, cos, sin, flash_train=flash_train,
+                      kernels=kernels)[0]
+
     for layer in params["layers"]:
-        x, _ = _block(layer, cfg, x, cos, sin, kernel_routes=kernel_routes)
+        x = (checkpoint(block, layer, x, use_reentrant=False) if remat
+             else block(layer, x))
     x = rmsnorm(x, params["out_norm"], cfg.norm_eps)
-    return apply_linear(params["lm_head"], x)
+    return apply_linear(params["lm_head"], x, kernels)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
@@ -536,3 +581,55 @@ def decode_step(params, cfg: LlamaConfig, cache, tokens: torch.Tensor, pos,
         x = x[torch.arange(b, device=x.device), logit_idx][:, None]
     x = rmsnorm(x, params["out_norm"], cfg.norm_eps)
     return apply_linear(params["lm_head"], x), new_cache
+
+
+# ------------------------------------------------------------- training
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token negative log-likelihood: logits (B, S, V) against
+    targets (B, S), in fp32."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.gather(logp, -1, targets[..., None].to(torch.int64)).mean()
+
+
+def _linear_kinds(params) -> set:
+    kinds = {linear_kind(params["lm_head"])}
+    for layer in params["layers"]:
+        kinds.update(linear_kind(v) for v in layer.values()
+                     if isinstance(v, dict))
+    return kinds
+
+
+def loss_fn(params, cfg: LlamaConfig, tokens: torch.Tensor,
+            remat: bool = False, flash_train: bool = False) -> torch.Tensor:
+    """Next-token cross entropy over (B, S) token batches: the forward on
+    ``tokens[:, :-1]`` against ``tokens[:, 1:]``, on the reference's
+    ``use_pallas=False`` routes (see the module docstring). Raises
+    NotImplementedError for quantized weights on the card."""
+    _require_dense(cfg)
+    quantized = _linear_kinds(params) & set(QUANTIZED_KINDS)
+    if tokens.is_cuda and quantized:
+        raise NotImplementedError(
+            f"training {sorted(quantized)} weights on the card is not ported "
+            "yet: their kernels have no backward (ROADMAP A15)")
+    logits = _forward(params, cfg, tokens[:, :-1], False, remat, flash_train)
+    return token_nll(logits, tokens[:, 1:])
+
+
+def sgd_train_step(params, cfg: LlamaConfig, tokens: torch.Tensor,
+                   lr: float = 1e-2):
+    """One SGD step (the reference's dry-run trainer): the float leaves
+    (``parallel/training.split_trainable``) take p - lr * g in their own
+    dtype; integer leaves are frozen. Returns (new params, loss); the
+    given tree is not changed."""
+    from how_to_optimize_gemm_tpu_torch.parallel.training import (
+        sgd_update, split_trainable)
+
+    floats, rebuild = split_trainable(params)
+    floats = [f.detach().requires_grad_() for f in floats]
+    loss = loss_fn(rebuild(floats), cfg, tokens)
+    grads = torch.autograd.grad(loss, floats)
+    with torch.no_grad():
+        new = sgd_update(floats, grads, lr)
+    return rebuild(new), loss.detach()

@@ -14,7 +14,8 @@ against. These are the only rungs that call a library matmul.
 
 ``fp32_matmul`` is also the port's one place for "an fp32 product at
 full fp32 on the card": the fp32 and bf16 linears and the fp32 plain
-versions call it.
+versions call it, and under autograd its gradient's two products are
+fp32 products too.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from how_to_optimize_gemm_tpu_torch.ops import bounds
 from how_to_optimize_gemm_tpu_torch.ops.int8 import dequant_epilogue
 
 
-def fp32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _matmul_highest(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``torch.matmul(x, w)`` with TF32 off (``allow_tf32`` False,
     float32 matmul precision "highest") for this product only.
 
@@ -50,6 +51,37 @@ def fp32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         matmul.allow_tf32 = allow_tf32
         if precision is not None:
             torch.set_float32_matmul_precision(precision)
+
+
+class _Fp32Matmul(torch.autograd.Function):
+    """x (..., K) @ w (K, N) whose gradients are fp32 products too: the
+    backward runs under whatever flags are set when it runs, so each of
+    its products goes through ``_matmul_highest`` as the forward's does."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _matmul_highest(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _matmul_highest(g, w.t())
+        if ctx.needs_input_grad[1]:
+            dw = _matmul_highest(x.reshape(-1, x.shape[-1]).t(),
+                                 g.reshape(-1, g.shape[-1]))
+        return dx, dw
+
+
+def fp32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``torch.matmul(x, w)`` for x (..., K) and w (K, N) with TF32 off
+    for this product only, and for the two products of its gradient
+    (``_matmul_highest``)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Fp32Matmul.apply(x, w)
+    return _matmul_highest(x, w)
 
 
 def mmult(a, b, c):

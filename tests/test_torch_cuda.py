@@ -849,3 +849,197 @@ def test_long_prefill_takes_flash_and_matches_cpu(cuda, kind):
     diff = float((card - cpu).abs().max())
     print(f"prefill 512 {kind}: max|card - cpu| = {diff} (limit {limit})")
     assert diff <= limit, diff
+
+
+# ---------------------------------------------------------- flash training
+# The training attention's kernels against their plain versions (the
+# forward at the kernel's 64-key tiles, whose bf16 p depends on the block),
+# each output per row over its own max |plain| (attention.row_rel_err, rows
+# raised to 1% of the tensor's max): out within TRAIN_OUT_REL (p rounded to
+# bf16 from scores of q split into two bf16 halves: one bf16 ulp of a row's
+# top value), dq, dk and dv within TRAIN_GRAD_REL (fp32, the split operands'
+# 2^-17 and sums in another order), lse within TRAIN_LSE_ATOL; the bounds of
+# chip_smoke.py, set from readings on an H100.
+TRAIN_OUT_REL = 8e-3
+TRAIN_GRAD_REL = 2e-3
+TRAIN_LSE_ATOL = 5e-5
+
+# (B, H, KVH, S, D, causal): GQA rep 4 and 8 at D 64, rep 1 at D 128, S
+# that is no tile multiple, three rows, and a non-causal tail of one key.
+# (Not S = 1: its dq is 0 in exact arithmetic, ds = dp - delta cancelling
+# in every row, so both sides are rounding noise and no row is a scale.)
+TRAIN_CASES = [(2, 8, 2, 256, 64, True), (1, 8, 1, 200, 64, True),
+               (1, 4, 4, 200, 128, True), (1, 8, 2, 520, 128, False),
+               (2, 4, 1, 130, 64, True), (1, 2, 2, 3, 64, True),
+               (1, 2, 2, 65, 128, False)]
+
+
+def _train_inputs(b, h, kvh, s, d, seed, device):
+    """q and do float32 (B, H, S, D), k and v bf16 (B, KVH, S, D), all
+    views of (B, S, heads, D) tensors, as mha_flash_train passes them."""
+    rng = np.random.default_rng(seed)
+
+    def make(heads, dtype=torch.float32):
+        x = rng.standard_normal((b, s, heads, d)).astype(np.float32)
+        return torch.from_numpy(x).to(device=device,
+                                      dtype=dtype).transpose(1, 2)
+    return (make(h), make(kvh, torch.bfloat16), make(kvh, torch.bfloat16),
+            make(h))
+
+
+@pytest.mark.parametrize("b,h,kvh,s,d,causal", TRAIN_CASES)
+def test_flash_train_kernels_match_plain_versions(cuda, b, h, kvh, s, d,
+                                                  causal):
+    q, k, v, do = _train_inputs(b, h, kvh, s, d, s + d + h, cuda)
+    names = ("flash_attention_fwd_lse", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    before = {n: _build.LAUNCHES[n] for n in names}
+    out, lse = attention.flash_attention_fwd_lse(q, k, v, causal=causal)
+    ref_out, ref_lse = attention.flash_attention_fwd_lse_ref(
+        q, k, v, causal=causal, bk=attention.KERNEL_BLOCK)
+    delta = (do * ref_out).sum(dim=-1)
+    args = (q, k, v, do, ref_lse, delta)
+    dq = attention.flash_attention_bwd_dq(*args, causal=causal)
+    dk, dv = attention.flash_attention_bwd_dkv(*args, causal=causal)
+    torch.cuda.synchronize()
+    assert {n: _build.LAUNCHES[n] - before[n] for n in names} == \
+        dict.fromkeys(names, 1)
+    assert out.stride() == q.stride() and dq.stride() == q.stride()
+    assert dk.dtype == dv.dtype == torch.float32 and dk.shape == k.shape
+    ref_dq = attention.flash_attention_bwd_dq_ref(*args, causal=causal)
+    ref_dk, ref_dv = attention.flash_attention_bwd_dkv_ref(*args,
+                                                           causal=causal)
+    rel = attention.row_rel_err
+    errs = {"out": float(rel(out, ref_out).max()),
+            "dq": float(rel(dq, ref_dq).max()),
+            "dk": float(rel(dk, ref_dk).max()),
+            "dv": float(rel(dv, ref_dv).max())}
+    lse_err = float((lse - ref_lse).abs().max())
+    print(f"flash train {(b, h, kvh, s, d, causal)}: {errs}, lse {lse_err}")
+    for x in (out, lse, dq, dk, dv):
+        assert torch.isfinite(x).all()
+    assert errs["out"] <= TRAIN_OUT_REL
+    assert max(errs["dq"], errs["dk"], errs["dv"]) <= TRAIN_GRAD_REL
+    assert lse_err <= TRAIN_LSE_ATOL
+
+
+def test_mha_flash_train_on_the_card_matches_the_cpu(cuda):
+    """The autograd function end to end: mha_flash_train and its
+    gradients on the card (the three kernels) against the CPU (the plain
+    versions) on the same inputs; dk and dv come back in bf16, so a row
+    may also differ by one bf16 rounding (2^-8)."""
+    rng = np.random.default_rng(11)
+    b, s, h, kvh, d = 1, 600, 8, 2, 64
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, n, d)).astype(
+        np.float32)) for n in (h, kvh, kvh))
+    w = torch.from_numpy(rng.standard_normal((b, s, h * d)).astype(
+        np.float32))
+    res = {}
+    for dev in ("cpu", cuda):
+        xs = [x.detach().to(dev).requires_grad_() for x in (q, k, v)]
+        out = attention.mha_flash_train(*xs, causal=True)
+        out.backward(w.to(dev))
+        res[str(dev)] = [t.detach().cpu() for t in (out, *(x.grad
+                                                           for x in xs))]
+    rel = attention.row_rel_err
+    cpu, card = res["cpu"], res[str(cuda)]
+    assert float(rel(card[0], cpu[0]).max()) <= TRAIN_OUT_REL
+    assert float(rel(card[1], cpu[1]).max()) <= TRAIN_GRAD_REL
+    for i in (2, 3):
+        assert float(rel(card[i], cpu[i]).max()) <= TRAIN_GRAD_REL + 2 ** -7
+
+
+def test_training_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q, k, v, _ = _train_inputs(1, 2, 1, 64, 64, 0, cuda)
+    with pytest.raises(ValueError):                 # the kernels' tiles
+        attention.flash_attention_fwd_lse(q, k, v, bk=512)
+    with pytest.raises(TypeError):                  # q stays float32
+        attention.flash_attention_fwd_lse(q.to(torch.bfloat16), k, v)
+    with pytest.raises(ValueError):                 # self-attention only
+        attention.flash_attention_train(q, k[:, :, :32], v[:, :, :32])
+
+
+def test_kernel_wrappers_refuse_gradients_on_the_card(cuda):
+    """A kernel with no backward raises under autograd instead of
+    returning an output that carries no gradient."""
+    q, k, v, _ = _train_inputs(1, 2, 1, 64, 64, 1, cuda)
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.flash_attention_fwd_lse(q, k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.flash_attention(q.to(torch.bfloat16), k, v)
+
+
+def test_fp32_matmul_gradient_stays_fp32_under_tf32(cuda):
+    """With TF32 turned on globally, fp32_matmul's gradients are fp32
+    products (TF32 would read ~1e-3 against fp64) and the flag stays on."""
+    flags = torch.backends.cuda.matmul
+    saved = (flags.allow_tf32, torch.get_float32_matmul_precision())
+    rng = np.random.default_rng(12)
+    x0, w0, g0 = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in ((512, 1024), (1024, 256), (512, 256)))
+    try:
+        flags.allow_tf32 = True
+        x, w = (t.to(cuda).requires_grad_() for t in (x0, w0))
+        vendor.fp32_matmul(x, w).backward(g0.to(cuda))
+        assert flags.allow_tf32
+    finally:
+        flags.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+    for got, want in ((x.grad, g0.double() @ w0.double().t()),
+                      (w.grad, x0.double().t() @ g0.double())):
+        rel = float((got.cpu().double() - want).abs().max()
+                    / want.abs().max())
+        assert rel < 1e-5, rel
+
+
+def test_loss_fn_refuses_quantized_weights_on_the_card(cuda):
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    cfg = llama.LlamaConfig(vocab=64, d_model=64, n_layers=1, n_heads=1,
+                            n_kv_heads=1, d_ff=64, max_seq=16,
+                            weight_kind="int8")
+    params = llama.init_params(torch.Generator(cuda).manual_seed(0), cfg,
+                               cuda)
+    tokens = torch.zeros((1, 9), dtype=torch.int64, device=cuda)
+    with pytest.raises(NotImplementedError, match="A15"):
+        llama.loss_fn(params, cfg, tokens)
+
+
+def test_training_on_the_card_resumes_bit_exactly(cuda, tmp_path):
+    """A small model through the flash kernels (s = 512, d_head 64, rep 2):
+    4 AdamW steps with a checkpoint at 2, then resumed from it; the losses
+    and the parameters equal the uninterrupted run's, and each kernel runs
+    once a layer a step."""
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    from how_to_optimize_gemm_tpu_torch.parallel import training
+    cfg = llama.LlamaConfig(vocab=128, d_model=128, n_layers=2, n_heads=2,
+                            n_kv_heads=1, d_ff=256, max_seq=513,
+                            weight_kind="bf16")
+    rng = np.random.default_rng(13)
+    batches = [torch.from_numpy(rng.integers(0, 128, (2, 513))).to(cuda)
+               for _ in range(4)]
+
+    def run(resume=None):
+        params = llama.init_params(torch.Generator(cuda).manual_seed(0),
+                                   cfg, cuda)
+        opt = training.make_optimizer(1e-3)
+        state = training.init_train_state(params, opt)
+        if resume:
+            state = training.checkpoint.load_train_state(resume, state)
+        step = training.make_train_step(cfg, opt, flash_train=True)
+        losses = []
+        for i in range(state.step, 4):
+            state, loss = step(state, batches[i])
+            losses.append(float(loss))
+            if i == 1 and resume is None:
+                training.checkpoint.save_train_state(tmp_path / "s2", state)
+        return state, losses
+
+    before = _build.LAUNCHES["flash_attention_bwd_dkv"]
+    state, losses = run()
+    assert _build.LAUNCHES["flash_attention_bwd_dkv"] == before + 8
+    state2, losses2 = run(tmp_path / "s2")
+    assert losses2 == losses[2:] and all(np.isfinite(losses))
+    for a, b in zip(training._leaves(state.params),
+                    training._leaves(state2.params)):
+        assert torch.equal(a, b)

@@ -31,7 +31,8 @@ def test_port_modules_found():
                  "ops.paged_attention", "ops.attention", "parallel.kv_alloc",
                  "utils.native", "ops.tuned", "ops.vendor", "ops.naive",
                  "ops.mn_tile", "ops.k_blocked", "harness.profiling",
-                 "viz.plot", "viz.transitions"):
+                 "viz.plot", "viz.transitions", "parallel.training",
+                 "models.checkpoint"):
         assert f"how_to_optimize_gemm_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 20
 
@@ -104,7 +105,9 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
         "paged_kv_update", "paged_decode_attention",
         "paged_decode_attention_q8", "flash_attention", "bf16_gemm_nt",
         "bf16_gemm_nn", "fp32_gemm_nt", "fp32_gemm_nn", "w4a16_gemm",
-        "naive_gemm", "fp32_gemm_mn_tile", "fp32_gemm_k_blocked"}
+        "naive_gemm", "fp32_gemm_mn_tile", "fp32_gemm_k_blocked",
+        "flash_attention_fwd_lse", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv"}
     for name, kernel in _build.KERNELS.items():
         assert (_build.CSRC / kernel.source).exists(), name
         assert kernel.argtypes[-1] is ctypes.c_void_p, name
@@ -119,6 +122,9 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
     assert len(_build.KERNELS["paged_decode_attention"].argtypes) == 15
     assert len(_build.KERNELS["paged_decode_attention_q8"].argtypes) == 17
     assert len(_build.KERNELS["flash_attention"].argtypes) == 25
+    assert len(_build.KERNELS["flash_attention_fwd_lse"].argtypes) == 25
+    assert len(_build.KERNELS["flash_attention_bwd_dq"].argtypes) == 30
+    assert len(_build.KERNELS["flash_attention_bwd_dkv"].argtypes) == 34
     for name in ("int8_gemm_noc", "w4a16_gemm_noc", "w4a16_gemv",
                  "bf16_gemm_nt", "bf16_gemm_nn", "fp32_gemm_nt",
                  "fp32_gemm_nn", "w4a16_gemm", "naive_gemm",

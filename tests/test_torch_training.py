@@ -1,0 +1,391 @@
+"""Port parity: training the Llama model (loss, gradients, remat, AdamW with
+global-norm clipping, SGD, checkpoint and bit-exact resume, the soak CLI)
+against the JAX package's ``models/llama`` and ``parallel/training``, on
+the CPU.
+
+Weights come from the JAX ``init_params`` through
+``convert.params_from_jax`` and tokens from numpy, so both sides start
+from the same bytes. The JAX side runs as its own tests run it: the loss
+on its ``use_pallas=False`` routes, the flash kernels (``flash_train``) in
+interpret mode.
+
+Tolerances (measured differences in the comments beside them):
+- loss: LOSS_RTOL relative (fp32 ops in another order); FLASH_LOSS_RTOL
+  through flash at s = 512, where a score moved by rounding can flip the
+  bf16 rounding of p, and with bf16 weights an activation moved by
+  rounding can flip its bf16 rounding before a linear;
+- gradients, each leaf within GRAD_REL of its own max |gradient| (fp32
+  sums in another order), FLASH_GRAD_REL through flash (the flips
+  above); bf16 leaves (bf16 gradients) within BF16_GRAD_REL, a few bf16
+  ulps;
+- parameters after AdamW or SGD steps: PARAM_ATOL (AdamW's first update
+  is lr * g / |g|, so a gradient that differs by rounding moves a
+  parameter by rounding of lr); BF16_PARAM_ATOL where a gradient is
+  rounded to bf16 (the int4 emulation rounds x and the dequantized weight
+  to bf16, so their gradients come back through that rounding): lr times
+  one bf16 ulp of a gradient below 4, 1e-2 x 2^-6;
+- resume, checkpoints and remat: EQUAL.
+"""
+import dataclasses
+import itertools
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from how_to_optimize_gemm_tpu.models import checkpoint as jcheckpoint
+from how_to_optimize_gemm_tpu.models import llama as jllama
+from how_to_optimize_gemm_tpu.parallel import training as jtraining
+from how_to_optimize_gemm_tpu_torch import convert
+from how_to_optimize_gemm_tpu_torch.models import checkpoint, llama
+from how_to_optimize_gemm_tpu_torch.ops import attention
+from how_to_optimize_gemm_tpu_torch.parallel import training
+
+torch.set_num_threads(1)
+
+LOSS_RTOL = 1e-5
+FLASH_LOSS_RTOL = 1e-4
+GRAD_REL = 1e-3
+FLASH_GRAD_REL = 5e-3
+BF16_GRAD_REL = 2e-2
+PARAM_ATOL = 1e-5
+BF16_PARAM_ATOL = 2e-4
+
+SMALL = dict(vocab=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
+             d_ff=64, max_seq=32)
+# d_head 64, rep 2, s = 512: the flash route on both sides
+FLASH = dict(vocab=64, d_model=128, n_layers=2, n_heads=2, n_kv_heads=1,
+             d_ff=128, max_seq=513)
+
+
+def _models(cfg: dict, kind: str, seed: int = 0):
+    jcfg = jllama.LlamaConfig(**cfg, weight_kind=kind)
+    jparams = jllama.init_params(jax.random.PRNGKey(seed), jcfg)
+    params = convert.params_from_jax(jax.tree.map(np.asarray, jparams),
+                                     "cpu")
+    return jcfg, jparams, llama.LlamaConfig(**cfg, weight_kind=kind), params
+
+
+def _tokens(seed: int, batch: int, seq: int, vocab: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, vocab, (batch, seq)).astype(np.int32)
+
+
+def _jax_loss_and_grads(jparams, jcfg, tokens, remat=False,
+                        flash_train=False):
+    floats, rebuild = jtraining.split_trainable(jparams)
+    leaves = jax.tree.leaves(jparams)
+
+    def loss_of(floats):
+        return jllama.loss_fn(rebuild(floats, leaves), jcfg,
+                              jnp.asarray(tokens), False, remat, flash_train)
+
+    return jax.value_and_grad(loss_of)(floats)
+
+
+def _port_loss_and_grads(params, cfg, tokens, remat=False,
+                         flash_train=False):
+    floats, rebuild = training.split_trainable(params)
+    floats = [f.detach().clone().requires_grad_() for f in floats]
+    loss = llama.loss_fn(rebuild(floats), cfg,
+                         torch.from_numpy(tokens), remat, flash_train)
+    return loss, torch.autograd.grad(loss, floats)
+
+
+def _assert_grads_close(got, ref, fp32_rel=GRAD_REL):
+    assert len(got) == len(ref)
+    worst = 0.0
+    for g, r in zip(got, ref):
+        r = np.asarray(r, np.float32)
+        bf16 = g.dtype == torch.bfloat16
+        err = float(np.abs(g.float().numpy() - r).max())
+        rel = err / max(float(np.abs(r).max()), 1e-30)
+        assert rel <= (BF16_GRAD_REL if bf16 else fp32_rel), (g.shape, rel)
+        worst = max(worst, rel)
+    return worst
+
+
+# ----------------------------------------------------------- loss, grads
+
+@pytest.mark.parametrize("kind", ["fp32", "bf16"])
+def test_loss_and_grads_match_jax_through_flash(kind, monkeypatch):
+    """loss_fn and its gradients at s = 512 with flash_train on both sides
+    (port: FlashAttentionTrain over the plain versions, once a layer;
+    JAX: its custom VJP over the Pallas kernels in interpret mode).
+    Measured: loss 2e-5 relative (bf16 weights); gradients 2.2e-3
+    (fp32 leaves), 6.6e-3 (bf16 leaves)."""
+    jcfg, jparams, cfg, params = _models(FLASH, kind)
+    tokens = _tokens(1, 1, 513, FLASH["vocab"])
+    jloss, jgrads = _jax_loss_and_grads(jparams, jcfg, tokens,
+                                        flash_train=True)
+    calls = []
+    real = attention.flash_attention_fwd_lse_ref
+
+    def counting(*a, **kw):
+        calls.append(a[0].shape)
+        return real(*a, **kw)
+    monkeypatch.setattr(attention, "flash_attention_fwd_lse_ref", counting)
+    loss, grads = _port_loss_and_grads(params, cfg, tokens, flash_train=True)
+    assert len(calls) == FLASH["n_layers"]
+    np.testing.assert_allclose(float(loss), float(jloss),
+                               rtol=FLASH_LOSS_RTOL)
+    print(f"{kind}: loss {float(loss)} vs {float(jloss)}, worst gradient "
+          f"{_assert_grads_close(grads, jgrads, FLASH_GRAD_REL):.2e}")
+
+
+@pytest.mark.parametrize("kind", ["fp32", "int8", "int4", "w4a8"])
+def test_eager_loss_and_grads_match_jax(kind):
+    """Below s = 512 (and without flash_train) attention is the eager
+    _attention; the quantized kinds train their float scales through the
+    emulation, as in the reference."""
+    jcfg, jparams, cfg, params = _models(SMALL, kind)
+    tokens = _tokens(2, 2, 17, SMALL["vocab"])
+    jloss, jgrads = _jax_loss_and_grads(jparams, jcfg, tokens)
+    loss, grads = _port_loss_and_grads(params, cfg, tokens)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_RTOL)
+    _assert_grads_close(grads, jgrads)
+
+
+@pytest.mark.parametrize("cfg_dict,flash", [(SMALL, False), (FLASH, True)])
+def test_remat_gives_the_same_gradients(cfg_dict, flash):
+    _, _, cfg, params = _models(cfg_dict, "fp32")
+    tokens = _tokens(3, 1, cfg_dict["max_seq"], cfg_dict["vocab"])
+    loss, grads = _port_loss_and_grads(params, cfg, tokens, False, flash)
+    loss_r, grads_r = _port_loss_and_grads(params, cfg, tokens, True, flash)
+    assert torch.equal(loss, loss_r)
+    for g, gr in zip(grads, grads_r):
+        assert torch.equal(g, gr)
+
+
+def test_token_nll_matches_jax():
+    rng = np.random.default_rng(4)
+    logits = rng.standard_normal((2, 5, 11)).astype(np.float32)
+    targets = rng.integers(0, 11, (2, 5)).astype(np.int32)
+    ref = jllama.token_nll(jnp.asarray(logits), jnp.asarray(targets))
+    got = llama.token_nll(torch.from_numpy(logits),
+                          torch.from_numpy(targets))
+    np.testing.assert_allclose(float(got), float(ref), rtol=1e-6)
+
+
+# ------------------------------------------------------------- optimizer
+
+def test_clip_by_global_norm_matches_optax():
+    rng = np.random.default_rng(5)
+    grads = [rng.standard_normal(s).astype(np.float32) for s in
+             ((4, 3), (7,), (2, 2))]
+    for scale, dtype in ((1.0, np.float32), (0.01, np.float32)):
+        gs = [g * scale for g in grads]
+        ref, _ = optax.clip_by_global_norm(1.0).update(
+            [jnp.asarray(g) for g in gs], optax.EmptyState())
+        got = training.clip_by_global_norm(
+            [torch.from_numpy(g) for g in gs], 1.0)
+        for a, b in zip(got, ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+    assert float(training.global_norm([torch.ones(4)])) == 2.0
+
+
+def test_adamw_clip_steps_match_optax():
+    """Three AdamW + clip steps of the whole train step on both sides, fp32
+    weights, a new batch each step; the gradient norm exceeds the clip at
+    the start, so clipping acts. Measured: losses 2e-7 relative, params
+    4e-7."""
+    jcfg, jparams, cfg, params = _models(SMALL, "fp32")
+    jopt = jtraining.make_optimizer(1e-2)
+    jstate = jtraining.init_train_state(jparams, jopt)
+    jstep, _ = jtraining.make_train_step(jcfg, jopt)
+    opt = training.make_optimizer(1e-2)
+    state = training.init_train_state(params, opt)
+    step = training.make_train_step(cfg, opt)
+    first = _tokens(10, 2, 17, SMALL["vocab"])
+    _, grads = _port_loss_and_grads(params, cfg, first)
+    assert float(training.global_norm(grads)) > opt.clip
+    for i in range(3):
+        tokens = _tokens(10 + i, 2, 17, SMALL["vocab"])
+        jstate, jloss = jstep(jstate, jnp.asarray(tokens))
+        state, loss = step(state, torch.from_numpy(tokens))
+        np.testing.assert_allclose(float(loss), float(jloss),
+                                   rtol=LOSS_RTOL)
+    assert state.step == 3
+    got, _ = training.split_trainable(state.params)
+    ref, _ = jtraining.split_trainable(jstate.params)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   atol=PARAM_ATOL)
+
+
+def test_sgd_train_step_matches_jax():
+    jcfg, jparams, cfg, params = _models(SMALL, "fp32")
+    tokens = _tokens(6, 2, 17, SMALL["vocab"])
+    jnew, jloss = jllama.sgd_train_step(jparams, jcfg, jnp.asarray(tokens))
+    new, loss = llama.sgd_train_step(params, cfg, torch.from_numpy(tokens))
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_RTOL)
+    for a, b in zip(training.split_trainable(new)[0],
+                    jtraining.split_trainable(jnew)[0]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=PARAM_ATOL)
+    # the given tree is not changed
+    for a, b in zip(training.split_trainable(params)[0],
+                    jtraining.split_trainable(jparams)[0]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4", "w4a8"])
+def test_integer_leaves_frozen_and_scales_move_as_in_jax(kind):
+    """One SGD step: every integer leaf is unchanged, and the float scales
+    move as the reference's do (its XLA emulation on the CPU)."""
+    jcfg, jparams, cfg, params = _models(SMALL, kind)
+    tokens = _tokens(7, 2, 17, SMALL["vocab"])
+    jnew, _ = jllama.sgd_train_step(jparams, jcfg, jnp.asarray(tokens))
+    new, _ = llama.sgd_train_step(params, cfg, torch.from_numpy(tokens))
+    ints = [x for x in training._leaves(params)
+            if not training.is_float_leaf(x)]
+    assert ints and all(torch.equal(a, b) for a, b in zip(
+        ints, [x for x in training._leaves(new)
+               if not training.is_float_leaf(x)]))
+    lin = new["layers"][0]["wq"]
+    scale = lin[f"{kind}_sw"]
+    assert not torch.equal(scale, params["layers"][0]["wq"][f"{kind}_sw"])
+    atol = BF16_PARAM_ATOL if kind == "int4" else PARAM_ATOL
+    np.testing.assert_allclose(scale.numpy(),
+                               np.asarray(jnew["layers"][0]["wq"][
+                                   f"{kind}_sw"]), atol=atol)
+    for a, b in zip(training.split_trainable(new)[0],
+                    jtraining.split_trainable(jnew)[0]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b, np.float32),
+                                   atol=atol)
+
+
+def test_bf16_weights_train():
+    """bf16 leaves are trainable (the reference's dtype.kind trap), move in
+    an AdamW step and stay bf16; integer leaves are not trainable."""
+    _, _, cfg, params = _models(SMALL, "bf16")
+    assert training.is_float_leaf(torch.zeros(1, dtype=torch.bfloat16))
+    assert not training.is_float_leaf(torch.zeros(1, dtype=torch.int8))
+    before = params["layers"][0]["wq"]["bf16_w"].clone()
+    opt = training.make_optimizer(1e-2)
+    state = training.init_train_state(params, opt)
+    assert any(p is params["layers"][0]["wq"]["bf16_w"]
+               for p in state.opt_state.param_groups[0]["params"])
+    step = training.make_train_step(cfg, opt)
+    losses = [float(step(state, torch.from_numpy(
+        _tokens(8, 2, 17, SMALL["vocab"])))[1]) for _ in range(5)]
+    after = state.params["layers"][0]["wq"]["bf16_w"]
+    assert after.dtype == torch.bfloat16 and not torch.equal(before, after)
+    assert losses[-1] < losses[0]
+
+
+def test_mesh_is_not_ported():
+    _, _, cfg, params = _models(SMALL, "fp32")
+    opt = training.make_optimizer()
+    with pytest.raises(NotImplementedError, match="A12"):
+        training.init_train_state(params, opt, mesh=object())
+    with pytest.raises(NotImplementedError, match="A12"):
+        training.make_train_step(cfg, opt, mesh=object())
+
+
+def test_affine_batch_is_the_reference_stream():
+    a = training._affine_batch(np.random.default_rng(1234), 3, 40, 32000)
+    b = jtraining._affine_batch(np.random.default_rng(1234), 3, 40, 32000)
+    np.testing.assert_array_equal(a, b)
+
+
+# ----------------------------------------------------- checkpoint, resume
+
+def test_cpu_resume_is_bit_exact(tmp_path):
+    """8 steps with checkpoints every 4, then a fresh state resumed from
+    step 4: the last 4 losses, the parameters and the AdamW state equal
+    the uninterrupted run's."""
+    _, _, cfg, params = _models(SMALL, "bf16")
+    batches = [torch.from_numpy(_tokens(20 + i, 2, 17, SMALL["vocab"]))
+               for i in range(8)]
+    state, losses = training.train(cfg, params, iter(batches), 8, lr=1e-2,
+                                   checkpoint_dir=str(tmp_path),
+                                   checkpoint_every=4)
+    _, _, _, params2 = _models(SMALL, "bf16")
+    state2, losses2 = training.train(
+        cfg, params2, iter(batches[4:]), 8, lr=1e-2,
+        resume_from=str(tmp_path / "step_000004"))
+    assert state2.step == 8 and losses2 == losses[4:]
+    for a, b in zip(training._leaves(state.params),
+                    training._leaves(state2.params)):
+        assert torch.equal(a, b)
+    opt, opt2 = state.opt_state, state2.opt_state
+    for p, p2 in zip(opt.param_groups[0]["params"],
+                     opt2.param_groups[0]["params"]):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(opt.state[p][key], opt2.state[p2][key])
+
+
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8", "int4", "w4a8"])
+def test_checkpoint_roundtrip(tmp_path, kind):
+    _, _, cfg, params = _models(SMALL, kind)
+    checkpoint.save_params(tmp_path / "p", params)
+    like = llama.init_params(torch.Generator().manual_seed(1), cfg, "cpu")
+    back = checkpoint.load_params(tmp_path / "p", like)
+    for a, b in zip(training._leaves(params), training._leaves(back)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8", "int4", "w4a8"])
+def test_jax_save_params_file_loads_into_the_port(tmp_path, kind):
+    jcfg, jparams, cfg, params = _models(SMALL, kind, seed=3)
+    jcheckpoint.save_params(tmp_path / "jax", jparams)
+    like = llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    back = checkpoint.load_params(tmp_path / "jax", like)
+    for a, b in zip(training._leaves(params), training._leaves(back)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_checkpoint_mismatch_raises(tmp_path):
+    _, _, cfg, params = _models(SMALL, "fp32")
+    checkpoint.save_params(tmp_path / "p", params)
+    other = llama.init_params(torch.Generator().manual_seed(0),
+                              dataclasses.replace(cfg, d_ff=32), "cpu")
+    with pytest.raises(ValueError, match="mismatch"):
+        checkpoint.load_params(tmp_path / "p", other)
+
+
+def test_soak_main_on_the_cpu_writes_its_artifacts(tmp_path):
+    """The soak CLI at a tiny width with --device cpu: 6 steps with a
+    checkpoint at 3, then resumed from it; both artifacts land where they
+    are told (never the JAX soak's outputs/train_soak*.json), and the
+    resumed losses equal the first run's bit for bit. No device metric
+    comes from the CPU run."""
+    art = tmp_path / "gpu" / "train_soak.json"
+    base = ["--device", "cpu", "--d-model", "64", "--n-layers", "2",
+            "--n-heads", "1", "--n-kv-heads", "1", "--d-ff", "64",
+            "--vocab", "128", "--seq", "17", "--batch", "2", "--steps", "6",
+            "--checkpoint-every", "3", "--sync-every", "2",
+            "--ckpt-dir", str(tmp_path / "ck"), "--artifact", str(art)]
+    first = training.soak_main(base + ["--flash-train"])
+    assert json.loads(art.read_text())["losses"] == first["losses"]
+    assert len(first["losses"]) == 6 and first["mfu_pct"] is None
+    assert first["device"] == "cpu" and first["peak_gb"] is None
+    again = training.soak_main(
+        base + ["--flash-train", "--resume-from",
+                str(tmp_path / "ck" / "step_000003")])
+    assert again["start_step"] == 3 and again["bitexact_resume"]
+    assert again["losses"] == first["losses"][3:]
+    assert (tmp_path / "gpu" / "train_soak.resume.json").exists()
+
+
+def test_soak_defaults_stay_under_outputs_gpu():
+    import inspect
+    src = inspect.getsource(training.soak_main)
+    assert '"outputs/gpu/train_soak.json"' in src
+    assert '"outputs/gpu/train_soak_ckpt"' in src
+
+
+def test_train_iterates_and_checkpoints(tmp_path):
+    _, _, cfg, params = _models(SMALL, "fp32")
+    batches = itertools.repeat(torch.from_numpy(
+        _tokens(30, 2, 17, SMALL["vocab"])))
+    state, losses = training.train(cfg, params, batches, 4, lr=1e-2,
+                                   checkpoint_dir=str(tmp_path),
+                                   checkpoint_every=2)
+    assert len(losses) == 4 and losses[-1] < losses[0]
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "step_000002.npz", "step_000004.npz"]
