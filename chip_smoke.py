@@ -43,7 +43,14 @@ Phases (any failure raises and exits non-zero before the last line):
    CUDA-graph replays beside its plain version, the
    library call (or null where no single PyTorch call computes the same
    function) and its bound; each paged attention kernel also beside the
-   contiguous kernel on the same logical cache;
+   contiguous kernel on the same logical cache; then ``grouped_gemm``
+   (the MoE grouped GEMM) at Mixtral-8x7B's prefill (4,096 tokens routed
+   top-2 by a random router, one expert given no token, Tp = 9,216):
+   w_gate/w_in (4,096 -> 14,336) and w_out (14,336 -> 4,096) on int8 +
+   scale, packed int4 + scale and bf16 stacks, then f = 1,000 on the same
+   kinds and fp32 stacks at d 36, f 130, each within GROUPED_REL (fp32:
+   FP32_REL) of max |plain|, a rule that must refuse block 0 reading its
+   neighbour expert's stack; timed at the Mixtral shapes;
 5. the ladder's main path, with every launch count set to 0 just before
    it: the sweep driver on rungs 06v, 06, 14, 07b, 01, 01b, 04, 05, 07,
    15, 16, 00, 02, 03 and 03b at p = 1024 (fp64 host oracle), 2048 and
@@ -72,21 +79,34 @@ Phases (any failure raises and exits non-zero before the last line):
    per admission). Every request must get its 32 tokens, every kernel of
    the path must have been launched, and ``flash_attention`` exactly once
    per layer in every admission of 512 tokens or more. Then the time of
-   one decode step at the same width.
+   one decode step at the same width. Then the MoE paths on
+   ``mixtral_8x7b`` (32 layers, 8 experts of 14,336, top-2, moe_ragged,
+   random weights from seed 0, 4 slots, a bf16 cache): S-moe-int8 (int8
+   attention and int8 expert stacks, 47.5 GB) and S-moe-w4a8 (W4A8 and
+   packed int4 stacks), 4 requests of 1,024-3,000 prompt tokens and 16
+   new tokens, admitted in one dispatch at bucket 4,096: ``grouped_gemm``
+   3 times a layer in it (96), and the attention path's kernels; TTFT,
+   decode tokens/s, one decode step's time and peak memory printed.
    Each model is freed before the next one loads;
 7. parity at full width: the same engine at Llama-2-7B width with 2
    layers, on the same weights and 2 prompts (100 and 128 tokens, so the
    admission prefill runs at m = 2 x 128 = 256 and takes the prefill
    kernels), teacher-forced on the card and on the CPU, both on the
-   kernel routes (the CPU through the kernels' plain versions), comparing
+   kernel routes (the CPU through the kernels' plain versions, flash's
+   at the kernel's 64-key tiles: ``kernel_tiles``), comparing
    the logits of the prefill and of 8 decode steps, for fp32, W4A8, int8
    and int4 weights, for W4A8 weights over the KV8 cache, for W4A8
    weights over a paged bf16 pool (pages of 128) and a paged KV8 pool
    (pages of 384), and "w4a8 long": prompts of 400 and 512 tokens, so the
    admission runs at s = 512 and takes ``flash_attention`` (on the CPU its
-   plain version). The card
-   side runs with every launch count set to 0 just before it and must
-   launch every kernel its serve path launches. Float32 ops summed in
+   plain version); and "moe int8" and "moe w4a8" at Mixtral-8x7B width
+   with 2 layers (prompts of 400 and 512: the bucket-512 admission's
+   2,048 routed copies take ``grouped_gemm``; 2 decode steps on the
+   dispatch path; such a row compares the positions that every side
+   routes to the CPU's experts in every layer, and a token routed
+   otherwise must be a near-tie on the CPU side, ``flipped_positions``).
+   The card side runs with every launch count set to 0 just before it
+   and must launch every kernel its serve path launches. Float32 ops summed in
    another order differ by about 1e-6 relative, and the model amplifies
    that (bf16 cache and p roundings; activation and KV quantization move
    logits by a few %), so the bound is 3x what a 1e-6 relative
@@ -118,14 +138,17 @@ Phases (any failure raises and exits non-zero before the last line):
    the same weights and batches: the losses and the weights after step 2
    within 3x what a 1e-6 relative perturbation of the embedding does on
    the CPU;
-11. one ``{"kernels": [...]}`` line (26 kernels), the card's line again,
+11. one ``{"kernels": [...]}`` line (27 kernels), the card's line again,
    and last ``{"ok": true, "device": {...}}``.
+
+Each phase prints its seconds.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -151,11 +174,12 @@ from how_to_optimize_gemm_tpu_torch.harness.profiling import (
     PEAK_INT8_OPS)
 from how_to_optimize_gemm_tpu_torch.models import llama
 from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
-                                               int4, int8, k_blocked,
+                                               grouped_gemm, int4, int8,
+                                               k_blocked, quant,
                                                kv_update, mn_tile, naive,
                                                paged_attention, registry,
                                                tuned, vendor)
-from how_to_optimize_gemm_tpu_torch.parallel import serving, training
+from how_to_optimize_gemm_tpu_torch.parallel import moe, serving, training
 from how_to_optimize_gemm_tpu_torch.utils.matrices import make_abc
 from how_to_optimize_gemm_tpu_torch.utils.timing import (time_calls,
                                                          time_chained)
@@ -388,6 +412,7 @@ def drive_cli(out_dir: pathlib.Path) -> None:
 # ------------------------------------------------------------- serving
 
 CFG_7B = llama.llama2_7b("w4a8")
+MOE_CFG = llama.mixtral_8x7b("int8")
 SLOTS = 4
 DECODE_ATOL = 2e-3   # decode_attention vs its plain version (sum order, exp)
 # flash_attention vs its plain version at the kernel's 64-key tiles: in
@@ -400,6 +425,14 @@ FLASH_ULPS = 2.0
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0
 PERTURB = 1e-6
+# An MoE row compares the positions that every side routes to the CPU's
+# experts in every layer. A token routed otherwise (at most half the
+# positions) must be a near-tie on the CPU side: its k-th and (k+1)-th
+# router probabilities within PARITY_TIE. The card's MoE input differs
+# from the CPU's by up to ~0.5% where flash's bf16 roundings differ
+# (measured 4.9e-3 of max at the kernel's tiles on an H100), which
+# moves router probabilities by a few 1e-3.
+PARITY_TIE = 1e-2
 
 # The serving kernels; each entry's check returns its result at the
 # shape the JSON line reports (the first of its shapes) and prints the
@@ -1180,16 +1213,91 @@ PARITY = (("fp32", "fp32", "bf16", ["kv_update", "decode_attention"], {},
           ("w4a8 long", *SERVE_PATHS["S-long"], LONG_PARITY_PROMPTS))
 
 
+@contextlib.contextmanager
+def recorded_routes(calls: list):
+    """Append every router call's logits, as (rows, E) fp32 on the CPU, to
+    ``calls`` while active (``moe._router_logits`` serves the dispatch and
+    the ragged paths alike)."""
+    real = moe._router_logits
+
+    def record(params, x):
+        logits = real(params, x)
+        calls.append(logits.reshape(-1, logits.shape[-1]).float().cpu())
+        return logits
+    moe._router_logits = record
+    try:
+        yield calls
+    finally:
+        moe._router_logits = real
+
+
+def flipped_positions(label: str, routes: dict, lens, k: int,
+                      n_layers: int) -> set:
+    """The teacher-forced positions (step, slot) whose token some side
+    routes to other top-k experts than the CPU does, in any layer; each
+    such token must be a near-tie on the CPU side (its k-th and (k+1)-th
+    router probabilities within PARITY_TIE), else this raises. Router
+    calls come a layer at a time: the admission prefill (rows slot x
+    bucket), then each decode step (one row a slot)."""
+    slots = len(lens)
+    ref_calls = routes["cpu"]
+    bucket = ref_calls[0].shape[0] // slots
+    flipped = set()
+    for side, calls in routes.items():
+        if side == "cpu":
+            continue
+        for c, (got, ref) in enumerate(zip(calls, ref_calls)):
+            step = c // n_layers
+            for slot in range(slots):
+                row = (slot * bucket + lens[slot] - 1) if step == 0 else slot
+                p_ref = torch.softmax(ref[row], -1)
+                top = torch.topk(p_ref, k + 1).values
+                if set(torch.topk(got[row], k).indices.tolist()) == set(
+                        torch.topk(ref[row], k).indices.tolist()):
+                    continue
+                gap = float(top[k - 1] - top[k])
+                print(f"parity {label}: {side} routes step {step} slot {slot}"
+                      f" layer {c % n_layers} otherwise; the CPU's top-{k} "
+                      f"gap {gap:.3e}")
+                if gap > PARITY_TIE:
+                    raise AssertionError(f"parity {label}: {side} routes a "
+                                         f"token otherwise at a gap of {gap}")
+                flipped.add((step, slot))
+    return flipped
+
+
+@contextlib.contextmanager
+def kernel_tiles():
+    """The plain flash version walks the kernel's 64-key tiles
+    (``attention.KERNEL_BLOCK``) instead of the reference's 512-key
+    blocks, so the CPU side's online softmax rounds p to bf16 against the
+    same running maxima as the card's. At 512-key blocks those roundings
+    move a prefill's MLP input by ~1% where they differ, which a routed
+    model turns into expert choices of its own at near-ties (PERF.md,
+    section 6)."""
+    default = attention.default_block
+    attention.default_block = lambda t: attention.KERNEL_BLOCK
+    try:
+        yield
+    finally:
+        attention.default_block = default
+
+
 def parity(gen: torch.Generator) -> None:
-    """The engine at 7B width with 2 layers, on the card and on the CPU,
-    on the same weights and tokens, for each of ``PARITY``; the card side
-    runs with every launch count set to 0 just before it and must launch
-    each kernel of its row."""
-    for label, kind, cache_kind, kernels, paged, lens in PARITY:
+    """The engine at 7B width (``PARITY``) and at Mixtral-8x7B width with
+    ``moe_ragged`` (``MOE_PARITY``), 2 layers, on the card and on the CPU,
+    on the same weights and tokens; the card side runs with every launch
+    count set to 0 just before it and must launch each kernel of its
+    row."""
+    rows = ([(row, CFG_7B, 8) for row in PARITY]
+            + [(row, dataclasses.replace(MOE_CFG, moe_ragged=True),
+                MOE_FORCED) for row in MOE_PARITY])
+    for (label, kind, cache_kind, kernels, paged, lens), base, steps in rows:
+        t0 = time.perf_counter()
         rng = np.random.default_rng(0)
         prompts = [rng.integers(1, 30000, n).tolist() for n in lens]
-        forced = rng.integers(1, 30000, (2, 8)).astype(np.int32)
-        cfg = dataclasses.replace(CFG_7B, n_layers=2, weight_kind=kind)
+        forced = rng.integers(1, 30000, (2, steps)).astype(np.int32)
+        cfg = dataclasses.replace(base, n_layers=2, weight_kind=kind)
         params = llama.init_params(gen, cfg, "cuda")
         cpu = convert.to_device(params, "cpu")
         noise = torch.randn(cpu["embed"].shape,
@@ -1199,7 +1307,7 @@ def parity(gen: torch.Generator) -> None:
                  "cpu perturbed": ({**cpu, "embed": cpu["embed"]
                                     * (1 + PERTURB * noise)}, "cpu", True),
                  "cpu eager": (cpu, "cpu", None)}
-        out = {}
+        out, router = {}, {}
         for side, (p, dev, routes) in sides.items():
             if side == "cpu eager" and label != EAGER_PARITY_ROW:
                 continue
@@ -1207,13 +1315,25 @@ def parity(gen: torch.Generator) -> None:
                                         cache_kind=cache_kind,
                                         kernel_routes=routes, **paged)
             _build.reset_launches()
-            out[side] = teacher_forced(eng, prompts, forced)
+            with kernel_tiles() if routes else contextlib.nullcontext(), \
+                    recorded_routes(router.setdefault(side, [])):
+                out[side] = teacher_forced(eng, prompts, forced)
             if dev == "cuda":
                 missing = [k for k in kernels if _build.LAUNCHES[k] == 0]
                 if missing:
                     raise AssertionError(f"parity {label}: the card side "
                                          f"never launched {missing}")
             del eng
+        # an MoE row compares the positions every side routes alike
+        keep = torch.ones(out["cpu"].shape[:2], dtype=torch.bool)
+        if cfg.n_experts:
+            for step, slot in flipped_positions(label, router, lens,
+                                                cfg.moe_top_k, cfg.n_layers):
+                keep[step, slot] = False
+            if int(keep.sum()) * 2 < keep.numel():
+                raise AssertionError(f"parity {label}: {int((~keep).sum())} "
+                                     f"of {keep.numel()} positions routed "
+                                     "otherwise")
         ref = out["cpu"]
         scale = float(ref.abs().max())
         diffs = {}
@@ -1221,7 +1341,7 @@ def parity(gen: torch.Generator) -> None:
             if side == "cpu":
                 continue
             other = out[side]
-            diffs[side] = float((other - ref).abs().max())
+            diffs[side] = float((other - ref)[keep].abs().max())
             agree = float((other.argmax(-1) == ref.argmax(-1)).float()
                           .mean())
             print(f"parity {label}: max|{side} - cpu| = {diffs[side]:.4e} "
@@ -1234,8 +1354,222 @@ def parity(gen: torch.Generator) -> None:
                 and diffs["cuda"] <= limit):
             raise AssertionError(f"parity {label}: card and CPU logits "
                                  f"differ by {diffs['cuda']} > {limit}")
+        print(f"parity {label}: {time.perf_counter() - t0:.1f} s")
         del params, cpu
         torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ MoE
+
+MOE_KERNEL = dict(
+    name="grouped_gemm", source=SRC + "grouped_gemm.cu",
+    replaces="how_to_optimize_gemm_tpu/ops/pallas_grouped_gemm.py:71",
+    function="pallas_grouped_gemm._kernel + _kernel_noscale :83 + "
+             "_kernel_q4 :87 (_gmm_call :108, grouped_matmul)")
+# grouped_gemm vs its plain version, relative to max |plain|: bf16, int8
+# and int4 stacks take x split into bf16 hi + lo (2^-17 relative a
+# product) and the tensor cores' sums (measured on an H100 up to 3.4e-5 at
+# K = 14,336, 1.2e-5 at 4,096); fp32 stacks FFMA (FP32_REL). One block
+# reading its neighbour expert's stack reads above 1.
+GROUPED_REL = 1e-4
+MOE_T = 4096        # the kernel phase's tokens: Mixtral's prefill, top-2
+MOE_EMPTY = 1       # the expert the kernel phase's router gives no token
+                    # (not the last: the layout's spare blocks go to it)
+# The MoE serve paths on mixtral_8x7b (moe_ragged), each at 32 layers: the
+# weight kind and the kernels each must launch. Their 4 prompts,
+# make_requests(4, 1024, 16, seed=0, 3000), are admitted in one dispatch
+# at bucket 4,096, which takes the grouped GEMM (4 x 4,096 x 2 routed
+# copies >= 2 x 8 x 128) 3 times a layer; decode (4 tokens) takes the
+# dispatch path.
+MOE_SERVE_PATHS = {
+    "S-moe-int8": ("int8", 32, ["grouped_gemm", "int8_gemm_noc",
+                                "flash_attention", "kv_update",
+                                "decode_attention"]),
+    "S-moe-w4a8": ("w4a8", 32, ["grouped_gemm", "w4a8_gemm_noc",
+                                "w4a8_gemv_fq", "flash_attention",
+                                "kv_update", "decode_attention"]),
+}
+MOE_NEW = 16
+# parity at Mixtral width with 2 layers: prompts of 400 and 512 tokens, so
+# the bucket-512 admission has 2 x 512 x 2 = 2,048 routed copies and takes
+# the grouped GEMM; decode takes the dispatch path. MOE_FORCED decode
+# steps (not 8): the CPU side converts every expert stack to fp32 a step
+MOE_PARITY = tuple((f"moe {kind}", kind, "bf16", kernels, {},
+                    LONG_PARITY_PROMPTS)
+                   for kind, _, kernels in MOE_SERVE_PATHS.values())
+MOE_FORCED = 2
+
+
+def _moe_rows(gen, t: int, d: int, e: int, k: int, empty: int):
+    """t tokens (t, d) routed top-k by a random router over e experts,
+    expert ``empty`` masked out, laid out for the grouped GEMM: (xs, the
+    block -> expert map, routed copies)."""
+    x = torch.randn((t, d), generator=gen, device="cuda")
+    router = torch.randn((d, e), generator=gen, device="cuda") * d ** -0.5
+    logits = vendor.fp32_matmul(x, router)
+    logits[:, empty] = -1e30
+    choice = torch.topk(torch.softmax(logits, -1), k, dim=-1).indices
+    stok, _, dest, be, tp = moe._ragged_layout(choice.t().reshape(-1), t, e,
+                                               k, 128)
+    if int((be == empty).sum()) != 1:
+        raise AssertionError("the empty expert does not own one block")
+    xs = torch.zeros((tp, d), device="cuda")
+    xs[dest] = x[stok]
+    return xs, be, t * k
+
+
+def _grouped_stack(gen, kind: str, e: int, kdim: int, n: int):
+    """(w, scales, packed4) of one stack kind, drawn in fp32."""
+    w = torch.randn((e, kdim, n), generator=gen, device="cuda") * kdim ** -0.5
+    if kind in ("fp32", "bf16"):
+        return (w if kind == "fp32" else w.to(torch.bfloat16)), None, False
+    q, s = quant.quantize_symmetric(w, axis=1, bits=8 if kind == "int8"
+                                    else 4)
+    del w
+    if kind == "int4":
+        return quant.pack_int4(q, kdim), s, True
+    return q, s, False
+
+
+def check_grouped_gemm(gen: torch.Generator) -> dict:
+    """grouped_gemm against its plain version at Mixtral-8x7B's prefill
+    (T = 4,096 tokens, top-2, Tp = 9,216; a random router, expert 1 given
+    no token): w_gate/w_in (4,096 -> 14,336) and w_out (14,336 -> 4,096)
+    on int8 + scale, packed int4 + scale and bf16 stacks; then f = 1,000
+    (not a multiple of 128) on the same kinds and fp32 stacks at d 36, f
+    130. Each within GROUPED_REL (fp32: FP32_REL) of max |plain|, and the
+    same rule must refuse the plain version with block 0 reading the
+    neighbouring expert. Timed at the Mixtral shapes as CUDA-graph
+    replays beside the plain version and the bound: the routed rows'
+    operations (not the padding's) at the bf16 peak, whatever the stack
+    kind, against the bytes of x, the stack, the scales and y once. No
+    single PyTorch call computes it: library null. Returns the int8
+    w_gate row."""
+    e, d, f = MOE_CFG.n_experts, MOE_CFG.d_model, MOE_CFG.d_ff
+    cases = [(MOE_T, d, f, e, ("int8", "int4", "bf16"), True),
+             (MOE_T, f, d, e, ("int8", "int4", "bf16"), True),
+             (1000, 1024, 1000, e, ("int8", "int4", "bf16"), False),
+             (100, 36, 130, 4, ("fp32",), False)]
+    first, worst = None, 0.0
+    for t, kdim, n, ne, kinds, timed_here in cases:
+        xs, be, routed = _moe_rows(gen, t, kdim, ne, 2, MOE_EMPTY)
+        for kind in kinds:
+            w, s, packed4 = _grouped_stack(gen, kind, ne, kdim, n)
+            shape = f"{kind} Tp={xs.shape[0]} {kdim}->{n} E={ne}"
+            out = grouped_gemm.grouped_matmul(xs, w, be, s, packed4=packed4)
+            ref = grouped_gemm.grouped_matmul_ref(xs, w, be, s,
+                                                  packed4=packed4)
+            wrong = be[:1].clone()
+            wrong[0] = (wrong[0] + 1) % ne
+            bad = grouped_gemm.grouped_matmul_ref(xs[:128], w, wrong, s,
+                                                  packed4=packed4)
+            torch.cuda.synchronize()
+            scale = float(ref.abs().max())
+            err = float((out - ref).abs().max())
+            fault = float((out[:128] - bad).abs().max())
+            tol = FP32_REL if kind == "fp32" else GROUPED_REL
+            print(f"grouped_gemm {shape}: max|kernel - plain| = {err} = "
+                  f"{err / scale:.3e} of max|plain| (bound {tol}); block 0 "
+                  f"on its neighbour's stack reads {fault / scale:.3e}")
+            if not (err <= tol * scale and fault > tol * scale):
+                raise AssertionError(f"grouped_gemm {shape}: {err / scale} "
+                                     f"(fault {fault / scale})")
+            worst = max(worst, err)
+            if timed_here:
+                args = (xs, w, be, s)
+                b = bound_ms(nbytes(xs, w, out) + (nbytes(s) if s is not None
+                                                   else 0),
+                             2.0 * routed * kdim * n, PEAK_BF16_FLOPS)
+                r = timed("grouped_gemm", shape,
+                          lambda: grouped_gemm.grouped_matmul(
+                              *args, packed4=packed4),
+                          lambda: grouped_gemm.grouped_matmul_ref(
+                              *args, packed4=packed4), None, *b, err)
+                first = first or r
+            del w, s, out, ref
+        del xs
+        torch.cuda.empty_cache()
+    first["max_abs_err"] = worst
+    return first
+
+
+def serve_moe_path(gen: torch.Generator, path: str) -> dict:
+    """One MoE serving path, launch counts set to 0 just before it and read
+    just after: ``grouped_gemm`` 3 times a layer in every admission of
+    at least 2 x E x 128 routed copies, the attention path's kernels at
+    least once; TTFT, decode tokens/s, one decode step's time and peak
+    memory printed."""
+    kind, layers, kernels = MOE_SERVE_PATHS[path]
+    cfg = dataclasses.replace(llama.mixtral_8x7b(kind), moe_ragged=True,
+                              n_layers=layers)
+    t0 = time.perf_counter()
+    params = llama.init_params(gen, cfg, "cuda")
+    torch.cuda.synchronize()
+    weight_gb = sum(nbytes(t) for layer in params["layers"]
+                    for v in layer.values()
+                    for t in (v.values() if isinstance(v, dict) else [v])
+                    ) / 1e9
+    print(f"{path}: mixtral_8x7b({kind}) at {layers} layers drawn in "
+          f"{time.perf_counter() - t0:.1f} s, layer weights {weight_gb:.2f} "
+          f"GB, {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    reqs = serving.make_requests(SLOTS, 1024, MOE_NEW, seed=0,
+                                 prompt_len_max=3000)
+    eng = serving.ServingEngine(cfg, params, batch_slots=SLOTS,
+                                device="cuda")
+    dispatches = []
+    step = eng.step
+
+    def recording(tokens, pos, **kw):
+        if tokens.shape[1] > 1:
+            dispatches.append(tuple(tokens.shape))
+        return step(tokens, pos, **kw)
+    eng.step = recording
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    eng.run(reqs, window=8)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    del eng.step
+    launches = dict(_build.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    stats = serving.summarize(reqs, seconds)
+    short = [r.uid for r in reqs if len(r.out) != MOE_NEW or not r.done]
+    if short:
+        raise AssertionError(f"{path}: requests {short} did not get "
+                             f"{MOE_NEW} tokens")
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{path} never launched {missing}")
+    ragged = [dsp for dsp in dispatches
+              if dsp[0] * dsp[1] * cfg.moe_top_k
+              >= llama._moe_ragged_min_tokens(cfg)]
+    if not ragged or launches["grouped_gemm"] != 3 * layers * len(ragged):
+        raise AssertionError(f"{path}: {launches['grouped_gemm']} "
+                             f"grouped_gemm launches for admissions "
+                             f"{dispatches}")
+    print(f"{path}: prompts {[len(r.prompt) for r in reqs]}, prefill "
+          f"dispatches {dispatches}, grouped_gemm "
+          f"{launches['grouped_gemm'] // len(ragged)} an admission, peak "
+          f"{peak_gb:.2f} GB")
+    print(f"{path}: {stats['tokens']} tokens in {seconds:.3f} s = "
+          f"{stats['tok_per_s']:.1f} tok/s; TTFT p50 "
+          f"{stats['ttft_p50_ms']:.1f} ms max {stats['ttft_max_ms']:.1f} "
+          f"ms; decode-only {stats['decode_tok_per_s']:.1f} tok/s")
+    tok = torch.ones((SLOTS, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((SLOTS,), 512, dtype=torch.int32, device="cuda")
+    step_ms = time_calls(lambda: eng.step(tok, pos), inner_iters=2,
+                         outer_repeats=2, warmup=1) * 1e3
+    print(f"{path}: decode step {step_ms:.3f} ms at 4 slots, position 512 "
+          f"(weights {weight_gb:.3f} GB: bound "
+          f"{1e3 * weight_gb * 1e9 / PEAK_BYTES:.3f} ms)")
+    stats.update(step_ms=step_ms, peak_gb=peak_gb, layers=layers)
+    print(json.dumps({"serve": path, "weights": kind, "cache": "bf16",
+                      **stats, "launches": launches}))
+    del eng, params
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ------------------------------------------------------------- training
@@ -1553,10 +1887,17 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    t0 = time.perf_counter()
     checks = {spec["name"]: check_kernel(spec, gen) for spec in KERNELS}
+    print(f"ladder kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     for spec in SERVE_KERNELS:
         checks[spec["name"]] = SERVE_CHECKS[spec["name"]](gen)
     checks.update(check_flash_train(gen))
+    print(f"serving and training kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    checks[MOE_KERNEL["name"]] = check_grouped_gemm(gen)
+    print(f"grouped_gemm: {time.perf_counter() - t0:.1f} s")
 
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -1580,6 +1921,14 @@ def main() -> int:
         print(f"{path}: {time.perf_counter() - t0:.1f} s")
         for spec in SERVE_KERNELS:
             launches[spec["name"]] += path_launches[spec["name"]]
+    launches[MOE_KERNEL["name"]] = 0
+    for path in MOE_SERVE_PATHS:
+        gen.manual_seed(0)
+        t0 = time.perf_counter()
+        path_launches = serve_moe_path(gen, path)
+        print(f"{path}: {time.perf_counter() - t0:.1f} s")
+        for spec in SERVE_KERNELS + [MOE_KERNEL]:
+            launches[spec["name"]] += path_launches[spec["name"]]
     gen.manual_seed(1)
     t0 = time.perf_counter()
     parity(gen)
@@ -1595,7 +1944,7 @@ def main() -> int:
     print(f"train parity: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
-    for spec in KERNELS + SERVE_KERNELS + TRAIN_KERNELS:
+    for spec in KERNELS + SERVE_KERNELS + TRAIN_KERNELS + [MOE_KERNEL]:
         r = checks[spec["name"]]
         kernels.append({
             "name": spec["name"], "route": "cuda", "source": spec["source"],

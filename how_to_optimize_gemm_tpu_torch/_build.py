@@ -128,6 +128,10 @@ KERNELS = {
     # C tile edge, 128 (rung 03) or 64 (rung 03b)
     "fp32_gemm_k_blocked": Kernel("fp32_gemm_k_blocked.cu",
                                   _FLOAT_GEMM[:-1] + (_I, _P)),
+    # the MoE grouped GEMM: (x, w, block_expert, s, out, Tp, N, K, ldx, ldw,
+    # bt, kind, stream); s may be null, kind 0 bf16, 1 int8, 2 packed int4,
+    # 3 fp32 stacks
+    "grouped_gemm": Kernel("grouped_gemm.cu", (_P,) * 5 + (_I,) * 7 + (_P,)),
 }
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -21,6 +21,8 @@
 //   !kSeedC  it starts at 0 and out = acc + C at the flush
 //            (_make_kernel_bt), c and out may be one buffer.
 // Each output element is read and written by the thread that owns it.
+// The main loop (fp32_gemm_mainloop) is shared with the grouped GEMM's
+// fp32-stack instance (grouped_gemm.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -105,30 +107,18 @@ __device__ __forceinline__ int ftile(int t, int i) {
   return (i >> 2) * 64 + t * 4 + (i & 3);
 }
 
-// out = C + A.B (kSeedC) or A.B + C (!kSeedC). A (M, lda) fp32; B as BT
-// (N, ldb) when kBT, else (K, ldb); c, out (M, ldc) fp32.
-template <bool kBT, bool kSeedC>
-__global__ void __launch_bounds__(THREADS)
-    fp32_gemm_kernel(const float* a, const float* b, const float* c,
-                     float* out, int M, int N, int K, int lda, int ldb,
-                     int ldc) {
+// acc[i][j] += sum over k of A[row i][k] * B[k][col j] for this thread's
+// 8x8 outputs of the 128x128 tile at (m0, n0), one fmaf chain per output
+// in k order. A (M, lda) fp32; B as BT (N, ldb) when kBT, else (K, ldb).
+// The grouped GEMM (grouped_gemm.cu) runs it on one expert's stack.
+template <bool kBT>
+__device__ __forceinline__ void fp32_gemm_mainloop(
+    float (&acc)[8][8], const float* a, const float* b, int M, int N, int K,
+    int lda, int ldb, int m0, int n0) {
   __shared__ __align__(16) float sa[2][FBK][FBM];
   __shared__ __align__(16) float sb[2][FBK][FBN];
-  int m0 = blockIdx.y * FBM;
-  int n0 = blockIdx.x * FBN;
   int tx = threadIdx.x & 15;
   int ty = threadIdx.x >> 4;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    int row = m0 + ftile(ty, i);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      int col = n0 + ftile(tx, j);
-      acc[i][j] = kSeedC && row < M && col < N ? c[(size_t)row * ldc + col]
-                                               : 0.0f;
-    }
-  }
   int nk = (K + FBK - 1) / FBK;
   load_fp32_stage<kBT>(sa[0], sb[0], a, b, m0, n0, M, N, 0, K, lda, ldb);
   cp_async_wait_all();
@@ -155,6 +145,31 @@ __global__ void __launch_bounds__(THREADS)
     cp_async_wait_all();
     __syncthreads();
   }
+}
+
+// out = C + A.B (kSeedC) or A.B + C (!kSeedC). A (M, lda) fp32; B as BT
+// (N, ldb) when kBT, else (K, ldb); c, out (M, ldc) fp32.
+template <bool kBT, bool kSeedC>
+__global__ void __launch_bounds__(THREADS)
+    fp32_gemm_kernel(const float* a, const float* b, const float* c,
+                     float* out, int M, int N, int K, int lda, int ldb,
+                     int ldc) {
+  int m0 = blockIdx.y * FBM;
+  int n0 = blockIdx.x * FBN;
+  int tx = threadIdx.x & 15;
+  int ty = threadIdx.x >> 4;
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    int row = m0 + ftile(ty, i);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      int col = n0 + ftile(tx, j);
+      acc[i][j] = kSeedC && row < M && col < N ? c[(size_t)row * ldc + col]
+                                               : 0.0f;
+    }
+  }
+  fp32_gemm_mainloop<kBT>(acc, a, b, M, N, K, lda, ldb, m0, n0);
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     int row = m0 + ftile(ty, i);

@@ -2,11 +2,15 @@
 the card.
 
     python -m how_to_optimize_gemm_tpu_torch.harness.serve_profile \\
-        [--weight-kind w4a8] [--cache-kind bf16] [--layers 32] \\
-        [--slots 4] [--pos 512] [--steps 8] [--paged] [--page N] \\
-        [--prefill S] [--device cpu]
+        [--preset llama2_7b|mixtral_8x7b] [--weight-kind w4a8] \\
+        [--cache-kind bf16] [--layers 32] [--slots 4] [--pos 512] \\
+        [--steps 8] [--paged] [--page N] [--prefill S] \\
+        [--n-experts N] [--moe-top-k K] [--moe-ragged] [--d-ff F] \\
+        [--device cpu]
 
-Builds Llama-2-7B with ``--weight-kind`` weights (random, seed 0) and a
+Builds Llama-2-7B (or ``--preset mixtral_8x7b``, or either with the MoE
+flags of the serving CLI) with ``--weight-kind`` weights (random, seed 0)
+and a
 ``--cache-kind`` cache (bf16, or int8 for KV8) for ``--slots`` slots,
 contiguous or, with ``--paged``, a page pool of ``--page`` tokens a page
 (default ``good_page_size``) with every slot's table allocated in order
@@ -28,7 +32,11 @@ admits a full batch at bucket S:
    head, the live cache rows and, for KV8, their scales) over 3.35 TB/s;
    for a prefill, its operations (every linear's multiply-adds at the
    weights' tensor-core peak, int8 for int8 and W4A8 weights, bf16
-   otherwise, and the causal attention's at the bf16 peak).
+   otherwise; an MoE MLP's top-k routed copies at the bf16 peak, the
+   grouped GEMM's; and the causal attention's at the bf16 peak);
+4. for an MoE model, ``moe_stack_copy_ms_per_step``: the time of
+   converting every quantized expert stack to fp32 once (CUDA events),
+   which the decode step's dispatch path does per stack and layer.
 
 Prints one JSON line. Runs on the card unless ``--device cpu`` is given;
 the CPU runs the kernels' plain versions (kernel routes) and reports no
@@ -49,8 +57,10 @@ from how_to_optimize_gemm_tpu_torch.harness.profiling import (
 from how_to_optimize_gemm_tpu_torch.models import llama
 from how_to_optimize_gemm_tpu_torch.models.linear import KINDS
 from how_to_optimize_gemm_tpu_torch.ops.paged_attention import good_page_size
+from how_to_optimize_gemm_tpu_torch.parallel import moe
 from how_to_optimize_gemm_tpu_torch.parallel.serving import CACHE_KINDS
 from how_to_optimize_gemm_tpu_torch.utils.device import default_device
+from how_to_optimize_gemm_tpu_torch.utils.timing import time_calls
 
 
 def step_bytes(params: dict, cfg: llama.LlamaConfig, slots: int,
@@ -74,18 +84,41 @@ def prefill_bound_ms(cfg: llama.LlamaConfig, slots: int, s: int) -> float:
     at the weights' tensor-core peak, plus causal attention's
     4 * d_head * s (s + 1) / 2 per head and slot at the bf16 peak."""
     d, dh = cfg.d_model, cfg.d_head
-    per_row = (d * (cfg.n_heads + 2 * cfg.n_kv_heads) * dh
-               + cfg.n_heads * dh * d + 3 * d * cfg.d_ff)
-    linear_ops = 2.0 * slots * s * per_row * cfg.n_layers
+    rows = 2.0 * slots * s * cfg.n_layers
+    attn_linear = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * dh \
+        + cfg.n_heads * dh * d
+    mlp = 3 * d * cfg.d_ff
     peak = (PEAK_INT8_OPS if cfg.weight_kind in ("int8", "w4a8")
             else PEAK_BF16_FLOPS)
+    if cfg.n_experts:
+        mlp_ms = rows * mlp * cfg.moe_top_k / PEAK_BF16_FLOPS
+    else:
+        mlp_ms = rows * mlp / peak
     attn_ops = (4.0 * dh * s * (s + 1) / 2 * cfg.n_heads * slots
                 * cfg.n_layers)
-    return 1e3 * (linear_ops / peak + attn_ops / PEAK_BF16_FLOPS)
+    return 1e3 * (rows * attn_linear / peak + mlp_ms
+                  + attn_ops / PEAK_BF16_FLOPS)
+
+
+def stack_copy_ms(params: dict) -> float | None:
+    """ms to convert every quantized expert stack of the model to fp32
+    once, as the dispatch path's ``_experts`` does (None without one)."""
+    stacks = [(layer["moe"], name) for layer in params["layers"]
+              if "moe" in layer for name in moe.STACKS
+              if name + "_q" in layer["moe"] or name + "_q4" in layer["moe"]]
+    if not stacks or not params["embed"].is_cuda:
+        return None
+
+    def convert():
+        for m, name in stacks:
+            moe._stack_values(m, name).to(torch.float32)
+    return time_calls(convert, inner_iters=1, outer_repeats=3) * 1e3
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--preset", default="llama2_7b",
+                    choices=["llama2_7b", "mixtral_8x7b"])
     ap.add_argument("--weight-kind", default="w4a8", choices=KINDS)
     ap.add_argument("--cache-kind", default="bf16", choices=CACHE_KINDS)
     ap.add_argument("--layers", type=int, default=32)
@@ -99,13 +132,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--prefill", type=int, default=None, metavar="S",
                     help="profile admission prefills of S tokens a slot "
                          "instead of decode steps")
+    ap.add_argument("--n-experts", type=int, default=None,
+                    help="default: the preset's")
+    ap.add_argument("--moe-top-k", type=int, default=None)
+    ap.add_argument("--moe-ragged", action="store_true",
+                    help="prefill-scale MoE through the grouped GEMM")
+    ap.add_argument("--d-ff", type=int, default=None)
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
     device = default_device(args.device)
     on_card = device.type == "cuda"
-    cfg = dataclasses.replace(llama.llama2_7b(args.weight_kind),
-                              n_layers=args.layers)
+    overrides = dict(d_ff=args.d_ff, n_experts=args.n_experts,
+                     moe_top_k=args.moe_top_k)
+    base = getattr(llama, args.preset)(args.weight_kind)
+    cfg = dataclasses.replace(
+        base, n_layers=args.layers,
+        moe_ragged=args.moe_ragged or base.moe_ragged,
+        **{k: v for k, v in overrides.items() if v is not None})
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     params = llama.init_params(gen, cfg, device)
@@ -178,6 +222,8 @@ def main(argv=None) -> dict:
                                     args.cache_kind) / PEAK_BYTES
     record = {
         "card": torch.cuda.get_device_name(device) if on_card else "cpu",
+        "preset": args.preset, "n_experts": cfg.n_experts,
+        "moe_ragged": cfg.moe_ragged,
         "weights": args.weight_kind, "cache": args.cache_kind,
         "page": cache[0][0].shape[1] if args.paged else None,
         "layers": args.layers, "slots": args.slots,
@@ -196,6 +242,7 @@ def main(argv=None) -> dict:
             if kernels else None),
         "top_kernels_ms_per_step": {k[:80]: round(ms, 5)
                                     for k, (ms, _) in top},
+        "moe_stack_copy_ms_per_step": stack_copy_ms(params),
     }
     print(json.dumps(record))
     return record

@@ -67,10 +67,22 @@ its activations are recomputed in the backward pass. The embedding is
 looked up with ``torch.nn.functional.embedding``, whose backward on the
 card is deterministic (indexing's is an accumulating ``index_put_``).
 
-Not ported yet, each raising ``NotImplementedError``: MoE layers
-(``n_experts > 0``, ROADMAP A11/B20) and LoRA (A8). Unlike JAX arrays,
-the cache tensors are written in place: a step's returned cache is the
-same tensors it was given.
+MoE (``n_experts > 0``, ``mixtral_8x7b()``): a layer's MLP is a top-k
+routed mixture of SwiGLU experts (``parallel/moe.py``) whose stacks
+follow ``weight_kind`` (int8 W8A16 stacks for int8, nibble-packed int4
+stacks for int4 and w4a8, bf16 otherwise, fp32 for fp32), on every cache
+kind. ``_mlp`` chooses the route as the reference does: ``moe_ragged``
+and at least ``moe_ragged_min_tokens`` routed copies (default 2 x E x
+128) take ``moe_ffn_ragged`` (kernel ``grouped_gemm`` on the card: the
+admission prefill of long prompts); else the dispatch path
+``moe_ffn_local``, dropless (capacity factor at least E / k) when
+``moe_dropless`` or ``moe_ragged`` (decode). Serving only: ``loss_fn``
+and ``sgd_train_step`` refuse MoE configurations (ROADMAP "MoE training
+(B20's backward kernels)").
+
+Not ported yet, raising ``NotImplementedError``: LoRA (A8). Unlike JAX
+arrays, the cache tensors are written in place: a step's returned cache
+is the same tensors it was given.
 """
 from __future__ import annotations
 
@@ -92,6 +104,7 @@ from how_to_optimize_gemm_tpu_torch.ops.kv_update import (kv_update,
                                                           paged_kv_update)
 from how_to_optimize_gemm_tpu_torch.ops.paged_attention import (
     gather_paged, paged_decode_attention, paged_decode_attention_q8)
+from how_to_optimize_gemm_tpu_torch.parallel import moe
 from how_to_optimize_gemm_tpu_torch.utils.device import (default_device,
                                                          kernel_routes_for)
 
@@ -114,7 +127,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     weight_kind: str = "bf16"  # linear: fp32|bf16|int8|int4|w4a8
-    # the reference's MoE fields; n_experts > 0 is not ported yet
+    # n_experts > 0: a top-k routed MoE MLP of SwiGLU experts (see the
+    # module docstring); the fields and defaults are the reference's
     n_experts: int = 0
     moe_top_k: int = 2
     moe_capacity: float = 2.0
@@ -135,10 +149,46 @@ def llama2_7b(weight_kind: str = "int8") -> LlamaConfig:
                        weight_kind=weight_kind)
 
 
+def mixtral_8x7b(weight_kind: str = "bf16") -> LlamaConfig:
+    """Mixtral-8x7B proportions: GQA 32/8, 8 SwiGLU experts of d_ff
+    14336, top-2 routing (the reference's preset: rope_theta 1e4 and
+    max_seq 4096). Expert stacks follow ``weight_kind``."""
+    return LlamaConfig(vocab=32000, d_model=4096, n_layers=32, n_heads=32,
+                       n_kv_heads=8, d_ff=14336, max_seq=4096,
+                       weight_kind=weight_kind, n_experts=8, moe_top_k=2)
+
+
+MOE_TRAINING_TODO = ("training an MoE model is not ported yet: the grouped "
+                     "GEMM has no backward kernels (ROADMAP \"MoE training "
+                     "(B20's backward kernels)\")")
+
+
 def _require_dense(cfg: LlamaConfig) -> None:
     if cfg.n_experts > 0:
-        raise NotImplementedError("MoE layers (n_experts > 0) are not "
-                                  "ported yet (ROADMAP A11, B20)")
+        raise NotImplementedError(MOE_TRAINING_TODO)
+
+
+def _init_moe(normal, cfg: LlamaConfig) -> dict:
+    """One layer's router and expert stacks, as the reference's
+    ``init_moe_params(..., swiglu=True)`` then ``quantize_moe``: each
+    stack drawn in fp32, rounded to bf16 (fp32 for fp32 weights), then
+    quantized (int8 for int8 weights, packed int4 for int4 and w4a8)
+    before the next is drawn, so at most one fp32 stack exists at a time."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dtype = torch.float32 if cfg.weight_kind == "fp32" else torch.bfloat16
+    bits = {"int8": 8, "int4": 4, "w4a8": 4}.get(cfg.weight_kind)
+    p = {"router": (normal(d, e) * d ** -0.5).to(dtype)}
+    for name, shape, scale in (("w_in", (e, d, f), d ** -0.5),
+                               ("w_out", (e, f, d), f ** -0.5),
+                               ("w_gate", (e, d, f), d ** -0.5)):
+        w = (normal(*shape) * scale).to(dtype)
+        if bits is None:
+            p[name] = w
+        else:
+            p.update({name + k: v for k, v in
+                      moe.quantize_stack(w, bits).items()})
+        del w
+    return p
 
 
 # ---------------------------------------------------------------- params
@@ -148,8 +198,8 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
     """Random weights, drawn from ``generator`` (which must live on
     ``device``), linears stored in ``cfg.weight_kind``. Each weight is
     drawn in fp32 and converted before the next is drawn, so no more than
-    one dense fp32 matrix exists at a time."""
-    _require_dense(cfg)
+    one dense fp32 matrix (for MoE, one fp32 expert stack) exists at a
+    time."""
     device = default_device(device)
 
     def normal(*shape):
@@ -163,17 +213,21 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig,
     kind = cfg.weight_kind
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
+        layer = {
             "attn_norm": torch.ones(d, device=device),
             "wq": dense(d, h * dh, kind),
             "wk": dense(d, kvh * dh, kind),
             "wv": dense(d, kvh * dh, kind),
             "wo": dense(h * dh, d, kind),
             "mlp_norm": torch.ones(d, device=device),
-            "w_gate": dense(d, cfg.d_ff, kind),
-            "w_up": dense(d, cfg.d_ff, kind),
-            "w_down": dense(cfg.d_ff, d, kind),
-        })
+        }
+        if cfg.n_experts > 0:
+            layer["moe"] = _init_moe(normal, cfg)
+        else:
+            layer.update(w_gate=dense(d, cfg.d_ff, kind),
+                         w_up=dense(d, cfg.d_ff, kind),
+                         w_down=dense(cfg.d_ff, d, kind))
+        layers.append(layer)
     return {
         "embed": normal(cfg.vocab, d) * 0.02,
         "out_norm": torch.ones(d, device=device),
@@ -384,11 +438,39 @@ def _lin(layer, name, x, kernels):
     return apply_linear(layer[name], x, kernels)
 
 
-def _mlp(layer, y, kernels):
+def _moe_ragged_min_tokens(cfg: LlamaConfig) -> int:
+    """Routed copies from which the ragged path runs: the reference's
+    cost rule (2 blocks of 128 per expert), or the config's."""
+    return (2 * cfg.n_experts * 128 if cfg.moe_ragged_min_tokens is None
+            else cfg.moe_ragged_min_tokens)
+
+
+def _mlp(layer, cfg: LlamaConfig, y, kernels):
+    """SwiGLU MLP, dense or routed -> (out, aux): aux is the GShard
+    load-balance loss of an MoE layer, 0 for the dense MLP. Routed: the
+    ragged path (``moe_ffn_ragged``) with ``moe_ragged`` and at least
+    ``_moe_ragged_min_tokens`` routed copies, else the dispatch path
+    (``moe_ffn_local``), dropless (cf >= E / k) with ``moe_dropless`` or
+    ``moe_ragged``. The reference chooses so on every device."""
+    if "moe" in layer:
+        b, s, d = y.shape
+        flat = y.reshape(b * s, d)
+        if (cfg.moe_ragged
+                and b * s * cfg.moe_top_k >= _moe_ragged_min_tokens(cfg)):
+            out, aux = moe.moe_ffn_ragged(layer["moe"], flat,
+                                          k=cfg.moe_top_k, return_aux=True)
+        else:
+            cf = cfg.moe_capacity
+            if cfg.moe_dropless or cfg.moe_ragged:
+                cf = max(cf, cfg.n_experts / cfg.moe_top_k)
+            out, aux = moe.moe_ffn_local(layer["moe"], flat,
+                                         k=cfg.moe_top_k, capacity_factor=cf,
+                                         return_aux=True)
+        return out.reshape(b, s, d), aux
     gate = _lin(layer, "w_gate", y, kernels)
     up = _lin(layer, "w_up", y, kernels)
-    return _lin(layer, "w_down", torch.nn.functional.silu(gate) * up,
-                kernels)
+    out = _lin(layer, "w_down", torch.nn.functional.silu(gate) * up, kernels)
+    return out, torch.zeros((), dtype=torch.float32, device=y.device)
 
 
 def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None,
@@ -403,7 +485,7 @@ def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None,
     paged_rows the step's ``_paged_rows``. ``kernels``, when given, is the
     route already decided (``loss_fn`` passes False on every device: the
     reference's ``use_pallas=False``) and ``kernel_routes`` is not read.
-    Returns (x, the layer's cache tuple or None)."""
+    Returns (x, the layer's cache tuple or None, the MoE aux of ``_mlp``)."""
     if kernels is None:
         kernels = kernel_routes_for(x, kernel_routes)
     b, s, _ = x.shape
@@ -469,40 +551,48 @@ def _block(layer, cfg: LlamaConfig, x, cos, sin, kv=None,
         new_kv = cache
     x = x + _lin(layer, "wo", attn, kernels)
     y = rmsnorm(x, layer["mlp_norm"], cfg.norm_eps)
-    return x + _mlp(layer, y, kernels), new_kv
+    mlp_out, aux = _mlp(layer, cfg, y, kernels)
+    return x + mlp_out, new_kv, aux
 
 
 # -------------------------------------------------------------- forward
 
 def forward(params, cfg: LlamaConfig, tokens: torch.Tensor,
             kernel_routes=None, remat: bool = False,
-            flash_train: bool = False) -> torch.Tensor:
-    """Full-sequence forward: tokens (B, S) -> logits (B, S, vocab).
-    kernel_routes: see the module docstring (the reference's
-    ``use_pallas``); remat and flash_train: see its training section."""
-    return _forward(params, cfg, tokens,
-                    kernel_routes_for(tokens, kernel_routes), remat,
-                    flash_train)
+            flash_train: bool = False, return_moe_aux: bool = False):
+    """Full-sequence forward: tokens (B, S) -> logits (B, S, vocab), and
+    with ``return_moe_aux`` also the mean over layers of the MoE
+    load-balance aux (0 for a dense MLP). kernel_routes: see the module
+    docstring (the reference's ``use_pallas``); remat and flash_train: see
+    its training section."""
+    logits, aux = _forward(params, cfg, tokens,
+                           kernel_routes_for(tokens, kernel_routes), remat,
+                           flash_train)
+    return (logits, aux) if return_moe_aux else logits
 
 
 def _forward(params, cfg: LlamaConfig, tokens, kernels: bool, remat: bool,
-             flash_train: bool) -> torch.Tensor:
-    """``forward`` on a route already decided (``kernels``)."""
-    _require_dense(cfg)
+             flash_train: bool):
+    """``forward`` on a route already decided (``kernels``) -> (logits,
+    mean MoE aux)."""
     _, s = tokens.shape
     x = F.embedding(tokens, params["embed"])
     pos = torch.arange(s, device=tokens.device)
     cos, sin = _rope_freqs(cfg, pos)
 
     def block(layer, x):
-        return _block(layer, cfg, x, cos, sin, flash_train=flash_train,
-                      kernels=kernels)[0]
+        out, _, aux = _block(layer, cfg, x, cos, sin,
+                             flash_train=flash_train, kernels=kernels)
+        return out, aux
 
+    aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for layer in params["layers"]:
-        x = (checkpoint(block, layer, x, use_reentrant=False) if remat
-             else block(layer, x))
+        x, aux = (checkpoint(block, layer, x, use_reentrant=False) if remat
+                  else block(layer, x))
+        aux_total = aux_total + aux
     x = rmsnorm(x, params["out_norm"], cfg.norm_eps)
-    return apply_linear(params["lm_head"], x, kernels)
+    return (apply_linear(params["lm_head"], x, kernels),
+            aux_total / max(1, len(params["layers"])))
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, dtype=torch.bfloat16,
@@ -559,7 +649,6 @@ def decode_step(params, cfg: LlamaConfig, cache, tokens: torch.Tensor, pos,
     attend only to the new tokens; logit_idx (B,) ints unembeds only that
     position of each row (logits (B, 1, vocab)). kernel_routes: see the
     module docstring."""
-    _require_dense(cfg)
     if lora is not None or lora_idx is not None:
         raise NotImplementedError("LoRA is not ported yet (ROADMAP A8)")
     b, s = tokens.shape
@@ -573,7 +662,7 @@ def decode_step(params, cfg: LlamaConfig, cache, tokens: torch.Tensor, pos,
     new_cache = []
     for layer, entry in zip(params["layers"], cache):
         kv = (*entry, pos) if table is None else (*entry, table, pos)
-        x, kv = _block(layer, cfg, x, cos, sin, kv=kv,
+        x, kv, _ = _block(layer, cfg, x, cos, sin, kv=kv,
                        write_mask=write_mask, prefill_self=prefill_self,
                        kernel_routes=kernel_routes, paged_rows=rows)
         new_cache.append(kv)
@@ -606,14 +695,16 @@ def loss_fn(params, cfg: LlamaConfig, tokens: torch.Tensor,
     """Next-token cross entropy over (B, S) token batches: the forward on
     ``tokens[:, :-1]`` against ``tokens[:, 1:]``, on the reference's
     ``use_pallas=False`` routes (see the module docstring). Raises
-    NotImplementedError for quantized weights on the card."""
+    NotImplementedError for quantized weights on the card, and for MoE
+    configurations on every device (ROADMAP "MoE training")."""
     _require_dense(cfg)
     quantized = _linear_kinds(params) & set(QUANTIZED_KINDS)
     if tokens.is_cuda and quantized:
         raise NotImplementedError(
             f"training {sorted(quantized)} weights on the card is not ported "
             "yet: their kernels have no backward (ROADMAP A15)")
-    logits = _forward(params, cfg, tokens[:, :-1], False, remat, flash_train)
+    logits, _ = _forward(params, cfg, tokens[:, :-1], False, remat,
+                         flash_train)
     return token_nll(logits, tokens[:, 1:])
 
 
@@ -625,6 +716,8 @@ def sgd_train_step(params, cfg: LlamaConfig, tokens: torch.Tensor,
     given tree is not changed."""
     from how_to_optimize_gemm_tpu_torch.parallel.training import (
         sgd_update, split_trainable)
+
+    _require_dense(cfg)
 
     floats, rebuild = split_trainable(params)
     floats = [f.detach().requires_grad_() for f in floats]

@@ -29,7 +29,7 @@ def quantize_symmetric(x: torch.Tensor, axis: int | None, bits: int = 8):
     # divide by a tensor: PyTorch's CUDA division by a Python scalar
     # multiplies by its reciprocal, which is not IEEE division
     scale = amax / torch.full_like(amax, qmax)
-    q =torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int8)
+    q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int8)
     return q, scale
 
 
@@ -38,24 +38,27 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def pack_int4(q: torch.Tensor, block_k: int) -> torch.Tensor:
-    """(K, N) int8 values in [-7, 7] -> (K // 2, N) int8 packed bytes.
+    """(..., K, N) int8 values in [-7, 7] -> (..., K // 2, N) int8 packed
+    bytes; leading axes (an MoE stack's experts) are packed one by one, as
+    the reference's ``jax.vmap(pack_int4)``.
 
     K must be a multiple of ``block_k`` (pad first), ``block_k`` even."""
-    k, n = q.shape
+    *lead, k, n = q.shape
     if k % block_k or block_k % 2:
         raise ValueError(f"K={k} must be a multiple of even block_k={block_k}")
-    qb = q.reshape(k // block_k, block_k, n)
-    lo = (qb[:, : block_k // 2] + 8).to(torch.uint8)
-    hi = qb[:, block_k // 2:].to(torch.uint8) & 0xF
+    qb = q.reshape(*lead, k // block_k, block_k, n)
+    lo = (qb[..., : block_k // 2, :] + 8).to(torch.uint8)
+    hi = qb[..., block_k // 2:, :].to(torch.uint8) & 0xF
     packed = lo | (hi << 4)
-    return packed.view(torch.int8).reshape(k // 2, n)
+    return packed.view(torch.int8).reshape(*lead, k // 2, n)
 
 
 def unpack_int4(packed: torch.Tensor, block_k: int) -> torch.Tensor:
-    """Inverse of ``pack_int4``: (K // 2, N) bytes -> (K, N) int8."""
-    k2, n = packed.shape
+    """Inverse of ``pack_int4``: (..., K // 2, N) bytes -> (..., K, N)
+    int8."""
+    *lead, k2, n = packed.shape
     k = k2 * 2
-    pb = packed.reshape(k // block_k, block_k // 2, n)
+    pb = packed.reshape(*lead, k // block_k, block_k // 2, n)
     lo = (pb & 0xF) - 8      # offset-binary low nibble
     hi = pb >> 4             # arithmetic shift sign-extends the high nibble
-    return torch.cat([lo, hi], dim=1).reshape(k, n)
+    return torch.cat([lo, hi], dim=-2).reshape(*lead, k, n)

@@ -28,6 +28,12 @@ slots through a block table (``parallel/kv_alloc.py`` owns the table):
    (prompt and tokens so far) when it is readmitted;
 3. a finished slot is released and refilled by the next admission.
 
+The model may be an MoE (``llama.mixtral_8x7b``, ``--n-experts``): the
+engine needs nothing else, since routing happens inside ``decode_step``
+(the admission prefill of long prompts takes the grouped GEMM with
+``moe_ragged``, decode the dispatch path). Its memory is the weights and
+the cache; nothing is sized from the weights.
+
 Not ported yet, each raising ``NotImplementedError``: LoRA (A8), meshes
 (A12), ``lookahead > 1`` (A9), and speculative decoding (``run_spec*``,
 A9).
@@ -518,7 +524,8 @@ def main(argv=None):
     TTFT p50/max and the decode-only rate. Runs on the card unless
     ``--device cpu``."""
     ap = argparse.ArgumentParser(description=main.__doc__)
-    ap.add_argument("--preset", default=None, choices=["llama2_7b"],
+    ap.add_argument("--preset", default=None,
+                    choices=["llama2_7b", "mixtral_8x7b"],
                     help="the model's proportions (else the --d-model ... "
                          "flags)")
     ap.add_argument("--weight-kind", default="int8", choices=KINDS)
@@ -559,21 +566,36 @@ def main(argv=None):
                     help="admit prompts in chunks of this many tokens "
                          "(default: one dispatch at the bucketed length, "
                          "through flash attention from 512 tokens)")
+    ap.add_argument("--n-experts", type=int, default=None,
+                    help="a routed MLP of top-k of N SwiGLU experts (expert "
+                         "stacks follow --weight-kind; default: the "
+                         "preset's, else 0, a dense MLP)")
+    ap.add_argument("--moe-top-k", type=int, default=None)
+    ap.add_argument("--moe-ragged", action="store_true",
+                    help="route prefill-scale MoE through the grouped GEMM "
+                         "(the dispatch path below 2 x E x 128 routed "
+                         "copies, as in decode)")
+    ap.add_argument("--d-ff", type=int, default=None,
+                    help="MLP width (default: the preset's, else "
+                         "d_model * 11 / 4)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
 
-    if args.preset == "llama2_7b":
-        cfg = llama.llama2_7b(args.weight_kind)
+    if args.preset is not None:
+        cfg = getattr(llama, args.preset)(args.weight_kind)
     else:
         cfg = llama.LlamaConfig(
             vocab=32000, d_model=args.d_model, n_layers=8,
             n_heads=args.n_heads, n_kv_heads=args.n_kv_heads,
             d_ff=args.d_model * 11 // 4, max_seq=args.max_seq,
             weight_kind=args.weight_kind)
-    if args.n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
+    overrides = dict(n_layers=args.n_layers, d_ff=args.d_ff,
+                     n_experts=args.n_experts, moe_top_k=args.moe_top_k)
+    cfg = dataclasses.replace(
+        cfg, moe_ragged=args.moe_ragged or cfg.moe_ragged,
+        **{k: v for k, v in overrides.items() if v is not None})
     device = default_device(args.device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)

@@ -1043,3 +1043,105 @@ def test_training_on_the_card_resumes_bit_exactly(cuda, tmp_path):
     for a, b in zip(training._leaves(state.params),
                     training._leaves(state2.params)):
         assert torch.equal(a, b)
+
+
+# The grouped GEMM (MoE): bf16, int8 and packed int4 stacks run on the
+# bf16 tensor cores with x split into bf16 hi + lo (about 2^-17 relative
+# per product) and the sums in the tensor cores' order: within GROUPED_REL
+# of max |plain| (measured on an H100 up to 3.4e-5 at K = 14,336, 2.9e-6 at
+# K <= 256). fp32 stacks on FFMA: within FP32_REL. One block reading the
+# neighbouring expert's stack reads above 1 of max |plain|.
+GROUPED_REL = 1e-4
+# (E, d, f, Tp): aligned, f not a multiple of 128 (nor of 4) with d not a
+# multiple of 32, and a wider one
+GROUPED_SHAPES = [(4, 256, 256, 512), (3, 36, 130, 384), (8, 512, 1408, 2048),
+                  (2, 64, 198, 256)]
+
+
+def _grouped_case(kind, shape, seed, device):
+    from how_to_optimize_gemm_tpu_torch.ops import quant
+    e, d, f, tp = shape
+    gen = torch.Generator(device).manual_seed(seed)
+    w = torch.randn((e, d, f), generator=gen, device=device) * d ** -0.5
+    x = torch.randn((tp, d), generator=gen, device=device)
+    # experts in order, the last one with no block
+    nb = tp // 128
+    be = torch.sort(torch.randint(0, max(e - 1, 1), (nb,), generator=gen,
+                                  device=device)).values.to(torch.int32)
+    if kind in ("fp32", "bf16"):
+        return x, (w.to(torch.bfloat16) if kind == "bf16" else w), be, \
+            None, False
+    q, s = quant.quantize_symmetric(w, axis=1, bits=8 if kind == "int8"
+                                    else 4)
+    if kind == "int4":
+        return x, quant.pack_int4(q, d), be, s, True
+    return x, q, be, s, False
+
+
+@pytest.mark.parametrize("shape", GROUPED_SHAPES)
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8", "int4"])
+def test_grouped_gemm_matches_plain_version(cuda, kind, shape):
+    from how_to_optimize_gemm_tpu_torch.ops import grouped_gemm as gg
+    x, w, be, s, packed4 = _grouped_case(kind, shape, 7, cuda)
+    before = _build.LAUNCHES["grouped_gemm"]
+    got = gg.grouped_matmul(x, w, be, s, packed4=packed4)
+    assert _build.LAUNCHES["grouped_gemm"] == before + 1
+    ref = gg.grouped_matmul_ref(x, w, be, s, packed4=packed4)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    tol = FP32_REL if kind == "fp32" else GROUPED_REL
+    assert err <= tol * scale, (err / scale)
+    # the same rule refuses block 0 reading the neighbouring expert
+    wrong = be.clone()
+    wrong[0] = (wrong[0] + 1) % w.shape[0]
+    bad = gg.grouped_matmul_ref(x, w, wrong, s, packed4=packed4)
+    assert float((got - bad).abs().max()) > tol * scale
+
+
+def test_grouped_gemm_refuses_grad_and_small_blocks(cuda):
+    from how_to_optimize_gemm_tpu_torch.ops import grouped_gemm as gg
+    x, w, be, s, _ = _grouped_case("int8", (2, 64, 128, 256), 3, cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        gg.grouped_matmul(x.clone().requires_grad_(), w, be, s)
+    with pytest.raises(ValueError, match="multiple of"):
+        gg.grouped_matmul(x, w, be.repeat_interleave(2), s, bt=64)
+    with pytest.raises(TypeError, match="no kernel"):
+        gg.grouped_matmul(x, w.to(torch.int16), be, s)
+
+
+@pytest.mark.parametrize("kind", ["int8", "w4a8"])
+def test_moe_model_on_the_card_launches_the_grouped_gemm(cuda, kind):
+    """A small MoE model's ragged forward takes the kernel three times a
+    layer and gives finite logits; one layer's ragged MoE on the card
+    picks the CPU's experts for every token but near-ties (a top-k gap
+    within 1e-5) and matches the CPU's output on the others within
+    GROUPED_REL of max |y| (its three grouped GEMMs, fp32 glue)."""
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    from how_to_optimize_gemm_tpu_torch.parallel import moe
+    cfg = llama.LlamaConfig(vocab=128, d_model=128, n_layers=2, n_heads=2,
+                            n_kv_heads=1, d_ff=256, max_seq=64,
+                            weight_kind=kind, n_experts=4, moe_ragged=True,
+                            moe_ragged_min_tokens=0)
+    params = llama.init_params(torch.Generator(cuda).manual_seed(0), cfg,
+                               cuda)
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 128, (2, 40))).to(cuda)
+    before = _build.LAUNCHES["grouped_gemm"]
+    logits = llama.forward(params, cfg, tokens)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["grouped_gemm"] == before + 3 * cfg.n_layers
+    assert torch.isfinite(logits).all()
+    layer = params["layers"][0]["moe"]
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (300, cfg.d_model)).astype(np.float32))
+    got = moe.moe_ffn_ragged(layer, x.to(cuda)).cpu()
+    ref = moe.moe_ffn_ragged(convert.to_device(layer, "cpu"), x)
+    probs, _, choice = moe._top_k_gates(convert.to_device(layer, "cpu"), x, 2)
+    _, _, card_choice = moe._top_k_gates(layer, x.to(cuda), 2)
+    same = (torch.sort(card_choice.cpu(), -1).values
+            == torch.sort(choice, -1).values).all(-1)
+    top3 = torch.topk(probs, 3, -1).values
+    assert ((top3[:, 1] - top3[:, 2])[~same] <= 1e-5).all()
+    err = float((got - ref)[same].abs().max())
+    assert err <= GROUPED_REL * float(ref.abs().max()), err

@@ -32,7 +32,8 @@ def test_port_modules_found():
                  "utils.native", "ops.tuned", "ops.vendor", "ops.naive",
                  "ops.mn_tile", "ops.k_blocked", "harness.profiling",
                  "viz.plot", "viz.transitions", "parallel.training",
-                 "models.checkpoint"):
+                 "models.checkpoint", "ops.grouped_gemm", "parallel.moe",
+                 "parallel.moe_bench"):
         assert f"how_to_optimize_gemm_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 20
 
@@ -107,7 +108,7 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
         "bf16_gemm_nn", "fp32_gemm_nt", "fp32_gemm_nn", "w4a16_gemm",
         "naive_gemm", "fp32_gemm_mn_tile", "fp32_gemm_k_blocked",
         "flash_attention_fwd_lse", "flash_attention_bwd_dq",
-        "flash_attention_bwd_dkv"}
+        "flash_attention_bwd_dkv", "grouped_gemm"}
     for name, kernel in _build.KERNELS.items():
         assert (_build.CSRC / kernel.source).exists(), name
         assert kernel.argtypes[-1] is ctypes.c_void_p, name
@@ -118,6 +119,7 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
     assert len(_build.KERNELS["decode_attention"].argtypes) == 13
     assert len(_build.KERNELS["decode_attention_q8"].argtypes) == 15
     assert len(_build.KERNELS["kv_update"].argtypes) == 9
+    assert len(_build.KERNELS["grouped_gemm"].argtypes) == 13
     assert len(_build.KERNELS["paged_kv_update"].argtypes) == 10
     assert len(_build.KERNELS["paged_decode_attention"].argtypes) == 15
     assert len(_build.KERNELS["paged_decode_attention_q8"].argtypes) == 17
