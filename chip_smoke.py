@@ -50,7 +50,18 @@ Phases (any failure raises and exits non-zero before the last line):
    scale, packed int4 + scale and bf16 stacks, then f = 1,000 on the same
    kinds and fp32 stacks at d 36, f 130, each within GROUPED_REL (fp32:
    FP32_REL) of max |plain|, a rule that must refuse block 0 reading its
-   neighbour expert's stack; timed at the Mixtral shapes;
+   neighbour expert's stack; timed at the Mixtral shapes, the bf16
+   instance beside ``torch._grouped_mm``; then the grouped GEMM's
+   backward on the same layout: ``grouped_gemm_t`` (dx on int8 and bf16
+   stacks) and ``grouped_gemm_t4`` (packed int4) for w_gate/w_in's dx
+   (dy 14,336 -> 4,096) and w_out's (4,096 -> 14,336), ``grouped_dw`` on
+   both shapes and ``grouped_gemm``'s unscaled int4 instance (the
+   backward's recompute of u), then f = 1,000 and fp32 stacks at d 36, f
+   130: dx within GROUPED_REL (fp32: FP32_REL) and dW within FP32_REL of
+   max |plain|, rules that must refuse block 0 reading its neighbour's
+   stack and dW with one of an expert's blocks left out; timed at the
+   Mixtral shapes beside the plain versions, the bounds and
+   ``torch._grouped_mm`` (bf16 instances);
 5. the ladder's main path, with every launch count set to 0 just before
    it: the sweep driver on rungs 06v, 06, 14, 07b, 01, 01b, 04, 05, 07,
    15, 16, 00, 02, 03 and 03b at p = 1024 (fp64 host oracle), 2048 and
@@ -112,7 +123,9 @@ Phases (any failure raises and exits non-zero before the last line):
    logits by a few %), so the bound is 3x what a 1e-6 relative
    perturbation of the embeddings does on the CPU in the same run. The
    CPU's default routes (the reference's eager attention, which rounds q
-   to bf16) are printed beside the "w4a8" row only;
+   to bf16) are printed beside the "w4a8" row only. The CPU sides of a
+   row convert each weight once (``cached_weights``), and each row prints
+   its card and CPU seconds;
 8. (run beside the checks of phases 3 and 4) the training attention's
    three kernels (``flash_attention_fwd_lse``, ``flash_attention_bwd_dq``,
    ``flash_attention_bwd_dkv``) against their plain versions at the soak's
@@ -138,10 +151,32 @@ Phases (any failure raises and exits non-zero before the last line):
    the same weights and batches: the losses and the weights after step 2
    within 3x what a 1e-6 relative perturbation of the embedding does on
    the CPU;
-11. one ``{"kernels": [...]}`` line (27 kernels), the card's line again,
+11. T-moe, MoE training at Mixtral-8x7B's width: ``mixtral_8x7b("bf16")``
+   with 2 layers (dense bf16 stacks, moe_ragged) through
+   ``training.make_train_step(flash_train=True)``, AdamW, batch 2 x 1,025
+   (4,096 routed copies: the ragged path), with every launch count set to
+   0 just before it: 4 steps with a checkpoint at step 2 and one profiled
+   step, then the same model resumed from the checkpoint, whose losses
+   must equal the first run's bit for bit; every loss finite, the router,
+   the stacks, the attention and the embedding moved; ``grouped_gemm``,
+   ``grouped_gemm_t`` and ``grouped_dw`` 3 times a layer a step and the
+   training attention's kernels once; step ms, tokens/s, peak GB and the
+   profiled step's kernels printed;
+12. QLoRA: ``moe_bench train`` at Mixtral's expert shape (T 4,096) on int8
+   and packed int4 stacks, each with the counts set to 0 just before it:
+   the stacks unchanged, nonzero gradients for the router and the scales,
+   the gradient step's ``grouped_gemm`` (forward and unscaled recompute)
+   and ``grouped_gemm_t`` or ``grouped_gemm_t4`` launches;
+13. MoE training parity: two AdamW steps at Mixtral's width with 1 layer
+   (batch 1 x 1,025: 2,048 routed copies) on the card and on the CPU from
+   the same weights, for dense bf16 stacks and for int8 stacks under bf16
+   linears, under phase 10's rule; a token some side routes otherwise must
+   be a near-tie on the CPU side and is left out of that step's loss on
+   every side (``train_moe_parity``);
+14. one ``{"kernels": [...]}`` line (30 kernels), the card's line again,
    and last ``{"ok": true, "device": {...}}``.
 
-Each phase prints its seconds.
+Each phase prints its seconds, and the run its total.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -172,7 +207,7 @@ from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
 from how_to_optimize_gemm_tpu_torch.harness.profiling import (
     PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FFMA_FLOPS, PEAK_FP32_FLOPS,
     PEAK_INT8_OPS)
-from how_to_optimize_gemm_tpu_torch.models import llama
+from how_to_optimize_gemm_tpu_torch.models import checkpoint, llama
 from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
                                                grouped_gemm, int4, int8,
                                                k_blocked, quant,
@@ -1268,19 +1303,61 @@ def flipped_positions(label: str, routes: dict, lens, k: int,
 
 @contextlib.contextmanager
 def kernel_tiles():
-    """The plain flash version walks the kernel's 64-key tiles
+    """The plain flash versions walk the kernel's 64-key tiles
     (``attention.KERNEL_BLOCK``) instead of the reference's 512-key
-    blocks, so the CPU side's online softmax rounds p to bf16 against the
-    same running maxima as the card's. At 512-key blocks those roundings
-    move a prefill's MLP input by ~1% where they differ, which a routed
-    model turns into expert choices of its own at near-ties (PERF.md,
-    section 6)."""
-    default = attention.default_block
+    blocks (serving) or training blocks, so the CPU side's online softmax
+    rounds p to bf16 against the same running maxima as the card's. At
+    512-key blocks those roundings move a prefill's MLP input by ~1% where
+    they differ, which a routed model turns into expert choices of its own
+    at near-ties (PERF.md, section 6)."""
+    default, train = attention.default_block, attention.train_block
     attention.default_block = lambda t: attention.KERNEL_BLOCK
+    attention.train_block = lambda t: attention.KERNEL_BLOCK
     try:
         yield
     finally:
-        attention.default_block = default
+        attention.default_block, attention.train_block = default, train
+
+
+@contextlib.contextmanager
+def cached_weights(cache: dict):
+    """While active, the plain versions' weight conversions are taken once
+    and kept in ``cache``: ``quant.unpack_int4`` (the int4 and W4A8
+    linears' plain versions, the packed expert stacks),
+    ``int8._weight_f64`` (the fp64 weight of the int8 and W4A8 plain
+    products), ``grouped_gemm._expert_weight`` (the ragged path's plain
+    version) and ``moe._stack_as`` (the dispatch path's fp32 copy of a
+    quantized stack, every decode step otherwise). Each is a pure function
+    of a weight and a few numbers; a result is keyed by its arguments, a
+    tensor by its storage, shape, strides and version (an in-place update,
+    an optimizer step's, makes a new key), a dict by identity, and the
+    cache holds the arguments, so no key is reused while it lives. The CPU
+    sides of a parity row share one cache: the same arithmetic, each
+    weight converted once."""
+    targets = [(quant, "unpack_int4"), (int8, "_weight_f64"),
+               (grouped_gemm, "_expert_weight"), (moe, "_stack_as")]
+    saved = [getattr(mod, name) for mod, name in targets]
+
+    def part(a):
+        if isinstance(a, torch.Tensor):
+            return (a.data_ptr(), tuple(a.shape), a.stride(), a.dtype,
+                    a._version)
+        return id(a) if isinstance(a, dict) else a
+
+    def memo(fn):
+        def cached(*args):
+            key = (fn,) + tuple(part(a) for a in args)
+            if key not in cache:
+                cache[key] = (args, fn(*args))
+            return cache[key][1]
+        return cached
+    for (mod, name), fn in zip(targets, saved):
+        setattr(mod, name, memo(fn))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(targets, saved):
+            setattr(mod, name, fn)
 
 
 def parity(gen: torch.Generator) -> None:
@@ -1307,23 +1384,28 @@ def parity(gen: torch.Generator) -> None:
                  "cpu perturbed": ({**cpu, "embed": cpu["embed"]
                                     * (1 + PERTURB * noise)}, "cpu", True),
                  "cpu eager": (cpu, "cpu", None)}
-        out, router = {}, {}
+        out, router, seconds, cache = {}, {}, {}, {}
         for side, (p, dev, routes) in sides.items():
             if side == "cpu eager" and label != EAGER_PARITY_ROW:
                 continue
+            t_side = time.perf_counter()
             eng = serving.ServingEngine(cfg, p, batch_slots=2, device=dev,
                                         cache_kind=cache_kind,
                                         kernel_routes=routes, **paged)
             _build.reset_launches()
             with kernel_tiles() if routes else contextlib.nullcontext(), \
+                    cached_weights(cache) if dev == "cpu" else \
+                    contextlib.nullcontext(), \
                     recorded_routes(router.setdefault(side, [])):
                 out[side] = teacher_forced(eng, prompts, forced)
+            seconds[side] = time.perf_counter() - t_side
             if dev == "cuda":
                 missing = [k for k in kernels if _build.LAUNCHES[k] == 0]
                 if missing:
                     raise AssertionError(f"parity {label}: the card side "
                                          f"never launched {missing}")
             del eng
+        del cache
         # an MoE row compares the positions every side routes alike
         keep = torch.ones(out["cpu"].shape[:2], dtype=torch.bool)
         if cfg.n_experts:
@@ -1354,7 +1436,11 @@ def parity(gen: torch.Generator) -> None:
                 and diffs["cuda"] <= limit):
             raise AssertionError(f"parity {label}: card and CPU logits "
                                  f"differ by {diffs['cuda']} > {limit}")
-        print(f"parity {label}: {time.perf_counter() - t0:.1f} s")
+        print(f"parity {label}: {time.perf_counter() - t0:.1f} s (card side "
+              f"{seconds['cuda']:.1f} s, CPU sides "
+              f"{sum(v for k, v in seconds.items() if k != 'cuda'):.1f} s: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()
+                          if k != "cuda") + ")")
         del params, cpu
         torch.cuda.empty_cache()
 
@@ -1365,7 +1451,8 @@ MOE_KERNEL = dict(
     name="grouped_gemm", source=SRC + "grouped_gemm.cu",
     replaces="how_to_optimize_gemm_tpu/ops/pallas_grouped_gemm.py:71",
     function="pallas_grouped_gemm._kernel + _kernel_noscale :83 + "
-             "_kernel_q4 :87 (_gmm_call :108, grouped_matmul)")
+             "_kernel_q4 :87 + _kernel_q4_noscale :104, the backward's "
+             "unscaled recompute (_gmm_call :108, grouped_matmul)")
 # grouped_gemm vs its plain version, relative to max |plain|: bf16, int8
 # and int4 stacks take x split into bf16 hi + lo (2^-17 relative a
 # product) and the tensor cores' sums (measured on an H100 up to 3.4e-5 at
@@ -1442,9 +1529,10 @@ def check_grouped_gemm(gen: torch.Generator) -> dict:
     neighbouring expert. Timed at the Mixtral shapes as CUDA-graph
     replays beside the plain version and the bound: the routed rows'
     operations (not the padding's) at the bf16 peak, whatever the stack
-    kind, against the bytes of x, the stack, the scales and y once. No
-    single PyTorch call computes it: library null. Returns the int8
-    w_gate row."""
+    kind, against the bytes of x, the stack, the scales and y once; the
+    bf16 instance beside ``torch._grouped_mm`` (``_grouped_mm``: x
+    rounded to bf16, a bf16 output), which has no int8 or int4 form.
+    Returns the int8 w_gate row (library null)."""
     e, d, f = MOE_CFG.n_experts, MOE_CFG.d_model, MOE_CFG.d_ff
     cases = [(MOE_T, d, f, e, ("int8", "int4", "bf16"), True),
              (MOE_T, f, d, e, ("int8", "int4", "bf16"), True),
@@ -1480,11 +1568,15 @@ def check_grouped_gemm(gen: torch.Generator) -> dict:
                 b = bound_ms(nbytes(xs, w, out) + (nbytes(s) if s is not None
                                                    else 0),
                              2.0 * routed * kdim * n, PEAK_BF16_FLOPS)
+                offs = torch.cumsum(torch.bincount(be, minlength=ne) * 128,
+                                    0).to(torch.int32)
+                lib = (_grouped_mm(xs.to(torch.bfloat16), w, offs)
+                       if kind == "bf16" else None)
                 r = timed("grouped_gemm", shape,
                           lambda: grouped_gemm.grouped_matmul(
                               *args, packed4=packed4),
                           lambda: grouped_gemm.grouped_matmul_ref(
-                              *args, packed4=packed4), None, *b, err)
+                              *args, packed4=packed4), lib, *b, err)
                 first = first or r
             del w, s, out, ref
         del xs
@@ -1869,10 +1961,517 @@ def train_parity(gen: torch.Generator) -> None:
                              f"beyond {limit}")
 
 
+# -------------------------------------------------------- MoE training
+
+MOE_BWD_KERNELS = [
+    dict(name="grouped_gemm_t", source=SRC + "grouped_gemm_t.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_grouped_gemm.py:152",
+         function="pallas_grouped_gemm._kernel_t (_gmm_call_t :163; the dx "
+                  "of _gmm_dense and _gmm_q8)"),
+    dict(name="grouped_gemm_t4", source=SRC + "grouped_gemm_t.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_grouped_gemm.py:198",
+         function="pallas_grouped_gemm._kernel_t4 (_gmm_call_t4 :218; the "
+                  "dx of _gmm_q4)"),
+    dict(name="grouped_dw", source=SRC + "grouped_dw.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_grouped_gemm.py:255",
+         function="pallas_grouped_gemm._dw_kernel (_grouped_dw :277; the dW "
+                  "of _gmm_dense)"),
+]
+# grouped_gemm_t and _t4 split dy into bf16 hi + lo as the forward splits
+# x: GROUPED_REL of max |plain| (fp32 stacks FFMA: FP32_REL). grouped_dw is
+# FFMA over each expert's rows, in order, against the plain version's one
+# cuBLAS fp32 product over them: FP32_REL, fp32 sums in another order (it
+# read equal on an H100, cuBLAS chaining each output over the rows in
+# order too). A planted fault reads far above its rule: block
+# 0 reading its neighbour expert's stack (dx), one of an expert's blocks
+# left out of its sum (dW).
+# T-moe: Mixtral-8x7B's width at 2 layers, dense bf16 stacks (every
+# gradient taken; 94 GB at 32 layers), batch 2 x 1,025 tokens: 4,096 routed
+# copies >= 2 x E x 128, so the ragged path, and s = 1,024 takes flash.
+TMOE_LAYERS = 2
+TMOE_BATCH = 2
+TMOE_SEQ = 1025
+TMOE_STEPS = 4
+TMOE_CKPT = 2
+# per layer a step: the grouped GEMM's three products forward and back,
+# the training attention once
+TMOE_LAUNCHES = {"grouped_gemm": 3, "grouped_gemm_t": 3, "grouped_dw": 3,
+                 "flash_attention_fwd_lse": 1, "flash_attention_bwd_dq": 1,
+                 "flash_attention_bwd_dkv": 1}
+# the QLoRA phase: moe_bench train at Mixtral's expert shape, T 4,096
+QLORA_ARGS = ["train", "--d", "4096", "--f", "14336", "--e", "8", "--t",
+              "4096", "--repeats", "2"]
+# training parity at Mixtral's width, 1 layer, batch 1 x 1,025 (2,048
+# routed copies: the ragged path at the default threshold): dense bf16
+# stacks, and bf16 linears over int8 stacks (moe.quantize_moe)
+MOE_TRAIN_PARITY = (("moe bf16", None), ("moe int8 stacks", 8))
+
+
+def _grouped_mm(a, b, offs):
+    """A call of ``torch._grouped_mm``, the library's grouped bf16 product
+    (the fp32 operand rounded to bf16 first, a bf16 output; offs the
+    groups' cumulative row ends), or None where this PyTorch has none."""
+    fn = getattr(torch, "_grouped_mm", None)
+    return None if fn is None else (lambda: fn(a, b, offs=offs))
+
+
+def check_grouped_backward(gen: torch.Generator) -> dict:
+    """The grouped GEMM's backward kernels against their plain versions at
+    Mixtral-8x7B's prefill layout (``_moe_rows``: T = 4,096 tokens, top-2,
+    expert 1 given no token, Tp = 9,216): grouped_gemm_t on int8 and bf16
+    stacks and grouped_gemm_t4 on packed int4 ones for w_gate/w_in's dx
+    (dy 14,336 -> 4,096) and w_out's (4,096 -> 14,336), grouped_dw on
+    both shapes, and grouped_gemm's unscaled int4 instance (the backward's
+    recompute of u); then f = 1,000 and fp32 stacks at d 36, f 130. Each
+    within its rule of max |plain|, which must refuse the planted faults.
+    Timed at the Mixtral shapes as CUDA-graph replays beside the plain
+    version, the bound (the routed rows' operations at the bf16 peak, dW's
+    at 3xTF32's, against each operand's bytes once) and the library's
+    grouped product where this PyTorch has one (bf16 instances). Returns
+    the row of each kernel: bf16 w_gate (the T-moe path's), int4 w_gate,
+    bf16-stack w_gate's dW."""
+    e, d, f = MOE_CFG.n_experts, MOE_CFG.d_model, MOE_CFG.d_ff
+    cases = [(MOE_T, d, f, e, ("bf16", "int8", "int4"), True),
+             (MOE_T, f, d, e, ("bf16", "int8", "int4"), True),
+             (1000, 1024, 1000, e, ("bf16", "int8", "int4"), False),
+             (100, 36, 130, 4, ("fp32",), False)]
+    rows, worst = {}, dict.fromkeys(s["name"] for s in MOE_BWD_KERNELS)
+    for t, dout, n, ne, kinds, timed_here in cases:
+        xs, be, routed = _moe_rows(gen, t, dout, ne, 2, MOE_EMPTY)
+        real = xs.abs().amax(1, keepdim=True) > 0     # the routed rows
+        dy = torch.randn((xs.shape[0], n), generator=gen,
+                         device="cuda") * real
+        offs = torch.cumsum(torch.bincount(be, minlength=ne) * 128,
+                            0).to(torch.int32)
+        tag = f"Tp={xs.shape[0]} {dout}<-{n} E={ne}"
+        for kind in kinds:
+            w, s, packed4 = _grouped_stack(gen, kind, ne, dout, n)
+            name = "grouped_gemm_t4" if packed4 else "grouped_gemm_t"
+            fn = (grouped_gemm.grouped_matmul_t4 if packed4
+                  else grouped_gemm.grouped_matmul_t)
+            ref_fn = (grouped_gemm.grouped_matmul_t4_ref if packed4
+                      else grouped_gemm.grouped_matmul_t_ref)
+            out, ref = fn(dy, w, be), ref_fn(dy, w, be)
+            wrong = be[:1].clone()
+            wrong[0] = (wrong[0] + 1) % ne
+            bad = ref_fn(dy[:128], w, wrong)
+            torch.cuda.synchronize()
+            scale = float(ref.abs().max())
+            err = float((out - ref).abs().max())
+            fault = float((out[:128] - bad).abs().max())
+            tol = FP32_REL if kind == "fp32" else GROUPED_REL
+            shape = f"{kind} {tag}"
+            print(f"{name} {shape}: max|kernel - plain| = {err} = "
+                  f"{err / scale:.3e} of max|plain| (bound {tol}); block 0 "
+                  f"on its neighbour's stack reads {fault / scale:.3e}")
+            if not (err <= tol * scale and fault > tol * scale):
+                raise AssertionError(f"{name} {shape}: {err / scale} "
+                                     f"(fault {fault / scale})")
+            worst[name] = max(worst[name] or 0.0, err)
+            if timed_here:
+                b = bound_ms(nbytes(dy, w, out), 2.0 * routed * dout * n,
+                             PEAK_BF16_FLOPS)
+                lib = (_grouped_mm(dy.to(torch.bfloat16), w.transpose(1, 2),
+                                   offs) if kind == "bf16" else None)
+                r = timed(name, shape, lambda: fn(dy, w, be),
+                          lambda: ref_fn(dy, w, be), lib, *b, err)
+                if n == f and kind in ("bf16", "int4"):
+                    rows[name] = r
+            if packed4 and timed_here and n == f:
+                u = grouped_gemm._gmm(xs, w, be, None, 128, True)
+                uref = grouped_gemm.grouped_matmul_ref(xs, w, be,
+                                                       packed4=True)
+                torch.cuda.synchronize()
+                uerr = float((u - uref).abs().max())
+                uscale = float(uref.abs().max())
+                if not uerr <= GROUPED_REL * uscale:
+                    raise AssertionError(f"grouped_gemm unscaled int4: "
+                                         f"{uerr / uscale}")
+                b = bound_ms(nbytes(xs, w, u), 2.0 * routed * dout * n,
+                             PEAK_BF16_FLOPS)
+                timed("grouped_gemm", f"unscaled {shape} (the backward's "
+                      f"recompute of u)", lambda: grouped_gemm._gmm(
+                          xs, w, be, None, 128, True),
+                      lambda: grouped_gemm.grouped_matmul_ref(
+                          xs, w, be, packed4=True), None, *b, uerr)
+                del u, uref
+            del w, s, out, ref, bad
+        got = grouped_gemm.grouped_dw(xs, dy, be, ne)
+        ref = grouped_gemm.grouped_dw_ref(xs, dy, be, ne)
+        e0 = int(be[0])
+        bad = ref[e0] - grouped_gemm.grouped_dw_ref(xs[:128], dy[:128],
+                                                    be[:1], ne)[e0]
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        fault = float((got[e0] - bad).abs().max())
+        print(f"grouped_dw {tag}: max|kernel - plain| = {err} = "
+              f"{err / scale:.3e} of max|plain| (bound {FP32_REL}); "
+              f"expert {e0} without its first block reads "
+              f"{fault / scale:.3e}; the empty expert's dW all zeros: "
+              f"{not got[MOE_EMPTY].any()}")
+        if not (err <= FP32_REL * scale and fault > FP32_REL * scale
+                and not got[MOE_EMPTY].any()):
+            raise AssertionError(f"grouped_dw {tag}: {err / scale} "
+                                 f"(fault {fault / scale})")
+        worst["grouped_dw"] = max(worst["grouped_dw"] or 0.0, err)
+        del bad
+        if timed_here:
+            b = bound_ms(nbytes(xs, dy, got), 2.0 * routed * dout * n,
+                         PEAK_FP32_FLOPS)
+            lib = _grouped_mm(xs.to(torch.bfloat16).t(),
+                              dy.to(torch.bfloat16), offs)
+            r = timed("grouped_dw", f"fp32 {tag}",
+                      lambda: grouped_gemm.grouped_dw(xs, dy, be, ne),
+                      lambda: grouped_gemm.grouped_dw_ref(xs, dy, be, ne),
+                      lib, *b, err)
+            if n == f:
+                rows["grouped_dw"] = r
+        del xs, dy, got, ref
+        torch.cuda.empty_cache()
+    for name, r in rows.items():
+        r["max_abs_err"] = worst[name]
+    return rows
+
+
+def _fresh(tree, device):
+    """A copy of the tree's tensors on ``device`` (a train step updates its
+    parameters in place)."""
+    if isinstance(tree, dict):
+        return {k: _fresh(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_fresh(v, device) for v in tree]
+    return tree.to(device, copy=True)
+
+
+def _moe_train_batches(n: int, batch: int, vocab: int) -> list:
+    return [torch.from_numpy(training._affine_batch(
+        np.random.default_rng(4321 + i), batch, TMOE_SEQ, vocab))
+        for i in range(n)]
+
+
+def train_moe_path(tmp: pathlib.Path) -> dict:
+    """T-moe: Mixtral-8x7B's width at 2 layers (dense bf16 stacks,
+    moe_ragged) through ``training.make_train_step(flash_train=True)``,
+    AdamW, batch 2 x 1,025 tokens, with every launch count set to 0 just
+    before the run: 4 steps with a checkpoint at step 2, then one step
+    under torch.profiler; the same model resumed from the checkpoint,
+    whose losses must equal the first run's bit for bit. Every loss
+    finite; the router, the stacks, the attention and the embedding move;
+    each kernel launched TMOE_LAUNCHES times a layer a step. Returns the
+    first run's launches."""
+    cfg = dataclasses.replace(llama.mixtral_8x7b("bf16"),
+                              n_layers=TMOE_LAYERS, moe_ragged=True,
+                              max_seq=TMOE_SEQ)
+    batches = [b.to("cuda") for b in _moe_train_batches(
+        TMOE_STEPS, TMOE_BATCH, cfg.vocab)]
+    ck = tmp / "tmoe_s2"
+
+    def run(resume=None):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        params = llama.init_params(gen, cfg, "cuda")
+        opt = training.make_optimizer()
+        state = training.init_train_state(params, opt)
+        if resume is not None:
+            t0 = time.perf_counter()
+            state = checkpoint.load_train_state(resume, state)
+            print(f"T-moe: resumed from step {state.step} in "
+                  f"{time.perf_counter() - t0:.1f} s")
+        step = training.make_train_step(cfg, opt, flash_train=True)
+        layer = state.params["layers"][0]
+        watch = {"router": layer["moe"]["router"],
+                 "w_in": layer["moe"]["w_in"][0, :64, :64],
+                 "w_out": layer["moe"]["w_out"][-1, :64, :64],
+                 "wq": layer["wq"]["bf16_w"][:64, :64],
+                 "embed": state.params["embed"][:64]}
+        before = {k: v.detach().clone() for k, v in watch.items()}
+        losses, step_s = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        for i in range(state.step, TMOE_STEPS):
+            t0 = time.perf_counter()
+            state, loss = step(state, batches[i])
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t0)
+            if resume is None and i + 1 == TMOE_CKPT:
+                t0 = time.perf_counter()
+                checkpoint.save_train_state(ck, state)
+                print(f"T-moe: checkpoint at step {TMOE_CKPT} in "
+                      f"{time.perf_counter() - t0:.1f} s")
+        launches = dict(_build.LAUNCHES)
+        moved = {k: not torch.equal(before[k], v) for k, v in watch.items()}
+        return state, step, losses, step_s, launches, moved
+
+    state, step, losses, step_s, launches, moved = run()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    steps = TMOE_STEPS
+    want = {k: n * cfg.n_layers * steps for k, n in TMOE_LAUNCHES.items()}
+    got = {k: launches[k] for k in want}
+    tokens = TMOE_BATCH * (TMOE_SEQ - 1)
+    steady = sorted(step_s[1:])[len(step_s[1:]) // 2]
+    print(json.dumps({"train": "T-moe", "losses": losses,
+                      "step_ms": [1e3 * x for x in step_s],
+                      "steady_step_ms": 1e3 * steady,
+                      "tokens_per_s": tokens / steady, "peak_gb": peak_gb,
+                      "moved": moved, "launches": got}))
+    if got != want:
+        raise AssertionError(f"T-moe launches {got}, expected {want}")
+    if not (all(math.isfinite(x) for x in losses) and all(moved.values())):
+        raise AssertionError(f"T-moe: losses {losses}, moved {moved}")
+    prof = training._profile_step(step, state, batches[-1], top=16)
+    print(f"T-moe profiled step: wall {prof['wall_ms']:.1f} ms, device "
+          f"{prof['device_ms']:.1f} ms ({100 * prof['busy']:.1f}% busy)")
+    for k in prof["kernels"]:
+        print(f"T-moe step profile: {k['ms']:.3f} ms x{k['count']} "
+              f"{k['name']}")
+    del state, step
+    torch.cuda.empty_cache()
+    state, step, losses2, _, _, _ = run(ck)
+    print(f"T-moe resumed: losses {losses2} (first run {losses})")
+    if losses2 != losses[TMOE_CKPT:]:
+        raise AssertionError("T-moe: the resumed run's losses differ from "
+                             "the first run's")
+    del state, step
+    torch.cuda.empty_cache()
+    return got
+
+
+def qlora_path() -> dict:
+    """``moe_bench train`` at Mixtral's expert shape (d 4,096, f 14,336,
+    E 8, T 4,096) on int8 and packed int4 stacks, each with every launch
+    count set to 0 just before it: the integer stacks unchanged, the
+    router and every scale a nonzero gradient, and the gradient step's
+    launches: grouped_gemm 6 (the forward's three and the three unscaled
+    recomputes of u), grouped_gemm_t (int8) or grouped_gemm_t4 (int4)
+    once (w_out's dx into the SwiGLU activations: the input x takes no
+    gradient there; the timed chained step takes dx at all three).
+    Returns the launches summed over both runs."""
+    from how_to_optimize_gemm_tpu_torch.parallel import moe_bench
+    total = {}
+    for kind in ("int8", "int4"):
+        _build.reset_launches()
+        r = moe_bench.main(QLORA_ARGS + ["--kind", kind])["custom"][
+            f"train {kind}"]
+        for k, v in _build.LAUNCHES.items():
+            total[k] = total.get(k, 0) + v
+        t = "grouped_gemm_t4" if kind == "int4" else "grouped_gemm_t"
+        want = {"grouped_gemm": 6, t: 1}
+        step = {k: r["launches"].get(k, 0) for k in want}
+        print(json.dumps({"qlora": kind, "loss": r["loss"],
+                          "trainable": r["trainable"],
+                          "grad_norms": r["grad_norms"],
+                          "step_launches": r["launches"],
+                          "stacks_unchanged": r["stacks_unchanged"],
+                          "fwd_bwd_x_ms": r["ms"]}))
+        if not (r["stacks_unchanged"] and step == want
+                and all(v > 0 for v in r["grad_norms"].values())):
+            raise AssertionError(f"QLoRA {kind}: {r}")
+        torch.cuda.empty_cache()
+    return total
+
+
+def _flipped_tokens(label: str, routes: dict, k: int, step: int) -> set:
+    """The tokens of a one-layer forward (one router call a side) that
+    some side routes to other top-k experts than the CPU does; each must
+    be a near-tie on the CPU side (k-th and (k+1)-th probabilities within
+    PARITY_TIE), else this raises."""
+    flipped = set()
+    ref = routes["cpu"][0]
+    for side, calls in routes.items():
+        if side == "cpu":
+            continue
+        for got in calls:
+            a = torch.sort(torch.topk(got, k).indices, -1).values
+            b = torch.sort(torch.topk(ref, k).indices, -1).values
+            for tok in torch.nonzero((a != b).any(-1)).flatten().tolist():
+                top = torch.topk(torch.softmax(ref[tok], -1), k + 1).values
+                gap = float(top[k - 1] - top[k])
+                print(f"train parity {label}: {side} routes step {step} "
+                      f"token {tok} otherwise; the CPU's top-{k} gap "
+                      f"{gap:.3e}")
+                if gap > PARITY_TIE:
+                    raise AssertionError(f"train parity {label}: a token "
+                                         f"routed otherwise at a gap of "
+                                         f"{gap}")
+                flipped.add(tok)
+    return flipped
+
+
+@contextlib.contextmanager
+def cpu_plain(dev: str, cache: dict):
+    """For a CPU side: the plain flash versions at the kernel's tiles
+    (``kernel_tiles``) and the weight conversions cached
+    (``cached_weights``); nothing for the card."""
+    if dev != "cpu":
+        yield
+        return
+    with kernel_tiles(), cached_weights(cache):
+        yield
+
+
+class _Routed(Exception):
+    """Raised by ``router_logits``'s stand-in MoE once the router ran."""
+
+
+def router_logits(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """The router logits (tokens, E) on the CPU of a one-layer MoE model's
+    forward on ``tokens`` (flash_train, no grad), the forward stopped at
+    its router: the MoE paths are replaced, while this runs, by one that
+    calls ``moe._router_logits`` as theirs do and raises ``_Routed``."""
+    calls = []
+
+    def stop(params, x, *args, **kwargs):
+        calls.append(moe._router_logits(params, x).float().cpu())
+        raise _Routed
+    real = moe.moe_ffn_ragged, moe.moe_ffn_local
+    moe.moe_ffn_ragged = moe.moe_ffn_local = stop
+    try:
+        with torch.no_grad():
+            llama.forward(params, cfg, tokens, flash_train=True)
+    except _Routed:
+        pass
+    finally:
+        moe.moe_ffn_ragged, moe.moe_ffn_local = real
+    return calls[0]
+
+
+@contextlib.contextmanager
+def nll_without(tokens: set):
+    """``llama.token_nll`` leaving out the predictions at the positions in
+    ``tokens`` (of a batch of one): the positions a side routes otherwise.
+    With one layer a token's experts reach only its own prediction, so
+    the rest of the loss, and its gradients, compare like with like."""
+    real = llama.token_nll
+
+    def masked(logits, targets):
+        keep = torch.ones(targets.shape, dtype=torch.float32,
+                          device=logits.device)
+        keep[:, sorted(tokens)] = 0.0
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(logp, -1, targets[..., None].to(torch.int64))
+        return (nll[..., 0] * keep).sum() / keep.sum()
+    llama.token_nll = masked if tokens else real
+    try:
+        yield
+    finally:
+        llama.token_nll = real
+
+
+def train_moe_parity(gen: torch.Generator) -> None:
+    """Two AdamW steps at Mixtral-8x7B's width with 1 layer (batch 1 x
+    1,025: the ragged path on the card's backward kernels and flash) on
+    the card and on the CPU (the plain versions, flash's at the kernel's
+    64-key tiles) from the same weights and batches, for dense bf16 stacks
+    and for int8 stacks under bf16 linears: the losses and the weights
+    after step 2 within PARITY_SENSITIVITY x what a PERTURB relative
+    perturbation of the embedding does on the CPU.
+
+    The sides run in step. Before each step a forward up to the router on
+    every side (``router_logits``; the step's own router must choose the
+    same experts: on the CPU two such forwards have differed in the last
+    bits of a logit) finds the tokens some side routes to other experts
+    than the CPU does; each must be a near-tie on the CPU side
+    (``_flipped_tokens``), and that step's loss leaves out their
+    predictions on every side (``nll_without``: with one layer a token's
+    experts reach only its own prediction). AdamW's first step moves
+    every weight by about lr whatever the size of its gradient, so a
+    gradient within rounding of 0 moves a weight by 2 lr on one side only,
+    and the second step's router turns that into near-tie flips of its
+    own, on the perturbed side as on the card."""
+    cfg = dataclasses.replace(llama.mixtral_8x7b("bf16"), n_layers=1,
+                              moe_ragged=True, max_seq=TMOE_SEQ)
+    batches = _moe_train_batches(2, 1, cfg.vocab)
+    for label, bits in MOE_TRAIN_PARITY:
+        t0 = time.perf_counter()
+        params = llama.init_params(gen, cfg, "cuda")
+        if bits:
+            layer = params["layers"][0]
+            layer["moe"] = moe.quantize_moe(layer["moe"], bits)
+        cpu = _fresh(params, "cpu")
+        noise = torch.randn(cpu["embed"].shape,
+                            generator=torch.Generator().manual_seed(1))
+        pert = _fresh(cpu, "cpu")
+        pert["embed"] = pert["embed"] * (1 + PERTURB * noise)
+        sides = {}
+        for side, tree in (("cuda", params), ("cpu", cpu),
+                           ("cpu perturbed", pert)):
+            opt = training.make_optimizer()
+            sides[side] = (training.init_train_state(tree, opt),
+                           training.make_train_step(cfg, opt,
+                                                    flash_train=True))
+        del params, cpu, pert
+        losses = {side: [] for side in sides}
+        seconds = dict.fromkeys(sides, 0.0)
+        caches = {side: {} for side in sides}
+        _build.reset_launches()
+        for n, tokens in enumerate(batches):
+            routes = {}
+            for side, (state, _) in sides.items():
+                dev = "cuda" if side == "cuda" else "cpu"
+                t_side = time.perf_counter()
+                with cpu_plain(dev, caches[side]):
+                    routes[side] = [router_logits(state.params, cfg,
+                                                  tokens[:, :-1].to(dev))]
+                seconds[side] += time.perf_counter() - t_side
+            skip = _flipped_tokens(label, routes, cfg.moe_top_k, n + 1)
+            if 2 * len(skip) > tokens.shape[1] - 1:
+                raise AssertionError(f"train parity {label}: {len(skip)} "
+                                     f"tokens routed otherwise at step "
+                                     f"{n + 1}")
+            for side, (state, step) in sides.items():
+                dev = "cuda" if side == "cuda" else "cpu"
+                t_side = time.perf_counter()
+                inside = []
+                with cpu_plain(dev, caches[side]), nll_without(skip), \
+                        recorded_routes(inside):
+                    _, loss = step(state, tokens.to(dev))
+                losses[side].append(float(loss))
+                seconds[side] += time.perf_counter() - t_side
+                chosen = [torch.sort(torch.topk(r, cfg.moe_top_k).indices,
+                                     -1).values
+                          for r in (inside[0], routes[side][0])]
+                if not torch.equal(*chosen):
+                    raise AssertionError(f"train parity {label}: {side}'s "
+                                         "step routed otherwise than its "
+                                         "router pass")
+        names = ["grouped_gemm", "grouped_gemm_t"] + ([] if bits else
+                                                       ["grouped_dw"])
+        if any(_build.LAUNCHES[k] == 0 for k in names):
+            raise AssertionError(f"train parity {label}: card launches "
+                                 f"{_build.LAUNCHES}")
+        weights = {side: training.split_trainable(state.params)[0]
+                   for side, (state, _) in sides.items()}
+        ref_loss = torch.tensor(losses["cpu"], dtype=torch.float64)
+        diffs = {}
+        for side in ("cuda", "cpu perturbed"):
+            loss = torch.tensor(losses[side], dtype=torch.float64)
+            diffs[side] = (float((loss - ref_loss).abs().max()),
+                           max(float((a.detach().cpu().float()
+                                      - c.detach().float()).abs().max())
+                               for a, c in zip(weights[side],
+                                               weights["cpu"])))
+            print(f"train parity {label}: {side} losses {loss.tolist()} "
+                  f"(cpu {ref_loss.tolist()}): max|loss - cpu| "
+                  f"{diffs[side][0]:.4e}, max|weights - cpu| after step 2 "
+                  f"{diffs[side][1]:.4e}")
+        del sides, weights
+        torch.cuda.empty_cache()
+        limit = [PARITY_SENSITIVITY * x for x in diffs["cpu perturbed"]]
+        if not (all(math.isfinite(x) for x in losses["cuda"])
+                and all(c <= lim for c, lim in zip(diffs["cuda"], limit))):
+            raise AssertionError(f"train parity {label}: card vs CPU "
+                                 f"{diffs['cuda']} beyond {limit}")
+        print(f"train parity {label}: {time.perf_counter() - t0:.1f} s ("
+              + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items())
+              + ")")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    start = time.perf_counter()
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1880,10 +2479,14 @@ def main() -> int:
 
     build_s = _build.build_all()
     print(f"build: {build_s:.1f} s")
-    for name in _build.KERNELS:
+    logged = set()
+    for name, kernel in _build.KERNELS.items():
+        if kernel.source in logged:     # one library for its kernels
+            continue
+        logged.add(kernel.source)
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+                print(f"  {kernel.source}: {line.strip()}")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1898,6 +2501,9 @@ def main() -> int:
     t0 = time.perf_counter()
     checks[MOE_KERNEL["name"]] = check_grouped_gemm(gen)
     print(f"grouped_gemm: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    checks.update(check_grouped_backward(gen))
+    print(f"grouped GEMM backward: {time.perf_counter() - t0:.1f} s")
 
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -1943,8 +2549,31 @@ def main() -> int:
     train_parity(gen)
     print(f"train parity: {time.perf_counter() - t0:.1f} s")
 
+    # the MoE training paths: each count summed over T-moe and QLoRA, each
+    # path's counts read just after it
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        moe_launches = [train_moe_path(pathlib.Path(tmp))]
+    print(f"T-moe: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe_launches.append(qlora_path())
+    print(f"QLoRA: {time.perf_counter() - t0:.1f} s")
+    for path_launches in moe_launches:
+        for spec in TRAIN_KERNELS + [MOE_KERNEL] + MOE_BWD_KERNELS:
+            launches[spec["name"]] += path_launches.get(spec["name"], 0)
+    missing = [s["name"] for s in MOE_BWD_KERNELS if not launches[s["name"]]]
+    if missing:
+        raise AssertionError(f"the MoE training paths never launched "
+                             f"{missing}")
+    gen.manual_seed(4)
+    t0 = time.perf_counter()
+    train_moe_parity(gen)
+    print(f"MoE train parity: {time.perf_counter() - t0:.1f} s")
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
+
     kernels = []
-    for spec in KERNELS + SERVE_KERNELS + TRAIN_KERNELS + [MOE_KERNEL]:
+    for spec in (KERNELS + SERVE_KERNELS + TRAIN_KERNELS + [MOE_KERNEL]
+                 + MOE_BWD_KERNELS):
         r = checks[spec["name"]]
         kernels.append({
             "name": spec["name"], "route": "cuda", "source": spec["source"],

@@ -3,10 +3,12 @@
 Each ``.cu`` file is compiled on its own by nvcc into a shared library
 with a plain C interface (no PyTorch headers: seconds, not minutes),
 cached under ``build/torch_kernels/`` at the repository root by a hash of
-its sources and flags, and loaded with ctypes. Nothing is compiled when
-this module is imported; the first launch of a kernel builds it, and
-``build_all`` builds every kernel at once, one nvcc process per source,
-all started together.
+its sources and flags, and loaded with ctypes. A source may hold more than
+one kernel (``grouped_gemm_t.cu``: ``grouped_gemm_t`` and
+``grouped_gemm_t4``); its kernels share one library. Nothing is compiled
+when this module is imported; the first launch of a kernel builds its
+library, and ``build_all`` builds every library at once, one nvcc process
+per source, all started together.
 
 Every C entry point takes its own arguments (``Kernel.argtypes``:
 ``c_void_p`` for each pointer and for the CUDA stream, which comes last)
@@ -132,6 +134,16 @@ KERNELS = {
     # bt, kind, stream); s may be null, kind 0 bf16, 1 int8, 2 packed int4,
     # 3 fp32 stacks
     "grouped_gemm": Kernel("grouped_gemm.cu", (_P,) * 5 + (_I,) * 7 + (_P,)),
+    # its backward: dx = dy @ W[e]^T, (dy, w, block_expert, out, Tp, N, K,
+    # ldx, ldw, bt, kind, stream), kind 0 bf16, 1 int8, 3 fp32 stacks; the
+    # same on a packed int4 stack without the kind
+    "grouped_gemm_t": Kernel("grouped_gemm_t.cu", (_P,) * 4 + (_I,) * 7
+                             + (_P,)),
+    "grouped_gemm_t4": Kernel("grouped_gemm_t.cu", (_P,) * 4 + (_I,) * 6
+                              + (_P,)),
+    # dW[e] = x_e^T dy_e: (x, dy, block_expert, out, nb, M, N, E, ldx, ldy,
+    # bt, stream)
+    "grouped_dw": Kernel("grouped_dw.cu", (_P,) * 4 + (_I,) * 7 + (_P,)),
 }
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -156,61 +168,64 @@ def nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> pathlib.Path:
+def _lib_path(source: str) -> pathlib.Path:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for f in (CSRC / KERNELS[name].source, *sorted(CSRC.glob("*.cuh"))):
+    for f in (CSRC / source, *sorted(CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    stem = pathlib.Path(source).stem
+    return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:12]}.so"
 
 
-def _start_build(name: str):
-    """Start nvcc for one kernel; None when its library is already built."""
-    out = _lib_path(name)
+def _start_build(source: str):
+    """Start nvcc for one source; None when its library is already built."""
+    out = _lib_path(source)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC / KERNELS[name].source)]
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
 
 
-def _finish_build(name: str, started) -> None:
+def _finish_build(source: str, started) -> None:
     proc, tmp, out = started
     log, _ = proc.communicate()
     out.with_suffix(".log").write_text(log)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        raise RuntimeError(f"nvcc failed for {source}:\n{log}")
     os.replace(tmp, out)
 
 
 def build_all() -> float:
-    """Build every kernel not yet built, in parallel; returns seconds."""
+    """Build every library not yet built, in parallel; returns seconds."""
     t0 = time.perf_counter()
-    started = {name: _start_build(name) for name in KERNELS}
-    for name, s in started.items():
+    sources = dict.fromkeys(k.source for k in KERNELS.values())
+    started = {src: _start_build(src) for src in sources}
+    for src, s in started.items():
         if s is not None:
-            _finish_build(name, s)
+            _finish_build(src, s)
     return time.perf_counter() - t0
 
 
 def build_log(name: str) -> str:
     """nvcc's output (with ptxas register and spill counts) of the last
-    build of ``name``, or '' when it was built by an earlier process."""
-    log = _lib_path(name).with_suffix(".log")
+    build of ``name``'s source, or '' when it was built by an earlier
+    process."""
+    log = _lib_path(KERNELS[name].source).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
 def _function(name: str):
-    if name not in _LIBS:
-        started = _start_build(name)
+    source = KERNELS[name].source
+    if source not in _LIBS:
+        started = _start_build(source)
         if started is not None:
-            _finish_build(name, started)
-        _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
-    fn = getattr(_LIBS[name], name)
+            _finish_build(source, started)
+        _LIBS[source] = ctypes.CDLL(str(_lib_path(source)))
+    fn = getattr(_LIBS[source], name)
     fn.argtypes = KERNELS[name].argtypes
     fn.restype = _I
     return fn

@@ -35,7 +35,8 @@
 // 14,336 on an H100; a three-part split (x exact, every partial product
 // exact) read the same (up to 4.1e-5) at 1.4x the time, so the tensor
 // cores' fp32 accumulation, not the split, sets the error.
-// The tile walk is the bf16 GEMM's (bf16_gemm.cuh, int8_mma.cuh): one
+// The tile walk (grouped_gemm.cuh, shared with the backward's dx kernel,
+// grouped_gemm_t.cu) is the bf16 GEMM's (bf16_gemm.cuh, int8_mma.cuh): one
 // 128 x 128 output tile per block of 256 threads (8 warps of 64 x 32), K in
 // steps of 32 values, two stages. x is staged as fp32 by cp.async (row pitch
 // 40 floats: the float2 fragment reads of a half warp hit 32 distinct
@@ -54,22 +55,12 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "bf16_gemm.cuh"
-#include "flash_common.cuh"
 #include "fp32_gemm.cuh"
+#include "grouped_gemm.cuh"
 #include "w4a8.cuh"
 
 namespace htog {
 namespace gg {
-
-constexpr int KV = 32;        // K values per stage
-constexpr int LDX = KV + 8;   // fp32 row pitch of the x stage
-constexpr int GROUP_M = 8;    // row tiles per group of the tile walk
-
-struct Smem {
-  float x[2][BM][LDX];
-  int8_t w[2][BN][LDS];       // 32 bf16 K values a column, K-major
-};
 
 // Four stack values (K row k, columns n .. n+3) as int8 or bf16 bits. A
 // source's rows are `ld` elements apart (a multiple of 4); `base` is the
@@ -164,53 +155,29 @@ __device__ __forceinline__ void store_w(int8_t (*dst)[LDS],
   }
 }
 
-// 128 rows x 32 fp32 K values of x from (m0, k0): 1,024 chunks of 16
-// bytes, four a thread. x's columns from K up to ldx (a multiple of 4) are
-// zeros (the wrapper pads them); chunks from K on are zero-filled.
-__device__ __forceinline__ void load_x(float (*dst)[LDX], const float* x,
-                                       int m0, int k0, int K, int ldx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int chunk = threadIdx.x + i * THREADS;
-    int r = chunk >> 3;
-    int kc = (chunk & 7) * 4;
-    bool valid = k0 + kc < K;
-    const float* p = valid ? x + (size_t)(m0 + r) * ldx + k0 + kc : x;
-    cp_async16(&dst[r][kc], p, valid);
-  }
-}
-
-// The A fragment of rows r, r + 8 and K values kk .. kk + 15 of the x
-// stage, split into bf16 hi and lo.
-__device__ __forceinline__ void x_frags(const float (*xs)[LDX], int r,
-                                        int kk, int t, uint32_t (&hi)[4],
-                                        uint32_t (&lo)[4]) {
-  float2 v[4] = {*reinterpret_cast<const float2*>(&xs[r][kk + 2 * t]),
-                 *reinterpret_cast<const float2*>(&xs[r + 8][kk + 2 * t]),
-                 *reinterpret_cast<const float2*>(&xs[r][kk + 8 + 2 * t]),
-                 *reinterpret_cast<const float2*>(&xs[r + 8][kk + 8 + 2 * t])};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) fa::split_pack(v[j].x, v[j].y, hi[j], lo[j]);
-}
-
-// (row tile, column tile) of this block: groups of GROUP_M row tiles, the
-// row tile fastest inside a group.
-__device__ __forceinline__ void tile_of_block(int Tp, int N, int& m0,
-                                              int& n0) {
-  int num_m = Tp / BM;
-  int num_n = (N + BN - 1) / BN;
-  int per_group = GROUP_M * num_n;
-  int bid = blockIdx.x;
-  int first_m = (bid / per_group) * GROUP_M;
-  int gm = min(num_m - first_m, GROUP_M);
-  int in_group = bid % per_group;
-  m0 = (first_m + in_group % gm) * BM;
-  n0 = (in_group / gm) * BN;
-}
-
-// Kinds 0-2: bf16 tensor cores on split x.
+// The forward's stack policy (grouped_gemm.cuh): the expert's (K, N) stack
+// read as it lies, 4 K rows x 4 columns a thread, and transposed K-major
+// into the stage as bf16.
 template <class Src>
-__global__ void __launch_bounds__(THREADS)
+struct KNStack {
+  struct Regs {
+    uint2 r[4];
+  };
+  Src src;
+  __device__ void load(Regs& regs, int k0, int n0) const {
+    load_w(regs.r, src, k0, n0);
+  }
+  static __device__ void store(int8_t (*dst)[LDS], const Regs& regs) {
+    store_w<Src>(dst, regs.r);
+  }
+};
+
+// Kinds 0-2: bf16 tensor cores on split x. Two blocks an SM: at most 128
+// registers a thread (one instance spills 4 bytes). At 134, one block an
+// SM, the int8 instance took 10.8 ms at the shape above on an H100, 8.7
+// with two; int4 13.4 against 9.4, bf16 10.3 against 9.3.
+template <class Src>
+__global__ void __launch_bounds__(THREADS, 2)
     grouped_gemm_mma(const float* x, const int8_t* w, const int* be,
                      const float* s, float* out, int Tp, int N, int K,
                      int ldx, int ldw, int bt) {
@@ -219,55 +186,17 @@ __global__ void __launch_bounds__(THREADS)
   int m0, n0;
   tile_of_block(Tp, N, m0, n0);
   int e = be[m0 / bt];
-  Src src{reinterpret_cast<const typename Src::T*>(
-              w + (size_t)e * (K / Src::kRowsDiv) * ldw * Src::kElt),
-          K, ldw};
+  KNStack<Src> stack{Src{reinterpret_cast<const typename Src::T*>(
+                             w + (size_t)e * (K / Src::kRowsDiv) * ldw *
+                                     Src::kElt),
+                         K, ldw}};
   int warp = threadIdx.x >> 5;
   int lane = threadIdx.x & 31;
-  int wm = warp >> 2;
-  int wn = warp & 3;
-  int g = lane >> 2;
-  int t = lane & 3;
   float acc[4][4][4];
   zero_acc(acc);
-  uint2 breg[4];
-  int nk = (K + KV - 1) / KV;
-  load_x(sm.x[0], x, m0, 0, K, ldx);
-  cp_async_commit();
-  load_w(breg, src, 0, n0);
-  store_w<Src>(sm.w[0], breg);
-  cp_async_wait_all();
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    int st = kt & 1;
-    bool more = kt + 1 < nk;
-    if (more) {
-      load_x(sm.x[st ^ 1], x, m0, (kt + 1) * KV, K, ldx);
-      cp_async_commit();
-      load_w(breg, src, (kt + 1) * KV, n0);
-    }
-    KMajorFrags bfr{sm.w[st]};
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      uint32_t b[4][2];
-      bfr(b, ks * 32, wn, lane);
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        uint32_t hi[4], lo[4];
-        x_frags(sm.x[st], wm * 64 + mi * 16 + g, ks * 16, t, hi, lo);
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) {
-          MmaBf16::mma(acc[mi][ni], hi, b[ni]);
-          MmaBf16::mma(acc[mi][ni], lo, b[ni]);
-        }
-      }
-    }
-    if (more) store_w<Src>(sm.w[st ^ 1], breg);
-    cp_async_wait_all();
-    __syncthreads();
-  }
+  split_mma_tile(acc, sm, x, m0, K, ldx, stack, n0);
   const float* se = s == nullptr ? nullptr : s + (size_t)e * N;
-  for_each_acc(acc, Tp, N, m0, n0, wm, wn, lane,
+  for_each_acc(acc, Tp, N, m0, n0, warp >> 2, warp & 3, lane,
                [&](float& v, int row, int col) {
                  out[(size_t)row * N + col] =
                      se == nullptr ? v : __fmul_rn(v, se[col]);

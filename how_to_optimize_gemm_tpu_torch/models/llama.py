@@ -76,9 +76,12 @@ and at least ``moe_ragged_min_tokens`` routed copies (default 2 x E x
 128) take ``moe_ffn_ragged`` (kernel ``grouped_gemm`` on the card: the
 admission prefill of long prompts); else the dispatch path
 ``moe_ffn_local``, dropless (capacity factor at least E / k) when
-``moe_dropless`` or ``moe_ragged`` (decode). Serving only: ``loss_fn``
-and ``sgd_train_step`` refuse MoE configurations (ROADMAP "MoE training
-(B20's backward kernels)").
+``moe_dropless`` or ``moe_ragged`` (decode). MoE models train on every
+device, as in the reference: ``loss_fn`` adds ``moe_aux_weight`` times the
+mean load-balance aux over layers, and the ragged path's grouped products
+run their backward kernels on the card. The card's refusal of quantized
+weights is about the linears (A15): a quantized expert stack is frozen and
+its float scales train through the grouped GEMM's backward.
 
 Not ported yet, raising ``NotImplementedError``: LoRA (A8). Unlike JAX
 arrays, the cache tensors are written in place: a step's returned cache
@@ -156,16 +159,6 @@ def mixtral_8x7b(weight_kind: str = "bf16") -> LlamaConfig:
     return LlamaConfig(vocab=32000, d_model=4096, n_layers=32, n_heads=32,
                        n_kv_heads=8, d_ff=14336, max_seq=4096,
                        weight_kind=weight_kind, n_experts=8, moe_top_k=2)
-
-
-MOE_TRAINING_TODO = ("training an MoE model is not ported yet: the grouped "
-                     "GEMM has no backward kernels (ROADMAP \"MoE training "
-                     "(B20's backward kernels)\")")
-
-
-def _require_dense(cfg: LlamaConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(MOE_TRAINING_TODO)
 
 
 def _init_moe(normal, cfg: LlamaConfig) -> dict:
@@ -683,10 +676,12 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def _linear_kinds(params) -> set:
+    """The kinds of the tree's linears (an MoE layer's "moe" dict of router
+    and expert stacks is not a linear)."""
     kinds = {linear_kind(params["lm_head"])}
     for layer in params["layers"]:
-        kinds.update(linear_kind(v) for v in layer.values()
-                     if isinstance(v, dict))
+        kinds.update(linear_kind(v) for k, v in layer.items()
+                     if isinstance(v, dict) and k != "moe")
     return kinds
 
 
@@ -694,18 +689,21 @@ def loss_fn(params, cfg: LlamaConfig, tokens: torch.Tensor,
             remat: bool = False, flash_train: bool = False) -> torch.Tensor:
     """Next-token cross entropy over (B, S) token batches: the forward on
     ``tokens[:, :-1]`` against ``tokens[:, 1:]``, on the reference's
-    ``use_pallas=False`` routes (see the module docstring). Raises
-    NotImplementedError for quantized weights on the card, and for MoE
-    configurations on every device (ROADMAP "MoE training")."""
-    _require_dense(cfg)
+    ``use_pallas=False`` routes (see the module docstring); an MoE model
+    adds ``moe_aux_weight`` times the mean load-balance aux, as the
+    reference does. Raises NotImplementedError for quantized linears on
+    the card (ROADMAP A15)."""
     quantized = _linear_kinds(params) & set(QUANTIZED_KINDS)
     if tokens.is_cuda and quantized:
         raise NotImplementedError(
             f"training {sorted(quantized)} weights on the card is not ported "
             "yet: their kernels have no backward (ROADMAP A15)")
-    logits, _ = _forward(params, cfg, tokens[:, :-1], False, remat,
-                         flash_train)
-    return token_nll(logits, tokens[:, 1:])
+    logits, aux = _forward(params, cfg, tokens[:, :-1], False, remat,
+                           flash_train)
+    loss = token_nll(logits, tokens[:, 1:])
+    if cfg.n_experts > 0:
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss
 
 
 def sgd_train_step(params, cfg: LlamaConfig, tokens: torch.Tensor,
@@ -716,8 +714,6 @@ def sgd_train_step(params, cfg: LlamaConfig, tokens: torch.Tensor,
     given tree is not changed."""
     from how_to_optimize_gemm_tpu_torch.parallel.training import (
         sgd_update, split_trainable)
-
-    _require_dense(cfg)
 
     floats, rebuild = split_trainable(params)
     floats = [f.detach().requires_grad_() for f in floats]

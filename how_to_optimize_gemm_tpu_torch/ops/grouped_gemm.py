@@ -1,9 +1,10 @@
-"""Grouped (ragged) GEMM: the MoE expert compute, forward.
+"""Grouped (ragged) GEMM: the MoE expert compute, forward and backward.
 
 Counterpart: ``how_to_optimize_gemm_tpu/ops/pallas_grouped_gemm.py``
-(``_pick_block``, ``grouped_matmul``). The rows of x are expert-sorted and
-each expert's segment is padded to a multiple of ``bt`` rows; block i of
-``bt`` rows multiplies expert ``block_expert[i]``'s stack:
+(``_pick_block``, ``grouped_matmul`` and its custom VJPs ``_gmm_dense``,
+``_gmm_q8``, ``_gmm_q4``). The rows of x are expert-sorted and each
+expert's segment is padded to a multiple of ``bt`` rows; block i of ``bt``
+rows multiplies expert ``block_expert[i]``'s stack:
 
     y[i*bt:(i+1)*bt] = (x[i*bt:(i+1)*bt] @ w[block_expert[i]]) (* s[e, 0])
 
@@ -13,21 +14,36 @@ bytes of ``quant.pack_int4`` with block_k = d) with scales. The product is
 taken in fp32 (the reference converts the stack to x's dtype, fp32 in the
 model, inside the kernel).
 
-On CUDA tensors ``grouped_matmul`` launches the hand-written kernel
-``grouped_gemm`` (``csrc/grouped_gemm.cu``) for every stack kind or raises;
-on CPU tensors it runs its plain version ``grouped_matmul_ref`` (one
-``vendor.fp32_matmul`` per block, TF32 off). The kernel's bf16, int8 and
-int4 instances split x into bf16 hi + lo for the tensor cores (about 2^-17
-relative to the fp32 product) and sum in their own order; its fp32
-instance is FFMA. Forward only: the kernel has no backward, so a call on a
-tensor that requires grad raises with grad mode on
-(``_build.require_no_grad``). The reference's VMEM-budget block width
-(``_auto_bf``) is a TPU constant and has no counterpart; the kernel tiles
-128 x 128 and needs ``bt`` a multiple of 128 on the card.
+``grouped_matmul`` is differentiable, as the reference's: two autograd
+functions mirror its custom VJPs. A dense stack (``_GmmDense``) gets dx
+from the transposed product on the stack as it lies
+(``grouped_matmul_t``, no transposed copy) and dW from the segment sum of
+each expert's per-block products (``grouped_dw``, fp32, rounded to the
+stack's dtype). An int8 or packed int4 stack trains QLoRA-style
+(``_GmmScaled``, the reference's ``_gmm_q8`` and ``_gmm_q4``): the stack
+is frozen, dx takes the scales folded into dy's rows into
+``grouped_matmul_t`` (int8) or ``grouped_matmul_t4`` (packed), and the
+scales' gradient is the per-expert sum of dy * u over each expert's rows,
+u = x @ W recomputed without scales. That sum is plain PyTorch, as the
+reference leaves it to XLA, and deterministic: each block's rows, then
+each expert's blocks through one product with the one-hot block map.
+
+Kernels: on CUDA tensors ``grouped_gemm`` (``csrc/grouped_gemm.cu``; its
+packed instance without scales is the unscaled recompute, the reference's
+``_kernel_q4_noscale``), ``grouped_gemm_t`` and ``grouped_gemm_t4``
+(``csrc/grouped_gemm_t.cu``) and ``grouped_dw`` (``csrc/grouped_dw.cu``),
+or a raise; on CPU tensors their plain versions (``*_ref``: one
+``vendor.fp32_matmul`` per block, for dW per expert, TF32 off). The bf16, int8 and int4
+products split their fp32 operand into bf16 hi + lo for the tensor cores
+(about 2^-17 relative to the fp32 product) and sum in their own order; the
+fp32-stack products and dW are FFMA. The reference's VMEM-budget block
+width (``_auto_bf``) is a TPU constant and has no counterpart; the kernels
+tile 128 x 128 and the products need ``bt`` a multiple of 128 on the card.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from how_to_optimize_gemm_tpu_torch import _build
 from how_to_optimize_gemm_tpu_torch.ops import bounds, quant
@@ -35,9 +51,12 @@ from how_to_optimize_gemm_tpu_torch.ops.int8 import ALIGN, require_cuda
 from how_to_optimize_gemm_tpu_torch.ops.vendor import fp32_matmul
 
 KERNEL = "grouped_gemm"
-# the kernel's row tile: bt must be a multiple of it on the card
+KERNEL_T = "grouped_gemm_t"
+KERNEL_T4 = "grouped_gemm_t4"
+KERNEL_DW = "grouped_dw"
+# the kernels' row tile: bt must be a multiple of it on the card
 TILE_ROWS = 128
-# the kernel's stack kinds (csrc/grouped_gemm.cu)
+# the kernels' stack kinds (csrc/grouped_gemm.cu, grouped_gemm_t.cu)
 _KINDS = {torch.bfloat16: 0, torch.int8: 1, "int4": 2, torch.float32: 3}
 
 
@@ -54,96 +73,322 @@ def _pick_block(dim: int, cap: int) -> int:
     return dim
 
 
+def _check_blocks(name: str, rows: torch.Tensor, block_expert, bt: int):
+    tp = rows.shape[0]
+    if tp % bt or tuple(block_expert.shape) != (tp // bt,):
+        raise ValueError(f"{name}: {tp} rows in blocks of {bt} vs "
+                         f"block_expert {tuple(block_expert.shape)}")
+
+
 def _check_layout(x, w, block_expert, scales, bt: int, packed4: bool):
     """Raise on operands the reference's ``_gmm_call`` asserts against."""
     if x.dim() != 2 or w.dim() != 3:
         raise ValueError(f"grouped_matmul: x {tuple(x.shape)} must be 2-D "
                          f"and w {tuple(w.shape)} 3-D")
-    tp, d = x.shape
+    d = x.shape[1]
     e, dw, f = w.shape
     if dw != (d // 2 if packed4 else d) or (packed4 and d % 2):
         raise ValueError(f"grouped_matmul: x {tuple(x.shape)} vs w "
                          f"{tuple(w.shape)} (packed4={packed4})")
-    if tp % bt or tuple(block_expert.shape) != (tp // bt,):
-        raise ValueError(f"grouped_matmul: {tp} rows in blocks of {bt} vs "
-                         f"block_expert {tuple(block_expert.shape)}")
-    if packed4 and scales is None:
-        raise ValueError("grouped_matmul: packed4 requires scales (E, 1, f)")
+    _check_blocks("grouped_matmul", x, block_expert, bt)
     if scales is not None and tuple(scales.shape) != (e, 1, f):
         raise ValueError(f"grouped_matmul: scales {tuple(scales.shape)} vs "
                          f"({e}, 1, {f})")
 
 
+def _check_card(name: str, bt: int, x, *others) -> None:
+    """The card's conditions shared by every kernel: CUDA tensors on one
+    device, bt a multiple of the row tile."""
+    require_cuda(name, x)
+    if bt % TILE_ROWS:
+        raise ValueError(f"{name}: bt={bt} is not a multiple of the "
+                         f"kernel's {TILE_ROWS}-row tile")
+    for t in others:
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name}: tensors on {t.device} and "
+                             f"{x.device}")
+
+
+def _aligned(name: str, *tensors) -> None:
+    for t in tensors:
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name}: operands not {ALIGN}-byte aligned")
+
+
 def _expert_weight(w, e: int, packed4: bool) -> torch.Tensor:
-    """Expert ``e``'s stack as fp32 (d, f); packed nibbles decoded."""
+    """Expert ``e``'s stack as fp32 (rows, f); packed nibbles decoded
+    (block_k = the rows)."""
     we = w[e]
     if packed4:
         we = quant.unpack_int4(we, 2 * we.shape[0])
     return we.to(torch.float32)
 
 
+def _blocks_of(block_expert):
+    """{expert: [its block indices]} in block order."""
+    blocks: dict[int, list[int]] = {}
+    for i, e in enumerate(block_expert.tolist()):
+        blocks.setdefault(int(e), []).append(i)
+    return blocks
+
+
 def grouped_matmul_ref(x, w, block_expert, scales=None, *, bt: int = 128,
                        packed4: bool = False) -> torch.Tensor:
-    """Plain version of ``grouped_matmul``: per bt-row block, the fp32
-    product with its expert's stack (``vendor.fp32_matmul``, TF32 off),
-    times the expert's scales. Each expert's stack is converted once."""
+    """Plain version of ``grouped_matmul``'s forward: per bt-row block, the
+    fp32 product with its expert's stack (``vendor.fp32_matmul``, TF32
+    off), times the expert's scales when given. Each expert's stack is
+    converted once. A packed stack without scales is the backward's
+    unscaled recompute."""
     _check_layout(x, w, block_expert, scales, bt, packed4)
-    tp, _ = x.shape
     x = x.to(torch.float32)
-    y = torch.empty((tp, w.shape[2]), dtype=torch.float32, device=x.device)
-    experts = [int(e) for e in block_expert.tolist()]
-    for e in sorted(set(experts)):
+    y = torch.empty((x.shape[0], w.shape[2]), dtype=torch.float32,
+                    device=x.device)
+    for e, blocks in _blocks_of(block_expert).items():
         we = _expert_weight(w, e, packed4)
-        for i in (i for i, be in enumerate(experts) if be == e):
+        for i in blocks:
             rows = slice(i * bt, (i + 1) * bt)
             yi = fp32_matmul(x[rows], we)
             y[rows] = yi if scales is None else yi * scales[e]
     return y
 
 
-def grouped_matmul(x, w, block_expert, scales=None, *, bt: int = 128,
-                   packed4: bool = False) -> torch.Tensor:
-    """Ragged ``y[i*bt:(i+1)*bt] = x[i*bt:(i+1)*bt] @ w[block_expert[i]]``,
-    a fresh (Tp, f) float32, forward only.
-
-    x (Tp, d) expert-sorted rows (segments bt-aligned, zero-padded), float
-    (converted to fp32); w (E, d, f) fp32, bf16 or int8, or (E, d/2, f)
-    packed int4 bytes with ``packed4``; block_expert (Tp // bt,) ints;
-    scales (E, 1, f) float32, applied per output column (required with
-    ``packed4``). On the card: kernel ``grouped_gemm``, bt a multiple of
-    128."""
-    _check_layout(x, w, block_expert, scales, bt, packed4)
-    _build.require_no_grad(KERNEL, x, w, scales)
+def _gmm(x, w, block_expert, scales, bt: int, packed4: bool):
+    """The forward product, outside autograd: kernel ``grouped_gemm`` on
+    the card, its plain version on the CPU. ``scales`` may be None with
+    ``packed4`` (the unscaled recompute of the packed backward)."""
     if x.device.type == "cpu":
         return grouped_matmul_ref(x, w, block_expert, scales, bt=bt,
                                   packed4=packed4)
-    require_cuda(KERNEL, x)
+    _check_card(KERNEL, bt, x, w, block_expert, scales)
     kind = _KINDS.get("int4" if packed4 else w.dtype)
     if kind is None or (packed4 and w.dtype != torch.int8):
         raise TypeError(f"{KERNEL}: no kernel for a {w.dtype} stack "
                         f"(packed4={packed4})")
-    if bt % TILE_ROWS:
-        raise ValueError(f"{KERNEL}: bt={bt} is not a multiple of the "
-                         f"kernel's {TILE_ROWS}-row tile")
-    tp, d = x.shape
-    f = w.shape[2]
-    for t in (w, block_expert, scales):
-        if t is not None and t.device != x.device:
-            raise ValueError(f"{KERNEL}: tensors on {t.device} and "
-                             f"{x.device}")
     if scales is not None and scales.dtype != torch.float32:
         raise TypeError(f"{KERNEL}: scales must be float32, got "
                         f"{scales.dtype}")
+    tp, d = x.shape
+    f = w.shape[2]
     # rows of x and of the stack on 16-byte boundaries: zero columns
     x = bounds.pad_dim(x.to(torch.float32).contiguous(), 1, 4)
     w = bounds.pad_dim(w.contiguous(), 2, 4)
     be = block_expert.to(torch.int32).contiguous()
     s = None if scales is None else scales.contiguous()
-    for t in (x, w):
-        if t.data_ptr() % ALIGN:
-            raise ValueError(f"{KERNEL}: operands not {ALIGN}-byte aligned")
+    _aligned(KERNEL, x, w)
     out = torch.empty((tp, f), dtype=torch.float32, device=x.device)
     if tp and f:
         _build.launch(KERNEL, x.device, x, w, be, s, out, tp, f, d,
                       x.shape[1], w.shape[2], bt, kind)
+    return out
+
+
+def _segment_sum(v: torch.Tensor, block_expert, e: int, bt: int):
+    """(E, f) fp32 sums of the rows (Tp, f) of ``v`` over each expert's
+    blocks, in a fixed order: each block's bt rows, then each expert's
+    block sums through one product with the one-hot (blocks, E) map (no
+    atomics: the same bits on every run)."""
+    nb = block_expert.shape[0]
+    sums = v.to(torch.float32).reshape(nb, bt, v.shape[1]).sum(1)
+    onehot = F.one_hot(block_expert.to(torch.int64), e).to(torch.float32)
+    return fp32_matmul(onehot.t(), sums)
+
+
+class _GmmDense(torch.autograd.Function):
+    """``y = x @ w[be]`` on a dense stack (the reference's ``_gmm_dense``):
+    dx by the transposed product on the stack in place, dW by the
+    per-expert segment sum of the block products, rounded to w's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, block_expert, bt):
+        ctx.bt = bt
+        ctx.save_for_backward(x, w, block_expert)
+        return _gmm(x, w, block_expert, None, bt, False)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, be = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = grouped_matmul_t(dy, w, be, bt=ctx.bt).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = grouped_dw(x, dy, be, w.shape[0], bt=ctx.bt).to(w.dtype)
+        return dx, dw, None, None
+
+
+class _GmmScaled(torch.autograd.Function):
+    """``y = (x @ w[be]) * s[be]`` on an int8 or packed int4 stack (the
+    reference's ``_gmm_q8`` and ``_gmm_q4``), QLoRA-style: the stack is
+    frozen; dx is the transposed product of dy * s[row's expert] on the
+    stack as it lies, ds the per-expert sum of dy * u with u = x @ w[be]
+    recomputed without scales."""
+
+    @staticmethod
+    def forward(ctx, x, w, scales, block_expert, bt, packed4):
+        ctx.bt, ctx.packed4 = bt, packed4
+        ctx.save_for_backward(x, w, scales, block_expert)
+        return _gmm(x, w, block_expert, scales, bt, packed4)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, scales, be = ctx.saved_tensors
+        bt, nb = ctx.bt, be.shape[0]
+        dy = dy.to(torch.float32)
+        dx = ds = None
+        if ctx.needs_input_grad[0]:
+            rows = dy.reshape(nb, bt, dy.shape[1]) * scales[be.to(torch.int64)]
+            product = grouped_matmul_t4 if ctx.packed4 else grouped_matmul_t
+            dx = product(rows.reshape(dy.shape), w, be, bt=bt).to(x.dtype)
+        if ctx.needs_input_grad[2]:
+            u = _gmm(x, w, be, None, bt, ctx.packed4)
+            ds = _segment_sum(dy * u, be, scales.shape[0], bt)[:, None, :]
+            ds = ds.to(scales.dtype)
+        return dx, None, ds, None, None, None
+
+
+def grouped_matmul(x, w, block_expert, scales=None, *, bt: int = 128,
+                   packed4: bool = False) -> torch.Tensor:
+    """Ragged ``y[i*bt:(i+1)*bt] = x[i*bt:(i+1)*bt] @ w[block_expert[i]]``,
+    a fresh (Tp, f) float32, differentiable (see the module docstring).
+
+    x (Tp, d) expert-sorted rows (segments bt-aligned, zero-padded), float
+    (converted to fp32); w (E, d, f) fp32, bf16 or int8, or (E, d/2, f)
+    packed int4 bytes with ``packed4``; block_expert (Tp // bt,) ints,
+    sorted for a dense stack's dW; scales (E, 1, f) float32, applied per
+    output column (required with ``packed4``). On the card: kernel
+    ``grouped_gemm`` (its backward ``grouped_gemm_t``, ``grouped_gemm_t4``,
+    ``grouped_dw``), bt a multiple of 128."""
+    _check_layout(x, w, block_expert, scales, bt, packed4)
+    if packed4 and scales is None:
+        raise ValueError("grouped_matmul: packed4 requires scales (E, 1, f)")
+    if scales is None:
+        return _GmmDense.apply(x, w, block_expert, bt)
+    return _GmmScaled.apply(x, w, scales, block_expert, bt, packed4)
+
+
+# ------------------------------------------------------------- backward
+
+def _check_t_layout(name: str, dy, w, block_expert, bt: int):
+    if dy.dim() != 2 or w.dim() != 3 or w.shape[2] != dy.shape[1]:
+        raise ValueError(f"{name}: dy {tuple(dy.shape)} vs w "
+                         f"{tuple(w.shape)}: the stack's last dim is the "
+                         "contraction")
+    _check_blocks(name, dy, block_expert, bt)
+
+
+def _t_ref(dy, w, block_expert, bt: int, packed4: bool) -> torch.Tensor:
+    dy = dy.to(torch.float32)
+    dout = w.shape[1] * (2 if packed4 else 1)
+    out = torch.empty((dy.shape[0], dout), dtype=torch.float32,
+                      device=dy.device)
+    for e, blocks in _blocks_of(block_expert).items():
+        we = _expert_weight(w, e, packed4)
+        for i in blocks:
+            rows = slice(i * bt, (i + 1) * bt)
+            out[rows] = fp32_matmul(dy[rows], we.t())
+    return out
+
+
+def grouped_matmul_t_ref(dy, w, block_expert, *, bt: int = 128):
+    """Plain version of ``grouped_matmul_t``: per block, the fp32 product
+    of dy's rows with the transpose of its expert's stack."""
+    _check_t_layout(KERNEL_T, dy, w, block_expert, bt)
+    return _t_ref(dy, w, block_expert, bt, False)
+
+
+def grouped_matmul_t4_ref(dy, w, block_expert, *, bt: int = 128):
+    """Plain version of ``grouped_matmul_t4``: the same on the stack's
+    nibbles unpacked with block_k = dout."""
+    _check_t_layout(KERNEL_T4, dy, w, block_expert, bt)
+    return _t_ref(dy, w, block_expert, bt, True)
+
+
+def _t_launch(name: str, dy, w, block_expert, bt: int, dout: int,
+              kind: int | None):
+    _check_card(name, bt, dy, w, block_expert)
+    tp, f = dy.shape
+    # dy's rows on 16-byte boundaries; the stack's in chunks of 16 values
+    # (the kernel's loads), zero columns both
+    dy = bounds.pad_dim(dy.to(torch.float32).contiguous(), 1, 4)
+    w = bounds.pad_dim(w.contiguous(), 2, 4 if kind == 3 else 16)
+    be = block_expert.to(torch.int32).contiguous()
+    _aligned(name, dy, w)
+    out = torch.empty((tp, dout), dtype=torch.float32, device=dy.device)
+    if tp and dout:
+        args = (dy, w, be, out, tp, dout, f, dy.shape[1], w.shape[2], bt)
+        _build.launch(name, dy.device, *args,
+                      *(() if kind is None else (kind,)))
+    return out
+
+
+def grouped_matmul_t(dy, w, block_expert, *, bt: int = 128):
+    """Ragged ``dx[i*bt:(i+1)*bt] = dy[i*bt:(i+1)*bt] @ w[be[i]]^T``, a
+    fresh (Tp, dout) float32: dy (Tp, f) float, w (E, dout, f) fp32, bf16
+    or int8 contracted over its last dim in place. Kernel
+    ``grouped_gemm_t`` on the card (bt a multiple of 128), the plain
+    version on the CPU."""
+    _check_t_layout(KERNEL_T, dy, w, block_expert, bt)
+    if dy.device.type == "cpu":
+        return _t_ref(dy, w, block_expert, bt, False)
+    kind = _KINDS.get(w.dtype)
+    if kind is None:
+        raise TypeError(f"{KERNEL_T}: no kernel for a {w.dtype} stack")
+    return _t_launch(KERNEL_T, dy, w, block_expert, bt, w.shape[1], kind)
+
+
+def grouped_matmul_t4(dy, w, block_expert, *, bt: int = 128):
+    """``grouped_matmul_t`` on a packed int4 stack (E, dout/2, f) int8
+    bytes (``quant.pack_int4`` with block_k = dout): output column n <
+    dout/2 reads the low nibbles of packed row n, the rest the high
+    nibbles of row n - dout/2. Kernel ``grouped_gemm_t4`` on the card."""
+    _check_t_layout(KERNEL_T4, dy, w, block_expert, bt)
+    if dy.device.type == "cpu":
+        return _t_ref(dy, w, block_expert, bt, True)
+    if w.dtype != torch.int8:
+        raise TypeError(f"{KERNEL_T4}: packed bytes are int8, got "
+                        f"{w.dtype}")
+    return _t_launch(KERNEL_T4, dy, w, block_expert, bt, 2 * w.shape[1],
+                     None)
+
+
+def _check_dw_layout(x, dy, block_expert, bt: int):
+    if x.dim() != 2 or dy.dim() != 2 or x.shape[0] != dy.shape[0]:
+        raise ValueError(f"{KERNEL_DW}: x {tuple(x.shape)} vs dy "
+                         f"{tuple(dy.shape)}")
+    _check_blocks(KERNEL_DW, x, block_expert, bt)
+
+
+def grouped_dw_ref(x, dy, block_expert, e: int, *, bt: int = 128):
+    """Plain version of ``grouped_dw``: for each expert the segment sum of
+    its blocks' products ``x_i^T dy_i``, taken as one fp32 product over
+    the rows of all its blocks; zeros for an expert with no block."""
+    _check_dw_layout(x, dy, block_expert, bt)
+    x, dy = x.to(torch.float32), dy.to(torch.float32)
+    out = torch.zeros((e, x.shape[1], dy.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for ei, blocks in _blocks_of(block_expert).items():
+        rows = torch.cat([torch.arange(i * bt, (i + 1) * bt)
+                          for i in blocks]).to(x.device)
+        out[ei] = fp32_matmul(x[rows].t(), dy[rows])
+    return out
+
+
+def grouped_dw(x, dy, block_expert, e: int, *, bt: int = 128):
+    """``dW[e] = sum over e's blocks i of x_i^T dy_i``, a fresh (E, d, f)
+    float32 (zeros for an expert with no block): x (Tp, d) and dy (Tp, f)
+    float, block_expert sorted (the layout's). Kernel ``grouped_dw`` on
+    the card (one tile of dW a block of threads, no atomics), the plain
+    version on the CPU."""
+    _check_dw_layout(x, dy, block_expert, bt)
+    if x.device.type == "cpu":
+        return grouped_dw_ref(x, dy, block_expert, e, bt=bt)
+    _check_card(KERNEL_DW, bt, x, dy, block_expert)
+    d, f = x.shape[1], dy.shape[1]
+    x = bounds.pad_dim(x.to(torch.float32).contiguous(), 1, 4)
+    dy = bounds.pad_dim(dy.to(torch.float32).contiguous(), 1, 4)
+    be = block_expert.to(torch.int32).contiguous()
+    _aligned(KERNEL_DW, x, dy)
+    out = torch.empty((e, d, f), dtype=torch.float32, device=x.device)
+    if out.numel():
+        _build.launch(KERNEL_DW, x.device, x, dy, be, out, be.shape[0], d, f,
+                      e, x.shape[1], dy.shape[1], bt)
     return out

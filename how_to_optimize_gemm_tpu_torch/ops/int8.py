@@ -53,12 +53,19 @@ def dequant_epilogue(acc: torch.Tensor, sa: torch.Tensor, sb: torch.Tensor,
     return acc.to(torch.float32) * sa * sb + c
 
 
+def _weight_f64(y: torch.Tensor) -> torch.Tensor:
+    """The right operand of ``int_matmul_exact`` (a weight) in fp64; a
+    function of its own so that a caller may reuse the conversion of a
+    weight that does not change (``chip_smoke.cached_weights``)."""
+    return y.to(torch.float64)
+
+
 def int_matmul_exact(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """int8 @ int8 -> int32 with plain tensor ops, on any device.
 
     There is no int32 matmul on CUDA; fp64 is exact here because
     |acc| <= 127 * 127 * K is far below 2**53."""
-    return (x.to(torch.float64) @ y.to(torch.float64)).to(torch.int32)
+    return (x.to(torch.float64) @ _weight_f64(y)).to(torch.int32)
 
 
 # torch._int_mm (cuBLASLt) takes more than 16 rows and k, n multiples of 8

@@ -54,9 +54,13 @@ def _matmul_highest(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 class _Fp32Matmul(torch.autograd.Function):
-    """x (..., K) @ w (K, N) whose gradients are fp32 products too: the
+    """``torch.matmul(x, w)`` whose gradients are fp32 products too: the
     backward runs under whatever flags are set when it runs, so each of
-    its products goes through ``_matmul_highest`` as the forward's does."""
+    its products goes through ``_matmul_highest`` as the forward's does.
+    x (..., M, K) or (..., K); w (K, N), or batched (..., K, N) with
+    batch dims broadcast against x's (the MoE dispatch path's expert,
+    dispatch and combine products), each gradient summed back to its
+    operand's shape."""
 
     @staticmethod
     def forward(ctx, x, w):
@@ -68,17 +72,22 @@ class _Fp32Matmul(torch.autograd.Function):
         x, w = ctx.saved_tensors
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _matmul_highest(g, w.t())
+            dx = _matmul_highest(g, w.transpose(-1, -2)).sum_to_size(
+                x.shape)
         if ctx.needs_input_grad[1]:
-            dw = _matmul_highest(x.reshape(-1, x.shape[-1]).t(),
-                                 g.reshape(-1, g.shape[-1]))
+            if w.dim() == 2:
+                dw = _matmul_highest(x.reshape(-1, x.shape[-1]).t(),
+                                     g.reshape(-1, g.shape[-1]))
+            else:
+                dw = _matmul_highest(x.transpose(-1, -2), g).sum_to_size(
+                    w.shape)
         return dx, dw
 
 
 def fp32_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``torch.matmul(x, w)`` for x (..., K) and w (K, N) with TF32 off
-    for this product only, and for the two products of its gradient
-    (``_matmul_highest``)."""
+    """``torch.matmul(x, w)`` for x (..., K) and w (K, N), or batched x
+    (..., M, K) and w (..., K, N), with TF32 off for this product only,
+    and for the two products of its gradient (``_matmul_highest``)."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _Fp32Matmul.apply(x, w)
     return _matmul_highest(x, w)

@@ -26,10 +26,17 @@ router's (a TF32 router moves top-k choices), the dispatch path's expert
 products, which the reference computes outside any Pallas kernel, and the
 one-hot dispatch and combine. On the dispatch path a quantized stack is
 converted to the activations' dtype whole before its product, as the
-reference does (at Mixtral width, 1.88 GB of fp32 a stack). Forward only:
-the expert-parallel ``moe_ffn`` needs a mesh (ROADMAP A12), and training
-through the ragged path needs the grouped GEMM's backward kernels (ROADMAP
-"MoE training").
+reference does (at Mixtral width, 1.88 GB of fp32 a stack).
+
+Every path trains, as the reference's: autograd runs through the router,
+the gather of the routed copies, the expert products, SwiGLU, the
+gate-weighted combine and the aux. On the ragged path the expert products
+are ``grouped_matmul``'s autograd functions (on the card its backward
+kernels): dense stacks get dx and dW, int8 and packed int4 stacks train
+QLoRA-style (the stack frozen, x and the scales get gradients). The
+dispatch path's products are ``fp32_matmul``'s autograd, a quantized
+stack's gradient stopping at its integer values. Not ported: the
+expert-parallel ``moe_ffn``, which needs a mesh (ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -125,6 +132,13 @@ def _stack_values(params, name: str) -> torch.Tensor:
     return params[name + "_q"]
 
 
+def _stack_as(params, name: str, dtype) -> torch.Tensor:
+    """A quantized stack's integer values converted to ``dtype`` whole; a
+    function of its own so that a caller may reuse the conversion of a
+    stack that does not change (``chip_smoke.cached_weights``)."""
+    return _stack_values(params, name).to(dtype)
+
+
 def dequantize_moe(params: dict) -> dict:
     """Inverse of ``quantize_moe`` (up to quantization error), fp32."""
     out = {"router": params["router"]}
@@ -185,7 +199,7 @@ def _experts(params, x: torch.Tensor, ctype) -> torch.Tensor:
     def mm(name, inp):
         if name in params:
             return fp32_matmul(inp, params[name].to(ctype))
-        w = _stack_values(params, name).to(ctype)
+        w = _stack_as(params, name, ctype)
         return fp32_matmul(inp, w) * params[name + "_s"].to(ctype)
 
     if _gated(params):

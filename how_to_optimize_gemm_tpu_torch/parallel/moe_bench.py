@@ -1,11 +1,11 @@
-"""MoE benchmarks: the grouped GEMM, and the ragged path against the
-dispatch and dense paths at prefill and decode widths.
+"""MoE benchmarks: the grouped GEMM, the ragged path against the dispatch
+and dense paths at prefill and decode widths, and the ragged train step.
 
 Counterpart: ``how_to_optimize_gemm_tpu/parallel/moe_bench.py``.
 
     python -m how_to_optimize_gemm_tpu_torch.parallel.moe_bench \\
         [kernel] [prefill] [decode] [train] [--t 4096] [--batch 8] \\
-        [--d D --f F --e E] [--kind bf16|int8|int4] [--tp 8192] \\
+        [--d D --f F --e E] [--kind fp32|bf16|int8|int4] [--tp 8192] \\
         [--repeats 3] [--device cpu]
 
 - ``kernel``: ``grouped_matmul`` (kernel ``grouped_gemm`` on the card) on
@@ -18,7 +18,14 @@ Counterpart: ``how_to_optimize_gemm_tpu/parallel/moe_bench.py``.
   gates), for bf16 and int8 stacks unless ``--kind``;
 - ``decode``: ragged vs dispatch at T = ``--batch`` tokens, int8 stacks
   unless ``--kind``, with the weight stream's rate;
-- ``train``: not ported (ROADMAP "MoE training").
+- ``train``: the QLoRA-style ragged train step (the reference's
+  ``bench_train``), int8 stacks unless ``--kind`` (int4, or bf16 whose
+  stacks train too): one loss (mean y^2 + 0.01 aux) and gradient step on
+  ``moe_ffn_ragged`` at T = ``--t`` tokens of bf16 x, printing the
+  trainable leaves, their gradients' norms and the step's kernel launches
+  and checking that the integer stacks did not change; then a chained
+  forward and backward-of-x step (each call feeds x + dx to the next),
+  timed.
 
 Shapes: the reference's d 2,048, f 1,408, E 8, then Mixtral-8x7B's d
 4,096, f 14,336, E 8; ``--d``/``--f``/``--e`` give one set instead. Times
@@ -33,7 +40,7 @@ import time
 
 import torch
 
-from how_to_optimize_gemm_tpu_torch.models.llama import MOE_TRAINING_TODO
+from how_to_optimize_gemm_tpu_torch import _build
 from how_to_optimize_gemm_tpu_torch.ops import grouped_gemm, quant
 from how_to_optimize_gemm_tpu_torch.parallel import moe
 from how_to_optimize_gemm_tpu_torch.utils.device import default_device
@@ -176,11 +183,60 @@ def bench_decode(gen, batch: int, d: int, f: int, e: int, kind: str,
     return out
 
 
+def bench_train(gen, t: int, d: int, f: int, e: int, kind: str, device,
+                repeats: int, k: int = 2) -> dict:
+    """One loss and gradient step over the layer's float leaves (the
+    router and the scales, or the bf16 stacks; integer stacks frozen),
+    then the chained forward and backward-of-x step; ms per chained
+    step."""
+    params = _params(gen, d, f, e, kind, device)
+    x = torch.randn((t, d), generator=gen, device=device).to(torch.bfloat16)
+    frozen = {n: v.clone() for n, v in params.items()
+              if not torch.is_floating_point(v)}
+    names = sorted(n for n, v in params.items() if torch.is_floating_point(v))
+
+    def loss_of(p, xx):
+        y, aux = moe.moe_ffn_ragged(p, xx, k=k, return_aux=True)
+        return torch.mean(y.to(torch.float32) ** 2) + 0.01 * aux
+
+    before = dict(_build.LAUNCHES)
+    with torch.enable_grad():
+        leaves = [params[n].detach().requires_grad_() for n in names]
+        loss = loss_of({**params, **dict(zip(names, leaves))}, x)
+        grads = torch.autograd.grad(loss, leaves)
+    loss = float(loss.detach())
+    launches = {n: c - before[n] for n, c in _build.LAUNCHES.items()
+                if c != before[n]}
+    norms = {n: float(g.to(torch.float32).norm()) for n, g in
+             zip(names, grads)}
+    unchanged = all(torch.equal(params[n], v) for n, v in frozen.items())
+    print(f"train step (T={t}, d={d}, d_ff={f}, E={e}, {kind} stacks; "
+          f"{_unit(device)}): loss {loss:.4f}, trainable leaves "
+          f"{names}, frozen {sorted(frozen)} (unchanged: {unchanged})",
+          flush=True)
+    print("  gradient norms " + ", ".join(f"{n} {v:.4e}"
+                                          for n, v in norms.items())
+          + f"; kernel launches {launches}", flush=True)
+    state = [x]
+
+    def chained():
+        xx = state[0].detach().requires_grad_()
+        with torch.enable_grad():
+            dx, = torch.autograd.grad(loss_of(params, xx), xx)
+        state[0] = (xx + dx.to(xx.dtype)).detach()
+
+    sec = _time(chained, device, repeats)
+    print(f"  ragged {kind} fwd+bwd(x) {sec * 1e3:9.3f} ms/step", flush=True)
+    return {"loss": loss, "trainable": names, "frozen": sorted(frozen),
+            "grad_norms": norms, "launches": launches,
+            "stacks_unchanged": unchanged, "ms": sec * 1e3}
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parts", nargs="*", metavar="part",
                     choices=["kernel", "prefill", "decode", "train"],
-                    help="kernel, prefill, decode (default: the three) or "
+                    help="kernel, prefill, decode (default: the three) and "
                          "train")
     ap.add_argument("--t", type=int, default=4096)
     ap.add_argument("--batch", type=int, default=8)
@@ -191,15 +247,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--e", type=int, default=None)
     ap.add_argument("--kind", default=None,
                     choices=["fp32", "bf16", "int8", "int4"],
-                    help="stack kind of prefill and decode")
+                    help="stack kind of prefill, decode and train")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
     args.parts = args.parts or ["kernel", "prefill", "decode"]
-    if "train" in args.parts:
-        raise NotImplementedError(MOE_TRAINING_TODO)
     device = default_device(args.device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
@@ -224,6 +278,11 @@ def main(argv=None) -> dict:
                 kind = args.kind or "int8"
                 r[f"decode {kind}"] = bench_decode(
                     gen, args.batch, d, f, e, kind, device, args.repeats)
+    if "train" in args.parts:
+        for name, (d, f, e) in shapes.items():
+            kind = args.kind or "int8"
+            results.setdefault(name, {})[f"train {kind}"] = bench_train(
+                gen, args.t, d, f, e, kind, device, args.repeats)
     return results
 
 

@@ -13,7 +13,11 @@ dtype (bf16 for bf16 weights), as optax's do.
 Only the float leaves train (``split_trainable``, ``is_float_leaf``): the
 integer leaves of quantized linears are frozen, and on the CPU their float
 scales train through the emulation (on the card ``llama.loss_fn`` refuses
-quantized weights, ROADMAP A15). Unlike the reference's pure functions,
+quantized linears, ROADMAP A15). MoE trees train on every device: the
+router and dense expert stacks take their gradients, an int8 or packed
+int4 stack stays frozen while its fp32 scales train (the grouped GEMM's
+backward, ``ops/grouped_gemm.py``), and checkpoints carry the whole tree.
+Unlike the reference's pure functions,
 the optimizer updates the parameter tensors of the tree in place, and
 ``init_train_state`` marks them as requiring grad. The step keeps no
 state of its own between calls, so a run resumed from a checkpoint
@@ -227,7 +231,9 @@ def _sync(device: torch.device) -> None:
 def _profile_step(step_fn, state, tokens, top: int = 12) -> dict:
     """One more step on the card under ``torch.profiler``: its wall time
     (profiler on), the device time summed over its kernels, their share
-    of the wall time, and the ``top`` kernels by device time."""
+    of the wall time, and the ``top`` kernels by device time. A user
+    annotation's range on the device (``Optimizer.step#AdamW.step``) spans
+    kernels that are counted already, and is left out."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -238,7 +244,8 @@ def _profile_step(step_fn, state, tokens, top: int = 12) -> dict:
     wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels: dict[str, list] = {}
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if (ev.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
             continue
         us = getattr(ev, "device_time_total", None)
         us = ev.cuda_time_total if us is None else us

@@ -1100,14 +1100,175 @@ def test_grouped_gemm_matches_plain_version(cuda, kind, shape):
 
 
 def test_grouped_gemm_refuses_grad_and_small_blocks(cuda):
+    """Autograd through the kernels (grouped_gemm's forward and the int8
+    recompute, grouped_gemm_t) gives the gradients of autograd through the
+    plain version on the card, within GROUPED_REL; blocks smaller than the
+    kernel's tile and stacks it has no kernel for are refused."""
     from how_to_optimize_gemm_tpu_torch.ops import grouped_gemm as gg
     x, w, be, s, _ = _grouped_case("int8", (2, 64, 128, 256), 3, cuda)
-    with pytest.raises(RuntimeError, match="no backward"):
-        gg.grouped_matmul(x.clone().requires_grad_(), w, be, s)
+    dy = torch.randn((x.shape[0], w.shape[2]), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(4))
+    grads = []
+    for fn in (gg.grouped_matmul, gg.grouped_matmul_ref):
+        xg, sg = x.clone().requires_grad_(), s.clone().requires_grad_()
+        fn(xg, w, be, sg).backward(dy)
+        grads.append((xg.grad, sg.grad))
+    for got, ref in zip(*grads):
+        err = float((got - ref).abs().max())
+        assert err <= GROUPED_REL * float(ref.abs().max()), err
     with pytest.raises(ValueError, match="multiple of"):
         gg.grouped_matmul(x, w, be.repeat_interleave(2), s, bt=64)
     with pytest.raises(TypeError, match="no kernel"):
         gg.grouped_matmul(x, w.to(torch.int16), be, s)
+
+
+# The backward kernels: grouped_gemm_t and grouped_gemm_t4 split dy into
+# bf16 hi + lo as the forward splits x (GROUPED_REL; fp32 stacks FFMA,
+# FP32_REL); grouped_dw is FFMA over each expert's rows against the plain
+# version's cuBLAS fp32 product over them (FP32_REL). A planted fault reads
+# above its rule: block 0 reading the neighbouring expert's stack (dx), one
+# of an expert's blocks left out of its sum (dW).
+@pytest.mark.parametrize("shape", GROUPED_SHAPES)
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8", "int4"])
+def test_grouped_gemm_t_matches_plain_version(cuda, kind, shape):
+    from how_to_optimize_gemm_tpu_torch.ops import grouped_gemm as gg
+    _, w, be, _, packed4 = _grouped_case(kind, shape, 8, cuda)
+    dy = torch.randn((shape[3], shape[2]), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(9))
+    name = "grouped_gemm_t4" if packed4 else "grouped_gemm_t"
+    fn = gg.grouped_matmul_t4 if packed4 else gg.grouped_matmul_t
+    ref_fn = gg.grouped_matmul_t4_ref if packed4 else gg.grouped_matmul_t_ref
+    before = _build.LAUNCHES[name]
+    got = fn(dy, w, be)
+    assert _build.LAUNCHES[name] == before + 1
+    assert got.shape == (shape[3], shape[1])
+    ref = ref_fn(dy, w, be)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    tol = FP32_REL if kind == "fp32" else GROUPED_REL
+    assert float((got - ref).abs().max()) <= tol * scale
+    wrong = be.clone()
+    wrong[0] = (wrong[0] + 1) % w.shape[0]
+    bad = ref_fn(dy, w, wrong)
+    assert float((got - bad).abs().max()) > tol * scale
+
+
+@pytest.mark.parametrize("shape", GROUPED_SHAPES)
+def test_grouped_dw_matches_plain_version(cuda, shape):
+    from how_to_optimize_gemm_tpu_torch.ops import grouped_gemm as gg
+    x, w, be, _, _ = _grouped_case("fp32", shape, 10, cuda)
+    dy = torch.randn((shape[3], shape[2]), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(11))
+    before = _build.LAUNCHES["grouped_dw"]
+    got = gg.grouped_dw(x, dy, be, w.shape[0])
+    assert _build.LAUNCHES["grouped_dw"] == before + 1
+    ref = gg.grouped_dw_ref(x, dy, be, w.shape[0])
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= FP32_REL * scale
+    # the last expert owns no block: zeros; and one block left out of its
+    # expert's sum is refused by the same rule
+    assert not got[-1].any()
+    e0 = int(be[0])
+    bad = ref[e0] - gg.grouped_dw_ref(x[:128], dy[:128], be[:1],
+                                      w.shape[0])[e0]
+    assert float((got[e0] - bad).abs().max()) > FP32_REL * scale
+
+
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8", "int4"])
+def test_grouped_matmul_autograd_on_the_card_matches_the_plain_version(
+        cuda, kind):
+    """dx and dW (dense stacks) or dx and ds (int8, packed int4) through
+    the kernels against autograd through the plain version on the card;
+    each backward kernel launched once, the forward twice for a scaled
+    stack (its unscaled recompute); the integer stacks unchanged."""
+    from how_to_optimize_gemm_tpu_torch.ops import grouped_gemm as gg
+    x, w, be, s, packed4 = _grouped_case(kind, (4, 256, 384, 1024), 12,
+                                         cuda)
+    dy = torch.randn((x.shape[0], w.shape[2]), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(13))
+    frozen = w.clone()
+    t = "grouped_gemm_t4" if packed4 else "grouped_gemm_t"
+    want = {"grouped_gemm": 1 if s is None else 2, t: 1,
+            "grouped_dw": 1 if s is None else 0}
+    grads, launched = [], []
+    for fn in (gg.grouped_matmul, gg.grouped_matmul_ref):
+        xg = x.clone().requires_grad_()
+        pg = (w if s is None else s).clone().requires_grad_()
+        stack, scales = (pg, None) if s is None else (w, pg)
+        before = dict(_build.LAUNCHES)
+        fn(xg, stack, be, scales, packed4=packed4).backward(dy)
+        launched.append({k: _build.LAUNCHES[k] - before[k] for k in want})
+        grads.append((xg.grad, pg.grad))
+    # the plain version launches nothing
+    assert launched == [want, dict.fromkeys(want, 0)]
+    for got, ref in zip(*grads):
+        assert got.dtype == ref.dtype
+        # fp32 stacks FFMA; a bf16 stack's dW rounded to bf16 on both sides
+        # (one bf16 ulp, 2^-7 of max at most)
+        tol = (FP32_REL if kind == "fp32" else 2 ** -7
+               if got.dtype == torch.bfloat16 else GROUPED_REL)
+        err = float((got.float() - ref.float()).abs().max())
+        assert err <= tol * float(ref.float().abs().max()), err
+    assert torch.equal(w, frozen)
+
+
+@pytest.mark.parametrize("stacks", ["bf16", "int8"])
+def test_moe_training_on_the_card_resumes_bit_exactly(cuda, tmp_path,
+                                                      stacks):
+    """A small MoE model (bf16 linears; bf16 or int8 expert stacks) on the
+    ragged path at every step: 4 AdamW steps with a checkpoint at 2, then
+    resumed from it; the losses and the parameters equal the
+    uninterrupted run's, the int8 stacks are unchanged, and each step
+    launches the grouped GEMM's kernels three times a layer."""
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    from how_to_optimize_gemm_tpu_torch.parallel import moe, training
+    cfg = llama.LlamaConfig(vocab=128, d_model=128, n_layers=2, n_heads=2,
+                            n_kv_heads=1, d_ff=256, max_seq=64,
+                            weight_kind="bf16", n_experts=4, moe_ragged=True,
+                            moe_ragged_min_tokens=0)
+    rng = np.random.default_rng(14)
+    batches = [torch.from_numpy(rng.integers(0, 128, (2, 41))).to(cuda)
+               for _ in range(4)]
+
+    def run(resume=None):
+        params = llama.init_params(torch.Generator(cuda).manual_seed(0),
+                                   cfg, cuda)
+        if stacks == "int8":
+            for layer in params["layers"]:
+                layer["moe"] = moe.quantize_moe(layer["moe"], 8)
+        opt = training.make_optimizer(1e-3)
+        state = training.init_train_state(params, opt)
+        if resume:
+            state = training.checkpoint.load_train_state(resume, state)
+        step = training.make_train_step(cfg, opt)
+        losses = []
+        for i in range(state.step, 4):
+            state, loss = step(state, batches[i])
+            losses.append(float(loss))
+            if i == 1 and resume is None:
+                training.checkpoint.save_train_state(tmp_path / "s2", state)
+        return state, losses
+
+    names = ("grouped_gemm", "grouped_gemm_t", "grouped_dw")
+    before = {k: _build.LAUNCHES[k] for k in names}
+    state, losses = run()
+    per_step = {"grouped_gemm": 3 if stacks == "bf16" else 6,
+                "grouped_gemm_t": 3,
+                "grouped_dw": 3 if stacks == "bf16" else 0}
+    assert {k: _build.LAUNCHES[k] - before[k] for k in names} == {
+        k: 4 * cfg.n_layers * n for k, n in per_step.items()}
+    state2, losses2 = run(tmp_path / "s2")
+    assert losses2 == losses[2:] and all(np.isfinite(losses))
+    for a, b in zip(training._leaves(state.params),
+                    training._leaves(state2.params)):
+        assert torch.equal(a, b)
+    if stacks == "int8":
+        fresh = moe.quantize_moe(llama.init_params(
+            torch.Generator(cuda).manual_seed(0), cfg, cuda)["layers"][0][
+                "moe"], 8)
+        assert torch.equal(fresh["w_in_q"],
+                           state.params["layers"][0]["moe"]["w_in_q"])
 
 
 @pytest.mark.parametrize("kind", ["int8", "w4a8"])

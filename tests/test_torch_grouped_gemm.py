@@ -104,7 +104,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
                           packed4=True)
     with pytest.raises(ValueError, match="scales"):
         gg.grouped_matmul(x, w, be, torch.ones((2, 1, 3)), bt=BT)
-    with pytest.raises(RuntimeError, match="no backward"):
-        gg.grouped_matmul(x.requires_grad_(), w, be, bt=BT)
+    # it has a backward: dx = dy @ w[e]^T per block, 4 ones a row here
+    y = gg.grouped_matmul(x.requires_grad_(), torch.ones_like(w), be, bt=BT)
+    y.sum().backward()
+    assert torch.equal(x.grad, torch.full((16, 8), 4.0))
     with torch.no_grad():
         assert gg.grouped_matmul(x, w, be, bt=BT).shape == (16, 4)

@@ -108,7 +108,8 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
         "bf16_gemm_nn", "fp32_gemm_nt", "fp32_gemm_nn", "w4a16_gemm",
         "naive_gemm", "fp32_gemm_mn_tile", "fp32_gemm_k_blocked",
         "flash_attention_fwd_lse", "flash_attention_bwd_dq",
-        "flash_attention_bwd_dkv", "grouped_gemm"}
+        "flash_attention_bwd_dkv", "grouped_gemm", "grouped_gemm_t",
+        "grouped_gemm_t4", "grouped_dw"}
     for name, kernel in _build.KERNELS.items():
         assert (_build.CSRC / kernel.source).exists(), name
         assert kernel.argtypes[-1] is ctypes.c_void_p, name

@@ -28,6 +28,7 @@ from how_to_optimize_gemm_tpu.models import linear as jlinear
 from how_to_optimize_gemm_tpu.models import llama as jllama
 from how_to_optimize_gemm_tpu_torch import convert
 from how_to_optimize_gemm_tpu_torch.models import linear, llama
+from how_to_optimize_gemm_tpu_torch.parallel import moe
 
 torch.set_num_threads(1)
 
@@ -180,10 +181,11 @@ def test_unported_parts_raise(model, what):
     _, _, cfg, params = model
     tokens = torch.zeros((1, 1), dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "moe":       # MoE serves; training it is not ported
-            mcfg = dataclasses.replace(cfg, n_experts=4)
-            llama.loss_fn(llama.init_params(torch.Generator(), mcfg, "cpu"),
-                          mcfg, torch.zeros((1, 2), dtype=torch.int64))
+        if what == "moe":       # MoE serves and trains; over a mesh it
+            mcfg = dataclasses.replace(cfg, n_experts=4)   # is not ported
+            layer = llama.init_params(torch.Generator(), mcfg,
+                                      "cpu")["layers"][0]["moe"]
+            moe.moe_ffn(layer, torch.zeros((2, cfg.d_model)), mesh=object())
         else:
             cache = llama.init_kv_cache(cfg, 1, device="cpu")
             llama.decode_step(params, cfg, cache, tokens, 0, lora={})

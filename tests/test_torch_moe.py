@@ -407,14 +407,6 @@ def test_init_params_draws_moe_stacks_in_the_weight_kind():
         assert m["router"].shape == (cfg.d_model, E)
 
 
-@pytest.mark.parametrize("train", ["loss_fn", "sgd_train_step"])
-def test_moe_training_is_not_ported(mixtral, train):
-    _, _, cfg, params = mixtral
-    tokens = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        getattr(llama, train)(params, cfg, tokens)
-
-
 # ------------------------------------------------------------------ CLIs
 
 def test_serving_cli_serves_moe_on_the_cpu(capsys):
@@ -437,5 +429,7 @@ def test_moe_bench_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     for label in ("grouped_matmul", "ragged", "dispatch", "dense"):
         assert label in out
-    with pytest.raises(NotImplementedError, match="MoE training"):
-        moe_bench.main(["train", "--device", "cpu"])
+    r = moe_bench.main(["train", "--device", "cpu", "--t", "64", "--d", "32",
+                        "--f", "48", "--e", "4", "--repeats", "1"])
+    assert r["custom"]["train int8"]["stacks_unchanged"]
+    assert "trainable leaves" in capsys.readouterr().out
