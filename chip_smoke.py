@@ -11,7 +11,24 @@ Phases (any failure raises and exits non-zero before the last line):
 2. build every kernel under ``how_to_optimize_gemm_tpu_torch/csrc`` with
    nvcc (one process per source, all started together), with ptxas's
    register and spill counts;
-3. each ladder kernel against its plain PyTorch version on the card, at
+3. the tooling path, with every launch count set to 0 just before it:
+   ``probes.main()`` (every hardware probe on its kernel, each reading
+   printed beside its ceiling, the H100 SXM data sheet's or, for the SFU
+   and shared memory, NVIDIA's per-SM rate x SMs x the maximum SM clock;
+   above 105% of it a reading raises), ``dispatch_probe.main(fast=True)``
+   (eager and CUDA-graph cost of one op per kind, the async rows) and
+   ``ab.main`` on rung 15 against 01b at p = 2,048 and 4,096, 5 rounds
+   (artifact in a temporary directory); every probe kernel must have been
+   launched. Then each probe kernel against its plain version at the
+   probe's default tiles and sizes (iterations cut, ``CHECK_ITERS``) and
+   at a small shape: EQUAL for the int8 chains, the copies, the checksum,
+   the VMEM copy, the latency sums and ``add_one``, within stated bounds
+   for the bf16, 3xTF32, FFMA and exp chains (``check_tooling``); the
+   multi-stage copy's rule must refuse a copy with one chunk left out;
+   each timed beside its plain version, its bound and the library call
+   (the vendor stream's pass for the two copies, ``x + 1`` for
+   ``add_one``);
+4. each ladder kernel against its plain PyTorch version on the card, at
    M=N=K=4096 and at an unaligned shape: the int8 kernels' outputs must
    be EQUAL, the bf16 and W4A16 kernels' within W4A16_REL and the FFMA
    kernels' (rungs 16, 04, 03/03b, 02 and the naive rung 00) within
@@ -24,7 +41,7 @@ Phases (any failure raises and exits non-zero before the last line):
    the kernel's type (int8; bf16 for bf16 and W4A16; for fp32 the fastest
    route that meets gate 1e-4, 3xTF32 at a third of the TF32 peak, with
    the FFMA ceiling printed beside it);
-4. each serving kernel against its plain version at the Llama-2-7B
+5. each serving kernel against its plain version at the Llama-2-7B
    shapes the serve paths give it (``kv_update`` and ``paged_kv_update``
    on each row kind: bf16 values, int8 values and fp32 scales; the paged
    attention kernels over a shuffled block table, pages of 128 (bf16) and
@@ -62,7 +79,7 @@ Phases (any failure raises and exits non-zero before the last line):
    stack and dW with one of an expert's blocks left out; timed at the
    Mixtral shapes beside the plain versions, the bounds and
    ``torch._grouped_mm`` (bf16 instances);
-5. the ladder's main path, with every launch count set to 0 just before
+6. the ladder's main path, with every launch count set to 0 just before
    it: the sweep driver on rungs 06v, 06, 14, 07b, 01, 01b, 04, 05, 07,
    15, 16, 00, 02, 03 and 03b at p = 1024 (fp64 host oracle), 2048 and
    4096 (fp64 device check), writing ``.m`` files to a temporary
@@ -72,7 +89,7 @@ Phases (any failure raises and exits non-zero before the last line):
    --roofline --trace`` at p = 2048, whose per-kernel device profile of
    each rung must name that rung's hand kernel and no other. Every ladder
    kernel must have been launched;
-6. the serving paths, each with every launch count set to 0 just before
+7. the serving paths, each with every launch count set to 0 just before
    it and read just after: ``ServingEngine`` on Llama-2-7B (32 layers,
    random weights from seed 0) with W4A8 weights and a bf16 cache
    (S-w4a8), int8 weights (S-int8, the serving CLI's default), int4
@@ -99,7 +116,7 @@ Phases (any failure raises and exits non-zero before the last line):
    3 times a layer in it (96), and the attention path's kernels; TTFT,
    decode tokens/s, one decode step's time and peak memory printed.
    Each model is freed before the next one loads;
-7. parity at full width: the same engine at Llama-2-7B width with 2
+8. parity at full width: the same engine at Llama-2-7B width with 2
    layers, on the same weights and 2 prompts (100 and 128 tokens, so the
    admission prefill runs at m = 2 x 128 = 256 and takes the prefill
    kernels), teacher-forced on the card and on the CPU, both on the
@@ -126,7 +143,7 @@ Phases (any failure raises and exits non-zero before the last line):
    to bf16) are printed beside the "w4a8" row only. The CPU sides of a
    row convert each weight once (``cached_weights``), and each row prints
    its card and CPU seconds;
-8. (run beside the checks of phases 3 and 4) the training attention's
+9. (run beside the checks of phases 4 and 5) the training attention's
    three kernels (``flash_attention_fwd_lse``, ``flash_attention_bwd_dq``,
    ``flash_attention_bwd_dkv``) against their plain versions at the soak's
    shape (B 8, H 32, KVH 4, S = 1,024, D 64, causal), at D 128 with rep 1
@@ -136,7 +153,7 @@ Phases (any failure raises and exits non-zero before the last line):
    tile skipped, a query head dropped from the dK/dV sum); timed as
    CUDA-graph replays beside the plain versions, the bounds and SDPA (its
    forward; its whole backward on the dK/dV row);
-9. the training path, ``training.soak_main`` on the TinyLlama-1.1B-shaped
+10. the training path, ``training.soak_main`` on the TinyLlama-1.1B-shaped
    soak model at full width and depth (22 layers) with --flash-train
    --seq 1025 --batch 8, each run with every launch count set to 0 just
    before it: 8 steps with a checkpoint at step 4 (in a temporary
@@ -145,13 +162,13 @@ Phases (any failure raises and exits non-zero before the last line):
    torch.profiler), and 2 steps with --remat; every loss finite,
    each training kernel launched 22 times a step (the forward 44 under
    remat); tokens/s, MFU, step time, peak memory and losses printed;
-10. training parity: two AdamW steps of the soak's model at full width
+11. training parity: two AdamW steps of the soak's model at full width
    with 2 layers (bf16 linears, batch 2 x 513 tokens, so s = 512 takes the
    flash kernels) on the card and on the CPU (their plain versions) from
    the same weights and batches: the losses and the weights after step 2
    within 3x what a 1e-6 relative perturbation of the embedding does on
    the CPU;
-11. T-moe, MoE training at Mixtral-8x7B's width: ``mixtral_8x7b("bf16")``
+12. T-moe, MoE training at Mixtral-8x7B's width: ``mixtral_8x7b("bf16")``
    with 2 layers (dense bf16 stacks, moe_ragged) through
    ``training.make_train_step(flash_train=True)``, AdamW, batch 2 x 1,025
    (4,096 routed copies: the ragged path), with every launch count set to
@@ -162,18 +179,18 @@ Phases (any failure raises and exits non-zero before the last line):
    ``grouped_gemm_t`` and ``grouped_dw`` 3 times a layer a step and the
    training attention's kernels once; step ms, tokens/s, peak GB and the
    profiled step's kernels printed;
-12. QLoRA: ``moe_bench train`` at Mixtral's expert shape (T 4,096) on int8
+13. QLoRA: ``moe_bench train`` at Mixtral's expert shape (T 4,096) on int8
    and packed int4 stacks, each with the counts set to 0 just before it:
    the stacks unchanged, nonzero gradients for the router and the scales,
    the gradient step's ``grouped_gemm`` (forward and unscaled recompute)
    and ``grouped_gemm_t`` or ``grouped_gemm_t4`` launches;
-13. MoE training parity: two AdamW steps at Mixtral's width with 1 layer
+14. MoE training parity: two AdamW steps at Mixtral's width with 1 layer
    (batch 1 x 1,025: 2,048 routed copies) on the card and on the CPU from
    the same weights, for dense bf16 stacks and for int8 stacks under bf16
-   linears, under phase 10's rule; a token some side routes otherwise must
+   linears, under phase 11's rule; a token some side routes otherwise must
    be a near-tie on the CPU side and is left out of that step's loss on
    every side (``train_moe_parity``);
-14. one ``{"kernels": [...]}`` line (30 kernels), the card's line again,
+15. one ``{"kernels": [...]}`` line (40 kernels), the card's line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds, and the run its total.
@@ -188,7 +205,6 @@ import dataclasses
 import json
 import math
 import pathlib
-import subprocess
 import sys
 import tempfile
 import time
@@ -197,7 +213,7 @@ import numpy as np
 import torch
 
 from how_to_optimize_gemm_tpu_torch import _build, bench, convert
-from how_to_optimize_gemm_tpu_torch.harness import driver, mfile
+from how_to_optimize_gemm_tpu_torch.harness import ab, driver, mfile
 from how_to_optimize_gemm_tpu_torch.harness.driver import run_sweep
 from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
 # H100 SXM data sheet: dense int8 and bf16 tensor-core peaks, HBM3
@@ -209,12 +225,14 @@ from how_to_optimize_gemm_tpu_torch.harness.profiling import (
     PEAK_INT8_OPS)
 from how_to_optimize_gemm_tpu_torch.models import checkpoint, llama
 from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
+                                               dispatch_probe, probes,
                                                grouped_gemm, int4, int8,
                                                k_blocked, quant,
                                                kv_update, mn_tile, naive,
                                                paged_attention, registry,
                                                tuned, vendor)
 from how_to_optimize_gemm_tpu_torch.parallel import moe, serving, training
+from how_to_optimize_gemm_tpu_torch.utils.device import card_line
 from how_to_optimize_gemm_tpu_torch.utils.matrices import make_abc
 from how_to_optimize_gemm_tpu_torch.utils.timing import (time_calls,
                                                          time_chained)
@@ -326,13 +344,6 @@ KERNELS = [
          plain=k_blocked.k_blocked_ref, library=vendor.mmult,
          unaligned=(999, 1030, 1101), tol=FP32_REL, peak="fp32"),
 ]
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader", "-i", "0"],
-        capture_output=True, text=True, check=True).stdout.strip()
 
 
 def bound(ops, m: int, n: int, k: int, peak: float = PEAK_INT8_OPS):
@@ -2188,6 +2199,8 @@ def train_moe_path(tmp: pathlib.Path) -> dict:
         losses, step_s = [], []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        print(f"T-moe: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+              "allocated before the steps")
         _build.reset_launches()
         for i in range(state.step, TMOE_STEPS):
             t0 = time.perf_counter()
@@ -2467,6 +2480,368 @@ def train_moe_parity(gen: torch.Generator) -> None:
               + ")")
 
 
+# ------------------------------------------------- the tooling path (B21, B22)
+PROBE_SRC = {"compute": SRC + "probes_compute.cu",
+             "memory": SRC + "probes_memory.cu"}
+REF_PROBES = "how_to_optimize_gemm_tpu/ops/probes.py"
+TOOL_KERNELS = [
+    dict(name="mma_chain", source=PROBE_SRC["compute"],
+         replaces=REF_PROBES + ":34",
+         function="probes._mxu_kernel (_mxu_probe :55, mxu_peak_gflops :64)"),
+    dict(name="mma_throughput", source=PROBE_SRC["compute"],
+         replaces=REF_PROBES + ":83",
+         function="probes._mxu_throughput_kernel (mxu_throughput_gflops "
+                  ":122, mxu_depth_gflops :161)"),
+    dict(name="exp_chain", source=PROBE_SRC["compute"],
+         replaces=REF_PROBES + ":174",
+         function="probes._vpu_exp_kernel (vpu_exp_gelems :206)"),
+    dict(name="ffma_chain", source=PROBE_SRC["compute"],
+         replaces=REF_PROBES + ":281",
+         function="probes._vpu_kernel (vpu_peak_gflops :310)"),
+    dict(name="copy_grid", source=PROBE_SRC["memory"],
+         replaces=REF_PROBES + ":218",
+         function="probes._copy_kernel (_hbm_copy_once :224, "
+                  "hbm_bandwidth_gbps :244)"),
+    dict(name="tile_read", source=PROBE_SRC["memory"],
+         replaces=REF_PROBES + ":322",
+         function="probes._chunk_kernel (dma_chunk_bandwidth_gbps :393)"),
+    dict(name="smem_copy", source=PROBE_SRC["memory"],
+         replaces=REF_PROBES + ":407",
+         function="probes._vmem_copy_kernel (vmem_bandwidth_gbps :431)"),
+    dict(name="load_latency", source=PROBE_SRC["memory"],
+         replaces=REF_PROBES + ":444",
+         function="probes._dma_latency_kernel (dma_latency_ns :482)"),
+    dict(name="pipelined_copy", source=PROBE_SRC["memory"],
+         replaces=REF_PROBES + ":498",
+         function="probes._manual_copy_kernel (hbm_copy_manual_gbps :562)"),
+    dict(name="add_one", source=SRC + "dispatch_probe.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/dispatch_probe.py:55",
+         function="dispatch_probe._copy_kernel (_custom_op :60, chained by "
+                  "_make_chain :69)"),
+]
+# A.2's question on the card: the bf16 summit against cuBLAS
+AB_ARGS = ["--a", "15_packed_alias_bf16", "--b", "01b_xla_bf16", "--p",
+           "2048", "4096", "--rounds", "5"]
+# The checks' iteration counts: the default tiles and sizes of each probe,
+# with the iterations cut so that its plain version (a Python loop of
+# PyTorch ops a step) ends within tens of milliseconds.
+CHECK_ITERS = {"mma_chain": 4, "mma_throughput": 16, "exp_chain": 256,
+               "ffma_chain": 32, "smem_copy": 64, "load_latency": 4096}
+
+
+def tooling_path(tmp: pathlib.Path) -> dict:
+    """The three tooling entry points as a user runs them, with every
+    launch count set to 0 just before: ``probes.main()`` (every reading
+    at most 105% of its ceiling, else it raises), ``dispatch_probe.main(
+    fast=True)`` (eager and graph costs per op kind) and ``ab.main`` on
+    rung 15 against 01b at p = 2,048 and 4,096, 5 rounds, its artifact in
+    ``tmp``. Returns the launches of the ten probe kernels."""
+    _build.reset_launches()
+    rows = probes.main()
+    dispatch = dispatch_probe.main(fast=True)
+    for (kind, column), (_, slope, icept) in dispatch["chains"].items():
+        if not (math.isfinite(slope) and math.isfinite(icept)):
+            raise AssertionError(f"dispatch probe {kind} {column}: slope "
+                                 f"{slope}, intercept {icept}")
+    results = ab.main(AB_ARGS + ["--artifact-dir", str(tmp)])
+    artifact = json.loads((tmp / "ab_15_packed_alias_bf16_vs_01b_xla_bf16"
+                           ".json").read_text())
+    for r in results:
+        if r.wins_a + r.wins_b + r.ties != r.rounds:
+            raise AssertionError(f"ab p={r.p}: {r}")
+    torch.cuda.synchronize()
+    launches = {s["name"]: _build.LAUNCHES[s["name"]] for s in TOOL_KERNELS}
+    print(json.dumps({"tooling": {
+        "probes": {r["name"]: [r["value"], r["unit"], r["share"]]
+                   for r in rows},
+        "dispatch_us_per_op": {f"{k} {c}": v[1]
+                               for (k, c), v in dispatch["chains"].items()},
+        "ab_w_t_l": {r.p: [r.wins_a, r.ties, r.wins_b] for r in results},
+        "ab_medians": {r.p: [r.a_median, r.b_median] for r in results},
+        "ab_sessions": len(artifact["sessions"]),
+        "launches": launches}}))
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"the tooling path never launched {missing}")
+    return launches
+
+
+def _tool_timed(name: str, shape: str, kernel, plain, library, b_ms,
+                b_by, err: float, graph: bool = False) -> dict:
+    """The kernel and the library call timed as CUDA-event windows of
+    back-to-back calls (as CUDA-graph replays where ``graph``: add_one,
+    whose launch outlasts its work), the plain version from Python."""
+    r = dict(max_abs_err=err,
+             ms=time_calls(kernel, inner_iters=5, graph=graph) * 1e3,
+             plain_ms=time_calls(plain, inner_iters=2, outer_repeats=2,
+                                 warmup=1) * 1e3,
+             library_ms=(None if library is None else time_calls(
+                 library, inner_iters=5, graph=graph) * 1e3),
+             bound_ms=b_ms, bound_by=b_by)
+    lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+    bnd = "null" if b_ms is None else f"{b_ms:.4f} by {b_by}"
+    print(f"{name} {shape}: max|kernel - plain| = {err}; {r['ms']:.4f} ms "
+          f"(plain {r['plain_ms']:.4f}, library {lib}, bound {bnd})")
+    return r
+
+
+def _within(name: str, shape: str, out, ref, tol) -> float:
+    """max |out - ref|, which must be within ``tol`` (a tensor of
+    per-element bounds or a number)."""
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    if not bool((diff <= tol).all()):
+        raise AssertionError(f"{name} {shape}: beyond its bound by "
+                             f"{float((diff - tol).max())}")
+    return float(diff.max())
+
+
+def check_tooling(gen: torch.Generator) -> dict:
+    """Each probe kernel against its plain version at the probe's default
+    tiles and sizes (iterations cut to CHECK_ITERS) and at a small shape,
+    under the rules of tests/test_torch_cuda.py's probe tests: EQUAL for
+    the int8 chains, the copies, the checksum, the VMEM copy, the latency
+    sums and add_one; bf16 chain n x 2^-8 of max |plain|; 3xTF32 chain n x
+    (S x 2^-24 + 2^-20) and bf16 throughput n x K x 2^-24 of the largest
+    sum of |terms|; exp (n + 4) x 2^-23 and FFMA one ulp a step of |plain|.
+    The multi-stage copy's rule must refuse a copy with one chunk left
+    out. Each kernel timed on its check inputs beside its plain version,
+    its bound (data sheet; shared memory at the derived rate; none for
+    the latency) and the library call where one PyTorch call computes the
+    same function."""
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = probes.TILES_PER_SM * sms
+    derived = probes.derived_ceilings(dev)
+    out = {}
+
+    # mma_chain: every type at (tiles, 128, 128), and (3, 64, 64) once
+    n = CHECK_ITERS["mma_chain"]
+    errs = []
+    for dtype in ("int8", "bf16", "fp32"):
+        for size, t, iters in ((128, tiles, n), (64, 3, 1)):
+            x, y = probes.chain_inputs(dtype, size, t, dev)
+            if dtype == "int8":   # random bytes: the casts wrap
+                x = torch.randint(-128, 128, x.shape, generator=gen,
+                                  device=dev, dtype=torch.int8)
+                y = torch.randint(-128, 128, y.shape, generator=gen,
+                                  device=dev, dtype=torch.int8)
+            else:   # a random y: every column of every step differs
+                y = (torch.rand(y.shape, generator=gen, device=dev) * 2
+                     - 1).to(y.dtype)
+            got = probes.mxu_chain(x, y, iters)
+            ref = probes.mxu_chain_ref(x, y, iters)
+            shape = f"{dtype} {t}x{size}x{size} n={iters}"
+            if dtype == "int8":
+                errs.append(_equal("mma_chain", shape, got, ref))
+            elif dtype == "bf16":
+                errs.append(_within("mma_chain", shape, got, ref, iters
+                                    * 2.0 ** -8 * float(ref.abs().max())))
+            else:
+                bound = float((x.abs() @ ref.abs()).max())
+                errs.append(_within("mma_chain", shape, got, ref, iters * (
+                    size * 2.0 ** -24 + 2.0 ** -20) * bound))
+    x, y = probes.chain_inputs("bf16", 128, tiles, dev)
+    flops = 2.0 * 128 ** 3 * tiles * n
+    out["mma_chain"] = _tool_timed(
+        "mma_chain", f"bf16 {tiles}x128x128 n={n}",
+        lambda: probes.mxu_chain(x, y, n),
+        lambda: probes.mxu_chain_ref(x, y, n), None,
+        *bound_ms(nbytes(x, y) + 4 * x.numel(), flops, PEAK_BF16_FLOPS),
+        max(errs))
+
+    # mma_throughput: int8 (64 x 256) and bf16 at depth 64, default tiles;
+    # a small (2, 64, 128) once
+    n = CHECK_ITERS["mma_throughput"]
+    errs = []
+    for dtype, k, t, iters in (("int8", 256, tiles, n),
+                               ("bf16", 64, tiles, n), ("int8", 128, 2, 3),
+                               ("bf16", 512, 2, 3)):
+        if dtype == "int8":
+            xt = torch.randint(-128, 128, (t, 64, k), generator=gen,
+                               device=dev, dtype=torch.int8)
+            yt = torch.randint(-128, 128, (t, k, 64), generator=gen,
+                               device=dev, dtype=torch.int8)
+        else:
+            xt = (torch.rand((t, 64, k), generator=gen, device=dev) * 2
+                  - 1).to(torch.bfloat16)
+            yt = (torch.rand((t, k, 64), generator=gen, device=dev) * 2
+                  - 1).to(torch.bfloat16)
+        got = probes.mxu_throughput(xt, yt, iters)
+        ref = probes.mxu_throughput_ref(xt, yt, iters)
+        shape = f"{dtype} {t}x64x{k} n={iters}"
+        if dtype == "int8":
+            errs.append(_equal("mma_throughput", shape, got, ref))
+            if t == tiles:
+                xi, yi = xt, yt
+        else:
+            bound = float((xt.float().abs() @ yt.float().abs()).max())
+            errs.append(_within("mma_throughput", shape, got, ref,
+                                iters * k * 2.0 ** -24 * bound))
+    flops = 2.0 * 64 * 64 * 256 * tiles * n
+    out["mma_throughput"] = _tool_timed(
+        "mma_throughput", f"int8 {tiles}x64x256 n={n}",
+        lambda: probes.mxu_throughput(xi, yi, n),
+        lambda: probes.mxu_throughput_ref(xi, yi, n), None,
+        *bound_ms(nbytes(xi, yi) + 4 * 64 * 64 * tiles, flops,
+                  PEAK_INT8_OPS), max(errs))
+
+    # exp_chain and ffma_chain: the readings' default tiles, and a ragged one
+    n = CHECK_ITERS["exp_chain"]
+    errs = []
+    for shape in ((8 * sms, 1024), (5, 1000)):
+        xe = torch.rand(shape, generator=gen, device=dev) * 3 - 2
+        got, ref = probes.vpu_exp(xe, n), probes.vpu_exp_ref(xe, n)
+        errs.append(_within("exp_chain", f"{shape} n={n}", got, ref,
+                            (n + 4) * 2.0 ** -23 * ref.abs()))
+    xe = torch.full((8 * sms, 1024), -0.5, device=dev)
+    sfu = derived["sfu"] * 1e9 if derived["sfu"] else None
+    t_sfu = xe.numel() * n / sfu if sfu else 0.0
+    # 5 fp32 operations a term around the SFU's exp: the larger bound
+    b_ms, b_by = bound_ms(2 * nbytes(xe), 5.0 * xe.numel() * n,
+                          PEAK_FFMA_FLOPS)
+    if 1e3 * t_sfu > b_ms:
+        b_ms, b_by = 1e3 * t_sfu, "operations"
+    out["exp_chain"] = _tool_timed(
+        "exp_chain", f"{tuple(xe.shape)} n={n}",
+        lambda: probes.vpu_exp(xe, n), lambda: probes.vpu_exp_ref(xe, n),
+        None, b_ms, b_by, max(errs))
+
+    n = CHECK_ITERS["ffma_chain"]
+    errs = []
+    for shape in ((16 * sms, 512), (7, 500)):
+        xf = torch.rand(shape, generator=gen, device=dev) * 2 - 1
+        for dep in (True, False):
+            got = probes.vpu_fma(xf, n, dep)
+            ref = probes.vpu_fma_ref(xf, n, dep)
+            steps = n * (8 if dep else 1) + 3
+            errs.append(_within("ffma_chain", f"{shape} n={n} dep={dep}",
+                                got, ref, steps * 2.0 ** -23 * torch.maximum(
+                                    ref.abs(), xf.abs())))
+    xf = torch.full((16 * sms, 512), 1e-6, device=dev)
+    out["ffma_chain"] = _tool_timed(
+        "ffma_chain", f"{tuple(xf.shape)} n={n} independent",
+        lambda: probes.vpu_fma(xf, n, False),
+        lambda: probes.vpu_fma_ref(xf, n, False), None,
+        *bound_ms(2 * nbytes(xf), 2.0 * 4 * xf.numel() * n,
+                  PEAK_FFMA_FLOPS), max(errs))
+
+    # copy_grid and pipelined_copy: the readings' 1 GiB, one copy; the
+    # vendor stream's one pass (y * 1.000001) beside them
+    big = torch.randn((131072, 2048), generator=gen, device=dev)
+    dst = torch.empty_like(big)
+    small = torch.randn((1000, 36), generator=gen, device=dev)
+    err = max(_equal("copy_grid", "(1000, 36)", probes.hbm_copy(small),
+                     probes.hbm_copy_ref(small)),
+              _equal("copy_grid", "(131072, 2048)",
+                     probes.hbm_copy(big, dst), big))
+    stream = torch.empty_like(big)
+    library = lambda: torch.mul(big, 1.000001, out=stream)   # noqa: E731
+    out["copy_grid"] = _tool_timed(
+        "copy_grid", "(131072, 2048) fp32",
+        lambda: probes.hbm_copy(big, dst),
+        lambda: probes.hbm_copy_ref(big, dst), library,
+        *bound_ms(2 * nbytes(big), 0.0, PEAK_FFMA_FLOPS), err)
+
+    errs = []
+    for src, rows, nslots in ((big, 2, 4), (small[:999].reshape(-1, 36 * 3)
+                                            .contiguous(), 3, 3)):
+        dst2 = torch.zeros_like(src)
+        got, cnt = probes.manual_copy(src, rows, nslots, 1, dst2)
+        ref, ref_cnt = probes.manual_copy_ref(src, rows, nslots, 1)
+        shape = f"{tuple(src.shape)} rows={rows} slots={nslots}"
+        errs.append(_equal("pipelined_copy", shape, got, ref))
+        _equal("pipelined_copy", shape + " count", cnt, ref_cnt)
+        skipped = ref.clone()
+        skipped[rows:2 * rows] = 0          # one chunk left out
+        if torch.equal(skipped, src):
+            raise AssertionError("pipelined_copy: the rule passed a copy "
+                                 "with one chunk left out")
+    out["pipelined_copy"] = _tool_timed(
+        "pipelined_copy", "(131072, 2048) fp32 rows=2 slots=4",
+        lambda: probes.manual_copy(big, 2, 4, 1, dst),
+        lambda: probes.manual_copy_ref(big, 2, 4, 1, dst), library,
+        *bound_ms(2 * nbytes(big), 0.0, PEAK_FFMA_FLOPS), max(errs))
+    del big, dst, stream
+
+    # tile_read: the readings' 65,536^2 parent, both chunk shapes, one rep
+    parent = torch.randint(-128, 128, (65536, 65536), generator=gen,
+                           device=dev, dtype=torch.int8)
+    little = parent[:1024, :1024].contiguous()
+    errs = []
+    for x, rows, cols, reps in ((parent, 1024, 2048, 1),
+                                (parent, 2048, 1024, 1),
+                                (little, 256, 512, 2)):
+        errs.append(_equal("tile_read", f"{x.shape[0]}^2 ({rows}, {cols})",
+                           probes.dma_chunk_checksum(x, rows, cols, reps),
+                           probes.dma_chunk_checksum_ref(x, rows, cols,
+                                                         reps)))
+    out["tile_read"] = _tool_timed(
+        "tile_read", "65536^2 int8, (1024, 2048) chunks, 1 rep",
+        lambda: probes.dma_chunk_checksum(parent, 1024, 2048, 1),
+        lambda: probes.dma_chunk_checksum_ref(parent, 1024, 2048, 1), None,
+        *bound_ms(nbytes(parent) + 4, 0.0, PEAK_FFMA_FLOPS), max(errs))
+    del parent
+
+    # smem_copy: the reading's 4 slabs an SM, and one slab
+    n = CHECK_ITERS["smem_copy"]
+    errs = []
+    for rows in (4 * probes.SLAB * sms // 2048, probes.SLAB // 2048):
+        xv = torch.randint(-128, 128, (rows, 2048), generator=gen,
+                           device=dev, dtype=torch.int8)
+        errs.append(_equal("smem_copy", f"({rows}, 2048) n={n}",
+                           probes.vmem_copy(xv, n),
+                           probes.vmem_copy_ref(xv, n)))
+    xv = torch.ones((4 * probes.SLAB * sms // 2048, 2048), device=dev,
+                    dtype=torch.int8)
+    b_ms, b_by = bound_ms(2 * nbytes(xv), 0.0, PEAK_FFMA_FLOPS)
+    if derived["smem"]:   # shared memory's traffic at the derived rate
+        b_ms = max(b_ms, 1e3 * 4.0 * nbytes(xv) * n
+                   / (derived["smem"] * 1e9))
+    out["smem_copy"] = _tool_timed(
+        "smem_copy", f"{tuple(xv.shape)} n={n}",
+        lambda: probes.vmem_copy(xv, n),
+        lambda: probes.vmem_copy_ref(xv, n),
+        lambda: torch.bitwise_xor(xv, probes._t8(n - 1)), b_ms, "bytes",
+        max(errs))
+
+    # load_latency: the reading's 2^20 sources of 32 x 128, and 3 of
+    # 8 x 2,048; both loops
+    n = CHECK_ITERS["load_latency"]
+    errs = []
+    for rows, cols, nsrc in ((32, 128, 1 << 20), (8, 2048, 3)):
+        xl = torch.randint(-128, 128, (rows * nsrc, cols), generator=gen,
+                           device=dev, dtype=torch.int8)
+        for load in (True, False):
+            errs.append(_equal(
+                "load_latency", f"{rows}x{cols} nsrc={nsrc} load={load}",
+                probes.dma_latency_sum(xl, rows, n, load),
+                probes.dma_latency_sum_ref(xl, rows, n, load)))
+    xl = torch.ones((32 << 20, 128), device=dev, dtype=torch.int8)
+    out["load_latency"] = _tool_timed(
+        "load_latency", f"32x128 nsrc=2^20 n={n}",
+        lambda: probes.dma_latency_sum(xl, 32, n),
+        lambda: probes.dma_latency_sum_ref(xl, 32, n), None, None, None,
+        max(errs))
+
+    # add_one: the dispatch probe's (8, 256) tile and a ragged one
+    err = 0.0
+    for shape in ((8, 256), (3, 1001)):
+        xa = (torch.rand(shape, generator=gen, device=dev) * 600
+              - 300).to(torch.bfloat16)
+        err = max(err, _equal("add_one", str(shape),
+                              dispatch_probe.add_one(xa),
+                              dispatch_probe.add_one_ref(xa)))
+    xa = torch.ones((8, dispatch_probe.D), device=dev, dtype=torch.bfloat16)
+    out["add_one"] = _tool_timed(
+        "add_one", "(8, 256) bf16", lambda: dispatch_probe.add_one(xa),
+        lambda: dispatch_probe.add_one_ref(xa), lambda: torch.add(xa, 1),
+        *bound_ms(2 * nbytes(xa), xa.numel(), PEAK_FFMA_FLOPS), err,
+        graph=True)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2490,8 +2865,15 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    # the tooling path: the probes, the dispatch probe and the A/B protocol
+    # as a user runs them, then each probe kernel against its plain version
     t0 = time.perf_counter()
-    checks = {spec["name"]: check_kernel(spec, gen) for spec in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        tool_launches = tooling_path(pathlib.Path(tmp))
+    checks = check_tooling(gen)
+    print(f"tooling: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    checks.update({spec["name"]: check_kernel(spec, gen) for spec in KERNELS})
     print(f"ladder kernels: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for spec in SERVE_KERNELS:
@@ -2572,8 +2954,9 @@ def main() -> int:
     print(f"chip_smoke: {time.perf_counter() - start:.1f} s in all")
 
     kernels = []
+    launches.update(tool_launches)
     for spec in (KERNELS + SERVE_KERNELS + TRAIN_KERNELS + [MOE_KERNEL]
-                 + MOE_BWD_KERNELS):
+                 + MOE_BWD_KERNELS + TOOL_KERNELS):
         r = checks[spec["name"]]
         kernels.append({
             "name": spec["name"], "route": "cuda", "source": spec["source"],

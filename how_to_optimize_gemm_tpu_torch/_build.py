@@ -144,6 +144,31 @@ KERNELS = {
     # dW[e] = x_e^T dy_e: (x, dy, block_expert, out, nb, M, N, E, ldx, ldy,
     # bt, stream)
     "grouped_dw": Kernel("grouped_dw.cu", (_P,) * 4 + (_I,) * 7 + (_P,)),
+    # the hardware probes (ops/probes.py); kind 0 int8, 1 bf16, 2 fp32:
+    # (x, y, out, blocks, S, n_iters, kind, stream)
+    "mma_chain": Kernel("probes_compute.cu", (_P,) * 3 + (_I,) * 4 + (_P,)),
+    # (x, yt, out, blocks, K, n_iters, kind, stream)
+    "mma_throughput": Kernel("probes_compute.cu", (_P,) * 3 + (_I,) * 4
+                             + (_P,)),
+    # (x, out, n, n_iters, stream)
+    "exp_chain": Kernel("probes_compute.cu", (_P,) * 2 + (_I,) * 2 + (_P,)),
+    # (x, out, n, n_iters, dependent, stream)
+    "ffma_chain": Kernel("probes_compute.cu", (_P,) * 2 + (_I,) * 3 + (_P,)),
+    # (src, dst, 16-byte words, stream)
+    "copy_grid": Kernel("probes_memory.cu", (_P,) * 2 + (_I,) + (_P,)),
+    # (x, out, parent, rows, cols, reps, stream)
+    "tile_read": Kernel("probes_memory.cu", (_P,) * 2 + (_I,) * 4 + (_P,)),
+    # (x, out, blocks, n_iters, stream)
+    "smem_copy": Kernel("probes_memory.cu", (_P,) * 2 + (_I,) * 2 + (_P,)),
+    # (x, out, tile_bytes, nsrc, n_iters, do_load, stream)
+    "load_latency": Kernel("probes_memory.cu", (_P,) * 2 + (_I,) * 4
+                           + (_P,)),
+    # (src, dst, nout, chunk_bytes, nchunks, nslots, reps, stream)
+    "pipelined_copy": Kernel("probes_memory.cu", (_P,) * 3 + (_I,) * 4
+                             + (_P,)),
+    # the dispatch probe's custom op (ops/dispatch_probe.py): (x, out, n,
+    # stream)
+    "add_one": Kernel("dispatch_probe.cu", (_P,) * 2 + (_I,) + (_P,)),
 }
 
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -152,17 +152,22 @@ def trace_rung(rung_name: str, p: int, logdir="profiles",
 
 
 def trace_table(ops: list[OpStat], compute_dtype="int8",
-                total_note: str = "") -> str:
+                total_note: str = "", peaks: dict | None = None) -> str:
     """Render ``trace_rung``'s ops: per-op time, share of the capture,
-    achieved GFLOPS against the compute ceiling and GB/s against HBM's."""
-    peak_gflops, hbm_gbps = H100_PEAKS[compute_dtype]
+    achieved GFLOPS against the compute ceiling and GB/s against HBM's.
+    peaks: ceilings in ``H100_PEAKS``'s form (default the data sheet's;
+    a caller may pass ones built from ``ops/probes``' readings)."""
+    peaks = H100_PEAKS if peaks is None else peaks
+    peak_gflops, hbm_gbps = peaks[compute_dtype]
+    source = ("H100 SXM data sheet" if peaks is H100_PEAKS
+              else "the caller's ceilings")
     on_card = all(o.category == "cuda kernel" for o in ops)
     what, col = ("device", "dev ms") if on_card else ("CPU", "cpu ms")
     total_us = sum(o.time_us for o in ops) or 1.0
     lines = [f"measured per-op {what} profile{total_note} (ceilings: "
              f"{peak_gflops:.0f} GFLOPS {compute_dtype}"
              f"{_ffma_note(compute_dtype)}, {hbm_gbps:.0f} GB/s HBM; "
-             "H100 SXM data sheet)",
+             f"{source})",
              f"{'op':<48} {'n':>4} {col:>8} {'%':>6} "
              f"{'GFLOPS':>9} {'%peak':>6} {'GB/s':>7} {'%HBM':>6}"]
     for o in ops:
@@ -188,9 +193,13 @@ class RooflinePoint:
 
 
 def roofline(rung_name: str, m: int, n: int, k: int,
-             achieved_gflops: float) -> RooflinePoint:
+             achieved_gflops: float, peaks: dict | None = None
+             ) -> RooflinePoint:
+    """One row's roofline point against ``peaks`` (``H100_PEAKS``'s form;
+    default the data sheet's)."""
     rung = registry.get(rung_name)
-    peak_gflops, hbm_gbps = H100_PEAKS[rung.compute_dtype or rung.dtype]
+    peaks = H100_PEAKS if peaks is None else peaks
+    peak_gflops, hbm_gbps = peaks[rung.compute_dtype or rung.dtype]
     flops = 2.0 * m * n * k
     t_compute = flops / (peak_gflops * 1e9)
     t_memory = _io_bytes(rung, m, n, k) / (hbm_gbps * 1e9)
@@ -208,19 +217,21 @@ def roofline(rung_name: str, m: int, n: int, k: int,
         fraction_of_ceiling=achieved_gflops / ceiling)
 
 
-def roofline_report(rows, rung_name: str) -> str:
-    """Format driver SweepRows as a top-down roofline table."""
+def roofline_report(rows, rung_name: str, peaks: dict | None = None) -> str:
+    """Format driver SweepRows as a top-down roofline table against
+    ``peaks`` (default the data sheet's ``H100_PEAKS``)."""
     rung = registry.get(rung_name)
     dtype = rung.compute_dtype or rung.dtype
     ffma = dtype == "fp32"
+    source = ("H100 SXM data sheet" if peaks is None or peaks is H100_PEAKS
+              else "the caller's ceilings")
     lines = [f"rung {rung_name}: top-down roofline (ceilings: {dtype} "
-             f"peak / HBM-bandwidth-limited{_ffma_note(dtype)}; H100 SXM "
-             "data sheet)",
+             f"peak / HBM-bandwidth-limited{_ffma_note(dtype)}; {source})",
              f"{'p':>6} {'achieved':>12} {'bound':>8} {'ceiling':>12} "
              f"{'% of ceiling':>12}" + (f" {'% of FFMA':>10}" if ffma
                                         else "")]
     for r in rows:
-        pt = roofline(rung_name, r.m, r.n, r.k, r.gflops)
+        pt = roofline(rung_name, r.m, r.n, r.k, r.gflops, peaks)
         ceiling = (pt.compute_ceiling_gflops if pt.bound == "compute"
                    else pt.memory_ceiling_gflops)
         line = (f"{r.p:>6} {r.gflops:>12.0f} {pt.bound:>8} {ceiling:>12.0f} "

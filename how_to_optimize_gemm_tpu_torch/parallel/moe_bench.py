@@ -27,6 +27,8 @@ Counterpart: ``how_to_optimize_gemm_tpu/parallel/moe_bench.py``.
   forward and backward-of-x step (each call feeds x + dx to the next),
   timed.
 
+With no part named, all four run, as the reference's do.
+
 Shapes: the reference's d 2,048, f 1,408, E 8, then Mixtral-8x7B's d
 4,096, f 14,336, E 8; ``--d``/``--f``/``--e`` give one set instead. Times
 are CUDA events (``utils/timing.time_calls``, best of ``--repeats``
@@ -47,6 +49,7 @@ from how_to_optimize_gemm_tpu_torch.utils.device import default_device
 from how_to_optimize_gemm_tpu_torch.utils.timing import time_calls
 
 SHAPES = {"reference": (2048, 1408, 8), "mixtral_8x7b": (4096, 14336, 8)}
+PARTS = ("kernel", "prefill", "decode", "train")   # the default: all four
 BT = 128
 GATE = {"bf16": 2e-3, "fp32": 2e-3, "int8": 2e-2, "int4": 2e-2}
 KERNEL_REL = 1e-4
@@ -235,9 +238,9 @@ def bench_train(gen, t: int, d: int, f: int, e: int, kind: str, device,
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("parts", nargs="*", metavar="part",
-                    choices=["kernel", "prefill", "decode", "train"],
-                    help="kernel, prefill, decode (default: the three) and "
-                         "train")
+                    choices=PARTS,
+                    help="kernel, prefill, decode and train (default: "
+                         "all four)")
     ap.add_argument("--t", type=int, default=4096)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--tp", type=int, default=8192,
@@ -253,7 +256,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
-    args.parts = args.parts or ["kernel", "prefill", "decode"]
+    args.parts = args.parts or list(PARTS)
     device = default_device(args.device)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)

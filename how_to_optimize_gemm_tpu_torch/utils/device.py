@@ -7,6 +7,8 @@ the CPU, which only an explicit ``device="cpu"`` produces.
 """
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -36,3 +38,14 @@ def kernel_routes_for(x: torch.Tensor, kernel_routes=None) -> bool:
             raise ValueError("on the card the model runs the kernel routes")
         return True
     return bool(kernel_routes)
+
+
+def card_line(index: int = 0) -> str:
+    """Card ``index``'s name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (every
+    number kept from the card stands beside this line)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", "-i", str(index)],
+        capture_output=True, text=True, check=True,
+        timeout=30).stdout.strip()

@@ -1306,3 +1306,192 @@ def test_moe_model_on_the_card_launches_the_grouped_gemm(cuda, kind):
     assert ((top3[:, 1] - top3[:, 2])[~same] <= 1e-5).all()
     err = float((got - ref)[same].abs().max())
     assert err <= GROUPED_REL * float(ref.abs().max()), err
+
+
+# ------------------------------------------------- the probes (B21, B22)
+# Each probe kernel against its plain version at small shapes. EQUAL: the
+# int8 chains and throughput (wrapping int32), the copies, the checksums,
+# the VMEM copies, the latency sums and add_one. Within a bound: the bf16
+# chain, n_iters x 2^-8 of max |plain| (fp32 sums in another order, then
+# each acc rounded to bf16, where one difference may land on the
+# neighbouring bf16); the 3xTF32 chain, n_iters x (S x 2^-24 + 2^-20) of
+# the largest sum of |terms| (fp32 sums in another order, and the split's
+# dropped lo x lo with the tf32 rounding of lo, about 2^-21 a product);
+# bf16 throughput, n_iters x K x 2^-24 of the largest |x| @ |y|; exp,
+# (n_iters + 4) x 2^-23 of |plain| (ex2.approx about 2 ulp a term, and
+# each sum may round to the neighbouring float); FFMA, one ulp a step.
+
+def _probe_rng(seed):
+    return np.random.default_rng(seed)
+
+
+def _counted(name, fn):
+    before = _build.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[name] == before + 1, name
+    return out
+
+
+@pytest.mark.parametrize("n_iters", [1, 4])
+@pytest.mark.parametrize("size", [64, 128])
+@pytest.mark.parametrize("dtype", ["int8", "bf16", "fp32"])
+def test_mma_chain_equals_plain_version(cuda, dtype, size, n_iters):
+    from how_to_optimize_gemm_tpu_torch.ops import probes
+    rng = _probe_rng(size + n_iters)
+    shape = (3, size, size)
+    if dtype == "int8":
+        x = torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8))
+        y = torch.from_numpy(rng.integers(-128, 128, shape).astype(np.int8))
+    else:
+        x = torch.from_numpy((rng.uniform(0, 1, shape) * 2.0 / size)
+                             .astype(np.float32))
+        y = torch.from_numpy(rng.uniform(-1, 1, shape).astype(np.float32))
+        if dtype == "bf16":
+            x, y = x.to(torch.bfloat16), y.to(torch.bfloat16)
+    x, y = x.to(cuda), y.to(cuda)
+    out = _counted("mma_chain", lambda: probes.mxu_chain(x, y, n_iters))
+    ref = probes.mxu_chain_ref(x, y, n_iters)
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    if dtype == "int8":
+        assert torch.equal(out, ref)
+        return
+    err = float((out - ref).abs().max())
+    if dtype == "bf16":
+        assert err <= n_iters * 2.0 ** -8 * float(ref.abs().max()), err
+    else:
+        bound = float((x.abs() @ ref.abs()).max())
+        assert err <= n_iters * (size * 2.0 ** -24 + 2.0 ** -20) * bound, err
+
+
+def test_mma_chain_tile_alone_equals_the_batch(cuda):
+    """A 2-D tile runs as one block, the same as the batch's first."""
+    from how_to_optimize_gemm_tpu_torch.ops import probes
+    x, y = probes.chain_inputs("bf16", 128, 2, cuda)
+    both = probes.mxu_chain(x, y, 3)
+    assert torch.equal(probes.mxu_chain(x[0], y[0], 3), both[0])
+
+
+@pytest.mark.parametrize("dtype,k", [("int8", 128), ("int8", 256),
+                                     ("bf16", 64), ("bf16", 512)])
+def test_mma_throughput_equals_plain_version(cuda, dtype, k):
+    from how_to_optimize_gemm_tpu_torch.ops import probes
+    rng = _probe_rng(k)
+    n_iters = 3
+    if dtype == "int8":
+        x = torch.from_numpy(rng.integers(-128, 128, (2, 64, k))
+                             .astype(np.int8)).to(cuda)
+        y = torch.from_numpy(rng.integers(-128, 128, (2, k, 64))
+                             .astype(np.int8)).to(cuda)
+    else:
+        x = torch.from_numpy(rng.uniform(-1, 1, (2, 64, k)).astype(
+            np.float32)).to(cuda).to(torch.bfloat16)
+        y = torch.from_numpy(rng.uniform(-1, 1, (2, k, 64)).astype(
+            np.float32)).to(cuda).to(torch.bfloat16)
+    out = _counted("mma_throughput",
+                   lambda: probes.mxu_throughput(x, y, n_iters))
+    ref = probes.mxu_throughput_ref(x, y, n_iters)
+    if dtype == "int8":
+        assert torch.equal(out, ref)
+    else:
+        bound = float((x.float().abs() @ y.float().abs()).max())
+        err = float((out - ref).abs().max())
+        assert err <= n_iters * k * 2.0 ** -24 * bound, err
+
+
+def test_exp_chain_equals_plain_version(cuda):
+    from how_to_optimize_gemm_tpu_torch.ops import probes
+    x = torch.from_numpy(_probe_rng(1).uniform(-2, 1, (5, 1000)).astype(
+        np.float32)).to(cuda)
+    n_iters = 16
+    out = _counted("exp_chain", lambda: probes.vpu_exp(x, n_iters))
+    ref = probes.vpu_exp_ref(x, n_iters)
+    assert ((out - ref).abs() <= (n_iters + 4) * 2.0 ** -23
+            * ref.abs()).all()
+
+
+@pytest.mark.parametrize("dependent", [True, False])
+def test_ffma_chain_equals_plain_version(cuda, dependent):
+    from how_to_optimize_gemm_tpu_torch.ops import probes
+    x = torch.from_numpy(_probe_rng(2).uniform(-1, 1, (7, 512)).astype(
+        np.float32)).to(cuda)
+    n_iters = 8
+    out = _counted("ffma_chain",
+                   lambda: probes.vpu_fma(x, n_iters, dependent))
+    ref = probes.vpu_fma_ref(x, n_iters, dependent)
+    steps = n_iters * (8 if dependent else 1) + 3
+    assert ((out - ref).abs() <= steps * 2.0 ** -23
+            * torch.maximum(ref.abs(), x.abs())).all()
+
+
+def test_copy_grid_equals_plain_version(cuda):
+    from how_to_optimize_gemm_tpu_torch.ops import probes
+    x = torch.from_numpy(_probe_rng(3).standard_normal((1000, 36)).astype(
+        np.float32)).to(cuda)
+    out = _counted("copy_grid", lambda: probes.hbm_copy(x))
+    assert torch.equal(out, probes.hbm_copy_ref(x))
+
+
+@pytest.mark.parametrize("parent,rows,cols,reps", [
+    (1024, 256, 512, 2), (1024, 512, 256, 1), (4096, 64, 4096, 3),
+    (2048, 1024, 2048, 1)])
+def test_tile_read_equals_plain_version(cuda, parent, rows, cols, reps):
+    from how_to_optimize_gemm_tpu_torch.ops import probes
+    x = torch.from_numpy(_probe_rng(parent + rows).integers(
+        -128, 128, (parent, parent)).astype(np.int8)).to(cuda)
+    out = _counted("tile_read",
+                   lambda: probes.dma_chunk_checksum(x, rows, cols, reps))
+    assert torch.equal(out, probes.dma_chunk_checksum_ref(x, rows, cols,
+                                                          reps))
+    with pytest.raises(ValueError, match="even count"):
+        probes.dma_chunk_checksum(x, parent, parent, 1)
+
+
+def test_smem_copy_equals_plain_version(cuda):
+    from how_to_optimize_gemm_tpu_torch.ops import probes
+    x = torch.from_numpy(_probe_rng(4).integers(-128, 128, (32, 2048))
+                         .astype(np.int8)).to(cuda)
+    out = _counted("smem_copy", lambda: probes.vmem_copy(x, 3))
+    assert torch.equal(out, probes.vmem_copy_ref(x, 3))
+
+
+@pytest.mark.parametrize("rows,cols,nsrc,n_iters", [(32, 128, 8, 64),
+                                                    (8, 2048, 3, 10)])
+def test_load_latency_equals_plain_version(cuda, rows, cols, nsrc, n_iters):
+    from how_to_optimize_gemm_tpu_torch.ops import probes
+    x = torch.from_numpy(_probe_rng(5).integers(
+        -128, 128, (rows * nsrc, cols)).astype(np.int8)).to(cuda)
+    for load in (True, False):
+        out = _counted("load_latency", lambda: probes.dma_latency_sum(
+            x, rows, n_iters, load))
+        assert torch.equal(out, probes.dma_latency_sum_ref(x, rows, n_iters,
+                                                           load))
+
+
+@pytest.mark.parametrize("total_rows,cols,rows,nslots,reps", [
+    (64, 128, 8, 4, 2), (72, 256, 4, 2, 1), (60, 512, 3, 3, 1),
+    (4096, 2048, 2, 4, 1)])
+def test_pipelined_copy_equals_plain_version(cuda, total_rows, cols, rows,
+                                             nslots, reps):
+    from how_to_optimize_gemm_tpu_torch.ops import probes
+    x = torch.from_numpy(_probe_rng(6).standard_normal((total_rows, cols))
+                         .astype(np.float32)).to(cuda)
+    out, n = _counted("pipelined_copy", lambda: probes.manual_copy(
+        x, rows, nslots, reps))
+    ref, ref_n = probes.manual_copy_ref(x, rows, nslots, reps)
+    assert torch.equal(out, ref) and torch.equal(n, ref_n)
+
+
+def test_add_one_equals_plain_version_and_replays_from_a_graph(cuda):
+    from how_to_optimize_gemm_tpu_torch.ops import dispatch_probe
+    x = torch.from_numpy(_probe_rng(7).uniform(-300, 300, (8, 256)).astype(
+        np.float32)).to(cuda).to(torch.bfloat16)
+    out = _counted("add_one", lambda: dispatch_probe.add_one(x))
+    assert torch.equal(out, dispatch_probe.add_one_ref(x))
+    fn, args = dispatch_probe._make_chain("custom", 16, cuda)
+    replay = dispatch_probe._graphed(fn, args)
+    before = _build.LAUNCHES["add_one"]
+    total = replay()
+    torch.cuda.synchronize()
+    assert float(total) == 8 * 256 * 17
+    assert _build.LAUNCHES["add_one"] == before   # replays launch nothing

@@ -33,7 +33,8 @@ def test_port_modules_found():
                  "ops.mn_tile", "ops.k_blocked", "harness.profiling",
                  "viz.plot", "viz.transitions", "parallel.training",
                  "models.checkpoint", "ops.grouped_gemm", "parallel.moe",
-                 "parallel.moe_bench"):
+                 "parallel.moe_bench", "ops.probes", "ops.dispatch_probe",
+                 "harness.ab"):
         assert f"how_to_optimize_gemm_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 20
 
@@ -109,7 +110,9 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
         "naive_gemm", "fp32_gemm_mn_tile", "fp32_gemm_k_blocked",
         "flash_attention_fwd_lse", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv", "grouped_gemm", "grouped_gemm_t",
-        "grouped_gemm_t4", "grouped_dw"}
+        "grouped_gemm_t4", "grouped_dw", "mma_chain", "mma_throughput",
+        "exp_chain", "ffma_chain", "copy_grid", "tile_read", "smem_copy",
+        "load_latency", "pipelined_copy", "add_one"}
     for name, kernel in _build.KERNELS.items():
         assert (_build.CSRC / kernel.source).exists(), name
         assert kernel.argtypes[-1] is ctypes.c_void_p, name

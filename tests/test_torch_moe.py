@@ -427,9 +427,22 @@ def test_moe_bench_runs_on_the_cpu(capsys):
                     "48", "--e", "4", "--tp", "512", "--batch", "4",
                     "--repeats", "1"])
     out = capsys.readouterr().out
-    for label in ("grouped_matmul", "ragged", "dispatch", "dense"):
+    for label in ("grouped_matmul", "ragged", "dispatch", "dense",
+                  "trainable leaves"):
         assert label in out
     r = moe_bench.main(["train", "--device", "cpu", "--t", "64", "--d", "32",
                         "--f", "48", "--e", "4", "--repeats", "1"])
     assert r["custom"]["train int8"]["stacks_unchanged"]
     assert "trainable leaves" in capsys.readouterr().out
+
+
+def test_moe_bench_default_parts_are_the_references():
+    """No part named runs kernel, prefill, decode and train, as the
+    reference's ``moe_bench.main`` does (ROADMAP C.13)."""
+    import inspect
+
+    from how_to_optimize_gemm_tpu.parallel import moe_bench as jmoe_bench
+    from how_to_optimize_gemm_tpu_torch.parallel import moe_bench
+    assert moe_bench.PARTS == ("kernel", "prefill", "decode", "train")
+    assert ('default=["kernel", "prefill", "decode", "train"]'
+            in inspect.getsource(jmoe_bench.main))

@@ -67,6 +67,29 @@ def test_roofline_report_rows():
     assert "FFMA" not in text
 
 
+def test_roofline_takes_measured_peaks():
+    """A caller may pass ceilings built from the probes' readings, in
+    ``H100_PEAKS``'s form; the default stays the data sheet's."""
+    peaks = {"fp32": (40_000.0, 3_000.0), "bf16": (600_000.0, 3_000.0),
+             "int8": (1_200_000.0, 3_000.0), "int4": (600_000.0, 3_000.0)}
+    pt = profiling.roofline("03_pallas_k_blocked", 4096, 4096, 4096,
+                            20_000.0, peaks=peaks)
+    assert pt.bound == "compute"
+    assert pt.compute_ceiling_gflops == 40_000.0
+    assert pt.fraction_of_ceiling == pytest.approx(0.5)
+    default = profiling.roofline("03_pallas_k_blocked", 4096, 4096, 4096,
+                                 20_000.0)
+    assert default.compute_ceiling_gflops == pytest.approx(165_000.0)
+    rows = [Row(4096, 4096, 4096, 4096, 20_000.0)]
+    text = profiling.roofline_report(rows, "03_pallas_k_blocked", peaks)
+    assert "the caller's ceilings" in text.splitlines()[0]
+    assert text.splitlines()[2].split()[3:5] == ["40000", "50.0%"]
+    ops = [profiling.OpStat("k", "cuda kernel", 1, 1000.0, 3e9, 2e13)]
+    table = profiling.trace_table(ops, compute_dtype="int8", peaks=peaks)
+    assert "1200000 GFLOPS int8" in table and "3000 GB/s" in table
+    assert "the caller's ceilings" in table
+
+
 def test_chip_smoke_reads_the_same_ceilings():
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", pathlib.Path(__file__).resolve().parent.parent

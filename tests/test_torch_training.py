@@ -414,6 +414,77 @@ def test_jax_save_params_file_loads_into_the_port(tmp_path, kind):
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
+@pytest.mark.parametrize("kind", ["bf16", "w4a8"])
+def test_checkpoint_file_is_what_np_savez_writes(tmp_path, kind):
+    """save_params writes np.savez's archive (the same entries, sizes and
+    CRCs as np.savez of the flattened tree; np.load and the JAX package
+    read it), and load_params, reading in many small pieces here, gives
+    the tree back bit for bit."""
+    import zipfile
+
+    from how_to_optimize_gemm_tpu.models import checkpoint as jck
+    _, _, cfg, params = _models(SMALL, kind)
+    tree = {"params": params, "step": np.int64(7)}
+    checkpoint.save_params(tmp_path / "p", tree)
+    np.savez(tmp_path / "ref", **checkpoint._flatten(tree))
+    infos = [{zi.filename: (zi.file_size, zi.CRC, zi.compress_type)
+              for zi in zipfile.ZipFile(tmp_path / name).infolist()}
+             for name in ("p.npz", "ref.npz")]
+    assert infos[0] == infos[1]
+    with np.load(tmp_path / "p.npz") as z:
+        assert int(z["step"]) == 7
+    assert jck.load_params(tmp_path / "p.npz", {"step": np.int64(0)}) \
+        == {"step": 7}
+    old_chunk = checkpoint.CHUNK
+    checkpoint.CHUNK = 1000
+    try:
+        back = checkpoint.load_params(tmp_path / "ref", tree)
+    finally:
+        checkpoint.CHUNK = old_chunk
+    for a, b in zip(training._leaves(params), training._leaves(back["params"])):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(back["step"]) == 7
+
+
+def test_checkpoint_load_checks_crc_and_reads_compressed(tmp_path):
+    """A flipped data byte fails the entry's CRC-32, as with np.load; an
+    archive of compressed entries (np.savez_compressed) goes through
+    numpy's reader."""
+    import zipfile
+    tree = {"a": torch.arange(64, dtype=torch.float32).reshape(8, 8),
+            "b": torch.ones(3, dtype=torch.bfloat16)}
+    checkpoint.save_params(tmp_path / "p", tree)
+    raw = bytearray((tmp_path / "p.npz").read_bytes())
+    raw[raw.find(b"NUMPY") + 200] ^= 1
+    (tmp_path / "bad.npz").write_bytes(raw)
+    with pytest.raises(zipfile.BadZipFile, match="CRC"):
+        checkpoint.load_params(tmp_path / "bad.npz", tree)
+    np.savez_compressed(tmp_path / "z", a=tree["a"].numpy(),
+                        b__bf16=tree["b"].view(torch.int16).numpy().view(
+                            np.uint16))
+    back = checkpoint.load_params(tmp_path / "z", tree)
+    assert torch.equal(back["a"], tree["a"])
+    assert torch.equal(back["b"], tree["b"])
+
+
+def test_loaded_tensors_are_freed_without_the_cyclic_collector(tmp_path):
+    """load_params keeps no reference cycle to what it loaded: a 20 GB
+    train state must leave the card when its last user drops it, not at
+    the cyclic collector's next run."""
+    import gc
+    import weakref
+    tree = {"a": torch.ones(64, 64), "b": [torch.zeros(3)]}
+    checkpoint.save_params(tmp_path / "p", tree)
+    gc.disable()
+    try:
+        back = checkpoint.load_params(tmp_path / "p", tree)
+        refs = [weakref.ref(back["a"]), weakref.ref(back["b"][0])]
+        del back
+        assert all(r() is None for r in refs)
+    finally:
+        gc.enable()
+
+
 def test_checkpoint_mismatch_raises(tmp_path):
     _, _, cfg, params = _models(SMALL, "fp32")
     checkpoint.save_params(tmp_path / "p", params)
