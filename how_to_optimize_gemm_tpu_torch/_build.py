@@ -61,6 +61,13 @@ KERNELS = {
     "int8_gemm_nn": Kernel("int8_gemm_nn.cu", _GEMM),
     "int8_gemm_nt": Kernel("int8_gemm_nt.cu", _GEMM),
     "w4a8_gemm": Kernel("w4a8_gemm.cu", _GEMM),
+    # the hand-pipeline record (rungs 08-11), out fresh; b as (K, N) for
+    # the _nn kernels and (N, K) for the _nt ones; ldc (c's and out's row
+    # pitch) a multiple of 4 for the fat kernels
+    "int8_dma_nn": Kernel("int8_dma_nn.cu", _GEMM),
+    "int8_fat_nn": Kernel("int8_fat.cu", _GEMM),
+    "int8_fat_nt": Kernel("int8_fat.cu", _GEMM),
+    "int8_strip_nt": Kernel("int8_strip_nt.cu", _GEMM),
     # c unused (may be null); out = f32(QA @ W4) * sa * sw
     "w4a8_gemm_noc": Kernel("w4a8_gemm_noc.cu", _GEMM),
     # (x, packed, sw, qa_scratch, sa_scratch, out, M, N, Kp, ldp, stream)

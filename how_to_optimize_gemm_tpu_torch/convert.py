@@ -39,6 +39,9 @@ _LAYOUTS = {
     "06_pallas_int8": (torch.int8, torch.float32, torch.int8, torch.float32),
     "14_packed_alias_int8": (torch.int8, torch.float32, torch.int8,
                              torch.float32),
+    **dict.fromkeys(("08_manual_dma_int8", "09_fat_tile_int8",
+                     "10_packed_fat_int8", "11_strip_resident_int8"),
+                    (torch.int8, torch.float32, torch.int8, torch.float32)),
     "07b_pallas_w4a8": (torch.int8, torch.float32, torch.int8,
                         torch.float32, int),
 }

@@ -1,8 +1,9 @@
 """The rung registry: each rung under its stable name.
 
 Counterpart of ``how_to_optimize_gemm_tpu/ops/registry.py``, with its
-rungs 00, 01, 01b, 02, 03, 03b, 04, 05, 06v, 06, 07, 07b, 14, 15 and 16
-under the same names, gates, byte widths and regression flags. Each rung
+rungs 00, 01, 01b, 02, 03, 03b, 04, 05, 06v, 06, 07, 07b, 08, 09, 10, 11,
+14, 15 and 16 under the same names, gates, byte widths and regression
+flags. Each rung
 carries the timed entry point ``run(*prepared, c)`` (returns ``A@B + C``
 in float32), the untimed ``prepare(a, b)`` (cast, quantize and pack), and
 ``effective(prepared)``: the float32 operands the kernel actually
@@ -20,8 +21,8 @@ from typing import Callable
 import torch
 
 from how_to_optimize_gemm_tpu_torch.ops import (int4, int8, k_blocked,
-                                               mn_tile, naive, quant, tuned,
-                                               vendor)
+                                               manual_dma, mn_tile, naive,
+                                               quant, tuned, vendor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,6 +194,61 @@ _register(Rung(
     doc="W4A8: int8 activations x int4 weights decoded to s8 on their way "
         "into shared memory, int8 tensor-core product, C in place "
         "(kernel w4a8_gemm)"))
+
+_register(Rung(
+    name="08_manual_dma_int8", dtype="int8",
+    run=manual_dma.mmult_q,
+    prepare=int8.prepare, effective=_int8_effective,
+    gate_rel=1e-4, bytes_per_input_elt=1.0,
+    doc="rung 06's tile on a hand-built K-loop ring: two shared-memory "
+        "slots tracked per slot by mbarriers (cp.async arrivals, "
+        "try_wait.parity), chunk t+1 issued before chunk t is waited on, "
+        "no block barrier in the K loop (kernel int8_dma_nn). On an NVIDIA "
+        "H100 80GB HBM3 at 700 W (harness/ab.py, 5 rounds) it beats 06 "
+        "every round: 242.4k and 308.0k GFLOPS at p=2048 and 4096 against "
+        "228.2k and 284.8k"))
+
+_register(Rung(
+    name="09_fat_tile_int8", dtype="int8",
+    run=manual_dma.mmult_q_fat,
+    prepare=int8.prepare, effective=_int8_effective,
+    gate_rel=1e-4, bytes_per_input_elt=1.0,
+    doc="the largest C tile a block holds (128x256: 227 KB of shared "
+        "memory, 255 registers), persistent; C bulk-copied in at each "
+        "tile's start and awaited at the flush, the output staged in the "
+        "same buffer and bulk-copied out during the next tile's K loop "
+        "(kernel int8_fat_nn). On an NVIDIA H100 80GB HBM3 at 700 W "
+        "(harness/ab.py) it beats 08 every round: 269.1k and 318.9k GFLOPS "
+        "at p=2048 and 4096 against 240.9k and 309.9k"))
+
+_register(Rung(
+    name="10_packed_fat_int8", dtype="int8",
+    run=manual_dma.mmult_q_packed,
+    prepare=int8.prepare_packed, effective=_packed_effective,
+    gate_rel=1e-4, bytes_per_input_elt=1.0,
+    doc="rung 09 on B packed transposed offline (N,K): both operands "
+        "K-major into shared memory as they are, and two C/out buffers "
+        "(the accumulator ping-pong), which cap the tile at 128x128 "
+        "(kernel int8_fat_nt). A LOSS on Hopper (kept, like 03b): on an "
+        "NVIDIA H100 80GB HBM3 at 700 W (harness/ab.py) it loses every "
+        "round to 09 (228.0k and 273.9k GFLOPS at p=2048 and 4096 against "
+        "269.4k and 320.0k) and to 14 (245.8k and 340.4k): the second "
+        "buffer costs the fat tile, and the tile's reuse is what pays"))
+
+_register(Rung(
+    name="11_strip_resident_int8", dtype="int8",
+    run=manual_dma.mmult_q_strip,
+    prepare=int8.prepare_packed, effective=_packed_effective,
+    gate_rel=1e-4, bytes_per_input_elt=1.0,
+    doc="rung 10 + the A strip's reuse: a cluster of 4 blocks along N "
+        "multicasts each A chunk to all of them, so A is read once per "
+        "cluster, not once per tile (kernel int8_strip_nt). A LOSS on "
+        "Hopper (kept): on an NVIDIA H100 80GB HBM3 at 700 W "
+        "(harness/ab.py) it loses every round to 10, 67.7k and 95.9k GFLOPS "
+        "at p=2048 and 4096 against 227.7k and 274.4k: a slot is refilled "
+        "only when all 32 warps of the cluster have released it, and A "
+        "comes as one-row 64-byte bulk copies; the A bytes it saves never "
+        "bound an MMA-bound kernel"))
 
 _register(Rung(
     name="14_packed_alias_int8", dtype="int8",

@@ -32,13 +32,17 @@ LADDER_ORDER = [
     ("06_pallas_int8", "int8"),
     ("07_pallas_int4", "bf16"),     # W4A16 computes on the bf16 path
     ("07b_pallas_w4a8", "int8"),
+    ("08_manual_dma_int8", "int8"),
+    ("09_fat_tile_int8", "int8"),
+    ("10_packed_fat_int8", "int8"),
+    ("11_strip_resident_int8", "int8"),
     ("14_packed_alias_int8", "int8"),
     ("15_packed_alias_bf16", "bf16"),
     ("16_packed_alias_fp32", "fp32"),
 ]
 
 HEADLINE = ["06v_xla_int8", "06_pallas_int8", "07b_pallas_w4a8",
-            "14_packed_alias_int8"]
+            "11_strip_resident_int8", "14_packed_alias_int8"]
 FAMILIES = {
     "bf16": ["01b_xla_bf16", "05_pallas_bf16", "15_packed_alias_bf16"],
     "fp32": ["01_xla_fp32", "00_naive_vpu", "02_pallas_mn_tile",

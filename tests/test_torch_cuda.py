@@ -21,7 +21,8 @@ from how_to_optimize_gemm_tpu_torch.harness.driver import run_sweep
 from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
 from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
                                                int4, int8, k_blocked,
-                                               kv_update, mn_tile, naive,
+                                               kv_update, manual_dma,
+                                               mn_tile, naive,
                                                paged_attention, registry,
                                                tuned, vendor)
 
@@ -78,6 +79,15 @@ CASES = {
                      FP32_REL),
     "w4a16_gemm": ("07_pallas_int4", int4.mmult_q, int4.mmult_q_ref,
                    W4A16_REL),
+    # the hand-pipeline record (rungs 08-11): fresh outputs, EQUAL
+    "int8_dma_nn": ("08_manual_dma_int8", manual_dma.mmult_q,
+                    manual_dma.mmult_q_ref, 0.0),
+    "int8_fat_nn": ("09_fat_tile_int8", manual_dma.mmult_q_fat,
+                    manual_dma.mmult_q_fat_ref, 0.0),
+    "int8_fat_nt": ("10_packed_fat_int8", manual_dma.mmult_q_packed,
+                    manual_dma.mmult_q_packed_ref, 0.0),
+    "int8_strip_nt": ("11_strip_resident_int8", manual_dma.mmult_q_strip,
+                      manual_dma.mmult_q_strip_ref, 0.0),
 }
 
 
@@ -128,6 +138,34 @@ def test_in_place_kernels_write_c(cuda):
         ref = plain(*ops, c)
         assert float((c2 - ref).abs().max()) <= tol * float(
             ref.abs().max()), kernel
+
+
+# More tiles than the persistent grid holds, and not a multiple of it
+# (rung 09: 16 x 9 tiles of 128 x 256; 10: 16 x 17 of 128 x 128; 11: 16 x 5
+# clusters of 4, the last with one live block); 9 K chunks (K a multiple of
+# 16, not of 64), over four times the ring's two slots; N not a multiple
+# of 4 (C's rows padded for the bulk copies); M not a multiple of 128.
+WALK_SHAPES = [(2001, 2102, 520), (4096, 4096, 4096)]
+
+
+@pytest.mark.parametrize("shape", WALK_SHAPES)
+@pytest.mark.parametrize("kernel", ["int8_dma_nn", "int8_fat_nn",
+                                    "int8_fat_nt", "int8_strip_nt"])
+def test_hand_pipelines_wrap_rings_and_walks(cuda, kernel, shape):
+    """Every ring slot and C/out buffer wraps at least twice and the
+    persistent walk covers each tile once: EQUAL to the plain version,
+    C unchanged, two calls alike."""
+    rung_name, wrapper, plain, _ = CASES[kernel]
+    a, b, c = _abc(shape, 3, cuda)
+    ops = _operands(registry.get(rung_name).prepare(a, b))
+    c0 = c.clone()
+    out = wrapper(*ops, c)
+    again = wrapper(*ops, c)
+    torch.cuda.synchronize()
+    assert torch.equal(c, c0)
+    ref = plain(*ops, c)
+    assert torch.equal(out, ref), float((out - ref).abs().max())
+    assert torch.equal(again, out)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):

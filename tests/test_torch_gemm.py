@@ -43,13 +43,16 @@ FLOAT_RUNGS = ["01_xla_fp32", "01b_xla_bf16", "04_pallas_tuned_fp32",
                "05_pallas_bf16", "07_pallas_int4", "15_packed_alias_bf16",
                "16_packed_alias_fp32", "00_naive_vpu", "02_pallas_mn_tile",
                "03_pallas_k_blocked", "03b_pallas_small_blocks"]
-# a rung the port does not have yet (the hand-pipeline record)
-UNPORTED = "08_manual_dma_int8"
+# the hand-pipeline record's streaming rungs (tests/test_torch_manual_dma.py)
+DMA_RUNGS = ["08_manual_dma_int8", "09_fat_tile_int8", "10_packed_fat_int8",
+             "11_strip_resident_int8"]
+# a rung the port does not have yet (the record's operand-resident rungs)
+UNPORTED = "12_resident_int8"
 
 
 def test_port_registry_holds_the_headline_rungs():
-    assert registry.names() == sorted(RUNGS + FLOAT_RUNGS)
-    for name in RUNGS + FLOAT_RUNGS:
+    assert registry.names() == sorted(RUNGS + FLOAT_RUNGS + DMA_RUNGS)
+    for name in RUNGS + FLOAT_RUNGS + DMA_RUNGS:
         assert registry.get(name).gate_rel == jregistry.get(name).gate_rel
     jregistry.get(UNPORTED)
     with pytest.raises(KeyError):

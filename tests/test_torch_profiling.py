@@ -190,7 +190,9 @@ def test_transitions_generate(mfiles, tmp_path):
         "03_pallas_k_blocked", "03b_pallas_small_blocks",
         "04_pallas_tuned_fp32", "05_pallas_bf16", "06v_xla_int8",
         "06_pallas_int8", "07_pallas_int4", "07b_pallas_w4a8",
-        "14_packed_alias_int8", "15_packed_alias_bf16",
+        "08_manual_dma_int8", "09_fat_tile_int8", "10_packed_fat_int8",
+        "11_strip_resident_int8", "14_packed_alias_int8",
+        "15_packed_alias_bf16",
         "16_packed_alias_fp32"]
     assert sorted(n for n, _ in LADDER_ORDER) == registry.names()
     written = generate(outputs=mfiles, save_dir=tmp_path / "figs")
