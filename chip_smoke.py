@@ -30,11 +30,19 @@ Phases (any failure raises and exits non-zero before the last line):
    ``add_one``);
 4. each ladder kernel against its plain PyTorch version on the card, at
    M=N=K=4096 and at an unaligned shape (the hand-pipeline kernels of
-   rungs 08-11 also at ``WALK``, where their persistent walks and rings
-   wrap; their tiles, derived from a block's shared memory and a thread's
-   registers, and rung 11's cluster size printed first): the int8
-   kernels' outputs must
-   be EQUAL, the bf16 and W4A16 kernels' within W4A16_REL and the FFMA
+   rungs 08-13, 17 and 18 also at ``WALK``, where their persistent walks
+   and rings wrap; their tiles, derived from a block's shared memory and a
+   thread's registers, rung 11's cluster size, the L2 residency budget of
+   rungs 12 and 13 and rung 18's default cap and plan at 4,096 printed
+   first): the int8 kernels' outputs must
+   be EQUAL (rung 13's repack ``int8_pretile`` byte for byte; rungs 12 and
+   13 must launch their own kernels at 4,096, not rung 11's; rung 17's six
+   knob instances EQUAL to ``int8_gemm_nt``'s output at ``WALK``, each
+   timed at 4,096; rung 18 also at 4,096 with cap 1,664, a two-piece plan,
+   on its own kernel; then ``int8_gemm_nt``'s time right after a call of
+   rung 10, 12 or 13, the check that evict_last lines left behind do not
+   slow the next kernel, and rungs 12, 13, 14 and 18 at p = 2,048 chained
+   beside a CUDA-graph replay, the host's share of a call), the bf16 and W4A16 kernels' within W4A16_REL and the FFMA
    kernels' (rungs 16, 04, 03/03b, 02 and the naive rung 00) within
    FP32_REL of max |plain| (fp32 sums in another order),
    and every output under its rung's gate_rel against an fp64 oracle on
@@ -84,9 +92,9 @@ Phases (any failure raises and exits non-zero before the last line):
    Mixtral shapes beside the plain versions, the bounds and
    ``torch._grouped_mm`` (bf16 instances);
 6. the ladder's main path, with every launch count set to 0 just before
-   it: the sweep driver on rungs 06v, 06, 14, 07b, 08, 09, 10, 11, 01,
-   01b, 04, 05, 07, 15, 16, 00, 02, 03 and 03b at p = 1024 (fp64 host
-   oracle), 2048 and
+   it: the sweep driver on every rung of the registry, 06v, 06, 14, 07b,
+   08, 09, 10, 11, 12, 13, 17, 18, 01, 01b, 04, 05, 07, 15, 16, 00, 02, 03
+   and 03b, at p = 1024 (fp64 host oracle), 2048 and
    4096 (fp64 device check), writing ``.m`` files to a temporary
    directory and printing the ``p gflops diff`` rows, then the headline
    bench's JSON line (the int8 rungs of the top-level ``bench.py``), then
@@ -193,7 +201,7 @@ Phases (any failure raises and exits non-zero before the last line):
    linears, under phase 11's rule; a token some side routes otherwise must
    be a near-tie on the CPU side and is left out of that step's loss on
    every side (``train_moe_parity``);
-15. one ``{"kernels": [...]}`` line (44 kernels), the card's line again,
+15. one ``{"kernels": [...]}`` line (49 kernels), the card's line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds, and the run its total and the host's
@@ -231,9 +239,11 @@ from how_to_optimize_gemm_tpu_torch.harness.profiling import (
     PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FFMA_FLOPS, PEAK_FP32_FLOPS,
     PEAK_INT8_OPS)
 from how_to_optimize_gemm_tpu_torch.models import checkpoint, llama
-from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
+from how_to_optimize_gemm_tpu_torch.ops import (attention, bounds,
+                                               decode_attention,
                                                dispatch_probe, probes,
-                                               grouped_gemm, int4, int8,
+                                               grouped_gemm, hand_pipeline,
+                                               int4, int8,
                                                k_blocked, manual_dma,
                                                quant, kv_update, mn_tile,
                                                naive,
@@ -251,6 +261,8 @@ P_FULL = 4096
 MAIN_RUNGS = ("06v_xla_int8", "06_pallas_int8", "14_packed_alias_int8",
               "07b_pallas_w4a8", "08_manual_dma_int8", "09_fat_tile_int8",
               "10_packed_fat_int8", "11_strip_resident_int8",
+              "12_resident_int8", "13_tiled_resident_int8",
+              "17_hand_pipeline_int8", "18_ragged_m_int8",
               "01_xla_fp32", "01b_xla_bf16",
               "04_pallas_tuned_fp32", "05_pallas_bf16", "07_pallas_int4",
               "15_packed_alias_bf16", "16_packed_alias_fp32",
@@ -270,6 +282,9 @@ FP32_REL = 1e-5
 
 SRC = "how_to_optimize_gemm_tpu_torch/csrc/"
 MANUAL_DMA = "how_to_optimize_gemm_tpu/ops/pallas_manual_dma.py"
+# rung 18 at P_FULL on the reference test's two-piece plan (tests/
+# test_ladder.py: ragged_m_plan(4096, 1664) == [(1536, 2, 0), (1024, 1, 3)])
+RAGGED_CAP = 1664
 
 
 def _int_mm_nn(qa, sa, qb, sb, c):
@@ -330,6 +345,48 @@ KERNELS = [
          rung="11_strip_resident_int8", wrapper=manual_dma.mmult_q_strip,
          plain=manual_dma.mmult_q_strip_ref, library=_int_mm_nt,
          unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8"),
+    # the operand-resident rungs 12 and 13 (fresh outputs) and rung 13's
+    # repack, the hand pipeline 17 and the ragged plan 18 (in place): EQUAL
+    dict(name="int8_resident_nt", source=SRC + "int8_resident.cu",
+         replaces=MANUAL_DMA + ":724",
+         function="pallas_manual_dma._make_resident_kernel "
+                  "(mmult_q_resident :860, rung 12)",
+         rung="12_resident_int8", wrapper=manual_dma.mmult_q_resident,
+         plain=manual_dma.mmult_q_resident_ref, library=_int_mm_nt,
+         unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8",
+         own=True),
+    dict(name="int8_tiled_resident_nt", source=SRC + "int8_resident.cu",
+         replaces=MANUAL_DMA + ":881",
+         function="pallas_manual_dma._make_tiled_resident_kernel "
+                  "(mmult_q_tiled_resident :1017, rung 13; with "
+                  "int8_pretile)",
+         rung="13_tiled_resident_int8",
+         wrapper=manual_dma.mmult_q_tiled_resident,
+         plain=manual_dma.mmult_q_tiled_resident_ref, library=_int_mm_nt,
+         unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8",
+         own=True, extra=("residue",)),
+    dict(name="int8_pretile", source=SRC + "int8_resident.cu",
+         replaces=MANUAL_DMA + ":881",
+         function="pallas_manual_dma._make_tiled_resident_kernel's one-time "
+                  "tiled loads (mmult_q_tiled_resident :1017, rung 13)",
+         rung="13_tiled_resident_int8", unaligned=(1000, 1032, 1100),
+         more=(WALK,), check="pretile"),
+    dict(name="int8_hand_pipe_nt", source=SRC + "int8_hand_pipe.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_emit_pipeline.py:84",
+         function="pallas_emit_pipeline kernel :136 + _scaled_body :84 "
+                  "(mmult_q_bt_hand :106, rung 17)",
+         rung="17_hand_pipeline_int8", wrapper=hand_pipeline.mmult_q_bt_hand,
+         plain=int8.mmult_q_bt_ref, library=_int_mm_nt,
+         unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8",
+         own=True, extra=("knobs",)),
+    dict(name="int8_ragged_nt", source=SRC + "int8_ragged_nt.cu",
+         replaces="how_to_optimize_gemm_tpu/ops/pallas_int8.py:212",
+         function="pallas_int8._kernel_bt under ragged_m_plan :404 "
+                  "(mmult_q_bt_ragged :451, rung 18)",
+         rung="18_ragged_m_int8", wrapper=int8.mmult_q_bt_ragged,
+         plain=int8.mmult_q_bt_ref, library=_int_mm_nt,
+         unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8",
+         own=True, extra=("two_piece", "host")),
     dict(name="w4a8_gemm", source=SRC + "w4a8_gemm.cu",
          replaces="how_to_optimize_gemm_tpu/ops/pallas_int4.py:342",
          function="pallas_int4._kernel_w4a8 + _decode_w4 :36 "
@@ -421,10 +478,155 @@ def print_fat_tiles() -> None:
               f"~{manual_dma.fat_regs(bm, bn)} registers a thread")
     print(f"rung 11: clusters of {manual_dma.CLUSTER} blocks along N share "
           "each A chunk")
+    budget = int8.l2_budget("cuda")
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    for rung, tiled in (("12", False), ("13", True)):
+        need = manual_dma.resident_bytes(P_FULL, P_FULL, P_FULL, tiled)
+        print(f"rung {rung}: {need:,} resident bytes at p={P_FULL} against "
+              f"the budget {budget:,} ({int8.L2_SHARE} of the {l2:,}-byte "
+              f"L2): {'resident' if need <= budget else 'rung 11'}")
+    cap = int8.ragged_cap(P_FULL, budget)
+    print(f"rung 18: cap {cap} at K={P_FULL}, plan "
+          f"{int8.ragged_m_plan(P_FULL, cap)} at p={P_FULL}")
+
+
+def _launched(name: str, before: dict) -> None:
+    """``name`` launched once since ``before`` and rung 11's kernel not:
+    the call stayed on its own kernel."""
+    now = _build.LAUNCHES
+    if (now[name] - before[name] != 1
+            or now["int8_strip_nt"] != before["int8_strip_nt"]):
+        raise AssertionError(f"{name}: launches {before} -> {dict(now)}")
+
+
+def check_pretile(spec: dict, gen: torch.Generator) -> dict:
+    """Rung 13's repack: EQUAL to its plain version byte for byte on the
+    prepared A and B^T at the spec's shapes; timed on A at P_FULL."""
+    name = spec["name"]
+    rung = registry.get(spec["rung"])
+    for m, n, k in (spec["unaligned"], *spec["more"],
+                    (P_FULL, P_FULL, P_FULL)):
+        a, b, _ = make_abc(gen, m, n, k, "cuda")
+        qa, _, qbt, _ = rung.prepare(a, b)
+        for x in (bounds.pad_dim(qa, 1, int8.ALIGN),
+                  bounds.pad_dim(qbt, 1, int8.ALIGN)):
+            before = dict(_build.LAUNCHES)
+            out = manual_dma.pretile(x)
+            ref = manual_dma.pretile_ref(x)
+            torch.cuda.synchronize()
+            _launched(name, before)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"{name} {tuple(x.shape)} differs from "
+                                     "its plain version")
+        print(f"{name} {m}x{n}x{k}: A and B^T images EQUAL to the plain "
+              f"version, {tuple(out.shape)}")
+    t = {fn.__name__: time_calls(lambda: fn(x)) * 1e3
+         for fn in (manual_dma.pretile, manual_dma.pretile_ref)}
+    b_ms, b_by = bound_ms(nbytes(x, ref), 0, PEAK_INT8_OPS)
+    print(f"{name} {tuple(x.shape)}: {t['pretile']:.4f} ms (plain "
+          f"{t['pretile_ref']:.4f}, bound {b_ms:.4f} by {b_by})")
+    return {"max_abs_err": 0.0, "ms": t["pretile"],
+            "plain_ms": t["pretile_ref"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
+def check_knobs(ops, c, gen: torch.Generator) -> None:
+    """Rung 17's six instances (``hand_pipeline.B_BUFFERS`` x
+    a_lookahead): each EQUAL to ``int8_gemm_nt``'s output at WALK and at
+    P_FULL (the reference's test_bit_identical_to_rung14), each timed at
+    P_FULL."""
+    a, b, cw = make_abc(gen, *WALK, "cuda")
+    walk = list(int8.prepare_packed(a, b))
+    knobs = [(nb, la) for nb in hand_pipeline.B_BUFFERS
+             for la in (False, True)]
+    for args, cc in ((walk, cw), (ops, c)):
+        k2 = int8.mmult_q_bt(*args, cc.clone())
+        for nb, la in knobs:
+            out = hand_pipeline.mmult_q_bt_hand(*args, cc.clone(),
+                                                b_buffers=nb, a_lookahead=la)
+            torch.cuda.synchronize()
+            if not torch.equal(out, k2):
+                raise AssertionError(f"rung 17 b_buffers={nb} a_lookahead="
+                                     f"{la} {tuple(cc.shape)} differs from "
+                                     "int8_gemm_nt")
+    print(f"rung 17: all {len(knobs)} instances EQUAL to int8_gemm_nt at "
+          f"{WALK} and p={P_FULL}")
+    for nb, la in knobs:
+        ms = time_chained(
+            lambda *x, nb=nb, la=la: hand_pipeline.mmult_q_bt_hand(
+                *x, b_buffers=nb, a_lookahead=la),
+            ops, c, inner_iters=20, outer_repeats=3, warmup=2) * 1e3
+        print(f"rung 17 b_buffers={nb} a_lookahead={la} p={P_FULL}: "
+              f"{ms:.4f} ms = {2.0 * P_FULL ** 3 / ms * 1e-9:.1f} Tops/s")
+
+
+def check_two_piece(ops, c, gen: torch.Generator) -> None:
+    """Rung 18 at P_FULL on the reference test's two-piece plan
+    (RAGGED_CAP): EQUAL to its plain version, on its own kernel."""
+    plan = int8.ragged_m_plan(P_FULL, RAGGED_CAP)
+    if len(plan) != 2:
+        raise AssertionError(f"cap {RAGGED_CAP}: plan {plan} has no tail")
+    before = dict(_build.LAUNCHES)
+    out = int8.mmult_q_bt_ragged(*ops, c.clone(), cap=RAGGED_CAP)
+    torch.cuda.synchronize()
+    _launched("int8_ragged_nt", before)
+    if not torch.equal(out, int8.mmult_q_bt_ref(*ops, c)):
+        raise AssertionError(f"rung 18 plan {plan} differs from its plain "
+                             "version")
+    print(f"rung 18 p={P_FULL} cap {RAGGED_CAP} plan {plan}: EQUAL, one "
+          "int8_ragged_nt launch")
+
+
+def check_residue(ops, c, gen: torch.Generator) -> None:
+    """int8_gemm_nt's time right after one call of rung 10, 12 or 13
+    (median of 9): lines rungs 12 and 13 leave in the L2 under evict_last
+    would slow the next kernel's reads."""
+    for name, fn in (("10", manual_dma.mmult_q_packed),
+                     ("12", manual_dma.mmult_q_resident),
+                     ("13", manual_dma.mmult_q_tiled_resident)):
+        times = []
+        for _ in range(9):
+            fn(*ops, c)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            cc = c.clone()
+            start.record()
+            int8.mmult_q_bt(*ops, cc)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        print(f"int8_gemm_nt right after rung {name}: "
+              f"{sorted(times)[4]:.4f} ms (median of 9)")
+
+
+P_HOST = 2048
+
+
+def check_host(ops, c, gen: torch.Generator) -> None:
+    """At P_HOST, rungs 12, 13, 14 and 18: the chained time a call (the
+    host's issue included, as the sweep and ab time it) beside a CUDA-graph
+    replay's (the device's time alone)."""
+    a, b, cc = make_abc(gen, P_HOST, P_HOST, P_HOST, "cuda")
+    small = list(int8.prepare_packed(a, b))
+    for name in ("12_resident_int8", "13_tiled_resident_int8",
+                 "14_packed_alias_int8", "18_ragged_m_int8"):
+        run = registry.get(name).run
+        chained = time_chained(run, small, cc, inner_iters=20,
+                               outer_repeats=3, warmup=2) * 1e3
+        replay = time_calls(lambda: run(*small, cc.clone()),
+                            graph=True) * 1e3
+        print(f"{name} p={P_HOST}: {chained:.4f} ms a call chained, "
+              f"{replay:.4f} ms a graph replay (with a copy of C)")
+
+
+EXTRA_CHECKS = {"knobs": check_knobs, "two_piece": check_two_piece,
+                "residue": check_residue, "host": check_host}
 
 
 def check_kernel(spec: dict, gen: torch.Generator) -> dict:
     """Compare with the plain version at its shapes; time at P_FULL."""
+    if spec.get("check") == "pretile":
+        return check_pretile(spec, gen)
     name = spec["name"]
     rung = registry.get(spec["rung"])
     result = {"max_abs_err": 0.0}
@@ -434,9 +636,12 @@ def check_kernel(spec: dict, gen: torch.Generator) -> dict:
         prepared = rung.prepare(a, b)
         # the kernel's operands: 07b's and 07's prepare add kdim
         ops = [x for x in prepared if isinstance(x, torch.Tensor)]
+        before = dict(_build.LAUNCHES)
         out = spec["wrapper"](*ops, c.clone())
         ref = spec["plain"](*ops, c)
         torch.cuda.synchronize()
+        if spec.get("own"):
+            _launched(name, before)
         max_abs = float((out - ref).abs().max())
         scale = float(ref.abs().max())
         ae, be = rung.effective(prepared)
@@ -470,6 +675,8 @@ def check_kernel(spec: dict, gen: torch.Generator) -> dict:
     print(f"{name} p={P_FULL}: {result['ms']:.4f} ms = {tops:.1f} Tops/s "
           f"(plain {result['plain_ms']:.4f}, library {lib_ms}, bound "
           f"{bound_ms:.4f} by {bound_by} at the {spec['peak']} peak{ffma})")
+    for extra in spec.get("extra", ()):
+        EXTRA_CHECKS[extra](ops, c, gen)
     return result
 
 

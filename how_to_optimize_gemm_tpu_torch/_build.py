@@ -5,7 +5,8 @@ with a plain C interface (no PyTorch headers: seconds, not minutes),
 cached under ``build/torch_kernels/`` at the repository root by a hash of
 its sources and flags, and loaded with ctypes. A source may hold more than
 one kernel (``grouped_gemm_t.cu``: ``grouped_gemm_t`` and
-``grouped_gemm_t4``); its kernels share one library. Nothing is compiled
+``grouped_gemm_t4``; ``int8_resident.cu``: rungs 12 and 13 and
+``int8_pretile``); its kernels share one library. Nothing is compiled
 when this module is imported; the first launch of a kernel builds its
 library, and ``build_all`` builds every library at once, one nvcc process
 per source, all started together.
@@ -68,6 +69,20 @@ KERNELS = {
     "int8_fat_nn": Kernel("int8_fat.cu", _GEMM),
     "int8_fat_nt": Kernel("int8_fat.cu", _GEMM),
     "int8_strip_nt": Kernel("int8_strip_nt.cu", _GEMM),
+    # the operand-resident rungs 12 and 13, out fresh; the tiled kernel's
+    # qa and b are int8_pretile's images (lda, ldb not read)
+    "int8_resident_nt": Kernel("int8_resident.cu", _GEMM),
+    "int8_tiled_resident_nt": Kernel("int8_resident.cu", _GEMM),
+    # (src, dst, rows, K, ld, tiles, nk, stream)
+    "int8_pretile": Kernel("int8_resident.cu", (_P,) * 2 + (_I,) * 5
+                           + (_P,)),
+    # rung 17, c and out the same buffer, then b_buffers, a_lookahead
+    "int8_hand_pipe_nt": Kernel("int8_hand_pipe.cu", _GEMM[:-1]
+                                + (_I, _I, _P)),
+    # rung 18, c and out the same buffer, then the plan: bm1, g1, bm2, g2,
+    # off2
+    "int8_ragged_nt": Kernel("int8_ragged_nt.cu", _GEMM[:-1] + (_I,) * 5
+                             + (_P,)),
     # c unused (may be null); out = f32(QA @ W4) * sa * sw
     "w4a8_gemm_noc": Kernel("w4a8_gemm_noc.cu", _GEMM),
     # (x, packed, sw, qa_scratch, sa_scratch, out, M, N, Kp, ldp, stream)

@@ -40,7 +40,9 @@ _LAYOUTS = {
     "14_packed_alias_int8": (torch.int8, torch.float32, torch.int8,
                              torch.float32),
     **dict.fromkeys(("08_manual_dma_int8", "09_fat_tile_int8",
-                     "10_packed_fat_int8", "11_strip_resident_int8"),
+                     "10_packed_fat_int8", "11_strip_resident_int8",
+                     "12_resident_int8", "13_tiled_resident_int8",
+                     "17_hand_pipeline_int8", "18_ragged_m_int8"),
                     (torch.int8, torch.float32, torch.int8, torch.float32)),
     "07b_pallas_w4a8": (torch.int8, torch.float32, torch.int8,
                         torch.float32, int),

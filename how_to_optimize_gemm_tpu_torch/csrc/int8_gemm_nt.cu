@@ -27,32 +27,8 @@ __global__ void __launch_bounds__(htog::THREADS)
                         int N, int K, int lda, int ldb, int ldc) {
   using namespace htog;
   __shared__ __align__(16) Smem sm;
-  int m0 = blockIdx.y * BM;
-  int n0 = blockIdx.x * BN;
-  int warp = threadIdx.x >> 5;
-  int lane = threadIdx.x & 31;
-  int wm = warp >> 2;
-  int wn = warp & 3;
-  int acc[4][4][4];
-  zero_acc(acc);
-  int nk = (K + BK - 1) / BK;
-  load_kmajor_async(sm.a[0], qa, m0, M, 0, K, lda);
-  load_kmajor_async(sm.b[0], qbt, n0, N, 0, K, ldb);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    int s = kt & 1;
-    if (kt + 1 < nk) {
-      load_kmajor_async(sm.a[s ^ 1], qa, m0, M, (kt + 1) * BK, K, lda);
-      load_kmajor_async(sm.b[s ^ 1], qbt, n0, N, (kt + 1) * BK, K, ldb);
-      cp_async_commit();
-    }
-    mma_stage<MmaS8>(acc, sm.a[s], sm.b[s], wm, wn, lane);
-    cp_async_wait_all();
-    __syncthreads();
-  }
-  dequant_epilogue<true>(acc, sa, sb, c, out, M, N, ldc, m0, n0, wm, wn, lane);
+  gemm_nt_tile(sm, qa, qbt, sa, sb, c, out, M, N, K, lda, ldb, ldc,
+               blockIdx.y * BM, blockIdx.x * BN);
 }
 
 }  // namespace

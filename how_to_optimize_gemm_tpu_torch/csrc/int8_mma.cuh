@@ -1,5 +1,6 @@
 // Shared building blocks of the GEMM kernels (int8_gemm_nn.cu,
-// int8_gemm_nt.cu, int8_gemm_noc.cu, w4a8_gemm.cu, w4a8_gemm_noc.cu and,
+// int8_gemm_nt.cu, int8_ragged_nt.cu, int8_gemm_noc.cu, w4a8_gemm.cu,
+// w4a8_gemm_noc.cu, the hand-pipeline record's manual_dma.cuh and,
 // for their tiling, staging and fragment walk, the bf16 tensor-core
 // kernels of bf16_gemm.cuh and w4a16_gemm.cuh): block tiling,
 // shared-memory staging, the warp-level tensor-core product and the
@@ -48,6 +49,17 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(src_bytes));
 }
 
+// cp_async16 under an L2 cache policy (a createpolicy value).
+__device__ __forceinline__ void cp_async16_l2(void* smem, const void* gmem,
+                                              bool valid, uint64_t policy) {
+  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int src_bytes = valid ? 16 : 0;
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::
+          "r"(dst),
+      "l"(gmem), "r"(src_bytes), "l"(policy));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -58,22 +70,38 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // Stage a 128-row x 64-byte K-major tile of a row-major int8 matrix
 // (rows x K, row pitch ld bytes, ld and the base 16-byte aligned, K a
-// multiple of 16). Rows >= rows and K chunks >= K are zero-filled.
-__device__ __forceinline__ void load_kmajor_async(int8_t (*dst)[LDS],
-                                                  const int8_t* src, int row0,
-                                                  int rows, int k0, int K,
-                                                  int ld) {
+// multiple of 16) by kThreads threads, thread tid taking 16-byte chunks
+// tid, tid + kThreads, ... of the 512. Rows >= rows and K chunks >= K are
+// zero-filled. kHint: every copy under the L2 cache `policy`.
+template <int kThreads, bool kHint>
+__device__ __forceinline__ void load_kmajor_tile(int8_t (*dst)[LDS],
+                                                 const int8_t* src, int row0,
+                                                 int rows, int k0, int K,
+                                                 int ld, int tid,
+                                                 uint64_t policy) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    int chunk = threadIdx.x + i * THREADS;  // 512 chunks of 16 bytes
+  for (int i = 0; i < 512 / kThreads; ++i) {
+    int chunk = tid + i * kThreads;
     int r = chunk >> 2;
     int kc = (chunk & 3) * 16;
     int gr = row0 + r;
     int gk = k0 + kc;
     bool valid = gr < rows && gk < K;
     const int8_t* p = valid ? src + (size_t)gr * ld + gk : src;
-    cp_async16(&dst[r][kc], p, valid);
+    if constexpr (kHint)
+      cp_async16_l2(&dst[r][kc], p, valid, policy);
+    else
+      cp_async16(&dst[r][kc], p, valid);
   }
+}
+
+// load_kmajor_tile by the block's THREADS threads, no cache policy.
+__device__ __forceinline__ void load_kmajor_async(int8_t (*dst)[LDS],
+                                                  const int8_t* src, int row0,
+                                                  int rows, int k0, int K,
+                                                  int ld) {
+  load_kmajor_tile<THREADS, false>(dst, src, row0, rows, k0, K, ld,
+                                   threadIdx.x, 0);
 }
 
 // N-major operand (B stored K rows x N columns, row-major): each thread
@@ -263,6 +291,44 @@ __device__ __forceinline__ void dequant_epilogue(
       }
     }
   }
+}
+
+// One 128x128 tile of K2 (int8_gemm_nt, and rung 18's persistent walk):
+// both operands K-major through cp.async into two stages, the loads of K
+// step k+1 issued before the MMAs of step k, then the dequant epilogue
+// with C. Ends with every warp past its last read of `sm`, so a
+// persistent block may start its next tile at once.
+__device__ __forceinline__ void gemm_nt_tile(Smem& sm, const int8_t* qa,
+                                             const int8_t* qbt,
+                                             const float* sa, const float* sb,
+                                             const float* c, float* out,
+                                             int M, int N, int K, int lda,
+                                             int ldb, int ldc, int m0,
+                                             int n0) {
+  int warp = threadIdx.x >> 5;
+  int lane = threadIdx.x & 31;
+  int wm = warp >> 2;
+  int wn = warp & 3;
+  int acc[4][4][4];
+  zero_acc(acc);
+  int nk = (K + BK - 1) / BK;
+  load_kmajor_async(sm.a[0], qa, m0, M, 0, K, lda);
+  load_kmajor_async(sm.b[0], qbt, n0, N, 0, K, ldb);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    int s = kt & 1;
+    if (kt + 1 < nk) {
+      load_kmajor_async(sm.a[s ^ 1], qa, m0, M, (kt + 1) * BK, K, lda);
+      load_kmajor_async(sm.b[s ^ 1], qbt, n0, N, (kt + 1) * BK, K, ldb);
+      cp_async_commit();
+    }
+    mma_stage<MmaS8>(acc, sm.a[s], sm.b[s], wm, wn, lane);
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  dequant_epilogue<true>(acc, sa, sb, c, out, M, N, ldc, m0, n0, wm, wn, lane);
 }
 
 // The N-major B operand of gemm_nmajor_body for a plain row-major int8

@@ -1,7 +1,7 @@
-// The hand-pipeline record's streaming rungs (int8_dma_nn.cu, int8_fat.cu,
-// int8_strip_nt.cu): shared-memory rings tracked per slot by mbarriers,
-// bulk copies, and the persistent fat-tile kernel template of rungs 09,
-// 10 and 11.
+// The hand-pipeline record's rungs on shared-memory rings (int8_dma_nn.cu,
+// int8_fat.cu, int8_strip_nt.cu, int8_resident.cu, int8_hand_pipe.cu):
+// rings tracked per slot by mbarriers, bulk copies, L2 cache policies, and
+// the persistent fat-tile kernel template of rungs 09, 10, 11, 12 and 13.
 //
 // Every thread of a block is a producer and a consumer; there is no warp
 // specialisation. A ring slot has two mbarriers:
@@ -163,6 +163,80 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// L2 cache policies (createpolicy, all of a copy's lines): evict_last lines
+// leave the L2 after every evict_normal and evict_first line, evict_first
+// lines before them.
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// bulk_g2s and bulk_s2g under an L2 policy.
+__device__ __forceinline__ void bulk_g2s_l2(void* dst, const void* src,
+                                            uint32_t bytes, uint64_t* bar,
+                                            uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes."
+      "L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_s2g_l2(void* dst, const void* src,
+                                            uint32_t bytes, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], "
+      "%2, %3;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "l"(policy)
+      : "memory");
+}
+
+// Prefetch [src, src + bytes) into the L2 under `policy` (bytes a multiple
+// of 16, src 16-byte aligned): 16 KB pieces, piece i taken by block
+// i % gridDim.x, so every block issues its share.
+__device__ __forceinline__ void l2_prefetch_grid(const void* src, size_t bytes,
+                                                 uint64_t policy) {
+  constexpr size_t PIECE = 16384;
+  const size_t pieces = (bytes + PIECE - 1) / PIECE;
+  const size_t step = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = blockIdx.x + static_cast<size_t>(gridDim.x) * threadIdx.x;
+       i < pieces; i += step) {
+    size_t off = i * PIECE;
+    uint32_t n = static_cast<uint32_t>(bytes - off < PIECE ? bytes - off
+                                                           : PIECE);
+    asm volatile(
+        "cp.async.bulk.prefetch.L2.global.L2::cache_hint [%0], %1, %2;\n" ::
+            "l"(static_cast<const char*>(src) + off),
+        "r"(n), "l"(policy)
+        : "memory");
+  }
+}
+
+// Set the L2 lines of [src, src + bytes) back to evict_normal, the grid's
+// blocks taking lines in turn: an evict_last line left behind would keep
+// its place against the next kernel's data.
+__device__ __forceinline__ void l2_evict_normal_grid(const void* src,
+                                                     size_t bytes) {
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(src) & ~uintptr_t(127);
+  const uintptr_t hi = reinterpret_cast<uintptr_t>(src) + bytes;
+  const size_t lines = (hi - lo + 127) / 128;
+  const size_t step = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t i = blockIdx.x + static_cast<size_t>(gridDim.x) * threadIdx.x;
+       i < lines; i += step)
+    asm volatile("applypriority.global.L2::evict_normal [%0], 128;\n" ::"l"(
+                     lo + i * 128)
+                 : "memory");
+}
+
 __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n"
@@ -208,6 +282,13 @@ __device__ __forceinline__ void mma_chunk(int (&acc)[4][NI][4],
     }
   }
 }
+
+// How the fat kernel's A and B^T chunks reach its ring.
+enum Feed : int {
+  FEED_STREAM = 0,    // cp.async from the operands as stored (rungs 09-11)
+  FEED_RESIDENT = 1,  // the same under L2 evict_last, after a prefetch (12)
+  FEED_TILED = 2,     // one bulk copy a chunk of pretiled slot images (13)
+};
 
 // The fat-tile kernel's shared memory: a ring of RING_SLOTS (A, B) chunk
 // slots, NBUF C/out buffers of BM x BNT fp32 (row pitch padded by 32 bytes
@@ -289,10 +370,22 @@ __device__ __forceinline__ void staged_epilogue(const int (&acc)[4][NI][4],
 // other (the reference's accumulator ping-pong). CL > 1: each block loads
 // every CL-th row of the tile row's A chunk and multicasts it to the whole
 // cluster, so an A chunk is read from device memory once per cluster.
-template <bool kNT, int BNT, int NBUF, int CL>
+//
+// kFeed: how the A and B^T chunks reach the ring (Feed). FEED_RESIDENT
+// (rung 12) first prefetches the grid's share of A and B^T into the L2
+// under evict_last and copies every chunk under evict_last, C's fetch and
+// the output's store under evict_first, so the operands stay in the L2
+// while C and out stream past them; at its end each block sets its share
+// of the lines back to evict_normal. FEED_TILED (rung 13) reads pretiled
+// operands (int8_pretile): a chunk is one slot image of BM x LDS bytes,
+// one bulk copy a chunk and operand, issued by thread 0.
+template <bool kNT, int BNT, int NBUF, int CL, int kFeed = FEED_STREAM>
 __global__ void __launch_bounds__(THREADS, 1)
     int8_fat_kernel(const FatArgs p) {
   static_assert(kNT || CL == 1, "a cluster shares A of a K-major B only");
+  static_assert(kFeed == FEED_STREAM || (kNT && CL == 1 && BNT == BM),
+                "the resident feeds take B^T on 128 x 128 tiles, no cluster");
+  constexpr bool kHint = kFeed != FEED_STREAM;
   using L = FatLayout<BNT, NBUF>;
   constexpr int NI = BNT / 32;  // 8-column fragments a warp, 4 warps on N
   constexpr int NH = BNT / 128;  // 128-row halves of a B slot
@@ -318,9 +411,20 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int wm = warp >> 2;
   const int wn = warp & 3;
   const int rank = kMulti ? static_cast<int>(cluster_rank()) : 0;
+  uint64_t keep = 0, pass = 0;  // L2 policies: the operands, C and out
+  if constexpr (kHint) {
+    keep = l2_evict_last();
+    pass = l2_evict_first();
+  }
+  if constexpr (kFeed == FEED_RESIDENT) {
+    l2_prefetch_grid(p.a, static_cast<size_t>(p.M) * p.lda, keep);
+    l2_prefetch_grid(p.b, static_cast<size_t>(p.N) * p.ldb, keep);
+  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < RING_SLOTS; ++s) {
-      mbar_init(&full[s], THREADS * (kNT ? 1 : 2) + (kMulti ? 1 : 0));
+      mbar_init(&full[s], kFeed == FEED_TILED
+                              ? 1
+                              : THREADS * (kNT ? 1 : 2) + (kMulti ? 1 : 0));
       mbar_init(&empty[s], WARPS * CL);
     }
     for (int b = 0; b < NBUF; ++b) mbar_init(&cbar[b], 1);
@@ -352,6 +456,17 @@ __global__ void __launch_bounds__(THREADS, 1)
     int m0, n0;
     tile_of(q / nk, m0, n0);
     int k0 = (q % nk) * BK;
+    if constexpr (kFeed == FEED_TILED) {
+      if (threadIdx.x == 0) {
+        const size_t kt = q % nk;
+        mbar_arrive_expect_tx(&full[s], L::A_BYTES + L::B_BYTES);
+        bulk_g2s_l2(a_slot(s), p.a + ((m0 / BM) * nk + kt) * L::A_BYTES,
+                    L::A_BYTES, &full[s], keep);
+        bulk_g2s_l2(b_slot(s), p.b + ((n0 / BNT) * nk + kt) * L::B_BYTES,
+                    L::B_BYTES, &full[s], keep);
+      }
+      return;
+    }
     if (kMulti) {
       if (warp == 0) {
         int rows = min(BM, p.M - m0);
@@ -365,13 +480,15 @@ __global__ void __launch_bounds__(THREADS, 1)
                              static_cast<uint16_t>((1u << CL) - 1));
       }
     } else {
-      load_kmajor_async(a_slot(s), p.a, m0, p.M, k0, p.K, p.lda);
+      load_kmajor_tile<THREADS, kHint>(a_slot(s), p.a, m0, p.M, k0, p.K,
+                                       p.lda, threadIdx.x, keep);
     }
 #pragma unroll
     for (int h = 0; h < NH; ++h) {
       if (kNT)
-        load_kmajor_async(b_slot(s) + 128 * h, p.b, n0 + 128 * h, p.N, k0,
-                          p.K, p.ldb);
+        load_kmajor_tile<THREADS, kHint>(b_slot(s) + 128 * h, p.b,
+                                         n0 + 128 * h, p.N, k0, p.K, p.ldb,
+                                         threadIdx.x, keep);
       else
         load_nmajor_regs(breg[h], RowMajorInt8{p.b, p.K, p.ldb}, k0,
                          n0 + 128 * h);
@@ -417,10 +534,13 @@ __global__ void __launch_bounds__(THREADS, 1)
       if (lane == 0) mbar_arrive_expect_tx(&cbar[buf], rows * cbytes);
       __syncwarp();
       if (cols > 0)
-        for (int r = lane; r < rows; r += 32)
-          bulk_g2s(cb + r * PITCH,
-                   p.c + static_cast<size_t>(m0 + r) * p.ldc + n0, cbytes,
-                   &cbar[buf]);
+        for (int r = lane; r < rows; r += 32) {
+          const float* src = p.c + static_cast<size_t>(m0 + r) * p.ldc + n0;
+          if constexpr (kHint)
+            bulk_g2s_l2(cb + r * PITCH, src, cbytes, &cbar[buf], pass);
+          else
+            bulk_g2s(cb + r * PITCH, src, cbytes, &cbar[buf]);
+        }
     }
     if (q + 1 < total) issue(q + 1);
     const int s = q % RING_SLOTS;
@@ -441,9 +561,13 @@ __global__ void __launch_bounds__(THREADS, 1)
       __syncthreads();
       if (warp == 0) {
         if (cols > 0)
-          for (int r = lane; r < rows; r += 32)
-            bulk_s2g(p.out + static_cast<size_t>(m0 + r) * p.ldc + n0,
-                     cb + r * PITCH, cbytes);
+          for (int r = lane; r < rows; r += 32) {
+            float* dst = p.out + static_cast<size_t>(m0 + r) * p.ldc + n0;
+            if constexpr (kHint)
+              bulk_s2g_l2(dst, cb + r * PITCH, cbytes, pass);
+            else
+              bulk_s2g(dst, cb + r * PITCH, cbytes);
+          }
         bulk_commit();
       }
 #pragma unroll
@@ -456,17 +580,24 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   if (warp == 0) bulk_wait_all();
   if (kMulti) cluster_sync();  // no block leaves while peers arrive on it
+  if constexpr (kFeed == FEED_RESIDENT) {
+    l2_evict_normal_grid(p.a, static_cast<size_t>(p.M) * p.lda);
+    l2_evict_normal_grid(p.b, static_cast<size_t>(p.N) * p.ldb);
+  } else if constexpr (kFeed == FEED_TILED) {
+    l2_evict_normal_grid(p.a, static_cast<size_t>(p.ntm) * nk * L::A_BYTES);
+    l2_evict_normal_grid(p.b, static_cast<size_t>(p.ntn) * nk * L::B_BYTES);
+  }
 }
 
 // Launch the fat-tile kernel: as many blocks (clusters) as the card holds
 // at once, at most one per work unit. Returns a cudaError_t as an int.
-template <bool kNT, int BNT, int NBUF, int CL>
+template <bool kNT, int BNT, int NBUF, int CL, int kFeed = FEED_STREAM>
 int launch_fat(const void* qa, const void* b, const void* sa, const void* sb,
                const void* c, void* out, int M, int N, int K, int lda,
                int ldb, int ldc, void* stream) {
   using L = FatLayout<BNT, NBUF>;
   static_assert(L::SMEM <= 232448, "a block's shared memory is 227 KB");
-  auto kernel = int8_fat_kernel<kNT, BNT, NBUF, CL>;
+  auto kernel = int8_fat_kernel<kNT, BNT, NBUF, CL, kFeed>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -25,6 +25,10 @@ Hygiene, the reference's rule: a reading above the data-sheet ceiling of
 the rung's compute type (``harness/profiling.H100_PEAKS``) is a broken
 session, not speed, and raises.
 
+``--a-kw`` passes keyword arguments to rung A's run, a JSON object (rung
+17's schedule knobs: ``{"b_buffers": 2, "a_lookahead": false}``); the
+session records them.
+
 Not ported: ``--tuned`` (the autotune bank, ``harness/autotune.py``)
 raises NotImplementedError (ROADMAP A18).
 
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import pathlib
 import time
@@ -76,12 +81,16 @@ def _median(xs: list[float]) -> float:
 
 
 def _prep(rung_name: str, m: int, n: int, k: int, seed: int = 0,
-          tuned: bool = False, device=None):
+          tuned: bool = False, device=None, kw=None):
     """Prepare one rung, gate it on the device, and return (window, iters):
-    window() times ``iters`` chained calls and returns the seconds a call."""
+    window() times ``iters`` chained calls of its run (given ``kw``) and
+    returns the seconds a call."""
     if tuned:
         raise NotImplementedError(TUNED_TODO)
     rung = registry.get(rung_name)
+    if kw:
+        rung = dataclasses.replace(rung, run=functools.partial(rung.run,
+                                                               **kw))
     dev = default_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -127,8 +136,8 @@ def _ceiling_gflops(rung_name: str) -> float:
 
 def ab_at_size(rung_a: str, rung_b: str, p: int, *, rounds: int = 7,
                tie_rel: float = 0.005, tuned: bool = False,
-               verbose: bool = True, device=None) -> ABResult:
-    win_a, _ = _prep(rung_a, p, p, p, tuned=tuned, device=device)
+               verbose: bool = True, device=None, a_kw=None) -> ABResult:
+    win_a, _ = _prep(rung_a, p, p, p, tuned=tuned, device=device, kw=a_kw)
     win_b, _ = _prep(rung_b, p, p, p, tuned=tuned, device=device)
     flops = 2.0 * p * p * p
     ceilings = {rung_a: _ceiling_gflops(rung_a),
@@ -170,13 +179,15 @@ def ab_at_size(rung_a: str, rung_b: str, p: int, *, rounds: int = 7,
 def run_protocol(rung_a: str, rung_b: str, sizes: list[int], *,
                  rounds: int = 7, tie_rel: float = 0.005,
                  tuned: bool = False, artifact_dir=DEFAULT_DIR,
-                 verbose: bool = True, device=None) -> list[ABResult]:
-    """The protocol at every size; appends one session to the artifact."""
+                 verbose: bool = True, device=None,
+                 a_kw=None) -> list[ABResult]:
+    """The protocol at every size; appends one session to the artifact.
+    a_kw: keyword arguments of rung A's run, recorded in the session."""
     if tuned:
         raise NotImplementedError(TUNED_TODO)
     dev = default_device(device)
     results = [ab_at_size(rung_a, rung_b, p, rounds=rounds, tie_rel=tie_rel,
-                          verbose=verbose, device=dev)
+                          verbose=verbose, device=dev, a_kw=a_kw)
                for p in sizes]
     path = pathlib.Path(artifact_dir) / f"ab_{rung_a}_vs_{rung_b}.json"
     data = json.loads(path.read_text()) if path.exists() else {
@@ -187,6 +198,7 @@ def run_protocol(rung_a: str, rung_b: str, sizes: list[int], *,
                    else "cpu"),
         "rounds": rounds,
         "tuned": tuned,
+        "a_kw": a_kw or {},
         "sizes": [dataclasses.asdict(r) for r in results],
     })
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -210,13 +222,16 @@ def main(argv=None) -> list[ABResult]:
     ap.add_argument("--tie-rel", type=float, default=0.005)
     ap.add_argument("--tuned", action="store_true",
                     help="the autotune bank (not ported: raises)")
+    ap.add_argument("--a-kw", type=json.loads, default=None,
+                    help="keyword arguments of rung A's run, a JSON object")
     ap.add_argument("--artifact-dir", default=str(DEFAULT_DIR))
     ap.add_argument("--device", default=None,
                     help="the card unless 'cpu' is asked for")
     args = ap.parse_args(argv)
     return run_protocol(args.a, args.b, args.p, rounds=args.rounds,
                         tie_rel=args.tie_rel, tuned=args.tuned,
-                        artifact_dir=args.artifact_dir, device=args.device)
+                        artifact_dir=args.artifact_dir, device=args.device,
+                        a_kw=args.a_kw)
 
 
 if __name__ == "__main__":

@@ -1,15 +1,18 @@
-"""int8 symmetric GEMM: rungs 06 (kernel K1) and 14 (kernel K2), and the
-int8 serving linear at prefill widths (kernel ``int8_gemm_noc``).
+"""int8 symmetric GEMM: rungs 06 (kernel K1), 14 (kernel K2) and 18, and
+the int8 serving linear at prefill widths (kernel ``int8_gemm_noc``).
 
 Counterparts: ``how_to_optimize_gemm_tpu/ops/pallas_int8.py`` (``prepare``,
-``mmult_q``, ``mmult_q_bt``, ``mmult_q_noc``) and
-``pallas_manual_dma.prepare_packed``. The first two compute
-``C' = f32(QA @ QB as int32) * sa[i] * sb[j] + C``:
+``mmult_q``, ``mmult_q_bt``, ``ragged_m_plan``, ``mmult_q_bt_ragged``,
+``mmult_q_noc``) and ``pallas_manual_dma.prepare_packed``. The first three
+compute ``C' = f32(QA @ QB as int32) * sa[i] * sb[j] + C``:
 
 - ``mmult_q`` (K1, ``csrc/int8_gemm_nn.cu``) takes B as (K, N) and
   returns a fresh output;
 - ``mmult_q_bt`` (K2, ``csrc/int8_gemm_nt.cu``) takes B packed
   transposed as (N, K) and accumulates IN PLACE into ``c``;
+- ``mmult_q_bt_ragged`` (rung 18, ``csrc/int8_ragged_nt.cu``) is K2's
+  function and tile walked over ``ragged_m_plan``'s strips in one
+  persistent launch, in place;
 - ``mmult_q_noc`` (``csrc/int8_gemm_noc.cu``, K1's template without the
   "+ C") returns ``f32(QA @ QB as int32) * sa[i] * sb[j]``.
 
@@ -24,6 +27,8 @@ non-Pallas branch).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from how_to_optimize_gemm_tpu_torch import _build
@@ -31,6 +36,15 @@ from how_to_optimize_gemm_tpu_torch.ops import bounds, quant
 
 # Every int8 row handed to a kernel starts on a 16-byte boundary.
 ALIGN = 16
+# The L2 of an H100 SXM (50 MiB, ``torch.cuda.get_device_properties()
+# .L2_cache_size``) and the share of it a call counts on keeping (rungs 12,
+# 13 and 18); the rest holds the lines of C and the output in flight.
+L2_BYTES = 52_428_800
+L2_SHARE = 0.875
+# rung 18's tile and one wave of its persistent walk: a tile an SM of the
+# H100 SXM's 132
+TILE = 128
+WAVE = 132
 
 
 def prepare(a: torch.Tensor, b: torch.Tensor):
@@ -126,6 +140,28 @@ def check_operands(name: str, qa, sa, b, sb, c) -> None:
             raise ValueError(f"{name}: int8 operand not {ALIGN}-byte aligned")
 
 
+def l2_budget(device) -> int:
+    """The L2 bytes a call may keep resident: ``L2_SHARE`` of the card's
+    L2, or of ``L2_BYTES`` (derived for the H100 SXM) on a device that has
+    none (the CPU, ``meta``)."""
+    device = torch.device(device)
+    size = (torch.cuda.get_device_properties(device).L2_cache_size
+            if device.type == "cuda" else L2_BYTES)
+    return int(L2_SHARE * size)
+
+
+def bt_operands(name: str, qa, sa, qbt, sb, c):
+    """K2's operands checked, K zero-padded to 16 bytes: (qa, qbt)."""
+    m, n = c.shape
+    k = qa.shape[1]
+    if tuple(qbt.shape) != (n, k):
+        raise ValueError(f"{name}: qbt {tuple(qbt.shape)} vs ({n}, {k})")
+    qa = bounds.pad_dim(qa, 1, ALIGN)
+    qbt = bounds.pad_dim(qbt, 1, ALIGN)
+    check_operands(name, qa, sa, qbt, sb, c)
+    return qa, qbt
+
+
 def require_cuda(name: str, c: torch.Tensor) -> None:
     if not c.is_cuda:
         raise RuntimeError(f"{name}: tensors on {c.device}; the kernel runs "
@@ -166,16 +202,102 @@ def mmult_q_bt(qa, sa, qbt, sb, c):
         return c
     require_cuda("mmult_q_bt", c)
     m, n = c.shape
-    k = qa.shape[1]
-    if tuple(qbt.shape) != (n, k):
-        raise ValueError(f"mmult_q_bt: qbt {tuple(qbt.shape)} vs ({n}, {k})")
-    qa = bounds.pad_dim(qa, 1, ALIGN)
-    qbt = bounds.pad_dim(qbt, 1, ALIGN)
-    check_operands("mmult_q_bt", qa, sa, qbt, sb, c)
+    qa, qbt = bt_operands("mmult_q_bt", qa, sa, qbt, sb, c)
     if m and n:
         kp = qa.shape[1]
         _build.launch("int8_gemm_nt", c.device, qa, qbt, sa, sb, c, c,
                       m, n, kp, kp, kp, n)
+    return c
+
+
+def ragged_m_plan(mp: int, cap: int) -> list[tuple[int, int, int]]:
+    """Strip plan [(bm, grid_m, off_blocks)] covering ``mp`` rows with
+    ZERO padding and the fewest strips (each strip = one full B^T
+    re-read, so strip count is the B-traffic knob the vendor's 3-strip
+    p=4096 schedule wins ~1% with — RESULTS.md 4096 contest).
+
+    The uniform chooser must sometimes choose between padding waste and
+    an extra strip (p=4096, cap 1664: 3x1408 pads 128 rows; 4x1024 pads
+    none — it picks 4 strips). A RAGGED plan gets both: a tall uniform
+    head plus one shorter tail strip, expressible as TWO aliased
+    pallas_calls when the tail offset is a multiple of the tail's own
+    block height (BlockSpec index maps address in whole blocks). Plans:
+    mp=4096 -> [(1536, 2, 0), (1024, 1, 3)] = 3 strips, no padding."""
+    assert mp % 128 == 0, mp
+    best: list[tuple[int, int, int]] | None = None
+
+    def strips_of(plan):
+        return sum(g for _, g, _ in plan)
+
+    for bm1 in range(min(cap, mp), 127, -128):
+        a, r = divmod(mp, bm1)
+        if r == 0:
+            plan = [(bm1, a, 0)]
+        else:
+            # tail block: largest 128-multiple dividing BOTH the tail
+            # and the head extent (its blocks must start on their own
+            # block grid)
+            head = a * bm1
+            bm2 = 0
+            for c2 in range(min(cap, r), 127, -128):
+                if r % c2 == 0 and head % c2 == 0:
+                    bm2 = c2
+                    break
+            if not bm2:
+                continue
+            plan = [(bm1, a, 0), (bm2, r // bm2, head // bm2)]
+        if best is None or strips_of(plan) < strips_of(best) or (
+                strips_of(plan) == strips_of(best)
+                and len(plan) < len(best)):
+            best = plan
+    assert best is not None
+    return best
+
+
+def ragged_cap(kp: int, budget: int) -> int:
+    """Rung 18's default strip cap for rows of ``kp`` K bytes: the tallest
+    strip, a multiple of 128 within the reference's [512, 1792], whose A
+    panel (cap x kp) and one wave's B^T panels (``WAVE`` tiles of the
+    N-major walk, cap / 128 of them a panel: ceil(WAVE * 128 / cap) panels
+    of 128 x kp) stay inside ``budget`` bytes of L2 (``l2_budget``), as the
+    reference sizes its cap from VMEM (``pallas_int8.py:485-489``)."""
+    for cap in range(1792, 511, -TILE):
+        panels = -(-WAVE * TILE // cap)
+        if (cap + panels * TILE) * kp <= budget:
+            return cap
+    return 512
+
+
+@functools.lru_cache(maxsize=None)
+def _ragged_launch_plan(mp: int, kp: int, cap: int | None, budget: int):
+    """(cap, plan) of a rung-18 call, memoized: the two searches are Python
+    loops, and at p = 2048 they took about as long as the kernel."""
+    cap = ragged_cap(kp, budget) if cap is None else cap
+    return cap, tuple(ragged_m_plan(mp, cap)) if mp else ()
+
+
+def mmult_q_bt_ragged(qa, sa, qbt, sb, c, *, cap: int | None = None):
+    """Rung 18: C = dequant(QA @ QBT^T) + C, IN PLACE, as ``mmult_q_bt``,
+    with the 128 x 128 tiles walked over ``ragged_m_plan(round_up(M, 128),
+    cap)``: a head of tall strips and at most one shorter tail, in one
+    persistent launch (kernel ``int8_ragged_nt``), N-major within a strip.
+    ``cap`` defaults to ``ragged_cap`` on the card's L2 budget. Returns
+    ``c``."""
+    m, n = c.shape
+    _, plan = _ragged_launch_plan(bounds.round_up(m, TILE),
+                                  bounds.round_up(qa.shape[1], ALIGN), cap,
+                                  l2_budget(c.device))
+    if c.device.type == "cpu":
+        c.copy_(mmult_q_bt_ref(qa, sa, qbt, sb, c))
+        return c
+    require_cuda("mmult_q_bt_ragged", c)
+    qa, qbt = bt_operands("mmult_q_bt_ragged", qa, sa, qbt, sb, c)
+    if m and n:
+        (bm1, g1, _), (bm2, g2, off2) = plan[0], (
+            plan[1] if len(plan) > 1 else (TILE, 0, 0))
+        kp = qa.shape[1]
+        _build.launch("int8_ragged_nt", c.device, qa, qbt, sa, sb, c, c,
+                      m, n, kp, kp, kp, n, bm1, g1, bm2, g2, off2)
     return c
 
 

@@ -1,17 +1,17 @@
 """The rung registry: each rung under its stable name.
 
-Counterpart of ``how_to_optimize_gemm_tpu/ops/registry.py``, with its
-rungs 00, 01, 01b, 02, 03, 03b, 04, 05, 06v, 06, 07, 07b, 08, 09, 10, 11,
-14, 15 and 16 under the same names, gates, byte widths and regression
-flags. Each rung
+Counterpart of ``how_to_optimize_gemm_tpu/ops/registry.py``, with every
+rung of it (00 to 18) under the same names, gates, byte widths and
+regression flags. Each rung
 carries the timed entry point ``run(*prepared, c)`` (returns ``A@B + C``
 in float32), the untimed ``prepare(a, b)`` (cast, quantize and pack), and
 ``effective(prepared)``: the float32 operands the kernel actually
 consumed, which the oracle multiplies in fp64, so quantization error
 never masks an indexing bug.
 
-Rungs 07, 07b, 14, 15 and 16 accumulate into ``c`` in place; callers
-that need C afterwards keep a copy (``harness/driver.run_sweep`` does).
+Rungs 07, 07b, 14, 15, 16, 17 and 18 accumulate into ``c`` in place;
+callers that need C afterwards keep a copy (``harness/driver.run_sweep``
+does).
 """
 from __future__ import annotations
 
@@ -20,9 +20,10 @@ from typing import Callable
 
 import torch
 
-from how_to_optimize_gemm_tpu_torch.ops import (int4, int8, k_blocked,
-                                               manual_dma, mn_tile, naive,
-                                               quant, tuned, vendor)
+from how_to_optimize_gemm_tpu_torch.ops import (hand_pipeline, int4, int8,
+                                               k_blocked, manual_dma,
+                                               mn_tile, naive, quant, tuned,
+                                               vendor)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,6 +252,36 @@ _register(Rung(
         "bound an MMA-bound kernel"))
 
 _register(Rung(
+    name="12_resident_int8", dtype="int8",
+    run=manual_dma.mmult_q_resident,
+    prepare=int8.prepare_packed, effective=_packed_effective,
+    gate_rel=1e-4, bytes_per_input_elt=1.0, regression=True,
+    doc="REGRESSION (kept, as the reference keeps it): rung 10's walk with "
+        "A and B^T held in the L2, the card's on-chip store of their size "
+        "(a block's 227 KB holds no 16 MB operand): prefetched once, every "
+        "chunk under evict_last, C and out under evict_first (kernel "
+        "int8_resident_nt); rung 11 when the operands exceed the L2 "
+        "budget. On an NVIDIA H100 80GB HBM3 at 700 W (harness/ab.py, 5 "
+        "rounds) it beats 11 every round, 233.3k and 278.0k GFLOPS at "
+        "p=2048 and 4096 against 67.5k and 96.0k, but is rung 10's speed "
+        "(0.508 against 0.511 ms at 4096, chip_smoke.py) and loses to 14: "
+        "an MMA-issue-bound kernel gains nothing from bytes kept on chip"))
+
+_register(Rung(
+    name="13_tiled_resident_int8", dtype="int8",
+    run=manual_dma.mmult_q_tiled_resident,
+    prepare=int8.prepare_packed, effective=_packed_effective,
+    gate_rel=1e-4, bytes_per_input_elt=1.0,
+    doc="REGRESSION (kept; the flag unset, as in the reference): rung 12 on "
+        "operands repacked once into the ring slot's exact image (kernels "
+        "int8_pretile, int8_tiled_resident_nt), one 10 KB bulk copy a "
+        "chunk. On an NVIDIA H100 80GB HBM3 at 700 W (harness/ab.py, 5 "
+        "rounds) it beats 12 every round at p=4096 (286.0k against 277.7k "
+        "GFLOPS) and loses every round at 2048 (143.4k against 229.9k: "
+        "three launches and two scratch allocations a call), and loses "
+        "to 14 at both"))
+
+_register(Rung(
     name="14_packed_alias_int8", dtype="int8",
     run=int8.mmult_q_bt,
     prepare=int8.prepare_packed, effective=_packed_effective,
@@ -258,6 +289,35 @@ _register(Rung(
     doc="rung 06 + B packed transposed offline (N,K) + C accumulated in "
         "place (kernel int8_gemm_nt)"))
 
+
+_register(Rung(
+    name="17_hand_pipeline_int8", dtype="int8",
+    run=hand_pipeline.mmult_q_bt_hand,
+    prepare=int8.prepare_packed, effective=_packed_effective,
+    gate_rel=1e-4, bytes_per_input_elt=1.0, regression=True,
+    doc="REGRESSION (kept): rung 14's tile math under a hand stream "
+        "schedule: one producer warp keeps a ring of 3 chunk slots full "
+        "for 8 MMA warps, persistent, the next tile's copies issued ahead "
+        "(kernel int8_hand_pipe_nt; b_buffers 2-4, a_lookahead). On an "
+        "NVIDIA H100 80GB HBM3 at 700 W (harness/ab.py, 5 rounds) it loses "
+        "every round to 14 in every knob: 168.5k and 213.6k GFLOPS at "
+        "p=2048 and 4096 against 249.5k and 337.9k, the best knob "
+        "(b_buffers=4) 169.4k and 214.9k: one block an SM, 8 MMA warps "
+        "against 14's 16"))
+
+_register(Rung(
+    name="18_ragged_m_int8", dtype="int8",
+    run=int8.mmult_q_bt_ragged,
+    prepare=int8.prepare_packed, effective=_packed_effective,
+    gate_rel=1e-4, bytes_per_input_elt=1.0, regression=True,
+    doc="REGRESSION in the reference (its flag kept): rung 14's tile "
+        "walked over a ragged-M strip plan (a tall head and one shorter "
+        "tail, no padding, one B^T read a strip) in one persistent launch, "
+        "N-major within a strip (kernel int8_ragged_nt). On an NVIDIA H100 "
+        "80GB HBM3 at 700 W (harness/ab.py, 5 rounds) a tie with 14: 0-5-0 "
+        "at p=2048 (249.9k against 249.4k GFLOPS) and 3-2-0 at 4096 (337.1k "
+        "against 335.3k), with the plan memoized; computed afresh each "
+        "call it lost 0-0-5 at 2048 to the host"))
 
 _register(Rung(
     name="15_packed_alias_bf16", dtype="bf16",

@@ -3,8 +3,8 @@
 Counterpart of ``how_to_optimize_gemm_tpu/viz/transitions.py``: every
 consecutive pair of the ladder's tutorial order with both ``.m`` files
 present gets one old-vs-new figure, and the int8, bf16 and fp32 families
-get one chart each against their vendor bar. ``LADDER_ORDER`` lists the
-rungs the port has.
+get one chart each against their vendor bar. ``LADDER_ORDER`` lists every
+rung, in the reference's order.
 
     python -m how_to_optimize_gemm_tpu_torch.viz.transitions \\
         --outputs outputs/gpu --save-dir figures/gpu
@@ -16,7 +16,7 @@ import pathlib
 
 from how_to_optimize_gemm_tpu_torch.viz.plot import plot_mfiles
 
-# Tutorial order (ops/registry.py), the rungs the port has; each
+# Tutorial order (ops/registry.py), the reference's; each
 # consecutive pair is one "optimization step" figure, judged against its
 # family's ceiling.
 LADDER_ORDER = [
@@ -36,7 +36,11 @@ LADDER_ORDER = [
     ("09_fat_tile_int8", "int8"),
     ("10_packed_fat_int8", "int8"),
     ("11_strip_resident_int8", "int8"),
+    ("12_resident_int8", "int8"),
+    ("13_tiled_resident_int8", "int8"),
     ("14_packed_alias_int8", "int8"),
+    ("17_hand_pipeline_int8", "int8"),
+    ("18_ragged_m_int8", "int8"),
     ("15_packed_alias_bf16", "bf16"),
     ("16_packed_alias_fp32", "fp32"),
 ]

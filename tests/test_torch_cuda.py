@@ -20,7 +20,8 @@ from how_to_optimize_gemm_tpu_torch import _build, convert
 from how_to_optimize_gemm_tpu_torch.harness.driver import run_sweep
 from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
 from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
-                                               int4, int8, k_blocked,
+                                               hand_pipeline, int4, int8,
+                                               k_blocked,
                                                kv_update, manual_dma,
                                                mn_tile, naive,
                                                paged_attention, registry,
@@ -88,6 +89,17 @@ CASES = {
                     manual_dma.mmult_q_packed_ref, 0.0),
     "int8_strip_nt": ("11_strip_resident_int8", manual_dma.mmult_q_strip,
                       manual_dma.mmult_q_strip_ref, 0.0),
+    # rungs 12 and 13 (fresh outputs), 17 and 18 (in place): EQUAL
+    "int8_resident_nt": ("12_resident_int8", manual_dma.mmult_q_resident,
+                         manual_dma.mmult_q_resident_ref, 0.0),
+    "int8_tiled_resident_nt": ("13_tiled_resident_int8",
+                               manual_dma.mmult_q_tiled_resident,
+                               manual_dma.mmult_q_tiled_resident_ref, 0.0),
+    "int8_hand_pipe_nt": ("17_hand_pipeline_int8",
+                          hand_pipeline.mmult_q_bt_hand, int8.mmult_q_bt_ref,
+                          0.0),
+    "int8_ragged_nt": ("18_ragged_m_int8", int8.mmult_q_bt_ragged,
+                       int8.mmult_q_bt_ref, 0.0),
 }
 
 
@@ -126,10 +138,12 @@ def test_kernel_equals_plain_version(cuda, kernel, shape):
 
 
 def test_in_place_kernels_write_c(cuda):
-    """Rungs 14, 07b, 07, 15 and 16 write the result into C itself."""
-    a, b, c = _abc((300, 260, 520), 1, cuda)
+    """Rungs 14, 07b, 07, 15, 16, 17 and 18 write the result into C
+    itself (N = 262: not a multiple of 4, C's rows stored by thread)."""
+    a, b, c = _abc((300, 262, 520), 1, cuda)
     for kernel in ("int8_gemm_nt", "w4a8_gemm", "w4a16_gemm",
-                   "bf16_gemm_nt", "fp32_gemm_nt"):
+                   "bf16_gemm_nt", "fp32_gemm_nt", "int8_hand_pipe_nt",
+                   "int8_ragged_nt"):
         rung_name, wrapper, plain, tol = CASES[kernel]
         ops = _operands(registry.get(rung_name).prepare(a, b))
         c2 = c.clone()
@@ -150,22 +164,86 @@ WALK_SHAPES = [(2001, 2102, 520), (4096, 4096, 4096)]
 
 @pytest.mark.parametrize("shape", WALK_SHAPES)
 @pytest.mark.parametrize("kernel", ["int8_dma_nn", "int8_fat_nn",
-                                    "int8_fat_nt", "int8_strip_nt"])
+                                    "int8_fat_nt", "int8_strip_nt",
+                                    "int8_resident_nt",
+                                    "int8_tiled_resident_nt",
+                                    "int8_hand_pipe_nt", "int8_ragged_nt"])
 def test_hand_pipelines_wrap_rings_and_walks(cuda, kernel, shape):
     """Every ring slot and C/out buffer wraps at least twice and the
     persistent walk covers each tile once: EQUAL to the plain version,
-    C unchanged, two calls alike."""
+    two calls alike, C unchanged (rungs 08-13) or the result (17, 18)."""
     rung_name, wrapper, plain, _ = CASES[kernel]
     a, b, c = _abc(shape, 3, cuda)
     ops = _operands(registry.get(rung_name).prepare(a, b))
     c0 = c.clone()
-    out = wrapper(*ops, c)
-    again = wrapper(*ops, c)
+    out = wrapper(*ops, c.clone())
+    again = wrapper(*ops, c.clone())
+    run_on_c = wrapper(*ops, c)
     torch.cuda.synchronize()
-    assert torch.equal(c, c0)
-    ref = plain(*ops, c)
+    ref = plain(*ops, c0)
     assert torch.equal(out, ref), float((out - ref).abs().max())
     assert torch.equal(again, out)
+    in_place = kernel in ("int8_hand_pipe_nt", "int8_ragged_nt")
+    assert torch.equal(c, ref if in_place else c0)
+    assert (run_on_c.data_ptr() == c.data_ptr()) is in_place
+
+
+@pytest.mark.parametrize("b_buffers", hand_pipeline.B_BUFFERS)
+@pytest.mark.parametrize("a_lookahead", [False, True])
+@pytest.mark.parametrize("shape", [(2001, 2102, 520), (17, 9, 40)])
+def test_hand_pipeline_equals_rung_14(cuda, b_buffers, a_lookahead, shape):
+    """Every built instance of rung 17 equals int8_gemm_nt's output bit for
+    bit (the reference's test_bit_identical_to_rung14)."""
+    a, b, c = _abc(shape, 4, cuda)
+    ops = int8.prepare_packed(a, b)
+    want = int8.mmult_q_bt(*ops, c.clone())
+    got = hand_pipeline.mmult_q_bt_hand(*ops, c.clone(), b_buffers=b_buffers,
+                                        a_lookahead=a_lookahead)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,cap", [((4096, 1024, 520), 1664),
+                                       ((640, 256, 256), 256),
+                                       ((2001, 2102, 520), 512)])
+def test_ragged_plans_on_the_card(cuda, shape, cap):
+    """Rung 18 on a two-piece plan (the reference's 4096 at cap 1664, and
+    the CPU tests' 640 at cap 256) and on a uniform one: one launch of its
+    own kernel, EQUAL to the plain version."""
+    a, b, c = _abc(shape, 5, cuda)
+    ops = int8.prepare_packed(a, b)
+    before = dict(_build.LAUNCHES)
+    out = int8.mmult_q_bt_ragged(*ops, c.clone(), cap=cap)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["int8_ragged_nt"] == before["int8_ragged_nt"] + 1
+    assert _build.LAUNCHES["int8_gemm_nt"] == before["int8_gemm_nt"]
+    assert torch.equal(out, int8.mmult_q_bt_ref(*ops, c))
+
+
+@pytest.mark.parametrize("shape", [(1000, 1104), (2102, 528), (1, 16),
+                                   (4096, 4096)])
+def test_pretile_equals_plain_version(cuda, shape):
+    """Byte for byte; K must be a multiple of 16 (the wrappers pad it)."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+    got = manual_dma.pretile(x.to(cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), manual_dma.pretile_ref(x))
+    with pytest.raises(ValueError):
+        manual_dma.pretile(x[:, :-8].contiguous().to(cuda))
+
+
+def test_resident_rungs_stay_resident_at_4096(cuda):
+    """At p = 4096 rungs 12 and 13 launch their own kernels, not rung 11's:
+    the card's L2 budget holds their operands."""
+    a, b, c = _abc((4096, 4096, 4096), 7, cuda)
+    ops = int8.prepare_packed(a, b)
+    for kernel in ("int8_resident_nt", "int8_tiled_resident_nt"):
+        before = dict(_build.LAUNCHES)
+        CASES[kernel][1](*ops, c)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES[kernel] == before[kernel] + 1
+        assert _build.LAUNCHES["int8_strip_nt"] == before["int8_strip_nt"]
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -43,20 +43,29 @@ FLOAT_RUNGS = ["01_xla_fp32", "01b_xla_bf16", "04_pallas_tuned_fp32",
                "05_pallas_bf16", "07_pallas_int4", "15_packed_alias_bf16",
                "16_packed_alias_fp32", "00_naive_vpu", "02_pallas_mn_tile",
                "03_pallas_k_blocked", "03b_pallas_small_blocks"]
-# the hand-pipeline record's streaming rungs (tests/test_torch_manual_dma.py)
+# the hand-pipeline record: streaming rungs 08-11 (tests/test_torch_manual_
+# dma.py), operand-resident 12 and 13 (tests/test_torch_resident.py), the
+# hand pipeline 17 and the ragged plan 18 (tests/test_torch_hand_pipeline.py)
 DMA_RUNGS = ["08_manual_dma_int8", "09_fat_tile_int8", "10_packed_fat_int8",
-             "11_strip_resident_int8"]
-# a rung the port does not have yet (the record's operand-resident rungs)
-UNPORTED = "12_resident_int8"
+             "11_strip_resident_int8", "12_resident_int8",
+             "13_tiled_resident_int8", "17_hand_pipeline_int8",
+             "18_ragged_m_int8"]
+# a rung neither registry has
+UNKNOWN = "99_no_such_rung"
 
 
 def test_port_registry_holds_the_headline_rungs():
-    assert registry.names() == sorted(RUNGS + FLOAT_RUNGS + DMA_RUNGS)
-    for name in RUNGS + FLOAT_RUNGS + DMA_RUNGS:
-        assert registry.get(name).gate_rel == jregistry.get(name).gate_rel
-    jregistry.get(UNPORTED)
-    with pytest.raises(KeyError):
-        registry.get(UNPORTED)
+    """The port's registry is the reference's: every rung under its name,
+    gate and regression flag."""
+    assert registry.names() == jregistry.names() \
+        == sorted(RUNGS + FLOAT_RUNGS + DMA_RUNGS)
+    for name in registry.names():
+        rung, jrung = registry.get(name), jregistry.get(name)
+        assert (rung.gate_rel, rung.regression) == (jrung.gate_rel,
+                                                     jrung.regression), name
+    for reg in (registry, jregistry):
+        with pytest.raises(KeyError):
+            reg.get(UNKNOWN)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -145,7 +154,7 @@ def test_w4a8_wrapper_refuses_other_devices():
 
 def test_convert_rejects_wrong_layouts():
     with pytest.raises(KeyError):
-        convert.from_jax_prepared(UNPORTED, [], "cpu")
+        convert.from_jax_prepared(UNKNOWN, [], "cpu")
     with pytest.raises(TypeError):
         convert.from_jax_prepared(
             "06_pallas_int8",

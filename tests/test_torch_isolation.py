@@ -34,7 +34,7 @@ def test_port_modules_found():
                  "viz.plot", "viz.transitions", "parallel.training",
                  "models.checkpoint", "ops.grouped_gemm", "parallel.moe",
                  "parallel.moe_bench", "ops.probes", "ops.dispatch_probe",
-                 "harness.ab", "ops.manual_dma"):
+                 "harness.ab", "ops.manual_dma", "ops.hand_pipeline"):
         assert f"how_to_optimize_gemm_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 20
 
@@ -113,7 +113,9 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
         "grouped_gemm_t4", "grouped_dw", "mma_chain", "mma_throughput",
         "exp_chain", "ffma_chain", "copy_grid", "tile_read", "smem_copy",
         "load_latency", "pipelined_copy", "add_one", "int8_dma_nn",
-        "int8_fat_nn", "int8_fat_nt", "int8_strip_nt"}
+        "int8_fat_nn", "int8_fat_nt", "int8_strip_nt", "int8_resident_nt",
+        "int8_tiled_resident_nt", "int8_pretile", "int8_hand_pipe_nt",
+        "int8_ragged_nt"}
     for name, kernel in _build.KERNELS.items():
         assert (_build.CSRC / kernel.source).exists(), name
         assert kernel.argtypes[-1] is ctypes.c_void_p, name

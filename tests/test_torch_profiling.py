@@ -191,7 +191,9 @@ def test_transitions_generate(mfiles, tmp_path):
         "04_pallas_tuned_fp32", "05_pallas_bf16", "06v_xla_int8",
         "06_pallas_int8", "07_pallas_int4", "07b_pallas_w4a8",
         "08_manual_dma_int8", "09_fat_tile_int8", "10_packed_fat_int8",
-        "11_strip_resident_int8", "14_packed_alias_int8",
+        "11_strip_resident_int8", "12_resident_int8",
+        "13_tiled_resident_int8", "14_packed_alias_int8",
+        "17_hand_pipeline_int8", "18_ragged_m_int8",
         "15_packed_alias_bf16",
         "16_packed_alias_fp32"]
     assert sorted(n for n, _ in LADDER_ORDER) == registry.names()
