@@ -80,7 +80,9 @@ Phases (any failure raises and exits non-zero before the last line):
    kinds and fp32 stacks at d 36, f 130, each within GROUPED_REL (fp32:
    FP32_REL) of max |plain|, a rule that must refuse block 0 reading its
    neighbour expert's stack; timed at the Mixtral shapes, the bf16
-   instance beside ``torch._grouped_mm``; then the grouped GEMM's
+   instance beside ``torch._grouped_mm``; ``split_bf16`` (the forward's
+   and dW's pre-pass) EQUAL to its plain version at both Mixtral widths and
+   two ragged ones, timed at (9,216, 4,096); then the grouped GEMM's
    backward on the same layout: ``grouped_gemm_t`` (dx on int8 and bf16
    stacks) and ``grouped_gemm_t4`` (packed int4) for w_gate/w_in's dx
    (dy 14,336 -> 4,096) and w_out's (4,096 -> 14,336), ``grouped_dw`` on
@@ -187,21 +189,24 @@ Phases (any failure raises and exits non-zero before the last line):
    step, then the same model resumed from the checkpoint, whose losses
    must equal the first run's bit for bit; every loss finite, the router,
    the stacks, the attention and the embedding moved; ``grouped_gemm``,
-   ``grouped_gemm_t`` and ``grouped_dw`` 3 times a layer a step and the
-   training attention's kernels once; step ms, tokens/s, peak GB and the
+   ``grouped_gemm_t`` and ``grouped_dw`` 3 times a layer a step,
+   ``split_bf16`` 9 (x before each forward product, x and dy before each
+   dW) and the training attention's kernels once; step ms, tokens/s, peak
+   GB and the
    profiled step's kernels printed;
 13. QLoRA: ``moe_bench train`` at Mixtral's expert shape (T 4,096) on int8
    and packed int4 stacks, each with the counts set to 0 just before it:
    the stacks unchanged, nonzero gradients for the router and the scales,
-   the gradient step's ``grouped_gemm`` (forward and unscaled recompute)
-   and ``grouped_gemm_t`` or ``grouped_gemm_t4`` launches;
+   the gradient step's ``grouped_gemm`` (forward and unscaled recompute,
+   each after a ``split_bf16`` of x) and ``grouped_gemm_t`` or
+   ``grouped_gemm_t4`` launches;
 14. MoE training parity: two AdamW steps at Mixtral's width with 1 layer
    (batch 1 x 1,025: 2,048 routed copies) on the card and on the CPU from
    the same weights, for dense bf16 stacks and for int8 stacks under bf16
    linears, under phase 11's rule; a token some side routes otherwise must
    be a near-tie on the CPU side and is left out of that step's loss on
    every side (``train_moe_parity``);
-15. one ``{"kernels": [...]}`` line (49 kernels), the card's line again,
+15. one ``{"kernels": [...]}`` line (50 kernels), the card's line again,
    and last ``{"ok": true, "device": {...}}``.
 
 Each phase prints its seconds, and the run its total and the host's
@@ -235,9 +240,11 @@ from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
 # bandwidth. fp32 at the rungs' gate (1e-4): the fastest route that meets
 # it is a 3xTF32 split on the tensor cores, a third of the 495 TFLOP/s
 # TF32 peak (plain TF32 does not meet it); FFMA tops out at 67 TFLOP/s.
+# grouped_dw's three bf16 products of split operands meet its rule
+# (FP32_REL), so its bound takes a third of the bf16 peak.
 from how_to_optimize_gemm_tpu_torch.harness.profiling import (
-    PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FFMA_FLOPS, PEAK_FP32_FLOPS,
-    PEAK_INT8_OPS)
+    PEAK_BF16_FLOPS, PEAK_BF16X3_FLOPS, PEAK_BYTES, PEAK_FFMA_FLOPS,
+    PEAK_FP32_FLOPS, PEAK_INT8_OPS)
 from how_to_optimize_gemm_tpu_torch.models import checkpoint, llama
 from how_to_optimize_gemm_tpu_torch.ops import (attention, bounds,
                                                decode_attention,
@@ -859,14 +866,17 @@ def bound_ms(n_bytes: float, ops: float, peak_ops: float):
 
 
 def timed(name: str, shape: str, kernel, plain, library, b_ms, b_by,
-          err: float) -> dict:
+          err: float, wrapper=None) -> dict:
     """Time the kernel, its plain version and the library call; print.
 
     The kernel and the library call are timed as CUDA-graph replays (the
     device's time per call); the kernel also as called from Python one
     after another, which is what the serving path pays when the host,
     not the device, sets the pace. The plain version synchronizes (it
-    reads lengths on the host), so it is timed from Python."""
+    reads lengths on the host), so it is timed from Python. ``wrapper``,
+    where the kernel's wrapper launches other kernels too (a pre-pass),
+    is the wrapper's call, timed as a replay beside the kernel alone
+    (``wrapper_ms``)."""
     r = dict(max_abs_err=err, ms=time_calls(kernel, graph=True) * 1e3,
              plain_ms=time_calls(plain, inner_iters=3) * 1e3,
              library_ms=(None if library is None
@@ -874,9 +884,13 @@ def timed(name: str, shape: str, kernel, plain, library, b_ms, b_by,
              bound_ms=b_ms, bound_by=b_by)
     eager_ms = time_calls(kernel) * 1e3
     lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+    also = ""
+    if wrapper is not None:
+        r["wrapper_ms"] = time_calls(wrapper, graph=True) * 1e3
+        also = f"; the wrapper, its pre-pass included, {r['wrapper_ms']:.4f}"
     print(f"{name} {shape}: max|kernel - plain| = {err}; {r['ms']:.4f} ms "
           f"(called from Python {eager_ms:.4f}; plain {r['plain_ms']:.4f}, "
-          f"library {lib}, bound {b_ms:.4f} by {b_by})")
+          f"library {lib}, bound {b_ms:.4f} by {b_by}{also})")
     return r
 
 
@@ -1732,11 +1746,20 @@ MOE_KERNEL = dict(
     function="pallas_grouped_gemm._kernel + _kernel_noscale :83 + "
              "_kernel_q4 :87 + _kernel_q4_noscale :104, the backward's "
              "unscaled recompute (_gmm_call :108, grouped_matmul)")
+# The forward's and dW's pre-pass: x (and dy) split into two bf16 planes,
+# EQUAL to its plain version.
+SPLIT_KERNEL = dict(
+    name="split_bf16", source=SRC + "split_bf16.cu",
+    replaces="how_to_optimize_gemm_tpu/ops/pallas_grouped_gemm.py:71",
+    function="no Pallas kernel of its own: the split of the fp32 operand "
+             "that pallas_grouped_gemm._kernel :71 and _dw_kernel :255 "
+             "leave to the MXU's precision; the pre-pass of grouped_gemm "
+             "(kinds 0-2) and grouped_dw")
 # grouped_gemm vs its plain version, relative to max |plain|: bf16, int8
 # and int4 stacks take x split into bf16 hi + lo (2^-17 relative a
-# product) and the tensor cores' sums (measured on an H100 up to 3.4e-5 at
-# K = 14,336, 1.2e-5 at 4,096); fp32 stacks FFMA (FP32_REL). One block
-# reading its neighbour expert's stack reads above 1.
+# product) and the tensor cores' sums (the mma.sync kernel read up to
+# 3.4e-5 at K = 14,336 on an H100, 1.2e-5 at 4,096); fp32 stacks FFMA
+# (FP32_REL). One block reading its neighbour expert's stack reads above 1.
 GROUPED_REL = 1e-4
 MOE_T = 4096        # the kernel phase's tokens: Mixtral's prefill, top-2
 MOE_EMPTY = 1       # the expert the kernel phase's router gives no token
@@ -1748,10 +1771,12 @@ MOE_EMPTY = 1       # the expert the kernel phase's router gives no token
 # copies >= 2 x 8 x 128) 3 times a layer; decode (4 tokens) takes the
 # dispatch path.
 MOE_SERVE_PATHS = {
-    "S-moe-int8": ("int8", 32, ["grouped_gemm", "int8_gemm_noc",
+    "S-moe-int8": ("int8", 32, ["grouped_gemm", "split_bf16",
+                                "int8_gemm_noc",
                                 "flash_attention", "kv_update",
                                 "decode_attention"]),
-    "S-moe-w4a8": ("w4a8", 32, ["grouped_gemm", "w4a8_gemm_noc",
+    "S-moe-w4a8": ("w4a8", 32, ["grouped_gemm", "split_bf16",
+                                "w4a8_gemm_noc",
                                 "w4a8_gemv_fq", "flash_attention",
                                 "kv_update", "decode_attention"]),
 }
@@ -1797,6 +1822,37 @@ def _grouped_stack(gen, kind: str, e: int, kdim: int, n: int):
     return q, s, False
 
 
+def _forward_alone(xs, w, be, s, packed4: bool):
+    """(call, out): a call that launches grouped_gemm's kernel alone into
+    ``out``, on x split beforehand, so that a row reads one kernel (the
+    wrapper's split is ``split_bf16``'s row)."""
+    kind = grouped_gemm._forward_kind(w, packed4, s)
+    a = grouped_gemm.split_bf16(xs)
+    wk = grouped_gemm._stack_operand(w, kind)
+    be32 = be.to(torch.int32).contiguous()
+    out = torch.empty((xs.shape[0], w.shape[2]), device=xs.device)
+    return (lambda: grouped_gemm._launch_forward(a, wk, be32, s, out,
+                                                 xs.shape[1], 128, kind),
+            out)
+
+
+def _dw_alone(xs, dy, be, ne: int):
+    """(call, out): grouped_dw's kernel alone on x and dy split
+    beforehand."""
+    a, b = grouped_gemm.split_bf16(xs), grouped_gemm.split_bf16(dy)
+    be32 = be.to(torch.int32).contiguous()
+    out = torch.empty((ne, xs.shape[1], dy.shape[1]), device=xs.device)
+    return lambda: grouped_gemm._launch_dw(a, b, be32, out, 128), out
+
+
+def _same_as_wrapper(name: str, shape: str, alone, out, got) -> None:
+    """The kernel alone gives the wrapper's bits."""
+    alone()
+    if not torch.equal(out, got):
+        raise AssertionError(f"{name} {shape}: the kernel alone differs "
+                             "from its wrapper")
+
+
 def check_grouped_gemm(gen: torch.Generator) -> dict:
     """grouped_gemm against its plain version at Mixtral-8x7B's prefill
     (T = 4,096 tokens, top-2, Tp = 9,216; a random router, expert 1 given
@@ -1810,8 +1866,10 @@ def check_grouped_gemm(gen: torch.Generator) -> dict:
     operations (not the padding's) at the bf16 peak, whatever the stack
     kind, against the bytes of x, the stack, the scales and y once; the
     bf16 instance beside ``torch._grouped_mm`` (``_grouped_mm``: x
-    rounded to bf16, a bf16 output), which has no int8 or int4 form.
-    Returns the int8 w_gate row (library null)."""
+    rounded to bf16, a bf16 output), which has no int8 or int4 form. The
+    kernel is timed alone, on x split beforehand (its bits the wrapper's),
+    and the wrapper with its split beside it. Returns the int8 w_gate row
+    (library null)."""
     e, d, f = MOE_CFG.n_experts, MOE_CFG.d_model, MOE_CFG.d_ff
     cases = [(MOE_T, d, f, e, ("int8", "int4", "bf16"), True),
              (MOE_T, f, d, e, ("int8", "int4", "bf16"), True),
@@ -1851,15 +1909,46 @@ def check_grouped_gemm(gen: torch.Generator) -> dict:
                                     0).to(torch.int32)
                 lib = (_grouped_mm(xs.to(torch.bfloat16), w, offs)
                        if kind == "bf16" else None)
-                r = timed("grouped_gemm", shape,
-                          lambda: grouped_gemm.grouped_matmul(
-                              *args, packed4=packed4),
+                alone, y = _forward_alone(*args, packed4)
+                _same_as_wrapper("grouped_gemm", shape, alone, y, out)
+                r = timed("grouped_gemm", shape, alone,
                           lambda: grouped_gemm.grouped_matmul_ref(
-                              *args, packed4=packed4), lib, *b, err)
+                              *args, packed4=packed4), lib, *b, err,
+                          lambda: grouped_gemm.grouped_matmul(
+                              *args, packed4=packed4))
                 first = first or r
+                del alone, y
             del w, s, out, ref
         del xs
         torch.cuda.empty_cache()
+    first["max_abs_err"] = worst
+    return first
+
+
+def check_split(gen: torch.Generator) -> dict:
+    """split_bf16 EQUAL to its plain version on x at both of Mixtral's
+    widths (Tp 9,216 x 4,096 and x 14,336, the forward's and dW's
+    operands) and on ragged widths (36, 130: the planes' zero columns);
+    timed at (9,216, 4,096) beside its plain version and the bound (x read
+    once, both planes written once; no operations counted). No single
+    PyTorch call computes the pair: library null."""
+    first, worst = None, 0.0
+    for rows, cols, timed_here in ((9216, MOE_CFG.d_model, True),
+                                   (9216, MOE_CFG.d_ff, False),
+                                   (384, 36, False), (256, 130, False)):
+        x = torch.randn((rows, cols), generator=gen, device="cuda")
+        shape = f"({rows}, {cols})"
+        out = grouped_gemm.split_bf16(x)
+        err = _equal("split_bf16", shape, out, grouped_gemm.split_bf16_ref(x))
+        worst = max(worst, err)
+        print(f"split_bf16 {shape}: EQUAL to its plain version")
+        if timed_here:
+            b = bound_ms(nbytes(x, out), 0.0, PEAK_BF16_FLOPS)
+            first = timed("split_bf16", shape,
+                          lambda: grouped_gemm.split_bf16(x),
+                          lambda: grouped_gemm.split_bf16_ref(x), None, *b,
+                          err)
+        del x, out
     first["max_abs_err"] = worst
     return first
 
@@ -2257,11 +2346,13 @@ MOE_BWD_KERNELS = [
                   "of _gmm_dense)"),
 ]
 # grouped_gemm_t and _t4 split dy into bf16 hi + lo as the forward splits
-# x: GROUPED_REL of max |plain| (fp32 stacks FFMA: FP32_REL). grouped_dw is
-# FFMA over each expert's rows, in order, against the plain version's one
-# cuBLAS fp32 product over them: FP32_REL, fp32 sums in another order (it
-# read equal on an H100, cuBLAS chaining each output over the rows in
-# order too). A planted fault reads far above its rule: block
+# x: GROUPED_REL of max |plain| (fp32 stacks FFMA: FP32_REL). grouped_dw
+# takes x and dy split by split_bf16, three bf16 wgmma products (hi.hi +
+# hi.lo + lo.hi, every partial product exact) summed in fp32 registers
+# every 256 rows, against the plain version's one cuBLAS fp32 product over
+# the expert's rows: FP32_REL, the fp32 sums in another order and the
+# dropped lo.lo below 2^-16 of a product. A planted fault reads far above
+# its rule: block
 # 0 reading its neighbour expert's stack (dx), one of an expert's blocks
 # left out of its sum (dW).
 # T-moe: Mixtral-8x7B's width at 1 layer (dense bf16 stacks, every
@@ -2276,6 +2367,7 @@ TMOE_CKPT = 2
 # per layer a step: the grouped GEMM's three products forward and back,
 # the training attention once
 TMOE_LAUNCHES = {"grouped_gemm": 3, "grouped_gemm_t": 3, "grouped_dw": 3,
+                 "split_bf16": 9,
                  "flash_attention_fwd_lse": 1, "flash_attention_bwd_dq": 1,
                  "flash_attention_bwd_dkv": 1}
 # the QLoRA phase: moe_bench train at Mixtral's expert shape, T 4,096
@@ -2306,9 +2398,11 @@ def check_grouped_backward(gen: torch.Generator) -> dict:
     within its rule of max |plain|, which must refuse the planted faults.
     Timed at the Mixtral shapes as CUDA-graph replays beside the plain
     version, the bound (the routed rows' operations at the bf16 peak, dW's
-    at 3xTF32's, against each operand's bytes once) and the library's
-    grouped product where this PyTorch has one (bf16 instances). Returns
-    the row of each kernel: bf16 w_gate (the T-moe path's), int4 w_gate,
+    at a third of it -- three bf16 products meet its rule -- against each
+    operand's bytes once) and the library's grouped product where this
+    PyTorch has one (bf16 instances); grouped_gemm and grouped_dw timed
+    alone on operands split beforehand, their wrappers beside. Returns the
+    row of each kernel: bf16 w_gate (the T-moe path's), int4 w_gate,
     bf16-stack w_gate's dW."""
     e, d, f = MOE_CFG.n_experts, MOE_CFG.d_model, MOE_CFG.d_ff
     cases = [(MOE_T, d, f, e, ("bf16", "int8", "int4"), True),
@@ -2369,12 +2463,14 @@ def check_grouped_backward(gen: torch.Generator) -> dict:
                                          f"{uerr / uscale}")
                 b = bound_ms(nbytes(xs, w, u), 2.0 * routed * dout * n,
                              PEAK_BF16_FLOPS)
-                timed("grouped_gemm", f"unscaled {shape} (the backward's "
-                      f"recompute of u)", lambda: grouped_gemm._gmm(
-                          xs, w, be, None, 128, True),
+                ushape = f"unscaled {shape} (the backward's recompute of u)"
+                alone, y = _forward_alone(xs, w, be, None, True)
+                _same_as_wrapper("grouped_gemm", ushape, alone, y, u)
+                timed("grouped_gemm", ushape, alone,
                       lambda: grouped_gemm.grouped_matmul_ref(
-                          xs, w, be, packed4=True), None, *b, uerr)
-                del u, uref
+                          xs, w, be, packed4=True), None, *b, uerr,
+                      lambda: grouped_gemm._gmm(xs, w, be, None, 128, True))
+                del u, uref, alone, y
             del w, s, out, ref, bad
         got = grouped_gemm.grouped_dw(xs, dy, be, ne)
         ref = grouped_gemm.grouped_dw_ref(xs, dy, be, ne)
@@ -2398,15 +2494,18 @@ def check_grouped_backward(gen: torch.Generator) -> dict:
         del bad
         if timed_here:
             b = bound_ms(nbytes(xs, dy, got), 2.0 * routed * dout * n,
-                         PEAK_FP32_FLOPS)
+                         PEAK_BF16X3_FLOPS)
             lib = _grouped_mm(xs.to(torch.bfloat16).t(),
                               dy.to(torch.bfloat16), offs)
-            r = timed("grouped_dw", f"fp32 {tag}",
-                      lambda: grouped_gemm.grouped_dw(xs, dy, be, ne),
+            alone, y = _dw_alone(xs, dy, be, ne)
+            _same_as_wrapper("grouped_dw", tag, alone, y, got)
+            r = timed("grouped_dw", f"fp32 {tag}", alone,
                       lambda: grouped_gemm.grouped_dw_ref(xs, dy, be, ne),
-                      lib, *b, err)
+                      lib, *b, err,
+                      lambda: grouped_gemm.grouped_dw(xs, dy, be, ne))
             if n == f:
                 rows["grouped_dw"] = r
+            del alone, y
         del xs, dy, got, ref
         torch.cuda.empty_cache()
     for name, r in rows.items():
@@ -2526,7 +2625,8 @@ def qlora_path() -> dict:
     count set to 0 just before it: the integer stacks unchanged, the
     router and every scale a nonzero gradient, and the gradient step's
     launches: grouped_gemm 6 (the forward's three and the three unscaled
-    recomputes of u), grouped_gemm_t (int8) or grouped_gemm_t4 (int4)
+    recomputes of u) and split_bf16 6 (one before each), grouped_gemm_t
+    (int8) or grouped_gemm_t4 (int4)
     once (w_out's dx into the SwiGLU activations: the input x takes no
     gradient there; the timed chained step takes dx at all three).
     Returns the launches summed over both runs."""
@@ -2539,7 +2639,7 @@ def qlora_path() -> dict:
         for k, v in _build.LAUNCHES.items():
             total[k] = total.get(k, 0) + v
         t = "grouped_gemm_t4" if kind == "int4" else "grouped_gemm_t"
-        want = {"grouped_gemm": 6, t: 1}
+        want = {"grouped_gemm": 6, "split_bf16": 6, t: 1}
         step = {k: r["launches"].get(k, 0) for k in want}
         print(json.dumps({"qlora": kind, "loss": r["loss"],
                           "trainable": r["trainable"],
@@ -3171,6 +3271,7 @@ def main() -> int:
     print(f"serving and training kernels: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     checks[MOE_KERNEL["name"]] = check_grouped_gemm(gen)
+    checks[SPLIT_KERNEL["name"]] = check_split(gen)
     print(f"grouped_gemm: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     checks.update(check_grouped_backward(gen))
@@ -3198,13 +3299,13 @@ def main() -> int:
         print(f"{path}: {time.perf_counter() - t0:.1f} s")
         for spec in SERVE_KERNELS:
             launches[spec["name"]] += path_launches[spec["name"]]
-    launches[MOE_KERNEL["name"]] = 0
+    launches[MOE_KERNEL["name"]] = launches[SPLIT_KERNEL["name"]] = 0
     for path in MOE_SERVE_PATHS:
         gen.manual_seed(0)
         t0 = time.perf_counter()
         path_launches = serve_moe_path(gen, path)
         print(f"{path}: {time.perf_counter() - t0:.1f} s")
-        for spec in SERVE_KERNELS + [MOE_KERNEL]:
+        for spec in SERVE_KERNELS + [MOE_KERNEL, SPLIT_KERNEL]:
             launches[spec["name"]] += path_launches[spec["name"]]
     gen.manual_seed(1)
     t0 = time.perf_counter()
@@ -3230,7 +3331,8 @@ def main() -> int:
     moe_launches.append(qlora_path())
     print(f"QLoRA: {time.perf_counter() - t0:.1f} s")
     for path_launches in moe_launches:
-        for spec in TRAIN_KERNELS + [MOE_KERNEL] + MOE_BWD_KERNELS:
+        for spec in (TRAIN_KERNELS + [MOE_KERNEL, SPLIT_KERNEL]
+                     + MOE_BWD_KERNELS):
             launches[spec["name"]] += path_launches.get(spec["name"], 0)
     missing = [s["name"] for s in MOE_BWD_KERNELS if not launches[s["name"]]]
     if missing:
@@ -3246,8 +3348,9 @@ def main() -> int:
 
     kernels = []
     launches.update(tool_launches)
-    for spec in (KERNELS + SERVE_KERNELS + TRAIN_KERNELS + [MOE_KERNEL]
-                 + MOE_BWD_KERNELS + TOOL_KERNELS):
+    for spec in (KERNELS + SERVE_KERNELS + TRAIN_KERNELS
+                 + [MOE_KERNEL, SPLIT_KERNEL] + MOE_BWD_KERNELS
+                 + TOOL_KERNELS):
         r = checks[spec["name"]]
         kernels.append({
             "name": spec["name"], "route": "cuda", "source": spec["source"],

@@ -152,10 +152,13 @@ KERNELS = {
     # C tile edge, 128 (rung 03) or 64 (rung 03b)
     "fp32_gemm_k_blocked": Kernel("fp32_gemm_k_blocked.cu",
                                   _FLOAT_GEMM[:-1] + (_I, _P)),
-    # the MoE grouped GEMM: (x, w, block_expert, s, out, Tp, N, K, ldx, ldw,
-    # bt, kind, stream); s may be null, kind 0 bf16, 1 int8, 2 packed int4,
-    # 3 fp32 stacks
-    "grouped_gemm": Kernel("grouped_gemm.cu", (_P,) * 5 + (_I,) * 7 + (_P,)),
+    # the MoE grouped GEMM: (a, w, block_expert, s, out, Tp, N, K, lda, ldw,
+    # bt, E, kind, stream); s may be null, kind 0 bf16, 1 int8, 2 packed
+    # int4 (a: x split by split_bf16), 3 fp32 stacks (a: x)
+    "grouped_gemm": Kernel("grouped_gemm.cu", (_P,) * 5 + (_I,) * 8 + (_P,)),
+    # x (rows, ldx) fp32 -> (2, rows, ldo) bf16 hi, lo: (x, out, rows, cols,
+    # ldx, ldo, stream)
+    "split_bf16": Kernel("split_bf16.cu", (_P,) * 2 + (_I,) * 4 + (_P,)),
     # its backward: dx = dy @ W[e]^T, (dy, w, block_expert, out, Tp, N, K,
     # ldx, ldw, bt, kind, stream), kind 0 bf16, 1 int8, 3 fp32 stacks; the
     # same on a packed int4 stack without the kind
@@ -164,7 +167,7 @@ KERNELS = {
     "grouped_gemm_t4": Kernel("grouped_gemm_t.cu", (_P,) * 4 + (_I,) * 6
                               + (_P,)),
     # dW[e] = x_e^T dy_e: (x, dy, block_expert, out, nb, M, N, E, ldx, ldy,
-    # bt, stream)
+    # bt, stream), x and dy split by split_bf16
     "grouped_dw": Kernel("grouped_dw.cu", (_P,) * 4 + (_I,) * 7 + (_P,)),
     # the hardware probes (ops/probes.py); kind 0 int8, 1 bf16, 2 fp32:
     # (x, y, out, blocks, S, n_iters, kind, stream)

@@ -88,17 +88,12 @@ __device__ __forceinline__ void load_fp32_nmajor(float (*dst)[FBN],
 }
 
 // One stage: A's 128 rows x 16 K and B's 16 K x 128 columns, one
-// cp.async group. A is (M, K) K-major, or given transposed as AT (K, M)
-// with kAT, which stages as it lies (pitch lda a multiple of 4, >= M).
-template <bool kBT, bool kAT>
+// cp.async group. A is (M, K) K-major.
+template <bool kBT>
 __device__ __forceinline__ void load_fp32_stage(
     float (*sa)[FBM], float (*sb)[FBN], const float* a, const float* b,
     int m0, int n0, int M, int N, int k0, int K, int lda, int ldb) {
-  if constexpr (kAT) {
-    load_fp32_nmajor(sa, a, m0, M, k0, K, lda);
-  } else {
-    load_fp32_kmajor(sa, a, m0, M, k0, K, lda);
-  }
+  load_fp32_kmajor(sa, a, m0, M, k0, K, lda);
   if constexpr (kBT) {
     load_fp32_kmajor(sb, b, n0, N, k0, K, ldb);
   } else {
@@ -114,11 +109,10 @@ __device__ __forceinline__ int ftile(int t, int i) {
 
 // acc[i][j] += sum over k of A[row i][k] * B[k][col j] for this thread's
 // 8x8 outputs of the 128x128 tile at (m0, n0), one fmaf chain per output
-// in k order. A (M, lda) fp32, or AT (K, lda) when kAT; B as BT (N, ldb)
-// when kBT, else (K, ldb). The grouped GEMM (grouped_gemm.cu,
-// grouped_gemm_t.cu) runs it on one expert's stack, its dW (grouped_dw.cu)
-// on one expert's rows.
-template <bool kBT, bool kAT = false>
+// in k order. A (M, lda) fp32; B as BT (N, ldb) when kBT, else (K, ldb).
+// The grouped GEMM's fp32-stack instances (grouped_gemm.cu,
+// grouped_gemm_t.cu) run it on one expert's stack.
+template <bool kBT>
 __device__ __forceinline__ void fp32_gemm_mainloop(
     float (&acc)[8][8], const float* a, const float* b, int M, int N, int K,
     int lda, int ldb, int m0, int n0) {
@@ -127,15 +121,14 @@ __device__ __forceinline__ void fp32_gemm_mainloop(
   int tx = threadIdx.x & 15;
   int ty = threadIdx.x >> 4;
   int nk = (K + FBK - 1) / FBK;
-  load_fp32_stage<kBT, kAT>(sa[0], sb[0], a, b, m0, n0, M, N, 0, K, lda,
-                            ldb);
+  load_fp32_stage<kBT>(sa[0], sb[0], a, b, m0, n0, M, N, 0, K, lda, ldb);
   cp_async_wait_all();
   __syncthreads();
   for (int kt = 0; kt < nk; ++kt) {
     int s = kt & 1;
     if (kt + 1 < nk) {
-      load_fp32_stage<kBT, kAT>(sa[s ^ 1], sb[s ^ 1], a, b, m0, n0, M, N,
-                                (kt + 1) * FBK, K, lda, ldb);
+      load_fp32_stage<kBT>(sa[s ^ 1], sb[s ^ 1], a, b, m0, n0, M, N,
+                           (kt + 1) * FBK, K, lda, ldb);
     }
 #pragma unroll
     for (int k = 0; k < FBK; ++k) {

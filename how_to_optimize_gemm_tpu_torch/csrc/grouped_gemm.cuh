@@ -1,5 +1,6 @@
-// The tile walk shared by the grouped GEMM's forward (grouped_gemm.cu) and
-// its transposed dx product (grouped_gemm_t.cu): one 128 x 128 tile of
+// The tile walk of the grouped GEMM's transposed dx product
+// (grouped_gemm_t.cu; its order of tiles, tile_of_block, also the
+// forward's in grouped_gemm.cu): one 128 x 128 tile of
 //     out[m0.., n0..] = split(A[m0.., :K]) . B_e[:K, n0..]
 // where A (Tp, K) fp32 rows are expert-sorted, a 128-row tile lies in one
 // bt-row block of the layout (bt a multiple of 128), so one expert e serves
@@ -69,20 +70,25 @@ __device__ __forceinline__ void x_frags(const float (*xs)[LDX], int r,
   for (int j = 0; j < 4; ++j) fa::split_pack(v[j].x, v[j].y, hi[j], lo[j]);
 }
 
-// (row tile, column tile) of this block: groups of GROUP_M row tiles, the
-// row tile fastest inside a group, so the blocks running at once share one
-// expert's stack columns and a few A tiles in L2.
-__device__ __forceinline__ void tile_of_block(int Tp, int N, int& m0,
-                                              int& n0) {
-  int num_m = Tp / BM;
+// (row tile, column tile) of tile `bid` of an M x N output: groups of
+// GROUP_M row tiles, the row tile fastest inside a group, so the blocks
+// running at once share one expert's stack columns and a few A tiles in L2.
+__device__ __forceinline__ void tile_of_block(int bid, int M, int N,
+                                              int& m0, int& n0) {
+  int num_m = (M + BM - 1) / BM;
   int num_n = (N + BN - 1) / BN;
   int per_group = GROUP_M * num_n;
-  int bid = blockIdx.x;
   int first_m = (bid / per_group) * GROUP_M;
   int gm = min(num_m - first_m, GROUP_M);
   int in_group = bid % per_group;
   m0 = (first_m + in_group % gm) * BM;
   n0 = (in_group / gm) * BN;
+}
+
+// The tile of this block of the (Tp, N) output.
+__device__ __forceinline__ void tile_of_block(int Tp, int N, int& m0,
+                                              int& n0) {
+  tile_of_block(blockIdx.x, Tp, N, m0, n0);
 }
 
 // acc += split(A[m0 .. m0 + 127, :K]) . B[:K, n0 .. n0 + 127].

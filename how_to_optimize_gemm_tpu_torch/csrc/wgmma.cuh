@@ -1,0 +1,338 @@
+// Hopper's warpgroup MMA (wgmma) fed by tensor-map copies (TMA) into an
+// mbarrier ring: the building blocks of the grouped GEMM's forward
+// (grouped_gemm.cu, kinds 0-2) and its dW (grouped_dw.cu).
+//
+// Block shape (both kernels): 384 threads, three warpgroups. Warp 0 is the
+// producer (its lane 0 issues every tensor-map copy of the ring); warps 1-3
+// convert integer stack tiles to bf16 where the forward needs it and leave
+// at once otherwise (a warpgroup's wgmma wants its four warps aligned to a
+// warpgroup, so the consumers start at thread 128 either way, and a warp
+// that has left costs nothing: one block an SM); warpgroups 1 and 2 are the
+// consumers, each issuing wgmma.m64n128k16 on 64 rows of the block's
+// 128 x 128 output tile. No register rebalancing (setmaxnreg): one block an
+// SM caps a thread at 168 registers, which the consumers' 128 accumulator
+// registers fit.
+//
+// A ring slot (a stage of KT = 64 K values) has two barriers (the forward
+// adds a third for its converters, grouped_gemm.cu):
+//   full[s]   one producer arrival with the stage's byte count; the
+//             copies' complete_tx pays it off;
+//   empty[s]  one arrival a consumer warp once its wgmmas on the slot have
+//             completed; the producer waits on it before refilling.
+// The q-th use of slot s = q % ST is phase q / ST: every wait names parity
+// (q / ST) & 1.
+//
+// Shared-memory tiles use the 128-byte swizzle (a 16-byte chunk's index
+// within a 128-byte line XORed with the line's index mod 8), which the
+// tensor-map copies write and the wgmma descriptors name; every tile base
+// is 1024-byte aligned. Two layouts:
+//   K-major (the forward's A, x split into bf16): one 128-byte line per
+//     row, 64 K values; 8-row groups 1024 bytes apart (SBO). The k-th
+//     16-deep step starts 32 k bytes into the line.
+//   MN-major (the stacks and dy as they lie, x transposed for dW): one
+//     128-byte line per K row holding 64 M (or N) values; blocks of 64
+//     M/N values KT x 128 = 8,192 bytes apart (LBO), 8-row K groups 1024
+//     bytes apart (SBO). The k-th 16-deep step starts 2,048 k bytes in.
+// wgmma takes the MN-major form for 16-bit types only (imm-trans-a/b = 1).
+//
+// Accumulation: the tensor cores' fp32 sum loses low bits over a long K
+// (measured on an H100 with mma.sync: 3.4e-5 of max |y| at K = 14,336).
+// So a consumer sums CH stages in its wgmma accumulator, then adds that
+// partial into a second fp32 register array with ordinary adds and
+// restarts the wgmma sum (scale-d = 0): the fixed order of a fixed tiling,
+// the same bits on every run.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "manual_dma.cuh"
+
+namespace htog {
+namespace wg {
+
+constexpr int BLOCK = 384;         // producer, converters, 2 consumers
+constexpr int CONSUMERS = 256;     // threads of warpgroups 1 and 2
+constexpr int TILE = 128;          // output tile edge (rows and columns)
+constexpr int KT = 64;             // K values a stage
+constexpr int LINE = 128;          // bytes of a swizzled line
+constexpr int ATOM = 1024;         // bytes of 8 swizzled lines
+constexpr int HALF_TILE = KT * LINE;           // 64 lines: 8,192 bytes
+constexpr int TILE_BYTES = 2 * HALF_TILE;      // a 128 x 64 bf16 tile
+constexpr int ACC = 64;            // fp32 accumulators a thread (64 x 128)
+
+// ------------------------------------------------------------- host side
+
+// cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A tensor map of `rank` dims (innermost first) over `base`; strides in
+// bytes of dims 1 .. rank-1 (multiples of 16). Elements outside the dims
+// read as zeros. Returns false if the driver refuses it.
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                     const void* base, const cuuint64_t* dims,
+                     const cuuint64_t* strides, const cuuint32_t* box,
+                     CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides, box,
+            ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (2 rows, cols) bf16 pair of planes laid out (2, rows, ld) -- hi then
+// lo, split_bf16.cu's output -- as one 2-D map of 2 * rows rows, boxes of
+// box_rows rows x 64 values, 128-byte swizzle.
+inline bool make_split_map(CUtensorMap* map, const void* base, int rows,
+                           int cols, int ld, int box_rows) {
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                        2 * static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims,
+                  strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// ----------------------------------------------------------- device side
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  uint32_t a = smem_u32(p);
+  return p + ((ATOM - (a & (ATOM - 1))) & (ATOM - 1));
+}
+
+// Tensor-map copies global -> shared, paid off on `bar`; coordinates
+// innermost first, in elements.
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, int c2,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// A shared-memory matrix descriptor, 128-byte swizzle: start address,
+// leading and stride byte offsets (PTX ISA, "Matrix Descriptor").
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);
+}
+
+// A K-major 64-row tile at `addr`, its k-th 16-deep step.
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, int k) {
+  return sw128_desc(addr + 32 * k, 0, ATOM);
+}
+
+// An MN-major tile at `addr` (64-value blocks HALF_TILE apart), its k-th
+// 16-deep step.
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, int k) {
+  return sw128_desc(addr + 2 * ATOM * k, HALF_TILE, ATOM);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads and writes across a
+// wgmma issue or wait (the registers change behind its back).
+__device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A . B, m64n128k16, bf16 operands from shared memory, fp32 sums;
+// kTA / kTB: A / B MN-major. accumulate = 0 ignores d's old value.
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[ACC], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));
+}
+
+// The ring's barriers, after the stages in shared memory.
+template <int ST>
+struct Ring {
+  uint64_t full[ST];
+  uint64_t empty[ST];
+
+  // by one thread, before the block's __syncthreads
+  __device__ void init() {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS / 32);
+    }
+    mbar_fence_init();
+  }
+};
+
+// mbar_wait that traps (a launch failure the wrapper reports) instead of
+// spinning forever on a phase that never completes.
+__device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
+  uint32_t addr = smem_u32(bar);
+  for (uint32_t n = 0; !mbar_try_wait<false>(addr, parity); ++n)
+    if (n == (1u << 28)) __trap();
+}
+
+// The producer's wait before it fills use q of a slot: the slots start
+// empty.
+template <int ST>
+__device__ __forceinline__ void wait_empty(Ring<ST>& ring, int q) {
+  if (q >= ST) wait(&ring.empty[q % ST], ((q / ST) - 1) & 1);
+}
+
+// One consumer warp's release of a slot once its wgmmas have completed.
+template <int ST>
+__device__ __forceinline__ void release(Ring<ST>& ring, int s) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&ring.empty[s]);
+}
+
+// A consumer warpgroup's walk over nk stages: issue(s, q, first) issues
+// the wgmmas of use q of slot s into acc (first: restart the sum), after
+// wait(s, q) has seen its operands land. After every CH stages and after
+// the last, once those wgmmas have completed, fold() takes acc (to add it
+// into fp32 registers of its own). One wgmma group stays in flight while
+// the next stage's operands are awaited.
+template <int ST, int CH, class Wait, class Issue, class Fold>
+__device__ __forceinline__ void consume(Ring<ST>& ring, int nk,
+                                        float (&acc)[ACC], Wait wait,
+                                        Issue issue, Fold fold) {
+  int pending = -1;
+  for (int q = 0; q < nk; ++q) {
+    int s = q % ST;
+    wait(s, q);
+    fence_acc(acc);
+    wgmma_fence();
+    issue(s, q, q % CH == 0);
+    wgmma_commit();
+    if ((q + 1) % CH == 0 || q + 1 == nk) {
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (pending >= 0) release(ring, pending);
+      release(ring, s);
+      pending = -1;
+      fold();
+    } else {
+      wgmma_wait<1>();
+      if (pending >= 0) release(ring, pending);
+      pending = s;
+    }
+  }
+}
+
+// tot += acc, fp32 adds in a fixed order.
+__device__ __forceinline__ void add_into(float (&tot)[ACC],
+                                         const float (&acc)[ACC]) {
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) tot[i] = __fadd_rn(tot[i], acc[i]);
+}
+
+__device__ __forceinline__ void zero(float (&d)[ACC]) {
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) d[i] = 0.0f;
+}
+
+// Calls f(v0, v1, row, col) for each pair of a consumer's accumulators:
+// rows row0 + its 64, columns col .. col + 1 from col0 (wgmma's fp32
+// accumulator layout: each 8-column block j holds, for the warp's 16 rows,
+// d[4j], d[4j+1] on row g and d[4j+2], d[4j+3] on row g + 8).
+template <class F>
+__device__ __forceinline__ void for_each_pair(const float (&d)[ACC],
+                                              int row0, int col0, F f) {
+  int warp = (threadIdx.x >> 5) & 3;
+  int lane = threadIdx.x & 31;
+  int row = row0 + warp * 16 + (lane >> 2);
+  int col = col0 + (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < ACC / 4; ++j) {
+    f(d[4 * j], d[4 * j + 1], row, col + 8 * j);
+    f(d[4 * j + 2], d[4 * j + 3], row + 8, col + 8 * j);
+  }
+}
+
+// Stores v0, v1 at columns col, col + 1 of row `row` of an n-column
+// matrix where they lie below n: one 8-byte store when both do and the
+// address allows.
+__device__ __forceinline__ void store_pair(float* out, size_t row, int col,
+                                           int n, float v0, float v1) {
+  float* p = out + row * n + col;
+  if (col + 1 < n && (reinterpret_cast<uintptr_t>(p) & 7) == 0) {
+    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+  } else {
+    if (col < n) p[0] = v0;
+    if (col + 1 < n) p[1] = v1;
+  }
+}
+
+}  // namespace wg
+}  // namespace htog

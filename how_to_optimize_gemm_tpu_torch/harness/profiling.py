@@ -41,7 +41,10 @@ from how_to_optimize_gemm_tpu_torch.utils.matrices import make_abc
 PEAK_INT8_OPS = 1.979e15
 PEAK_BF16_FLOPS = 0.989e15
 PEAK_TF32_FLOPS = 0.495e15
-PEAK_FP32_FLOPS = PEAK_TF32_FLOPS / 3   # 3xTF32: the gate-meeting route
+PEAK_FP32_FLOPS = PEAK_TF32_FLOPS / 3   # 3xTF32, fp32 rows in general
+# three bf16 products of operands split into bf16 hi + lo: the fp32 rate
+# of a function whose rule they are shown to meet (grouped_dw's FP32_REL)
+PEAK_BF16X3_FLOPS = PEAK_BF16_FLOPS / 3
 PEAK_FFMA_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 

@@ -33,12 +33,17 @@ packed instance without scales is the unscaled recompute, the reference's
 ``_kernel_q4_noscale``), ``grouped_gemm_t`` and ``grouped_gemm_t4``
 (``csrc/grouped_gemm_t.cu``) and ``grouped_dw`` (``csrc/grouped_dw.cu``),
 or a raise; on CPU tensors their plain versions (``*_ref``: one
-``vendor.fp32_matmul`` per block, for dW per expert, TF32 off). The bf16, int8 and int4
-products split their fp32 operand into bf16 hi + lo for the tensor cores
-(about 2^-17 relative to the fp32 product) and sum in their own order; the
-fp32-stack products and dW are FFMA. The reference's VMEM-budget block
-width (``_auto_bf``) is a TPU constant and has no counterpart; the kernels
-tile 128 x 128 and the products need ``bt`` a multiple of 128 on the card.
+``vendor.fp32_matmul`` per block, for dW per expert, TF32 off). The bf16,
+int8 and int4 products split their fp32 operand into bf16 hi + lo for the
+tensor cores (about 2^-17 relative to the fp32 product) and sum in their
+own order: the forward and dW on ``wgmma``, after the pre-pass
+``split_bf16`` (``csrc/split_bf16.cu``; x, and for dW x and dy, as two
+bf16 planes, two products a tile for the forward and hi.hi + hi.lo +
+lo.hi for dW), the transposed product on ``mma.sync``, splitting as it
+reads. The fp32-stack products are FFMA. The reference's VMEM-budget
+block width (``_auto_bf``) is a TPU constant and has no counterpart; the
+kernels tile 128 x 128 and the products need ``bt`` a multiple of 128 on
+the card.
 """
 from __future__ import annotations
 
@@ -54,10 +59,17 @@ KERNEL = "grouped_gemm"
 KERNEL_T = "grouped_gemm_t"
 KERNEL_T4 = "grouped_gemm_t4"
 KERNEL_DW = "grouped_dw"
+KERNEL_SPLIT = "split_bf16"
 # the kernels' row tile: bt must be a multiple of it on the card
 TILE_ROWS = 128
 # the kernels' stack kinds (csrc/grouped_gemm.cu, grouped_gemm_t.cu)
 _KINDS = {torch.bfloat16: 0, torch.int8: 1, "int4": 2, torch.float32: 3}
+# the forward's stack rows, in elements of each kind, padded to a multiple
+# of: 16 bytes for the tensor maps of kinds 0-2, 4 floats for the FFMA
+# kernel's loads
+_STACK_PITCH = {0: 8, 1: 16, 2: 16, 3: 4}
+# split_bf16's planes: rows of a multiple of 8 bf16 (16 bytes)
+_SPLIT_PITCH = 8
 
 
 def _pick_block(dim: int, cap: int) -> int:
@@ -96,13 +108,17 @@ def _check_layout(x, w, block_expert, scales, bt: int, packed4: bool):
                          f"({e}, 1, {f})")
 
 
+def _check_bt(name: str, bt: int) -> None:
+    if bt % TILE_ROWS:
+        raise ValueError(f"{name}: bt={bt} is not a multiple of the "
+                         f"kernel's {TILE_ROWS}-row tile")
+
+
 def _check_card(name: str, bt: int, x, *others) -> None:
     """The card's conditions shared by every kernel: CUDA tensors on one
     device, bt a multiple of the row tile."""
     require_cuda(name, x)
-    if bt % TILE_ROWS:
-        raise ValueError(f"{name}: bt={bt} is not a multiple of the "
-                         f"kernel's {TILE_ROWS}-row tile")
+    _check_bt(name, bt)
     for t in others:
         if t is not None and t.device != x.device:
             raise ValueError(f"{name}: tensors on {t.device} and "
@@ -152,14 +168,45 @@ def grouped_matmul_ref(x, w, block_expert, scales=None, *, bt: int = 128,
     return y
 
 
-def _gmm(x, w, block_expert, scales, bt: int, packed4: bool):
-    """The forward product, outside autograd: kernel ``grouped_gemm`` on
-    the card, its plain version on the CPU. ``scales`` may be None with
-    ``packed4`` (the unscaled recompute of the packed backward)."""
+def split_bf16_ref(x) -> torch.Tensor:
+    """Plain version of ``split_bf16``: (2, rows, ldo) bf16, hi =
+    bf16(x) and lo = bf16(x - hi) (round to nearest even; x - hi is exact
+    in fp32), columns from x's up to ldo (a multiple of 8) zeros."""
+    if x.dim() != 2:
+        raise ValueError(f"{KERNEL_SPLIT}: x {tuple(x.shape)} must be 2-D")
+    rows, cols = x.shape
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16)
+    out = torch.zeros((2, rows, bounds.round_up(cols, _SPLIT_PITCH)),
+                      dtype=torch.bfloat16, device=x.device)
+    out[0, :, :cols] = hi
+    out[1, :, :cols] = (x - hi.to(torch.float32)).to(torch.bfloat16)
+    return out
+
+
+def split_bf16(x) -> torch.Tensor:
+    """x (rows, cols) float as two bf16 planes for the tensor cores, hi
+    then lo, |x - hi - lo| <= 2^-17 |x|: the operand of the forward's and
+    dW's kernels. Kernel ``split_bf16`` on the card (bit for bit its plain
+    version), the plain version on the CPU."""
     if x.device.type == "cpu":
-        return grouped_matmul_ref(x, w, block_expert, scales, bt=bt,
-                                  packed4=packed4)
-    _check_card(KERNEL, bt, x, w, block_expert, scales)
+        return split_bf16_ref(x)
+    require_cuda(KERNEL_SPLIT, x)
+    if x.dim() != 2:
+        raise ValueError(f"{KERNEL_SPLIT}: x {tuple(x.shape)} must be 2-D")
+    x = x.to(torch.float32).contiguous()
+    rows, cols = x.shape
+    _aligned(KERNEL_SPLIT, x)
+    ldo = bounds.round_up(cols, _SPLIT_PITCH)
+    out = torch.empty((2, rows, ldo), dtype=torch.bfloat16, device=x.device)
+    if out.numel():
+        _build.launch(KERNEL_SPLIT, x.device, x, out, rows, cols, cols, ldo)
+    return out
+
+
+def _forward_kind(w, packed4: bool, scales) -> int:
+    """The forward kernel's stack kind for ``w``; raises on what the card
+    has no kernel for (a stack type without a kind, non-fp32 scales)."""
     kind = _KINDS.get("int4" if packed4 else w.dtype)
     if kind is None or (packed4 and w.dtype != torch.int8):
         raise TypeError(f"{KERNEL}: no kernel for a {w.dtype} stack "
@@ -167,19 +214,52 @@ def _gmm(x, w, block_expert, scales, bt: int, packed4: bool):
     if scales is not None and scales.dtype != torch.float32:
         raise TypeError(f"{KERNEL}: scales must be float32, got "
                         f"{scales.dtype}")
+    return kind
+
+
+def _stack_operand(w, kind: int) -> torch.Tensor:
+    """The stack as the forward kernel reads it: contiguous, rows padded
+    with zero columns to ``_STACK_PITCH`` (a multiple of 16 bytes for the
+    tensor maps). At widths that are already multiples -- Mixtral's --
+    this is ``w`` itself, never a copy."""
+    return bounds.pad_dim(w.contiguous(), 2, _STACK_PITCH[kind])
+
+
+def _gmm(x, w, block_expert, scales, bt: int, packed4: bool):
+    """The forward product, outside autograd: kernel ``grouped_gemm`` on
+    the card (kinds 0-2 after ``split_bf16`` of x), its plain version on
+    the CPU. ``scales`` may be None with ``packed4`` (the unscaled
+    recompute of the packed backward)."""
+    if x.device.type == "cpu":
+        return grouped_matmul_ref(x, w, block_expert, scales, bt=bt,
+                                  packed4=packed4)
+    _check_card(KERNEL, bt, x, w, block_expert, scales)
+    kind = _forward_kind(w, packed4, scales)
     tp, d = x.shape
-    f = w.shape[2]
-    # rows of x and of the stack on 16-byte boundaries: zero columns
-    x = bounds.pad_dim(x.to(torch.float32).contiguous(), 1, 4)
-    w = bounds.pad_dim(w.contiguous(), 2, 4)
-    be = block_expert.to(torch.int32).contiguous()
+    out = torch.empty((tp, w.shape[2]), dtype=torch.float32,
+                      device=x.device)
+    if not out.numel():
+        return out
+    # kind 3: rows of x on 16-byte boundaries, zero columns
+    a = (bounds.pad_dim(x.to(torch.float32).contiguous(), 1, 4)
+         if kind == 3 else split_bf16(x))
     s = None if scales is None else scales.contiguous()
-    _aligned(KERNEL, x, w)
-    out = torch.empty((tp, f), dtype=torch.float32, device=x.device)
-    if tp and f:
-        _build.launch(KERNEL, x.device, x, w, be, s, out, tp, f, d,
-                      x.shape[1], w.shape[2], bt, kind)
+    _launch_forward(a, _stack_operand(w, kind),
+                    block_expert.to(torch.int32).contiguous(), s, out, d,
+                    bt, kind)
     return out
+
+
+def _launch_forward(a, w, be, s, out, d: int, bt: int, kind: int) -> None:
+    """Kernel ``grouped_gemm`` into ``out`` (Tp, f) on operands already in
+    its form: ``a`` x's bf16 planes (``split_bf16``, kinds 0-2) or x
+    padded to 4 floats a row (kind 3), ``w`` the ``_stack_operand``, ``be``
+    int32. ``_gmm``'s last step; also what a caller times to read the
+    kernel without the split."""
+    _aligned(KERNEL, a, w)
+    _build.launch(KERNEL, out.device, a, w, be, s, out, out.shape[0],
+                  out.shape[1], d, a.shape[-1], w.shape[2], bt, w.shape[0],
+                  kind)
 
 
 def _segment_sum(v: torch.Tensor, block_expert, e: int, bt: int):
@@ -376,19 +456,27 @@ def grouped_dw(x, dy, block_expert, e: int, *, bt: int = 128):
     """``dW[e] = sum over e's blocks i of x_i^T dy_i``, a fresh (E, d, f)
     float32 (zeros for an expert with no block): x (Tp, d) and dy (Tp, f)
     float, block_expert sorted (the layout's). Kernel ``grouped_dw`` on
-    the card (one tile of dW a block of threads, no atomics), the plain
-    version on the CPU."""
+    the card after ``split_bf16`` of x and dy (one tile of dW a block of
+    threads, no atomics), the plain version on the CPU."""
     _check_dw_layout(x, dy, block_expert, bt)
     if x.device.type == "cpu":
         return grouped_dw_ref(x, dy, block_expert, e, bt=bt)
     _check_card(KERNEL_DW, bt, x, dy, block_expert)
     d, f = x.shape[1], dy.shape[1]
-    x = bounds.pad_dim(x.to(torch.float32).contiguous(), 1, 4)
-    dy = bounds.pad_dim(dy.to(torch.float32).contiguous(), 1, 4)
-    be = block_expert.to(torch.int32).contiguous()
-    _aligned(KERNEL_DW, x, dy)
+    if not x.shape[0]:
+        return torch.zeros((e, d, f), dtype=torch.float32, device=x.device)
+    # every tile written, an expert with no block's as zeros
     out = torch.empty((e, d, f), dtype=torch.float32, device=x.device)
     if out.numel():
-        _build.launch(KERNEL_DW, x.device, x, dy, be, out, be.shape[0], d, f,
-                      e, x.shape[1], dy.shape[1], bt)
+        _launch_dw(split_bf16(x), split_bf16(dy),
+                   block_expert.to(torch.int32).contiguous(), out, bt)
     return out
+
+
+def _launch_dw(xs, dys, be, out, bt: int) -> None:
+    """Kernel ``grouped_dw`` into ``out`` (E, d, f) on x's and dy's bf16
+    planes (``split_bf16``) and ``be`` int32: ``grouped_dw``'s last step;
+    also what a caller times to read the kernel without the splits."""
+    e, d, f = out.shape
+    _build.launch(KERNEL_DW, out.device, xs, dys, be, out, be.shape[0], d,
+                  f, e, xs.shape[2], dys.shape[2], bt)

@@ -1162,11 +1162,12 @@ def test_training_on_the_card_resumes_bit_exactly(cuda, tmp_path):
 
 
 # The grouped GEMM (MoE): bf16, int8 and packed int4 stacks run on the
-# bf16 tensor cores with x split into bf16 hi + lo (about 2^-17 relative
-# per product) and the sums in the tensor cores' order: within GROUPED_REL
-# of max |plain| (measured on an H100 up to 3.4e-5 at K = 14,336, 2.9e-6 at
-# K <= 256). fp32 stacks on FFMA: within FP32_REL. One block reading the
-# neighbouring expert's stack reads above 1 of max |plain|.
+# bf16 tensor cores (wgmma) with x split into bf16 hi + lo by split_bf16
+# (about 2^-17 relative per product) and the sums in the tensor cores'
+# order: within GROUPED_REL of max |plain| (the mma.sync kernel before it
+# read up to 3.4e-5 on an H100 at K = 14,336, 2.9e-6 at K <= 256). fp32
+# stacks on FFMA: within FP32_REL. One block reading the neighbouring
+# expert's stack reads above 1 of max |plain|.
 GROUPED_REL = 1e-4
 # (E, d, f, Tp): aligned, f not a multiple of 128 (nor of 4) with d not a
 # multiple of 32, and a wider one
@@ -1240,10 +1241,12 @@ def test_grouped_gemm_refuses_grad_and_small_blocks(cuda):
 
 # The backward kernels: grouped_gemm_t and grouped_gemm_t4 split dy into
 # bf16 hi + lo as the forward splits x (GROUPED_REL; fp32 stacks FFMA,
-# FP32_REL); grouped_dw is FFMA over each expert's rows against the plain
-# version's cuBLAS fp32 product over them (FP32_REL). A planted fault reads
-# above its rule: block 0 reading the neighbouring expert's stack (dx), one
-# of an expert's blocks left out of its sum (dW).
+# FP32_REL); grouped_dw takes x and dy split by split_bf16 into three bf16
+# wgmma products, hi.hi + hi.lo + lo.hi, its sums added into fp32
+# registers every 256 rows, against the plain version's cuBLAS fp32
+# product over the expert's rows (FP32_REL). A planted fault reads above
+# its rule: block 0 reading the neighbouring expert's stack (dx), one of an
+# expert's blocks left out of its sum (dW).
 @pytest.mark.parametrize("shape", GROUPED_SHAPES)
 @pytest.mark.parametrize("kind", ["fp32", "bf16", "int8", "int4"])
 def test_grouped_gemm_t_matches_plain_version(cuda, kind, shape):
@@ -1289,6 +1292,78 @@ def test_grouped_dw_matches_plain_version(cuda, shape):
     bad = ref[e0] - gg.grouped_dw_ref(x[:128], dy[:128], be[:1],
                                       w.shape[0])[e0]
     assert float((got[e0] - bad).abs().max()) > FP32_REL * scale
+
+
+@pytest.mark.parametrize("shape", [(9216, 4096), (384, 36), (256, 130),
+                                   (3, 1)])
+def test_split_bf16_matches_plain_version(cuda, shape):
+    """The forward's and dW's pre-pass: EQUAL to its plain version, zero
+    columns to the planes' 8-value rows included; one launch a call."""
+    from how_to_optimize_gemm_tpu_torch.ops import grouped_gemm as gg
+    x = torch.randn(shape, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(21))
+    before = _build.LAUNCHES["split_bf16"]
+    got = gg.split_bf16(x)
+    assert _build.LAUNCHES["split_bf16"] == before + 1
+    assert torch.equal(got, gg.split_bf16_ref(x))
+
+
+# int4 stacks at ragged shapes: d = 36 (every K tile straddles d/2 = 18),
+# d = 200 (d/2 = 100: the first K tile is low nibbles only, the second
+# straddles), f = 100 and 130 (not multiples of 16: the stack's rows are
+# padded for the tensor map, the column edge masked).
+@pytest.mark.parametrize("shape", [(2, 36, 100, 256), (3, 36, 130, 384),
+                                   (3, 200, 100, 384), (2, 200, 130, 256)])
+def test_grouped_gemm_int4_ragged_edges(cuda, shape):
+    from how_to_optimize_gemm_tpu_torch.ops import grouped_gemm as gg
+    x, w, be, s, packed4 = _grouped_case("int4", shape, 17, cuda)
+    before = dict(_build.LAUNCHES)
+    got = gg.grouped_matmul(x, w, be, s, packed4=packed4)
+    assert {k: _build.LAUNCHES[k] - before[k]
+            for k in ("grouped_gemm", "split_bf16")} == \
+        {"grouped_gemm": 1, "split_bf16": 1}
+    ref = gg.grouped_matmul_ref(x, w, be, s, packed4=packed4)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= GROUPED_REL * scale
+
+
+def test_grouped_dw_one_expert_of_8192_rows(cuda):
+    """dW's worst case for the tensor cores' sums: one expert owning 8,192
+    rows (64 blocks), two light experts and an empty one, within FP32_REL
+    of max |plain|; the kernel and its two splits launched once a call."""
+    from how_to_optimize_gemm_tpu_torch.ops import grouped_gemm as gg
+    gen = torch.Generator(cuda).manual_seed(23)
+    be = torch.tensor([0] * 64 + [1, 2, 2], dtype=torch.int32, device=cuda)
+    tp = be.shape[0] * 128
+    x = torch.randn((tp, 512), generator=gen, device=cuda)
+    dy = torch.randn((tp, 384), generator=gen, device=cuda)
+    before = dict(_build.LAUNCHES)
+    got = gg.grouped_dw(x, dy, be, 4)
+    assert {k: _build.LAUNCHES[k] - before[k]
+            for k in ("grouped_dw", "split_bf16")} == \
+        {"grouped_dw": 1, "split_bf16": 2}
+    ref = gg.grouped_dw_ref(x, dy, be, 4)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= FP32_REL * scale
+    assert not got[3].any()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_grouped_kernels_repeat_bit_for_bit(cuda, kind):
+    """Two calls on the same inputs give the same bits: the forward on
+    each stack kind and dW (no atomics, a fixed order of sums)."""
+    from how_to_optimize_gemm_tpu_torch.ops import grouped_gemm as gg
+    x, w, be, s, packed4 = _grouped_case(kind, (8, 512, 1408, 2048), 19,
+                                         cuda)
+    runs = [gg.grouped_matmul(x, w, be, s, packed4=packed4)
+            for _ in range(2)]
+    assert torch.equal(*runs)
+    dy = torch.randn((x.shape[0], 1408), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(20))
+    dws = [gg.grouped_dw(x, dy, be, 8) for _ in range(2)]
+    assert torch.equal(*dws)
 
 
 @pytest.mark.parametrize("kind", ["fp32", "bf16", "int8", "int4"])

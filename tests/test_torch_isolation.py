@@ -115,7 +115,7 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
         "load_latency", "pipelined_copy", "add_one", "int8_dma_nn",
         "int8_fat_nn", "int8_fat_nt", "int8_strip_nt", "int8_resident_nt",
         "int8_tiled_resident_nt", "int8_pretile", "int8_hand_pipe_nt",
-        "int8_ragged_nt"}
+        "int8_ragged_nt", "split_bf16"}
     for name, kernel in _build.KERNELS.items():
         assert (_build.CSRC / kernel.source).exists(), name
         assert kernel.argtypes[-1] is ctypes.c_void_p, name
@@ -126,7 +126,10 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
     assert len(_build.KERNELS["decode_attention"].argtypes) == 13
     assert len(_build.KERNELS["decode_attention_q8"].argtypes) == 15
     assert len(_build.KERNELS["kv_update"].argtypes) == 9
-    assert len(_build.KERNELS["grouped_gemm"].argtypes) == 13
+    # x split (or fp32 x), the stack, block_expert, the scales, out, Tp,
+    # N, K, lda, ldw, bt, E, kind, the stream
+    assert len(_build.KERNELS["grouped_gemm"].argtypes) == 14
+    assert len(_build.KERNELS["split_bf16"].argtypes) == 7
     assert len(_build.KERNELS["paged_kv_update"].argtypes) == 10
     assert len(_build.KERNELS["paged_decode_attention"].argtypes) == 15
     assert len(_build.KERNELS["paged_decode_attention_q8"].argtypes) == 17
