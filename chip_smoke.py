@@ -80,11 +80,11 @@ Phases (any failure raises and exits non-zero before the last line):
    kinds and fp32 stacks at d 36, f 130, each within GROUPED_REL (fp32:
    FP32_REL) of max |plain|, a rule that must refuse block 0 reading its
    neighbour expert's stack; timed at the Mixtral shapes, the bf16
-   instance beside ``torch._grouped_mm``; ``split_bf16`` (the forward's
-   and dW's pre-pass) EQUAL to its plain version at both Mixtral widths and
-   two ragged ones, timed at (9,216, 4,096); then the grouped GEMM's
-   backward on the same layout: ``grouped_gemm_t`` (dx on int8 and bf16
-   stacks) and ``grouped_gemm_t4`` (packed int4) for w_gate/w_in's dx
+   instance beside ``torch._grouped_mm``; ``split_bf16`` (the pre-pass of
+   the forward, dx and dW) EQUAL to its plain version at both Mixtral
+   widths and two ragged ones, timed at (9,216, 4,096); then the grouped
+   GEMM's backward on the same layout: ``grouped_gemm_t`` (dx on int8 and
+   bf16 stacks) and ``grouped_gemm_t4`` (packed int4) for w_gate/w_in's dx
    (dy 14,336 -> 4,096) and w_out's (4,096 -> 14,336), ``grouped_dw`` on
    both shapes and ``grouped_gemm``'s unscaled int4 instance (the
    backward's recompute of u), then f = 1,000 and fp32 stacks at d 36, f
@@ -92,7 +92,8 @@ Phases (any failure raises and exits non-zero before the last line):
    max |plain|, rules that must refuse block 0 reading its neighbour's
    stack and dW with one of an expert's blocks left out; timed at the
    Mixtral shapes beside the plain versions, the bounds and
-   ``torch._grouped_mm`` (bf16 instances);
+   ``torch._grouped_mm`` (bf16 instances), each kernel alone on operands
+   split beforehand with its wrapper's time beside;
 6. the ladder's main path, with every launch count set to 0 just before
    it: the sweep driver on every rung of the registry, 06v, 06, 14, 07b,
    08, 09, 10, 11, 12, 13, 17, 18, 01, 01b, 04, 05, 07, 15, 16, 00, 02, 03
@@ -190,16 +191,17 @@ Phases (any failure raises and exits non-zero before the last line):
    must equal the first run's bit for bit; every loss finite, the router,
    the stacks, the attention and the embedding moved; ``grouped_gemm``,
    ``grouped_gemm_t`` and ``grouped_dw`` 3 times a layer a step,
-   ``split_bf16`` 9 (x before each forward product, x and dy before each
-   dW) and the training attention's kernels once; step ms, tokens/s, peak
-   GB and the
-   profiled step's kernels printed;
+   ``split_bf16`` 9 (x before each forward product; in each backward dy
+   once, for dx and dW, and x for dW) and the training attention's
+   kernels once; step ms, tokens/s, peak GB and the profiled step's
+   kernels printed;
 13. QLoRA: ``moe_bench train`` at Mixtral's expert shape (T 4,096) on int8
    and packed int4 stacks, each with the counts set to 0 just before it:
    the stacks unchanged, nonzero gradients for the router and the scales,
    the gradient step's ``grouped_gemm`` (forward and unscaled recompute,
    each after a ``split_bf16`` of x) and ``grouped_gemm_t`` or
-   ``grouped_gemm_t4`` launches;
+   ``grouped_gemm_t4`` (after a ``split_bf16`` of the scaled dy)
+   launches;
 14. MoE training parity: two AdamW steps at Mixtral's width with 1 layer
    (batch 1 x 1,025: 2,048 routed copies) on the card and on the CPU from
    the same weights, for dense bf16 stacks and for int8 stacks under bf16
@@ -1752,9 +1754,9 @@ SPLIT_KERNEL = dict(
     name="split_bf16", source=SRC + "split_bf16.cu",
     replaces="how_to_optimize_gemm_tpu/ops/pallas_grouped_gemm.py:71",
     function="no Pallas kernel of its own: the split of the fp32 operand "
-             "that pallas_grouped_gemm._kernel :71 and _dw_kernel :255 "
-             "leave to the MXU's precision; the pre-pass of grouped_gemm "
-             "(kinds 0-2) and grouped_dw")
+             "that pallas_grouped_gemm._kernel :71, _kernel_t :152 and "
+             "_dw_kernel :255 leave to the MXU's precision; the pre-pass of "
+             "grouped_gemm, grouped_gemm_t (kinds 0-2) and grouped_dw")
 # grouped_gemm vs its plain version, relative to max |plain|: bf16, int8
 # and int4 stacks take x split into bf16 hi + lo (2^-17 relative a
 # product) and the tensor cores' sums (the mma.sync kernel read up to
@@ -1826,7 +1828,7 @@ def _forward_alone(xs, w, be, s, packed4: bool):
     """(call, out): a call that launches grouped_gemm's kernel alone into
     ``out``, on x split beforehand, so that a row reads one kernel (the
     wrapper's split is ``split_bf16``'s row)."""
-    kind = grouped_gemm._forward_kind(w, packed4, s)
+    kind = grouped_gemm._stack_kind(w, packed4, s)
     a = grouped_gemm.split_bf16(xs)
     wk = grouped_gemm._stack_operand(w, kind)
     be32 = be.to(torch.int32).contiguous()
@@ -1834,6 +1836,19 @@ def _forward_alone(xs, w, be, s, packed4: bool):
     return (lambda: grouped_gemm._launch_forward(a, wk, be32, s, out,
                                                  xs.shape[1], 128, kind),
             out)
+
+
+def _t_alone(dy, w, be, packed4: bool):
+    """(call, out): grouped_gemm_t's (or _t4's) kernel alone into ``out``
+    on dy split beforehand."""
+    kind = grouped_gemm._stack_kind(w, packed4)
+    a = grouped_gemm.split_bf16(dy)
+    wk = grouped_gemm._stack_operand(w, kind)
+    be32 = be.to(torch.int32).contiguous()
+    out = torch.empty((dy.shape[0], w.shape[1] * (2 if packed4 else 1)),
+                      device=dy.device)
+    return (lambda: grouped_gemm._launch_t(a, wk, be32, out, dy.shape[1],
+                                           128, kind), out)
 
 
 def _dw_alone(xs, dy, be, ne: int):
@@ -2345,16 +2360,15 @@ MOE_BWD_KERNELS = [
          function="pallas_grouped_gemm._dw_kernel (_grouped_dw :277; the dW "
                   "of _gmm_dense)"),
 ]
-# grouped_gemm_t and _t4 split dy into bf16 hi + lo as the forward splits
-# x: GROUPED_REL of max |plain| (fp32 stacks FFMA: FP32_REL). grouped_dw
-# takes x and dy split by split_bf16, three bf16 wgmma products (hi.hi +
-# hi.lo + lo.hi, every partial product exact) summed in fp32 registers
-# every 256 rows, against the plain version's one cuBLAS fp32 product over
-# the expert's rows: FP32_REL, the fp32 sums in another order and the
-# dropped lo.lo below 2^-16 of a product. A planted fault reads far above
-# its rule: block
-# 0 reading its neighbour expert's stack (dx), one of an expert's blocks
-# left out of its sum (dW).
+# grouped_gemm_t and _t4 take dy split by split_bf16, two bf16 wgmma
+# products as the forward: GROUPED_REL of max |plain| (fp32 stacks FFMA:
+# FP32_REL). grouped_dw takes x and dy split by split_bf16, three bf16
+# wgmma products (hi.hi + hi.lo + lo.hi, every partial product exact)
+# summed in fp32 registers every 256 rows, against the plain version's one
+# cuBLAS fp32 product over the expert's rows: FP32_REL, the fp32 sums in
+# another order and the dropped lo.lo below 2^-16 of a product. A planted
+# fault reads far above its rule: block 0 reading its neighbour expert's
+# stack (dx), one of an expert's blocks left out of its sum (dW).
 # T-moe: Mixtral-8x7B's width at 1 layer (dense bf16 stacks, every
 # gradient taken, need 94 GB at 32 layers; one layer keeps the smoke
 # inside its time), batch 2 x 1,025 tokens: 4,096 routed copies >= 2 x E x
@@ -2400,9 +2414,9 @@ def check_grouped_backward(gen: torch.Generator) -> dict:
     version, the bound (the routed rows' operations at the bf16 peak, dW's
     at a third of it -- three bf16 products meet its rule -- against each
     operand's bytes once) and the library's grouped product where this
-    PyTorch has one (bf16 instances); grouped_gemm and grouped_dw timed
-    alone on operands split beforehand, their wrappers beside. Returns the
-    row of each kernel: bf16 w_gate (the T-moe path's), int4 w_gate,
+    PyTorch has one (bf16 instances); each kernel timed alone on operands
+    split beforehand (its bits the wrapper's), its wrapper beside. Returns
+    the row of each kernel: bf16 w_gate (the T-moe path's), int4 w_gate,
     bf16-stack w_gate's dW."""
     e, d, f = MOE_CFG.n_experts, MOE_CFG.d_model, MOE_CFG.d_ff
     cases = [(MOE_T, d, f, e, ("bf16", "int8", "int4"), True),
@@ -2447,10 +2461,13 @@ def check_grouped_backward(gen: torch.Generator) -> dict:
                              PEAK_BF16_FLOPS)
                 lib = (_grouped_mm(dy.to(torch.bfloat16), w.transpose(1, 2),
                                    offs) if kind == "bf16" else None)
-                r = timed(name, shape, lambda: fn(dy, w, be),
-                          lambda: ref_fn(dy, w, be), lib, *b, err)
+                alone, y = _t_alone(dy, w, be, packed4)
+                _same_as_wrapper(name, shape, alone, y, out)
+                r = timed(name, shape, alone, lambda: ref_fn(dy, w, be), lib,
+                          *b, err, lambda: fn(dy, w, be))
                 if n == f and kind in ("bf16", "int4"):
                     rows[name] = r
+                del alone, y
             if packed4 and timed_here and n == f:
                 u = grouped_gemm._gmm(xs, w, be, None, 128, True)
                 uref = grouped_gemm.grouped_matmul_ref(xs, w, be,
@@ -2625,10 +2642,10 @@ def qlora_path() -> dict:
     count set to 0 just before it: the integer stacks unchanged, the
     router and every scale a nonzero gradient, and the gradient step's
     launches: grouped_gemm 6 (the forward's three and the three unscaled
-    recomputes of u) and split_bf16 6 (one before each), grouped_gemm_t
-    (int8) or grouped_gemm_t4 (int4)
+    recomputes of u), grouped_gemm_t (int8) or grouped_gemm_t4 (int4)
     once (w_out's dx into the SwiGLU activations: the input x takes no
-    gradient there; the timed chained step takes dx at all three).
+    gradient there; the timed chained step takes dx at all three) and
+    split_bf16 7 (one before each of those seven products).
     Returns the launches summed over both runs."""
     from how_to_optimize_gemm_tpu_torch.parallel import moe_bench
     total = {}
@@ -2639,7 +2656,7 @@ def qlora_path() -> dict:
         for k, v in _build.LAUNCHES.items():
             total[k] = total.get(k, 0) + v
         t = "grouped_gemm_t4" if kind == "int4" else "grouped_gemm_t"
-        want = {"grouped_gemm": 6, "split_bf16": 6, t: 1}
+        want = {"grouped_gemm": 6, "split_bf16": 7, t: 1}
         step = {k: r["launches"].get(k, 0) for k in want}
         print(json.dumps({"qlora": kind, "loss": r["loss"],
                           "trainable": r["trainable"],

@@ -90,10 +90,11 @@ KERNELS = {
                            + (_P,)),
     # (cache, new, pos, mask, B, T, S, row_bytes, stream)
     "kv_update": Kernel("kv_update.cu", (_P,) * 4 + (_I,) * 4 + (_P,)),
-    # (q, k_cache, v_cache, lengths, out, B, T, KVH, REP, D, bk, scale,
-    #  stream)
-    "decode_attention": Kernel("decode_attention.cu", (_P,) * 5
-                               + (_I,) * 6 + (_F, _P)),
+    # (q, k_cache, v_cache, lengths, out, part, count, B, T, KVH, REP, D,
+    #  bk, C, scale, stream): part and count the split walk's workspace,
+    #  C the chunks of a split
+    "decode_attention": Kernel("decode_attention.cu", (_P,) * 7
+                               + (_I,) * 7 + (_F, _P)),
     # (qa, qb, sa, sb, out, M, N, K, lda, ldb, ldc, stream):
     # out = f32(QA @ QB) * sa * sb
     "int8_gemm_noc": Kernel("int8_gemm_noc.cu", (_P,) * 5 + (_I,) * 6
@@ -159,12 +160,13 @@ KERNELS = {
     # x (rows, ldx) fp32 -> (2, rows, ldo) bf16 hi, lo: (x, out, rows, cols,
     # ldx, ldo, stream)
     "split_bf16": Kernel("split_bf16.cu", (_P,) * 2 + (_I,) * 4 + (_P,)),
-    # its backward: dx = dy @ W[e]^T, (dy, w, block_expert, out, Tp, N, K,
-    # ldx, ldw, bt, kind, stream), kind 0 bf16, 1 int8, 3 fp32 stacks; the
-    # same on a packed int4 stack without the kind
-    "grouped_gemm_t": Kernel("grouped_gemm_t.cu", (_P,) * 4 + (_I,) * 7
+    # its backward: dx = dy @ W[e]^T, (a, w, block_expert, out, Tp, N, K,
+    # lda, ldw, bt, E, kind, stream), kind 0 bf16, 1 int8 (a: dy split by
+    # split_bf16), 3 fp32 stacks (a: dy); the same on a packed int4 stack
+    # without the kind
+    "grouped_gemm_t": Kernel("grouped_gemm_t.cu", (_P,) * 4 + (_I,) * 8
                              + (_P,)),
-    "grouped_gemm_t4": Kernel("grouped_gemm_t.cu", (_P,) * 4 + (_I,) * 6
+    "grouped_gemm_t4": Kernel("grouped_gemm_t.cu", (_P,) * 4 + (_I,) * 7
                               + (_P,)),
     # dW[e] = x_e^T dy_e: (x, dy, block_expert, out, nb, M, N, E, ldx, ldy,
     # bt, stream), x and dy split by split_bf16

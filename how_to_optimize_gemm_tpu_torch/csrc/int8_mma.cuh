@@ -68,6 +68,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// Waits until at most N of this thread's newest cp.async groups are
+// still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // Stage a 128-row x 64-byte K-major tile of a row-major int8 matrix
 // (rows x K, row pitch ld bytes, ld and the base 16-byte aligned, K a
 // multiple of 16) by kThreads threads, thread tid taking 16-byte chunks

@@ -1,10 +1,11 @@
 // Hopper's warpgroup MMA (wgmma) fed by tensor-map copies (TMA) into an
-// mbarrier ring: the building blocks of the grouped GEMM's forward
-// (grouped_gemm.cu, kinds 0-2) and its dW (grouped_dw.cu).
+// mbarrier ring: the building blocks of the grouped GEMM's forward and dx
+// (grouped_gemm.cuh's kernel: grouped_gemm.cu, grouped_gemm_t.cu, kinds
+// 0-2) and its dW (grouped_dw.cu).
 //
-// Block shape (both kernels): 384 threads, three warpgroups. Warp 0 is the
+// Block shape (all three): 384 threads, three warpgroups. Warp 0 is the
 // producer (its lane 0 issues every tensor-map copy of the ring); warps 1-3
-// convert integer stack tiles to bf16 where the forward needs it and leave
+// convert integer stack tiles to bf16 where the stack needs it and leave
 // at once otherwise (a warpgroup's wgmma wants its four warps aligned to a
 // warpgroup, so the consumers start at thread 128 either way, and a warp
 // that has left costs nothing: one block an SM); warpgroups 1 and 2 are the
@@ -13,8 +14,8 @@
 // SM caps a thread at 168 registers, which the consumers' 128 accumulator
 // registers fit.
 //
-// A ring slot (a stage of KT = 64 K values) has two barriers (the forward
-// adds a third for its converters, grouped_gemm.cu):
+// A ring slot (a stage of KT = 64 K values) has two barriers (the
+// forward and dx add a third for their converters, grouped_gemm.cuh):
 //   full[s]   one producer arrival with the stage's byte count; the
 //             copies' complete_tx pays it off;
 //   empty[s]  one arrival a consumer warp once its wgmmas on the slot have
@@ -26,13 +27,15 @@
 // within a 128-byte line XORed with the line's index mod 8), which the
 // tensor-map copies write and the wgmma descriptors name; every tile base
 // is 1024-byte aligned. Two layouts:
-//   K-major (the forward's A, x split into bf16): one 128-byte line per
-//     row, 64 K values; 8-row groups 1024 bytes apart (SBO). The k-th
-//     16-deep step starts 32 k bytes into the line.
-//   MN-major (the stacks and dy as they lie, x transposed for dW): one
-//     128-byte line per K row holding 64 M (or N) values; blocks of 64
-//     M/N values KT x 128 = 8,192 bytes apart (LBO), 8-row K groups 1024
-//     bytes apart (SBO). The k-th 16-deep step starts 2,048 k bytes in.
+//   K-major (A, x or dy split into bf16; dx's B, the stack's rows as
+//     they lie): one 128-byte line per row (or column), 64 K values;
+//     8-line groups 1024 bytes apart (SBO). The k-th 16-deep step starts
+//     32 k bytes into the line.
+//   MN-major (the forward's stacks and dy as they lie, x transposed for
+//     dW): one 128-byte line per K row holding 64 M (or N) values; blocks
+//     of 64 M/N values KT x 128 = 8,192 bytes apart (LBO), 8-row K groups
+//     1024 bytes apart (SBO). The k-th 16-deep step starts 2,048 k bytes
+//     in.
 // wgmma takes the MN-major form for 16-bit types only (imm-trans-a/b = 1).
 //
 // Accumulation: the tensor cores' fp32 sum loses low bits over a long K
@@ -159,7 +162,8 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
          (1ull << 62);
 }
 
-// A K-major 64-row tile at `addr`, its k-th 16-deep step.
+// A K-major tile at `addr` (64 rows of A, or 128 columns of B), its k-th
+// 16-deep step.
 __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, int k) {
   return sw128_desc(addr + 32 * k, 0, ATOM);
 }

@@ -26,7 +26,11 @@ are not ported.
 ``decode_attention`` and ``decode_attention_q8`` launch their kernels for
 CUDA tensors and run their plain versions (``*_ref``) only for CPU
 tensors; kernel and plain version sum in other orders and agree to
-rounding.
+rounding. ``decode_attention``'s kernel splits each slot's chunks into
+runs of ``split_plan``'s length, walked by blocks of their own in one
+launch, and combines the runs' partial softmax sums in a fixed order
+(``csrc/decode_attention.cuh``); the partials and a counter per (slot,
+head) live in a workspace kept per device (``_workspace``).
 """
 from __future__ import annotations
 
@@ -44,6 +48,21 @@ _CHUNK_BUDGET = 6 * 1024 * 1024
 KERNEL_HEAD_DIMS = (32, 64, 128)
 _MAX_SCORES = 8192        # rep * bk
 _MAX_QELEMS = 2048        # rep * d
+# decode_attention's split: whole bk chunks, SPLIT_KEYS keys or one chunk.
+# At the 7B cache (T 4,096, bk 128, 32 heads) with the smoke's lengths
+# (1, 300, 1,000, 4,096) that is 2 chunks, 736 live blocks of 128 threads
+# (the one-block walk had 128): over 5 for each of the H100's 132 SMs, so
+# every SM keeps a few blocks' copies in flight and the last wave is
+# short; each block still walks 256 keys, whose 128 KB of K and V amortise
+# its q load, its partial's write and the combine. Shorter splits add
+# blocks that exit at once and partials to combine; at bk 512 (the GQA
+# widths) a split is one chunk.
+SPLIT_KEYS = 256
+# (counters, partials) by device; grown on demand, never shrunk
+_WORKSPACE: dict = {}
+# workspaces replaced by larger ones: a CUDA graph captured on one may
+# still replay it, so none is freed
+_RETIRED: list = []
 
 
 def _divisor_block(t: int, cap: int) -> int:
@@ -59,6 +78,40 @@ def pick_block(t: int, kvh: int, d: int, itemsize: int,
     """The chunk length the reference wrapper picks for this cache."""
     cap = max(_CHUNK_BUDGET // (4 * kvh * d * itemsize) // 128 * 128, 128)
     return _divisor_block(t, min(bk, cap, t))
+
+
+def split_plan(t: int, bk: int) -> tuple[int, int]:
+    """(chunks a split, splits) of a cache of t rows in chunks of bk, from
+    t and bk alone: the kernel's grid never depends on the lengths, which
+    stay on the card."""
+    chunks = -(-t // bk)
+    per = max(1, SPLIT_KEYS // bk)
+    return per, -(-chunks // per)
+
+
+def _workspace(device, n_count: int, n_part: int):
+    """The (int32 counters, float32 partials) of ``decode_attention`` on
+    ``device``, at least n_count and n_part long. The counters are zeroed
+    once, when allocated: the kernel leaves them at zero. A workspace is
+    grown eagerly, never under a CUDA graph capture (its zero fill would
+    run only in the graph's replays): a capture must follow one eager call
+    at its size. The one it replaces stays allocated (``_RETIRED``)."""
+    ws = _WORKSPACE.get(device)
+    if ws is not None and ws[0].numel() >= n_count \
+            and ws[1].numel() >= n_part:
+        return ws
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("decode_attention: its workspace must grow, "
+                           "which it does not under a CUDA graph capture; "
+                           "call it once eagerly at this size first")
+    if ws is not None:
+        _RETIRED.append(ws)
+        n_count = max(n_count, ws[0].numel())
+        n_part = max(n_part, ws[1].numel())
+    ws = (torch.zeros(n_count, dtype=torch.int32, device=device),
+          torch.empty(n_part, dtype=torch.float32, device=device))
+    _WORKSPACE[device] = ws
+    return ws
 
 
 def _chunk_walk(q, k_cache, v_cache, lengths, bk, sk=None, sv=None,
@@ -171,7 +224,8 @@ def decode_attention(q, k_cache, v_cache, lengths, bk=DEFAULT_BK):
     """(B, H, D) queries over (B, T, KVH, D) caches -> (B, H * D) fp32.
 
     Each slot reads only its first ``ceil(lengths[b] / bk)`` chunks of
-    ``bk`` keys (bk as the reference wrapper picks it, ``pick_block``).
+    ``bk`` keys (bk as the reference wrapper picks it, ``pick_block``),
+    in splits of ``split_plan``'s length, one block each, one launch.
     The kernel takes bf16 caches, D in {32, 64, 128}, rep * D <= 2048
     and rep * bk <= 8192."""
     if q.device.type == "cpu":
@@ -182,8 +236,12 @@ def decode_attention(q, k_cache, v_cache, lengths, bk=DEFAULT_BK):
         torch.bfloat16)
     out = torch.empty((b, h * d), dtype=torch.float32, device=q.device)
     if b and t and kvh:
+        per, splits = split_plan(t, bk)
+        count, part = _workspace(q.device, b * kvh,
+                                 b * kvh * splits * rep * (d + 2))
         _build.launch("decode_attention", q.device, q, k_cache, v_cache,
-                      lengths, out, b, t, kvh, rep, d, bk, d ** -0.5)
+                      lengths, out, part, count, b, t, kvh, rep, d, bk, per,
+                      d ** -0.5)
     return out
 
 

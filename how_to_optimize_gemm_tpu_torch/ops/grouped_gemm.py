@@ -36,14 +36,14 @@ or a raise; on CPU tensors their plain versions (``*_ref``: one
 ``vendor.fp32_matmul`` per block, for dW per expert, TF32 off). The bf16,
 int8 and int4 products split their fp32 operand into bf16 hi + lo for the
 tensor cores (about 2^-17 relative to the fp32 product) and sum in their
-own order: the forward and dW on ``wgmma``, after the pre-pass
-``split_bf16`` (``csrc/split_bf16.cu``; x, and for dW x and dy, as two
-bf16 planes, two products a tile for the forward and hi.hi + hi.lo +
-lo.hi for dW), the transposed product on ``mma.sync``, splitting as it
-reads. The fp32-stack products are FFMA. The reference's VMEM-budget
-block width (``_auto_bf``) is a TPU constant and has no counterpart; the
-kernels tile 128 x 128 and the products need ``bt`` a multiple of 128 on
-the card.
+own order, all three on ``wgmma`` after the pre-pass ``split_bf16``
+(``csrc/split_bf16.cu``: x for the forward, dy for dx, x and dy for dW,
+as two bf16 planes; two products a tile for the forward and dx, hi.hi +
+hi.lo + lo.hi for dW). The dense backward splits dy once and gives the
+same planes to dx and dW. The fp32-stack products are FFMA. The
+reference's VMEM-budget block width (``_auto_bf``) is a TPU constant and
+has no counterpart; the kernels tile 128 x 128 and the products need
+``bt`` a multiple of 128 on the card.
 """
 from __future__ import annotations
 
@@ -64,9 +64,9 @@ KERNEL_SPLIT = "split_bf16"
 TILE_ROWS = 128
 # the kernels' stack kinds (csrc/grouped_gemm.cu, grouped_gemm_t.cu)
 _KINDS = {torch.bfloat16: 0, torch.int8: 1, "int4": 2, torch.float32: 3}
-# the forward's stack rows, in elements of each kind, padded to a multiple
-# of: 16 bytes for the tensor maps of kinds 0-2, 4 floats for the FFMA
-# kernel's loads
+# the stack's rows (the forward's and dx's), in elements of each kind,
+# padded to a multiple of: 16 bytes for the tensor maps of kinds 0-2, 4
+# floats for the FFMA kernels' loads
 _STACK_PITCH = {0: 8, 1: 16, 2: 16, 3: 4}
 # split_bf16's planes: rows of a multiple of 8 bf16 (16 bytes)
 _SPLIT_PITCH = 8
@@ -204,12 +204,13 @@ def split_bf16(x) -> torch.Tensor:
     return out
 
 
-def _forward_kind(w, packed4: bool, scales) -> int:
-    """The forward kernel's stack kind for ``w``; raises on what the card
-    has no kernel for (a stack type without a kind, non-fp32 scales)."""
+def _stack_kind(w, packed4: bool, scales=None) -> int:
+    """The stack kind of the forward's and dx's kernels for ``w``; raises
+    on what the card has no kernel for (a stack type without a kind,
+    non-fp32 scales)."""
     kind = _KINDS.get("int4" if packed4 else w.dtype)
     if kind is None or (packed4 and w.dtype != torch.int8):
-        raise TypeError(f"{KERNEL}: no kernel for a {w.dtype} stack "
+        raise TypeError(f"grouped GEMM: no kernel for a {w.dtype} stack "
                         f"(packed4={packed4})")
     if scales is not None and scales.dtype != torch.float32:
         raise TypeError(f"{KERNEL}: scales must be float32, got "
@@ -218,9 +219,9 @@ def _forward_kind(w, packed4: bool, scales) -> int:
 
 
 def _stack_operand(w, kind: int) -> torch.Tensor:
-    """The stack as the forward kernel reads it: contiguous, rows padded
-    with zero columns to ``_STACK_PITCH`` (a multiple of 16 bytes for the
-    tensor maps). At widths that are already multiples -- Mixtral's --
+    """The stack as the forward and dx kernels read it: contiguous, rows
+    padded with zero columns to ``_STACK_PITCH`` (a multiple of 16 bytes
+    for the tensor maps). At widths that are already multiples -- Mixtral's --
     this is ``w`` itself, never a copy."""
     return bounds.pad_dim(w.contiguous(), 2, _STACK_PITCH[kind])
 
@@ -234,7 +235,7 @@ def _gmm(x, w, block_expert, scales, bt: int, packed4: bool):
         return grouped_matmul_ref(x, w, block_expert, scales, bt=bt,
                                   packed4=packed4)
     _check_card(KERNEL, bt, x, w, block_expert, scales)
-    kind = _forward_kind(w, packed4, scales)
+    kind = _stack_kind(w, packed4, scales)
     tp, d = x.shape
     out = torch.empty((tp, w.shape[2]), dtype=torch.float32,
                       device=x.device)
@@ -287,11 +288,14 @@ class _GmmDense(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w, be = ctx.saved_tensors
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = grouped_matmul_t(dy, w, be, bt=ctx.bt).to(x.dtype)
-        if ctx.needs_input_grad[1]:
-            dw = grouped_dw(x, dy, be, w.shape[0], bt=ctx.bt).to(w.dtype)
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        # on the card, dy's bf16 planes split once for both products (an
+        # fp32 stack's dx takes dy itself)
+        dys = (split_bf16(dy) if dy.device.type != "cpu" and (
+            need_dw or (need_dx and w.dtype != torch.float32)) else None)
+        dx = _t(dy, w, be, ctx.bt, False, dys).to(x.dtype) if need_dx else None
+        dw = (_dw(x, dy, be, w.shape[0], ctx.bt, dys).to(w.dtype) if need_dw
+              else None)
         return dx, dw, None, None
 
 
@@ -382,37 +386,53 @@ def grouped_matmul_t4_ref(dy, w, block_expert, *, bt: int = 128):
     return _t_ref(dy, w, block_expert, bt, True)
 
 
-def _t_launch(name: str, dy, w, block_expert, bt: int, dout: int,
-              kind: int | None):
-    _check_card(name, bt, dy, w, block_expert)
+def _t(dy, w, block_expert, bt: int, packed4: bool, dys=None):
+    """The transposed product, outside autograd: kernel ``grouped_gemm_t``
+    (``grouped_gemm_t4`` on a packed stack) on the card, on dy's bf16
+    planes (``split_bf16``; ``dys`` where the caller split dy already) or,
+    on an fp32 stack, on dy itself; its plain version on the CPU."""
+    if dy.device.type == "cpu":
+        return _t_ref(dy, w, block_expert, bt, packed4)
+    _check_card(KERNEL_T4 if packed4 else KERNEL_T, bt, dy, w,
+                block_expert)
+    kind = _stack_kind(w, packed4)
     tp, f = dy.shape
-    # dy's rows on 16-byte boundaries; the stack's in chunks of 16 values
-    # (the kernel's loads), zero columns both
-    dy = bounds.pad_dim(dy.to(torch.float32).contiguous(), 1, 4)
-    w = bounds.pad_dim(w.contiguous(), 2, 4 if kind == 3 else 16)
-    be = block_expert.to(torch.int32).contiguous()
-    _aligned(name, dy, w)
-    out = torch.empty((tp, dout), dtype=torch.float32, device=dy.device)
-    if tp and dout:
-        args = (dy, w, be, out, tp, dout, f, dy.shape[1], w.shape[2], bt)
-        _build.launch(name, dy.device, *args,
-                      *(() if kind is None else (kind,)))
+    out = torch.empty((tp, w.shape[1] * (2 if packed4 else 1)),
+                      dtype=torch.float32, device=dy.device)
+    if not out.numel():
+        return out
+    if kind == 3:
+        # rows of dy on 16-byte boundaries, zero columns
+        a = bounds.pad_dim(dy.to(torch.float32).contiguous(), 1, 4)
+    else:
+        a = split_bf16(dy) if dys is None else dys
+    _launch_t(a, _stack_operand(w, kind),
+              block_expert.to(torch.int32).contiguous(), out, f, bt, kind)
     return out
+
+
+def _launch_t(a, w, be, out, k: int, bt: int, kind: int) -> None:
+    """Kernel ``grouped_gemm_t`` (kind 2: ``grouped_gemm_t4``) into
+    ``out`` (Tp, dout) on operands already in its form: ``a`` dy's bf16
+    planes (``split_bf16``, kinds 0-2) or dy padded to 4 floats a row (kind
+    3), ``w`` the ``_stack_operand``, ``be`` int32, ``k`` dy's width.
+    ``_t``'s last step; also what a caller times to read the kernel
+    without the split."""
+    name = KERNEL_T4 if kind == 2 else KERNEL_T
+    _aligned(name, a, w)
+    _build.launch(name, out.device, a, w, be, out, out.shape[0],
+                  out.shape[1], k, a.shape[-1], w.shape[2], bt, w.shape[0],
+                  *(() if kind == 2 else (kind,)))
 
 
 def grouped_matmul_t(dy, w, block_expert, *, bt: int = 128):
     """Ragged ``dx[i*bt:(i+1)*bt] = dy[i*bt:(i+1)*bt] @ w[be[i]]^T``, a
     fresh (Tp, dout) float32: dy (Tp, f) float, w (E, dout, f) fp32, bf16
     or int8 contracted over its last dim in place. Kernel
-    ``grouped_gemm_t`` on the card (bt a multiple of 128), the plain
-    version on the CPU."""
+    ``grouped_gemm_t`` on the card after ``split_bf16`` of dy (bt a
+    multiple of 128), the plain version on the CPU."""
     _check_t_layout(KERNEL_T, dy, w, block_expert, bt)
-    if dy.device.type == "cpu":
-        return _t_ref(dy, w, block_expert, bt, False)
-    kind = _KINDS.get(w.dtype)
-    if kind is None:
-        raise TypeError(f"{KERNEL_T}: no kernel for a {w.dtype} stack")
-    return _t_launch(KERNEL_T, dy, w, block_expert, bt, w.shape[1], kind)
+    return _t(dy, w, block_expert, bt, False)
 
 
 def grouped_matmul_t4(dy, w, block_expert, *, bt: int = 128):
@@ -421,13 +441,7 @@ def grouped_matmul_t4(dy, w, block_expert, *, bt: int = 128):
     dout/2 reads the low nibbles of packed row n, the rest the high
     nibbles of row n - dout/2. Kernel ``grouped_gemm_t4`` on the card."""
     _check_t_layout(KERNEL_T4, dy, w, block_expert, bt)
-    if dy.device.type == "cpu":
-        return _t_ref(dy, w, block_expert, bt, True)
-    if w.dtype != torch.int8:
-        raise TypeError(f"{KERNEL_T4}: packed bytes are int8, got "
-                        f"{w.dtype}")
-    return _t_launch(KERNEL_T4, dy, w, block_expert, bt, 2 * w.shape[1],
-                     None)
+    return _t(dy, w, block_expert, bt, True)
 
 
 def _check_dw_layout(x, dy, block_expert, bt: int):
@@ -459,6 +473,12 @@ def grouped_dw(x, dy, block_expert, e: int, *, bt: int = 128):
     the card after ``split_bf16`` of x and dy (one tile of dW a block of
     threads, no atomics), the plain version on the CPU."""
     _check_dw_layout(x, dy, block_expert, bt)
+    return _dw(x, dy, block_expert, e, bt)
+
+
+def _dw(x, dy, block_expert, e: int, bt: int, dys=None):
+    """``grouped_dw`` without the layout check; ``dys`` dy's bf16 planes
+    where the caller split dy already."""
     if x.device.type == "cpu":
         return grouped_dw_ref(x, dy, block_expert, e, bt=bt)
     _check_card(KERNEL_DW, bt, x, dy, block_expert)
@@ -468,7 +488,7 @@ def grouped_dw(x, dy, block_expert, e: int, *, bt: int = 128):
     # every tile written, an expert with no block's as zeros
     out = torch.empty((e, d, f), dtype=torch.float32, device=x.device)
     if out.numel():
-        _launch_dw(split_bf16(x), split_bf16(dy),
+        _launch_dw(split_bf16(x), split_bf16(dy) if dys is None else dys,
                    block_expert.to(torch.int32).contiguous(), out, bt)
     return out
 

@@ -426,6 +426,55 @@ def test_decode_attention_matches_plain_version(cuda, kvh, rep, d):
     assert err < 2e-3, err
 
 
+# The split walk: T = 1,024 at the reference's chunk (bk 128 at kvh 4 and
+# 8, 512 at kvh 2: splits of 2 and 1 chunks, split_plan), slots of length
+# 0, 1, a split's last key, the next split's first and T. Within 2e-3 of
+# the plain version as above (p rounded against a split's running max);
+# one launch a call, the same bits over repeats and from a CUDA graph's
+# replay, the workspace's counters back at 0.
+@pytest.mark.parametrize("kvh,rep,d", [(4, 2, 128), (2, 4, 128),
+                                       (8, 1, 64), (3, 2, 32)])
+def test_decode_attention_splits_long_slots(cuda, kvh, rep, d):
+    t = 1024
+    bk = decode_attention.pick_block(t, kvh, d, 2)
+    per, splits = decode_attention.split_plan(t, bk)
+    assert splits > 1
+    lens = [0, 1, per * bk, per * bk + 1, t]
+    rng = np.random.default_rng(kvh * rep + d)
+    q = torch.from_numpy(rng.standard_normal((len(lens), kvh * rep, d))
+                         .astype(np.float32)).to(cuda)
+    k, v = (torch.from_numpy(rng.standard_normal((len(lens), t, kvh, d))
+                             .astype(np.float32)).to(device=cuda,
+                                                     dtype=torch.bfloat16)
+            for _ in "kv")
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+
+    def call():
+        return decode_attention.decode_attention(q, k, v, lengths)
+
+    before = _build.LAUNCHES["decode_attention"]
+    out = call()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode_attention"] == before + 1
+    counters = decode_attention._WORKSPACE[out.device][0]
+    assert not counters.any()
+    ref = decode_attention.decode_attention_ref(q, k, v, lengths)
+    err = float((out - ref).abs().max())
+    print(f"decode_attention split kvh={kvh} rep={rep} d={d} bk={bk}: "
+          f"max|kernel - plain| = {err}")
+    assert err < 2e-3, err
+    assert not out[0].any()
+    assert torch.equal(call(), out)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, out)
+    assert not counters.any()
+
+
 # Slice 3's kernels. int8_gemm_noc must EQUAL its plain version (exact
 # int32 sums, the same epilogue). The W4A16 kernels' products are exact in
 # fp32 but summed in another order (by the tensor cores for the GEMM, whose
@@ -1239,14 +1288,14 @@ def test_grouped_gemm_refuses_grad_and_small_blocks(cuda):
         gg.grouped_matmul(x, w.to(torch.int16), be, s)
 
 
-# The backward kernels: grouped_gemm_t and grouped_gemm_t4 split dy into
-# bf16 hi + lo as the forward splits x (GROUPED_REL; fp32 stacks FFMA,
-# FP32_REL); grouped_dw takes x and dy split by split_bf16 into three bf16
-# wgmma products, hi.hi + hi.lo + lo.hi, its sums added into fp32
-# registers every 256 rows, against the plain version's cuBLAS fp32
-# product over the expert's rows (FP32_REL). A planted fault reads above
-# its rule: block 0 reading the neighbouring expert's stack (dx), one of an
-# expert's blocks left out of its sum (dW).
+# The backward kernels: grouped_gemm_t and grouped_gemm_t4 take dy split
+# into bf16 hi + lo by split_bf16, two wgmma products as the forward
+# (GROUPED_REL; fp32 stacks FFMA, FP32_REL); grouped_dw takes x and dy
+# split by split_bf16 into three bf16 wgmma products, hi.hi + hi.lo +
+# lo.hi, its sums added into fp32 registers every 256 rows, against the
+# plain version's cuBLAS fp32 product over the expert's rows (FP32_REL). A
+# planted fault reads above its rule: block 0 reading the neighbouring
+# expert's stack (dx), one of an expert's blocks left out of its sum (dW).
 @pytest.mark.parametrize("shape", GROUPED_SHAPES)
 @pytest.mark.parametrize("kind", ["fp32", "bf16", "int8", "int4"])
 def test_grouped_gemm_t_matches_plain_version(cuda, kind, shape):
@@ -1364,6 +1413,36 @@ def test_grouped_kernels_repeat_bit_for_bit(cuda, kind):
                      generator=torch.Generator(cuda).manual_seed(20))
     dws = [gg.grouped_dw(x, dy, be, 8) for _ in range(2)]
     assert torch.equal(*dws)
+
+
+# dx at ragged widths: dout 36 (every int4 tile straddles dout/2 = 18),
+# 200 (dout/2 = 100 inside the first tile) and 1,000 (500 inside the
+# fourth), f not a multiple of 8 or of 128; within the rule above, one
+# split of dy and one kernel launch a call, the same bits on a second call.
+@pytest.mark.parametrize("shape", [(3, 36, 130, 384), (2, 200, 100, 256),
+                                   (4, 1000, 520, 512)])
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8", "int4"])
+def test_grouped_gemm_t_ragged_dout(cuda, kind, shape):
+    from how_to_optimize_gemm_tpu_torch.ops import grouped_gemm as gg
+    _, w, be, _, packed4 = _grouped_case(kind, shape, 24, cuda)
+    dy = torch.randn((shape[3], shape[2]), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(25))
+    name = "grouped_gemm_t4" if packed4 else "grouped_gemm_t"
+    fn = gg.grouped_matmul_t4 if packed4 else gg.grouped_matmul_t
+    ref_fn = gg.grouped_matmul_t4_ref if packed4 else gg.grouped_matmul_t_ref
+    before = dict(_build.LAUNCHES)
+    got = fn(dy, w, be)
+    assert {k: _build.LAUNCHES[k] - before[k]
+            for k in (name, "split_bf16")} == \
+        {name: 1, "split_bf16": 0 if kind == "fp32" else 1}
+    ref = ref_fn(dy, w, be)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    tol = FP32_REL if kind == "fp32" else GROUPED_REL
+    err = float((got - ref).abs().max())
+    print(f"{name} {kind} {shape}: {err / scale:.3e} of max |plain|")
+    assert err <= tol * scale, err / scale
+    assert torch.equal(fn(dy, w, be), got)
 
 
 @pytest.mark.parametrize("kind", ["fp32", "bf16", "int8", "int4"])

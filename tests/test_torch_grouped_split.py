@@ -1,8 +1,10 @@
 """The grouped GEMM's wgmma route, its host side and its arithmetic, on
-the CPU: the plain version of ``split_bf16`` (the pre-pass of the forward
-and of dW), a plain-PyTorch emulation of dW's three bf16 products summed
-in fp32 every 256 rows against ``grouped_dw_ref``, and the wrapper's rules
-for the card (the stack as the kernel reads it, the refusals)."""
+the CPU: the plain version of ``split_bf16`` (the pre-pass of the forward,
+dx and dW), plain-PyTorch emulations of dW's three bf16 products summed in
+fp32 every 256 rows against ``grouped_dw_ref`` and of dx's two products
+summed every 1,024 K against ``grouped_matmul_t_ref``, and the wrapper's
+rules for the card (the stack as the kernels read it, the refusals, dy
+split once in the dense backward)."""
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,11 @@ FP32_REL = 1e-5
 # the rows a dW consumer sums in wgmma before adding into fp32 registers
 # (csrc/grouped_dw.cu: 4 stages of 64 rows)
 DW_CHUNK = 256
+# dx's rule on the card (chip_smoke.py GROUPED_REL): within 1e-4 of max
+# |plain|; a dx consumer sums 16 stages of 64 K values in wgmma before
+# adding into fp32 registers (csrc/grouped_gemm.cuh)
+GROUPED_REL = 1e-4
+DX_CHUNK = 1024
 
 
 def _x(rows, cols, seed, scale=1.0):
@@ -123,7 +130,7 @@ def test_stack_is_not_copied_at_aligned_widths(kind):
     """At a width of a multiple of 16 (Mixtral's 4,096 and 14,336 are) the
     kernel reads the stack itself: no copy of the stack."""
     w, s, packed4 = _stack(kind, 2, 64, 256)
-    k = gg._forward_kind(w, packed4, s)
+    k = gg._stack_kind(w, packed4, s)
     assert gg._stack_operand(w, k).data_ptr() == w.data_ptr()
 
 
@@ -133,7 +140,7 @@ def test_stack_rows_padded_to_16_bytes_elsewhere(kind, f):
     """At other widths the rows are padded with zero columns to a multiple
     of 16 bytes (4 floats for the FFMA kernel), the values unchanged."""
     w, s, packed4 = _stack(kind, 2, 36, f)
-    k = gg._forward_kind(w, packed4, s)
+    k = gg._stack_kind(w, packed4, s)
     got = gg._stack_operand(w, k)
     assert (got.shape[2] * got.element_size()) % 16 == 0
     assert got.shape[2] - f < 16 // got.element_size()
@@ -142,13 +149,97 @@ def test_stack_rows_padded_to_16_bytes_elsewhere(kind, f):
 
 def test_forward_refuses_what_the_card_has_no_kernel_for():
     w, s, _ = _stack("int8", 2, 64, 128)
-    assert gg._forward_kind(w, False, s) == 1
+    assert gg._stack_kind(w, False, s) == 1
     gg._check_bt(gg.KERNEL, 256)
     with pytest.raises(ValueError, match="multiple of"):
         gg._check_bt(gg.KERNEL, 64)
     with pytest.raises(TypeError, match="no kernel"):
-        gg._forward_kind(w.to(torch.int16), False, s)
+        gg._stack_kind(w.to(torch.int16), False, s)
     with pytest.raises(TypeError, match="no kernel"):
-        gg._forward_kind(w.to(torch.bfloat16), True, s)
+        gg._stack_kind(w.to(torch.bfloat16), True, s)
     with pytest.raises(TypeError, match="float32"):
-        gg._forward_kind(w, False, s.to(torch.bfloat16))
+        gg._stack_kind(w, False, s.to(torch.bfloat16))
+
+
+def _dx_columns(w, kind):
+    """Each expert's stack (E, dout, f) as the dx kernel decodes it, one
+    output column n at a time: a packed stack's column n < dout/2 is the
+    low nibble of packed row n, (b & 0xF) - 8, the others the high nibble
+    of row n - dout/2, the signed byte's b >> 4; every value exact in
+    bf16."""
+    if kind != "int4":
+        return w.to(torch.float32)
+    b = w.to(torch.int32)
+    return torch.cat([(b & 0xF) - 8, b >> 4], dim=1).to(torch.float32)
+
+
+def _dx_emulated(dy, w, be, kind, bt):
+    """dx the way csrc/grouped_gemm.cuh sums it: dy split into bf16 hi +
+    lo, each block's 1,024-value K chunks hi . W^T + lo . W^T in fp32
+    (every partial product exact), the chunks added in fp32 in order."""
+    planes = gg.split_bf16(dy).float()
+    f = dy.shape[1]
+    hi, lo = planes[0, :, :f], planes[1, :, :f]
+    cols = _dx_columns(w, kind)
+    out = torch.zeros((dy.shape[0], cols.shape[1]))
+    for i, e in enumerate(be.tolist()):
+        rows = slice(i * bt, (i + 1) * bt)
+        for c in range(0, f, DX_CHUNK):
+            k = slice(c, c + DX_CHUNK)
+            we = cols[e][:, k].t()
+            out[rows] += (fp32_matmul(hi[rows, k], we)
+                          + fp32_matmul(lo[rows, k], we))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("dout", [36, 200, 256])
+def test_dx_two_products_meet_the_rule(kind, dout):
+    """dx's arithmetic (dy split, two bf16 products, fp32 sums every 1,024
+    K) on bf16-exact stacks against the plain version under GROUPED_REL,
+    at K = 2,100 (three chunks, the last short) and dout 36 and 200, whose
+    dout/2 is not a multiple of 128 (a packed stack's column tile then
+    straddles the nibble boundary); the column rule is ``unpack_int4``'s."""
+    bt = 128
+    w, _, packed4 = _stack(kind, 3, dout, 2100)
+    be = torch.tensor([0, 2, 2, 1], dtype=torch.int32)
+    dy = _x(be.shape[0] * bt, 2100, seed=dout)
+    if packed4:
+        assert torch.equal(_dx_columns(w, kind),
+                           quant.unpack_int4(w, dout).to(torch.float32))
+        ref = gg.grouped_matmul_t4_ref(dy, w, be, bt=bt)
+    else:
+        ref = gg.grouped_matmul_t_ref(dy, w, be, bt=bt)
+    got = _dx_emulated(dy, w, be, kind, bt)
+    err = float((got - ref).abs().max())
+    assert err <= GROUPED_REL * float(ref.abs().max()), err
+
+
+def test_dense_backward_splits_dy_once(monkeypatch):
+    """The card path of a dense stack's forward and backward, driven on
+    meta tensors with the launches recorded (none runs): dy is split once
+    and the same planes reach grouped_gemm_t and grouped_dw; x is split
+    for the forward and for dW."""
+    launches = []
+    monkeypatch.setattr(gg, "require_cuda", lambda name, x: None)
+    monkeypatch.setattr(gg._build, "launch",
+                        lambda name, device, *args: launches.append(
+                            (name, args)))
+    e, d, f, tp = 3, 64, 96, 384
+    x = torch.empty((tp, d), device="meta", requires_grad=True)
+    w = torch.empty((e, d, f), dtype=torch.bfloat16, device="meta",
+                    requires_grad=True)
+    be = torch.empty((tp // 128,), dtype=torch.int32, device="meta")
+    gg.grouped_matmul(x, w, be).backward(torch.empty((tp, f),
+                                                     device="meta"))
+    names = [name for name, _ in launches]
+    assert sorted(names) == sorted(["split_bf16"] * 3 + [
+        "grouped_gemm", "grouped_gemm_t", "grouped_dw"])
+    splits = [args for name, args in launches if name == "split_bf16"]
+    assert sorted(tuple(a[0].shape) for a in splits) == [(tp, d), (tp, d),
+                                                         (tp, f)]
+    dys = next(a[1] for a in splits if tuple(a[0].shape) == (tp, f))
+    t_args = next(args for name, args in launches
+                  if name == "grouped_gemm_t")
+    dw_args = next(args for name, args in launches if name == "grouped_dw")
+    assert t_args[0] is dys and dw_args[1] is dys

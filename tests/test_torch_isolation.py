@@ -123,12 +123,19 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
                                         ctypes.c_float}, name
         text = (_build.CSRC / kernel.source).read_text()
         assert f'extern "C" int {name}(' in text, name
-    assert len(_build.KERNELS["decode_attention"].argtypes) == 13
+    # q, the caches, lengths, out, the split walk's workspace (partials,
+    # counters), B, T, KVH, REP, D, bk, the chunks a split, the scale, the
+    # stream
+    assert len(_build.KERNELS["decode_attention"].argtypes) == 16
     assert len(_build.KERNELS["decode_attention_q8"].argtypes) == 15
     assert len(_build.KERNELS["kv_update"].argtypes) == 9
     # x split (or fp32 x), the stack, block_expert, the scales, out, Tp,
     # N, K, lda, ldw, bt, E, kind, the stream
     assert len(_build.KERNELS["grouped_gemm"].argtypes) == 14
+    # dy split (or fp32 dy), the stack, block_expert, out, Tp, N, K, lda,
+    # ldw, bt, E, kind (not for the packed entry), the stream
+    assert len(_build.KERNELS["grouped_gemm_t"].argtypes) == 13
+    assert len(_build.KERNELS["grouped_gemm_t4"].argtypes) == 12
     assert len(_build.KERNELS["split_bf16"].argtypes) == 7
     assert len(_build.KERNELS["paged_kv_update"].argtypes) == 10
     assert len(_build.KERNELS["paged_decode_attention"].argtypes) == 15
