@@ -65,7 +65,8 @@ Phases (any failure raises and exits non-zero before the last line):
    w4a16_gemv, whose fp32 sums run in another order; within atol 2e-3 for
    the four decode attention kernels; for flash_attention, every row
    within FLASH_ULPS bf16 ulps of its own max |plain|, against its plain
-   version at the kernel's 64-key tiles, at 4,096 and 2,048 on transposed
+   version at the kernel's key tiles (``attention.KERNEL_BK``, 64 keys),
+   at 4,096 and 2,048 on transposed
    (B, S, H, D) views as the model passes them, at 1,024, and on GQA rep
    4, D 64, S = 700 of T = 1,000, non-causal and T = 9,000; the same rule
    must refuse the plain version with one key tile skipped), timed as
@@ -137,7 +138,7 @@ Phases (any failure raises and exits non-zero before the last line):
    admission prefill runs at m = 2 x 128 = 256 and takes the prefill
    kernels), teacher-forced on the card and on the CPU, both on the
    kernel routes (the CPU through the kernels' plain versions, flash's
-   at the kernel's 64-key tiles: ``kernel_tiles``), comparing
+   at the kernels' key tiles: ``kernel_tiles``), comparing
    the logits of the prefill and of 8 decode steps, for fp32, W4A8, int8
    and int4 weights, for W4A8 weights over the KV8 cache, for W4A8
    weights over a paged bf16 pool (pages of 128) and a paged KV8 pool
@@ -743,12 +744,19 @@ CFG_7B = llama.llama2_7b("w4a8")
 MOE_CFG = llama.mixtral_8x7b("int8")
 SLOTS = 4
 DECODE_ATOL = 2e-3   # decode_attention vs its plain version (sum order, exp)
-# flash_attention vs its plain version at the kernel's 64-key tiles: in
-# every row, max |kernel - plain| within FLASH_ULPS bf16 ulps of that row's
-# max |plain| (attention.bf16_row_ulps). fp32 sums in another order can
-# flip the bf16 rounding of p or of an output by one ulp; one 64-key tile
-# skipped reads tens of ulps, and the check plants that fault to show it
+# flash_attention vs its plain version at the kernel's key tiles
+# (attention.KERNEL_BK, 64 keys): in every row, max |kernel - plain| within
+# FLASH_ULPS bf16 ulps of that row's max |plain| (attention.bf16_row_ulps).
+# fp32 sums in another order, and exp as ex2.approx of the score times
+# log2(e), can flip the bf16 rounding of p or of an output by one ulp; one
+# 64-key tile skipped reads tens of ulps, and the check plants that fault
+# to show it
 FLASH_ULPS = 2.0
+# the flash forwards' times before their rebuild on wgmma, at the 7B
+# prefill row and the soak's row (PERF.md section 6; NVIDIA H100 80GB HBM3,
+# 700.00 W), printed beside this run's
+FLASH_BEFORE_MS = {"flash_attention": 2.8005,
+                   "flash_attention_fwd_lse": 0.2761}
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0
@@ -1266,11 +1274,11 @@ FLASH_SHAPES = ((4, 32, 32, 4096, 4096, 128, True, True),
 
 def skipped_tile_ulps(q, k, v, ref) -> float:
     """The flash check's reading on a planted fault: the plain version of
-    the last 64 queries with one 64-key tile before them (at T / 2)
-    skipped, held to the true output's rows. The queries are the last S of
-    T positions, so dropping the tile's keys from k and v leaves every
-    other key visible to them as before."""
-    bk = attention.KERNEL_BLOCK
+    the last 64 queries with one key tile of the kernel's (64 keys) before
+    them (at T / 2) skipped, held to the true output's rows. The queries
+    are the last S of T positions, so dropping the tile's keys from k and v
+    leaves every other key visible to them as before."""
+    bk = attention.KERNEL_BK
     t = k.shape[2]
     j0 = t // 2 // bk * bk
     keep = torch.cat([torch.arange(j0, device=k.device),
@@ -1281,7 +1289,7 @@ def skipped_tile_ulps(q, k, v, ref) -> float:
 
 
 def check_flash_attention(gen: torch.Generator) -> dict:
-    """flash_attention against its plain version at the kernel's 64-key
+    """flash_attention against its plain version at the kernel's key
     tiles (every row within FLASH_ULPS bf16 ulps of its max |plain|); on
     each causal shape the same rule must refuse the plain version with one
     key tile skipped. The bound counts the query-key pairs this run's
@@ -1306,7 +1314,7 @@ def check_flash_attention(gen: torch.Generator) -> dict:
 
         def plain():
             return attention.flash_attention_ref(
-                q, k, v, causal=causal, bk=attention.KERNEL_BLOCK)
+                q, k, v, causal=causal, bk=attention.KERNEL_BK)
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         if out.stride() != q.stride():
@@ -1333,6 +1341,10 @@ def check_flash_attention(gen: torch.Generator) -> dict:
                 return sdpa(q, k, v, is_causal=causal, enable_gqa=h != kvh)
         results.append(timed("flash_attention", shape, kernel, plain,
                              library, *b_ms, err))
+        if len(results) == 1:
+            print(f"flash_attention {shape}: {results[0]['ms']:.4f} ms, "
+                  f"{FLASH_BEFORE_MS['flash_attention']} ms before the "
+                  "rebuild on wgmma")
     return results[0]
 
 
@@ -1601,16 +1613,17 @@ def flipped_positions(label: str, routes: dict, lens, k: int,
 
 @contextlib.contextmanager
 def kernel_tiles():
-    """The plain flash versions walk the kernel's 64-key tiles
-    (``attention.KERNEL_BLOCK``) instead of the reference's 512-key
-    blocks (serving) or training blocks, so the CPU side's online softmax
+    """The plain flash versions walk the forward kernels' key tiles
+    (``attention.KERNEL_BK``, ``attention.KERNEL_BK_LSE``) instead of the
+    reference's 512-key blocks (serving) or training blocks, so the CPU
+    side's online softmax
     rounds p to bf16 against the same running maxima as the card's. At
     512-key blocks those roundings move a prefill's MLP input by ~1% where
     they differ, which a routed model turns into expert choices of its own
     at near-ties (PERF.md, section 6)."""
     default, train = attention.default_block, attention.train_block
-    attention.default_block = lambda t: attention.KERNEL_BLOCK
-    attention.train_block = lambda t: attention.KERNEL_BLOCK
+    attention.default_block = lambda t: attention.KERNEL_BK
+    attention.train_block = lambda t: attention.KERNEL_BK_LSE
     try:
         yield
     finally:
@@ -2093,12 +2106,12 @@ TRAIN_CKPT = 4
 
 def _train_faults(q, k, v, do, lse, delta, causal, ref):
     """Readings of the training check's rule on planted faults of the
-    plain versions: out and dq of the last 64 queries with one 64-key tile
+    plain versions: out and dq of the last 64 queries with one key tile
     before them skipped (the queries are the last S of T positions in the
     plain versions, so the other keys stay visible as before), and dk, dv
     with the first query head of every group dropped from the sum (its do
     and delta set to 0)."""
-    bk = attention.KERNEL_BLOCK
+    bk = attention.KERNEL_BK_LSE
     s = k.shape[2]
     j0 = s // 2 // bk * bk
     keep = torch.cat([torch.arange(j0, device=k.device),
@@ -2124,7 +2137,7 @@ def _train_faults(q, k, v, do, lse, delta, causal, ref):
 
 def check_flash_train(gen: torch.Generator) -> dict:
     """The three training kernels against their plain versions (the
-    forward at the kernel's 64-key tiles, whose bf16 p depends on the
+    forward at the kernel's key tiles, whose bf16 p depends on the
     block), all on the plain version's lse and delta, at ``TRAIN_SHAPES``
     on (B, S, H, D) views as ``mha_flash_train`` passes them; the rule
     must refuse each planted fault (``_train_faults``). Timed at the first
@@ -2148,7 +2161,7 @@ def check_flash_train(gen: torch.Generator) -> dict:
         out, lse = attention.flash_attention_fwd_lse(q, k, v, causal=causal)
         ref = {}
         ref["out"], ref_lse = attention.flash_attention_fwd_lse_ref(
-            q, k, v, causal=causal, bk=attention.KERNEL_BLOCK)
+            q, k, v, causal=causal, bk=attention.KERNEL_BK_LSE)
         delta = (do * ref["out"]).sum(dim=-1)
         args = (q, k, v, do, ref_lse, delta)
         dq = attention.flash_attention_bwd_dq(*args, causal=causal)
@@ -2202,7 +2215,7 @@ def check_flash_train(gen: torch.Generator) -> dict:
             fwd: (lambda: attention.flash_attention_fwd_lse(
                       q, k, v, causal=causal),
                   lambda: attention.flash_attention_fwd_lse_ref(
-                      q, k, v, causal=causal, bk=attention.KERNEL_BLOCK),
+                      q, k, v, causal=causal, bk=attention.KERNEL_BK_LSE),
                   lambda: sdpa(q16, k, v, is_causal=causal,
                                enable_gqa=h != kvh),
                   max(errs["out"], lse_err)),
@@ -2218,6 +2231,10 @@ def check_flash_train(gen: torch.Generator) -> dict:
         for name, (kernel, plain, library, err) in cases.items():
             r = timed(name, shape, kernel, plain, library, *bounds_ms[name],
                       err)
+            if name == fwd and i == 0:
+                print(f"{name} {shape}: {r['ms']:.4f} ms, "
+                      f"{FLASH_BEFORE_MS[name]} ms before the rebuild on "
+                      "wgmma")
             if name == dkv_k:
                 r["library_ms"] = lib_bwd_ms
             results.setdefault(name, r)
@@ -2761,8 +2778,8 @@ def nll_without(tokens: set):
 def train_moe_parity(gen: torch.Generator) -> None:
     """Two AdamW steps at Mixtral-8x7B's width with 1 layer (batch 1 x
     1,025: the ragged path on the card's backward kernels and flash) on
-    the card and on the CPU (the plain versions, flash's at the kernel's
-    64-key tiles) from the same weights and batches, for dense bf16 stacks
+    the card and on the CPU (the plain versions, flash's at the kernels'
+    key tiles) from the same weights and batches, for dense bf16 stacks
     and for int8 stacks under bf16 linears: the losses and the weights
     after step 2 within PARITY_SENSITIVITY x what a PERTURB relative
     perturbation of the embedding does on the CPU.

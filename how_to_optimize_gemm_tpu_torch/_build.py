@@ -120,7 +120,9 @@ KERNELS = {
     "paged_decode_attention_q8": Kernel("paged_decode_attention_q8.cu",
                                         (_P,) * 8 + (_I,) * 7 + (_F, _P)),
     # (q, k, v, out, B, H, KVH, S, T, D, causal, then the (b, h, row)
-    #  element strides of q, k, v and out, scale, stream)
+    #  element strides of q, k, v and out, scale, stream); the two flash
+    #  forwards are wgmma kernels (csrc/flash_wgmma.cuh) whose C entry
+    #  encodes their tensor maps from these pointers and strides
     "flash_attention": Kernel("flash_attention.cu", (_P,) * 4 + (_I,) * 19
                               + (_F, _P)),
     # the training attention, self-attention of S tokens: (q, k, v, out,

@@ -1,8 +1,9 @@
-// Shared pieces of the flash attention kernels (flash_attention.cu and the
-// three training kernels flash_attention_fwd_lse.cu, flash_attention_bwd_dq.cu,
-// flash_attention_bwd_dkv.cu): bf16 tiles staged in shared memory with rows
-// padded by 16 bytes (so the 8 rows of an ldmatrix hit 32 distinct banks),
-// mma.sync.m16n8k16 bf16 -> fp32 and its fragments.
+// Shared pieces of the flash attention kernels. For the backward
+// (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu): bf16 tiles staged
+// in shared memory with rows padded by 16 bytes (so the 8 rows of an
+// ldmatrix hit 32 distinct banks), mma.sync.m16n8k16 bf16 -> fp32 and its
+// fragments. For every kernel that splits an fp32 operand (the backward,
+// the training forward's flash_wgmma.cuh, split_bf16.cu): split_pack.
 //
 // Operands that the reference keeps in fp32 are split for the bf16 tensor
 // cores into hi = bf16(x) and lo = bf16(x - hi): hi + lo carries 16 of x's 24
@@ -12,7 +13,7 @@
 // accumulator c[4]: rows lane/4 (e = 0, 1) and lane/4 + 8 (e = 2, 3), columns
 // 2 * (lane % 4) + (e % 2); an accumulator tile of 16 rows and 16 * n columns,
 // held as c[2n][4], is the A fragment of the next product as it stands
-// (acc_to_a, acc_to_a_split).
+// (acc_to_a_split).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -67,18 +68,8 @@ __device__ __forceinline__ void split_pack(float x0, float x1, uint32_t& hi,
   lo = *reinterpret_cast<uint32_t*>(&l);
 }
 
-// A fragment of columns 16 kk .. 16 kk + 15 of an accumulator tile, rounded
-// to bf16.
-template <int NT>
-__device__ __forceinline__ void acc_to_a(float (&c)[NT][4], int kk,
-                                         uint32_t (&a)[4]) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// The same, split into hi and lo fragments.
+// A fragment of columns 16 kk .. 16 kk + 15 of an accumulator tile, split
+// into bf16 hi and lo fragments.
 template <int NT>
 __device__ __forceinline__ void acc_to_a_split(float (&c)[NT][4], int kk,
                                                uint32_t (&hi)[4],

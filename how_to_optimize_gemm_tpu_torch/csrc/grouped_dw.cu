@@ -150,10 +150,12 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
         for (int k = 0; k < wg::KT / 16; ++k) {
           uint64_t a_hi = wg::mnmajor_desc(x_hi, k);
           uint64_t b_hi = wg::mnmajor_desc(st + L::DY_HI, k);
-          wg::wgmma_m64n128<1, 1>(acc, a_hi, b_hi, first && k == 0 ? 0 : 1);
-          wg::wgmma_m64n128<1, 1>(acc, a_hi,
-                                  wg::mnmajor_desc(st + L::DY_LO, k), 1);
-          wg::wgmma_m64n128<1, 1>(acc, wg::mnmajor_desc(x_lo, k), b_hi, 1);
+          wg::Wgmma<128>::ss<1, 1>(acc, a_hi, b_hi,
+                                   first && k == 0 ? 0 : 1);
+          wg::Wgmma<128>::ss<1, 1>(acc, a_hi,
+                                   wg::mnmajor_desc(st + L::DY_LO, k), 1);
+          wg::Wgmma<128>::ss<1, 1>(acc, wg::mnmajor_desc(x_lo, k), b_hi,
+                                   1);
         }
       },
       [&] { wg::add_into(tot, acc); });

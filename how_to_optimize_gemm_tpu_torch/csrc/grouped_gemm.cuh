@@ -336,10 +336,10 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
         for (int k = 0; k < wg::KT / 16; ++k) {
           uint64_t db = kT ? wg::kmajor_desc(st + L::B, k)
                            : wg::mnmajor_desc(st + L::B, k);
-          wg::wgmma_m64n128<0, kT ? 0 : 1>(acc, wg::kmajor_desc(a_hi, k), db,
-                                           first && k == 0 ? 0 : 1);
-          wg::wgmma_m64n128<0, kT ? 0 : 1>(acc, wg::kmajor_desc(a_lo, k), db,
-                                           1);
+          wg::Wgmma<128>::ss<0, kT ? 0 : 1>(
+              acc, wg::kmajor_desc(a_hi, k), db, first && k == 0 ? 0 : 1);
+          wg::Wgmma<128>::ss<0, kT ? 0 : 1>(acc, wg::kmajor_desc(a_lo, k),
+                                            db, 1);
         }
       },
       [&] { wg::add_into(tot, acc); });

@@ -1,18 +1,22 @@
 // Hopper's warpgroup MMA (wgmma) fed by tensor-map copies (TMA) into an
 // mbarrier ring: the building blocks of the grouped GEMM's forward and dx
 // (grouped_gemm.cuh's kernel: grouped_gemm.cu, grouped_gemm_t.cu, kinds
-// 0-2) and its dW (grouped_dw.cu).
+// 0-2) and its dW (grouped_dw.cu), and of the flash forwards
+// (flash_wgmma.cuh: wgmma.m64nNk16 at N 64 and 128, A from registers for
+// P V, 4-D tensor maps over strided views, named barriers between the
+// consumers; its own block layout, described there).
 //
-// Block shape (all three): 384 threads, three warpgroups. Warp 0 is the
-// producer (its lane 0 issues every tensor-map copy of the ring); warps 1-3
-// convert integer stack tiles to bf16 where the stack needs it and leave
-// at once otherwise (a warpgroup's wgmma wants its four warps aligned to a
-// warpgroup, so the consumers start at thread 128 either way, and a warp
-// that has left costs nothing: one block an SM); warpgroups 1 and 2 are the
-// consumers, each issuing wgmma.m64n128k16 on 64 rows of the block's
-// 128 x 128 output tile. No register rebalancing (setmaxnreg): one block an
-// SM caps a thread at 168 registers, which the consumers' 128 accumulator
-// registers fit.
+// Block shape (the grouped GEMM's three): 384 threads, three warpgroups.
+// Warp 0 is the producer (its lane 0 issues every tensor-map copy of the
+// ring); warps 1-3 convert integer stack tiles to bf16 where the stack
+// needs it and leave at once otherwise (a warpgroup's wgmma wants its four
+// warps aligned to a warpgroup, so the consumers start at thread 128
+// either way, and a warp that has left costs nothing: one block an SM);
+// warpgroups 1 and 2 are the consumers, each issuing wgmma.m64n128k16 on 64
+// rows of the block's 128 x 128 output tile. No register rebalancing
+// (setmaxnreg): one block an SM caps a thread at 168 registers, which the
+// consumers' 128 accumulator registers fit (and ptxas gives no more after
+// setmaxnreg at 384 threads a block; flash_wgmma.cuh).
 //
 // A ring slot (a stage of KT = 64 K values) has two barriers (the
 // forward and dx add a third for their converters, grouped_gemm.cuh):
@@ -152,6 +156,17 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_4d(void* dst, const CUtensorMap* map,
+                                       int c0, int c1, int c2, int c3,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // A shared-memory matrix descriptor, 128-byte swizzle: start address,
 // leading and stride byte offsets (PTX ISA, "Matrix Descriptor").
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
@@ -168,10 +183,11 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr, int k) {
   return sw128_desc(addr + 32 * k, 0, ATOM);
 }
 
-// An MN-major tile at `addr` (64-value blocks HALF_TILE apart), its k-th
+// An MN-major tile at `addr` (64-value blocks `lbo` bytes apart), its k-th
 // 16-deep step.
-__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, int k) {
-  return sw128_desc(addr + 2 * ATOM * k, HALF_TILE, ATOM);
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr, int k,
+                                                 uint32_t lbo = HALF_TILE) {
+  return sw128_desc(addr + 2 * ATOM * k, lbo, ATOM);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -187,40 +203,207 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Keeps the compiler from moving accumulator reads and writes across a
-// wgmma issue or wait (the registers change behind its back).
-__device__ __forceinline__ void fence_acc(float (&d)[ACC]) {
+// wgmma.m64nNk16 for N in {64, 128}, bf16 operands, fp32 sums, d holding
+// N / 2 accumulators a thread (the layout of for_each_pair below).
+//   ss<kTA, kTB>(d, da, db, accumulate): A and B from shared memory by
+//     descriptor; kTA / kTB: A / B MN-major. ss0: the same as a fresh
+//     sum, d an output only (its registers free until the product).
+//   rs<kTB>(d, ra, db, accumulate): A from registers, four bf16 pairs a
+//     thread in mma.sync's m16n8k16 A layout within each warp's 16 rows
+//     (pairs (row g, k 2c..), (g + 8, 2c..), (g, 8 + 2c..), (g + 8,
+//     8 + 2c..), g = lane / 4, c = lane % 4): the accumulator of an
+//     m64 product, its 16 columns 16 kk .. rounded to bf16 pairs, is this
+//     fragment as it stands, so P feeds P . V without shared memory.
+// accumulate = 0 ignores d's old value. The operand registers are read
+// asynchronously: keep them (fence_regs) until the wgmma_wait that covers
+// the product.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  // d = A . B from shared memory, d's old value not read (a fresh sum)
+  template <int kTA, int kTB>
+  static __device__ __forceinline__ void ss0(float (&d)[32], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+          "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+          "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+          "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+          "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+          "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+          "=f"(d[30]), "=f"(d[31])
+        : "l"(da), "l"(db), "r"(0), "n"(kTA), "n"(kTB));
+  }
+  template <int kTA, int kTB>
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));
+  }
+  template <int kTB>
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&ra)[4],
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, "
+        "%38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(ra[0]), "r"(ra[1]), "r"(ra[2]), "r"(ra[3]), "l"(db),
+          "r"(accumulate), "n"(kTB));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d = A . B from shared memory, d's old value not read (a fresh sum)
+  template <int kTA, int kTB>
+  static __device__ __forceinline__ void ss0(float (&d)[64], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+          "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+          "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+          "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+          "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+          "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+          "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]),
+          "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+          "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]),
+          "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]),
+          "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]),
+          "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+          "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+        : "l"(da), "l"(db), "r"(0), "n"(kTA), "n"(kTB));
+  }
+  template <int kTA, int kTB>
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));
+  }
+  template <int kTB>
+  static __device__ __forceinline__ void rs(float (&d)[64],
+                                            const uint32_t (&ra)[4],
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+        "%44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, "
+        "%70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(ra[0]), "r"(ra[1]), "r"(ra[2]), "r"(ra[3]), "l"(db),
+          "r"(accumulate), "n"(kTB));
+  }
+};
+
+// Keeps the compiler from moving reads and writes of r (accumulators, or
+// A fragments) across a wgmma issue or wait (the registers change or are
+// read behind its back).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-// d (+)= A . B, m64n128k16, bf16 operands from shared memory, fp32 sums;
-// kTA / kTB: A / B MN-major. accumulate = 0 ignores d's old value.
-template <int kTA, int kTB>
-__device__ __forceinline__ void wgmma_m64n128(float (&d)[ACC], uint64_t da,
-                                              uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Named barriers (0 is __syncthreads'): `n` threads take part, each warp
+// either waits (sync) or only counts itself in (arrive).
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // The ring's barriers, after the stages in shared memory.
@@ -275,13 +458,13 @@ __device__ __forceinline__ void consume(Ring<ST>& ring, int nk,
   for (int q = 0; q < nk; ++q) {
     int s = q % ST;
     wait(s, q);
-    fence_acc(acc);
+    fence_regs(acc);
     wgmma_fence();
     issue(s, q, q % CH == 0);
     wgmma_commit();
     if ((q + 1) % CH == 0 || q + 1 == nk) {
       wgmma_wait<0>();
-      fence_acc(acc);
+      fence_regs(acc);
       if (pending >= 0) release(ring, pending);
       release(ring, s);
       pending = -1;

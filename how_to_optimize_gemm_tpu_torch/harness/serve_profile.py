@@ -63,6 +63,12 @@ from how_to_optimize_gemm_tpu_torch.utils.device import default_device
 from how_to_optimize_gemm_tpu_torch.utils.timing import time_calls
 
 
+def is_flash_kernel(name: str) -> bool:
+    """Whether a profiler kernel name is flash_attention's:
+    csrc/flash_wgmma.cuh's flash_fwd<D, kSplit> without the split of q."""
+    return "fw::flash_fwd<" in name and ", false>" in name
+
+
 def step_bytes(params: dict, cfg: llama.LlamaConfig, slots: int,
                pos: int, cache_kind: str = "bf16") -> int:
     """Bytes one decode step must read: every linear's leaves, the lm
@@ -238,7 +244,7 @@ def main(argv=None) -> dict:
             k: v / args.steps for k, v in _build.LAUNCHES.items() if v},
         "bound_ms_per_step": bound_ms,
         "flash_attention_ms_per_step": (
-            sum(ms for k, (ms, _) in kernels.items() if "flash_attention" in k)
+            sum(ms for k, (ms, _) in kernels.items() if is_flash_kernel(k))
             if kernels else None),
         "top_kernels_ms_per_step": {k[:80]: round(ms, 5)
                                     for k, (ms, _) in top},

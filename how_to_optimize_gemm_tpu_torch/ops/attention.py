@@ -27,9 +27,11 @@ refuses that instead of copying it.
 
 ``flash_attention`` launches the kernel for CUDA tensors and runs the
 plain version ``flash_attention_ref`` only for CPU tensors. The kernel's
-key tile is ``KERNEL_BLOCK`` keys; its sums run in another order than the
-plain version's, so the two agree to rounding. It has no backward: it
-raises when grad mode is on and an operand requires grad.
+tiles are ``KERNEL_BQ`` queries by ``KERNEL_BK`` keys; the key tile sets
+where p rounds to bf16, so the plain version at ``bk=KERNEL_BK`` is its
+yardstick. Its sums run in another order than the plain version's, so the
+two agree to rounding. It has no backward: it raises when grad mode is on
+and an operand requires grad.
 
 The training half (counterpart: ``pallas_attention.py``'s
 ``_fwd_kernel_lse``, ``_bwd_dq_kernel``, ``_bwd_dkv_kernel``,
@@ -56,7 +58,9 @@ with a backward, three kernels under ``FlashAttentionTrain``:
 The reference pads an S that is no block multiple outside its custom VJP
 and masks the padded keys; the kernels and plain versions take any S, so
 nothing is padded: no key at or past S enters a softmax, and there are
-no padded query rows. The plain versions walk the reference's blocks:
+no padded query rows. The forward kernel's tiles are ``KERNEL_BQ`` queries
+by ``KERNEL_BK_LSE`` keys, the backward kernels' ``KERNEL_BLOCK`` by
+``KERNEL_BLOCK``. The plain versions walk the reference's blocks:
 ``train_block(S)``, the least-waste of 512, 256 and 128, unless told
 otherwise; they also take queries that are the last S of T positions
 (S <= T), which the wrappers do not.
@@ -72,7 +76,14 @@ from how_to_optimize_gemm_tpu_torch.ops.int8 import require_cuda
 NEG_INF = -1e30
 # the reference wrapper's default key block, capped at T rounded up to 128
 DEFAULT_BLOCK = 512
-# the kernel's query and key tiles (csrc/flash_attention.cu)
+# the forward kernels' query tile and key tiles (csrc/flash_wgmma.cuh:
+# flash_attention.cu, flash_attention_fwd_lse.cu); the key tile sets where
+# p rounds to bf16
+KERNEL_BQ = 128
+KERNEL_BK = 64
+KERNEL_BK_LSE = 64
+# the backward kernels' query and key tiles (flash_attention_bwd_dq.cu,
+# flash_attention_bwd_dkv.cu)
 KERNEL_BLOCK = 64
 HEAD_DIMS = (64, 128)
 # the reference's training blocks (mha_flash_train's least-waste choice)
@@ -131,6 +142,15 @@ def row_rel_err(out, ref, floor: float = ROW_FLOOR) -> torch.Tensor:
     return err / torch.maximum(mag, floor * mag.max()).clamp_min(1e-30)
 
 
+def _check_tiles(name: str, *given) -> None:
+    """Raise unless each (value, tiles) pair's value is None or one of
+    its kernel tiles: on the card the kernels' tiles are fixed."""
+    for value, tiles in given:
+        if value is not None and value not in tiles:
+            raise ValueError(f"{name}: the kernel's tiles are "
+                             f"{sorted(tiles)}; got {value}")
+
+
 def _check(q, k, v, causal: bool):
     """Raise on what the kernel does not take; returns (b, h, s, d, kvh,
     t). The kernel reads bf16 rows of D contiguous elements that start on
@@ -176,9 +196,9 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int | None = None,
     model passes transposed views of (B, S, H, D) tensors, never copies).
     The output has q's strides. On the CPU, ``bk`` is the plain version's
     key block and ``bq`` changes nothing (the reference's query block only
-    bounds its causal early exit); on the card the kernel's tiles are
-    ``KERNEL_BLOCK`` queries by ``KERNEL_BLOCK`` keys, and another bq or
-    bk raises. There is no backward: an operand that requires grad, with
+    bounds its causal early exit); elsewhere the kernel's tiles are
+    ``KERNEL_BQ`` queries by ``KERNEL_BK`` keys, and another bq or bk
+    raises. There is no backward: an operand that requires grad, with
     grad mode on, raises on every device (``flash_attention_train`` is the
     differentiable form)."""
     _build.require_no_grad("flash_attention", q, k, v)
@@ -186,11 +206,8 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int | None = None,
     scale = d ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, bk=bk, scale=scale)
+    _check_tiles("flash_attention", (bq, {KERNEL_BQ}), (bk, {KERNEL_BK}))
     require_cuda("flash_attention", q)
-    if any(x not in (None, KERNEL_BLOCK) for x in (bq, bk)):
-        raise ValueError(f"flash_attention: the kernel's tiles are "
-                         f"{KERNEL_BLOCK} x {KERNEL_BLOCK}; got bq={bq}, "
-                         f"bk={bk}")
     out = torch.empty_like(q)
     if b and h and s:
         _build.launch("flash_attention", q.device, q, k, v, out, b, h, kvh,
@@ -395,10 +412,11 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
-def _check_train(name: str, q, k, v, causal: bool, blocks=()):
+def _check_train(name: str, q, k, v, causal: bool, *tiles):
     """Raise on what the training kernels do not take; returns (b, h, s, d,
-    kvh). On the card: q float32, k and v bf16, self-attention (S == T),
-    D in {64, 128}, and blocks None or ``KERNEL_BLOCK``."""
+    kvh). Off the CPU: each (block, kernel tiles) pair of ``tiles`` None
+    or one of its tiles (``_check_tiles``); on the card q float32, k and
+    v bf16. Everywhere: self-attention (S == T), D in {64, 128}."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
@@ -411,14 +429,12 @@ def _check_train(name: str, q, k, v, causal: bool, blocks=()):
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: d in {HEAD_DIMS}, got {d}")
     if q.device.type != "cpu":
+        _check_tiles(name, *tiles)
         require_cuda(name, q)
         if q.dtype != torch.float32 or k.dtype != torch.bfloat16 \
                 or v.dtype != torch.bfloat16:
             raise TypeError(f"{name}: q float32 and k, v bf16, got "
                             f"{q.dtype}, {k.dtype}, {v.dtype}")
-        if any(x not in (None, KERNEL_BLOCK) for x in blocks):
-            raise ValueError(f"{name}: the kernel's tiles are "
-                             f"{KERNEL_BLOCK}; got {blocks}")
     return b, h, s, d, k.shape[1]
 
 
@@ -433,7 +449,7 @@ def flash_attention_fwd_lse(q, k, v, *, causal: bool = True,
     lse (B, H, S) float32); on the card q float32 and k, v bf16. The kernel
     for CUDA tensors, ``flash_attention_fwd_lse_ref`` for CPU tensors."""
     b, h, s, d, kvh = _check_train("flash_attention_fwd_lse", q, k, v,
-                                   causal, (bk,))
+                                   causal, (bk, {KERNEL_BK_LSE}))
     scale = d ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return flash_attention_fwd_lse_ref(q, k, v, causal=causal, bk=bk,
@@ -456,7 +472,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     do float32 like q. The kernel for CUDA tensors,
     ``flash_attention_bwd_dq_ref`` for CPU tensors."""
     b, h, s, d, kvh = _check_train("flash_attention_bwd_dq", q, k, v,
-                                   causal, (bk,))
+                                   causal, (bk, {KERNEL_BLOCK}))
     scale = d ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, delta,
@@ -482,7 +498,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     before its dK/dV kernel. The kernel for CUDA tensors,
     ``flash_attention_bwd_dkv_ref`` for CPU tensors."""
     b, h, s, d, kvh = _check_train("flash_attention_bwd_dkv", q, k, v,
-                                   causal, (bq,))
+                                   causal, (bq, {KERNEL_BLOCK}))
     scale = d ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta,
@@ -535,9 +551,12 @@ def flash_attention_train(q, k, v, causal: bool = True,
                           bk: int | None = None) -> torch.Tensor:
     """Differentiable self-attention: q (B, H, S, D), k and v (B, KVH, S,
     D) -> out like q. On the CPU ``bq`` and ``bk`` are the plain versions'
-    query and key blocks (default ``train_block(S)``); on the card the
-    kernels' tiles are fixed, and only None or ``KERNEL_BLOCK`` is taken."""
-    _check_train("flash_attention_train", q, k, v, causal, (bq, bk))
+    query and key blocks (default ``train_block(S)``); elsewhere the
+    kernels' tiles are fixed: bq None or the dK/dV kernel's query tile
+    ``KERNEL_BLOCK``, bk None or a key tile of both the forward
+    (``KERNEL_BK_LSE``) and the dQ kernel (``KERNEL_BLOCK``)."""
+    _check_train("flash_attention_train", q, k, v, causal,
+                 (bq, {KERNEL_BLOCK}), (bk, {KERNEL_BK_LSE} & {KERNEL_BLOCK}))
     return FlashAttentionTrain.apply(q, k, v, causal, bq, bk)
 
 

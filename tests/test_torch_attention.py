@@ -3,8 +3,9 @@
 The same numpy q, k and v (rounded to bf16) go through
 ``pallas_attention.flash_attention`` (Pallas in interpret mode) and the
 port's ``flash_attention`` on the CPU (its plain version), at the same key
-block: the reference's default (min(512, round_up(T, 128))) and 64, the
-card kernel's tile. Shapes (B, H, KVH, S, T, D): MHA and GQA (rep 2 and 4),
+block: the reference's default (min(512, round_up(T, 128))), 64, and the
+card kernel's tiles (``attention.KERNEL_BQ`` queries by
+``attention.KERNEL_BK`` keys; the key tile sets where p rounds to bf16). Shapes (B, H, KVH, S, T, D): MHA and GQA (rep 2 and 4),
 D 64 and 128, S and T that are no block multiple, queries that are the
 last 37 of 300 positions, each causal and not; and T = 8300 > 8192, the
 reference's multi-strip case.
@@ -52,15 +53,18 @@ def _assert_within_one_ulp(got: torch.Tensor, ref) -> float:
     return float(diff.max())
 
 
-@pytest.mark.parametrize("block", [None, 64])
+@pytest.mark.parametrize("block", [
+    None, 64, (attention.KERNEL_BQ, attention.KERNEL_BK)])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_flash_attention_matches_jax(shape, causal, block):
+    """block: one block for queries and keys, or (bq, bk)."""
+    bq, bk = block if isinstance(block, tuple) else (block, block)
     q, k, v = _inputs(*shape, seed=sum(shape))
-    ref = jattn.flash_attention(q, k, v, causal=causal, bq=block, bk=block,
+    ref = jattn.flash_attention(q, k, v, causal=causal, bq=bq, bk=bk,
                                 interpret=True)
     got = attention.flash_attention(_torch(q), _torch(k), _torch(v),
-                                    causal=causal, bq=block, bk=block)
+                                    causal=causal, bq=bq, bk=bk)
     assert got.shape == ref.shape and got.dtype == torch.bfloat16
     print(f"{shape} causal={causal} block={block}: max |port - jax| = "
           f"{_assert_within_one_ulp(got, ref):.3e}")
@@ -153,6 +157,17 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     wide = torch.zeros((1, 2, 20, 128), dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         attention.flash_attention(wide[..., ::2], k, v)
+    # off the CPU the kernel's tiles are fixed: KERNEL_BQ queries by
+    # KERNEL_BK keys (meta tensors reach the check without a card)
+    qm, km = (x.to("meta") for x in (q, k))
+    for tiles in ({"bq": attention.KERNEL_BQ // 2},
+                  {"bk": attention.KERNEL_BK // 2},
+                  {"bq": attention.KERNEL_BQ, "bk": 512}):
+        with pytest.raises(ValueError, match="tiles"):
+            attention.flash_attention(qm, km, km, **tiles)
+    with pytest.raises(RuntimeError, match="CUDA"):   # then the device
+        attention.flash_attention(qm, km, km, bq=attention.KERNEL_BQ,
+                                  bk=attention.KERNEL_BK)
     # not causal, S > T is a plain cross-attention
     out = attention.flash_attention(k.expand(1, 2, 50, 64).contiguous(),
                                     q[:, :1], q[:, :1], causal=False)

@@ -903,21 +903,30 @@ def test_tiny_model_on_the_card_matches_its_cpu_kernel_routes(cuda, kind,
 # ------------------------------------------------------------ flash prefill
 # flash_attention sums in another order than its plain version (the
 # tensor cores' fp32 sums, quad shuffles for the row sums), and an exp or
-# a score one ulp apart can flip the bf16 rounding of p or of an output:
-# in every row, max |kernel - plain| <= 2 bf16 ulps of that row's max
-# |plain| (attention.bf16_row_ulps). The plain version walks the kernel's
-# 64-key tiles.
+# a score one ulp apart (ex2.approx with log2(e) in the scale) can flip the
+# bf16 rounding of p or of an output: in every row, max |kernel - plain|
+# <= 2 bf16 ulps of that row's max |plain| (attention.bf16_row_ulps). The
+# plain version walks the kernel's key tiles (attention.KERNEL_BK).
 FLASH_ULPS = 2.0
 
 # (B, H, KVH, S, T, D, causal): GQA rep 4 (the serving CLI's 16 heads over
 # 4), D 64, the last 700 of 1000 positions, not causal, T = 9000 past the
-# reference's 8192-key strip, and tails of one row and one key
+# reference's 8192-key strip, and tails of one row and one key; then the
+# edges of the 128 x 128 tiles: S of 1, 63, 130 and 700 against T of 9,000
+# (a causal S < T offset), rep 1, 4 and 8, D 64 and 128, and one key tile
+# walked (S = T = 100)
 FLASH_CASES = [(2, 16, 4, 1024, 1024, 128, True),
                (1, 8, 8, 700, 1000, 64, True),
                (2, 4, 2, 700, 1000, 128, False),
                (1, 4, 4, 64, 9000, 128, False),
                (1, 4, 1, 129, 129, 64, True),
-               (3, 2, 2, 1, 65, 128, True)]
+               (3, 2, 2, 1, 65, 128, True),
+               (1, 8, 1, 1, 9000, 128, True),
+               (2, 8, 8, 63, 9000, 64, True),
+               (1, 8, 2, 130, 9000, 128, True),
+               (1, 16, 2, 700, 9000, 64, True),
+               (2, 8, 1, 130, 130, 64, False),
+               (1, 4, 4, 100, 100, 128, True)]
 
 
 def _flash_inputs(b, h, kvh, s, t, d, seed, device, model_layout=False):
@@ -945,7 +954,7 @@ def test_flash_attention_matches_plain_version(cuda, b, h, kvh, s, t, d,
     assert _build.LAUNCHES["flash_attention"] == before + 1
     assert out.stride() == q.stride() and out.dtype == torch.bfloat16
     ref = attention.flash_attention_ref(q, k, v, causal=causal,
-                                        bk=attention.KERNEL_BLOCK)
+                                        bk=attention.KERNEL_BK)
     assert torch.isfinite(out).all()
     err = float((out.float() - ref.float()).abs().max())
     ulps = float(attention.bf16_row_ulps(out, ref).max())
@@ -954,10 +963,37 @@ def test_flash_attention_matches_plain_version(cuda, b, h, kvh, s, t, d,
     assert ulps <= FLASH_ULPS, ulps
 
 
+def test_flash_forwards_repeat_their_bits(cuda):
+    """Both forward kernels give the same bits on every call and in every
+    CUDA-graph replay: a fixed tiling and a fixed order of sums, whatever
+    the two consumer warpgroups' turns at the tensor cores."""
+    q, k, v = _flash_inputs(2, 8, 2, 700, 1000, 128, 5, cuda, True)
+    tq, tk, tv, _ = _train_inputs(2, 8, 2, 520, 64, 6, cuda)
+    outs = {"fwd": attention.flash_attention(q, k, v),
+            "lse": attention.flash_attention_fwd_lse(tq, tk, tv)}
+    again = {"fwd": attention.flash_attention(q, k, v),
+             "lse": attention.flash_attention_fwd_lse(tq, tk, tv)}
+    graph, static = torch.cuda.CUDAGraph(), {}
+    with torch.cuda.graph(graph):
+        static["fwd"] = attention.flash_attention(q, k, v)
+        static["lse"] = attention.flash_attention_fwd_lse(tq, tk, tv)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static["fwd"], outs["fwd"])
+        for a, b in zip(static["lse"], outs["lse"]):
+            assert torch.equal(a, b)
+    assert torch.equal(again["fwd"], outs["fwd"])
+    for a, b in zip(again["lse"], outs["lse"]):
+        assert torch.equal(a, b)
+
+
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q, k, v = _flash_inputs(1, 2, 1, 64, 64, 64, 0, cuda)
     with pytest.raises(ValueError):                 # the kernel's tiles
         attention.flash_attention(q, k, v, bk=512)
+    with pytest.raises(ValueError):
+        attention.flash_attention(q, k, v, bq=64)
     with pytest.raises(ValueError):                 # causal S > T
         attention.flash_attention(k.repeat(1, 2, 2, 1), q[:, :1], q[:, :1])
     with pytest.raises(TypeError):
@@ -1018,7 +1054,8 @@ def test_long_prefill_takes_flash_and_matches_cpu(cuda, kind):
 
 # ---------------------------------------------------------- flash training
 # The training attention's kernels against their plain versions (the
-# forward at the kernel's 64-key tiles, whose bf16 p depends on the block),
+# forward at the kernel's key tiles, attention.KERNEL_BK_LSE, whose bf16 p
+# depends on the block),
 # each output per row over its own max |plain| (attention.row_rel_err, rows
 # raised to 1% of the tensor's max): out within TRAIN_OUT_REL (p rounded to
 # bf16 from scores of q split into two bf16 halves: one bf16 ulp of a row's
@@ -1030,13 +1067,17 @@ TRAIN_GRAD_REL = 2e-3
 TRAIN_LSE_ATOL = 5e-5
 
 # (B, H, KVH, S, D, causal): GQA rep 4 and 8 at D 64, rep 1 at D 128, S
-# that is no tile multiple, three rows, and a non-causal tail of one key.
-# (Not S = 1: its dq is 0 in exact arithmetic, ds = dp - delta cancelling
-# in every row, so both sides are rounding noise and no row is a scale.)
+# that is no tile multiple, three rows, and a non-causal tail of one key;
+# then S of 2, 63 and 700 at D 128 and 64, rep 8 at D 128, and one key
+# tile walked (S 100). (Not S = 1: its dq is 0 in exact arithmetic, ds =
+# dp - delta cancelling in every row, so both sides are rounding noise and
+# no row is a scale; the forward alone is held at S = 1 below.)
 TRAIN_CASES = [(2, 8, 2, 256, 64, True), (1, 8, 1, 200, 64, True),
                (1, 4, 4, 200, 128, True), (1, 8, 2, 520, 128, False),
                (2, 4, 1, 130, 64, True), (1, 2, 2, 3, 64, True),
-               (1, 2, 2, 65, 128, False)]
+               (1, 2, 2, 65, 128, False), (1, 8, 1, 2, 128, True),
+               (2, 4, 4, 63, 64, True), (1, 8, 1, 700, 128, True),
+               (1, 16, 2, 700, 64, False), (1, 4, 2, 100, 128, True)]
 
 
 def _train_inputs(b, h, kvh, s, d, seed, device):
@@ -1061,7 +1102,7 @@ def test_flash_train_kernels_match_plain_versions(cuda, b, h, kvh, s, d,
     before = {n: _build.LAUNCHES[n] for n in names}
     out, lse = attention.flash_attention_fwd_lse(q, k, v, causal=causal)
     ref_out, ref_lse = attention.flash_attention_fwd_lse_ref(
-        q, k, v, causal=causal, bk=attention.KERNEL_BLOCK)
+        q, k, v, causal=causal, bk=attention.KERNEL_BK_LSE)
     delta = (do * ref_out).sum(dim=-1)
     args = (q, k, v, do, ref_lse, delta)
     dq = attention.flash_attention_bwd_dq(*args, causal=causal)
@@ -1086,6 +1127,24 @@ def test_flash_train_kernels_match_plain_versions(cuda, b, h, kvh, s, d,
     assert errs["out"] <= TRAIN_OUT_REL
     assert max(errs["dq"], errs["dk"], errs["dv"]) <= TRAIN_GRAD_REL
     assert lse_err <= TRAIN_LSE_ATOL
+
+
+@pytest.mark.parametrize("b,h,kvh,s,d,causal", [
+    (1, 8, 1, 1, 128, True), (2, 4, 4, 1, 64, False), (1, 16, 2, 63, 128,
+                                                       True),
+    (1, 8, 8, 130, 64, True), (1, 4, 1, 700, 128, False)])
+def test_flash_fwd_lse_edges_match_plain_version(cuda, b, h, kvh, s, d,
+                                                 causal):
+    """The training forward alone at the edges of its 128-row tiles (S of
+    1 included), against its plain version at the kernel's key tile."""
+    q, k, v, _ = _train_inputs(b, h, kvh, s, d, s + d + h + 1, cuda)
+    out, lse = attention.flash_attention_fwd_lse(q, k, v, causal=causal)
+    ref_out, ref_lse = attention.flash_attention_fwd_lse_ref(
+        q, k, v, causal=causal, bk=attention.KERNEL_BK_LSE)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert float(attention.row_rel_err(out, ref_out).max()) <= TRAIN_OUT_REL
+    assert float((lse - ref_lse).abs().max()) <= TRAIN_LSE_ATOL
 
 
 def test_mha_flash_train_on_the_card_matches_the_cpu(cuda):
@@ -1118,6 +1177,10 @@ def test_training_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q, k, v, _ = _train_inputs(1, 2, 1, 64, 64, 0, cuda)
     with pytest.raises(ValueError):                 # the kernels' tiles
         attention.flash_attention_fwd_lse(q, k, v, bk=512)
+    with pytest.raises(ValueError):                 # the forward's key tile
+        attention.flash_attention_fwd_lse(q, k, v, bk=attention.KERNEL_BQ)
+    with pytest.raises(ValueError):                 # dK/dV's query tile
+        attention.flash_attention_train(q, k, v, bq=attention.KERNEL_BQ)
     with pytest.raises(TypeError):                  # q stays float32
         attention.flash_attention_fwd_lse(q.to(torch.bfloat16), k, v)
     with pytest.raises(ValueError):                 # self-attention only
@@ -1341,6 +1404,59 @@ def test_grouped_dw_matches_plain_version(cuda, shape):
     bad = ref[e0] - gg.grouped_dw_ref(x[:128], dy[:128], be[:1],
                                       w.shape[0])[e0]
     assert float((got[e0] - bad).abs().max()) > FP32_REL * scale
+
+
+# The kernels that share csrc/wgmma.cuh with the flash forward (the MoE
+# grouped products, forward, dx and dW) and the two flash backward kernels,
+# which the forward's rebuild on wgmma left as they were: SHA-256 digests of
+# their outputs on fixed inputs, as the tree before that rebuild gave them
+# on an H100 (NVIDIA H100 80GB HBM3). The same sources and nvcc give the
+# same bits; a digest that moves means a kernel's code moved.
+SHARED_DIGESTS = {
+    "grouped_gemm bf16": "1ef3e9f68a803cbf",
+    "grouped_gemm_t bf16": "45356b182853332a",
+    "grouped_gemm int8": "aae1bf7b9975fc05",
+    "grouped_gemm_t int8": "3cc5af954ba0e893",
+    "grouped_gemm int4": "bb7834b80eba8fa1",
+    "grouped_gemm_t int4": "b632e42c32bbc2bc",
+    "grouped_dw": "cfcc1f7fabba2333",
+    "flash_attention_bwd_dq": "391e127c542a3a53",
+    "flash_attention_bwd_dkv": "77fd135662c99be4"}
+
+
+def _shared_digests(device) -> dict:
+    """{kernel and case: the first 16 hex digits of its output's SHA-256}."""
+    import hashlib
+    from how_to_optimize_gemm_tpu_torch.ops import grouped_gemm as gg
+    outs = {}
+    for kind in ("bf16", "int8", "int4"):
+        x, w, be, s, packed4 = _grouped_case(kind, (3, 36, 130, 384), 7,
+                                             device)
+        outs[f"grouped_gemm {kind}"] = gg.grouped_matmul(x, w, be, s,
+                                                         packed4=packed4)
+        x, w, be, s, packed4 = _grouped_case(kind, (4, 256, 256, 512), 8,
+                                             device)
+        dy = torch.randn((512, 256), device=device,
+                         generator=torch.Generator(device).manual_seed(9))
+        fn = gg.grouped_matmul_t4 if packed4 else gg.grouped_matmul_t
+        outs[f"grouped_gemm_t {kind}"] = fn(dy, w, be)
+    x, w, be, _, _ = _grouped_case("fp32", (4, 256, 256, 512), 10, device)
+    dy = torch.randn((512, 256), device=device,
+                     generator=torch.Generator(device).manual_seed(11))
+    outs["grouped_dw"] = gg.grouped_dw(x, dy, be, w.shape[0])
+    q, k, v, do = _train_inputs(2, 8, 2, 200, 128, 12, device)
+    ref_out, lse = attention.flash_attention_fwd_lse_ref(q, k, v)
+    args = (q, k, v, do, lse, (do * ref_out).sum(dim=-1))
+    outs["flash_attention_bwd_dq"] = attention.flash_attention_bwd_dq(*args)
+    dk, dv = attention.flash_attention_bwd_dkv(*args)
+    outs["flash_attention_bwd_dkv"] = torch.cat([dk, dv])
+    torch.cuda.synchronize()
+    return {name: hashlib.sha256(t.contiguous().cpu().numpy().tobytes())
+            .hexdigest()[:16] for name, t in outs.items()}
+
+
+def test_shared_kernels_keep_their_bits(cuda):
+    assert _shared_digests(cuda) == SHARED_DIGESTS
 
 
 @pytest.mark.parametrize("shape", [(9216, 4096), (384, 36), (256, 130),

@@ -118,6 +118,28 @@ def test_plain_versions_match_the_reference_kernels(causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(1, 4, 2, 256, 64), (1, 2, 1, 200, 128)])
+def test_fwd_lse_plain_version_matches_jax_at_the_kernel_tile(shape, causal):
+    """flash_attention_fwd_lse_ref at the card forward's key tile
+    (attention.KERNEL_BK_LSE, which sets where p rounds to bf16) against
+    _flash_fwd_lse at the kernel's tiles in interpret mode (KERNEL_BQ
+    queries by KERNEL_BK_LSE keys), an S that is no tile multiple padded as
+    mha_flash_train pads it."""
+    b, h, kvh, s, d = shape
+    q, k, v, _ = _inputs(b, h, kvh, s, d, seed=s + d)
+    bq, bk = attention.KERNEL_BQ, attention.KERNEL_BK_LSE
+    pad = -s % max(bq, bk)
+    widths = ((0, 0), (0, 0), (0, pad), (0, 0))
+    qp, kp, vp = (jnp.pad(jnp.asarray(x), widths) for x in (q, k, v))
+    out, lse = jattn._flash_fwd_lse(qp, kp, vp, causal, bq, bk, True,
+                                    t_real=s if pad else None)
+    got_out, got_lse = attention.flash_attention_fwd_lse_ref(
+        _torch(q), _torch(k), _torch(v), causal=causal, bk=bk)
+    _close(got_out, np.asarray(out)[:, :, :s], OUT_ATOL, "out")
+    _close(got_lse, np.asarray(lse)[:, :, :s, 0], FP32_ATOL, "lse")
+
+
+@pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_train_matches_jax_vjp(causal):
     """FlashAttentionTrain through autograd against jax.vjp of
     flash_attention_train, blocks of 32, (B, H, KVH, S, D) = (1, 4, 2, 128,
@@ -211,6 +233,31 @@ def test_training_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="d in"):
         attention.flash_attention_train(q[..., :32], k[..., :32],
                                         v[..., :32])
+    # off the CPU each kernel takes its own tiles only: the forward's key
+    # tile KERNEL_BK_LSE, the backward's KERNEL_BLOCK (meta tensors reach
+    # the check without a card; a tile that passes meets the device check)
+    qm, km = (x.to("meta") for x in (q, k))
+    rows = qm[..., 0]
+    fwd, bwd = attention.KERNEL_BK_LSE, attention.KERNEL_BLOCK
+    for call, bad, good in (
+            (lambda **t: attention.flash_attention_fwd_lse(qm, km, km, **t),
+             {"bk": fwd // 2}, {"bk": fwd}),
+            (lambda **t: attention.flash_attention_bwd_dq(
+                qm, km, km, qm, rows, rows, **t), {"bk": 2 * bwd},
+             {"bk": bwd}),
+            (lambda **t: attention.flash_attention_bwd_dkv(
+                qm, km, km, qm, rows, rows, **t), {"bq": 2 * bwd},
+             {"bq": bwd}),
+            (lambda **t: attention.flash_attention_train(qm, km, km, **t),
+             {"bq": 2 * bwd}, {"bq": bwd})):
+        with pytest.raises(ValueError, match="tiles"):
+            call(**bad)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call(**good)
+    if fwd != bwd:   # one bk feeds the forward and the dQ kernel
+        for bk in (fwd, bwd):
+            with pytest.raises(ValueError, match="tiles"):
+                attention.flash_attention_train(qm, km, km, bk=bk)
 
 
 def test_row_rel_err_floors_rows_that_cancel():

@@ -128,6 +128,20 @@ def test_short_kernel_names():
     assert profiling._short("aten::mm") == "aten::mm"
 
 
+def test_serve_profile_finds_flash_by_its_device_name():
+    """serve_profile's flash time sums flash_attention's kernel alone: the
+    wgmma flash forward without q's split, neither the training forward
+    (the same template with the split) nor the grouped GEMM's kernel."""
+    from how_to_optimize_gemm_tpu_torch.harness import serve_profile
+    found = serve_profile.is_flash_kernel
+    assert found("void htog::fw::flash_fwd<128, false>(CUtensorMap_st, "
+                 "CUtensorMap_st, CUtensorMap_st, htog::fw::Params)")
+    assert not found("void htog::fw::flash_fwd<64, true>(CUtensorMap_st, "
+                     "CUtensorMap_st, CUtensorMap_st, htog::fw::Params)")
+    assert not found("void htog::gg::grouped_wgmma<0, false>(CUtensorMap_st,"
+                     " CUtensorMap_st, int const*)")
+
+
 def test_driver_roofline_and_trace_on_the_cpu(tmp_path, capsys):
     results = driver.main(["--new", "03_pallas_k_blocked", "--old",
                            "02_pallas_mn_tile", "--pfirst", "64", "--plast",
