@@ -236,7 +236,8 @@ import numpy as np
 import torch
 
 from how_to_optimize_gemm_tpu_torch import _build, bench, convert
-from how_to_optimize_gemm_tpu_torch.harness import ab, driver, mfile
+from how_to_optimize_gemm_tpu_torch.harness import (ab, driver,
+                                                   flash_variants, mfile)
 from how_to_optimize_gemm_tpu_torch.harness.driver import run_sweep
 from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
 # H100 SXM data sheet: dense int8 and bf16 tensor-core peaks, HBM3
@@ -309,6 +310,14 @@ def _int_mm_nt(qa, sa, qbt, sb, c):
 # grid holds and not a multiple of it, 9 K chunks (every ring slot and
 # C/out buffer wraps at least twice), N not a multiple of 4, M of 128.
 WALK = (2001, 2102, 520)
+# rung 15's persistent kernel (bf16_gemm_nt, 128 x 256 tiles, one block an
+# SM) at WALK walks 144 tiles, more than the card's 132 SMs and not a
+# multiple of them (check_nt_walk), and at NT_EDGE has fewer rows than a
+# consumer's 64 and K that is no multiple of its 64-value stage; WALK's C
+# rows (2,102 values) are no 16-byte multiple, so its epilogue adds C in
+# each thread, where the other shapes hand the sums to tensor-map
+# reductions
+NT_EDGE = (33, 520, 1000)
 # Each kernel with the rung whose prepare/effective give its operands, its
 # tolerance against its plain version (relative to max |plain|; 0: EQUAL),
 # the peak its bound takes and, beside the unaligned shape and P_FULL, any
@@ -411,7 +420,8 @@ KERNELS = [
          rung="15_packed_alias_bf16", wrapper=tuned.mmult_bf16_bt,
          plain=tuned.mmult_bf16_bt_ref,
          library=lambda a16, bt16, c: vendor.mmult_bf16(a16, bt16.t(), c),
-         unaligned=(1000, 1032, 1100), tol=W4A16_REL, peak="bf16"),
+         unaligned=(1000, 1032, 1100), more=(WALK, NT_EDGE), tol=W4A16_REL,
+         peak="bf16", extra=("nt_walk",)),
     dict(name="fp32_gemm_nt", source=SRC + "fp32_gemm_nt.cu",
          replaces="how_to_optimize_gemm_tpu/ops/pallas_tuned.py:160",
          function="pallas_tuned._make_kernel_bt(HIGHEST) (mmult_fp32_bt, "
@@ -629,8 +639,29 @@ def check_host(ops, c, gen: torch.Generator) -> None:
               f"{replay:.4f} ms a graph replay (with a copy of C)")
 
 
+def check_nt_walk(ops, c, gen: torch.Generator) -> None:
+    """Rung 15's kernel: at WALK its persistent grid (one block an SM)
+    walks more tiles than blocks, and not a multiple of them
+    (``tuned.nt_tile_walk``); two calls at P_FULL give the same bits."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lengths = [len(w) for w in tuned.nt_tile_walk(WALK[0], WALK[1], sms)]
+    if not (max(lengths) > 1 and min(lengths) < max(lengths)):
+        raise AssertionError(f"bf16_gemm_nt at {WALK}: the walk of "
+                             f"{sum(lengths)} tiles on {sms} SMs does not "
+                             "wrap")
+    out = tuned.mmult_bf16_bt(*ops, c.clone())
+    again = tuned.mmult_bf16_bt(*ops, c.clone())
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError("bf16_gemm_nt: two calls differ")
+    print(f"bf16_gemm_nt: {sum(lengths)} tiles at {WALK} on {sms} SMs (each "
+          f"block walks {min(lengths)}-{max(lengths)}); two calls at "
+          f"p={P_FULL} bit-equal")
+
+
 EXTRA_CHECKS = {"knobs": check_knobs, "two_piece": check_two_piece,
-                "residue": check_residue, "host": check_host}
+                "residue": check_residue, "host": check_host,
+                "nt_walk": check_nt_walk}
 
 
 def check_kernel(spec: dict, gen: torch.Generator) -> dict:
@@ -682,9 +713,12 @@ def check_kernel(spec: dict, gen: torch.Generator) -> dict:
         ffma_ms = bound(ops, P_FULL, P_FULL, P_FULL, PEAK_FFMA_FLOPS)[0]
         ffma = f"; the FFMA ceiling {ffma_ms:.4f}"
     tops = 2.0 * P_FULL ** 3 / result["ms"] * 1e-9
+    before = (f"; {BEFORE_MS[name]} ms before the rebuild on wgmma"
+              if name in BEFORE_MS else "")
     print(f"{name} p={P_FULL}: {result['ms']:.4f} ms = {tops:.1f} Tops/s "
           f"(plain {result['plain_ms']:.4f}, library {lib_ms}, bound "
-          f"{bound_ms:.4f} by {bound_by} at the {spec['peak']} peak{ffma})")
+          f"{bound_ms:.4f} by {bound_by} at the {spec['peak']} peak{ffma}"
+          f"{before})")
     for extra in spec.get("extra", ()):
         EXTRA_CHECKS[extra](ops, c, gen)
     return result
@@ -752,11 +786,12 @@ DECODE_ATOL = 2e-3   # decode_attention vs its plain version (sum order, exp)
 # 64-key tile skipped reads tens of ulps, and the check plants that fault
 # to show it
 FLASH_ULPS = 2.0
-# the flash forwards' times before their rebuild on wgmma, at the 7B
-# prefill row and the soak's row (PERF.md section 6; NVIDIA H100 80GB HBM3,
-# 700.00 W), printed beside this run's
-FLASH_BEFORE_MS = {"flash_attention": 2.8005,
-                   "flash_attention_fwd_lse": 0.2761}
+# the times of the kernels rebuilt on wgmma before their rebuild: the
+# flash forwards at the 7B prefill row and the soak's row, rung 15 at
+# P_FULL and dK/dV at the soak's row (PERF.md section 6; NVIDIA H100 80GB
+# HBM3, 700.00 W), printed beside this run's
+BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
+             "bf16_gemm_nt": 0.6477, "flash_attention_bwd_dkv": 1.0286}
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0
@@ -1343,7 +1378,7 @@ def check_flash_attention(gen: torch.Generator) -> dict:
                              library, *b_ms, err))
         if len(results) == 1:
             print(f"flash_attention {shape}: {results[0]['ms']:.4f} ms, "
-                  f"{FLASH_BEFORE_MS['flash_attention']} ms before the "
+                  f"{BEFORE_MS['flash_attention']} ms before the "
                   "rebuild on wgmma")
     return results[0]
 
@@ -2077,9 +2112,12 @@ TRAIN_OUT_REL = 8e-3
 TRAIN_GRAD_REL = 2e-3
 TRAIN_LSE_ATOL = 5e-5
 # (B, H, KVH, S, D, causal): the soak's shape (the JSON row), the
-# Llama-2-7B width (rep 1, D 128) at S = 2,048, and ragged shapes
+# Llama-2-7B width (rep 1, D 128) at S = 2,048, and ragged shapes: S of
+# 520, 130 and 1,025 (one past a key block and a query step), rep 1, 4 and
+# 8 at D 64 and 128, causal and not
 TRAIN_SHAPES = ((8, 32, 4, 1024, 64, True), (2, 32, 32, 2048, 128, True),
-                (1, 8, 2, 520, 128, False), (2, 4, 1, 130, 64, True))
+                (1, 8, 2, 520, 128, False), (2, 4, 1, 130, 64, True),
+                (1, 8, 1, 1025, 64, False), (1, 16, 4, 1025, 128, True))
 TRAIN_KERNELS = [
     dict(name="flash_attention_fwd_lse",
          source=SRC + "flash_attention_fwd_lse.cu",
@@ -2145,8 +2183,10 @@ def check_flash_train(gen: torch.Generator) -> dict:
     (the operations of the products at the bf16 peak, the split operands'
     extra MMAs not counted; the bytes of the kernel's inputs and outputs
     once) and SDPA: its forward on bf16 q for the forward kernel, its
-    whole backward (dq, dk and dv, eager) on the dK/dV row. Returns the
-    first shape's results by kernel."""
+    whole backward (dq, dk and dv; the replay of its forward and backward
+    less its forward's) on the dK/dV row, beside the port's whole backward
+    (delta, dq and dK/dV) as one replay. dK/dV must give the same bits on
+    a second call. Returns the first shape's results by kernel."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rel = attention.row_rel_err
     fwd, dq_k, dkv_k = (s["name"] for s in TRAIN_KERNELS)
@@ -2167,9 +2207,13 @@ def check_flash_train(gen: torch.Generator) -> dict:
         dq = attention.flash_attention_bwd_dq(*args, causal=causal)
         ref["dq"] = attention.flash_attention_bwd_dq_ref(*args, causal=causal)
         dk, dv = attention.flash_attention_bwd_dkv(*args, causal=causal)
+        dk2, dv2 = attention.flash_attention_bwd_dkv(*args, causal=causal)
         ref["dk"], ref["dv"] = attention.flash_attention_bwd_dkv_ref(
             *args, causal=causal)
         torch.cuda.synchronize()
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"flash train {shape}: two dK/dV calls "
+                                 "differ")
         got = {"out": out, "dq": dq, "dk": dk, "dv": dv}
         errs = {n: float(rel(got[n], ref[n]).max()) for n in got}
         lse_err = float((lse - ref_lse).abs().max())
@@ -2204,13 +2248,18 @@ def check_flash_train(gen: torch.Generator) -> dict:
                            PEAK_BF16_FLOPS),
             dkv_k: bound_ms(nbytes(q16, k, v, do16, dk, dv) + rows_bytes,
                             4 * ops, PEAK_BF16_FLOPS)}
-        qb = q16.detach().requires_grad_()
-        kb, vb = (x.detach().requires_grad_() for x in (k, v))
-        o16 = sdpa(qb, kb, vb, is_causal=causal, enable_gqa=h != kvh)
-        lib_bwd_ms = time_calls(lambda: torch.autograd.grad(
-            o16, (qb, kb, vb), do16, retain_graph=True), inner_iters=10) * 1e3
-        print(f"flash train {shape}: SDPA's backward (dq, dk, dv; called "
-              f"from Python) {lib_bwd_ms:.4f} ms")
+        lib_bwd_ms = flash_variants.sdpa_backward_ms(q16, k, v, do16,
+                                                     causal)
+
+        def port_backward():
+            delta_ = (do * ref["out"]).sum(dim=-1)
+            a = (q, k, v, do, ref_lse, delta_)
+            attention.flash_attention_bwd_dq(*a, causal=causal)
+            attention.flash_attention_bwd_dkv(*a, causal=causal)
+        port_bwd_ms = time_calls(port_backward, graph=True) * 1e3
+        print(f"flash train {shape}: the port's whole backward (delta, dq, "
+              f"dK/dV) {port_bwd_ms:.4f} ms, SDPA's (dq, dk, dv) "
+              f"{lib_bwd_ms:.4f} ms (graph replays)")
         cases = {
             fwd: (lambda: attention.flash_attention_fwd_lse(
                       q, k, v, causal=causal),
@@ -2231,14 +2280,13 @@ def check_flash_train(gen: torch.Generator) -> dict:
         for name, (kernel, plain, library, err) in cases.items():
             r = timed(name, shape, kernel, plain, library, *bounds_ms[name],
                       err)
-            if name == fwd and i == 0:
+            if name in (fwd, dkv_k) and i == 0:
                 print(f"{name} {shape}: {r['ms']:.4f} ms, "
-                      f"{FLASH_BEFORE_MS[name]} ms before the rebuild on "
+                      f"{BEFORE_MS[name]} ms before the rebuild on "
                       "wgmma")
             if name == dkv_k:
                 r["library_ms"] = lib_bwd_ms
             results.setdefault(name, r)
-        del qb, kb, vb, o16
     return results
 
 

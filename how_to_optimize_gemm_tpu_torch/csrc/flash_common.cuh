@@ -1,9 +1,9 @@
-// Shared pieces of the flash attention kernels. For the backward
-// (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu): bf16 tiles staged
-// in shared memory with rows padded by 16 bytes (so the 8 rows of an
-// ldmatrix hit 32 distinct banks), mma.sync.m16n8k16 bf16 -> fp32 and its
-// fragments. For every kernel that splits an fp32 operand (the backward,
-// the training forward's flash_wgmma.cuh, split_bf16.cu): split_pack.
+// Shared pieces of the flash attention kernels. For the dQ kernel
+// (flash_attention_bwd_dq.cu): bf16 tiles staged in shared memory with rows
+// padded by 16 bytes (so the 8 rows of an ldmatrix hit 32 distinct banks),
+// mma.sync.m16n8k16 bf16 -> fp32 and its fragments. For every kernel that
+// splits an fp32 operand (the backward kernels, the training forward's
+// flash_wgmma.cuh, split_bf16.cu): split_pack.
 //
 // Operands that the reference keeps in fp32 are split for the bf16 tensor
 // cores into hi = bf16(x) and lo = bf16(x - hi): hi + lo carries 16 of x's 24

@@ -1,10 +1,21 @@
 // Hopper's warpgroup MMA (wgmma) fed by tensor-map copies (TMA) into an
 // mbarrier ring: the building blocks of the grouped GEMM's forward and dx
 // (grouped_gemm.cuh's kernel: grouped_gemm.cu, grouped_gemm_t.cu, kinds
-// 0-2) and its dW (grouped_dw.cu), and of the flash forwards
+// 0-2) and its dW (grouped_dw.cu), of the flash forwards
 // (flash_wgmma.cuh: wgmma.m64nNk16 at N 64 and 128, A from registers for
 // P V, 4-D tensor maps over strided views, named barriers between the
-// consumers; its own block layout, described there).
+// consumers; its own block layout, described there), of flash dK/dV
+// (flash_attention_bwd_dkv.cu, N 32 to 128) and of rung 15
+// (bf16_gemm_nt.cu, N 256), each with its own block layout.
+//
+// ptxas serializes the wgmmas of a loop shaped like consume() below (its
+// note C7518, "wgmma.mma_async instructions are serialized due to program
+// dependence on compiler-inserted WG.DP in divergent path": the
+// accumulators fenced before each stage's products while the group before
+// still writes them, the last stage's wait on a branch of its own); it
+// says so for the grouped kernels' builds, and rung 15's kernel in that
+// shape runs slower (harness/flash_variants.py --group gemm, variant
+// consume_shape; PERF.md).
 //
 // Block shape (the grouped GEMM's three): 384 threads, three warpgroups.
 // Warp 0 is the producer (its lane 0 issues every tensor-map copy of the
@@ -203,8 +214,9 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// wgmma.m64nNk16 for N in {64, 128}, bf16 operands, fp32 sums, d holding
-// N / 2 accumulators a thread (the layout of for_each_pair below).
+// wgmma.m64nNk16 for N in {32, 64, 128, 256}, bf16 operands, fp32 sums, d
+// holding N / 2 accumulators a thread (the layout of for_each_pair below;
+// N 32 and 256 have ss and ss0 only).
 //   ss<kTA, kTB>(d, da, db, accumulate): A and B from shared memory by
 //     descriptor; kTA / kTB: A / B MN-major. ss0: the same as a fresh
 //     sum, d an output only (its registers free until the product).
@@ -376,6 +388,140 @@ struct Wgmma<128> {
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(ra[0]), "r"(ra[1]), "r"(ra[2]), "r"(ra[3]), "l"(db),
           "r"(accumulate), "n"(kTB));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  // d = A . B from shared memory, d's old value not read (a fresh sum)
+  template <int kTA, int kTB>
+  static __device__ __forceinline__ void ss0(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+          "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+          "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+          "=f"(d[15])
+        : "l"(da), "l"(db), "r"(0), "n"(kTA), "n"(kTB));
+  }
+  template <int kTA, int kTB>
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  // d = A . B from shared memory, d's old value not read (a fresh sum)
+  template <int kTA, int kTB>
+  static __device__ __forceinline__ void ss0(float (&d)[128], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]),
+          "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]),
+          "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]),
+          "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+          "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]),
+          "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+          "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]),
+          "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+          "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]),
+          "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]),
+          "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]),
+          "=f"(d[55]), "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]),
+          "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63]), "=f"(d[64]),
+          "=f"(d[65]), "=f"(d[66]), "=f"(d[67]), "=f"(d[68]), "=f"(d[69]),
+          "=f"(d[70]), "=f"(d[71]), "=f"(d[72]), "=f"(d[73]), "=f"(d[74]),
+          "=f"(d[75]), "=f"(d[76]), "=f"(d[77]), "=f"(d[78]), "=f"(d[79]),
+          "=f"(d[80]), "=f"(d[81]), "=f"(d[82]), "=f"(d[83]), "=f"(d[84]),
+          "=f"(d[85]), "=f"(d[86]), "=f"(d[87]), "=f"(d[88]), "=f"(d[89]),
+          "=f"(d[90]), "=f"(d[91]), "=f"(d[92]), "=f"(d[93]), "=f"(d[94]),
+          "=f"(d[95]), "=f"(d[96]), "=f"(d[97]), "=f"(d[98]), "=f"(d[99]),
+          "=f"(d[100]), "=f"(d[101]), "=f"(d[102]), "=f"(d[103]),
+          "=f"(d[104]), "=f"(d[105]), "=f"(d[106]), "=f"(d[107]),
+          "=f"(d[108]), "=f"(d[109]), "=f"(d[110]), "=f"(d[111]),
+          "=f"(d[112]), "=f"(d[113]), "=f"(d[114]), "=f"(d[115]),
+          "=f"(d[116]), "=f"(d[117]), "=f"(d[118]), "=f"(d[119]),
+          "=f"(d[120]), "=f"(d[121]), "=f"(d[122]), "=f"(d[123]),
+          "=f"(d[124]), "=f"(d[125]), "=f"(d[126]), "=f"(d[127])
+        : "l"(da), "l"(db), "r"(0), "n"(kTA), "n"(kTB));
+  }
+  template <int kTA, int kTB>
+  static __device__ __forceinline__ void ss(float (&d)[128], uint64_t da,
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+          "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+          "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(da), "l"(db), "r"(accumulate), "n"(kTA), "n"(kTB));
   }
 };
 

@@ -1,20 +1,33 @@
-"""Variant builds of the flash forward kernels, timed against each other
-on the card in one process.
+"""Variant builds of the port's wgmma kernels, timed against each other on
+the card in one process.
 
 A variant is a copy of the port's ``csrc/`` under
-``build/flash_variants/<name>/`` with textual substitutions applied (each
-must match exactly once, so a variant that no longer fits the source
-fails), or another tree's ``csrc/`` given with ``--tree NAME=DIR:BK`` (a
-parent commit unpacked by ``git archive``, its key tile BK). For each,
-``flash_attention`` at the 7B prefill row (B 4, H = KVH = 32, D 128,
-S = T = 4,096, causal, (B, S, H, D) views) and ``flash_attention_fwd_lse``
-at the soak's shape (B 8, H 32, KVH 4, S 1,024, D 64, causal, views), as
-CUDA-graph replays, in rounds that walk the variants forwards and then
-backwards; each output held to its plain version at the variant's key
-tile (``bf16_row_ulps``; ``row_rel_err`` and the lse's max abs).
+``build/flash_variants/<group>/<name>/`` with textual substitutions applied
+(each must match exactly once, so a variant that no longer fits the source
+fails), or another tree's ``csrc/`` given with ``--tree NAME=DIR[:BK]`` (a
+parent commit unpacked by ``git archive``; for the forward group its key
+tile BK). Three groups of kernels, one a run (``--group``):
+
+- ``forward``: ``flash_attention`` at the 7B prefill row (B 4, H = KVH = 32,
+  D 128, S = T = 4,096, causal, (B, S, H, D) views) and
+  ``flash_attention_fwd_lse`` at the soak's shape (B 8, H 32, KVH 4,
+  S 1,024, D 64, causal, views), each output held to its plain version at
+  the variant's key tile (``bf16_row_ulps``; ``row_rel_err`` and the lse's
+  max abs);
+- ``dkv``: ``flash_attention_bwd_dkv`` at the soak's shape, at the 7B
+  training row (B 2, H = KVH = 32, S 2,048, D 128, causal) and at T-moe's
+  (B 2, H 32, KVH 8, S 1,025, D 128, causal), dk and dv held to the plain
+  version (``row_rel_err``); SDPA's whole backward beside them, timed as
+  the difference of two graph replays (forward and backward, forward);
+- ``gemm``: ``bf16_gemm_nt`` (rung 15) at M = N = K = 4,096 and 2,048, held
+  to its plain version relative to max |plain|; 01b's two calls beside it.
+
+Each variant's ptxas lines (registers, spills) are printed after the
+build; the cases run as CUDA-graph replays in rounds that walk the
+variants forwards and then backwards.
 
     python -m how_to_optimize_gemm_tpu_torch.harness.flash_variants \\
-        [--variants shipped bk128 no_pingpong expf ...] \\
+        [--group forward|dkv|gemm] [--variants shipped ...] \\
         [--tree parent=build/parent/how_to_optimize_gemm_tpu_torch/csrc:64]
 """
 from __future__ import annotations
@@ -26,10 +39,9 @@ import shutil
 import torch
 
 from how_to_optimize_gemm_tpu_torch import _build
-from how_to_optimize_gemm_tpu_torch.ops import attention
+from how_to_optimize_gemm_tpu_torch.ops import attention, tuned, vendor
 from how_to_optimize_gemm_tpu_torch.utils.timing import time_calls
 
-SOURCES = ("flash_attention.cu", "flash_attention_fwd_lse.cu")
 OUT_DIR = _build.BUILD_DIR.parent / "flash_variants"
 _BODY = "flash_wgmma.cuh"
 # name -> ((file, old, new), ...), and the key tile where it differs
@@ -84,7 +96,7 @@ _SERIAL = (
   turn();
   pass(my_n);
 """),)
-VARIANTS = {
+FORWARD_VARIANTS = {
     "shipped": (),
     # 128-key tiles (FA3's choice): S, P and O spill at D 128
     "bk128": (_BK128,),
@@ -131,10 +143,83 @@ VARIANTS = {
 KEY_TILE = dict.fromkeys(("bk128", "bk128_setmaxnreg", "bk128_lb256",
                           "bk128_serial"), 128)
 
+_DKV = "flash_attention_bwd_dkv.cu"
+_NC = "  static constexpr int NC = D == 64 ? 2 : 1;      // consumer warpgroups"
+_QT = "  static constexpr int QT = 64;                   // queries a step"
+DKV_VARIANTS = {
+    "shipped": (),
+    # at D 128 two consumers (128-key blocks of 384 threads, 168 registers
+    # a thread) on 32-query steps: dk and dv take 128, and it spills
+    "d128_two_consumers": (
+        (_DKV, _NC, "  static constexpr int NC = 2;"),
+        (_DKV, _QT, "  static constexpr int QT = D == 64 ? 64 : 32;")),
+    # one consumer at both D (64-key blocks of 256 threads)
+    "one_consumer": ((_DKV, _NC, "  static constexpr int NC = 1;"),),
+    # 32-query steps at both D
+    "qt32": ((_DKV, _QT, "  static constexpr int QT = 32;"),),
+    # exp as expf on scores in natural units
+    "expf": (
+        (_DKV, 'asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+         "y = expf(x);"),
+        (_DKV, "constexpr float LOG2E = 1.4426950408889634f;",
+         "constexpr float LOG2E = 1.0f;")),
+}
 
-def prepare(name: str, subs) -> pathlib.Path:
-    """The port's csrc/ copied under OUT_DIR/name with ``subs`` applied."""
-    dst = OUT_DIR / name / "csrc"
+_GEMM = "bf16_gemm_nt.cu"
+_TILE128 = (_GEMM, "constexpr int BN = 256; ", "constexpr int BN = 128;")
+GEMM_VARIANTS = {
+    "shipped": (),
+    # the loop in wgmma.cuh's consume() shape: the accumulators fenced
+    # before every stage's products, the last stage's wait, fence and
+    # releases on a branch of their own; ptxas serializes its products (its
+    # note C7518)
+    "consume_shape": (
+        (_GEMM, """      // (acc unfenced: the group before still writes it)
+      wg::wgmma_fence();""", """      wg::fence_regs(acc);
+      wg::wgmma_fence();"""),
+        (_GEMM, """      wg::wgmma_wait<1>();
+      if (prev >= 0) wg::release(ring, prev);
+      prev = s;
+    }
+    wg::wgmma_wait<0>();
+    wg::fence_regs(acc);
+    wg::release(ring, prev);
+""", """      if (kq + 1 == nk) {
+        wg::wgmma_wait<0>();
+        wg::fence_regs(acc);
+        if (prev >= 0) wg::release(ring, prev);
+        wg::release(ring, s);
+      } else {
+        wg::wgmma_wait<1>();
+        if (prev >= 0) wg::release(ring, prev);
+        prev = s;
+      }
+    }
+""")),
+    # each consumer thread adds C to its sums and stores them itself, as it
+    # does where the tensor-map unit cannot (C's rows no 16-byte multiple)
+    "register_epilogue": ((_GEMM, "  int reduce = c == out && ",
+                           "  int reduce = false && c == out && "),),
+    # 128 x 128 tiles, the straight sum
+    "tile128": (_TILE128,),
+    # 128 x 128 tiles, partial sums of 16 stages (K 1,024) added into a
+    # second fp32 array
+    "tile128_chunk16": (_TILE128, (_GEMM, "constexpr int CH = 0; ",
+                                   "constexpr int CH = 16;")),
+}
+
+GROUPS = {
+    "forward": (("flash_attention.cu", "flash_attention_fwd_lse.cu"),
+                FORWARD_VARIANTS),
+    "dkv": ((_DKV,), DKV_VARIANTS),
+    "gemm": ((_GEMM,), GEMM_VARIANTS),
+}
+
+
+def prepare(group: str, name: str, subs) -> pathlib.Path:
+    """The port's csrc/ copied under OUT_DIR/group/name with ``subs``
+    applied."""
+    dst = OUT_DIR / group / name / "csrc"
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(_build.CSRC, dst)
     for file, old, new in subs:
@@ -147,28 +232,33 @@ def prepare(name: str, subs) -> pathlib.Path:
     return dst
 
 
-def use(csrc: pathlib.Path) -> None:
+def use(csrc: pathlib.Path, sources) -> None:
     """Point the build at ``csrc`` (the next launch loads its library)."""
     _build.CSRC = csrc
-    for src in SOURCES:
+    for src in sources:
         _build._LIBS.pop(src, None)
 
 
-def build(trees: dict) -> None:
-    """Both flash sources of every tree, one nvcc each, all at once."""
+def build(trees: dict, sources) -> None:
+    """The group's sources of every tree, one nvcc each, all at once; then
+    each build's ptxas lines."""
     started = []
     for csrc in trees.values():
-        use(csrc)
-        started += [(csrc, src, _build._start_build(src)) for src in SOURCES]
+        use(csrc, sources)
+        started += [(csrc, src, _build._start_build(src)) for src in sources]
     for csrc, src, s in started:
         if s is not None:
-            use(csrc)
+            use(csrc, sources)
             _build._finish_build(src, s)
+    kernels = [k for k, spec in _build.KERNELS.items()
+               if spec.source in sources]
     for name, csrc in trees.items():
-        use(csrc)
-        for kernel in ("flash_attention", "flash_attention_fwd_lse"):
+        use(csrc, sources)
+        for kernel in kernels:
             lines = [ln for ln in _build.build_log(kernel).splitlines()
-                     if "flash" in ln or "registers" in ln or "arning" in ln]
+                     if "Compiling" in ln or "registers" in ln
+                     or "spill" in ln or "arning" in ln
+                     or "Performance" in ln]
             print(f"[{name}] {kernel} build:\n  " + "\n  ".join(lines))
 
 
@@ -177,26 +267,8 @@ def _views(b, n, heads, d, gen, dtype):
         dtype).transpose(1, 2)
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--variants", nargs="*", default=list(VARIANTS))
-    ap.add_argument("--tree", action="append", default=[],
-                    help="NAME=DIR:BK, another tree's csrc and key tile")
-    ap.add_argument("--rounds", type=int, default=2)
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("flash_variants: needs a CUDA device")
-    trees, tiles = {}, {}
-    for name in args.variants:
-        trees[name] = prepare(name, VARIANTS[name])
-        tiles[name] = KEY_TILE.get(name, attention.KERNEL_BK)
-    for spec in args.tree:
-        name, rest = spec.split("=", 1)
-        path, bk = rest.rsplit(":", 1)
-        trees[name], tiles[name] = pathlib.Path(path).resolve(), int(bk)
-    build(trees)
-
-    gen = torch.Generator("cuda").manual_seed(0)
+def forward_cases(gen, tiles):
+    """{case: fn}, {key tile: plain outputs}, and the check of a variant."""
     q, k, v = (_views(4, 4096, 32, 128, gen, torch.bfloat16) for _ in "qkv")
     tq = _views(8, 1024, 32, 64, gen, torch.float32)
     tk, tv = (_views(8, 1024, 4, 64, gen, torch.bfloat16) for _ in "kv")
@@ -204,41 +276,153 @@ def main(argv=None) -> None:
         "flash_attention": lambda: attention.flash_attention(q, k, v),
         "flash_attention_fwd_lse": lambda: attention.flash_attention_fwd_lse(
             tq, tk, tv)}
-    refs = {}
-    for bk in sorted(set(tiles.values())):
-        refs[bk] = (attention.flash_attention_ref(q, k, v, bk=bk),
-                    attention.flash_attention_fwd_lse_ref(tq, tk, tv, bk=bk))
+    refs = {bk: (attention.flash_attention_ref(q, k, v, bk=bk),
+                 attention.flash_attention_fwd_lse_ref(tq, tk, tv, bk=bk))
+            for bk in sorted(set(tiles.values()))}
+
+    def check(name):
+        out = cases["flash_attention"]()
+        o2, lse = cases["flash_attention_fwd_lse"]()
+        ref, (ref2, ref_lse) = refs[tiles[name]]
+        return (f"key tile {tiles[name]}: flash_attention "
+                f"{float(attention.bf16_row_ulps(out, ref).max()):.3f} bf16 "
+                f"ulps of its row's max |plain|; fwd_lse out "
+                f"{float(attention.row_rel_err(o2, ref2).max()):.3e} of its "
+                f"row's max, lse {float((lse - ref_lse).abs().max()):.3e}")
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = {
+        "flash_attention": lambda: sdpa(q, k, v, is_causal=True),
+        "flash_attention_fwd_lse": lambda: sdpa(
+            tq.to(torch.bfloat16), tk, tv, is_causal=True, enable_gqa=True)}
+    return cases, check, {c: time_calls(fn, graph=True) * 1e3
+                          for c, fn in library.items()}
+
+
+# (B, H, KVH, S, D): the soak's row, the 7B training row, T-moe's row
+DKV_SHAPES = ((8, 32, 4, 1024, 64), (2, 32, 32, 2048, 128),
+              (2, 32, 8, 1025, 128))
+
+
+def sdpa_backward_ms(q16, k, v, do16, causal: bool = True) -> float:
+    """SDPA's whole backward (dq, dk, dv) on bf16 operands as CUDA-graph
+    replays: the replay of its forward and backward less the replay of its
+    forward (the backward cannot be captured without the forward that
+    records it)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = q16.shape[1] != k.shape[1]
+    qb, kb, vb = (x.detach().requires_grad_() for x in (q16, k, v))
+
+    def fwd():
+        return sdpa(qb, kb, vb, is_causal=causal, enable_gqa=gqa)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), (qb, kb, vb), do16)
+    return (time_calls(fwd_bwd, graph=True)
+            - time_calls(fwd, graph=True)) * 1e3
+
+
+def dkv_cases(gen, tiles):
+    cases, refs, library = {}, {}, {}
+    for b, h, kvh, s, d in DKV_SHAPES:
+        q, do = (_views(b, s, h, d, gen, torch.float32) for _ in "qd")
+        k, v = (_views(b, s, kvh, d, gen, torch.bfloat16) for _ in "kv")
+        out, lse = attention.flash_attention_fwd_lse_ref(q, k, v, bk=64)
+        args = (q, k, v, do, lse, (do * out).sum(dim=-1))
+        case = f"dkv B={b} H={h} KVH={kvh} S={s} D={d}"
+        cases[case] = (lambda a=args: attention.flash_attention_bwd_dkv(*a))
+        refs[case] = attention.flash_attention_bwd_dkv_ref(*args)
+        library[case] = sdpa_backward_ms(q.to(torch.bfloat16), k, v,
+                                         do.to(torch.bfloat16))
+
+    def check(name):
+        rel = attention.row_rel_err
+        parts = []
+        for case, fn in cases.items():
+            dk, dv = fn()
+            again = fn()
+            same = torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+            ek = float(rel(dk, refs[case][0]).max())
+            ev = float(rel(dv, refs[case][1]).max())
+            parts.append(f"{case}: dk {ek:.3e}, dv {ev:.3e} of the row's "
+                         f"max, repeat {'equal' if same else 'DIFFERS'}")
+        return "; ".join(parts)
+    return cases, check, library
+
+
+def gemm_cases(gen, tiles):
+    cases, refs, library = {}, {}, {}
+    for p in (4096, 2048):
+        a, b, c = (torch.rand((p, p), generator=gen, device="cuda") * 2 - 1
+                   for _ in "abc")
+        a16, bt16 = tuned.prepare_bf16_bt(a, b)
+        cases[f"bf16_gemm_nt p={p}"] = (
+            lambda a16=a16, bt16=bt16, c=c: tuned.mmult_bf16_bt(a16, bt16, c))
+        refs[f"bf16_gemm_nt p={p}"] = (a16, bt16, c)
+        library[f"bf16_gemm_nt p={p}"] = time_calls(
+            lambda a16=a16, bt16=bt16, c=c: vendor.mmult_bf16(a16, bt16.t(), c),
+            graph=True) * 1e3
+
+    def check(name):
+        parts = []
+        for case, (a16, bt16, c) in refs.items():
+            ref = tuned.mmult_bf16_bt_ref(a16, bt16, c)
+            out = tuned.mmult_bf16_bt(a16, bt16, c.clone())
+            again = tuned.mmult_bf16_bt(a16, bt16, c.clone())
+            err = float((out - ref).abs().max() / ref.abs().max())
+            same = torch.equal(out, again)
+            parts.append(f"{case}: {err:.3e} of max |plain|, repeat "
+                         f"{'equal' if same else 'DIFFERS'}")
+        return "; ".join(parts)
+    return cases, check, library
+
+
+CASES = {"forward": forward_cases, "dkv": dkv_cases, "gemm": gemm_cases}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--group", choices=sorted(GROUPS), default="forward")
+    ap.add_argument("--variants", nargs="*", default=None,
+                    help="the group's variants to build (default: all)")
+    ap.add_argument("--tree", action="append", default=[],
+                    help="NAME=DIR[:BK], another tree's csrc (and the "
+                         "forward's key tile)")
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("flash_variants: needs a CUDA device")
+    sources, variants = GROUPS[args.group]
+    trees, tiles = {}, {}
+    for name in (list(variants) if args.variants is None else args.variants):
+        trees[name] = prepare(args.group, name, variants[name])
+        tiles[name] = KEY_TILE.get(name, attention.KERNEL_BK)
+    for spec in args.tree:
+        name, rest = spec.split("=", 1)
+        path, _, bk = rest.partition(":")
+        trees[name] = pathlib.Path(path).resolve()
+        tiles[name] = int(bk) if bk else attention.KERNEL_BK
+    build(trees, sources)
+
+    gen = torch.Generator("cuda").manual_seed(0)
     print(f"card: {torch.cuda.get_device_name(0)}")
+    cases, check, library = CASES[args.group](gen, tiles)
     for name, csrc in list(trees.items()):
-        use(csrc)
+        use(csrc, sources)
         try:
-            out = cases["flash_attention"]()
-            o2, lse = cases["flash_attention_fwd_lse"]()
+            print(f"[{name}] {check(name)}")
         except RuntimeError as e:   # a launch the driver refuses
             print(f"[{name}] {e}; not timed")
             del trees[name]
-            continue
-        ref, (ref2, ref_lse) = refs[tiles[name]]
-        print(f"[{name}] key tile {tiles[name]}: flash_attention "
-              f"{float(attention.bf16_row_ulps(out, ref).max()):.3f} bf16 "
-              f"ulps of its row's max |plain|; fwd_lse out "
-              f"{float(attention.row_rel_err(o2, ref2).max()):.3e} of its "
-              f"row's max, lse {float((lse - ref_lse).abs().max()):.3e}")
     order = list(trees)
     times = {(n, c): [] for n in order for c in cases}
     for r in range(args.rounds):
         for name in (order if r % 2 == 0 else order[::-1]):
-            use(trees[name])
+            use(trees[name], sources)
             for case, fn in cases.items():
                 times[name, case].append(time_calls(fn, graph=True) * 1e3)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = {"flash_attention": time_calls(
-               lambda: sdpa(q, k, v, is_causal=True), graph=True) * 1e3,
-           "flash_attention_fwd_lse": time_calls(
-               lambda: sdpa(tq.to(torch.bfloat16), tk, tv, is_causal=True,
-                            enable_gqa=True), graph=True) * 1e3}
     for case in cases:
-        print(f"{case}: SDPA {lib[case]:.4f} ms")
+        print(f"{case}: library {library[case]:.4f} ms")
         for name in order:
             ms = ", ".join(f"{t:.4f}" for t in times[name, case])
             print(f"  [{name}] {ms} ms")

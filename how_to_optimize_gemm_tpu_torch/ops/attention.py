@@ -59,8 +59,10 @@ The reference pads an S that is no block multiple outside its custom VJP
 and masks the padded keys; the kernels and plain versions take any S, so
 nothing is padded: no key at or past S enters a softmax, and there are
 no padded query rows. The forward kernel's tiles are ``KERNEL_BQ`` queries
-by ``KERNEL_BK_LSE`` keys, the backward kernels' ``KERNEL_BLOCK`` by
-``KERNEL_BLOCK``. The plain versions walk the reference's blocks:
+by ``KERNEL_BK_LSE`` keys, the dQ kernel's ``KERNEL_BLOCK`` by
+``KERNEL_BLOCK``; the dK/dV kernel walks ``KERNEL_BLOCK`` queries a step
+(a ``wgmma`` kernel whose blocks hold 128 keys at D 64 and 64 at D 128,
+csrc/flash_attention_bwd_dkv.cu). The plain versions walk the reference's blocks:
 ``train_block(S)``, the least-waste of 512, 256 and 128, unless told
 otherwise; they also take queries that are the last S of T positions
 (S <= T), which the wrappers do not.
@@ -82,8 +84,8 @@ DEFAULT_BLOCK = 512
 KERNEL_BQ = 128
 KERNEL_BK = 64
 KERNEL_BK_LSE = 64
-# the backward kernels' query and key tiles (flash_attention_bwd_dq.cu,
-# flash_attention_bwd_dkv.cu)
+# the dQ kernel's query and key tiles (flash_attention_bwd_dq.cu) and the
+# dK/dV kernel's query step (flash_attention_bwd_dkv.cu)
 KERNEL_BLOCK = 64
 HEAD_DIMS = (64, 128)
 # the reference's training blocks (mha_flash_train's least-waste choice)

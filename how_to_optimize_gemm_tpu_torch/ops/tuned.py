@@ -16,7 +16,9 @@ fp32 sums:
   C into its output.
 
 The reference's VMEM block choosers are not ported: each kernel keeps a
-fixed 128 x 128 tile. Each wrapper launches its kernel for CUDA tensors
+fixed tile, 128 x 128, and rung 15's ``wgmma`` kernel 128 x 256 tiles
+walked by a persistent grid (``NT_TILE``, ``nt_tile_walk``). Each wrapper
+launches its kernel for CUDA tensors
 and runs its plain version (``*_ref``) only for CPU tensors. Products of
 bf16 values are exact in fp32, and every kernel sums in another order
 than its plain version (the tensor cores, or one fmaf chain over K), so
@@ -30,6 +32,34 @@ from how_to_optimize_gemm_tpu_torch import _build
 from how_to_optimize_gemm_tpu_torch.ops import bounds
 from how_to_optimize_gemm_tpu_torch.ops.int8 import ALIGN, require_cuda
 from how_to_optimize_gemm_tpu_torch.ops.vendor import fp32_matmul
+
+
+# rung 15's kernel (csrc/bf16_gemm_nt.cu): its output tile (rows,
+# columns) and the row tiles of a group of its walk
+NT_TILE = (128, 256)
+NT_GROUP_M = 8
+
+
+def nt_tile_walk(m: int, n: int, blocks: int) -> list:
+    """The (row, column) origins of the output tiles that each block of
+    ``bf16_gemm_nt``'s persistent grid computes, in order, for an (m, n)
+    output: the kernel launches ``min(blocks, tiles)`` blocks (one an SM),
+    block i taking tiles i, i + blocks, ...; tile t lies in group t //
+    (NT_GROUP_M x column tiles) of NT_GROUP_M row tiles (fewer in the last
+    group), the row tile fastest inside a group, so that the blocks running
+    at once share a few rows of A and the columns of B in L2."""
+    tm, tn = NT_TILE
+    num_m, num_n = -(-m // tm), -(-n // tn)
+    per_group = NT_GROUP_M * num_n
+
+    def origin(t):
+        first = t // per_group * NT_GROUP_M
+        gm = min(num_m - first, NT_GROUP_M)
+        r = t % per_group
+        return (first + r % gm) * tm, (r // gm) * tn
+    tiles = num_m * num_n
+    return [[origin(t) for t in range(i, tiles, blocks)]
+            for i in range(min(blocks, tiles))]
 
 
 def prepare_bf16_bt(a: torch.Tensor, b: torch.Tensor):

@@ -188,6 +188,34 @@ def test_hand_pipelines_wrap_rings_and_walks(cuda, kernel, shape):
     assert (run_on_c.data_ptr() == c.data_ptr()) is in_place
 
 
+# Rung 15's wgmma kernel (persistent, one block an SM, 128 x 256 tiles, K
+# stages of 64): a walk over more tiles than the H100's 132 SMs and no
+# multiple of them (144), fewer rows than a consumer's 64, K no multiple
+# of 64, a single row of tiles, tiny edges; C's rows of 16-byte multiples
+# (N 520, 5000) take the epilogue that hands the sums to tensor-map
+# reductions, the others (N 2102, 9, 257) each thread's own adds; within
+# W4A16_REL of the plain version, two calls bit-equal.
+NT_SHAPES = [(2001, 2102, 520), (33, 520, 1000), (40, 5000, 1000),
+             (17, 9, 40), (129, 257, 72)]
+
+
+@pytest.mark.parametrize("shape", NT_SHAPES)
+def test_bf16_gemm_nt_edges_and_walk(cuda, shape):
+    _, wrapper, plain, tol = CASES["bf16_gemm_nt"]
+    a, b, c = _abc(shape, 5, cuda)
+    ops = _operands(registry.get("15_packed_alias_bf16").prepare(a, b))
+    out = wrapper(*ops, c.clone())
+    again = wrapper(*ops, c.clone())
+    torch.cuda.synchronize()
+    ref = plain(*ops, c)
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    assert torch.equal(out, again)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lengths = {len(w) for w in tuned.nt_tile_walk(shape[0], shape[1], sms)}
+    if shape == NT_SHAPES[0]:
+        assert max(lengths) > 1 and len(lengths) > 1
+
+
 @pytest.mark.parametrize("b_buffers", hand_pipeline.B_BUFFERS)
 @pytest.mark.parametrize("a_lookahead", [False, True])
 @pytest.mark.parametrize("shape", [(2001, 2102, 520), (17, 9, 40)])
@@ -1147,6 +1175,31 @@ def test_flash_fwd_lse_edges_match_plain_version(cuda, b, h, kvh, s, d,
     assert float((lse - ref_lse).abs().max()) <= TRAIN_LSE_ATOL
 
 
+# dK/dV's wgmma kernel (two consumers of 64 keys at D 64, one at D 128;
+# 64-query steps): S of 130, 520 and 1,025, rep 1, 4 and 8, D 64 and 128,
+# causal and not; within TRAIN_GRAD_REL of the plain version, and two
+# calls bit-equal (no atomics: each key row's sum has one owner).
+@pytest.mark.parametrize("b,h,kvh,s,d,causal", [
+    (1, 8, 1, 1025, 64, False), (1, 16, 4, 1025, 128, True),
+    (2, 4, 4, 130, 128, False), (1, 8, 8, 520, 64, True),
+    (1, 8, 2, 130, 64, False), (1, 4, 1, 520, 128, True)])
+def test_flash_bwd_dkv_edges_repeat_their_bits(cuda, b, h, kvh, s, d,
+                                               causal):
+    q, k, v, do = _train_inputs(b, h, kvh, s, d, s + d + h + 2, cuda)
+    ref_out, lse = attention.flash_attention_fwd_lse_ref(
+        q, k, v, causal=causal, bk=attention.KERNEL_BK_LSE)
+    args = (q, k, v, do, lse, (do * ref_out).sum(dim=-1))
+    dk, dv = attention.flash_attention_bwd_dkv(*args, causal=causal)
+    dk2, dv2 = attention.flash_attention_bwd_dkv(*args, causal=causal)
+    ref_dk, ref_dv = attention.flash_attention_bwd_dkv_ref(*args,
+                                                           causal=causal)
+    torch.cuda.synchronize()
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    rel = attention.row_rel_err
+    assert float(rel(dk, ref_dk).max()) <= TRAIN_GRAD_REL
+    assert float(rel(dv, ref_dv).max()) <= TRAIN_GRAD_REL
+
+
 def test_mha_flash_train_on_the_card_matches_the_cpu(cuda):
     """The autograd function end to end: mha_flash_train and its
     gradients on the card (the three kernels) against the CPU (the plain
@@ -1406,12 +1459,13 @@ def test_grouped_dw_matches_plain_version(cuda, shape):
     assert float((got[e0] - bad).abs().max()) > FP32_REL * scale
 
 
-# The kernels that share csrc/wgmma.cuh with the flash forward (the MoE
-# grouped products, forward, dx and dW) and the two flash backward kernels,
-# which the forward's rebuild on wgmma left as they were: SHA-256 digests of
-# their outputs on fixed inputs, as the tree before that rebuild gave them
-# on an H100 (NVIDIA H100 80GB HBM3). The same sources and nvcc give the
-# same bits; a digest that moves means a kernel's code moved.
+# The kernels that share csrc/wgmma.cuh with the flash kernels and rung
+# 15 (the MoE grouped products, forward, dx and dW), the flash backward's
+# dQ kernel, and rung 05 and W4A16 (bf16_gemm.cuh, rung 15's old body):
+# SHA-256 digests of their outputs on fixed inputs, as the tree before
+# each rebuild gave them on an H100 (NVIDIA H100 80GB HBM3); dK/dV's as
+# its wgmma kernel gives them. The same sources and nvcc give the same
+# bits; a digest that moves means a kernel's code moved.
 SHARED_DIGESTS = {
     "grouped_gemm bf16": "1ef3e9f68a803cbf",
     "grouped_gemm_t bf16": "45356b182853332a",
@@ -1421,7 +1475,9 @@ SHARED_DIGESTS = {
     "grouped_gemm_t int4": "b632e42c32bbc2bc",
     "grouped_dw": "cfcc1f7fabba2333",
     "flash_attention_bwd_dq": "391e127c542a3a53",
-    "flash_attention_bwd_dkv": "77fd135662c99be4"}
+    "flash_attention_bwd_dkv": "bdd0004dac43a8f0",
+    "bf16_gemm_nn": "c60e016745fb0762",
+    "w4a16_gemm": "1b52344b433b8dd0"}
 
 
 def _shared_digests(device) -> dict:
@@ -1450,6 +1506,11 @@ def _shared_digests(device) -> dict:
     outs["flash_attention_bwd_dq"] = attention.flash_attention_bwd_dq(*args)
     dk, dv = attention.flash_attention_bwd_dkv(*args)
     outs["flash_attention_bwd_dkv"] = torch.cat([dk, dv])
+    for name, rung in (("bf16_gemm_nn", "05_pallas_bf16"),
+                       ("w4a16_gemm", "07_pallas_int4")):
+        _, wrapper, _, _ = CASES[name]
+        a, b, c = _abc((1000, 1032, 1100), 13, device)
+        outs[name] = wrapper(*_operands(registry.get(rung).prepare(a, b)), c)
     torch.cuda.synchronize()
     return {name: hashlib.sha256(t.contiguous().cpu().numpy().tobytes())
             .hexdigest()[:16] for name, t in outs.items()}
