@@ -42,17 +42,22 @@ Phases (any failure raises and exits non-zero before the last line):
    on its own kernel; then ``int8_gemm_nt``'s time right after a call of
    rung 10, 12 or 13, the check that evict_last lines left behind do not
    slow the next kernel, and rungs 12, 13, 14 and 18 at p = 2,048 chained
-   beside a CUDA-graph replay, the host's share of a call), the bf16 and W4A16 kernels' within W4A16_REL and the FFMA
-   kernels' (rungs 16, 04, 03/03b, 02 and the naive rung 00) within
-   FP32_REL of max |plain| (fp32 sums in another order),
-   and every output under its rung's gate_rel against an fp64 oracle on
-   the card; then its time at 4096 beside the plain version's, the
-   library call's (where one PyTorch call computes the same function:
-   ``torch._int_mm`` and the epilogue for int8, the vendor bars 01b and
-   01 for the bf16 and fp32 kernels) and the card's bound at the peak of
-   the kernel's type (int8; bf16 for bf16 and W4A16; for fp32 the fastest
-   route that meets gate 1e-4, 3xTF32 at a third of the TF32 peak, with
-   the FFMA ceiling printed beside it);
+   beside a CUDA-graph replay, the host's share of a call), the bf16 and
+   W4A16 kernels' within W4A16_REL, and rung 16's (three bf16 products of
+   split operands on ``wgmma``: bf16x3, XLA's Precision.HIGH, where the
+   reference runs HIGHEST) and the FFMA kernels' (rungs 04, 03/03b,
+   02 and the naive rung 00) within FP32_REL of max |plain| (fp32 sums in
+   another order), and every output under its rung's gate_rel against an
+   fp64 oracle on the card; then its time at 4096 beside the plain
+   version's, the library call's (where one PyTorch call computes the
+   same function: ``torch._int_mm`` and the epilogue for int8, the vendor
+   bars 01b and 01 for the bf16 and fp32 kernels) and the card's bound at
+   the peak of the kernel's type (int8; bf16 for bf16 and W4A16; for fp32
+   the fastest route that meets gate 1e-4 and FP32_REL, three bf16
+   products at a third of the bf16 peak, with the FFMA ceiling printed
+   beside it for the rows on FFMA); rung 16 also in its parts, the two
+   ``split_bf16`` launches and the kernel alone on planes split
+   beforehand (bits equal to the wrapper's), each timed;
 5. each serving kernel against its plain version at the Llama-2-7B
    shapes the serve paths give it (``kv_update`` and ``paged_kv_update``
    on each row kind: bf16 values, int8 values and fp32 scales; the paged
@@ -241,14 +246,14 @@ from how_to_optimize_gemm_tpu_torch.harness import (ab, driver,
 from how_to_optimize_gemm_tpu_torch.harness.driver import run_sweep
 from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
 # H100 SXM data sheet: dense int8 and bf16 tensor-core peaks, HBM3
-# bandwidth. fp32 at the rungs' gate (1e-4): the fastest route that meets
-# it is a 3xTF32 split on the tensor cores, a third of the 495 TFLOP/s
-# TF32 peak (plain TF32 does not meet it); FFMA tops out at 67 TFLOP/s.
-# grouped_dw's three bf16 products of split operands meet its rule
-# (FP32_REL), so its bound takes a third of the bf16 peak.
+# bandwidth. fp32 at the rungs' gate (1e-4) and FP32_REL: the fastest
+# route that meets them is three bf16 products of operands split into bf16
+# hi + lo, a third of the 989 TFLOP/s bf16 peak (rung 16's and
+# grouped_dw's route; plain TF32 does not meet them, 3xTF32 runs at half
+# that rate); FFMA tops out at 67 TFLOP/s.
 from how_to_optimize_gemm_tpu_torch.harness.profiling import (
-    PEAK_BF16_FLOPS, PEAK_BF16X3_FLOPS, PEAK_BYTES, PEAK_FFMA_FLOPS,
-    PEAK_FP32_FLOPS, PEAK_INT8_OPS)
+    PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FFMA_FLOPS, PEAK_FP32_FLOPS,
+    PEAK_INT8_OPS)
 from how_to_optimize_gemm_tpu_torch.models import checkpoint, llama
 from how_to_optimize_gemm_tpu_torch.ops import (attention, bounds,
                                                decode_attention,
@@ -287,8 +292,9 @@ P_DRIVER = 2048
 # w4a16 and bf16 kernels vs their plain version: exact products, fp32 sums
 # in another order (the GEMM's by the tensor cores), relative to max |y|
 W4A16_REL = 2e-5
-# the FFMA kernels vs their plain version: one fmaf chain over K against
-# cuBLAS's fp32 order, relative to max |y|
+# the fp32 kernels vs their plain version: one fmaf chain over K (FFMA) or
+# three bf16 products of split operands (rung 16) against cuBLAS's fp32
+# order, relative to max |y|
 FP32_REL = 1e-5
 
 SRC = "how_to_optimize_gemm_tpu_torch/csrc/"
@@ -320,8 +326,9 @@ WALK = (2001, 2102, 520)
 NT_EDGE = (33, 520, 1000)
 # Each kernel with the rung whose prepare/effective give its operands, its
 # tolerance against its plain version (relative to max |plain|; 0: EQUAL),
-# the peak its bound takes and, beside the unaligned shape and P_FULL, any
-# more shapes it is checked at.
+# the peak its bound takes (``ffma``: an fp32 kernel on the CUDA cores,
+# whose FFMA ceiling is printed beside it) and, beside the unaligned shape
+# and P_FULL, any more shapes it is checked at.
 KERNELS = [
     dict(name="int8_gemm_nn", source=SRC + "int8_gemm_nn.cu",
          replaces="how_to_optimize_gemm_tpu/ops/pallas_int8.py:29",
@@ -429,7 +436,9 @@ KERNELS = [
          rung="16_packed_alias_fp32", wrapper=tuned.mmult_fp32_bt,
          plain=tuned.mmult_fp32_bt_ref,
          library=lambda a, bt, c: vendor.mmult(a, bt.t(), c),
-         unaligned=(1000, 1032, 1100), tol=FP32_REL, peak="fp32"),
+         unaligned=(1000, 1032, 1100),
+         more=((1024, 1024, 1024), (2048, 2048, 2048)),
+         tol=FP32_REL, peak="fp32", extra=("fp32_parts",)),
     dict(name="w4a16_gemm", source=SRC + "w4a16_gemm.cu",
          replaces="how_to_optimize_gemm_tpu/ops/pallas_int4.py:55",
          function="pallas_int4._kernel + _decode_w4 :36 (mmult_q, rung 07)",
@@ -449,7 +458,8 @@ KERNELS = [
                   "_mmult_impl :128, rung 04)",
          rung="04_pallas_tuned_fp32", wrapper=tuned.mmult,
          plain=tuned.mmult_ref, library=vendor.mmult,
-         unaligned=(1000, 1032, 1100), tol=FP32_REL, peak="fp32"),
+         unaligned=(1000, 1032, 1100), tol=FP32_REL, peak="fp32",
+         ffma=True),
     # the rungs below 04, on the CUDA cores; an unaligned shape whose K
     # and N rows are not 16-byte multiples (03's wrapper pads them)
     dict(name="naive_gemm", source=SRC + "naive_gemm.cu",
@@ -457,19 +467,19 @@ KERNELS = [
          function="naive_vpu.mmult (plain JAX, K rank-1 updates; rung 00)",
          rung="00_naive_vpu", wrapper=naive.mmult, plain=naive.naive_ref,
          library=vendor.mmult, unaligned=(999, 1030, 1101), tol=FP32_REL,
-         peak="fp32"),
+         peak="fp32", ffma=True),
     dict(name="fp32_gemm_mn_tile", source=SRC + "fp32_gemm_mn_tile.cu",
          replaces="how_to_optimize_gemm_tpu/ops/pallas_mn_tile.py:24",
          function="pallas_mn_tile._kernel (mmult, rung 02)",
          rung="02_pallas_mn_tile", wrapper=mn_tile.mmult,
          plain=mn_tile.mn_tile_ref, library=vendor.mmult,
-         unaligned=(999, 1030, 1101), tol=FP32_REL, peak="fp32"),
+         unaligned=(999, 1030, 1101), tol=FP32_REL, peak="fp32", ffma=True),
     dict(name="fp32_gemm_k_blocked", source=SRC + "fp32_gemm_k_blocked.cu",
          replaces="how_to_optimize_gemm_tpu/ops/pallas_k_blocked.py:31",
          function="pallas_k_blocked._kernel (mmult, rungs 03 and 03b)",
          rung="03_pallas_k_blocked", wrapper=k_blocked.mmult,
          plain=k_blocked.k_blocked_ref, library=vendor.mmult,
-         unaligned=(999, 1030, 1101), tol=FP32_REL, peak="fp32"),
+         unaligned=(999, 1030, 1101), tol=FP32_REL, peak="fp32", ffma=True),
 ]
 
 
@@ -659,9 +669,41 @@ def check_nt_walk(ops, c, gen: torch.Generator) -> None:
           f"p={P_FULL} bit-equal")
 
 
+def check_fp32_parts(ops, c, gen: torch.Generator) -> None:
+    """Rung 16's wrapper at P_FULL in its parts: the two ``split_bf16``
+    launches (A and BT into bf16 hi + lo planes) and ``fp32_gemm_nt``
+    alone on planes split beforehand, whose bits must equal the
+    wrapper's; each timed."""
+    a, bt = ops
+    m, n = c.shape
+
+    def split():
+        return grouped_gemm.split_bf16(a), grouped_gemm.split_bf16(bt)
+    a2, b2 = split()
+    k = a2.shape[2]
+
+    def product(a_, bt_, cc):
+        _build.launch("fp32_gemm_nt", cc.device, a2, b2, cc, cc, m, n, k, k,
+                      k, n)
+        return cc
+    alone = product(a, bt, c.clone())
+    whole = tuned.mmult_fp32_bt(a, bt, c.clone())
+    torch.cuda.synchronize()
+    if not torch.equal(alone, whole):
+        raise AssertionError("fp32_gemm_nt: the kernel alone differs from "
+                             "its wrapper")
+    split_ms = time_calls(split) * 1e3
+    product_ms = time_chained(product, ops, c, inner_iters=20,
+                              outer_repeats=3, warmup=2) * 1e3
+    b_ms, b_by = bound([a2, b2], m, n, a.shape[1], PEAK_FP32_FLOPS)
+    print(f"fp32_gemm_nt p={P_FULL} in parts: the two splits "
+          f"{split_ms:.4f} ms, the product alone {product_ms:.4f} ms "
+          f"(bound {b_ms:.4f} by {b_by}), bits equal to the wrapper's")
+
+
 EXTRA_CHECKS = {"knobs": check_knobs, "two_piece": check_two_piece,
                 "residue": check_residue, "host": check_host,
-                "nt_walk": check_nt_walk}
+                "nt_walk": check_nt_walk, "fp32_parts": check_fp32_parts}
 
 
 def check_kernel(spec: dict, gen: torch.Generator) -> dict:
@@ -709,7 +751,7 @@ def check_kernel(spec: dict, gen: torch.Generator) -> dict:
     result.update(ms=t["wrapper"], plain_ms=t["plain"], bound_ms=bound_ms,
                   bound_by=bound_by, library_ms=lib_ms)
     ffma = ""
-    if spec["peak"] == "fp32":
+    if spec.get("ffma"):
         ffma_ms = bound(ops, P_FULL, P_FULL, P_FULL, PEAK_FFMA_FLOPS)[0]
         ffma = f"; the FFMA ceiling {ffma_ms:.4f}"
     tops = 2.0 * P_FULL ** 3 / result["ms"] * 1e-9
@@ -791,7 +833,8 @@ FLASH_ULPS = 2.0
 # P_FULL and dK/dV at the soak's row (PERF.md section 6; NVIDIA H100 80GB
 # HBM3, 700.00 W), printed beside this run's
 BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
-             "bf16_gemm_nt": 0.6477, "flash_attention_bwd_dkv": 1.0286}
+             "bf16_gemm_nt": 0.6477, "flash_attention_bwd_dkv": 1.0286,
+             "fp32_gemm_nt": 6.6231, "bf16_gemm_nn": 0.5681}
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0
@@ -2576,7 +2619,7 @@ def check_grouped_backward(gen: torch.Generator) -> dict:
         del bad
         if timed_here:
             b = bound_ms(nbytes(xs, dy, got), 2.0 * routed * dout * n,
-                         PEAK_BF16X3_FLOPS)
+                         PEAK_FP32_FLOPS)
             lib = _grouped_mm(xs.to(torch.bfloat16).t(),
                               dy.to(torch.bfloat16), offs)
             alone, y = _dw_alone(xs, dy, be, ne)

@@ -1,10 +1,12 @@
-// fp32 GEMMs on the CUDA cores (FFMA) at full fp32 accuracy: the kernel of
-// fp32_gemm_nt.cu (rung 16) and fp32_gemm_nn.cu (rung 04).
+// fp32 GEMMs on the CUDA cores (FFMA) at full fp32 accuracy: the main loop
+// of fp32_gemm_nn.cu (rung 04) and of the grouped GEMM's fp32-stack
+// instances (grouped_gemm.cu, grouped_gemm_t.cu).
 //
 // The reference computes these at Precision.HIGHEST (a 6-pass bf16
 // product on the TPU's MXU, about fp32 accurate; gate_rel 1e-4). On
 // Hopper plain TF32 (10-bit mantissa) does not meet that gate; FFMA does,
-// as would a 3xTF32 split on the tensor cores (a later, faster route).
+// as do three bf16 products of split operands on the tensor cores (rung
+// 16's route, fp32_gemm_nt.cu).
 //
 // Design: the register-blocked SGEMM of the reference tutorial
 // (MMult_cuda_12): one 128x128 output tile per block of 256 threads, each
@@ -15,14 +17,9 @@
 // operand (A (M, K), or B given as BT (N, K)) is transposed on its way in:
 // 4-byte copies, a warp's 32 lanes on 32 consecutive rows; an N-major B
 // (K, N) is copied as it lies, 16 bytes a lane. Each output is one fmaf
-// chain over k. C enters in one of the reference's two orders:
-//   kSeedC   the accumulator starts at C (pallas_tuned._make_kernel),
-//            out = acc;
-//   !kSeedC  it starts at 0 and out = acc + C at the flush
-//            (_make_kernel_bt), c and out may be one buffer.
-// Each output element is read and written by the thread that owns it.
-// The main loop (fp32_gemm_mainloop) is shared with the grouped GEMM's
-// fp32-stack instance (grouped_gemm.cu).
+// chain over k. Rung 04's accumulator starts at C, as the reference's
+// _make_kernel does (acc = C, then acc += A.B), and out = acc; each output
+// element is read and written by the thread that owns it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -146,57 +143,6 @@ __device__ __forceinline__ void fp32_gemm_mainloop(
     cp_async_wait_all();
     __syncthreads();
   }
-}
-
-// out = C + A.B (kSeedC) or A.B + C (!kSeedC). A (M, lda) fp32; B as BT
-// (N, ldb) when kBT, else (K, ldb); c, out (M, ldc) fp32.
-template <bool kBT, bool kSeedC>
-__global__ void __launch_bounds__(THREADS)
-    fp32_gemm_kernel(const float* a, const float* b, const float* c,
-                     float* out, int M, int N, int K, int lda, int ldb,
-                     int ldc) {
-  int m0 = blockIdx.y * FBM;
-  int n0 = blockIdx.x * FBN;
-  int tx = threadIdx.x & 15;
-  int ty = threadIdx.x >> 4;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    int row = m0 + ftile(ty, i);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      int col = n0 + ftile(tx, j);
-      acc[i][j] = kSeedC && row < M && col < N ? c[(size_t)row * ldc + col]
-                                               : 0.0f;
-    }
-  }
-  fp32_gemm_mainloop<kBT>(acc, a, b, M, N, K, lda, ldb, m0, n0);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    int row = m0 + ftile(ty, i);
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      int col = n0 + ftile(tx, j);
-      if (col >= N) continue;
-      size_t idx = (size_t)row * ldc + col;
-      out[idx] = kSeedC ? acc[i][j] : __fadd_rn(acc[i][j], c[idx]);
-    }
-  }
-}
-
-// Launches fp32_gemm_kernel; returns cudaGetLastError().
-template <bool kBT, bool kSeedC>
-int launch_fp32_gemm(const void* a, const void* b, const void* c, void* out,
-                     int M, int N, int K, int lda, int ldb, int ldc,
-                     void* stream) {
-  dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
-  fp32_gemm_kernel<kBT, kSeedC>
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float*>(a), static_cast<const float*>(b),
-          static_cast<const float*>(c), static_cast<float*>(out), M, N, K,
-          lda, ldb, ldc);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace htog

@@ -9,10 +9,11 @@
 // (the reference's documented regression). A (M, K) and B (K, N) fp32,
 // row-major, C (M, N) fp32 read, out (M, N) fp32 written.
 //
-// Bound on an H100 SXM at M = N = K = 4096: 1.37e11 operations; 3xTF32
-// at 495/3 TFLOP/s, 0.833 ms, is the fastest route that meets the rungs'
-// gate (1e-4); FFMA's ceiling is 67 TFLOP/s, 2.05 ms. Traffic (268 MB
-// once) takes 0.080 ms at 3.35 TB/s: the arithmetic bounds it.
+// Bound on an H100 SXM at M = N = K = 4096: 1.37e11 operations; three
+// bf16 products of split operands at 989/3 TFLOP/s, 0.417 ms, are the
+// fastest route that meets the rungs' gate (1e-4); FFMA's ceiling is 67
+// TFLOP/s, 2.05 ms. Traffic (268 MB once) takes 0.080 ms at 3.35 TB/s:
+// the arithmetic bounds it.
 //
 // Design: the tutorial's register-blocked SGEMM (MMult_cuda_9), one step
 // below rung 04's kernel (fp32_gemm.cuh). A block owns a BM x BM C tile

@@ -8,11 +8,12 @@
 // starts at 0 and C is added once at the end, as the reference's
 // jnp.dot(...) + c_ref does.
 //
-// Bound on an H100 SXM at M = N = K = 4096: 1.37e11 operations; 3xTF32
-// at 495/3 TFLOP/s, 0.833 ms, is the fastest route that meets the rung's
-// gate (1e-4); FFMA's ceiling is 67 TFLOP/s, 2.05 ms. Traffic (268 MB
-// once) takes 0.080 ms at 3.35 TB/s. This kernel reads two floats from
-// shared memory for every FMA, so shared-memory bandwidth sets its pace.
+// Bound on an H100 SXM at M = N = K = 4096: 1.37e11 operations; three
+// bf16 products of split operands at 989/3 TFLOP/s, 0.417 ms, are the
+// fastest route that meets the rung's gate (1e-4); FFMA's ceiling is 67
+// TFLOP/s, 2.05 ms. Traffic (268 MB once) takes 0.080 ms at 3.35 TB/s.
+// This kernel reads two floats from shared memory for every FMA, so
+// shared-memory bandwidth sets its pace.
 //
 // Design: the tutorial's first shared-memory kernel (MMult_cuda_3/4): a
 // block of 32 x 32 threads (1,024) owns a 32 x 32 C tile, one output a

@@ -8,11 +8,12 @@
 // starts at C, as the reference's loop carry does.
 //
 // Bound on an H100 SXM at M = N = K = 4096: 1.37e11 operations; the
-// fastest route that meets the rung's gate (1e-4) is 3xTF32 at 495/3
-// TFLOP/s, 0.833 ms; FFMA's ceiling is 67 TFLOP/s, 2.05 ms. Traffic (268
-// MB once, 0.080 ms at 3.35 TB/s) does not bound it. This kernel is bound
-// by neither: it reads two floats from global memory (L1/L2) for every
-// FMA, so the load units, not the arithmetic, set its pace.
+// fastest route that meets the rung's gate (1e-4) is three bf16 products
+// of split operands at 989/3 TFLOP/s, 0.417 ms; FFMA's ceiling is 67
+// TFLOP/s, 2.05 ms. Traffic (268 MB once, 0.080 ms at 3.35 TB/s) does not
+// bound it. This kernel is bound by neither: it reads two floats from
+// global memory (L1/L2) for every FMA, so the load units, not the
+// arithmetic, set its pace.
 //
 // Design: the tutorial's naive kernel (MMult_cuda_1/2): one thread per
 // output element, its own fmaf chain over K started at C, A and B read

@@ -3,8 +3,9 @@
 //     hi = bf16(x),  lo = bf16(x - hi)      (round to nearest even)
 // so that |x - hi - lo| <= 2^-17 |x| and a product hi.b + lo.b with an
 // operand b exact in bf16 is the fp32 product to about 2^-17 relative.
-// The operand of the grouped GEMM's wgmma kernels: x for the forward
-// (grouped_gemm.cu) and x and dy for dW (grouped_dw.cu).
+// The operand of the wgmma kernels on fp32 operands: x for the grouped
+// GEMM's forward (grouped_gemm.cu), x and dy for its dW (grouped_dw.cu),
+// and A and BT for rung 16 (fp32_gemm_nt.cu).
 //
 // Replaces: no Pallas kernel of its own. The TPU kernels of
 // how_to_optimize_gemm_tpu/ops/pallas_grouped_gemm.py take fp32 x into the

@@ -5,16 +5,16 @@
 // (flash_wgmma.cuh: wgmma.m64nNk16 at N 64 and 128, A from registers for
 // P V, 4-D tensor maps over strided views, named barriers between the
 // consumers; its own block layout, described there), of flash dK/dV
-// (flash_attention_bwd_dkv.cu, N 32 to 128) and of rung 15
-// (bf16_gemm_nt.cu, N 256), each with its own block layout.
+// (flash_attention_bwd_dkv.cu, N 32 to 128) and of rungs 15, 16 and 05
+// (gemm_wgmma.cuh, N 256 and 128), each with its own block layout.
 //
 // ptxas serializes the wgmmas of a loop shaped like consume() below (its
 // note C7518, "wgmma.mma_async instructions are serialized due to program
 // dependence on compiler-inserted WG.DP in divergent path": the
 // accumulators fenced before each stage's products while the group before
 // still writes them, the last stage's wait on a branch of its own); it
-// says so for the grouped kernels' builds, and rung 15's kernel in that
-// shape runs slower (harness/flash_variants.py --group gemm, variant
+// says so for the grouped kernels' builds, and gemm_wgmma.cuh's kernel in
+// that shape runs slower (harness/flash_variants.py --group gemm, variant
 // consume_shape; PERF.md).
 //
 // Block shape (the grouped GEMM's three): 384 threads, three warpgroups.

@@ -19,8 +19,13 @@ tile BK). Three groups of kernels, one a run (``--group``):
   (B 2, H 32, KVH 8, S 1,025, D 128, causal), dk and dv held to the plain
   version (``row_rel_err``); SDPA's whole backward beside them, timed as
   the difference of two graph replays (forward and backward, forward);
-- ``gemm``: ``bf16_gemm_nt`` (rung 15) at M = N = K = 4,096 and 2,048, held
-  to its plain version relative to max |plain|; 01b's two calls beside it.
+- ``gemm``: ``bf16_gemm_nt`` (rung 15), ``fp32_gemm_nt`` (rung 16: its
+  wrapper with the two splits, and the kernel alone on planes split
+  beforehand) and ``bf16_gemm_nn`` (rung 05) at M = N = K = 4,096 and
+  2,048, each held to its plain version relative to max |plain|, two calls
+  bit-equal, rung 05's C unchanged; 01b's two calls (15, 05) and 01's (16)
+  beside them. An older tree's ``fp32_gemm_nt`` (the FFMA kernel before the split
+  route) takes fp32 A and BT and is launched on them.
 
 Each variant's ptxas lines (registers, spills) are printed after the
 build; the cases run as CUDA-graph replays in rounds that walk the
@@ -39,7 +44,8 @@ import shutil
 import torch
 
 from how_to_optimize_gemm_tpu_torch import _build
-from how_to_optimize_gemm_tpu_torch.ops import attention, tuned, vendor
+from how_to_optimize_gemm_tpu_torch.ops import (attention, grouped_gemm,
+                                               tuned, vendor)
 from how_to_optimize_gemm_tpu_torch.utils.timing import time_calls
 
 OUT_DIR = _build.BUILD_DIR.parent / "flash_variants"
@@ -166,7 +172,17 @@ DKV_VARIANTS = {
 }
 
 _GEMM = "bf16_gemm_nt.cu"
+_FP32 = "fp32_gemm_nt.cu"
+_NN = "bf16_gemm_nn.cu"
+_GW = "gemm_wgmma.cuh"
 _TILE128 = (_GEMM, "constexpr int BN = 256; ", "constexpr int BN = 128;")
+_CH = "  static constexpr int CH = 4; "
+
+
+def _fp32_chunk(stages: int):
+    return ((_FP32, _CH, f"  static constexpr int CH = {stages}; "),)
+
+
 GEMM_VARIANTS = {
     "shipped": (),
     # the loop in wgmma.cuh's consume() shape: the accumulators fenced
@@ -174,45 +190,54 @@ GEMM_VARIANTS = {
     # releases on a branch of their own; ptxas serializes its products (its
     # note C7518)
     "consume_shape": (
-        (_GEMM, """      // (acc unfenced: the group before still writes it)
-      wg::wgmma_fence();""", """      wg::fence_regs(acc);
-      wg::wgmma_fence();"""),
-        (_GEMM, """      wg::wgmma_wait<1>();
-      if (prev >= 0) wg::release(ring, prev);
-      prev = s;
-    }
-    wg::wgmma_wait<0>();
-    wg::fence_regs(acc);
-    wg::release(ring, prev);
-""", """      if (kq + 1 == nk) {
-        wg::wgmma_wait<0>();
-        wg::fence_regs(acc);
-        if (prev >= 0) wg::release(ring, prev);
-        wg::release(ring, s);
-      } else {
-        wg::wgmma_wait<1>();
+        (_GW, """        // (acc unfenced: the group before still writes it)
+        wg::wgmma_fence();""", """        wg::fence_regs(acc);
+        wg::wgmma_fence();"""),
+        (_GW, """        wg::wgmma_wait<1>();
         if (prev >= 0) wg::release(ring, prev);
         prev = s;
       }
-    }
+      wg::wgmma_wait<0>();
+      wg::fence_regs(acc);
+      wg::release(ring, prev);
+""", """        if (kq + 1 == kend) {
+          wg::wgmma_wait<0>();
+          wg::fence_regs(acc);
+          if (prev >= 0) wg::release(ring, prev);
+          wg::release(ring, s);
+        } else {
+          wg::wgmma_wait<1>();
+          if (prev >= 0) wg::release(ring, prev);
+          prev = s;
+        }
+      }
 """)),
-    # each consumer thread adds C to its sums and stores them itself, as it
-    # does where the tensor-map unit cannot (C's rows no 16-byte multiple)
-    "register_epilogue": ((_GEMM, "  int reduce = c == out && ",
-                           "  int reduce = false && c == out && "),),
-    # 128 x 128 tiles, the straight sum
+    # each consumer thread adds C to its sums (or stores them) itself, as
+    # it does where the tensor-map unit cannot (out's rows no 16-byte
+    # multiple)
+    "register_epilogue": ((_GW, "  int tma_out = (P::SEED_C || c == out) && ",
+                           "  int tma_out = false && "),),
+    # rung 15 on 128 x 128 tiles, the straight sum
     "tile128": (_TILE128,),
-    # 128 x 128 tiles, partial sums of 16 stages (K 1,024) added into a
+    # the same with partial sums of 16 stages (K 1,024) added into a
     # second fp32 array
     "tile128_chunk16": (_TILE128, (_GEMM, "constexpr int CH = 0; ",
                                    "constexpr int CH = 16;")),
+    # rung 16's partial sums of 1, 2, 8 and 16 stages, and its straight sum
+    "fp32_ch1": _fp32_chunk(1),
+    "fp32_ch2": _fp32_chunk(2),
+    "fp32_ch8": _fp32_chunk(8),
+    "fp32_ch16": _fp32_chunk(16),
+    "fp32_straight": _fp32_chunk(0),
 }
+# the headers the variants may change besides the groups' sources
+HEADERS = (_BODY, _GW)
 
 GROUPS = {
     "forward": (("flash_attention.cu", "flash_attention_fwd_lse.cu"),
                 FORWARD_VARIANTS),
     "dkv": ((_DKV,), DKV_VARIANTS),
-    "gemm": ((_GEMM,), GEMM_VARIANTS),
+    "gemm": ((_GEMM, _FP32, _NN), GEMM_VARIANTS),
 }
 
 
@@ -240,12 +265,16 @@ def use(csrc: pathlib.Path, sources) -> None:
 
 
 def build(trees: dict, sources) -> None:
-    """The group's sources of every tree, one nvcc each, all at once; then
-    each build's ptxas lines."""
-    started = []
+    """The group's sources of every tree, one nvcc each, all at once (a
+    source whose library another tree already builds -- the same text and
+    headers -- once); then each build's ptxas lines."""
+    started, libs = [], set()
     for csrc in trees.values():
         use(csrc, sources)
-        started += [(csrc, src, _build._start_build(src)) for src in sources]
+        for src in sources:
+            if _build._lib_path(src) not in libs:
+                libs.add(_build._lib_path(src))
+                started.append((csrc, src, _build._start_build(src)))
     for csrc, src, s in started:
         if s is not None:
             use(csrc, sources)
@@ -350,29 +379,92 @@ def dkv_cases(gen, tiles):
     return cases, check, library
 
 
+def _split_route() -> bool:
+    """Whether the tree in use computes rung 16 from split bf16 planes
+    (this tree); an older tree's ``fp32_gemm_nt`` takes fp32 A and BT (the
+    FFMA kernel before the split route)."""
+    return "split_map" in (_build.CSRC / _FP32).read_text()
+
+
+def fp32_bt(a, bt, c):
+    """Rung 16 on the tree in use: its wrapper, or the older trees' direct
+    launch on fp32 operands."""
+    if _split_route():
+        return tuned.mmult_fp32_bt(a, bt, c)
+    return tuned.launch_gemm("mmult_fp32_bt", "fp32_gemm_nt", a, bt, c, c,
+                             torch.float32, bt=True)
+
+
+def fp32_product(a2, b2, a, bt, c):
+    """Rung 16's kernel alone on planes split beforehand (an older tree:
+    its kernel on the fp32 operands)."""
+    if not _split_route():
+        return fp32_bt(a, bt, c)
+    m, n = c.shape
+    k = a2.shape[2]
+    _build.launch("fp32_gemm_nt", c.device, a2, b2, c, c, m, n, k, k, k, n)
+    return c
+
+
 def gemm_cases(gen, tiles):
-    cases, refs, library = {}, {}, {}
+    """Rungs 15, 16 (the wrapper with its splits, and the kernel alone on
+    planes split beforehand) and 05 at 4,096 and 2,048; each held to its
+    plain version relative to max |plain|, two calls bit-equal, rung 05's
+    C left as it was; 01b's two calls (rungs 15 and 05) and 01's (16)
+    beside them."""
+    cases, rows, library = {}, {}, {}
     for p in (4096, 2048):
         a, b, c = (torch.rand((p, p), generator=gen, device="cuda") * 2 - 1
                    for _ in "abc")
         a16, bt16 = tuned.prepare_bf16_bt(a, b)
-        cases[f"bf16_gemm_nt p={p}"] = (
-            lambda a16=a16, bt16=bt16, c=c: tuned.mmult_bf16_bt(a16, bt16, c))
-        refs[f"bf16_gemm_nt p={p}"] = (a16, bt16, c)
-        library[f"bf16_gemm_nt p={p}"] = time_calls(
-            lambda a16=a16, bt16=bt16, c=c: vendor.mmult_bf16(a16, bt16.t(), c),
-            graph=True) * 1e3
+        b16 = b.to(torch.bfloat16)
+        bt = b.t().contiguous()
+        a2, b2 = grouped_gemm.split_bf16(a), grouped_gemm.split_bf16(bt)
+        # name: (run(c), plain(c), library(c)), each on a C of its own
+        for name, row in {
+                "bf16_gemm_nt": (
+                    lambda c, a16=a16, bt16=bt16:
+                    tuned.mmult_bf16_bt(a16, bt16, c),
+                    lambda c, a16=a16, bt16=bt16:
+                    tuned.mmult_bf16_bt_ref(a16, bt16, c),
+                    lambda c, a16=a16, bt16=bt16:
+                    vendor.mmult_bf16(a16, bt16.t(), c)),
+                "fp32_gemm_nt": (
+                    lambda c, a=a, bt=bt: fp32_bt(a, bt, c),
+                    lambda c, a=a, bt=bt: tuned.mmult_fp32_bt_ref(a, bt, c),
+                    lambda c, a=a, bt=bt: vendor.mmult(a, bt.t(), c)),
+                "fp32_gemm_nt alone": (
+                    lambda c, a2=a2, b2=b2, a=a, bt=bt:
+                    fp32_product(a2, b2, a, bt, c), None, None),
+                "bf16_gemm_nn": (
+                    lambda c, a16=a16, b16=b16: tuned.mmult_bf16(a16, b16, c),
+                    lambda c, a16=a16, b16=b16:
+                    tuned.mmult_bf16_ref(a16, b16, c),
+                    lambda c, a16=a16, b16=b16:
+                    vendor.mmult_bf16(a16, b16, c))}.items():
+            case = f"{name} p={p}"
+            run, plain, lib = row
+            work = c.clone()
+            cases[case] = lambda run=run, work=work: run(work)
+            if plain is not None:
+                rows[case] = (run, plain, c)
+            if lib is not None:
+                library[case] = time_calls(lambda lib=lib, c=c: lib(c),
+                                           graph=True) * 1e3
 
     def check(name):
         parts = []
-        for case, (a16, bt16, c) in refs.items():
-            ref = tuned.mmult_bf16_bt_ref(a16, bt16, c)
-            out = tuned.mmult_bf16_bt(a16, bt16, c.clone())
-            again = tuned.mmult_bf16_bt(a16, bt16, c.clone())
+        for case, (run, plain, c) in rows.items():
+            ref = plain(c)
+            cin = c.clone()
+            out = run(cin)
+            again = run(c.clone())
             err = float((out - ref).abs().max() / ref.abs().max())
             same = torch.equal(out, again)
+            kept = ("" if out.data_ptr() == cin.data_ptr() else
+                    f", C {'unchanged' if torch.equal(cin, c) else 'CHANGED'}")
             parts.append(f"{case}: {err:.3e} of max |plain|, repeat "
-                         f"{'equal' if same else 'DIFFERS'}")
+                         f"{'equal' if same else 'DIFFERS'}{kept}")
         return "; ".join(parts)
     return cases, check, library
 
@@ -422,7 +514,9 @@ def main(argv=None) -> None:
             for case, fn in cases.items():
                 times[name, case].append(time_calls(fn, graph=True) * 1e3)
     for case in cases:
-        print(f"{case}: library {library[case]:.4f} ms")
+        lib = library.get(case)
+        print(f"{case}: library "
+              + ("none" if lib is None else f"{lib:.4f} ms"))
         for name in order:
             ms = ", ".join(f"{t:.4f}" for t in times[name, case])
             print(f"  [{name}] {ms} ms")

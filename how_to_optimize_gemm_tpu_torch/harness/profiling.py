@@ -20,9 +20,11 @@ reference's mperf/TMA slot):
 The ceilings are the H100 SXM data sheet's dense peaks at 700 W (the
 port's one copy of them; ``chip_smoke.py`` and the bench read them here).
 fp32 at the ladder's gate (1e-4) is held to the fastest route that meets
-it, a 3xTF32 split on the tensor cores at a third of the TF32 peak; the
-CUDA cores' FFMA ceiling is printed beside it, since every fp32 kernel of
-the port runs there. On the CPU (only when asked for) the profile times
+it and FP32_REL: three bf16 products of operands split into bf16 hi + lo
+on the tensor cores (rung 16's kernel, measured within FP32_REL on the
+card), a third of the bf16 peak; 3xTF32 runs at half that rate. The CUDA
+cores' FFMA ceiling is printed beside it, since the fp32 rungs below 16
+(00, 02, 03, 03b, 04) run there. On the CPU (only when asked for) the profile times
 the host's operators and is labelled so: no CPU time is a device time.
 """
 from __future__ import annotations
@@ -41,10 +43,10 @@ from how_to_optimize_gemm_tpu_torch.utils.matrices import make_abc
 PEAK_INT8_OPS = 1.979e15
 PEAK_BF16_FLOPS = 0.989e15
 PEAK_TF32_FLOPS = 0.495e15
-PEAK_FP32_FLOPS = PEAK_TF32_FLOPS / 3   # 3xTF32, fp32 rows in general
-# three bf16 products of operands split into bf16 hi + lo: the fp32 rate
-# of a function whose rule they are shown to meet (grouped_dw's FP32_REL)
-PEAK_BF16X3_FLOPS = PEAK_BF16_FLOPS / 3
+# the fp32 rows' ceiling: three bf16 products of operands split into bf16
+# hi + lo (bf16x3), the fastest route shown to meet FP32_REL (rung 16's
+# and grouped_dw's)
+PEAK_FP32_FLOPS = PEAK_BF16_FLOPS / 3
 PEAK_FFMA_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 

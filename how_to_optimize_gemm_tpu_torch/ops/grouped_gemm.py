@@ -187,7 +187,7 @@ def split_bf16_ref(x) -> torch.Tensor:
 def split_bf16(x) -> torch.Tensor:
     """x (rows, cols) float as two bf16 planes for the tensor cores, hi
     then lo, |x - hi - lo| <= 2^-17 |x|: the operand of the forward's and
-    dW's kernels. Kernel ``split_bf16`` on the card (bit for bit its plain
+    dW's kernels and of rung 16's (``tuned.mmult_fp32_bt``). Kernel ``split_bf16`` on the card (bit for bit its plain
     version), the plain version on the CPU."""
     if x.device.type == "cpu":
         return split_bf16_ref(x)

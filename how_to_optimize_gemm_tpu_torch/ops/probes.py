@@ -45,8 +45,8 @@ import torch
 
 from how_to_optimize_gemm_tpu_torch import _build
 from how_to_optimize_gemm_tpu_torch.harness.profiling import (
-    PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FFMA_FLOPS, PEAK_FP32_FLOPS,
-    PEAK_INT8_OPS)
+    PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FFMA_FLOPS, PEAK_INT8_OPS,
+    PEAK_TF32_FLOPS)
 from how_to_optimize_gemm_tpu_torch.ops.vendor import fp32_matmul
 from how_to_optimize_gemm_tpu_torch.utils.device import default_device
 
@@ -799,7 +799,7 @@ def ceilings(device=None) -> dict:
     return {
         "bf16": (PEAK_BF16_FLOPS / 1e9, sheet),
         "int8": (PEAK_INT8_OPS / 1e9, sheet),
-        "fp32": (PEAK_FP32_FLOPS / 1e9, sheet + " (3xTF32: TF32 / 3)"),
+        "fp32": (PEAK_TF32_FLOPS / 3 / 1e9, sheet + " (3xTF32: TF32 / 3)"),
         "ffma": (PEAK_FFMA_FLOPS / 1e9, sheet),
         "hbm": (PEAK_BYTES / 1e9, sheet),
         "sfu": (derived["sfu"], guide),

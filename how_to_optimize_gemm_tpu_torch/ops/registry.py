@@ -166,8 +166,9 @@ _register(Rung(
     run=tuned.mmult_bf16,
     prepare=_bf16_prepare, effective=_identity_effective,
     gate_rel=1e-3, bytes_per_input_elt=2.0,
-    doc="bf16 operands, fp32 accumulation seeded with C; B (K,N) read "
-        "with ldmatrix.trans (kernel bf16_gemm_nn)"))
+    doc="bf16 operands, fp32 accumulation seeded with C; rung 15's "
+        "persistent wgmma kernel with B (K,N) read N-major by tensor map "
+        "(kernel bf16_gemm_nn)"))
 
 _register(Rung(
     name="06v_xla_int8", dtype="int8",
@@ -333,8 +334,11 @@ _register(Rung(
     run=tuned.mmult_fp32_bt,
     prepare=tuned.prepare_fp32_bt, effective=_fp32_bt_effective,
     gate_rel=1e-4,
-    doc="the fp32 summit: rung 14's recipe at full fp32 accuracy (kernel "
-        "fp32_gemm_nt, FFMA)"))
+    doc="the fp32 summit: rung 14's recipe on fp32 operands at bf16x3 "
+        "precision (XLA's HIGH, within 1e-5 of the fp32 product; the "
+        "reference's HIGHEST is six bf16 passes), A and BT split into "
+        "bf16 hi + lo and hi.hi + hi.lo + lo.hi on rung 15's wgmma "
+        "kernel (kernels split_bf16, fp32_gemm_nt)"))
 
 _register(Rung(
     name="07_pallas_int4", dtype="int4",

@@ -3,8 +3,8 @@
 Counterpart of ``how_to_optimize_gemm_tpu/viz/plot.py`` (the reference's
 old-vs-new matplotlib lines with a horizontal peak line). Reads the
 ``.m`` files the port's driver writes; the roofline line takes the H100
-SXM data-sheet ceilings of ``harness/profiling.py`` (fp32: 3xTF32, with
-the FFMA ceiling drawn beside it). Runs on the host, from files: nothing
+SXM data-sheet ceilings of ``harness/profiling.py`` (fp32: three bf16
+products of split operands, with the FFMA ceiling drawn beside it). Runs on the host, from files: nothing
 on the card's path imports this package.
 
     python -m how_to_optimize_gemm_tpu_torch.viz.plot \\
@@ -52,7 +52,7 @@ def plot_mfiles(paths, save=None, roofline: str | None = None,
                        f"peak {float(roofline):.0f} GFLOPS", "--")
         except ValueError:
             peak = H100_PEAKS[roofline][0]
-            name = "3xTF32" if roofline == "fp32" else roofline
+            name = "bf16 x3" if roofline == "fp32" else roofline
             _peak_line(ax, peak, f"H100 {name} peak", "--")
             if roofline == "fp32":
                 _peak_line(ax, FFMA_GFLOPS, "H100 FFMA peak", ":")

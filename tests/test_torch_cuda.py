@@ -59,7 +59,8 @@ def _abc(shape, seed, device):
 # decoded to bf16) are exact in fp32, and the tensor cores sum them in
 # another order than the plain version: within W4A16_REL of max |plain|.
 # The FFMA kernels sum one fmaf chain over K, the plain version in
-# cuBLAS's fp32 order: within FP32_REL of max |plain|.
+# cuBLAS's fp32 order, and rung 16 three bf16 products of split operands
+# (lo.lo dropped): within FP32_REL of max |plain|.
 W4A16_REL = 2e-5
 FP32_REL = 1e-5
 CASES = {
@@ -214,6 +215,43 @@ def test_bf16_gemm_nt_edges_and_walk(cuda, shape):
     lengths = {len(w) for w in tuned.nt_tile_walk(shape[0], shape[1], sms)}
     if shape == NT_SHAPES[0]:
         assert max(lengths) > 1 and len(lengths) > 1
+
+
+# Rungs 16 and 05 on rung 15's wgmma body (csrc/gemm_wgmma.cuh): rung 16
+# (128 x 128 tiles, A and BT split into bf16 planes by two split_bf16
+# launches, three products a stage, partial sums every CH stages) within
+# FP32_REL and rung 05 (128 x 256 tiles, B read N-major) within W4A16_REL
+# of max |plain|, at 4,096, 2,048, the unaligned shape and K no multiple of
+# the 64-value stage; two calls bit-equal; rung 16 writes C in place, rung
+# 05 leaves it as it was.
+REBUILT_SHAPES = [(4096, 4096, 4096), (2048, 2048, 2048),
+                  (1000, 1032, 1100), (520, 392, 1000)]
+
+
+@pytest.mark.parametrize("shape", REBUILT_SHAPES)
+@pytest.mark.parametrize("kernel", ["fp32_gemm_nt", "bf16_gemm_nn"])
+def test_rebuilt_fp32_and_nn_kernels(cuda, kernel, shape):
+    rung_name, wrapper, plain, tol = CASES[kernel]
+    a, b, c = _abc(shape, 31, cuda)
+    ops = _operands(registry.get(rung_name).prepare(a, b))
+    before = dict(_build.LAUNCHES)
+    cin = c.clone()
+    out = wrapper(*ops, cin)
+    torch.cuda.synchronize()
+    counts = {k: _build.LAUNCHES[k] - before[k]
+              for k in (kernel, "split_bf16")}
+    assert counts == {kernel: 1,
+                      "split_bf16": 2 if kernel == "fp32_gemm_nt" else 0}
+    again = wrapper(*ops, c.clone())
+    ref = plain(*ops, c)
+    torch.cuda.synchronize()
+    scale = float(ref.abs().max())
+    assert float((out - ref).abs().max()) <= tol * scale
+    assert torch.equal(out, again)
+    if kernel == "fp32_gemm_nt":
+        assert out.data_ptr() == cin.data_ptr()
+    else:
+        assert out.data_ptr() != cin.data_ptr() and torch.equal(cin, c)
 
 
 @pytest.mark.parametrize("b_buffers", hand_pipeline.B_BUFFERS)
@@ -1461,11 +1499,13 @@ def test_grouped_dw_matches_plain_version(cuda, shape):
 
 # The kernels that share csrc/wgmma.cuh with the flash kernels and rung
 # 15 (the MoE grouped products, forward, dx and dW), the flash backward's
-# dQ kernel, and rung 05 and W4A16 (bf16_gemm.cuh, rung 15's old body):
-# SHA-256 digests of their outputs on fixed inputs, as the tree before
-# each rebuild gave them on an H100 (NVIDIA H100 80GB HBM3); dK/dV's as
-# its wgmma kernel gives them. The same sources and nvcc give the same
-# bits; a digest that moves means a kernel's code moved.
+# dQ kernel, rungs 15 and 05 (one wgmma body, gemm_wgmma.cuh) and W4A16
+# (bf16_gemm.cuh): SHA-256 digests of their outputs on fixed inputs, as the
+# tree before each rebuild gave them on an H100 (NVIDIA H100 80GB HBM3);
+# dK/dV's as its wgmma kernel gives them. Rung 05 on wgmma, its
+# accumulators seeded with C, gives the bits of the mma.sync kernel before
+# it. The same sources and nvcc give the same bits; a digest that moves
+# means a kernel's code moved.
 SHARED_DIGESTS = {
     "grouped_gemm bf16": "1ef3e9f68a803cbf",
     "grouped_gemm_t bf16": "45356b182853332a",
@@ -1476,6 +1516,7 @@ SHARED_DIGESTS = {
     "grouped_dw": "cfcc1f7fabba2333",
     "flash_attention_bwd_dq": "391e127c542a3a53",
     "flash_attention_bwd_dkv": "bdd0004dac43a8f0",
+    "bf16_gemm_nt": "9b459eb9c7cec971",
     "bf16_gemm_nn": "c60e016745fb0762",
     "w4a16_gemm": "1b52344b433b8dd0"}
 
@@ -1506,11 +1547,11 @@ def _shared_digests(device) -> dict:
     outs["flash_attention_bwd_dq"] = attention.flash_attention_bwd_dq(*args)
     dk, dv = attention.flash_attention_bwd_dkv(*args)
     outs["flash_attention_bwd_dkv"] = torch.cat([dk, dv])
-    for name, rung in (("bf16_gemm_nn", "05_pallas_bf16"),
-                       ("w4a16_gemm", "07_pallas_int4")):
-        _, wrapper, _, _ = CASES[name]
+    for name in ("bf16_gemm_nt", "bf16_gemm_nn", "w4a16_gemm"):
+        rung, wrapper, _, _ = CASES[name]
         a, b, c = _abc((1000, 1032, 1100), 13, device)
-        outs[name] = wrapper(*_operands(registry.get(rung).prepare(a, b)), c)
+        outs[name] = wrapper(*_operands(registry.get(rung).prepare(a, b)),
+                             c.clone())
     torch.cuda.synchronize()
     return {name: hashlib.sha256(t.contiguous().cpu().numpy().tobytes())
             .hexdigest()[:16] for name, t in outs.items()}

@@ -30,13 +30,15 @@ class Row:
 
 
 def test_roofline_matches_the_formula():
-    """Rung 03 at 4096 (compute-bound at 3xTF32's 165 TFLOP/s) and rung
-    07b at m = 8 (W4A8: int8 A, int4 B; memory-bound)."""
+    """Rung 03 at 4096 (compute-bound at the fp32 ceiling, three bf16
+    products: 989 / 3 TFLOP/s) and rung 07b at m = 8 (W4A8: int8 A, int4
+    B; memory-bound)."""
     pt = profiling.roofline("03_pallas_k_blocked", 4096, 4096, 4096,
                             33_000.0)
     assert pt.bound == "compute"
-    assert pt.compute_ceiling_gflops == pytest.approx(165_000.0, rel=1e-12)
-    assert pt.fraction_of_ceiling == pytest.approx(0.2, rel=1e-12)
+    assert pt.compute_ceiling_gflops == pytest.approx(989_000.0 / 3,
+                                                      rel=1e-12)
+    assert pt.fraction_of_ceiling == pytest.approx(0.1001011122345, rel=1e-9)
     flops = 2.0 * 4096 ** 3
     io = 2 * 4096 * 4096 * 4 + 2 * 4096 * 4096 * 4
     assert pt.memory_ceiling_gflops == pytest.approx(
@@ -59,8 +61,8 @@ def test_roofline_report_rows():
     assert "H100 SXM" in lines[0] and "FFMA 67000" in lines[0]
     assert lines[1].split() == ["p", "achieved", "bound", "ceiling", "%",
                                 "of", "ceiling", "%", "of", "FFMA"]
-    assert lines[2].split() == ["4096", "33000", "compute", "165000",
-                                "20.0%", "49.3%"]
+    assert lines[2].split() == ["4096", "33000", "compute", "329667",
+                                "10.0%", "49.3%"]
     # the vendor bar's table has no FFMA column
     text = profiling.roofline_report(
         [Row(1024, 1024, 1024, 1024, 1.0)], "06v_xla_int8")
@@ -79,7 +81,7 @@ def test_roofline_takes_measured_peaks():
     assert pt.fraction_of_ceiling == pytest.approx(0.5)
     default = profiling.roofline("03_pallas_k_blocked", 4096, 4096, 4096,
                                  20_000.0)
-    assert default.compute_ceiling_gflops == pytest.approx(165_000.0)
+    assert default.compute_ceiling_gflops == pytest.approx(989_000.0 / 3)
     rows = [Row(4096, 4096, 4096, 4096, 20_000.0)]
     text = profiling.roofline_report(rows, "03_pallas_k_blocked", peaks)
     assert "the caller's ceilings" in text.splitlines()[0]
