@@ -43,9 +43,9 @@ Phases (any failure raises and exits non-zero before the last line):
    rung 10, 12 or 13, the check that evict_last lines left behind do not
    slow the next kernel, and rungs 12, 13, 14 and 18 at p = 2,048 chained
    beside a CUDA-graph replay, the host's share of a call), the bf16 and
-   W4A16 kernels' within W4A16_REL, and rung 16's (three bf16 products of
-   split operands on ``wgmma``: bf16x3, XLA's Precision.HIGH, where the
-   reference runs HIGHEST) and the FFMA kernels' (rungs 04, 03/03b,
+   W4A16 kernels' within W4A16_REL, and rungs 16's and 04's (three bf16
+   products of split operands on ``wgmma``: bf16x3, XLA's Precision.HIGH,
+   where the reference runs HIGHEST) and the FFMA kernels' (rungs 03/03b,
    02 and the naive rung 00) within FP32_REL of max |plain| (fp32 sums in
    another order), and every output under its rung's gate_rel against an
    fp64 oracle on the card; then its time at 4096 beside the plain
@@ -55,9 +55,10 @@ Phases (any failure raises and exits non-zero before the last line):
    the peak of the kernel's type (int8; bf16 for bf16 and W4A16; for fp32
    the fastest route that meets gate 1e-4 and FP32_REL, three bf16
    products at a third of the bf16 peak, with the FFMA ceiling printed
-   beside it for the rows on FFMA); rung 16 also in its parts, the two
-   ``split_bf16`` launches and the kernel alone on planes split
-   beforehand (bits equal to the wrapper's), each timed;
+   beside it for the rows on FFMA); rungs 16 and 04 also in their parts,
+   the two ``split_bf16`` launches (counted: two a call, and two for each
+   of their launches in the ladder path) and the kernel alone on planes
+   split beforehand (bits equal to the wrapper's), each timed;
 5. each serving kernel against its plain version at the Llama-2-7B
    shapes the serve paths give it (``kv_update`` and ``paged_kv_update``
    on each row kind: bf16 values, int8 values and fp32 scales; the paged
@@ -458,8 +459,9 @@ KERNELS = [
                   "_mmult_impl :128, rung 04)",
          rung="04_pallas_tuned_fp32", wrapper=tuned.mmult,
          plain=tuned.mmult_ref, library=vendor.mmult,
-         unaligned=(1000, 1032, 1100), tol=FP32_REL, peak="fp32",
-         ffma=True),
+         unaligned=(1000, 1032, 1100),
+         more=((1024, 1024, 1024), (2048, 2048, 2048)),
+         tol=FP32_REL, peak="fp32", extra=("fp32_parts",)),
     # the rungs below 04, on the CUDA cores; an unaligned shape whose K
     # and N rows are not 16-byte multiples (03's wrapper pads them)
     dict(name="naive_gemm", source=SRC + "naive_gemm.cu",
@@ -560,7 +562,7 @@ def check_pretile(spec: dict, gen: torch.Generator) -> dict:
             "bound_by": b_by, "library_ms": None}
 
 
-def check_knobs(ops, c, gen: torch.Generator) -> None:
+def check_knobs(name: str, ops, c, gen: torch.Generator) -> None:
     """Rung 17's six instances (``hand_pipeline.B_BUFFERS`` x
     a_lookahead): each EQUAL to ``int8_gemm_nt``'s output at WALK and at
     P_FULL (the reference's test_bit_identical_to_rung14), each timed at
@@ -590,7 +592,7 @@ def check_knobs(ops, c, gen: torch.Generator) -> None:
               f"{ms:.4f} ms = {2.0 * P_FULL ** 3 / ms * 1e-9:.1f} Tops/s")
 
 
-def check_two_piece(ops, c, gen: torch.Generator) -> None:
+def check_two_piece(name: str, ops, c, gen: torch.Generator) -> None:
     """Rung 18 at P_FULL on the reference test's two-piece plan
     (RAGGED_CAP): EQUAL to its plain version, on its own kernel."""
     plan = int8.ragged_m_plan(P_FULL, RAGGED_CAP)
@@ -607,7 +609,7 @@ def check_two_piece(ops, c, gen: torch.Generator) -> None:
           "int8_ragged_nt launch")
 
 
-def check_residue(ops, c, gen: torch.Generator) -> None:
+def check_residue(name: str, ops, c, gen: torch.Generator) -> None:
     """int8_gemm_nt's time right after one call of rung 10, 12 or 13
     (median of 9): lines rungs 12 and 13 leave in the L2 under evict_last
     would slow the next kernel's reads."""
@@ -632,7 +634,7 @@ def check_residue(ops, c, gen: torch.Generator) -> None:
 P_HOST = 2048
 
 
-def check_host(ops, c, gen: torch.Generator) -> None:
+def check_host(name: str, ops, c, gen: torch.Generator) -> None:
     """At P_HOST, rungs 12, 13, 14 and 18: the chained time a call (the
     host's issue included, as the sweep and ab time it) beside a CUDA-graph
     replay's (the device's time alone)."""
@@ -649,7 +651,7 @@ def check_host(ops, c, gen: torch.Generator) -> None:
               f"{replay:.4f} ms a graph replay (with a copy of C)")
 
 
-def check_nt_walk(ops, c, gen: torch.Generator) -> None:
+def check_nt_walk(name: str, ops, c, gen: torch.Generator) -> None:
     """Rung 15's kernel: at WALK its persistent grid (one block an SM)
     walks more tiles than blocks, and not a multiple of them
     (``tuned.nt_tile_walk``); two calls at P_FULL give the same bits."""
@@ -669,36 +671,53 @@ def check_nt_walk(ops, c, gen: torch.Generator) -> None:
           f"p={P_FULL} bit-equal")
 
 
-def check_fp32_parts(ops, c, gen: torch.Generator) -> None:
-    """Rung 16's wrapper at P_FULL in its parts: the two ``split_bf16``
-    launches (A and BT into bf16 hi + lo planes) and ``fp32_gemm_nt``
-    alone on planes split beforehand, whose bits must equal the
-    wrapper's; each timed."""
-    a, bt = ops
+def check_fp32_parts(name: str, ops, c, gen: torch.Generator) -> None:
+    """Rung 16's or rung 04's wrapper at P_FULL in its parts: the two
+    ``split_bf16`` launches (A and BT, or A and B as it lies, into bf16
+    hi + lo planes) and ``fp32_gemm_nt`` (in place) or ``fp32_gemm_nn`` (a
+    fresh output) alone on planes split beforehand, whose bits must equal
+    the wrapper's; each timed."""
+    a, b = ops
     m, n = c.shape
+    in_place = name == "fp32_gemm_nt"
+    wrapper = tuned.mmult_fp32_bt if in_place else tuned.mmult
 
     def split():
-        return grouped_gemm.split_bf16(a), grouped_gemm.split_bf16(bt)
+        return grouped_gemm.split_bf16(a), grouped_gemm.split_bf16(b)
     a2, b2 = split()
-    k = a2.shape[2]
+    # rung 16 passes its padded K as the wrapper does; rung 04's B map
+    # needs the true K (B's planes have K rows)
+    k = a2.shape[2] if in_place else a.shape[1]
 
-    def product(a_, bt_, cc):
-        _build.launch("fp32_gemm_nt", cc.device, a2, b2, cc, cc, m, n, k, k,
-                      k, n)
-        return cc
-    alone = product(a, bt, c.clone())
-    whole = tuned.mmult_fp32_bt(a, bt, c.clone())
+    def product(a_, b_, cc):
+        out = cc if in_place else torch.empty_like(cc)
+        _build.launch(name, cc.device, a2, b2, cc, out, m, n, k, a2.shape[2],
+                      b2.shape[2], n)
+        return out
+    alone = product(a, b, c.clone())
+    whole = wrapper(a, b, c.clone())
     torch.cuda.synchronize()
     if not torch.equal(alone, whole):
-        raise AssertionError("fp32_gemm_nt: the kernel alone differs from "
-                             "its wrapper")
+        raise AssertionError(f"{name}: the kernel alone differs from its "
+                             "wrapper")
     split_ms = time_calls(split) * 1e3
     product_ms = time_chained(product, ops, c, inner_iters=20,
                               outer_repeats=3, warmup=2) * 1e3
     b_ms, b_by = bound([a2, b2], m, n, a.shape[1], PEAK_FP32_FLOPS)
-    print(f"fp32_gemm_nt p={P_FULL} in parts: the two splits "
+    print(f"{name} p={P_FULL} in parts: the two splits "
           f"{split_ms:.4f} ms, the product alone {product_ms:.4f} ms "
           f"(bound {b_ms:.4f} by {b_by}), bits equal to the wrapper's")
+
+
+def _launched_with_splits(name: str, before: dict) -> None:
+    """``name`` launched once and ``split_bf16`` twice since ``before``:
+    rungs 16's and 04's wrappers split both operands, then take the
+    product."""
+    now = _build.LAUNCHES
+    got = (now[name] - before[name], now["split_bf16"] - before["split_bf16"])
+    if got != (1, 2):
+        raise AssertionError(f"{name}: launches (kernel, split_bf16) {got}, "
+                             "expected (1, 2)")
 
 
 EXTRA_CHECKS = {"knobs": check_knobs, "two_piece": check_two_piece,
@@ -725,6 +744,8 @@ def check_kernel(spec: dict, gen: torch.Generator) -> dict:
         torch.cuda.synchronize()
         if spec.get("own"):
             _launched(name, before)
+        if "fp32_parts" in spec.get("extra", ()):
+            _launched_with_splits(name, before)
         max_abs = float((out - ref).abs().max())
         scale = float(ref.abs().max())
         ae, be = rung.effective(prepared)
@@ -762,7 +783,7 @@ def check_kernel(spec: dict, gen: torch.Generator) -> dict:
           f"{bound_ms:.4f} by {bound_by} at the {spec['peak']} peak{ffma}"
           f"{before})")
     for extra in spec.get("extra", ()):
-        EXTRA_CHECKS[extra](ops, c, gen)
+        EXTRA_CHECKS[extra](name, ops, c, gen)
     return result
 
 
@@ -834,7 +855,8 @@ FLASH_ULPS = 2.0
 # HBM3, 700.00 W), printed beside this run's
 BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
              "bf16_gemm_nt": 0.6477, "flash_attention_bwd_dkv": 1.0286,
-             "fp32_gemm_nt": 6.6231, "bf16_gemm_nn": 0.5681}
+             "fp32_gemm_nt": 6.6231, "bf16_gemm_nn": 0.5681,
+             "fp32_gemm_nn": 4.4085, "paged_decode_attention_q8": 0.8038}
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0
@@ -1285,8 +1307,10 @@ def check_paged_attention(gen: torch.Generator, q8: bool) -> dict:
     max_seq), and at a ragged shape (kvh 3, rep 2, d 32, pages of 96).
     The contiguous kernel on the same logical cache (the pages gathered
     and cut to max_seq, as the contiguous engine holds it) is timed
-    beside it. No single PyTorch call reads through a block table, so
-    the library time is null."""
+    beside it. The KV8 kernel walks each slot in splits of whole pages
+    (one page at 384 tokens) and must leave its workspace's counters at 0.
+    No single PyTorch call reads through a block table, so the library
+    time is null."""
     name = "paged_decode_attention_q8" if q8 else "paged_decode_attention"
     kernel = getattr(paged_attention, name)
     plain = getattr(paged_attention, name + "_ref")
@@ -1317,6 +1341,8 @@ def check_paged_attention(gen: torch.Generator, q8: bool) -> dict:
         if not (err < DECODE_ATOL and torch.isfinite(out).all()):
             raise AssertionError(f"{name} {shape}: differs from its plain "
                                  f"version by {err}")
+        if q8 and decode_attention._WORKSPACE[out.device][0].any():
+            raise AssertionError(f"{name} {shape}: counters left non-zero")
         live = sum(lens)
         row = 2 * kvh * (d + 4) if q8 else 2 * kvh * d * 2
         b_ms = bound_ms(nbytes(q, lengths, table) + 4 * q.numel()
@@ -1330,8 +1356,14 @@ def check_paged_attention(gen: torch.Generator, q8: bool) -> dict:
                 for c in pools]
         c_ms = time_calls(lambda: contiguous(q, *flat, lengths),
                           graph=True) * 1e3
+        before = (f"; {BEFORE_MS[name]} ms before the split walk"
+                  if name in BEFORE_MS and len(results) == 1 else "")
         print(f"{name} {shape}: the contiguous kernel on the same cache "
-              f"(T={t}) {c_ms:.4f} ms, paged {results[-1]['ms']:.4f} ms")
+              f"(T={t}) {c_ms:.4f} ms, paged {results[-1]['ms']:.4f} ms"
+              f"{before}")
+        if q8 and decode_attention._WORKSPACE[out.device][0].any():
+            raise AssertionError(f"{name} {shape}: counters left non-zero "
+                                 "by the timed calls")
     return results[0]
 
 
@@ -3413,6 +3445,14 @@ def main() -> int:
     missing = [s["name"] for s in KERNELS if launches[s["name"]] == 0]
     if missing:
         raise AssertionError(f"ladder path never launched {missing}")
+    split_rungs = launches["fp32_gemm_nt"] + launches["fp32_gemm_nn"]
+    if launches["split_bf16"] != 2 * split_rungs:
+        raise AssertionError(f"ladder path: {launches['split_bf16']} "
+                             f"split_bf16 launches for {split_rungs} of "
+                             "fp32_gemm_nt and fp32_gemm_nn")
+    print(f"ladder path: split_bf16 {launches['split_bf16']} launches, two "
+          f"for each of fp32_gemm_nt's {launches['fp32_gemm_nt']} and "
+          f"fp32_gemm_nn's {launches['fp32_gemm_nn']}")
 
     # each serving kernel's count: its launches summed over the serve
     # paths, each path's counts read just after it

@@ -115,10 +115,11 @@ KERNELS = {
     #  D, scale, stream)
     "paged_decode_attention": Kernel("paged_decode_attention.cu", (_P,) * 6
                                      + (_I,) * 7 + (_F, _P)),
-    # (q, qk, sk, qv, sv, table, lengths, out, B, NP, PS, np_max, KVH, REP,
-    #  D, scale, stream)
+    # (q, qk, sk, qv, sv, table, lengths, out, part, count, B, NP, PS,
+    #  np_max, KVH, REP, D, C, scale, stream): part and count the split
+    #  walk's workspace, C the pages of a split
     "paged_decode_attention_q8": Kernel("paged_decode_attention_q8.cu",
-                                        (_P,) * 8 + (_I,) * 7 + (_F, _P)),
+                                        (_P,) * 10 + (_I,) * 8 + (_F, _P)),
     # (q, k, v, out, B, H, KVH, S, T, D, causal, then the (b, h, row)
     #  element strides of q, k, v and out, scale, stream); the two flash
     #  forwards are wgmma kernels (csrc/flash_wgmma.cuh) whose C entry

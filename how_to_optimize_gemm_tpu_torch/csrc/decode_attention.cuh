@@ -1,8 +1,9 @@
 // The decode-attention kernel templates: the one-block walk shared by
-// decode_attention_q8.cu (int8 cache with fp32 scales per (token, head)),
-// paged_decode_attention.cu and paged_decode_attention_q8.cu, and the split
-// walk of decode_attention.cu (bf16 cache). Each source states what it
-// replaces and its bound.
+// decode_attention_q8.cu (int8 cache with fp32 scales per (token, head))
+// and paged_decode_attention.cu (bf16 pool), and the split walk of
+// decode_attention.cu (bf16 cache) and paged_decode_attention_q8.cu (int8
+// pool with fp32 scales). Each source states what it replaces and its
+// bound.
 //
 // q (B, KVH*REP, D) float32, head h = g*REP + r; the cache rows (R, KVH, D),
 // bf16 or int8; for int8, sk and sv (R, KVH) float32; lengths (B) int32,

@@ -1,12 +1,13 @@
 // fp32 GEMMs on the CUDA cores (FFMA) at full fp32 accuracy: the main loop
-// of fp32_gemm_nn.cu (rung 04) and of the grouped GEMM's fp32-stack
-// instances (grouped_gemm.cu, grouped_gemm_t.cu).
+// of the grouped GEMM's fp32-stack instances (grouped_gemm.cu kind 3, B
+// N-major; grouped_gemm_t.cu kind 3, B given as BT), and nothing else. The
+// ladder's fp32 rungs 04 and 16 run three bf16 products of split operands
+// on gemm_wgmma.cuh instead (fp32_gemm_nn.cu, fp32_gemm_nt.cu).
 //
 // The reference computes these at Precision.HIGHEST (a 6-pass bf16
 // product on the TPU's MXU, about fp32 accurate; gate_rel 1e-4). On
 // Hopper plain TF32 (10-bit mantissa) does not meet that gate; FFMA does,
-// as do three bf16 products of split operands on the tensor cores (rung
-// 16's route, fp32_gemm_nt.cu).
+// as do three bf16 products of split operands on the tensor cores.
 //
 // Design: the register-blocked SGEMM of the reference tutorial
 // (MMult_cuda_12): one 128x128 output tile per block of 256 threads, each
@@ -17,9 +18,7 @@
 // operand (A (M, K), or B given as BT (N, K)) is transposed on its way in:
 // 4-byte copies, a warp's 32 lanes on 32 consecutive rows; an N-major B
 // (K, N) is copied as it lies, 16 bytes a lane. Each output is one fmaf
-// chain over k. Rung 04's accumulator starts at C, as the reference's
-// _make_kernel does (acc = C, then acc += A.B), and out = acc; each output
-// element is read and written by the thread that owns it.
+// chain over k.
 #pragma once
 
 #include <cuda_runtime.h>

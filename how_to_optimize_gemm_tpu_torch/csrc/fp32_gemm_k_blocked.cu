@@ -16,14 +16,15 @@
 // the arithmetic bounds it.
 //
 // Design: the tutorial's register-blocked SGEMM (MMult_cuda_9), one step
-// below rung 04's kernel (fp32_gemm.cuh). A block owns a BM x BM C tile
+// below fp32_gemm.cuh's FFMA main loop (rung 04's kernel until it moved to
+// bf16 products of split operands). A block owns a BM x BM C tile
 // and each thread an 8 x 8 micro-tile of it (rows ty*8 .. +7, columns
 // tx*8 .. +7), held in registers and seeded with C before the first K
 // step. K is walked in steps of 8: the block loads A's BM x 8 and B's
 // 8 x BM by plain synchronous 16-byte loads (A transposed to [k][m] on its
 // way into shared memory, B as it lies), a barrier, 8 x 64 fmaf per
 // thread from float4 reads of shared memory, a barrier. One stage, no
-// cp.async: rung 04 adds those. The TPU's sequential K grid dimension
+// cp.async: fp32_gemm.cuh adds those. The TPU's sequential K grid dimension
 // becomes this loop inside the block; its scratch accumulator, the
 // registers. The two rungs are one template at two block edges:
 //   BM = 128  rung 03, 256 threads;

@@ -1,7 +1,9 @@
 // One persistent wgmma GEMM body fed by tensor maps: the kernel of rung 15
 // (bf16_gemm_nt.cu), rung 16 (fp32_gemm_nt.cu, three bf16 products on
-// split operands) and rung 05 (bf16_gemm_nn.cu, B read N-major). Each of
-// those files names its instance's constants in a struct P:
+// split operands), rung 05 (bf16_gemm_nn.cu, B read N-major) and rung 04
+// (fp32_gemm_nn.cu, three bf16 products on split operands with B read
+// N-major, the partial sums seeded with C). Each of those files names its
+// instance's constants in a struct P:
 //   BN        output columns a tile (256: 128 fp32 accumulators a thread;
 //             128: 64, which leaves room for a second array of partial sums)
 //   CH        stages a partial sum (0: one wgmma sum over all of K)
@@ -10,10 +12,13 @@
 //             lo planes (split_bf16.cu), hi.hi + hi.lo + lo.hi, the four
 //             planes in one stage
 //   B_MN      B given (K, N), N-major (wgmma's transposed B, legal for
-//             bf16), else BT (N, K), K-major like A
-//   SEED_C    the accumulators start at C and out = sums (the reference's
-//             _make_kernel: acc = C; acc += A.B), else they start at 0 and
-//             out = sums + C at the flush (its _flush / _make_kernel_bt)
+//             bf16; with PRODUCTS 3 both of its split planes), else BT
+//             (N, K), K-major like A
+//   SEED_C    the sums start at C and out = sums (the reference's
+//             _make_kernel: acc = C; acc += A.B): the wgmma accumulators
+//             with CH = 0, the partial-sum array with CH > 0; else they
+//             start at 0 and out = sums + C at the flush (its _flush /
+//             _make_kernel_bt)
 //
 // Block (wgmma.cuh's shape, 384 threads): a persistent grid, one block an
 // SM, walking BM x BN output tiles in groups of GROUP_M row tiles (the
@@ -31,8 +36,9 @@
 //
 // Sums: CH = 0 is the tensor cores' straight fp32 sum over K. CH > 0 sums
 // CH stages in the wgmma accumulator, then adds that partial into a second
-// fp32 array with __fadd_rn in K's order and restarts the wgmma sum: the
-// fixed order of a fixed tiling, the same bits on every run.
+// fp32 array (0, or C with SEED_C) with __fadd_rn in K's order and
+// restarts the wgmma sum: the fixed order of a fixed tiling, the same bits
+// on every run.
 //
 // Epilogue: where out's rows are 16-byte multiples (and, adding C, C is out
 // itself), each consumer stages its sums in shared memory 32 columns at a
@@ -95,6 +101,20 @@ inline bool nmajor_map(CUtensorMap* map, const void* base, int K, int N,
   cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
   cuuint32_t box[2] = {64, wg::KT};
   return wg::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims,
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// split_bf16.cu's planes of B (2, K, ld), hi then lo, as one 3-D map
+// (cols N, rows K, plane), N-major: boxes of 64 columns x 64 K rows of one
+// plane, so rows past K and columns past N read as zeros in both planes.
+inline bool split_nmajor_map(CUtensorMap* map, const void* base, int K,
+                             int N, int ld) {
+  cuuint64_t dims[3] = {static_cast<cuuint64_t>(N),
+                        static_cast<cuuint64_t>(K), 2};
+  cuuint64_t pitch = static_cast<cuuint64_t>(ld) * 2;
+  cuuint64_t strides[2] = {pitch, pitch * K};
+  cuuint32_t box[3] = {64, wg::KT, 1};
+  return wg::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims,
                       strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
@@ -257,7 +277,8 @@ __device__ __forceinline__ void seed_c(float (&d)[NA], const float* c, int M,
 template <class P>
 struct Layout {
   static constexpr int NP = P::PRODUCTS == 3 ? 2 : 1;   // planes of A, of B
-  static constexpr int B_BYTES = P::BN * wg::LINE;      // a B plane
+  // a B plane: BN K-major rows, or BN / 64 N-major boxes of HALF_TILE
+  static constexpr int B_BYTES = P::BN * wg::LINE;
   static constexpr int B = NP * A_BYTES;                // B's offset
   static constexpr int STAGE = NP * (A_BYTES + B_BYTES);
   static constexpr int ACC = P::BN / 2;                 // accumulators
@@ -267,14 +288,13 @@ struct Layout {
   static_assert(SMEM <= 232448, "the ring fits a block's shared memory");
   static_assert(P::PRODUCTS == 1 || P::PRODUCTS == 3,
                 "one product, or three of split planes");
-  static_assert(!P::SEED_C || P::CH == 0, "C seeds the straight sum only");
-  static_assert(!P::B_MN || P::PRODUCTS == 1,
-                "an N-major B is bf16, not split");
+  static_assert(P::BN % 64 == 0, "an N-major B is whole 64-column boxes");
 };
 
-// ta: A (M, K) K-major, or its split planes (3-D); tb: BT (N, K) K-major or
-// its split planes, or B (K, N) N-major; tc: out (M, ldc) fp32 in boxes of
-// 64 rows x OUT_COLS, read when tma_out (else each thread writes out).
+// ta: A (M, K) K-major, or its split planes (3-D); tb: BT (N, K) K-major,
+// or B (K, N) N-major, or the split planes of either; tc: out (M, ldc)
+// fp32 in boxes of 64 rows x OUT_COLS, read when tma_out (else each thread
+// writes out).
 template <class P>
 __global__ void __launch_bounds__(wg::BLOCK, 1)
     gemm_wgmma(const __grid_constant__ CUtensorMap ta,
@@ -312,8 +332,18 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
         if constexpr (P::PRODUCTS == 3) {        // hi, lo of A; of B
           wg::tma_3d(st, &ta, k0, m0, 0, full);
           wg::tma_3d(st + A_BYTES, &ta, k0, m0, 1, full);
-          wg::tma_3d(st + L::B, &tb, k0, n0, 0, full);
-          wg::tma_3d(st + L::B + L::B_BYTES, &tb, k0, n0, 1, full);
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            uint8_t* bp = st + L::B + p * L::B_BYTES;
+            if constexpr (P::B_MN) {
+#pragma unroll
+              for (int j = 0; j < BN / 64; ++j)
+                wg::tma_3d(bp + j * wg::HALF_TILE, &tb, n0 + 64 * j, k0, p,
+                           full);
+            } else {
+              wg::tma_3d(bp, &tb, k0, n0, p, full);
+            }
+          }
         } else {
           wg::tma_2d(st, &ta, k0, m0, full);
           if constexpr (P::B_MN) {
@@ -341,11 +371,16 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
     int m0, n0;
     tile_of<BN>(t, num_m, num_n, m0, n0);
     int row0 = m0 + 64 * cw;
-    if constexpr (P::SEED_C)
+    if constexpr (P::SEED_C && P::CH == 0)
       seed_c(acc, c, M, N, ldc, row0, n0);
     else
       zero(acc);
-    if constexpr (P::CH > 0) zero(tot);
+    if constexpr (P::CH > 0) {
+      if constexpr (P::SEED_C)
+        seed_c(tot, c, M, N, ldc, row0, n0);
+      else
+        zero(tot);
+    }
     for (int kc = 0; kc < stages; kc += chunk) {
       int kend = min(stages, kc + chunk);
       int prev = -1;   // the slot of the products still in flight
@@ -359,15 +394,17 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
         bool fresh = P::CH > 0 && kq == kc;
 #pragma unroll
         for (int k = 0; k < wg::KT / 16; ++k) {
+          constexpr int TB = P::B_MN ? 1 : 0;
           uint64_t da = wg::kmajor_desc(a, k);
           uint64_t db = P::B_MN ? wg::mnmajor_desc(b, k)
                                 : wg::kmajor_desc(b, k);
-          wg::Wgmma<BN>::template ss<0, P::B_MN ? 1 : 0>(
-              acc, da, db, fresh && k == 0 ? 0 : 1);
+          wg::Wgmma<BN>::template ss<0, TB>(acc, da, db,
+                                            fresh && k == 0 ? 0 : 1);
           if constexpr (P::PRODUCTS == 3) {
-            wg::Wgmma<BN>::template ss<0, 0>(
-                acc, da, wg::kmajor_desc(b + L::B_BYTES, k), 1);
-            wg::Wgmma<BN>::template ss<0, 0>(
+            uint64_t db_lo = P::B_MN ? wg::mnmajor_desc(b + L::B_BYTES, k)
+                                     : wg::kmajor_desc(b + L::B_BYTES, k);
+            wg::Wgmma<BN>::template ss<0, TB>(acc, da, db_lo, 1);
+            wg::Wgmma<BN>::template ss<0, TB>(
                 acc, wg::kmajor_desc(a + A_BYTES, k), db, 1);
           }
         }
@@ -401,7 +438,8 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
 
 // Launches gemm_wgmma<P> over the (M, N) output, one block an SM, at most
 // one a tile, on the maps of A and B. c and out (M, ldc) fp32: with
-// SEED_C, out = C + A.B; else out = A.B + C, c and out one buffer or two.
+// SEED_C, out = C + A.B (C + p1 + p2 + ... with CH > 0); else out = A.B +
+// C, c and out one buffer or two.
 // The epilogue goes through the tensor-map unit where out's rows are
 // 16-byte multiples on a 16-byte base (and, adding C, c is out). Returns a
 // cudaError_t as an int.

@@ -1,12 +1,12 @@
-"""Variant builds of the port's wgmma kernels, timed against each other on
-the card in one process.
+"""Variant builds of the port's wgmma kernels and of the paged KV8 decode
+attention, timed against each other on the card in one process.
 
 A variant is a copy of the port's ``csrc/`` under
 ``build/flash_variants/<group>/<name>/`` with textual substitutions applied
 (each must match exactly once, so a variant that no longer fits the source
 fails), or another tree's ``csrc/`` given with ``--tree NAME=DIR[:BK]`` (a
 parent commit unpacked by ``git archive``; for the forward group its key
-tile BK). Three groups of kernels, one a run (``--group``):
+tile BK). Four groups of kernels, one a run (``--group``):
 
 - ``forward``: ``flash_attention`` at the 7B prefill row (B 4, H = KVH = 32,
   D 128, S = T = 4,096, causal, (B, S, H, D) views) and
@@ -19,20 +19,28 @@ tile BK). Three groups of kernels, one a run (``--group``):
   (B 2, H 32, KVH 8, S 1,025, D 128, causal), dk and dv held to the plain
   version (``row_rel_err``); SDPA's whole backward beside them, timed as
   the difference of two graph replays (forward and backward, forward);
-- ``gemm``: ``bf16_gemm_nt`` (rung 15), ``fp32_gemm_nt`` (rung 16: its
-  wrapper with the two splits, and the kernel alone on planes split
-  beforehand) and ``bf16_gemm_nn`` (rung 05) at M = N = K = 4,096 and
-  2,048, each held to its plain version relative to max |plain|, two calls
-  bit-equal, rung 05's C unchanged; 01b's two calls (15, 05) and 01's (16)
-  beside them. An older tree's ``fp32_gemm_nt`` (the FFMA kernel before the split
-  route) takes fp32 A and BT and is launched on them.
+- ``gemm``: ``bf16_gemm_nt`` (rung 15), ``fp32_gemm_nt`` (rung 16) and
+  ``fp32_gemm_nn`` (rung 04: each its wrapper with the two splits, and the
+  kernel alone on planes split beforehand) and ``bf16_gemm_nn`` (rung 05)
+  at M = N = K = 4,096 and 2,048, each held to its plain version relative
+  to max |plain|, two calls bit-equal, rungs 05's and 04's C unchanged;
+  01b's two calls (15, 05) and 01's (16, 04) beside them. An older tree's
+  ``fp32_gemm_nt`` or ``fp32_gemm_nn`` (the FFMA kernels before the split
+  route) takes fp32 operands and is launched on them;
+- ``paged``: ``paged_decode_attention_q8`` on the split walk at the
+  smoke's two shapes (the 7B KV8 pool: 4 slots, 32 heads of 128, pages
+  of 384, lengths 1, 300, 1,000 and 4,096; kvh 3, rep 2, D 32, pages of
+  96), held to its plain version; the variant ``scales_once`` (wrong
+  answers, a timing probe) reads every key's scales at the page's first
+  row, which times what the per-key scale reads cost. This tree only:
+  an older tree's kernel takes other arguments.
 
 Each variant's ptxas lines (registers, spills) are printed after the
 build; the cases run as CUDA-graph replays in rounds that walk the
 variants forwards and then backwards.
 
     python -m how_to_optimize_gemm_tpu_torch.harness.flash_variants \\
-        [--group forward|dkv|gemm] [--variants shipped ...] \\
+        [--group forward|dkv|gemm|paged] [--variants shipped ...] \\
         [--tree parent=build/parent/how_to_optimize_gemm_tpu_torch/csrc:64]
 """
 from __future__ import annotations
@@ -45,7 +53,8 @@ import torch
 
 from how_to_optimize_gemm_tpu_torch import _build
 from how_to_optimize_gemm_tpu_torch.ops import (attention, grouped_gemm,
-                                               tuned, vendor)
+                                               paged_attention, tuned,
+                                               vendor)
 from how_to_optimize_gemm_tpu_torch.utils.timing import time_calls
 
 OUT_DIR = _build.BUILD_DIR.parent / "flash_variants"
@@ -174,13 +183,14 @@ DKV_VARIANTS = {
 _GEMM = "bf16_gemm_nt.cu"
 _FP32 = "fp32_gemm_nt.cu"
 _NN = "bf16_gemm_nn.cu"
+_FP32_NN = "fp32_gemm_nn.cu"
 _GW = "gemm_wgmma.cuh"
 _TILE128 = (_GEMM, "constexpr int BN = 256; ", "constexpr int BN = 128;")
 _CH = "  static constexpr int CH = 4; "
 
 
-def _fp32_chunk(stages: int):
-    return ((_FP32, _CH, f"  static constexpr int CH = {stages}; "),)
+def _fp32_chunk(stages: int, source: str = _FP32):
+    return ((source, _CH, f"  static constexpr int CH = {stages}; "),)
 
 
 GEMM_VARIANTS = {
@@ -229,15 +239,34 @@ GEMM_VARIANTS = {
     "fp32_ch8": _fp32_chunk(8),
     "fp32_ch16": _fp32_chunk(16),
     "fp32_straight": _fp32_chunk(0),
+    # rung 04's partial sums (seeded with C) of 1, 2, 8 and 16 stages, and
+    # its straight sum (C in the wgmma accumulators)
+    "nn_ch1": _fp32_chunk(1, _FP32_NN),
+    "nn_ch2": _fp32_chunk(2, _FP32_NN),
+    "nn_ch8": _fp32_chunk(8, _FP32_NN),
+    "nn_ch16": _fp32_chunk(16, _FP32_NN),
+    "nn_straight": _fp32_chunk(0, _FP32_NN),
+}
+_PAGED = "paged_decode_attention_q8.cu"
+_DA = "decode_attention.cuh"
+PAGED_VARIANTS = {
+    "shipped": (),
+    # the split walk's scale reads, K's and V's, at the page's first row
+    "scales_once": (
+        (_DA, "              s_k[u] = sk[scale_b + (size_t)(j0 + u) * KVH];",
+         "              s_k[u] = sk[scale_b];"),
+        (_DA, "operand = __fmul_rn(p, sv[scale_b + (size_t)j * KVH]);",
+         "operand = __fmul_rn(p, sv[scale_b]);")),
 }
 # the headers the variants may change besides the groups' sources
-HEADERS = (_BODY, _GW)
+HEADERS = (_BODY, _GW, _DA)
 
 GROUPS = {
     "forward": (("flash_attention.cu", "flash_attention_fwd_lse.cu"),
                 FORWARD_VARIANTS),
     "dkv": ((_DKV,), DKV_VARIANTS),
-    "gemm": ((_GEMM, _FP32, _NN), GEMM_VARIANTS),
+    "gemm": ((_GEMM, _FP32, _NN, _FP32_NN), GEMM_VARIANTS),
+    "paged": ((_PAGED,), PAGED_VARIANTS),
 }
 
 
@@ -379,11 +408,12 @@ def dkv_cases(gen, tiles):
     return cases, check, library
 
 
-def _split_route() -> bool:
-    """Whether the tree in use computes rung 16 from split bf16 planes
-    (this tree); an older tree's ``fp32_gemm_nt`` takes fp32 A and BT (the
-    FFMA kernel before the split route)."""
-    return "split_map" in (_build.CSRC / _FP32).read_text()
+def _split_route(source: str = _FP32) -> bool:
+    """Whether the tree in use computes rung 16 (``source`` ``_FP32_NN``:
+    rung 04) from split bf16 planes (this tree); an older tree's kernel
+    takes the fp32 operands (the FFMA kernel before the split route)."""
+    marker = "split_nmajor_map" if source == _FP32_NN else "split_map"
+    return marker in (_build.CSRC / source).read_text()
 
 
 def fp32_bt(a, bt, c):
@@ -406,12 +436,33 @@ def fp32_product(a2, b2, a, bt, c):
     return c
 
 
+def fp32_nn(a, b, c):
+    """Rung 04 on the tree in use: its wrapper, or the older trees' direct
+    launch on fp32 operands (a fresh output)."""
+    if _split_route(_FP32_NN):
+        return tuned.mmult(a, b, c)
+    return tuned.launch_gemm("mmult", "fp32_gemm_nn", a, b, c,
+                             torch.empty_like(c), torch.float32, bt=False)
+
+
+def fp32_nn_product(a2, b2, a, b, c):
+    """Rung 04's kernel alone on planes split beforehand, into a fresh
+    output (an older tree: its kernel on the fp32 operands)."""
+    if not _split_route(_FP32_NN):
+        return fp32_nn(a, b, c)
+    m, n = c.shape
+    out = torch.empty_like(c)
+    _build.launch("fp32_gemm_nn", c.device, a2, b2, c, out, m, n,
+                  a.shape[1], a2.shape[2], b2.shape[2], n)
+    return out
+
+
 def gemm_cases(gen, tiles):
-    """Rungs 15, 16 (the wrapper with its splits, and the kernel alone on
-    planes split beforehand) and 05 at 4,096 and 2,048; each held to its
-    plain version relative to max |plain|, two calls bit-equal, rung 05's
-    C left as it was; 01b's two calls (rungs 15 and 05) and 01's (16)
-    beside them."""
+    """Rungs 15, 16 and 04 (the wrapper with its splits, and the kernel
+    alone on planes split beforehand) and 05 at 4,096 and 2,048; each held
+    to its plain version relative to max |plain|, two calls bit-equal,
+    rungs 05's and 04's C left as it was; 01b's two calls (rungs 15 and
+    05) and 01's (16 and 04) beside them."""
     cases, rows, library = {}, {}, {}
     for p in (4096, 2048):
         a, b, c = (torch.rand((p, p), generator=gen, device="cuda") * 2 - 1
@@ -420,6 +471,7 @@ def gemm_cases(gen, tiles):
         b16 = b.to(torch.bfloat16)
         bt = b.t().contiguous()
         a2, b2 = grouped_gemm.split_bf16(a), grouped_gemm.split_bf16(bt)
+        bn2 = grouped_gemm.split_bf16(b)
         # name: (run(c), plain(c), library(c)), each on a C of its own
         for name, row in {
                 "bf16_gemm_nt": (
@@ -436,6 +488,13 @@ def gemm_cases(gen, tiles):
                 "fp32_gemm_nt alone": (
                     lambda c, a2=a2, b2=b2, a=a, bt=bt:
                     fp32_product(a2, b2, a, bt, c), None, None),
+                "fp32_gemm_nn": (
+                    lambda c, a=a, b=b: fp32_nn(a, b, c),
+                    lambda c, a=a, b=b: tuned.mmult_ref(a, b, c),
+                    lambda c, a=a, b=b: vendor.mmult(a, b, c)),
+                "fp32_gemm_nn alone": (
+                    lambda c, a2=a2, bn2=bn2, a=a, b=b:
+                    fp32_nn_product(a2, bn2, a, b, c), None, None),
                 "bf16_gemm_nn": (
                     lambda c, a16=a16, b16=b16: tuned.mmult_bf16(a16, b16, c),
                     lambda c, a16=a16, b16=b16:
@@ -469,7 +528,43 @@ def gemm_cases(gen, tiles):
     return cases, check, library
 
 
-CASES = {"forward": forward_cases, "dkv": dkv_cases, "gemm": gemm_cases}
+def paged_cases(gen, tiles):
+    """The paged KV8 kernel at the smoke's two shapes over shuffled block
+    tables, each held to its plain version (max abs)."""
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    cases, refs = {}, {}
+    for kvh, rep, d, ps, lens in ((32, 1, 128, 384, [1, 300, 1000, 4096]),
+                                  (3, 2, 32, 96, [1, 999, 1000, 517])):
+        np_max = -(-max(lens) // ps)
+        n_pages = len(lens) * np_max + 1
+        free = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+                + 1).tolist()
+        table = torch.zeros((len(lens), np_max), dtype=torch.int32)
+        for b, n in enumerate(lens):
+            for c in range(-(-n // ps)):
+                table[b, c] = free.pop()
+        q = torch.randn((len(lens), kvh * rep, d), generator=gen,
+                        device="cuda")
+        pools = []
+        for _ in "kv":
+            pools += llama.quantize_kv(torch.randn(
+                (n_pages, ps, kvh, d), generator=gen, device="cuda"))
+        args = (q, *pools, table.cuda(),
+                torch.tensor(lens, dtype=torch.int32, device="cuda"))
+        case = f"paged_decode_attention_q8 kvh={kvh} rep={rep} d={d} ps={ps}"
+        cases[case] = (lambda a=args:
+                       paged_attention.paged_decode_attention_q8(*a))
+        refs[case] = paged_attention.paged_decode_attention_q8_ref(*args)
+
+    def check(name):
+        return "; ".join(f"{case}: max|kernel - plain| "
+                         f"{float((fn() - refs[case]).abs().max()):.3e}"
+                         for case, fn in cases.items())
+    return cases, check, {}
+
+
+CASES = {"forward": forward_cases, "dkv": dkv_cases, "gemm": gemm_cases,
+         "paged": paged_cases}
 
 
 def main(argv=None) -> None:

@@ -21,10 +21,10 @@ The ceilings are the H100 SXM data sheet's dense peaks at 700 W (the
 port's one copy of them; ``chip_smoke.py`` and the bench read them here).
 fp32 at the ladder's gate (1e-4) is held to the fastest route that meets
 it and FP32_REL: three bf16 products of operands split into bf16 hi + lo
-on the tensor cores (rung 16's kernel, measured within FP32_REL on the
-card), a third of the bf16 peak; 3xTF32 runs at half that rate. The CUDA
-cores' FFMA ceiling is printed beside it, since the fp32 rungs below 16
-(00, 02, 03, 03b, 04) run there. On the CPU (only when asked for) the profile times
+on the tensor cores (rungs 16's and 04's kernels, measured within
+FP32_REL on the card), a third of the bf16 peak; 3xTF32 runs at half that
+rate. The CUDA cores' FFMA ceiling is printed beside it, since the fp32
+rungs below 04 (00, 02, 03, 03b) run there. On the CPU (only when asked for) the profile times
 the host's operators and is labelled so: no CPU time is a device time.
 """
 from __future__ import annotations

@@ -30,7 +30,9 @@ rounding. ``decode_attention``'s kernel splits each slot's chunks into
 runs of ``split_plan``'s length, walked by blocks of their own in one
 launch, and combines the runs' partial softmax sums in a fixed order
 (``csrc/decode_attention.cuh``); the partials and a counter per (slot,
-head) live in a workspace kept per device (``_workspace``).
+head) live in a workspace kept per device (``_workspace``), which the
+KV8 pool's paged kernel (``paged_attention.paged_decode_attention_q8``)
+shares.
 """
 from __future__ import annotations
 
@@ -89,21 +91,25 @@ def split_plan(t: int, bk: int) -> tuple[int, int]:
     return per, -(-chunks // per)
 
 
-def _workspace(device, n_count: int, n_part: int):
-    """The (int32 counters, float32 partials) of ``decode_attention`` on
-    ``device``, at least n_count and n_part long. The counters are zeroed
-    once, when allocated: the kernel leaves them at zero. A workspace is
-    grown eagerly, never under a CUDA graph capture (its zero fill would
-    run only in the graph's replays): a capture must follow one eager call
-    at its size. The one it replaces stays allocated (``_RETIRED``)."""
+def _workspace(device, n_count: int, n_part: int,
+               name: str = "decode_attention"):
+    """The (int32 counters, float32 partials) of the split walk's kernels
+    on ``device`` (``decode_attention`` and the KV8 pool's
+    ``paged_decode_attention_q8``, which share it: calls on one stream
+    leave the counters at zero), at least n_count and n_part long. The
+    counters are zeroed once, when allocated: the kernels leave them at
+    zero. A workspace is grown eagerly, never under a CUDA graph capture
+    (its zero fill would run only in the graph's replays): a capture must
+    follow one eager call at its size. The one it replaces stays allocated
+    (``_RETIRED``)."""
     ws = _WORKSPACE.get(device)
     if ws is not None and ws[0].numel() >= n_count \
             and ws[1].numel() >= n_part:
         return ws
     if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("decode_attention: its workspace must grow, "
-                           "which it does not under a CUDA graph capture; "
-                           "call it once eagerly at this size first")
+        raise RuntimeError(f"{name}: its workspace must grow, which it "
+                           "does not under a CUDA graph capture; call it "
+                           "once eagerly at this size first")
     if ws is not None:
         _RETIRED.append(ws)
         n_count = max(n_count, ws[0].numel())

@@ -158,8 +158,11 @@ _register(Rung(
     run=tuned.mmult,
     prepare=_identity_prepare, effective=_identity_effective,
     gate_rel=1e-4,
-    doc="fp32 at full fp32 accuracy, accumulator seeded with C: "
-        "register-blocked FFMA, 128x128 tiles (kernel fp32_gemm_nn)"))
+    doc="fp32 operands at bf16x3 precision (XLA's HIGH, within 1e-5 of "
+        "the fp32 product; the reference's HIGHEST is six bf16 passes), "
+        "sums seeded with C: A and B split into bf16 hi + lo and hi.hi + "
+        "hi.lo + lo.hi on rung 15's wgmma kernel with B read N-major "
+        "(kernels split_bf16, fp32_gemm_nn)"))
 
 _register(Rung(
     name="05_pallas_bf16", dtype="bf16",

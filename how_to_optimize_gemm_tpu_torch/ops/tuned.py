@@ -6,8 +6,8 @@ Counterpart: ``how_to_optimize_gemm_tpu/ops/pallas_tuned.py`` (``mmult``,
 fp32 sums:
 
 - ``mmult`` (rung 04, kernel ``fp32_gemm_nn``) on fp32 A (M, K) and B
-  (K, N) at full fp32 accuracy: the accumulator is seeded with C, as the
-  reference's ``_make_kernel`` does; a fresh output;
+  (K, N), within FP32_REL of the fp32 product: the sums start at C, as
+  the reference's ``_make_kernel`` does; a fresh output;
 - ``mmult_bf16`` (rung 05, ``bf16_gemm_nn``) on bf16 ones: the tensor
   cores' accumulators are seeded with C, as the reference's
   ``_make_kernel`` does; a fresh output;
@@ -15,19 +15,19 @@ fp32 sums:
   (rung 16, ``fp32_gemm_nt``) on B packed transposed offline, (N, K)
   (``prepare_bf16_bt``, ``prepare_fp32_bt``): the accumulator starts at 0
   and C is added at the flush, IN PLACE on ``c``, as the reference aliases
-  C into its output. Rung 16 splits A and BT into bf16 hi + lo planes
-  (``grouped_gemm.split_bf16``) inside the call and takes hi.hi + hi.lo +
-  lo.hi on the tensor cores.
+  C into its output.
 
-The reference's VMEM block choosers are not ported: rungs 05, 15 and 16
-run one ``wgmma`` kernel (``csrc/gemm_wgmma.cuh``) on fixed tiles walked
-by a persistent grid (``NT_TILE``, ``FP32_NT_TILE``, ``nt_tile_walk``),
-rung 04 128 x 128 FFMA tiles. Each wrapper launches its kernel for CUDA
-tensors and runs its plain version (``*_ref``) only for CPU tensors.
-Products of bf16 values are exact in fp32, and every kernel sums in
-another order than its plain version (the tensor cores, or one fmaf chain
-over K), so the two agree to rounding; rung 16 also drops lo.lo (below
-2^-16 of each product).
+Rungs 04 and 16 split their fp32 operands into bf16 hi + lo planes
+(``grouped_gemm.split_bf16``) inside the call and take hi.hi + hi.lo +
+lo.hi on the tensor cores (bf16x3, XLA's Precision.HIGH; the reference's
+HIGHEST is six passes). The reference's VMEM block choosers are not
+ported: all four rungs run one ``wgmma`` kernel (``csrc/gemm_wgmma.cuh``)
+on fixed tiles walked by a persistent grid (``NT_TILE``, ``FP32_NT_TILE``,
+``nt_tile_walk``). Each wrapper launches its kernels for CUDA tensors and
+runs its plain version (``*_ref``) only for CPU tensors. Products of bf16
+values are exact in fp32, and every kernel sums in another order than its
+plain version (the tensor cores), so the two agree to rounding; rungs 04
+and 16 also drop lo.lo (below 2^-16 of each product).
 """
 from __future__ import annotations
 
@@ -41,9 +41,9 @@ from how_to_optimize_gemm_tpu_torch.ops.vendor import fp32_matmul
 
 
 # the wgmma kernel's output tile (rows, columns) for rungs 15 and 05
-# (csrc/bf16_gemm_nt.cu, bf16_gemm_nn.cu) and for rung 16
-# (csrc/fp32_gemm_nt.cu), and the row tiles of a group of its walk
-# (csrc/gemm_wgmma.cuh)
+# (csrc/bf16_gemm_nt.cu, bf16_gemm_nn.cu) and for rungs 16 and 04
+# (csrc/fp32_gemm_nt.cu, fp32_gemm_nn.cu), and the row tiles of a group of
+# its walk (csrc/gemm_wgmma.cuh)
 NT_TILE = (128, 256)
 FP32_NT_TILE = (128, 128)
 NT_GROUP_M = 8
@@ -53,12 +53,12 @@ def nt_tile_walk(m: int, n: int, blocks: int, tile=NT_TILE) -> list:
     """The (row, column) origins of the output tiles that each block of
     the ``wgmma`` kernel's persistent grid computes, in order, for an (m,
     n) output in ``tile``-sized tiles (``NT_TILE``: rungs 15 and 05;
-    ``FP32_NT_TILE``: rung 16): the kernel launches ``min(blocks, tiles)``
-    blocks (one an SM), block i taking tiles i, i + blocks, ...; tile t
-    lies in group t // (NT_GROUP_M x column tiles) of NT_GROUP_M row tiles
-    (fewer in the last group), the row tile fastest inside a group, so
-    that the blocks running at once share a few rows of A and the columns
-    of B in L2."""
+    ``FP32_NT_TILE``: rungs 16 and 04): the kernel launches
+    ``min(blocks, tiles)`` blocks (one an SM), block i taking tiles i,
+    i + blocks, ...; tile t lies in group t // (NT_GROUP_M x column
+    tiles) of NT_GROUP_M row tiles (fewer in the last group), the row tile
+    fastest inside a group, so that the blocks running at once share a
+    few rows of A and the columns of B in L2."""
     tm, tn = tile
     num_m, num_n = -(-m // tm), -(-n // tn)
     per_group = NT_GROUP_M * num_n
@@ -160,13 +160,28 @@ def launch_gemm(name: str, kernel: str, a, b, c, out, dtype, bt: bool,
 
 
 def mmult(a, b, c):
-    """Rung 04: ``C' = C + A @ B`` in fp32 at full fp32 accuracy, a fresh
-    (M, N) output (kernel ``fp32_gemm_nn``); ``c`` is not modified."""
+    """Rung 04: ``C' = C + A @ B`` on fp32 operands, within FP32_REL of
+    the fp32 product, a fresh (M, N) output; ``c`` is not modified. On the
+    card A and B are split into bf16 hi + lo planes (kernel
+    ``split_bf16``, twice) and kernel ``fp32_gemm_nn`` takes hi.hi + hi.lo
+    + lo.hi with B read as it lies, its partial sums starting at C:
+    bf16x3, XLA's Precision.HIGH, not the six passes of the reference's
+    HIGHEST."""
     if c.device.type == "cpu":
         return mmult_ref(a, b, c)
     require_cuda("mmult", c)
-    return launch_gemm("mmult", "fp32_gemm_nn", a, b, c,
-                       torch.empty_like(c), torch.float32, bt=False)
+    out = torch.empty_like(c)
+    a, b = check_gemm("mmult", a, b, c, out, torch.float32, bt=False,
+                      align=False)
+    m, n = c.shape
+    k = a.shape[1]
+    if m and n and k:
+        a2, b2 = split_bf16(a), split_bf16(b)
+        _build.launch("fp32_gemm_nn", c.device, a2, b2, c, out, m, n, k,
+                      a2.shape[2], b2.shape[2], n)
+    elif m and n:
+        out.copy_(c)
+    return out
 
 
 def mmult_bf16(a, b, c):

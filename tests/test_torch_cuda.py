@@ -217,19 +217,22 @@ def test_bf16_gemm_nt_edges_and_walk(cuda, shape):
         assert max(lengths) > 1 and len(lengths) > 1
 
 
-# Rungs 16 and 05 on rung 15's wgmma body (csrc/gemm_wgmma.cuh): rung 16
-# (128 x 128 tiles, A and BT split into bf16 planes by two split_bf16
-# launches, three products a stage, partial sums every CH stages) within
+# Rungs 16, 04 and 05 on rung 15's wgmma body (csrc/gemm_wgmma.cuh):
+# rungs 16 and 04 (128 x 128 tiles, A and BT -- rung 04: B as it lies --
+# split into bf16 planes by two split_bf16 launches, three products a
+# stage, partial sums every CH stages; rung 04's seeded with C) within
 # FP32_REL and rung 05 (128 x 256 tiles, B read N-major) within W4A16_REL
 # of max |plain|, at 4,096, 2,048, the unaligned shape and K no multiple of
-# the 64-value stage; two calls bit-equal; rung 16 writes C in place, rung
-# 05 leaves it as it was.
+# the 64-value stage; two calls bit-equal; rung 16 writes C in place, rungs
+# 04 and 05 leave it as it was. At K 4,096 rungs 16 and 04 are within
+# FP32_REL / 2 of the fp64 product.
 REBUILT_SHAPES = [(4096, 4096, 4096), (2048, 2048, 2048),
                   (1000, 1032, 1100), (520, 392, 1000)]
 
 
 @pytest.mark.parametrize("shape", REBUILT_SHAPES)
-@pytest.mark.parametrize("kernel", ["fp32_gemm_nt", "bf16_gemm_nn"])
+@pytest.mark.parametrize("kernel", ["fp32_gemm_nt", "bf16_gemm_nn",
+                                    "fp32_gemm_nn"])
 def test_rebuilt_fp32_and_nn_kernels(cuda, kernel, shape):
     rung_name, wrapper, plain, tol = CASES[kernel]
     a, b, c = _abc(shape, 31, cuda)
@@ -240,14 +243,21 @@ def test_rebuilt_fp32_and_nn_kernels(cuda, kernel, shape):
     torch.cuda.synchronize()
     counts = {k: _build.LAUNCHES[k] - before[k]
               for k in (kernel, "split_bf16")}
-    assert counts == {kernel: 1,
-                      "split_bf16": 2 if kernel == "fp32_gemm_nt" else 0}
+    fp32 = kernel.startswith("fp32")
+    assert counts == {kernel: 1, "split_bf16": 2 if fp32 else 0}
     again = wrapper(*ops, c.clone())
     ref = plain(*ops, c)
     torch.cuda.synchronize()
     scale = float(ref.abs().max())
     assert float((out - ref).abs().max()) <= tol * scale
     assert torch.equal(out, again)
+    if fp32 and shape[2] == 4096:
+        a_, b_ = ops
+        b_ = b_.t() if kernel == "fp32_gemm_nt" else b_
+        oracle = a_.double() @ b_.double() + c.double()
+        rel = float((out.double() - oracle).abs().max()
+                    / oracle.abs().max())
+        assert rel < FP32_REL / 2, rel
     if kernel == "fp32_gemm_nt":
         assert out.data_ptr() == cin.data_ptr()
     else:
@@ -743,7 +753,8 @@ def test_paged_kv_update_equals_plain_version(cuda, kind, s):
 PAGED_CASES = [(2, 2, 128, 16, [1, 40, 64, 0]),
                (32, 1, 128, 128, [1, 300, 512, 129]),
                (4, 4, 64, 16, [17, 64, 3, 33]),
-               (3, 2, 32, 96, [1, 200, 256, 0])]
+               (3, 2, 32, 96, [1, 200, 256, 0]),
+               (32, 1, 128, 384, [1, 300, 1000, 4096])]   # the 7B KV8 pool
 
 
 def _nan_outside_the_tables(pools, table):
@@ -803,6 +814,7 @@ def test_paged_decode_attention_q8_matches_plain_version(cuda, kvh, rep, d,
                                                     lengths)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["paged_decode_attention_q8"] == before + 1
+    assert not decode_attention._WORKSPACE[out.device][0].any()
     ref = paged_attention.paged_decode_attention_q8_ref(q, *pools, table,
                                                         lengths)
     assert torch.isfinite(out).all()
@@ -810,6 +822,97 @@ def test_paged_decode_attention_q8_matches_plain_version(cuda, kvh, rep, d,
     print(f"paged_decode_attention_q8 kvh={kvh} rep={rep} d={d} ps={ps}: "
           f"max|kernel - plain| = {err}")
     assert err < 2e-3, err
+
+
+def _paged_case(kvh, rep, d, ps, lens, np_max, kv8, seed, device):
+    """q, the pools (KV8: values and scales), the shuffled table and the
+    lengths on the card."""
+    n_pages, table = _shuffled_table(lens, ps, np_max, seed)
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal(
+        (len(lens), kvh * rep, d)).astype(np.float32)).to(device)
+    pools = []
+    for _ in "kv":
+        x = torch.from_numpy(rng.standard_normal(
+            (n_pages, ps, kvh, d)).astype(np.float32)).to(device)
+        pools += (list(_quantize(x)) if kv8 else [x.to(torch.bfloat16)])
+    return (q, pools, torch.from_numpy(table).to(device),
+            torch.tensor(lens, dtype=torch.int32, device=device))
+
+
+def _quantize(x):
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    return llama.quantize_kv(x)
+
+
+# Rows of a slot's last page past its length, the trash page and the pages
+# no table row holds are never read: NaN there (int8 values: 77, their
+# scales NaN) leaves the output finite and bit-equal to the kernel's on the
+# clean pools, within 2e-3 of the plain version on them. Pages of 128
+# (the KV8 kernel's splits of two pages) and lengths ending inside a page.
+@pytest.mark.parametrize("kv8", [False, True])
+def test_paged_attention_never_reads_past_the_lengths(cuda, kv8):
+    kvh, rep, d, ps, lens = 4, 2, 128, 128, [1, 200, 256, 0, 129, 300]
+    np_max = -(-max(lens) // ps) + 1
+    q, pools, table, lengths = _paged_case(kvh, rep, d, ps, lens, np_max,
+                                           kv8, 41, cuda)
+    name = "paged_decode_attention_q8" if kv8 else "paged_decode_attention"
+    kernel = getattr(paged_attention, name)
+    clean = kernel(q, *pools, table, lengths)
+    ref = getattr(paged_attention, name + "_ref")(q, *pools, table, lengths)
+    dirty = [c.clone() for c in pools]
+    _nan_outside_the_tables(dirty, table.cpu().numpy())
+    for b, n in enumerate(lens):
+        if n % ps:
+            page = int(table[b, n // ps])
+            for c in dirty:
+                c[page, n % ps:] = float("nan") if c.is_floating_point() \
+                    else 77
+    out = kernel(q, *dirty, table, lengths)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, clean)
+    err = float((out - ref).abs().max())
+    print(f"{name} past the lengths: max|kernel - plain| = {err}")
+    assert err < 2e-3, err
+    if kv8:
+        assert not decode_attention._WORKSPACE[out.device][0].any()
+
+
+# The KV8 kernel from a CUDA graph captured at the 7B pool's shape (one
+# page a split, 11 splits), replayed at other lengths: its plan and grid
+# come from np_max and PS alone, so each replay equals an eager call at its
+# lengths bit for bit, within 2e-3 of the plain version, the counters at 0.
+def test_paged_q8_graph_replays_at_other_lengths(cuda):
+    kvh, rep, d, ps, np_max = 32, 1, 128, 384, 11
+    runs = [[1, 300, 1000, 4096], [0, 384, 385, 4224], [4096, 1, 0, 768]]
+    q, pools, table, lengths = _paged_case(kvh, rep, d, ps, runs[1],
+                                           np_max, True, 43, cuda)
+
+    def call():
+        return paged_attention.paged_decode_attention_q8(q, *pools, table,
+                                                         lengths)
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call()
+    counters = decode_attention._WORKSPACE[q.device][0]
+    for lens in runs:
+        lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert not counters.any()
+        eager = call()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
+        assert not counters.any()
+        ref = paged_attention.paged_decode_attention_q8_ref(q, *pools,
+                                                            table, lengths)
+        err = float((replayed - ref).abs().max())
+        print(f"paged_decode_attention_q8 replay at {lens}: max|kernel - "
+              f"plain| = {err}")
+        assert err < 2e-3, err
 
 
 def test_paged_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -1504,8 +1607,11 @@ def test_grouped_dw_matches_plain_version(cuda, shape):
 # tree before each rebuild gave them on an H100 (NVIDIA H100 80GB HBM3);
 # dK/dV's as its wgmma kernel gives them. Rung 05 on wgmma, its
 # accumulators seeded with C, gives the bits of the mma.sync kernel before
-# it. The same sources and nvcc give the same bits; a digest that moves
-# means a kernel's code moved.
+# it. Rung 16 and decode_attention (the bf16 split walk) as the tree
+# before rung 04 and the paged KV8 kernel joined their templates gave
+# them; rung 04's as its wgmma kernel gives them. The same sources and
+# nvcc give the same bits; a digest that moves means a kernel's code
+# moved.
 SHARED_DIGESTS = {
     "grouped_gemm bf16": "1ef3e9f68a803cbf",
     "grouped_gemm_t bf16": "45356b182853332a",
@@ -1518,7 +1624,10 @@ SHARED_DIGESTS = {
     "flash_attention_bwd_dkv": "bdd0004dac43a8f0",
     "bf16_gemm_nt": "9b459eb9c7cec971",
     "bf16_gemm_nn": "c60e016745fb0762",
-    "w4a16_gemm": "1b52344b433b8dd0"}
+    "w4a16_gemm": "1b52344b433b8dd0",
+    "fp32_gemm_nt": "ac11ae8d979cada5",
+    "fp32_gemm_nn": "02471e1e15245f4e",
+    "decode_attention": "2e8ac53d6c0b4578"}
 
 
 def _shared_digests(device) -> dict:
@@ -1547,11 +1656,20 @@ def _shared_digests(device) -> dict:
     outs["flash_attention_bwd_dq"] = attention.flash_attention_bwd_dq(*args)
     dk, dv = attention.flash_attention_bwd_dkv(*args)
     outs["flash_attention_bwd_dkv"] = torch.cat([dk, dv])
-    for name in ("bf16_gemm_nt", "bf16_gemm_nn", "w4a16_gemm"):
+    for name in ("bf16_gemm_nt", "bf16_gemm_nn", "w4a16_gemm",
+                 "fp32_gemm_nt", "fp32_gemm_nn"):
         rung, wrapper, _, _ = CASES[name]
         a, b, c = _abc((1000, 1032, 1100), 13, device)
         outs[name] = wrapper(*_operands(registry.get(rung).prepare(a, b)),
                              c.clone())
+    rng = np.random.default_rng(14)
+    lens = [0, 1, 512, 513, 1024]
+    q = torch.from_numpy(rng.standard_normal((5, 8, 128)).astype(
+        np.float32)).to(device)
+    k, v = (torch.from_numpy(rng.standard_normal((5, 1024, 4, 128)).astype(
+        np.float32)).to(device=device, dtype=torch.bfloat16) for _ in "kv")
+    outs["decode_attention"] = decode_attention.decode_attention(
+        q, k, v, torch.tensor(lens, dtype=torch.int32, device=device))
     torch.cuda.synchronize()
     return {name: hashlib.sha256(t.contiguous().cpu().numpy().tobytes())
             .hexdigest()[:16] for name, t in outs.items()}

@@ -139,7 +139,7 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
     assert len(_build.KERNELS["split_bf16"].argtypes) == 7
     assert len(_build.KERNELS["paged_kv_update"].argtypes) == 10
     assert len(_build.KERNELS["paged_decode_attention"].argtypes) == 15
-    assert len(_build.KERNELS["paged_decode_attention_q8"].argtypes) == 17
+    assert len(_build.KERNELS["paged_decode_attention_q8"].argtypes) == 20
     assert len(_build.KERNELS["flash_attention"].argtypes) == 25
     assert len(_build.KERNELS["flash_attention_fwd_lse"].argtypes) == 25
     assert len(_build.KERNELS["flash_attention_bwd_dq"].argtypes) == 30
