@@ -64,7 +64,9 @@ Phases (any failure raises and exits non-zero before the last line):
    on each row kind: bf16 values, int8 values and fp32 scales; the paged
    attention kernels over a shuffled block table, pages of 128 (bf16) and
    384 (KV8); ``flash_attention`` at the 7B prefill, B 4 x 32 heads of
-   128 at S = T = 4,096 causal, at 2,048 and at 1,024) and at ragged
+   128 at S = T = 4,096 causal, at 2,048 and at 1,024; ``w4a8_gemm_noc``
+   also at a 128-token chunk and at m = 16,384; ``decode_attention_q8``
+   also from a CUDA graph replayed at other lengths) and at ragged
    shapes (EQUAL
    for w4a8_gemm_noc, w4a8_gemv_fq, kv_update, paged_kv_update and
    int8_gemm_noc; within W4A16_REL x max |y| for w4a16_gemm_noc and
@@ -856,7 +858,8 @@ FLASH_ULPS = 2.0
 BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
              "bf16_gemm_nt": 0.6477, "flash_attention_bwd_dkv": 1.0286,
              "fp32_gemm_nt": 6.6231, "bf16_gemm_nn": 0.5681,
-             "fp32_gemm_nn": 4.4085, "paged_decode_attention_q8": 0.8038}
+             "fp32_gemm_nn": 4.4085, "paged_decode_attention_q8": 0.8038,
+             "w4a8_gemm_noc": 0.5742, "decode_attention_q8": 0.7697}
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0
@@ -1014,13 +1017,17 @@ def _equal(name: str, shape: str, out, ref) -> float:
 
 
 def check_w4a8_noc(gen: torch.Generator) -> dict:
-    """Kernel 2 at the prefill widths: M = 4 slots x a 256-token bucket."""
+    """Kernel 2 at the prefill widths: M = 4 slots x a 256-token bucket (the
+    JSON row, 4,096 -> 11,008, then 11,008 -> 4,096), then a 128-token
+    chunk and S-long's admission at bucket 4,096 (m = 16,384), each EQUAL
+    to its plain version."""
     results = []
-    for k, n in ((4096, 11008), (11008, 4096)):
-        m = SLOTS * 256
+    for m, k, n in ((SLOTS * 256, 4096, 11008), (SLOTS * 256, 11008, 4096),
+                    (128, 4096, 11008), (SLOTS * 4096, 4096, 11008)):
         x = torch.randn((m, k), generator=gen, device="cuda")
         w = torch.randn((k, n), generator=gen, device="cuda")
         qa, sa, packed, sw, _ = int4.prepare_w4a8(x, w)
+        del x, w
         args = (qa, sa, packed, sw)
         shape = f"M={m} {k}->{n}"
         err = _equal("w4a8_gemm_noc", shape, int4.mmult_q_w4a8_noc(*args),
@@ -1031,6 +1038,12 @@ def check_w4a8_noc(gen: torch.Generator) -> dict:
                              lambda: int4.mmult_q_w4a8_noc(*args),
                              lambda: int4.mmult_q_w4a8_noc_ref(*args),
                              None, *b, err))
+        if len(results) == 1:
+            print(f"w4a8_gemm_noc {shape}: {results[0]['ms']:.4f} ms on "
+                  f"int8 wgmma; {BEFORE_MS['w4a8_gemm_noc']} ms before the "
+                  "rebuild (mma.sync)")
+        del args, qa, packed
+        torch.cuda.empty_cache()
     return results[0]
 
 
@@ -1202,9 +1215,12 @@ def check_w4a16(name: str, shapes, gen: torch.Generator) -> dict:
 def check_decode_attention_q8(gen: torch.Generator) -> dict:
     """decode_attention_q8 over a 7B-width KV8 cache (kvh 32, d 128), a
     GQA width (kvh 8, rep 4) and a ragged one (kvh 3, rep 2, d 64,
-    T = 1000, one chunk of 1000), slots of ragged lengths. No single
-    PyTorch call attends over an int8 cache with per-(token, head)
-    scales, so the library time is null."""
+    T = 1000, one chunk of 1000), slots of ragged lengths, on the split
+    walk; at the 7B width also from a CUDA graph captured once and
+    replayed at two other sets of lengths, each replay bit-equal to an
+    eager call and within DECODE_ATOL of the plain version, the
+    workspace's counters at 0. No single PyTorch call attends over an int8
+    cache with per-(token, head) scales, so the library time is null."""
     t7 = CFG_7B.max_seq
     results = []
     for kvh, rep, d, t, lens in ((32, 1, 128, t7, [1, 300, 1000, t7]),
@@ -1218,23 +1234,52 @@ def check_decode_attention_q8(gen: torch.Generator) -> dict:
                 (len(lens), t, kvh, d), generator=gen, device="cuda"))
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         shape = f"kvh={kvh} rep={rep} d={d} T={t} lengths {lens}"
-        out = decode_attention.decode_attention_q8(q, *cache, lengths)
-        ref = decode_attention.decode_attention_q8_ref(q, *cache, lengths)
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        if not err < DECODE_ATOL:
-            raise AssertionError(f"decode_attention_q8 {shape}: differs "
-                                 f"from its plain version by {err}")
+
+        def call():
+            return decode_attention.decode_attention_q8(q, *cache, lengths)
+
+        def check(out, what):
+            ref = decode_attention.decode_attention_q8_ref(q, *cache,
+                                                           lengths)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            if not (err < DECODE_ATOL and torch.isfinite(out).all()):
+                raise AssertionError(f"decode_attention_q8 {shape}{what}: "
+                                     f"differs from its plain version by "
+                                     f"{err}")
+            if decode_attention._WORKSPACE[out.device][0].any():
+                raise AssertionError(f"decode_attention_q8 {shape}{what}: "
+                                     "counters left non-zero")
+            return err
+        err = check(call(), "")
         live = sum(lens)
         b_ms = bound_ms(nbytes(q, lengths) + 4 * q.numel()
                         + 2 * live * kvh * (d + 4),
                         4.0 * h * d * live, PEAK_BF16_FLOPS)
-        results.append(timed(
-            "decode_attention_q8", shape,
-            lambda: decode_attention.decode_attention_q8(q, *cache, lengths),
-            lambda: decode_attention.decode_attention_q8_ref(q, *cache,
-                                                             lengths),
-            None, *b_ms, err))
+        results.append(timed("decode_attention_q8", shape, call,
+                             lambda: decode_attention.decode_attention_q8_ref(
+                                 q, *cache, lengths),
+                             None, *b_ms, err))
+        if len(results) > 1:
+            continue
+        print(f"decode_attention_q8 {shape}: {results[0]['ms']:.4f} ms on "
+              f"the split walk; {BEFORE_MS['decode_attention_q8']} ms "
+              "before (the one-block walk)")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = call()
+        for other in ([0, 256, 257, t7 - 1], [t7, 1, 0, 768]):
+            lengths.copy_(torch.tensor(other, dtype=torch.int32))
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(replayed, call()):
+                raise AssertionError(f"decode_attention_q8 {shape}: the "
+                                     f"replay at {other} differs from an "
+                                     "eager call")
+            e = check(replayed, f" (replayed at {other})")
+            print(f"decode_attention_q8 graph replay at lengths {other}: "
+                  f"max|kernel - plain| = {e}")
+        lengths.copy_(torch.tensor(lens, dtype=torch.int32))
     return results[0]
 
 

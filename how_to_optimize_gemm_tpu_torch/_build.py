@@ -104,10 +104,11 @@ KERNELS = {
                              + (_P,)),
     # (a, packed, sw, out, M, N, K, Kp, lda, ldp, stream): bf16 A
     "w4a16_gemv": Kernel("w4a16_gemv.cu", (_P,) * 4 + (_I,) * 6 + (_P,)),
-    # (q, qk, sk, qv, sv, lengths, out, B, T, KVH, REP, D, bk, scale,
-    #  stream)
-    "decode_attention_q8": Kernel("decode_attention_q8.cu", (_P,) * 7
-                                  + (_I,) * 6 + (_F, _P)),
+    # (q, qk, sk, qv, sv, lengths, out, part, count, B, T, KVH, REP, D,
+    #  bk, C, scale, stream): part and count decode_attention's workspace,
+    #  C the chunks of a split
+    "decode_attention_q8": Kernel("decode_attention_q8.cu", (_P,) * 9
+                                  + (_I,) * 7 + (_F, _P)),
     # (pool, new, tab, mask, B, S, NP, PS, row_bytes, stream)
     "paged_kv_update": Kernel("paged_kv_update.cu", (_P,) * 4 + (_I,) * 5
                               + (_P,)),
@@ -273,15 +274,30 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
-def _function(name: str):
-    source = KERNELS[name].source
+def _library(source: str) -> ctypes.CDLL:
     if source not in _LIBS:
         started = _start_build(source)
         if started is not None:
             _finish_build(source, started)
         _LIBS[source] = ctypes.CDLL(str(_lib_path(source)))
-    fn = getattr(_LIBS[source], name)
+    return _LIBS[source]
+
+
+def _function(name: str):
+    fn = getattr(_library(KERNELS[name].source), name)
     fn.argtypes = KERNELS[name].argtypes
+    fn.restype = _I
+    return fn
+
+
+def c_function(source: str, name: str, argtypes: tuple):
+    """C entry ``name`` of ``source``'s library (built first if need be)
+    as a ctypes function of its own, taking ``argtypes`` and returning an
+    int; the registered kernels' functions are left as they are. For
+    entries that are no kernel of ``KERNELS``, or an older source's
+    signature of one."""
+    fn = _library(source)[name]
+    fn.argtypes = argtypes
     fn.restype = _I
     return fn
 

@@ -1,7 +1,7 @@
-// The decode-attention kernel templates: the one-block walk shared by
-// decode_attention_q8.cu (int8 cache with fp32 scales per (token, head))
-// and paged_decode_attention.cu (bf16 pool), and the split walk of
-// decode_attention.cu (bf16 cache) and paged_decode_attention_q8.cu (int8
+// The decode-attention kernel templates: the one-block walk of
+// paged_decode_attention.cu (bf16 pool), and the split walk of
+// decode_attention.cu (bf16 cache), decode_attention_q8.cu (int8 cache with
+// fp32 scales per (token, head)) and paged_decode_attention_q8.cu (int8
 // pool with fp32 scales). Each source states what it replaces and its
 // bound.
 //

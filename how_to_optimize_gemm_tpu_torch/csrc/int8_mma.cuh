@@ -1,6 +1,6 @@
 // Shared building blocks of the GEMM kernels (int8_gemm_nn.cu,
 // int8_gemm_nt.cu, int8_ragged_nt.cu, int8_gemm_noc.cu, w4a8_gemm.cu,
-// w4a8_gemm_noc.cu, the hand-pipeline record's manual_dma.cuh and,
+// the hand-pipeline record's manual_dma.cuh and,
 // for their tiling, staging and fragment walk, the bf16 tensor-core
 // kernels of bf16_gemm.cuh and w4a16_gemm.cuh): block tiling,
 // shared-memory staging, the warp-level tensor-core product and the
@@ -350,8 +350,8 @@ struct RowMajorInt8 {
   __device__ uint32_t decode(uint32_t w, int) const { return w; }
 };
 
-// The whole kernel for an N-major B operand (K1 and its no-C form, K3
-// and its no-C form): A through cp.async, B through registers (load,
+// The whole kernel for an N-major B operand (K1 and its no-C form, and
+// K3): A through cp.async, B through registers (load,
 // decode, transpose, store), two stages, the dequant epilogue at the end.
 template <bool kAddC, class Src>
 __device__ __forceinline__ void gemm_nmajor_body(

@@ -15,42 +15,39 @@
 // traffic (QA 4.2 MB, packed weights 22.5 MB, out 45 MB; 22 us at
 // 3.35 TB/s): the tensor cores bound it.
 //
-// Design: K3 (w4a8_gemm.cu) with the epilogue's "+ C" left out, the same
-// template instantiated with kAddC = false: nibbles decoded to s8 while
-// the tile is staged, 128x128 tiles, int8 mma.sync, two stages. The
-// epilogue (float(acc) * sa) * sw is written with __fmul_rn, so the result
-// equals the plain version bit for bit.
-#include "int8_mma.cuh"
-#include "w4a8.cuh"
+// Design: w4a8_wgmma.cuh, int8 wgmma with the operands swapped (the decoded
+// weights as A from registers, QA as B from its swizzled box), a persistent
+// grid of BT-token x 256-column tiles (BT 128, or 64 where that takes no
+// more rounds of the grid: token_tile) fed by a TMA producer through a ring
+// of stages that each pair a packed box's low and high nibbles, so every
+// packed byte is read once per tile. Before it the kernel was K3's template
+// with the "+ C" left out (int8_mma.cuh's gemm_nmajor_body: mma.sync on 128
+// x 128 tiles, two stages, B through registers one nibble half a stage),
+// 0.5742 ms at the shape above on an H100. The epilogue (float(acc) * sa) *
+// sw is written with __fmul_rn, so the result equals the plain version bit
+// for bit.
+#include "w4a8_wgmma.cuh"
 
-namespace {
+// Launches of each token tile's kernel (BT 64, 128) in this process.
+static int tile_launches[2];
 
-using htog::PackedW4;
-
-__global__ void __launch_bounds__(htog::THREADS)
-    w4a8_gemm_noc_kernel(const int8_t* qa, PackedW4 w, const float* sa,
-                         const float* sw, float* out, int M, int N, int K,
-                         int lda, int ldc) {
-  __shared__ __align__(16) htog::Smem sm;
-  htog::gemm_nmajor_body<false>(sm, qa, w, sa, sw, nullptr, out, M, N, K,
-                                lda, ldc);
-}
-
-}  // namespace
-
-// K and lda, ldb are multiples of 16, K <= Kp, the int8 bases 16-byte
-// aligned (the wrapper pads). c is not read (pass null).
+// lda and ldb are multiples of 16 and K <= lda (the wrapper pads; the
+// columns past the caller's K are zeros), round_up(K, 512) / 2 packed rows
+// exist, the int8 bases are 16-byte aligned. c is not read (pass null).
 extern "C" int w4a8_gemm_noc(const void* qa, const void* packed,
                              const void* sa, const void* sw, const void* c,
                              void* out, int M, int N, int K, int lda,
                              int ldb, int ldc, void* stream) {
   (void)c;
-  dim3 grid((N + htog::BN - 1) / htog::BN, (M + htog::BM - 1) / htog::BM);
-  PackedW4 w{static_cast<const int8_t*>(packed), K, ldb};
-  w4a8_gemm_noc_kernel<<<grid, htog::THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(qa), w, static_cast<const float*>(sa),
-      static_cast<const float*>(sw), static_cast<float*>(out), M, N, K, lda,
-      ldc);
-  return static_cast<int>(cudaGetLastError());
+  int bt = 0;
+  int err = htog::w4::launch(qa, packed, sa, sw, out, M, N, K, lda, ldb,
+                             ldc, static_cast<cudaStream_t>(stream), &bt);
+  if (err == 0) ++tile_launches[bt == 128];
+  return err;
+}
+
+// How many times w4a8_gemm_noc launched the kernel of token tile bt (64 or
+// 128; -1 for another bt): the card tests read which tile ran.
+extern "C" int w4a8_gemm_noc_tile_launches(int bt) {
+  return bt == 64 ? tile_launches[0] : bt == 128 ? tile_launches[1] : -1;
 }

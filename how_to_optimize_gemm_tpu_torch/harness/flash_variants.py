@@ -1,4 +1,4 @@
-"""Variant builds of the port's wgmma kernels and of the paged KV8 decode
+"""Variant builds of the port's wgmma kernels and of the KV8 decode
 attention, timed against each other on the card in one process.
 
 A variant is a copy of the port's ``csrc/`` under
@@ -6,7 +6,7 @@ A variant is a copy of the port's ``csrc/`` under
 (each must match exactly once, so a variant that no longer fits the source
 fails), or another tree's ``csrc/`` given with ``--tree NAME=DIR[:BK]`` (a
 parent commit unpacked by ``git archive``; for the forward group its key
-tile BK). Four groups of kernels, one a run (``--group``):
+tile BK). Five groups of kernels, one a run (``--group``):
 
 - ``forward``: ``flash_attention`` at the 7B prefill row (B 4, H = KVH = 32,
   D 128, S = T = 4,096, causal, (B, S, H, D) views) and
@@ -33,26 +33,41 @@ tile BK). Four groups of kernels, one a run (``--group``):
   96), held to its plain version; the variant ``scales_once`` (wrong
   answers, a timing probe) reads every key's scales at the page's first
   row, which times what the per-key scale reads cost. This tree only:
-  an older tree's kernel takes other arguments.
+  an older tree's kernel takes other arguments;
+- ``w4a8``: ``w4a8_gemm_noc`` at the 7B prefill widths (M = 1,024, 4,096
+  -> 11,008 and 11,008 -> 4,096; m = 16,384, 4,096 -> 11,008) and at
+  the chunks of 65-512 tokens (m = 65, 128, 256, 512 at 4,096 ->
+  11,008; 128 at 11,008 -> 4,096; 256 at 4,096 -> 4,096), each EQUAL to
+  its plain version, and
+  ``decode_attention_q8`` at the smoke's three shapes (the 7B KV8 cache:
+  4 slots, 32 heads of 128, T 4,096, lengths 1, 300, 1,000 and 4,096;
+  kvh 8, rep 4; kvh 3, rep 2, D 64, T 1,000), held to its plain version.
+  An older tree's ``decode_attention_q8`` (the one-block walk, no
+  workspace) is launched with its own arguments. The variants force a
+  token tile, decode the nibbles in three integer operations a word,
+  shorten the ring to two stages, or (wrong answers, a timing probe)
+  skip the decode.
 
 Each variant's ptxas lines (registers, spills) are printed after the
 build; the cases run as CUDA-graph replays in rounds that walk the
 variants forwards and then backwards.
 
     python -m how_to_optimize_gemm_tpu_torch.harness.flash_variants \\
-        [--group forward|dkv|gemm|paged] [--variants shipped ...] \\
+        [--group forward|dkv|gemm|paged|w4a8] [--variants shipped ...] \\
         [--tree parent=build/parent/how_to_optimize_gemm_tpu_torch/csrc:64]
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import pathlib
 import shutil
 
 import torch
 
 from how_to_optimize_gemm_tpu_torch import _build
-from how_to_optimize_gemm_tpu_torch.ops import (attention, grouped_gemm,
+from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
+                                               grouped_gemm, int4,
                                                paged_attention, tuned,
                                                vendor)
 from how_to_optimize_gemm_tpu_torch.utils.timing import time_calls
@@ -258,8 +273,44 @@ PAGED_VARIANTS = {
         (_DA, "operand = __fmul_rn(p, sv[scale_b + (size_t)j * KVH]);",
          "operand = __fmul_rn(p, sv[scale_b]);")),
 }
+_W4 = "w4a8_wgmma.cuh"
+_TOKEN_RULE = "  return rounds(64) <= rounds(128) ? 64 : 128;"
+_DECODE = "      dl[j] = decode_lo4(w[j]);\n      dh[j] = decode_hi4(w[j]);"
+_DECODE3 = (_W4, _DECODE,
+            "      dl[j] = (((w[j] & 0x0F0F0F0Fu) | 0x80808080u) - "
+            "0x08080808u) ^ 0x80808080u;\n"
+            "      dh[j] = (((((w[j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u) "
+            "| 0x80808080u) - 0x08080808u) ^ 0x80808080u;")
+_DRAIN = (_W4, "  wg::wgmma_wait<1>();                                 "
+          "                \\\n  wg::fence_regs(f[((I) + 1) & 1]);",
+          "  wg::wgmma_wait<0>();                                 "
+          "                \\\n  wg::fence_regs(f[(I) & 1]);")
+W4A8_VARIANTS = {
+    "shipped": (),
+    # one token tile at every shape
+    "bt64": ((_W4, _TOKEN_RULE, "  return rounds(64) >= 0 ? 64 : 128;"),),
+    "bt128": ((_W4, _TOKEN_RULE, "  return rounds(64) < 0 ? 64 : 128;"),),
+    # the nibbles decoded in three integer operations a word (the bits
+    # of decode_lo4 / decode_hi4: x - 8 per byte as ((x | 0x80) - 8) ^ 0x80)
+    "decode3": (_DECODE3,),
+    # each step's products completed before the next step's fragments are
+    # written (wait<0>; the two consumers interleave at the tensor cores)
+    "drain": (_DRAIN,),
+    # a ring of two stages
+    "st2": ((_W4, "  static constexpr int ST =\n      (SMEM_LIMIT - "
+             "wg::ATOM - 256) / STAGE;   // stages of the ring",
+             "  static constexpr int ST = 2;   // stages of the ring"),),
+    # diagnostics, wrong answers: the packed bytes go to the tensor cores
+    # undecoded; fixed A fragments (no loads, decode or register writes in
+    # the loop: the products and the ring alone)
+    "diag_no_decode": ((_W4, _DECODE,
+                        "      dl[j] = w[j];\n      dh[j] = w[j];"),),
+    "diag_fixed_a": (
+        (_W4, "  fragments<I>(box, off, f[(I) & 1]);", "  (void)box;"),
+        (_W4, "  uint32_t f[2][4][4];", "  uint32_t f[2][4][4] = {};")),
+}
 # the headers the variants may change besides the groups' sources
-HEADERS = (_BODY, _GW, _DA)
+HEADERS = (_BODY, _GW, _DA, _W4)
 
 GROUPS = {
     "forward": (("flash_attention.cu", "flash_attention_fwd_lse.cu"),
@@ -267,6 +318,7 @@ GROUPS = {
     "dkv": ((_DKV,), DKV_VARIANTS),
     "gemm": ((_GEMM, _FP32, _NN, _FP32_NN), GEMM_VARIANTS),
     "paged": ((_PAGED,), PAGED_VARIANTS),
+    "w4a8": (("w4a8_gemm_noc.cu", "decode_attention_q8.cu"), W4A8_VARIANTS),
 }
 
 
@@ -563,8 +615,88 @@ def paged_cases(gen, tiles):
     return cases, check, {}
 
 
+# an older tree's decode_attention_q8 (the one-block walk): (q, qk, sk,
+# qv, sv, lengths, out, B, T, KVH, REP, D, bk, scale, stream)
+_ONE_BLOCK_Q8 = ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6
+                 + (ctypes.c_float, ctypes.c_void_p))
+
+
+def decode_q8(q, qk, sk, qv, sv, lengths):
+    """decode_attention_q8 on the tree in use: its wrapper, or an older
+    tree's one-block kernel launched with its own arguments."""
+    name = "decode_attention_q8"
+    if "launch_decode_attention_split" in (
+            _build.CSRC / _build.KERNELS[name].source).read_text():
+        return decode_attention.decode_attention_q8(q, qk, sk, qv, sv,
+                                                    lengths)
+    b, h, d = q.shape
+    t, kvh = qk.shape[1], qk.shape[2]
+    bk = decode_attention.pick_block(t, kvh, d, 1)
+    out = torch.empty((b, h * d), device=q.device)
+    fn = _build.c_function(_build.KERNELS[name].source, name, _ONE_BLOCK_Q8)
+    err = fn(*(x.data_ptr() for x in (q, qk, sk, qv, sv, lengths, out)), b,
+             t, kvh, h // kvh, d, bk, d ** -0.5,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} (one-block walk) launch failed: "
+                           f"cudaError {err}")
+    return out
+
+
+def w4a8_cases(gen, tiles):
+    """w4a8_gemm_noc at the 7B prefill widths and at chunks of 65-512
+    tokens (where the token-tile rule picks 64 and where it picks 128), each
+    EQUAL to its plain version (and two calls bit-equal), and
+    decode_attention_q8 at the smoke's three shapes, held to its plain
+    version (max abs)."""
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    cases, refs = {}, {}
+    for m, k, n in ((1024, 4096, 11008), (1024, 11008, 4096),
+                    (16384, 4096, 11008), (256, 4096, 11008),
+                    (65, 4096, 11008), (128, 4096, 11008),
+                    (128, 11008, 4096), (256, 4096, 4096),
+                    (512, 4096, 11008)):
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randn((k, n), generator=gen, device="cuda")
+        args = int4.prepare_w4a8(x, w)[:4]
+        case = f"w4a8_gemm_noc M={m} {k}->{n}"
+        cases[case] = lambda a=args: int4.mmult_q_w4a8_noc(*a)
+        refs[case] = (True, int4.mmult_q_w4a8_noc_ref(*args))
+        del x, w
+    for kvh, rep, d, t, lens in ((32, 1, 128, 4096, [1, 300, 1000, 4096]),
+                                 (8, 4, 128, 4096, [1, 300, 1000, 4096]),
+                                 (3, 2, 64, 1000, [1, 999, 1000, 517])):
+        q = torch.randn((len(lens), kvh * rep, d), generator=gen,
+                        device="cuda")
+        cache = []
+        for _ in "kv":
+            cache += llama.quantize_kv(torch.randn(
+                (len(lens), t, kvh, d), generator=gen, device="cuda"))
+        args = (q, *cache, torch.tensor(lens, dtype=torch.int32,
+                                        device="cuda"))
+        case = f"decode_attention_q8 kvh={kvh} rep={rep} d={d} T={t}"
+        cases[case] = lambda a=args: decode_q8(*a)
+        refs[case] = (False, decode_attention.decode_attention_q8_ref(*args))
+
+    def check(name):
+        parts = []
+        for case, fn in cases.items():
+            exact, ref = refs[case]
+            out = fn()
+            if exact:
+                equal = torch.equal(out, ref)
+                same = torch.equal(out, fn())
+                parts.append(f"{case}: {'EQUAL' if equal else 'DIFFERS'}, "
+                             f"repeat {'equal' if same else 'DIFFERS'}")
+            else:
+                parts.append(f"{case}: max|kernel - plain| "
+                             f"{float((out - ref).abs().max()):.3e}")
+        return "; ".join(parts)
+    return cases, check, {}
+
+
 CASES = {"forward": forward_cases, "dkv": dkv_cases, "gemm": gemm_cases,
-         "paged": paged_cases}
+         "paged": paged_cases, "w4a8": w4a8_cases}
 
 
 def main(argv=None) -> None:

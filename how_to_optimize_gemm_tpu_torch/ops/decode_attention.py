@@ -26,20 +26,20 @@ are not ported.
 ``decode_attention`` and ``decode_attention_q8`` launch their kernels for
 CUDA tensors and run their plain versions (``*_ref``) only for CPU
 tensors; kernel and plain version sum in other orders and agree to
-rounding. ``decode_attention``'s kernel splits each slot's chunks into
-runs of ``split_plan``'s length, walked by blocks of their own in one
-launch, and combines the runs' partial softmax sums in a fixed order
-(``csrc/decode_attention.cuh``); the partials and a counter per (slot,
-head) live in a workspace kept per device (``_workspace``), which the
-KV8 pool's paged kernel (``paged_attention.paged_decode_attention_q8``)
-shares.
+rounding. Both kernels split each slot's chunks into runs of
+``split_plan``'s length, walked by blocks of their own in one launch,
+and combine the runs' partial softmax sums in a fixed order
+(``csrc/decode_attention.cuh``'s split walk); the partials and a counter
+per (slot, head) live in a workspace kept per device (``_workspace``),
+which the KV8 pool's paged kernel
+(``paged_attention.paged_decode_attention_q8``) shares.
 """
 from __future__ import annotations
 
 import torch
 
 from how_to_optimize_gemm_tpu_torch import _build
-from how_to_optimize_gemm_tpu_torch.ops.int8 import require_cuda
+from how_to_optimize_gemm_tpu_torch.ops.int8 import ALIGN, require_cuda
 
 NEG_INF = -1e30
 # the reference wrapper's default chunk and its fast-memory budget for
@@ -94,9 +94,9 @@ def split_plan(t: int, bk: int) -> tuple[int, int]:
 def _workspace(device, n_count: int, n_part: int,
                name: str = "decode_attention"):
     """The (int32 counters, float32 partials) of the split walk's kernels
-    on ``device`` (``decode_attention`` and the KV8 pool's
-    ``paged_decode_attention_q8``, which share it: calls on one stream
-    leave the counters at zero), at least n_count and n_part long. The
+    on ``device`` (``decode_attention``, ``decode_attention_q8`` and the
+    KV8 pool's ``paged_decode_attention_q8``, which share it: calls on one
+    stream leave the counters at zero), at least n_count and n_part long. The
     counters are zeroed once, when allocated: the kernels leave them at
     zero. A workspace is grown eagerly, never under a CUDA graph capture
     (its zero fill would run only in the graph's replays): a capture must
@@ -256,15 +256,25 @@ def decode_attention_q8(q, qk, sk, qv, sv, lengths, bk=DEFAULT_BK):
     sk, sv (B, T, KVH) float32 -> (B, H * D) fp32.
 
     The chunk length is the reference's for a 1-byte cache
-    (``pick_block``); the kernel's limits are ``decode_attention``'s."""
+    (``pick_block``); the kernel's limits are ``decode_attention``'s, and
+    its caches' bases are 16-byte aligned (its copies are 16 bytes). Each
+    slot's live chunks are walked in splits of ``split_plan``'s length, one
+    block each, in one launch, on ``decode_attention``'s workspace, which
+    grows only eagerly: a CUDA graph capture must follow one eager call at
+    its size."""
     if q.device.type == "cpu":
         return decode_attention_q8_ref(q, qk, sk, qv, sv, lengths, bk)
-    require_cuda("decode_attention_q8", q)
+    name = "decode_attention_q8"
+    require_cuda(name, q)
     q, lengths, b, h, d, t, kvh, rep, bk = _check(
-        "decode_attention_q8", q, (qk, qv), (sk, sv), lengths, bk,
-        torch.int8)
+        name, q, (qk, qv), (sk, sv), lengths, bk, torch.int8)
+    if any(c.data_ptr() % ALIGN for c in (qk, qv)):
+        raise ValueError(f"{name}: caches not {ALIGN}-byte aligned")
     out = torch.empty((b, h * d), dtype=torch.float32, device=q.device)
     if b and t and kvh:
-        _build.launch("decode_attention_q8", q.device, q, qk, sk, qv, sv,
-                      lengths, out, b, t, kvh, rep, d, bk, d ** -0.5)
+        per, splits = split_plan(t, bk)
+        count, part = _workspace(q.device, b * kvh,
+                                 b * kvh * splits * rep * (d + 2), name)
+        _build.launch(name, q.device, q, qk, sk, qv, sv, lengths, out, part,
+                      count, b, t, kvh, rep, d, bk, per, d ** -0.5)
     return out

@@ -9,7 +9,9 @@ packed two per byte in 512-row pack blocks (``ops/quant.py``).
   ``C = f32(QA @ W as int32) * sa[i] * sw[j] + C``, IN PLACE on ``c`` as
   the reference aliases C into its output.
 - ``mmult_q_w4a8_noc`` (the serving linear at m > 64, kernel
-  ``w4a8_gemm_noc``): ``y = f32(QA @ W as int32) * sa[i] * sw[j]``.
+  ``w4a8_gemm_noc``, int8 ``wgmma`` on tiles of 64 or 128 tokens x 256
+  columns, the token tile chosen by the kernel's launcher): ``y = f32(QA
+  @ W as int32) * sa[i] * sw[j]``.
 - ``mmult_w4a8_fused_noc`` (the serving linear at m <= 64, kernel
   ``w4a8_gemv_fq``): the same with the activation quantization of float
   rows done on the card, ``quantize_symmetric(x, axis=1)`` first.
@@ -113,7 +115,9 @@ def mmult_q_w4a8_noc(qa, sa, packed, sw):
     """y = f32(QA_int8 @ W4 as int32) * sa * sw, a fresh (M, N) float32.
 
     qa (M, K) int8, sa (M, 1), packed (Kp/2, N) int8 with Kp a multiple
-    of 512 and K <= Kp, sw (1, N) float32. No C is read or added."""
+    of 512 and K <= Kp, sw (1, N) float32. No C is read or added. One
+    launch at every m; the kernel reads each packed byte once per tile,
+    both nibbles in one stage."""
     if qa.device.type == "cpu":
         return mmult_q_w4a8_noc_ref(qa, sa, packed, sw)
     require_cuda("mmult_q_w4a8_noc", qa)

@@ -12,6 +12,8 @@ stay under their rung's gate_rel against an fp64 oracle of the effective
 operands. The float ladder kernels' and the serving kernels' tolerances
 are stated above their tests.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -434,6 +436,55 @@ def test_w4a8_gemm_noc_equals_plain_version(cuda, m, n, k):
     assert torch.equal(out, ref), float((out - ref).abs().max())
 
 
+# The wgmma kernel's edges: m at the 64- and 128-token tiles' borders,
+# K = 256 (one stage whose high nibbles meet only zero columns), 512 (both
+# nibbles of one pack block in two stages) and 768 (a second block's low
+# half), N ragged and past one 256-column tile, and the two 7B shapes at
+# m = 1,024; each call one launch, EQUAL to the plain version. The cases
+# take both token tiles, as the kernel's own count of its launches of each
+# tile reads on the card (w4a8_gemm_noc_tile_launches).
+W4A8_EDGES = [(64, 520, 512), (65, 520, 768), (128, 136, 256),
+              (256, 1032, 768), (257, 1032, 256), (257, 11008, 768),
+              (1024, 11008, 4096), (1024, 4096, 11008)]
+
+
+def _w4a8_tile_launches():
+    fn = _build.c_function("w4a8_gemm_noc.cu", "w4a8_gemm_noc_tile_launches",
+                           (ctypes.c_int,))
+    return {bt: fn(bt) for bt in (64, 128)}
+
+
+def _w4a8_edge_call(m, n, k, device):
+    """One w4a8_gemm_noc call at an edge: its output, its plain
+    version's and the token tile the kernel launched."""
+    x = _activations(m, k, 3 * m + n, device)
+    qa, sa = int4.quant.quantize_symmetric(x, axis=1)
+    packed, sw = _w4a8_weights(k, n, k + 1, device)
+    before, tiles = _build.LAUNCHES["w4a8_gemm_noc"], _w4a8_tile_launches()
+    out = int4.mmult_q_w4a8_noc(qa, sa, packed, sw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["w4a8_gemm_noc"] == before + 1
+    after = _w4a8_tile_launches()
+    moved = [bt for bt in after if after[bt] != tiles[bt]]
+    assert len(moved) == 1 and after[moved[0]] == tiles[moved[0]] + 1, (
+        tiles, after)
+    ref = int4.mmult_q_w4a8_noc_ref(qa, sa, packed, sw)
+    return out, ref, moved[0], (qa, sa, packed, sw)
+
+
+def test_w4a8_edges_take_both_token_tiles(cuda):
+    tiles = {_w4a8_edge_call(m, n, k, cuda)[2] for m, n, k in W4A8_EDGES}
+    assert tiles == {64, 128}
+
+
+@pytest.mark.parametrize("m,n,k", W4A8_EDGES)
+def test_w4a8_gemm_noc_wgmma_edges(cuda, m, n, k):
+    out, ref, _, args = _w4a8_edge_call(m, n, k, cuda)
+    assert out.shape == (m, n)
+    assert torch.equal(out, ref), float((out - ref).abs().max())
+    assert torch.equal(int4.mmult_q_w4a8_noc(*args), out)
+
+
 @pytest.mark.parametrize("m", [1, 4, 5, 64])
 @pytest.mark.parametrize("n,k", [(384, 700), (1000, 4096), (4096, 11008)])
 def test_w4a8_gemv_fq_equals_plain_version(cuda, m, n, k):
@@ -687,6 +738,90 @@ def test_decode_attention_q8_matches_plain_version(cuda, kvh, rep, d):
     print(f"decode_attention_q8 kvh={kvh} rep={rep} d={d}: max|kernel - "
           f"plain| = {err}")
     assert err < 2e-3, err
+
+
+# decode_attention_q8 on the split walk: T = 1,024 at the reference's
+# chunk for a 1-byte cache (bk 512, one chunk a split, two splits; bk 256
+# at kvh 32, four), slots of length 0, 1, a split's last key, the next
+# split's first and T. Within 2e-3 of the plain version (p * sv rounded
+# against a split's running max); one launch a call, the same bits over
+# repeats, the workspace's counters back at 0.
+@pytest.mark.parametrize("kvh,rep,d", [(4, 2, 128), (2, 4, 128),
+                                       (8, 1, 64), (3, 2, 32),
+                                       (32, 1, 128)])
+def test_decode_attention_q8_splits_long_slots(cuda, kvh, rep, d):
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    t = 1024
+    bk = decode_attention.pick_block(t, kvh, d, 1)
+    per, splits = decode_attention.split_plan(t, bk)
+    assert splits > 1
+    lens = [0, 1, per * bk, per * bk + 1, t]
+    rng = np.random.default_rng(kvh * rep + d + 1)
+    q = torch.from_numpy(rng.standard_normal((len(lens), kvh * rep, d))
+                         .astype(np.float32)).to(cuda)
+    cache = []
+    for _ in "kv":
+        cache += llama.quantize_kv(torch.from_numpy(rng.standard_normal(
+            (len(lens), t, kvh, d)).astype(np.float32)).to(cuda))
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+
+    def call():
+        return decode_attention.decode_attention_q8(q, *cache, lengths)
+
+    before = _build.LAUNCHES["decode_attention_q8"]
+    out = call()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["decode_attention_q8"] == before + 1
+    assert not decode_attention._WORKSPACE[out.device][0].any()
+    ref = decode_attention.decode_attention_q8_ref(q, *cache, lengths)
+    err = float((out - ref).abs().max())
+    print(f"decode_attention_q8 split kvh={kvh} rep={rep} d={d} bk={bk}: "
+          f"max|kernel - plain| = {err}")
+    assert err < 2e-3, err
+    assert not out[0].any()
+    assert torch.equal(call(), out)
+
+
+# The KV8 kernel from a CUDA graph captured at the 7B cache's shape (kvh
+# 32, T 4,096: bk 256, one chunk a split, 16 splits), replayed at other
+# lengths: its plan and grid come from T and bk alone, so each replay
+# equals an eager call at its lengths bit for bit, within 2e-3 of the
+# plain version, the counters at 0.
+def test_decode_attention_q8_graph_replays_at_other_lengths(cuda):
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    kvh, rep, d, t = 32, 1, 128, 4096
+    runs = [[1, 300, 1000, 4096], [0, 256, 257, 4095], [4096, 1, 0, 768]]
+    rng = np.random.default_rng(45)
+    q = torch.from_numpy(rng.standard_normal((4, kvh * rep, d)).astype(
+        np.float32)).to(cuda)
+    cache = []
+    for _ in "kv":
+        cache += llama.quantize_kv(torch.from_numpy(rng.standard_normal(
+            (4, t, kvh, d)).astype(np.float32)).to(cuda))
+    lengths = torch.tensor(runs[1], dtype=torch.int32, device=cuda)
+
+    def call():
+        return decode_attention.decode_attention_q8(q, *cache, lengths)
+    call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call()
+    counters = decode_attention._WORKSPACE[q.device][0]
+    for lens in runs:
+        lengths.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert not counters.any()
+        eager = call()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, eager)
+        assert not counters.any()
+        ref = decode_attention.decode_attention_q8_ref(q, *cache, lengths)
+        err = float((replayed - ref).abs().max())
+        print(f"decode_attention_q8 replay at {lens}: max|kernel - "
+              f"plain| = {err}")
+        assert err < 2e-3, err
 
 
 # Slice 4's kernels, over page pools through block tables.

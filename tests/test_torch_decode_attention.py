@@ -14,12 +14,18 @@ difference seen here is 7.6e-5, at the v3 width). The JAX package holds
 this kernel to atol 3e-2 (``tests/test_decode_attention.py``); the port
 is held to 5e-4.
 
-The card's kernel walks each slot in splits of whole chunks and combines
+The card's kernels walk each slot in splits of whole chunks and combine
 the splits' partial sums (``csrc/decode_attention.cuh``); ``_split_walk``
 below models that arithmetic in plain PyTorch, held to the card's rule
 for the kernel, DECODE_ATOL = 2e-3 (``chip_smoke.py``), against the plain
 walk and the JAX kernel: a split rounds p to bf16 against its own running
-max, not the slot's.
+max, not the slot's. For the KV8 cache (``decode_attention_q8``: scores
+times sk, the PV operand bf16(p * sv)) the model is held to the plain walk
+and to JAX's ``decode_attention_q8`` (interpret mode) within the rounding
+bound of the PV operand, ``_rounding_bound``: each operand rounds within
+2^-8 of itself, so two walks that round at other scales differ by at most
+2^-7 of the softmax-weighted sum of |v| (dequantized) over the slot's keys,
+plus fp32 slack.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -106,12 +112,14 @@ def test_decode_attention_refuses_other_devices():
                                                 device="meta"))
 
 
-def _split_walk(q, k, v, lengths, bk, per):
-    """A model of the kernel's split walk: each run of ``per`` chunks of a
+def _split_walk(q, k, v, lengths, bk, per, sk=None, sv=None):
+    """A model of the kernels' split walk: each run of ``per`` chunks of a
     slot walked alone by the plain walk's arithmetic (from m = -1e30,
-    l = 0, o = 0), the runs' (m, l, o) then combined in run order:
-    m* = max m, l* = sum l exp(m - m*), o* = sum o exp(m - m*), out =
-    o* / max(l*, 1e-30); a slot of length 0 is zeros."""
+    l = 0, o = 0; for the KV8 cache, sk and sv (B, T, KVH), scores times
+    sk and the PV operand bf16(p * sv) of the rows below the length), the
+    runs' (m, l, o) then combined in run order: m* = max m, l* = sum l
+    exp(m - m*), o* = sum o exp(m - m*), out = o* / max(l*, 1e-30); a slot
+    of length 0 is zeros."""
     b, h, d = q.shape
     kvh = k.shape[2]
     rep = h // kvh
@@ -125,15 +133,21 @@ def _split_walk(q, k, v, lengths, bk, per):
             l = torch.zeros((kvh, rep, 1))
             o = torch.zeros((kvh, rep, d))
             for c in range(c0, min(c0 + per, nk)):
-                kb = k[bi, c * bk:(c + 1) * bk].to(torch.float32)
+                rows = slice(c * bk, (c + 1) * bk)
+                kb = k[bi, rows].to(torch.float32)
                 s = torch.einsum("grd,tgd->grt", qg[bi], kb)
+                if sk is not None:
+                    s = s * sk[bi, rows].t()[:, None, :]
                 live = c * bk + torch.arange(kb.shape[0]) < length
                 s = s.masked_fill(~live, da.NEG_INF)
                 m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
                 alpha = torch.exp(m - m_new)
                 p = torch.exp(s - m_new)
                 l = l * alpha + p.sum(dim=-1, keepdim=True)
-                vb = v[bi, c * bk:(c + 1) * bk].to(torch.float32)
+                if sv is not None:
+                    p = torch.where(live, p * sv[bi, rows].t()[:, None, :],
+                                    0.0)
+                vb = v[bi, rows].to(torch.float32)
                 pv = torch.einsum("grt,tgd->grd",
                                   p.to(torch.bfloat16).to(torch.float32), vb)
                 o = o * alpha + pv
@@ -195,6 +209,68 @@ def test_split_walk_at_many_splits(per):
     print(f"per={per}: split walk vs plain {err:.3e}")
     assert err < DECODE_ATOL
     assert torch.equal(got[1], plain[1])   # one key: one split, no combine
+
+
+def _rounding_bound(q, qk, sk, qv, sv, lengths):
+    """Per output element, 2^-7 of the softmax-weighted sum of |v| over
+    the slot's keys (in fp64, K and V dequantized) plus 1e-5: how far two
+    walks that round each PV operand to bf16 at other scales can differ."""
+    b, h, d = q.shape
+    kvh = qk.shape[2]
+    qg = q.reshape(b, kvh, h // kvh, d).double() * d ** -0.5
+    out = torch.zeros((b, kvh, h // kvh, d), dtype=torch.float64)
+    for bi, n in enumerate(lengths):
+        if n == 0:
+            continue
+
+        def rows(x, s):
+            return x[bi, :n].double() * s[bi, :n, :, None]
+        w = torch.softmax(torch.einsum("grd,tgd->grt", qg[bi],
+                                       rows(qk, sk)), -1)
+        out[bi] = torch.einsum("grt,tgd->grd", w, rows(qv, sv).abs())
+    return (2.0 ** -7 * out + 1e-5).reshape(b, h * d).float()
+
+
+@pytest.mark.parametrize("per", [1, 2])
+@pytest.mark.parametrize("kvh,rep,d", [(2, 2, 64), (16, 1, 128)])
+def test_split_walk_q8_matches_plain_walk_and_jax(kvh, rep, d, per):
+    """``decode_attention_q8``'s split walk over the contiguous KV8 cache:
+    one chunk a split (two splits at T = 256, bk = 128) and two (one
+    split, the plan's: ``split_plan(256, 128)``); slots of length 0, 1,
+    the first split's last key, the second split's first key and T,
+    against the plain walk and the JAX kernel in interpret mode, within
+    the rounding bound."""
+    lengths = [0, 1, BK, BK + 1, T]
+    rng = np.random.default_rng(30 + kvh + per)
+    q = torch.from_numpy(rng.standard_normal(
+        (len(lengths), kvh * rep, d)).astype(np.float32))
+    cache = []
+    for _ in "kv":
+        cache += llama.quantize_kv(torch.from_numpy(rng.standard_normal(
+            (len(lengths), T, kvh, d)).astype(np.float32)))
+    qk, sk, qv, sv = cache
+    tl = torch.tensor(lengths)
+    got = _split_walk(q, qk, qv, lengths, BK, per, sk, sv)
+    plain = da.decode_attention_q8_ref(q, *cache, tl, bk=BK)
+    pad = ((0, 0), (0, 0), (0, 128 - kvh))
+    jcache = [jnp.asarray(x.numpy()) if i % 2 == 0
+              else jnp.asarray(np.pad(x.numpy(), pad))
+              for i, x in enumerate(cache)]
+    ref = np.asarray(jda.decode_attention_q8(
+        jnp.asarray(q.numpy()), *jcache,
+        jnp.asarray(np.asarray(lengths, np.int32)), bk=BK, interpret=True))
+    bound = _rounding_bound(q, *cache, lengths)
+    err_plain = (got - plain).abs()
+    err_jax = (got - torch.tensor(ref)).abs()
+    print(f"kvh={kvh} rep={rep} d={d} per={per}: split walk vs plain "
+          f"{float(err_plain.max()):.3e} (DECODE_ATOL {DECODE_ATOL}), "
+          f"{float((err_plain / bound).max()):.3f} of the rounding bound; "
+          f"vs jax {float(err_jax.max()):.3e}")
+    assert (err_plain <= bound).all()
+    assert (err_jax <= bound + ATOL).all()
+    assert not got[0].any()
+    # one chunk: one split, no combine
+    assert torch.equal(got[1], plain[1]) and torch.equal(got[2], plain[2])
 
 
 def test_split_plan_depends_on_t_and_bk_only():

@@ -127,7 +127,8 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
     # counters), B, T, KVH, REP, D, bk, the chunks a split, the scale, the
     # stream
     assert len(_build.KERNELS["decode_attention"].argtypes) == 16
-    assert len(_build.KERNELS["decode_attention_q8"].argtypes) == 15
+    # and with the KV8 scales after each int8 cache
+    assert len(_build.KERNELS["decode_attention_q8"].argtypes) == 18
     assert len(_build.KERNELS["kv_update"].argtypes) == 9
     # x split (or fp32 x), the stack, block_expert, the scales, out, Tp,
     # N, K, lda, ldw, bt, E, kind, the stream
