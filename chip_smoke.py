@@ -39,7 +39,12 @@ Phases (any failure raises and exits non-zero before the last line):
    13 must launch their own kernels at 4,096, not rung 11's; rung 17's six
    knob instances EQUAL to ``int8_gemm_nt``'s output at ``WALK``, each
    timed at 4,096; rung 18 also at 4,096 with cap 1,664, a two-piece plan,
-   on its own kernel; then ``int8_gemm_nt``'s time right after a call of
+   on its own kernel; K2 and rung 18, one int8 ``wgmma`` body, also at
+   ``WALK``, where K2's persistent grid wraps (two calls at 4,096
+   bit-equal), and on subnormal scales and C, EQUAL with C's rows of
+   16-byte multiples and at N = 262, each time printed beside the
+   ``mma.sync`` kernel's before the rebuild; then ``int8_gemm_nt``'s time
+   right after a call of
    rung 10, 12 or 13, the check that evict_last lines left behind do not
    slow the next kernel, and rungs 12, 13, 14 and 18 at p = 2,048 chained
    beside a CUDA-graph replay, the host's share of a call), the bf16 and
@@ -345,7 +350,8 @@ KERNELS = [
                   "(mmult_q_bt, rung 14)",
          rung="14_packed_alias_int8", wrapper=int8.mmult_q_bt,
          plain=int8.mmult_q_bt_ref, library=_int_mm_nt,
-         unaligned=(1000, 1032, 1100), tol=0.0, peak="int8"),
+         unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8",
+         extra=("int8_walk", "subnormal")),
     # the hand-pipeline record (rungs 08-11): fresh outputs, EQUAL
     dict(name="int8_dma_nn", source=SRC + "int8_dma_nn.cu",
          replaces=MANUAL_DMA + ":71",
@@ -415,7 +421,7 @@ KERNELS = [
          rung="18_ragged_m_int8", wrapper=int8.mmult_q_bt_ragged,
          plain=int8.mmult_q_bt_ref, library=_int_mm_nt,
          unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8",
-         own=True, extra=("two_piece", "host")),
+         own=True, extra=("two_piece", "host", "subnormal")),
     dict(name="w4a8_gemm", source=SRC + "w4a8_gemm.cu",
          replaces="how_to_optimize_gemm_tpu/ops/pallas_int4.py:342",
          function="pallas_int4._kernel_w4a8 + _decode_w4 :36 "
@@ -673,6 +679,59 @@ def check_nt_walk(name: str, ops, c, gen: torch.Generator) -> None:
           f"p={P_FULL} bit-equal")
 
 
+def check_int8_walk(name: str, ops, c, gen: torch.Generator) -> None:
+    """K2's int8 wgmma kernel: at WALK its persistent grid (one block an SM)
+    walks more 128 x 256 tiles than blocks, and not a multiple of them
+    (``tuned.nt_tile_walk`` on ``int8.NT_TILE``); two calls at P_FULL give
+    the same bits."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lengths = [len(w) for w in tuned.nt_tile_walk(WALK[0], WALK[1], sms,
+                                                  int8.NT_TILE)]
+    if not (max(lengths) > 1 and min(lengths) < max(lengths)):
+        raise AssertionError(f"{name} at {WALK}: the walk of "
+                             f"{sum(lengths)} tiles on {sms} SMs does not "
+                             "wrap")
+    out = int8.mmult_q_bt(*ops, c.clone())
+    again = int8.mmult_q_bt(*ops, c.clone())
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two calls differ")
+    print(f"{name}: {sum(lengths)} tiles at {WALK} on {sms} SMs (each "
+          f"block walks {min(lengths)}-{max(lengths)}); two calls at "
+          f"p={P_FULL} bit-equal")
+
+
+def check_subnormal(name: str, ops, c, gen: torch.Generator) -> None:
+    """K2 or rung 18 on sa = 2^-120 and sb = 2^-30, passed to the wrapper
+    directly, and a C of subnormals of both signs: v = (acc x 2^-120) x
+    2^-30 and v + C are subnormal for 2 <= |acc| < 2^23. EQUAL to the plain
+    version where the tensor-map reduction adds C (N 264) and where each
+    thread does (N 262)."""
+    wrapper = (int8.mmult_q_bt if name == "int8_gemm_nt"
+               else int8.mmult_q_bt_ragged)
+    m, k = 300, 520
+    for n in (264, 262):
+        qa = torch.randint(-127, 128, (m, k), generator=gen, device="cuda",
+                           dtype=torch.int8)
+        qbt = torch.randint(-127, 128, (n, k), generator=gen, device="cuda",
+                            dtype=torch.int8)
+        sa = torch.full((m, 1), 2.0 ** -120, device="cuda")
+        sb = torch.full((1, n), 2.0 ** -30, device="cuda")
+        cs = torch.randint(-2 ** 20, 2 ** 20, (m, n), generator=gen,
+                           device="cuda").float() * 2.0 ** -149
+        out = wrapper(qa, sa, qbt, sb, cs.clone())
+        ref = int8.mmult_q_bt_ref(qa, sa, qbt, sb, cs)
+        torch.cuda.synchronize()
+        tiny = float((ref.abs() < torch.finfo(torch.float32).tiny).float()
+                     .mean())
+        if tiny < 0.9 or not torch.equal(out, ref):
+            raise AssertionError(f"{name} subnormal case N={n}: "
+                                 f"{int((out != ref).sum())} elements "
+                                 f"differ, {tiny:.3f} subnormal")
+        print(f"{name} subnormal case {m}x{n}x{k}: EQUAL, {tiny:.3f} of "
+              "the outputs subnormal")
+
+
 def check_fp32_parts(name: str, ops, c, gen: torch.Generator) -> None:
     """Rung 16's or rung 04's wrapper at P_FULL in its parts: the two
     ``split_bf16`` launches (A and BT, or A and B as it lies, into bf16
@@ -724,7 +783,8 @@ def _launched_with_splits(name: str, before: dict) -> None:
 
 EXTRA_CHECKS = {"knobs": check_knobs, "two_piece": check_two_piece,
                 "residue": check_residue, "host": check_host,
-                "nt_walk": check_nt_walk, "fp32_parts": check_fp32_parts}
+                "nt_walk": check_nt_walk, "fp32_parts": check_fp32_parts,
+                "int8_walk": check_int8_walk, "subnormal": check_subnormal}
 
 
 def check_kernel(spec: dict, gen: torch.Generator) -> dict:
@@ -852,14 +912,15 @@ DECODE_ATOL = 2e-3   # decode_attention vs its plain version (sum order, exp)
 # to show it
 FLASH_ULPS = 2.0
 # the times of the kernels rebuilt on wgmma before their rebuild: the
-# flash forwards at the 7B prefill row and the soak's row, rung 15 at
-# P_FULL and dK/dV at the soak's row (PERF.md section 6; NVIDIA H100 80GB
-# HBM3, 700.00 W), printed beside this run's
+# flash forwards at the 7B prefill row and the soak's row, rungs 15, 16,
+# 05, 04, 14 (K2) and 18 at P_FULL and dK/dV at the soak's row (PERF.md
+# section 6; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
 BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
              "bf16_gemm_nt": 0.6477, "flash_attention_bwd_dkv": 1.0286,
              "fp32_gemm_nt": 6.6231, "bf16_gemm_nn": 0.5681,
              "fp32_gemm_nn": 4.4085, "paged_decode_attention_q8": 0.8038,
-             "w4a8_gemm_noc": 0.5742, "decode_attention_q8": 0.7697}
+             "w4a8_gemm_noc": 0.5742, "decode_attention_q8": 0.7697,
+             "int8_gemm_nt": 0.4099, "int8_ragged_nt": 0.4124}
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0

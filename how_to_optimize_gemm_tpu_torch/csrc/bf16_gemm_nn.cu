@@ -35,6 +35,7 @@ struct Rung05 {
   static constexpr int PRODUCTS = 1;
   static constexpr bool B_MN = true;
   static constexpr bool SEED_C = true;
+  static constexpr bool S8 = false;       // bf16 operands
 };
 
 }  // namespace htog

@@ -39,6 +39,7 @@ struct Rung15 {
   static constexpr int PRODUCTS = 1;
   static constexpr bool B_MN = false;
   static constexpr bool SEED_C = false;
+  static constexpr bool S8 = false;       // bf16 operands
 };
 
 }  // namespace htog

@@ -56,6 +56,7 @@ struct Rung04 {
   static constexpr int PRODUCTS = 3;     // hi.hi + hi.lo + lo.hi a stage
   static constexpr bool B_MN = true;
   static constexpr bool SEED_C = true;
+  static constexpr bool S8 = false;       // bf16 operands
 };
 
 }  // namespace htog

@@ -58,6 +58,7 @@ struct Rung16 {
   static constexpr int PRODUCTS = 3;     // hi.hi + hi.lo + lo.hi a stage
   static constexpr bool B_MN = false;
   static constexpr bool SEED_C = false;
+  static constexpr bool S8 = false;       // bf16 operands
 };
 
 }  // namespace htog

@@ -1,10 +1,15 @@
 // One persistent wgmma GEMM body fed by tensor maps: the kernel of rung 15
 // (bf16_gemm_nt.cu), rung 16 (fp32_gemm_nt.cu, three bf16 products on
-// split operands), rung 05 (bf16_gemm_nn.cu, B read N-major) and rung 04
+// split operands), rung 05 (bf16_gemm_nn.cu, B read N-major), rung 04
 // (fp32_gemm_nn.cu, three bf16 products on split operands with B read
-// N-major, the partial sums seeded with C). Each of those files names its
-// instance's constants in a struct P:
-//   BN        output columns a tile (256: 128 fp32 accumulators a thread;
+// N-major, the partial sums seeded with C), and the int8 summit K2
+// (int8_gemm_nt.cu, rung 14) and rung 18 (int8_ragged_nt.cu, K2 walked
+// over a strip plan). Each of those files names its instance's constants
+// in a struct P:
+//   S8        int8 operands (QA and QBT, K-major): wgmma.m64nBNk32.s32.s8,
+//             int32 sums, 128 K values a stage, and K2's dequant epilogue
+//             (below); else bf16 operands, fp32 sums, 64 K values a stage
+//   BN        output columns a tile (256: 128 accumulators a thread;
 //             128: 64, which leaves room for a second array of partial sums)
 //   CH        stages a partial sum (0: one wgmma sum over all of K)
 //   ST        stages of the ring
@@ -21,20 +26,24 @@
 //             _make_kernel_bt)
 //
 // Block (wgmma.cuh's shape, 384 threads): a persistent grid, one block an
-// SM, walking BM x BN output tiles in groups of GROUP_M row tiles (the
-// blocks running at once share a few A row tiles and B in L2). Warp 0's
+// SM, walking BM x BN output tiles in an order the launch passes as a
+// walk (the tile index -> its origin): GroupWalk, groups of GROUP_M row
+// tiles (the blocks running at once share a few A row tiles and B in L2),
+// or rung 18's strip plan (int8_ragged_nt.cu). Warp 0's
 // lane 0 is the producer: it copies each K stage's tiles by tensor map into
 // a ring of ST stages (rows past M or N and K values past K arrive as the
 // copies' zero fill) and runs on into the next tile's stages while the
 // consumers finish a tile. Warpgroups 1 and 2 are the consumers, 64 rows of
-// the tile each, wgmma.m64nBNk16 from shared memory; one stage's products
+// the tile each, wgmma.m64nBNk16 (k32 for int8: the same 32 bytes of each
+// 128-byte line a product) from shared memory; one stage's products
 // stay in flight while the next stage is awaited, and a slot goes back to
 // the producer (the ring's empty barrier) once the products that read it
 // have completed. No block barrier in the main loop, and no wgmma wait on a
 // branch: ptxas serializes the products of a loop shaped like wgmma.cuh's
 // consume() (its note C7518; rung 15 ran 1.15x slower in that shape).
 //
-// Sums: CH = 0 is the tensor cores' straight fp32 sum over K. CH > 0 sums
+// Sums: CH = 0 is the tensor cores' straight fp32 sum over K (int8: the
+// exact int32 sum, the same in any order). CH > 0 sums
 // CH stages in the wgmma accumulator, then adds that partial into a second
 // fp32 array (0, or C with SEED_C) with __fadd_rn in K's order and
 // restarts the wgmma sum: the fixed order of a fixed tiling, the same bits
@@ -45,7 +54,14 @@
 // time and the tensor-map unit adds them into C (cp.reduce.async.bulk.tensor
 // .add) or stores them, in L2, while the consumers go on to the next tile.
 // Elsewhere each element is read and written by the thread that owns it.
+// int8 (K2): first each int32 sum becomes (float(acc) * sa[i]) * sb[j] in
+// its own registers, __fmul_rn each (the plain version's order, never an
+// FMA), sb's values of the tile staged once in shared memory; the add of
+// C is then the one above, a single round-to-nearest add, so the output
+// equals the plain version bit for bit.
 #pragma once
+
+#include <type_traits>
 
 #include "wgmma.cuh"
 
@@ -62,6 +78,9 @@ constexpr int A_BYTES = BM * wg::LINE;   // an A plane of a stage
 constexpr int OUT_COLS = 32;
 constexpr int OUT_BOX = 64 * OUT_COLS * 4;
 constexpr int OUT_BYTES = 2 * 2 * OUT_BOX;
+// int8: a consumer's staging of sb, SB_COLS of the tile's columns at a
+// time (at most one a consumer thread)
+constexpr int SB_COLS = 128;
 
 // ------------------------------------------------------------- host side
 
@@ -74,6 +93,19 @@ inline bool kmajor_map(CUtensorMap* map, const void* base, int rows, int cols,
   cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
   cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   return wg::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, dims,
+                      strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A (rows, cols) int8 matrix of row pitch ld bytes, K-major: boxes of
+// box_rows rows x 128 values (one 128-byte swizzled line a row, as
+// kmajor_map's 64 bf16 values).
+inline bool kmajor_map_s8(CUtensorMap* map, const void* base, int rows,
+                          int cols, int ld, int box_rows) {
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                        static_cast<cuuint64_t>(rows)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld)};
+  cuuint32_t box[2] = {wg::LINE, static_cast<cuuint32_t>(box_rows)};
+  return wg::make_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, base, dims,
                       strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
@@ -134,10 +166,66 @@ __device__ __forceinline__ void tile_of(int t, int num_m, int num_n, int& m0,
   n0 = (in_group / gm) * BN;
 }
 
-template <int N>
-__device__ __forceinline__ void zero(float (&d)[N]) {
+// The grouped walk of a num_m x num_n grid of BM x BN tiles (tile_of):
+// the walk of every instance but rung 18.
+template <int BN>
+struct GroupWalk {
+  int num_m, num_n;
+  __host__ __device__ int tiles() const { return num_m * num_n; }
+  __device__ __forceinline__ void tile(int t, int& m0, int& n0) const {
+    tile_of<BN>(t, num_m, num_n, m0, n0);
+  }
+};
+
+template <class T, int N>
+__device__ __forceinline__ void zero(T (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) d[i] = 0.0f;
+  for (int i = 0; i < N; ++i) d[i] = T(0);
+}
+
+// A sum as fp32: itself, or (int8, after dequant) the fp32 bits it holds.
+__device__ __forceinline__ float as_f32(float x) { return x; }
+__device__ __forceinline__ float as_f32(int x) { return __int_as_float(x); }
+
+// K2's dequant of a consumer's int32 sums, in place: d[i] becomes the bits
+// of (float(d[i]) * sa[row]) * sb[col], __fmul_rn each (the plain
+// version's order, never an FMA), rows from row0 and columns from col0 in
+// wgmma's accumulator layout. sa's two values a thread are read once; sb's
+// values are staged in the consumer's buffer sbuf, SB_COLS columns at a
+// time (named barrier 1 + cw, the one flush_tma takes: the pass before
+// has been read). 0 past M and N (those rows and columns are not stored).
+template <int NA>
+__device__ __forceinline__ void dequant(int (&d)[NA], const float* sa,
+                                        const float* sb, float* sbuf, int M,
+                                        int N, int row0, int col0, int cw) {
+  constexpr int PASS = SB_COLS / 2;   // accumulators a pass, 4 a block of 8
+  static_assert(NA % PASS == 0, "whole passes of SB_COLS columns");
+  int t = threadIdx.x & 127;
+  int lane = t & 31;
+  int r = row0 + 16 * (t >> 5) + (lane >> 2);
+  float s0 = r < M ? sa[r] : 0.0f;
+  float s1 = r + 8 < M ? sa[r + 8] : 0.0f;
+  const float* sbt = sbuf + 2 * (lane & 3);
+#pragma unroll
+  for (int pass = 0; pass < NA / PASS; ++pass) {
+    int col = col0 + SB_COLS * pass + t;
+    wg::bar_sync(1 + cw, 128);
+    if (t < SB_COLS) sbuf[t] = col < N ? sb[col] : 0.0f;
+    wg::bar_sync(1 + cw, 128);
+#pragma unroll
+    for (int jj = 0; jj < PASS / 4; ++jj) {
+      int j = PASS / 4 * pass + jj;
+      float2 b = *reinterpret_cast<const float2*>(sbt + 8 * jj);
+      auto deq = [](int acc, float s, float sc) {
+        return __float_as_int(__fmul_rn(__fmul_rn(__int2float_rn(acc), s),
+                                        sc));
+      };
+      d[4 * j] = deq(d[4 * j], s0, b.x);
+      d[4 * j + 1] = deq(d[4 * j + 1], s0, b.y);
+      d[4 * j + 2] = deq(d[4 * j + 2], s1, b.x);
+      d[4 * j + 3] = deq(d[4 * j + 3], s1, b.y);
+    }
+  }
 }
 
 // The shared-memory box at src (OUT_COLS x 64 fp32) added into (kAdd) or
@@ -170,8 +258,8 @@ __device__ __forceinline__ void tma_out_2d(const CUtensorMap* map,
 // on to the next tile; a buffer is written again once its copy has read
 // it. Rows and columns past out's edges are not written. fp32 addition
 // commutes, so C + d is the reference's d + C bit for bit.
-template <bool kAdd, int NA>
-__device__ __forceinline__ void flush_tma(const float (&d)[NA], uint8_t* bufs,
+template <bool kAdd, class T, int NA>
+__device__ __forceinline__ void flush_tma(const T (&d)[NA], uint8_t* bufs,
                                           const CUtensorMap* tc, int row0,
                                           int col0, int cw) {
   int t = threadIdx.x & 127;
@@ -191,8 +279,8 @@ __device__ __forceinline__ void flush_tma(const float (&d)[NA], uint8_t* bufs,
         int r = r0 + 8 * h;
         uint32_t off = r * wg::LINE + ((((col >> 2) ^ (r & 7)) << 4) |
                                        ((col & 3) << 2));
-        *reinterpret_cast<float2*>(buf + off) =
-            make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+        *reinterpret_cast<float2*>(buf + off) = make_float2(
+            as_f32(d[4 * j + 2 * h]), as_f32(d[4 * j + 2 * h + 1]));
       }
     }
     fence_proxy_async();
@@ -232,14 +320,15 @@ __device__ __forceinline__ bool pair_ok(const float* p, int col, int N) {
 
 // out = d + C (kAdd) or out = d, rows below M and columns below N, each
 // element by the thread that owns it (c and out may be one buffer).
-template <bool kAdd, int NA>
-__device__ __forceinline__ void flush_threads(const float (&d)[NA],
+template <bool kAdd, class T, int NA>
+__device__ __forceinline__ void flush_threads(const T (&d)[NA],
                                               const float* c, float* out,
                                               int M, int N, int ldc, int row0,
                                               int col0) {
   for_each_row_pair(d, c, out, M, ldc, row0, col0,
-                    [&](float v0, float v1, const float* crow, float* orow,
+                    [&](T d0, T d1, const float* crow, float* orow,
                         int col) {
+    float v0 = as_f32(d0), v1 = as_f32(d1);
     if (pair_ok(crow, col, N) && pair_ok(orow, col, N)) {
       if constexpr (kAdd) {
         float2 cv = *reinterpret_cast<const float2*>(crow + col);
@@ -282,36 +371,46 @@ struct Layout {
   static constexpr int B = NP * A_BYTES;                // B's offset
   static constexpr int STAGE = NP * (A_BYTES + B_BYTES);
   static constexpr int ACC = P::BN / 2;                 // accumulators
-  static constexpr int SMEM = P::ST * STAGE + OUT_BYTES +
+  using Acc = std::conditional_t<P::S8, int, float>;
+  // K values a stage (one 128-byte line a row) and 32-byte products a
+  // stage (k16 bf16, k32 int8)
+  static constexpr int KV = P::S8 ? wg::LINE : wg::KT;
+  static constexpr int STEPS = wg::LINE / 32;
+  // after the stages: the epilogue's staging, sb's (int8), the ring
+  static constexpr int SB = P::ST * STAGE + OUT_BYTES;
+  static constexpr int RING = SB + (P::S8 ? 2 * SB_COLS * 4 : 0);
+  static constexpr int SMEM = RING +
                               static_cast<int>(sizeof(wg::Ring<P::ST>)) +
                               wg::ATOM;
   static_assert(SMEM <= 232448, "the ring fits a block's shared memory");
   static_assert(P::PRODUCTS == 1 || P::PRODUCTS == 3,
                 "one product, or three of split planes");
   static_assert(P::BN % 64 == 0, "an N-major B is whole 64-column boxes");
+  static_assert(!P::S8 || (P::BN == 256 && P::CH == 0 &&
+                           P::PRODUCTS == 1 && !P::B_MN && !P::SEED_C),
+                "int8: K2's tile, both operands K-major, C added at the end");
 };
 
 // ta: A (M, K) K-major, or its split planes (3-D); tb: BT (N, K) K-major,
 // or B (K, N) N-major, or the split planes of either; tc: out (M, ldc)
 // fp32 in boxes of 64 rows x OUT_COLS, read when tma_out (else each thread
-// writes out).
-template <class P>
+// writes out); sa (M), sb (N): int8's scales (not read otherwise); walk:
+// the order of the tiles.
+template <class P, class Walk>
 __global__ void __launch_bounds__(wg::BLOCK, 1)
     gemm_wgmma(const __grid_constant__ CUtensorMap ta,
                const __grid_constant__ CUtensorMap tb,
                const __grid_constant__ CUtensorMap tc, const float* c,
-               float* out, int M, int N, int K, int ldc, int tma_out) {
+               float* out, const float* sa, const float* sb, int M, int N,
+               int K, int ldc, int tma_out, const Walk walk) {
   using L = Layout<P>;
   constexpr int BN = P::BN;
   constexpr int ST = P::ST;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = wg::align_1024(smem_raw);
-  auto& ring = *reinterpret_cast<wg::Ring<ST>*>(smem + ST * L::STAGE +
-                                                OUT_BYTES);
-  int num_m = (M + BM - 1) / BM;
-  int num_n = (N + BN - 1) / BN;
-  int tiles = num_m * num_n;
-  int stages = (K + wg::KT - 1) / wg::KT;     // ring uses a tile
+  auto& ring = *reinterpret_cast<wg::Ring<ST>*>(smem + L::RING);
+  int tiles = walk.tiles();
+  int stages = (K + L::KV - 1) / L::KV;     // ring uses a tile
   int warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) ring.init();
   __syncthreads();
@@ -321,12 +420,12 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
     int q = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       int m0, n0;
-      tile_of<BN>(t, num_m, num_n, m0, n0);
+      walk.tile(t, m0, n0);
       for (int kq = 0; kq < stages; ++kq, ++q) {
         int s = q % ST;
         uint8_t* st = smem + s * L::STAGE;
         uint64_t* full = &ring.full[s];
-        int k0 = kq * wg::KT;
+        int k0 = kq * L::KV;
         wg::wait_empty(ring, q);
         mbar_arrive_expect_tx(full, L::STAGE);
         if constexpr (P::PRODUCTS == 3) {        // hi, lo of A; of B
@@ -363,13 +462,14 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
   int cw = (warp >> 2) - 1;
   uint32_t base = smem_u32(smem);
   uint8_t* bufs = smem + ST * L::STAGE + cw * 2 * OUT_BOX;
+  float* sbuf = reinterpret_cast<float*>(smem + L::SB) + cw * SB_COLS;
   int chunk = P::CH > 0 ? P::CH : stages;
   int q = 0;
-  float acc[L::ACC];
+  typename L::Acc acc[L::ACC];
   float tot[P::CH > 0 ? L::ACC : 1];   // CH > 0: the sum of the partials
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     int m0, n0;
-    tile_of<BN>(t, num_m, num_n, m0, n0);
+    walk.tile(t, m0, n0);
     int row0 = m0 + 64 * cw;
     if constexpr (P::SEED_C && P::CH == 0)
       seed_c(acc, c, M, N, ldc, row0, n0);
@@ -393,13 +493,16 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
         wg::wgmma_fence();
         bool fresh = P::CH > 0 && kq == kc;
 #pragma unroll
-        for (int k = 0; k < wg::KT / 16; ++k) {
+        for (int k = 0; k < L::STEPS; ++k) {
           constexpr int TB = P::B_MN ? 1 : 0;
           uint64_t da = wg::kmajor_desc(a, k);
           uint64_t db = P::B_MN ? wg::mnmajor_desc(b, k)
                                 : wg::kmajor_desc(b, k);
-          wg::Wgmma<BN>::template ss<0, TB>(acc, da, db,
-                                            fresh && k == 0 ? 0 : 1);
+          if constexpr (P::S8)
+            wg::WgmmaS8<BN>::ss(acc, da, db, 1);
+          else
+            wg::Wgmma<BN>::template ss<0, TB>(acc, da, db,
+                                              fresh && k == 0 ? 0 : 1);
           if constexpr (P::PRODUCTS == 3) {
             uint64_t db_lo = P::B_MN ? wg::mnmajor_desc(b + L::B_BYTES, k)
                                      : wg::kmajor_desc(b + L::B_BYTES, k);
@@ -421,7 +524,8 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
         for (int i = 0; i < L::ACC; ++i) tot[i] = __fadd_rn(tot[i], acc[i]);
       }
     }
-    auto finish = [&](const float(&d)[L::ACC]) {
+    if constexpr (P::S8) dequant(acc, sa, sb, sbuf, M, N, row0, n0, cw);
+    auto finish = [&](const auto& d) {
       constexpr bool kAdd = !P::SEED_C;
       if (tma_out)
         flush_tma<kAdd>(d, bufs, &tc, row0, n0, cw);
@@ -436,16 +540,18 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
   if ((threadIdx.x & 127) == 0) bulk_wait_all();
 }
 
-// Launches gemm_wgmma<P> over the (M, N) output, one block an SM, at most
-// one a tile, on the maps of A and B. c and out (M, ldc) fp32: with
-// SEED_C, out = C + A.B (C + p1 + p2 + ... with CH > 0); else out = A.B +
-// C, c and out one buffer or two.
+// Launches gemm_wgmma<P> over the (M, N) output in the order of `walk`,
+// one block an SM, at most one a tile, on the maps of A and B. c and out
+// (M, ldc) fp32: with SEED_C, out = C + A.B (C + p1 + p2 + ... with
+// CH > 0); else out = A.B + C (int8: dequant(A.B) + C, with sa and sb),
+// c and out one buffer or two.
 // The epilogue goes through the tensor-map unit where out's rows are
 // 16-byte multiples on a 16-byte base (and, adding C, c is out). Returns a
 // cudaError_t as an int.
-template <class P>
+template <class P, class Walk>
 int launch(const CUtensorMap& ta, const CUtensorMap& tb, const void* c,
-           void* out, int M, int N, int K, int ldc, cudaStream_t stream) {
+           void* out, const void* sa, const void* sb, int M, int N, int K,
+           int ldc, const Walk& walk, cudaStream_t stream) {
   using L = Layout<P>;
   CUtensorMap tc;
   cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
@@ -462,15 +568,27 @@ int launch(const CUtensorMap& ta, const CUtensorMap& tb, const void* c,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gemm_wgmma<P>,
+    err = cudaFuncSetAttribute(gemm_wgmma<P, Walk>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                L::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int tiles = ((M + BM - 1) / BM) * ((N + P::BN - 1) / P::BN);
-  gemm_wgmma<P><<<tiles < sms ? tiles : sms, wg::BLOCK, L::SMEM, stream>>>(
-      ta, tb, tc, static_cast<const float*>(c), static_cast<float*>(out), M,
-      N, K, ldc, tma_out);
+  int tiles = walk.tiles();
+  if (tiles < 1) return 0;   // no work
+  gemm_wgmma<P, Walk>
+      <<<tiles < sms ? tiles : sms, wg::BLOCK, L::SMEM, stream>>>(
+          ta, tb, tc, static_cast<const float*>(c), static_cast<float*>(out),
+          static_cast<const float*>(sa), static_cast<const float*>(sb), M, N,
+          K, ldc, tma_out, walk);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch on the grouped walk, no scales (the bf16 and fp32 rungs)
+template <class P>
+int launch(const CUtensorMap& ta, const CUtensorMap& tb, const void* c,
+           void* out, int M, int N, int K, int ldc, cudaStream_t stream) {
+  GroupWalk<P::BN> walk{(M + BM - 1) / BM, (N + P::BN - 1) / P::BN};
+  return launch<P>(ta, tb, c, out, nullptr, nullptr, M, N, K, ldc, walk,
+                   stream);
 }
 
 }  // namespace gw

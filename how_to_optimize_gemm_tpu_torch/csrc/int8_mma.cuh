@@ -1,10 +1,10 @@
-// Shared building blocks of the GEMM kernels (int8_gemm_nn.cu,
-// int8_gemm_nt.cu, int8_ragged_nt.cu, int8_gemm_noc.cu, w4a8_gemm.cu,
-// the hand-pipeline record's manual_dma.cuh and,
-// for their tiling, staging and fragment walk, the bf16 tensor-core
-// kernels of bf16_gemm.cuh and w4a16_gemm.cuh): block tiling,
-// shared-memory staging, the warp-level tensor-core product and the
-// dequant epilogue.
+// Shared building blocks of the mma.sync GEMM kernels (int8_gemm_nn.cu,
+// int8_gemm_noc.cu and w4a8_gemm.cu through gemm_nmajor_body, the
+// hand-pipeline record's manual_dma.cuh, int8_dma_nn.cu and
+// int8_hand_pipe.cu, and, for their tiling, staging and fragment walk, the
+// bf16 tensor-core kernels of bf16_gemm.cuh and w4a16_gemm.cuh; K2 and
+// rung 18 run gemm_wgmma.cuh): block tiling, shared-memory staging, the
+// warp-level tensor-core product and the dequant epilogue.
 //
 // Tiling: one 128x128 output tile per block of 256 threads (8 warps laid
 // out 2 x 4, each owning a 64x32 sub-tile = 4 x 4 fragments of
@@ -298,44 +298,6 @@ __device__ __forceinline__ void dequant_epilogue(
       }
     }
   }
-}
-
-// One 128x128 tile of K2 (int8_gemm_nt, and rung 18's persistent walk):
-// both operands K-major through cp.async into two stages, the loads of K
-// step k+1 issued before the MMAs of step k, then the dequant epilogue
-// with C. Ends with every warp past its last read of `sm`, so a
-// persistent block may start its next tile at once.
-__device__ __forceinline__ void gemm_nt_tile(Smem& sm, const int8_t* qa,
-                                             const int8_t* qbt,
-                                             const float* sa, const float* sb,
-                                             const float* c, float* out,
-                                             int M, int N, int K, int lda,
-                                             int ldb, int ldc, int m0,
-                                             int n0) {
-  int warp = threadIdx.x >> 5;
-  int lane = threadIdx.x & 31;
-  int wm = warp >> 2;
-  int wn = warp & 3;
-  int acc[4][4][4];
-  zero_acc(acc);
-  int nk = (K + BK - 1) / BK;
-  load_kmajor_async(sm.a[0], qa, m0, M, 0, K, lda);
-  load_kmajor_async(sm.b[0], qbt, n0, N, 0, K, ldb);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    int s = kt & 1;
-    if (kt + 1 < nk) {
-      load_kmajor_async(sm.a[s ^ 1], qa, m0, M, (kt + 1) * BK, K, lda);
-      load_kmajor_async(sm.b[s ^ 1], qbt, n0, N, (kt + 1) * BK, K, ldb);
-      cp_async_commit();
-    }
-    mma_stage<MmaS8>(acc, sm.a[s], sm.b[s], wm, wn, lane);
-    cp_async_wait_all();
-    __syncthreads();
-  }
-  dequant_epilogue<true>(acc, sa, sb, c, out, M, N, ldc, m0, n0, wm, wn, lane);
 }
 
 // The N-major B operand of gemm_nmajor_body for a plain row-major int8

@@ -6,7 +6,7 @@ A variant is a copy of the port's ``csrc/`` under
 (each must match exactly once, so a variant that no longer fits the source
 fails), or another tree's ``csrc/`` given with ``--tree NAME=DIR[:BK]`` (a
 parent commit unpacked by ``git archive``; for the forward group its key
-tile BK). Five groups of kernels, one a run (``--group``):
+tile BK). Six groups of kernels, one a run (``--group``):
 
 - ``forward``: ``flash_attention`` at the 7B prefill row (B 4, H = KVH = 32,
   D 128, S = T = 4,096, causal, (B, S, H, D) views) and
@@ -46,14 +46,22 @@ tile BK). Five groups of kernels, one a run (``--group``):
   workspace) is launched with its own arguments. The variants force a
   token tile, decode the nibbles in three integer operations a word,
   shorten the ring to two stages, or (wrong answers, a timing probe)
-  skip the decode.
+  skip the decode;
+- ``int8``: ``int8_gemm_nt`` (K2, rung 14) at M = N = K = 4,096, 2,048 and
+  3,584 (the headline's sizes) and ``int8_ragged_nt`` (rung 18) at 4,096
+  on its default plan and on the two-piece plan of cap 1,664, each EQUAL
+  to its plain version and two calls bit-equal; ``torch._int_mm`` and the
+  epilogue beside them. An older tree's kernels (the ``mma.sync`` tile)
+  take the same arguments. The variants shorten the ring to three or two
+  stages, add C in each thread instead of by tensor-map reductions, walk
+  groups of 4 or 16 row tiles, or stage sb 64 columns a pass.
 
 Each variant's ptxas lines (registers, spills) are printed after the
 build; the cases run as CUDA-graph replays in rounds that walk the
 variants forwards and then backwards.
 
     python -m how_to_optimize_gemm_tpu_torch.harness.flash_variants \\
-        [--group forward|dkv|gemm|paged|w4a8] [--variants shipped ...] \\
+        [--group forward|dkv|gemm|paged|w4a8|int8] [--variants shipped ...] \\
         [--tree parent=build/parent/how_to_optimize_gemm_tpu_torch/csrc:64]
 """
 from __future__ import annotations
@@ -67,7 +75,7 @@ import torch
 
 from how_to_optimize_gemm_tpu_torch import _build
 from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
-                                               grouped_gemm, int4,
+                                               grouped_gemm, int4, int8,
                                                paged_attention, tuned,
                                                vendor)
 from how_to_optimize_gemm_tpu_torch.utils.timing import time_calls
@@ -309,6 +317,35 @@ W4A8_VARIANTS = {
         (_W4, "  fragments<I>(box, off, f[(I) & 1]);", "  (void)box;"),
         (_W4, "  uint32_t f[2][4][4];", "  uint32_t f[2][4][4] = {};")),
 }
+_K2 = "int8_gemm_nt.cu"
+_R18 = "int8_ragged_nt.cu"
+
+
+def _int8_stages(n: int):
+    return tuple((src, "  static constexpr int ST = 4; ",
+                  f"  static constexpr int ST = {n}; ") for src in (_K2, _R18))
+
+
+def _group_m(n: int):
+    return ((_GW, "constexpr int GROUP_M = 8; ",
+             f"constexpr int GROUP_M = {n}; "),)
+
+
+INT8_VARIANTS = {
+    "shipped": (),
+    # a ring of three or two 48 KB stages
+    "st3": _int8_stages(3),
+    "st2": _int8_stages(2),
+    # each consumer thread adds C to its dequantized sums itself, as it
+    # does where C's rows are no 16-byte multiple
+    "register_epilogue": GEMM_VARIANTS["register_epilogue"],
+    # K2's walk in groups of 4 or 16 row tiles
+    "group4": _group_m(4),
+    "group16": _group_m(16),
+    # sb staged 64 columns a pass (four passes a tile)
+    "sb64": ((_GW, "constexpr int SB_COLS = 128;",
+              "constexpr int SB_COLS = 64;"),),
+}
 # the headers the variants may change besides the groups' sources
 HEADERS = (_BODY, _GW, _DA, _W4)
 
@@ -319,6 +356,7 @@ GROUPS = {
     "gemm": ((_GEMM, _FP32, _NN, _FP32_NN), GEMM_VARIANTS),
     "paged": ((_PAGED,), PAGED_VARIANTS),
     "w4a8": (("w4a8_gemm_noc.cu", "decode_attention_q8.cu"), W4A8_VARIANTS),
+    "int8": ((_K2, _R18), INT8_VARIANTS),
 }
 
 
@@ -695,8 +733,47 @@ def w4a8_cases(gen, tiles):
     return cases, check, {}
 
 
+def int8_cases(gen, tiles):
+    """K2 at 4,096, 2,048 and 3,584 and rung 18 at 4,096 on its default
+    plan and at cap 1,664 (two pieces), each on a C of its own, EQUAL to
+    the plain version and two calls bit-equal; ``torch._int_mm`` and the
+    epilogue beside them (graph replays)."""
+    cases, rows, library = {}, {}, {}
+    for p in (4096, 2048, 3584):
+        a, b, c = (torch.rand((p, p), generator=gen, device="cuda") * 2 - 1
+                   for _ in "abc")
+        ops = int8.prepare_packed(a, b)
+        runs = {f"int8_gemm_nt p={p}": lambda cc, o=ops:
+                int8.mmult_q_bt(*o, cc)}
+        if p == 4096:
+            runs[f"int8_ragged_nt p={p}"] = (
+                lambda cc, o=ops: int8.mmult_q_bt_ragged(*o, cc))
+            runs[f"int8_ragged_nt p={p} cap 1664"] = (
+                lambda cc, o=ops: int8.mmult_q_bt_ragged(*o, cc, cap=1664))
+        qa, sa, qbt, sb = ops
+        lib = time_calls(lambda: int8.dequant_epilogue(
+            torch._int_mm(qa, qbt.t()), sa, sb, c), graph=True) * 1e3
+        for case, run in runs.items():
+            work = c.clone()
+            cases[case] = lambda run=run, work=work: run(work)
+            rows[case] = (run, ops, c)
+            library[case] = lib
+
+    def check(name):
+        parts = []
+        for case, (run, ops, c) in rows.items():
+            out = run(c.clone())
+            again = run(c.clone())
+            equal = torch.equal(out, int8.mmult_q_bt_ref(*ops, c))
+            same = torch.equal(out, again)
+            parts.append(f"{case}: {'EQUAL' if equal else 'DIFFERS'}, "
+                         f"repeat {'equal' if same else 'DIFFERS'}")
+        return "; ".join(parts)
+    return cases, check, library
+
+
 CASES = {"forward": forward_cases, "dkv": dkv_cases, "gemm": gemm_cases,
-         "paged": paged_cases, "w4a8": w4a8_cases}
+         "paged": paged_cases, "w4a8": w4a8_cases, "int8": int8_cases}
 
 
 def main(argv=None) -> None:

@@ -11,8 +11,9 @@ compute ``C' = f32(QA @ QB as int32) * sa[i] * sb[j] + C``:
 - ``mmult_q_bt`` (K2, ``csrc/int8_gemm_nt.cu``) takes B packed
   transposed as (N, K) and accumulates IN PLACE into ``c``;
 - ``mmult_q_bt_ragged`` (rung 18, ``csrc/int8_ragged_nt.cu``) is K2's
-  function and tile walked over ``ragged_m_plan``'s strips in one
-  persistent launch, in place;
+  function and kernel walked over ``ragged_m_plan``'s strips in one
+  persistent launch, in place (K2 and rung 18: ``csrc/gemm_wgmma.cuh``'s
+  int8 instance, ``wgmma`` on 128 x 256 tiles);
 - ``mmult_q_noc`` (``csrc/int8_gemm_noc.cu``, K1's template without the
   "+ C") returns ``f32(QA @ QB as int32) * sa[i] * sb[j]``.
 
@@ -41,10 +42,17 @@ ALIGN = 16
 # 13 and 18); the rest holds the lines of C and the output in flight.
 L2_BYTES = 52_428_800
 L2_SHARE = 0.875
-# rung 18's tile and one wave of its persistent walk: a tile an SM of the
-# H100 SXM's 132
+# K2's and rung 18's output tile, rows x columns (csrc/int8_gemm_nt.cu,
+# int8_ragged_nt.cu), and one wave of their persistent walk: a tile an SM
+# of the H100 SXM's 132
 TILE = 128
+TILE_N = 256
+NT_TILE = (TILE, TILE_N)
 WAVE = 132
+# their ring: STAGES stages of STAGE_K K bytes (one 128-byte line a row of
+# QA's 128 and QBT's 256 rows)
+STAGES = 4
+STAGE_K = 128
 
 
 def prepare(a: torch.Tensor, b: torch.Tensor):
@@ -254,18 +262,35 @@ def ragged_m_plan(mp: int, cap: int) -> list[tuple[int, int, int]]:
     return best
 
 
-def ragged_cap(kp: int, budget: int) -> int:
+def ragged_cap(kp: int, budget: int, tile_n: int = TILE_N) -> int:
     """Rung 18's default strip cap for rows of ``kp`` K bytes: the tallest
     strip, a multiple of 128 within the reference's [512, 1792], whose A
     panel (cap x kp) and one wave's B^T panels (``WAVE`` tiles of the
     N-major walk, cap / 128 of them a panel: ceil(WAVE * 128 / cap) panels
-    of 128 x kp) stay inside ``budget`` bytes of L2 (``l2_budget``), as the
-    reference sizes its cap from VMEM (``pallas_int8.py:485-489``)."""
+    of ``tile_n`` x kp) stay inside ``budget`` bytes of L2
+    (``l2_budget``), as the reference sizes its cap from VMEM
+    (``pallas_int8.py:485-489``). ``tile_n``: the kernel's panel width,
+    256 (``TILE_N``); 128 was the ``mma.sync`` kernel's."""
     for cap in range(1792, 511, -TILE):
         panels = -(-WAVE * TILE // cap)
-        if (cap + panels * TILE) * kp <= budget:
+        if (cap + panels * tile_n) * kp <= budget:
             return cap
     return 512
+
+
+def ragged_walk(plan, n: int, blocks: int) -> list:
+    """The (row, column) origins of the ``NT_TILE`` tiles that each block of
+    rung 18's persistent grid computes, in order (``csrc/int8_ragged_nt.cu``
+    ``PlanWalk``): the plan's tiles numbered strip by strip, N-major within
+    a strip (the strip's row tiles of one panel, then the next panel),
+    block i taking tiles i, i + blocks, ... of ``min(blocks, tiles)``
+    blocks. ``plan``: ``ragged_m_plan``'s [(bm, strips, offset in
+    blocks of bm)]."""
+    num_n = -(-n // TILE_N)
+    order = [(off * bm + s * bm + r * TILE, p * TILE_N)
+             for bm, strips, off in plan for s in range(strips)
+             for p in range(num_n) for r in range(bm // TILE)]
+    return [order[i::blocks] for i in range(min(blocks, len(order)))]
 
 
 @functools.lru_cache(maxsize=None)
@@ -278,9 +303,10 @@ def _ragged_launch_plan(mp: int, kp: int, cap: int | None, budget: int):
 
 def mmult_q_bt_ragged(qa, sa, qbt, sb, c, *, cap: int | None = None):
     """Rung 18: C = dequant(QA @ QBT^T) + C, IN PLACE, as ``mmult_q_bt``,
-    with the 128 x 128 tiles walked over ``ragged_m_plan(round_up(M, 128),
-    cap)``: a head of tall strips and at most one shorter tail, in one
-    persistent launch (kernel ``int8_ragged_nt``), N-major within a strip.
+    with K2's 128 x 256 tiles walked over ``ragged_m_plan(round_up(M,
+    128), cap)``: a head of tall strips and at most one shorter tail, in
+    one persistent launch (kernel ``int8_ragged_nt``), N-major within a
+    strip (``ragged_walk``).
     ``cap`` defaults to ``ragged_cap`` on the card's L2 budget. Returns
     ``c``."""
     m, n = c.shape

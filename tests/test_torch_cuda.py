@@ -298,6 +298,80 @@ def test_ragged_plans_on_the_card(cuda, shape, cap):
     assert torch.equal(out, int8.mmult_q_bt_ref(*ops, c))
 
 
+# K2 and rung 18 on gemm_wgmma.cuh's int8 instance (128 x 256 tiles, K
+# stages of 128 bytes, one block an SM): M under a consumer's 64 rows, one
+# past it and three row tiles; N of 262 (C's rows no 16-byte multiple:
+# each thread adds C), 520 and 1,032 (the tensor-map reduction adds it);
+# K of one 16-byte chunk, no multiple of the stage, and 4,112 (33 stages,
+# the ring wrapping eight times): EQUAL to the plain version, in place,
+# one launch of the kernel's own a call.
+INT8_WGMMA = {"int8_gemm_nt": int8.mmult_q_bt,
+              "int8_ragged_nt": int8.mmult_q_bt_ragged}
+
+
+@pytest.mark.parametrize("k", [16, 520, 4112])
+@pytest.mark.parametrize("n", [262, 520, 1032])
+@pytest.mark.parametrize("m", [1, 65, 300])
+@pytest.mark.parametrize("kernel", sorted(INT8_WGMMA))
+def test_int8_wgmma_edges(cuda, kernel, m, n, k):
+    a, b, c = _abc((m, n, k), m + n + k, cuda)
+    ops = int8.prepare_packed(a, b)
+    before = dict(_build.LAUNCHES)
+    cin = c.clone()
+    out = INT8_WGMMA[kernel](*ops, cin)
+    torch.cuda.synchronize()
+    assert {name: _build.LAUNCHES[name] - before[name]
+            for name in INT8_WGMMA} == {
+                name: int(name == kernel) for name in INT8_WGMMA}
+    assert out.data_ptr() == cin.data_ptr()
+    ref = int8.mmult_q_bt_ref(*ops, c)
+    assert torch.equal(out, ref), float((out - ref).abs().max())
+
+
+@pytest.mark.parametrize("shape", [(2001, 2102, 520), (4096, 4096, 4096)])
+@pytest.mark.parametrize("kernel", sorted(INT8_WGMMA))
+def test_int8_wgmma_walks_wrap_the_grid(cuda, kernel, shape):
+    """At 2001 x 2102 the 144 tiles wrap the one-block-an-SM grid (each
+    block 1 or 2 tiles; the card's SMs from its properties); at 4,096 512
+    tiles: EQUAL to the plain version, two calls bit-equal."""
+    m, n, _ = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lengths = {len(w) for w in tuned.nt_tile_walk(m, n, sms, int8.NT_TILE)}
+    assert len(lengths) > 1 or max(lengths) > 1
+    a, b, c = _abc(shape, 22, cuda)
+    ops = int8.prepare_packed(a, b)
+    out = INT8_WGMMA[kernel](*ops, c.clone())
+    again = INT8_WGMMA[kernel](*ops, c.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(out, int8.mmult_q_bt_ref(*ops, c))
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("n", [264, 262])
+@pytest.mark.parametrize("kernel", sorted(INT8_WGMMA))
+def test_int8_wgmma_keeps_subnormals(cuda, kernel, n):
+    """sa = 2^-120 and sb = 2^-30 passed to the kernel directly make
+    v = (acc x 2^-120) x 2^-30 subnormal for 2 <= |acc| < 2^23, and C holds
+    subnormals of both signs, so v + C is subnormal too: the dequant's
+    products and the add of C (N 264: the tensor-map reduction; 262: each
+    thread's __fadd_rn) keep them, EQUAL to the plain version."""
+    m, k = 300, 520
+    rng = np.random.default_rng(21)
+    qa, qbt = (torch.from_numpy(rng.integers(-127, 128, s).astype(np.int8))
+               .to(cuda) for s in ((m, k), (n, k)))
+    sa = torch.full((m, 1), 2.0 ** -120, device=cuda)
+    sb = torch.full((1, n), 2.0 ** -30, device=cuda)
+    c = torch.from_numpy((rng.integers(-2 ** 20, 2 ** 20, (m, n))
+                          * 2.0 ** -149).astype(np.float32)).to(cuda)
+    out = INT8_WGMMA[kernel](qa, sa, qbt, sb, c.clone())
+    ref = int8.mmult_q_bt_ref(qa, sa, qbt, sb, c)
+    torch.cuda.synchronize()
+    tiny = ref.abs() < torch.finfo(torch.float32).tiny
+    assert float(tiny.float().mean()) > 0.9
+    assert float((ref[tiny] != 0).float().mean()) > 0.9
+    assert torch.equal(out, ref), int((out != ref).sum())
+
+
 @pytest.mark.parametrize("shape", [(1000, 1104), (2102, 528), (1, 16),
                                    (4096, 4096)])
 def test_pretile_equals_plain_version(cuda, shape):

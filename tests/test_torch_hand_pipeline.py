@@ -105,21 +105,31 @@ def test_ragged_m_plan_is_the_references(mp):
     assert int8.ragged_m_plan(4096, 1664) == [(1536, 2, 0), (1024, 1, 3)]
 
 
-def test_ragged_cap_from_the_l2():
+# the B^T panel width of the reckoning: 128 (the mma.sync kernel's 128 x 128
+# tiles) and 256 (the wgmma kernel's 128 x 256, the default), each with its
+# cap at K = 12,288 on the H100's budget: (1,792 + 10 x 256) x 12,288 bytes
+# is past the budget, where 128-column panels fit
+@pytest.mark.parametrize("tile_n,cap_12288", [(128, 1792), (256, 512)])
+def test_ragged_cap_from_the_l2(tile_n, cap_12288):
     """The cap keeps a strip's A panel and one wave's B^T panels inside the
     budget, clamped to the reference's [512, 1792]: 1792 at K = 4096 on the
     H100's budget (a two-piece plan at p = 4096), 512 when nothing fits."""
     budget = int8.l2_budget("cpu")
-    assert int8.ragged_cap(4096, budget) == 1792
+    assert int8.ragged_cap(4096, budget, tile_n) == 1792
     assert int8.ragged_m_plan(4096, 1792) == [(1792, 2, 0), (512, 1, 7)]
-    assert int8.ragged_cap(1 << 20, budget) == 512
+    assert int8.ragged_cap(1 << 20, budget, tile_n) == 512
+    assert int8.ragged_cap(12288, budget, tile_n) == cap_12288
     for kp in (1024, 4096, 8192, 12288):
-        cap = int8.ragged_cap(kp, budget)
+        cap = int8.ragged_cap(kp, budget, tile_n)
         panels = -(-int8.WAVE * 128 // cap)
         assert cap % 128 == 0 and 512 <= cap <= 1792
-        assert (cap + panels * 128) * kp <= budget or cap == 512
+        assert (cap + panels * tile_n) * kp <= budget or cap == 512
     # a smaller budget gives a shorter strip
-    assert int8.ragged_cap(8192, budget // 2) < int8.ragged_cap(8192, budget)
+    assert int8.ragged_cap(8192, budget // 2, tile_n) < int8.ragged_cap(
+        8192, budget, tile_n)
+    # the kernel's panels are the default
+    if tile_n == int8.TILE_N:
+        assert int8.ragged_cap(12288, budget) == cap_12288
 
 
 @pytest.mark.parametrize("b_buffers,a_lookahead", KNOBS)
