@@ -70,9 +70,11 @@ Phases (any failure raises and exits non-zero before the last line):
    attention kernels over a shuffled block table, pages of 128 (bf16) and
    384 (KV8); ``flash_attention`` at the 7B prefill, B 4 x 32 heads of
    128 at S = T = 4,096 causal, at 2,048 and at 1,024; ``w4a8_gemm_noc``
-   also at a 128-token chunk and at m = 16,384; ``decode_attention_q8``
-   also from a CUDA graph replayed at other lengths) and at ragged
-   shapes (EQUAL
+   also at a 128-token chunk and at m = 16,384; ``w4a8_gemv_fq`` at m =
+   4, 1, 16 and 64 and at K = 5,000;
+   ``decode_attention_q8`` also from a CUDA graph replayed at other
+   lengths; the split walks' workspace counters at 0 after every call)
+   and at ragged shapes (EQUAL
    for w4a8_gemm_noc, w4a8_gemv_fq, kv_update, paged_kv_update and
    int8_gemm_noc; within W4A16_REL x max |y| for w4a16_gemm_noc and
    w4a16_gemv, whose fp32 sums run in another order; within atol 2e-3 for
@@ -137,7 +139,10 @@ Phases (any failure raises and exits non-zero before the last line):
    per admission). Every request must get its 32 tokens, every kernel of
    the path must have been launched, and ``flash_attention`` exactly once
    per layer in every admission of 512 tokens or more. Then the time of
-   one decode step at the same width. Then the MoE paths on
+   one decode step at the same width, wall and device (torch.profiler),
+   and for S-w4a8, on each shape of a layer's linears, one
+   ``w4a8_gemv_fq`` call: one kernel on the card, its host operations
+   printed. Then the MoE paths on
    ``mixtral_8x7b`` (32 layers, 8 experts of 14,336, top-2, moe_ragged,
    random weights from seed 0, 4 slots, a bf16 cache): S-moe-int8 (int8
    attention and int8 expert stacks, 47.5 GB) and S-moe-w4a8 (W4A8 and
@@ -250,7 +255,8 @@ import torch
 
 from how_to_optimize_gemm_tpu_torch import _build, bench, convert
 from how_to_optimize_gemm_tpu_torch.harness import (ab, driver,
-                                                   flash_variants, mfile)
+                                                   flash_variants, mfile,
+                                                   profiling)
 from how_to_optimize_gemm_tpu_torch.harness.driver import run_sweep
 from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
 # H100 SXM data sheet: dense int8 and bf16 tensor-core peaks, HBM3
@@ -911,16 +917,20 @@ DECODE_ATOL = 2e-3   # decode_attention vs its plain version (sum order, exp)
 # 64-key tile skipped reads tens of ulps, and the check plants that fault
 # to show it
 FLASH_ULPS = 2.0
-# the times of the kernels rebuilt on wgmma before their rebuild: the
-# flash forwards at the 7B prefill row and the soak's row, rungs 15, 16,
-# 05, 04, 14 (K2) and 18 at P_FULL and dK/dV at the soak's row (PERF.md
-# section 6; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+# the times of the rebuilt kernels before their rebuild: the flash
+# forwards at the 7B prefill row and the soak's row, rungs 15, 16, 05, 04,
+# 14 (K2) and 18 at P_FULL, dK/dV at the soak's row, the serving kernels
+# at their JSON rows (the W4A8 decode GEMV's two launches at m = 4,
+# 4,096 -> 11,008; the bf16 paged attention's one-block walk at the 7B
+# pool) (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W), printed
+# beside this run's
 BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
              "bf16_gemm_nt": 0.6477, "flash_attention_bwd_dkv": 1.0286,
              "fp32_gemm_nt": 6.6231, "bf16_gemm_nn": 0.5681,
              "fp32_gemm_nn": 4.4085, "paged_decode_attention_q8": 0.8038,
              "w4a8_gemm_noc": 0.5742, "decode_attention_q8": 0.7697,
-             "int8_gemm_nt": 0.4099, "int8_ragged_nt": 0.4124}
+             "int8_gemm_nt": 0.4099, "int8_ragged_nt": 0.4124,
+             "w4a8_gemv_fq": 0.0201, "paged_decode_attention": 0.5354}
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0
@@ -1108,13 +1118,32 @@ def check_w4a8_noc(gen: torch.Generator) -> dict:
     return results[0]
 
 
+def gemv_host_ops(name: str, call) -> None:
+    """Print the host's operations of one call of the fused GEMV (top-level
+    aten ops, runtime launches) and fail unless the card ran it as one
+    kernel."""
+    prof = profiling.call_profile(call)
+    if len(prof.kernels) != 1 or "gemv_fq" not in prof.kernels[0]:
+        raise AssertionError(f"{name}: the card ran {prof.kernels} for one "
+                             "call, not the one kernel")
+    print(f"{name}: one kernel a call; host ops a call {len(prof.aten)} "
+          f"aten {prof.aten}, {len(prof.launches)} launches "
+          f"{prof.launches}")
+
+
 def check_w4a8_gemv(gen: torch.Generator) -> dict:
-    """Kernel 3 at the decode widths of every 7B linear."""
+    """Kernel 3 at the decode widths of every 7B linear (m = 4, the JSON
+    row first, and 1), at m = 16 and 64 (two and eight row groups of the
+    kernel) and at K = 5,000 (a pack block's low half partly past K):
+    each EQUAL to its plain version. (Its one kernel a call is checked by
+    torch.profiler in S-w4a8, after the driver's --trace: a profiler
+    session before that trace has left it empty on an H100.)"""
     results = []
-    for k, n in ((4096, 11008), (4096, 4096), (11008, 4096)):
+    for k, n in ((4096, 11008), (4096, 4096), (11008, 4096), (5000, 4096)):
         w = torch.randn((k, n), generator=gen, device="cuda")
         _, _, packed, sw, _ = int4.prepare_w4a8(w[:1], w)
-        for m in (4, 1):
+        del w
+        for m in ((4, 1, 16, 64) if k != 5000 else (4,)):
             x = torch.randn((m, k), generator=gen, device="cuda")
             args = (x, packed, sw)
             shape = f"m={m} {k}->{n}"
@@ -1127,6 +1156,10 @@ def check_w4a8_gemv(gen: torch.Generator) -> dict:
                                  lambda: int4.mmult_w4a8_fused_noc(*args),
                                  lambda: int4.mmult_w4a8_fused_noc_ref(
                                      *args), None, *b, err))
+            if len(results) == 1:
+                print(f"w4a8_gemv_fq {shape}: {results[0]['ms']:.4f} ms in "
+                      f"one launch; {BEFORE_MS['w4a8_gemv_fq']} ms before "
+                      "the rebuild (a quantize pass, then the GEMV)")
     return results[0]
 
 
@@ -1413,10 +1446,10 @@ def check_paged_attention(gen: torch.Generator, q8: bool) -> dict:
     max_seq), and at a ragged shape (kvh 3, rep 2, d 32, pages of 96).
     The contiguous kernel on the same logical cache (the pages gathered
     and cut to max_seq, as the contiguous engine holds it) is timed
-    beside it. The KV8 kernel walks each slot in splits of whole pages
-    (one page at 384 tokens) and must leave its workspace's counters at 0.
-    No single PyTorch call reads through a block table, so the library
-    time is null."""
+    beside it. Both kernels walk each slot in splits of whole pages (two
+    pages of 128, one of 384) and must leave their workspace's counters
+    at 0. No single PyTorch call reads through a block table, so the
+    library time is null."""
     name = "paged_decode_attention_q8" if q8 else "paged_decode_attention"
     kernel = getattr(paged_attention, name)
     plain = getattr(paged_attention, name + "_ref")
@@ -1447,7 +1480,7 @@ def check_paged_attention(gen: torch.Generator, q8: bool) -> dict:
         if not (err < DECODE_ATOL and torch.isfinite(out).all()):
             raise AssertionError(f"{name} {shape}: differs from its plain "
                                  f"version by {err}")
-        if q8 and decode_attention._WORKSPACE[out.device][0].any():
+        if decode_attention._WORKSPACE[out.device][0].any():
             raise AssertionError(f"{name} {shape}: counters left non-zero")
         live = sum(lens)
         row = 2 * kvh * (d + 4) if q8 else 2 * kvh * d * 2
@@ -1467,7 +1500,7 @@ def check_paged_attention(gen: torch.Generator, q8: bool) -> dict:
         print(f"{name} {shape}: the contiguous kernel on the same cache "
               f"(T={t}) {c_ms:.4f} ms, paged {results[-1]['ms']:.4f} ms"
               f"{before}")
-        if q8 and decode_attention._WORKSPACE[out.device][0].any():
+        if decode_attention._WORKSPACE[out.device][0].any():
             raise AssertionError(f"{name} {shape}: counters left non-zero "
                                  "by the timed calls")
     return results[0]
@@ -1708,14 +1741,33 @@ def serve_path(gen: torch.Generator, path: str) -> dict:
                            SLOTS, eng.np_max)
     step_ms = time_calls(lambda: eng.step(tok, pos, **kw), inner_iters=4,
                          outer_repeats=2, warmup=1) * 1e3
+    step_prof = profiling.call_profile(lambda: eng.step(tok, pos, **kw))
     weight_bytes = sum(nbytes(t) for layer in params["layers"]
                        for lin in layer.values() if isinstance(lin, dict)
                        for t in lin.values())
     weight_bytes += nbytes(params["lm_head"]["fp32_w"])
     print(f"{path}: decode step {step_ms:.3f} ms at 4 slots, position 512 "
           f"(weights {weight_bytes / 1e9:.3f} GB: bound "
-          f"{1e3 * weight_bytes / PEAK_BYTES:.3f} ms)")
-    stats.update(step_ms=step_ms, steps=steps, peak_gb=peak_gb)
+          f"{1e3 * weight_bytes / PEAK_BYTES:.3f} ms); on the device "
+          f"{step_prof.device_ms:.3f} ms in {len(step_prof.kernels)} "
+          "kernels (one profiled step)")
+    if path == "S-w4a8":
+        # each shape of a layer's linears: one kernel, its host operations
+        shapes = {}
+        for name, lin in params["layers"][0].items():
+            if isinstance(lin, dict) and "w4a8_packed" in lin:
+                shapes.setdefault(tuple(lin["w4a8_packed"].shape), name)
+        for name in shapes.values():
+            lin = params["layers"][0][name]
+            x = torch.randn((SLOTS, lin["w4a8_packed"].shape[0] * 2),
+                            generator=gen, device="cuda")
+            gemv_host_ops(
+                f"{path}: w4a8_gemv_fq m={SLOTS} on layer 0's {name} "
+                f"{x.shape[1]}->{lin['w4a8_sw'].shape[1]}",
+                lambda: int4.mmult_w4a8_fused_noc(x, lin["w4a8_packed"],
+                                                  lin["w4a8_sw"]))
+    stats.update(step_ms=step_ms, step_device_ms=step_prof.device_ms,
+                 steps=steps, peak_gb=peak_gb)
     if paged:
         stats.update(prefix_hit_tokens=eng.prefix_hit_tokens,
                      preemptions=sum(preempted))

@@ -85,8 +85,8 @@ KERNELS = {
                              + (_P,)),
     # c unused (may be null); out = f32(QA @ W4) * sa * sw
     "w4a8_gemm_noc": Kernel("w4a8_gemm_noc.cu", _GEMM),
-    # (x, packed, sw, qa_scratch, sa_scratch, out, M, N, Kp, ldp, stream)
-    "w4a8_gemv_fq": Kernel("w4a8_gemv_fq.cu", (_P,) * 6 + (_I,) * 4
+    # (x, packed, sw, out, M, N, K, ldx, Kp, ldp, cluster, stream)
+    "w4a8_gemv_fq": Kernel("w4a8_gemv_fq.cu", (_P,) * 4 + (_I,) * 7
                            + (_P,)),
     # (cache, new, pos, mask, B, T, S, row_bytes, stream)
     "kv_update": Kernel("kv_update.cu", (_P,) * 4 + (_I,) * 4 + (_P,)),
@@ -112,10 +112,11 @@ KERNELS = {
     # (pool, new, tab, mask, B, S, NP, PS, row_bytes, stream)
     "paged_kv_update": Kernel("paged_kv_update.cu", (_P,) * 4 + (_I,) * 5
                               + (_P,)),
-    # (q, k_pool, v_pool, table, lengths, out, B, NP, PS, np_max, KVH, REP,
-    #  D, scale, stream)
-    "paged_decode_attention": Kernel("paged_decode_attention.cu", (_P,) * 6
-                                     + (_I,) * 7 + (_F, _P)),
+    # (q, k_pool, v_pool, table, lengths, out, part, count, B, NP, PS,
+    #  np_max, KVH, REP, D, C, scale, stream): part and count the split
+    #  walk's workspace, C the pages of a split
+    "paged_decode_attention": Kernel("paged_decode_attention.cu", (_P,) * 8
+                                     + (_I,) * 8 + (_F, _P)),
     # (q, qk, sk, qv, sv, table, lengths, out, part, count, B, NP, PS,
     #  np_max, KVH, REP, D, C, scale, stream): part and count the split
     #  walk's workspace, C the pages of a split

@@ -1,5 +1,6 @@
 // The packed int4 weight layout shared by the W4A8 kernels (w4a8_gemm.cu,
-// w4a8_gemm_noc.cu, w4a8_gemv_fq.cu).
+// w4a8_gemm_noc.cu; w4a8_gemv_fq.cu reads the same layout and decodes
+// 16 times the nibbles itself).
 //
 // P (Kp/2, N) int8, Kp a multiple of 512: K row k of the logical weight
 // lives in packed row (k / 512) * 256 + (k % 512) % 256, in the low nibble

@@ -54,14 +54,33 @@ tile BK). Six groups of kernels, one a run (``--group``):
   epilogue beside them. An older tree's kernels (the ``mma.sync`` tile)
   take the same arguments. The variants shorten the ring to three or two
   stages, add C in each thread instead of by tensor-map reductions, walk
-  groups of 4 or 16 row tiles, or stage sb 64 columns a pass.
+  groups of 4 or 16 row tiles, or stage sb 64 columns a pass;
+- ``gemv``: ``w4a8_gemv_fq`` at the 7B decode widths (4,096 -> 11,008,
+  4,096 -> 4,096, 11,008 -> 4,096) at m = 1, 4, 16 and 64, and at m = 4
+  on four copies of the 4,096 -> 11,008 weights taken in turn (90 MB, past
+  the 50 MB L2: each call reads its weights from device memory), each
+  EQUAL to its plain version and two calls bit-equal; and
+  ``paged_decode_attention`` at the smoke's two shapes (the 7B bf16 pool:
+  4 slots, 32 heads of 128, pages of 128, lengths 1, 300, 1,000 and
+  4,096; kvh 3, rep 2, D 32, pages of 96), held to its plain version. An
+  older tree's kernels (the two-launch GEMV with its quantize pass, and
+  the one-block walk) are launched with their own arguments, the GEMV's
+  x padded to Kp and its scratch allocated as their wrapper did. The
+  variants ``cl1``, ``cl2``, ``cl4`` and ``cl8`` are the shipped source
+  with the cluster forced to 1, 2, 4 or 8 blocks at every shape (the
+  plan's where it does not fit); the ``diag_`` ones
+  (wrong answers, timing probes) leave out the quantization or the
+  products (or only their tensor-core part), or (right answers) record
+  each block's phases. Each tree's host operations a call (torch.profiler's top-level
+  aten ops and runtime launches) are printed for the GEMV at m = 4.
 
 Each variant's ptxas lines (registers, spills) are printed after the
 build; the cases run as CUDA-graph replays in rounds that walk the
 variants forwards and then backwards.
 
     python -m how_to_optimize_gemm_tpu_torch.harness.flash_variants \\
-        [--group forward|dkv|gemm|paged|w4a8|int8] [--variants shipped ...] \\
+        [--group forward|dkv|gemm|paged|w4a8|int8|gemv] \\
+        [--variants shipped ...] \\
         [--tree parent=build/parent/how_to_optimize_gemm_tpu_torch/csrc:64]
 """
 from __future__ import annotations
@@ -74,6 +93,7 @@ import shutil
 import torch
 
 from how_to_optimize_gemm_tpu_torch import _build
+from how_to_optimize_gemm_tpu_torch.harness import profiling
 from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
                                                grouped_gemm, int4, int8,
                                                paged_attention, tuned,
@@ -346,6 +366,87 @@ INT8_VARIANTS = {
     "sb64": ((_GW, "constexpr int SB_COLS = 128;",
               "constexpr int SB_COLS = 64;"),),
 }
+_GEMV = "w4a8_gemv_fq.cu"
+GEMV_VARIANTS = {
+    "shipped": (),
+    # the shipped source, its plan's cluster forced (gemv_call)
+    "cl1": (), "cl2": (), "cl4": (), "cl8": (),
+    # diagnostics, wrong answers: no quantization (x never read), no
+    # products (each stage released as it lands), no tensor-core products
+    "diag_no_quant": ((_GEMV, "  const int chunks = (2 * nst + CHUNK / 4 "
+                       "- 1) / (CHUNK / 4);", "  const int chunks = 0;"),),
+    "diag_no_mma": ((_GEMV, "      const uint8_t* stage = ring + (q % ST) * "
+                     "STAGE;\n",
+                     "      const uint8_t* stage = ring + (q % ST) * "
+                     "STAGE;\n      if (q >= 0) {\n        __syncwarp();\n"
+                     "        if (lane == 0) mbar_arrive(&empty[q % ST]);\n"
+                     "        continue;\n      }\n"),),
+    # the fragments made, their products not taken (the tensor cores idle)
+    "diag_no_tensor": ((_GEMV, "          mma_s8(acc[pc], alo, blo);\n"
+                        "          mma_s8(acc[pc], ahi, bhi);",
+                        "          acc[pc][0] ^= alo[0] ^ alo[1] ^ alo[2] ^ "
+                        "alo[3] ^ ahi[0] ^ ahi[1] ^ ahi[2] ^ ahi[3] ^ blo[0] "
+                        "^ blo[1] ^ bhi[0] ^ bhi[1];"),),
+    # two stages' copies before the absmax
+    "early2": ((_GEMV, "    for (int q = 0; q < min(held ? 1 : ST, nst); "
+                "++q) load(q);",
+                "    for (int q = 0; q < min(held ? 2 : ST, nst); ++q) "
+                "load(q);"),
+               (_GEMV, "      for (int q = 1; q < min(ST, nst); ++q) load(q);",
+                "      for (int q = 2; q < min(ST, nst); ++q) load(q);")),
+    # no stage's copy before the cluster has its maxima
+    "early0": ((_GEMV, "    for (int q = 0; q < min(held ? 1 : ST, nst); "
+                "++q) load(q);",
+                "    for (int q = 0; q < min(held ? 0 : ST, nst); ++q) "
+                "load(q);"),
+               (_GEMV, "      for (int q = 1; q < min(ST, nst); ++q) load(q);",
+                "      for (int q = 0; q < min(ST, nst); ++q) load(q);")),
+    # a timing probe (right answers): each block's %globaltimer at its
+    # phases' ends and its SM, read back through gemv_times()
+    "diag_timeline": (
+        (_GEMV, "// Three blocks an SM (72 registers a thread)",
+         "__device__ unsigned long long gemv_t[4096 * 10];\n"
+         "__device__ __forceinline__ void stamp(int i) {\n"
+         "  if (threadIdx.x == 0) {\n"
+         "    unsigned long long t;\n"
+         "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+         "    int b = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * "
+         "blockIdx.z);\n"
+         "    gemv_t[b * 10 + i] = t;\n"
+         "    unsigned sm;\n"
+         "    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm));\n"
+         "    gemv_t[b * 10 + 9] = sm;\n"
+         "  }\n}\n\n// Three blocks an SM (72 registers a thread)"),
+        (_GEMV, "  auto load = [&](int q) {", "  stamp(0);\n"
+         "  auto load = [&](int q) {"),
+        (_GEMV, "  cluster_sync();   // every block's maxima are in place",
+         "  stamp(1);\n  cluster_sync();\n  stamp(2);"),
+        (_GEMV, "  int acc[2][4] = {};", "  stamp(3);\n  int acc[2][4] = {};"),
+        (_GEMV, "  // (3) the partials (16 x the int32 sums): the second",
+         "  stamp(4);\n  // (3) the partials (16 x the int32 sums): the "
+         "second"),
+        (_GEMV, "      wg::wait(&full[q % ST], (q / ST) & 1);",
+         "      wg::wait(&full[q % ST], (q / ST) & 1);\n"
+         "      if (q == nst - 1) stamp(8);"),
+        (_GEMV, "  cluster_sync();   // every block's partials are in their "
+         "owners' parts", "  stamp(5);\n  cluster_sync();\n  stamp(6);"),
+        (_GEMV, "          __fmul_rn(__fmul_rn(__int2float_rn(sum >> 4), "
+         "scale_s[r]),\n                    __ldg(p.sw + n));\n    }\n  }\n",
+         "          __fmul_rn(__fmul_rn(__int2float_rn(sum >> 4), "
+         "scale_s[r]),\n                    __ldg(p.sw + n));\n    }\n  }\n"
+         "  stamp(7);\n"),
+        (_GEMV, 'extern "C" int w4a8_gemv_fq(',
+         'extern "C" int gemv_times(void* dst, int n) {\n'
+         '  cudaError_t err = cudaMemcpyFromSymbol(\n'
+         '      dst, htog::fq::gemv_t, n * sizeof(unsigned long long));\n'
+         '  void* t = nullptr;\n'
+         '  if (err == cudaSuccess)\n'
+         '    err = cudaGetSymbolAddress(&t, htog::fq::gemv_t);\n'
+         '  if (err == cudaSuccess)\n'
+         '    err = cudaMemset(t, 0, n * sizeof(unsigned long long));\n'
+         '  return static_cast<int>(err);\n'
+         '}\n\nextern "C" int w4a8_gemv_fq(')),
+}
 # the headers the variants may change besides the groups' sources
 HEADERS = (_BODY, _GW, _DA, _W4)
 
@@ -357,7 +458,10 @@ GROUPS = {
     "paged": ((_PAGED,), PAGED_VARIANTS),
     "w4a8": (("w4a8_gemm_noc.cu", "decode_attention_q8.cu"), W4A8_VARIANTS),
     "int8": ((_K2, _R18), INT8_VARIANTS),
+    "gemv": ((_GEMV, "paged_decode_attention.cu"), GEMV_VARIANTS),
 }
+# the csrc/ tree in use (set by use())
+_ACTIVE: list = [None]
 
 
 def prepare(group: str, name: str, subs) -> pathlib.Path:
@@ -379,6 +483,7 @@ def prepare(group: str, name: str, subs) -> pathlib.Path:
 def use(csrc: pathlib.Path, sources) -> None:
     """Point the build at ``csrc`` (the next launch loads its library)."""
     _build.CSRC = csrc
+    _ACTIVE[0] = csrc
     for src in sources:
         _build._LIBS.pop(src, None)
 
@@ -772,8 +877,203 @@ def int8_cases(gen, tiles):
     return cases, check, library
 
 
+# an older tree's w4a8_gemv_fq (a quantize pass, then the GEMV): (x,
+# packed, sw, qa, sa, out, M, N, Kp, ldp, stream); its paged bf16 kernel
+# (the one-block walk): (q, k, v, table, lengths, out, B, NP, PS, np_max,
+# KVH, REP, D, scale, stream)
+_TWO_LAUNCH_GEMV = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 4
+                    + (ctypes.c_void_p,))
+_ONE_BLOCK_PAGED = ((ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 7
+                    + (ctypes.c_float, ctypes.c_void_p))
+
+
+def _older(name: str) -> bool:
+    """Whether the tree in use holds an older ABI of ``name``."""
+    text = (_build.CSRC / _build.KERNELS[name].source).read_text()
+    marker = {"w4a8_gemv_fq": "int ldx, int Kp, int ldp, int cluster,",
+              "paged_decode_attention": "launch_decode_attention_split"}
+    return marker[name] not in text
+
+
+def gemv_call(x, packed, sw):
+    """w4a8_gemv_fq on the tree in use: its wrapper (the variants' forced
+    cluster in its plan), or an older tree's two kernels with the
+    operands its wrapper made (x padded to Kp, qa and sa scratch)."""
+    name = "w4a8_gemv_fq"
+    m, k = x.shape
+    n = sw.shape[1]
+    kp = packed.shape[0] * 2
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if _older(name):
+        from how_to_optimize_gemm_tpu_torch.ops import bounds
+        xp = bounds.pad_dim(x.to(torch.float32).contiguous(), 1, kp)
+        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+        qa = torch.empty((m, kp), dtype=torch.int8, device=x.device)
+        sa = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+        fn = _build.c_function(_build.KERNELS[name].source, name,
+                               _TWO_LAUNCH_GEMV)
+        args = (xp, packed, sw, qa, sa, out)
+        err = fn(*(t.data_ptr() for t in args), m, n, kp, packed.shape[1],
+                 stream)
+    else:
+        forced = {"cl1": 1, "cl2": 2, "cl4": 4, "cl8": 8}.get(
+            _ACTIVE[0].parent.name)
+        if forced is None:
+            return int4.mmult_w4a8_fused_noc(x, packed, sw)
+        out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+        spc = -(-int4.gemv_stages(k) // forced)
+        cluster = forced
+        if int4.gemv_smem(min(m, int4.GEMV_ROWS), spc, forced) \
+                > int4.GEMV_SMEM:   # the plan's, where this does not fit
+            cluster = int4.gemv_plan(m, k, n, int4._sm_count(x.device))
+        _build.launch(name, x.device, x, packed, sw, out, m, n, k,
+                      x.stride(0), kp, packed.shape[1], cluster)
+        err = 0
+    if err != 0:
+        raise RuntimeError(f"{name} (older tree) launch failed: "
+                           f"cudaError {err}")
+    return out
+
+
+def paged_call(q, k, v, table, lengths):
+    """paged_decode_attention on the tree in use: its wrapper, or an older
+    tree's one-block kernel launched with its own arguments."""
+    name = "paged_decode_attention"
+    if not _older(name):
+        return paged_attention.paged_decode_attention(q, k, v, table,
+                                                      lengths)
+    b, h, d = q.shape
+    n_pages, ps, kvh, _ = k.shape
+    out = torch.empty((b, h * d), device=q.device)
+    fn = _build.c_function(_build.KERNELS[name].source, name,
+                           _ONE_BLOCK_PAGED)
+    err = fn(*(t.data_ptr() for t in (q, k, v, table, lengths, out)), b,
+             n_pages, ps, table.shape[1], kvh, h // kvh, d, d ** -0.5,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} (one-block walk) launch failed: "
+                           f"cudaError {err}")
+    return out
+
+
+def _timeline(fn) -> str:
+    """One call of ``fn`` on the diag_timeline tree: each phase's end (us
+    after the first block's start) over the blocks, min / median / max,
+    and the blocks an SM."""
+    n = 4096 * 10
+    buf = (ctypes.c_ulonglong * n)()
+    times = _build.c_function(_GEMV, "gemv_times",
+                              (ctypes.c_void_p, ctypes.c_int))
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times(ctypes.addressof(buf), n)      # read and cleared
+    fn()
+    torch.cuda.synchronize()
+    if times(ctypes.addressof(buf), n) != 0:
+        raise RuntimeError("gemv_times failed")
+    rows = [buf[i * 10:(i + 1) * 10] for i in range(4096) if buf[i * 10]]
+    t0 = min(r[0] for r in rows)
+    names = ("start", "absmax", "cluster", "quantized", "products",
+             "partials stored", "cluster", "end", "last stage landed")
+    out = [f"{len(rows)} blocks"]
+    for i, name in enumerate(names):
+        ts = sorted((r[i] - t0) / 1e3 for r in rows)
+        out.append(f"{name} {ts[0]:.2f}/{ts[len(ts) // 2]:.2f}/"
+                   f"{ts[-1]:.2f}")
+    per_sm = {}
+    for r in rows:
+        per_sm[r[9]] = per_sm.get(r[9], 0) + 1
+    out.append(f"SMs {len(per_sm)}, blocks an SM "
+               f"{min(per_sm.values())}-{max(per_sm.values())}")
+    return ", ".join(out)
+
+
+def gemv_cases(gen, tiles):
+    """The fused GEMV at the 7B decode widths (and on weights past the L2)
+    and the paged bf16 attention at the smoke's shapes; the GEMV EQUAL to
+    its plain version, two calls bit-equal; the attention held to its
+    plain version (max abs)."""
+    cases, refs = {}, {}
+    for k, n in ((4096, 11008), (4096, 4096), (11008, 4096)):
+        w = torch.randn((k, n), generator=gen, device="cuda")
+        _, _, packed, sw, _ = int4.prepare_w4a8(w[:1], w)
+        del w
+        for m in (4, 1, 16, 64):
+            x = torch.randn((m, k), generator=gen, device="cuda")
+            case = f"w4a8_gemv_fq m={m} {k}->{n}"
+            args = (x, packed, sw)
+            cases[case] = lambda a=args: gemv_call(*a)
+            refs[case] = (True, args)
+    copies = []
+    for _ in range(4):
+        w = torch.randn((4096, 11008), generator=gen, device="cuda")
+        copies.append(int4.prepare_w4a8(w[:1], w)[2:4])
+        del w
+    x = torch.randn((4, 4096), generator=gen, device="cuda")
+    turn = [0]
+
+    def cold():
+        packed, sw = copies[turn[0] % 4]
+        turn[0] += 1
+        return gemv_call(x, packed, sw)
+    cases["w4a8_gemv_fq m=4 4096->11008, 4 weight copies"] = cold
+    for kvh, rep, d, ps, lens in ((32, 1, 128, 128, [1, 300, 1000, 4096]),
+                                  (3, 2, 32, 96, [1, 999, 1000, 517])):
+        np_max = -(-max(lens) // ps)
+        n_pages = len(lens) * np_max + 1
+        free = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+                + 1).tolist()
+        table = torch.zeros((len(lens), np_max), dtype=torch.int32)
+        for b, nl in enumerate(lens):
+            for c in range(-(-nl // ps)):
+                table[b, c] = free.pop()
+        q = torch.randn((len(lens), kvh * rep, d), generator=gen,
+                        device="cuda")
+        pools = [torch.randn((n_pages, ps, kvh, d), generator=gen,
+                             device="cuda").to(torch.bfloat16)
+                 for _ in "kv"]
+        args = (q, *pools, table.cuda(),
+                torch.tensor(lens, dtype=torch.int32, device="cuda"))
+        case = f"paged_decode_attention kvh={kvh} rep={rep} d={d} ps={ps}"
+        cases[case] = lambda a=args: paged_call(*a)
+        refs[case] = (False, paged_attention.paged_decode_attention_ref(
+            *args))
+
+    def check(name):
+        parts = []
+        for case, fn in cases.items():
+            if case not in refs:
+                continue
+            exact, ref = refs[case]
+            out = fn()
+            if exact:
+                want = int4.mmult_w4a8_fused_noc_ref(*ref)
+                equal = torch.equal(out, want)
+                same = torch.equal(out, fn())
+                parts.append(f"{case}: {'EQUAL' if equal else 'DIFFERS'}, "
+                             f"repeat {'equal' if same else 'DIFFERS'}")
+            else:
+                parts.append(f"{case}: max|kernel - plain| "
+                             f"{float((out - ref).abs().max()):.3e}")
+        if _ACTIVE[0].parent.name == "diag_timeline":
+            for case in ("w4a8_gemv_fq m=4 4096->11008",
+                         "w4a8_gemv_fq m=4 4096->11008, 4 weight copies",
+                         "w4a8_gemv_fq m=4 11008->4096"):
+                parts.append(f"{case}: {_timeline(cases[case])}")
+        for k, n in ((4096, 11008), (11008, 4096)):
+            case = f"w4a8_gemv_fq m=4 {k}->{n}"
+            prof = profiling.call_profile(cases[case])
+            parts.append(f"{case} host ops a call: {len(prof.aten)} aten "
+                         f"{prof.aten}, {len(prof.launches)} launches, "
+                         f"{len(prof.kernels)} kernels")
+        return "; ".join(parts)
+    return cases, check, {}
+
+
 CASES = {"forward": forward_cases, "dkv": dkv_cases, "gemm": gemm_cases,
-         "paged": paged_cases, "w4a8": w4a8_cases, "int8": int8_cases}
+         "paged": paged_cases, "w4a8": w4a8_cases, "int8": int8_cases,
+         "gemv": gemv_cases}
 
 
 def main(argv=None) -> None:

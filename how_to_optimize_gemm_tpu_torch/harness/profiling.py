@@ -10,6 +10,10 @@ reference's mperf/TMA slot):
   in fp32, over the HBM bandwidth): which bound dominates, and the share
   of that ceiling the row reached. The same columns and byte accounting
   as the reference's.
+- ``call_profile``: one call of any function on the card under
+  ``torch.profiler``: its top-level aten ops and runtime launch calls
+  (the host's operations a call), the kernels the card ran and their
+  device time (a decode step's device ms).
 - ``trace_rung`` / ``trace_table``: ``torch.profiler`` (CUPTI) around a
   few calls of one rung at size p, each kernel that ran on the card taken
   by name: its count, device time, share of the capture, and GFLOPS and
@@ -102,6 +106,45 @@ def _io_bytes(rung, m: int, n: int, k: int) -> float:
     ba = rung.bytes_a if rung.bytes_a is not None else width
     bb = rung.bytes_b if rung.bytes_b is not None else width
     return m * k * ba + k * n * bb + 2 * m * n * 4
+
+
+@dataclasses.dataclass
+class CallProfile:
+    """One call on the card: the host's top-level aten ops and runtime
+    launch calls, and the kernels that ran with their device ms."""
+    aten: list
+    launches: list
+    kernels: list
+    device_ms: float
+
+
+def call_profile(fn, tries: int = 3) -> CallProfile:
+    """Profile one call of ``fn`` (after a call outside the profile, which
+    builds what it needs) on the card. CUPTI has handed back an empty
+    window for one short kernel; a window without kernels is taken again,
+    up to ``tries`` times."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cpu = torch.autograd.DeviceType.CPU
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evs = prof.events()
+        kernels = [e for e in evs if e.device_type != cpu]
+        if kernels:
+            break
+    return CallProfile(
+        aten=[e.name for e in evs if e.device_type == cpu
+              and e.name.startswith("aten::")
+              and (e.cpu_parent is None
+                   or not e.cpu_parent.name.startswith("aten::"))],
+        launches=[e.name for e in evs if e.device_type == cpu
+                  and "Launch" in e.name],
+        kernels=[e.name for e in kernels],
+        device_ms=sum(e.time_range.elapsed_us() for e in kernels) / 1e3)
 
 
 def trace_rung(rung_name: str, p: int, logdir="profiles",

@@ -31,8 +31,8 @@ rounding. Both kernels split each slot's chunks into runs of
 and combine the runs' partial softmax sums in a fixed order
 (``csrc/decode_attention.cuh``'s split walk); the partials and a counter
 per (slot, head) live in a workspace kept per device (``_workspace``),
-which the KV8 pool's paged kernel
-(``paged_attention.paged_decode_attention_q8``) shares.
+which the paged kernels (``paged_attention.paged_decode_attention`` and
+``paged_decode_attention_q8``) share.
 """
 from __future__ import annotations
 
@@ -53,12 +53,12 @@ _MAX_QELEMS = 2048        # rep * d
 # decode_attention's split: whole bk chunks, SPLIT_KEYS keys or one chunk.
 # At the 7B cache (T 4,096, bk 128, 32 heads) with the smoke's lengths
 # (1, 300, 1,000, 4,096) that is 2 chunks, 736 live blocks of 128 threads
-# (the one-block walk had 128): over 5 for each of the H100's 132 SMs, so
-# every SM keeps a few blocks' copies in flight and the last wave is
-# short; each block still walks 256 keys, whose 128 KB of K and V amortise
-# its q load, its partial's write and the combine. Shorter splits add
-# blocks that exit at once and partials to combine; at bk 512 (the GQA
-# widths) a split is one chunk.
+# (one block a (head, slot) would be 128): over 5 for each of the H100's
+# 132 SMs, so every SM keeps a few blocks' copies in flight and the last
+# wave is short; each block still walks 256 keys, whose 128 KB of K and V
+# amortise its q load, its partial's write and the combine. Shorter
+# splits add blocks that exit at once and partials to combine; at bk 512
+# (the GQA widths) a split is one chunk.
 SPLIT_KEYS = 256
 # (counters, partials) by device; grown on demand, never shrunk
 _WORKSPACE: dict = {}
@@ -94,9 +94,10 @@ def split_plan(t: int, bk: int) -> tuple[int, int]:
 def _workspace(device, n_count: int, n_part: int,
                name: str = "decode_attention"):
     """The (int32 counters, float32 partials) of the split walk's kernels
-    on ``device`` (``decode_attention``, ``decode_attention_q8`` and the
-    KV8 pool's ``paged_decode_attention_q8``, which share it: calls on one
-    stream leave the counters at zero), at least n_count and n_part long. The
+    on ``device`` (``decode_attention``, ``decode_attention_q8``,
+    ``paged_decode_attention`` and ``paged_decode_attention_q8``, which
+    share it: calls on one stream leave the counters at zero), at least
+    n_count and n_part long. The
     counters are zeroed once, when allocated: the kernels leave them at
     zero. A workspace is grown eagerly, never under a CUDA graph capture
     (its zero fill would run only in the graph's replays): a capture must

@@ -137,6 +137,81 @@ def mmult_q_w4a8_noc(qa, sa, packed, sw):
 
 # The fused-quant GEMV serves decode widths only, as in the reference.
 GEMV_MAX_M = 64
+# Its walk (csrc/w4a8_gemv_fq.cu, names in brackets): clusters of blocks
+# that share a slab of GEMV_SLAB output columns (SLAB) and up to
+# GEMV_ROWS rows of x (ROWS; more rows take more row groups of the grid)
+# and split the slab's K in stages of GEMV_STAGE_ROWS packed rows
+# (PACK_ROWS), which a ring of GEMV_RING stages (ST) streams; at most
+# GEMV_MAX_CLUSTER blocks a cluster (MAX_CLUSTER), the int32 sums 16 times
+# the true ones (Kp at most GEMV_MAX_KP), a block's shared memory at most
+# GEMV_SMEM, three blocks an SM by the kernel's register bound, an SM's
+# shared memory GEMV_SM_SMEM (1 KB of it reserved a block).
+GEMV_SLAB = 128
+GEMV_ROWS = 8
+GEMV_STAGE_ROWS = 128
+GEMV_RING = 4
+GEMV_MAX_CLUSTER = 8
+GEMV_MAX_KP = 131072
+GEMV_SMEM = 232448
+GEMV_BLOCKS_PER_SM = 3
+GEMV_SM_SMEM = 233472
+_GEMV_ROW_PAD = 16
+_SMS: dict = {}
+
+
+def gemv_stages(k: int) -> int:
+    """Stages of K rows: pack block b's halves h with K rows from
+    512 b + 128 h below k (stage s's low nibbles are K rows 512 (s // 2) +
+    128 (s % 2) .., its high nibbles the same + 256)."""
+    rest = k % PACK_BLOCK
+    return 2 * (k // PACK_BLOCK) + (2 if rest > 128 else 1 if rest else 0)
+
+
+def gemv_smem(rows: int, spc: int, cluster: int) -> int:
+    """Dynamic shared memory of a block: the 1024-byte alignment, the ring,
+    ``rows`` rows of quantized x holding ``spc`` stages' K rows, then the
+    cluster's partials of its 1 / cluster share of the slab's sums."""
+    return (1024 + GEMV_RING * GEMV_SLAB * GEMV_STAGE_ROWS
+            + rows * (spc * 2 * GEMV_STAGE_ROWS + _GEMV_ROW_PAD)
+            + 4 * cluster * -(-rows * GEMV_SLAB // cluster))
+
+
+def gemv_plan(m: int, k: int, n: int, sms: int) -> int:
+    """The cluster of the fused GEMV at (m, k, n) on ``sms`` SMs: 1 to 8
+    blocks, each with a stage at least, the smallest whose slabs take two
+    blocks an SM, else the largest that keeps one row group's blocks in
+    one wave (GEMV_BLOCKS_PER_SM an SM, fewer where shared memory holds
+    fewer), at most 2 where m takes more than one row group (their blocks
+    fill the card: on an H100 clusters of 2 were the fastest at m = 16 and
+    64 on five of the six 7B shapes); grown further until a block's shared
+    memory fits (it does up to Kp = GEMV_MAX_KP)."""
+    stages = gemv_stages(k)
+    slabs = -(-n // GEMV_SLAB)
+    rows = min(m, GEMV_ROWS)
+
+    def fits(cluster):
+        return gemv_smem(rows, -(-stages // cluster), cluster) <= GEMV_SMEM
+
+    def one_wave(cluster):
+        smem = gemv_smem(rows, -(-stages // cluster), cluster)
+        per_sm = min(GEMV_BLOCKS_PER_SM, GEMV_SM_SMEM // (smem + 1024))
+        return slabs * cluster <= per_sm * sms
+
+    cap = GEMV_MAX_CLUSTER if m <= GEMV_ROWS else 2
+    cluster = 1
+    while (cluster < cap and 2 * cluster <= stages
+           and slabs * cluster < 2 * sms and one_wave(2 * cluster)):
+        cluster *= 2
+    while not fits(cluster):
+        cluster *= 2
+    return cluster
+
+
+def _sm_count(device) -> int:
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
 
 
 def mmult_w4a8_fused_noc_ref(x, packed, sw):
@@ -151,26 +226,41 @@ def mmult_w4a8_fused_noc(x, packed, sw):
     the activation quantization fused into the kernel.
 
     x (m, K) float with m <= 64, packed (Kp/2, N) int8, sw (1, N) float32.
-    The kernel pads x with zero columns to Kp (as the reference does),
-    which changes no row maximum."""
+    One launch and one allocation (out): the kernel reads x at its own K
+    and counts the columns up to Kp as zeros (the reference's pad, which
+    changes no row maximum); ``gemv_plan`` sizes its clusters."""
     m, k = x.shape
     if m > GEMV_MAX_M:
         raise ValueError(f"mmult_w4a8_fused_noc: m={m} > {GEMV_MAX_M}; the "
                          "fused-quant GEMV is the decode-width form")
     if x.device.type == "cpu":
         return mmult_w4a8_fused_noc_ref(x, packed, sw)
-    require_cuda("mmult_w4a8_fused_noc", x)
+    name = "mmult_w4a8_fused_noc"
+    require_cuda(name, x)
     n = sw.shape[-1]
-    kp = _check_packed("mmult_w4a8_fused_noc", packed, k, n)
-    x = bounds.pad_dim(x.to(torch.float32).contiguous(), 1, kp)
+    kp = _check_packed(name, packed, k, n)
+    if kp > GEMV_MAX_KP:
+        raise ValueError(f"{name}: Kp={kp} > {GEMV_MAX_KP}")
+    if x.dtype != torch.float32 or x.stride(1) != 1:
+        x = x.to(torch.float32).contiguous()
     packed = bounds.pad_dim(packed, 1, ALIGN)
+    if tuple(sw.shape) != (1, n) or sw.dtype != torch.float32 \
+            or packed.dtype != torch.int8:
+        raise TypeError(f"{name}: expected int8 packed and float32 sw (1, "
+                        f"{n}); got {packed.dtype}, {sw.dtype} "
+                        f"{tuple(sw.shape)}")
+    for t in (packed, sw):
+        if t.device != x.device:
+            raise ValueError(f"{name}: tensors on {t.device} and {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    if packed.data_ptr() % ALIGN:
+        raise ValueError(f"{name}: packed not {ALIGN}-byte aligned")
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    qa = torch.empty((m, kp), dtype=torch.int8, device=x.device)
-    sa = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    check_operands("mmult_w4a8_fused_noc", qa, sa, packed, sw, out)
     if m and n:
-        _build.launch("w4a8_gemv_fq", out.device, x, packed, sw, qa, sa, out,
-                      m, n, kp, packed.shape[1])
+        _build.launch("w4a8_gemv_fq", out.device, x, packed, sw, out, m, n,
+                      k, x.stride(0), kp, packed.shape[1],
+                      gemv_plan(m, k, n, _sm_count(x.device)))
     return out
 
 

@@ -27,13 +27,13 @@ and ``csrc/paged_decode_attention_q8.cu``, instances of the contiguous
 kernels' templates in ``csrc/decode_attention.cuh``) for CUDA tensors and
 run their plain versions (``*_ref``: ``decode_attention._chunk_walk``
 through the table) only for CPU tensors; kernel and plain version sum in
-other orders and agree to rounding. The bf16 pool's kernel walks each
-slot with one block (per head); the KV8 pool's walks it in splits of
-``paged_split_plan``'s pages, one block each, in one launch, and combines
-the splits' partial softmax sums in a fixed order, in the workspace that
-``decode_attention`` keeps per device (``decode_attention._workspace``).
-The plan depends on np_max and PS only, never on the lengths, so a CUDA
-graph captured at one set of lengths replays at any other.
+other orders and agree to rounding. Both kernels walk each slot in
+splits of ``paged_split_plan``'s pages, one block each, in one launch, and
+combine the splits' partial softmax sums in a fixed order, in the
+workspace that ``decode_attention`` keeps per device
+(``decode_attention._workspace``). The plan depends on np_max and PS
+only, never on the lengths, so a CUDA graph captured at one set of
+lengths replays at any other.
 """
 from __future__ import annotations
 
@@ -70,10 +70,11 @@ def gather_paged(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 
 def paged_split_plan(np_max: int, ps: int) -> tuple[int, int]:
-    """(pages a split, splits) of the KV8 kernel's walk over a table of
-    np_max pages of ps tokens: ``decode_attention.split_plan`` with one
-    page a chunk, from np_max and ps alone (the Llama-2-7B KV8 pool's
-    384-token pages: one page a split)."""
+    """(pages a split, splits) of the kernels' walk over a table of np_max
+    pages of ps tokens: ``decode_attention.split_plan`` with one page a
+    chunk, from np_max and ps alone (the Llama-2-7B bf16 pool's 32 pages
+    of 128: two pages a split, 16 splits; its KV8 pool's 384-token pages:
+    one page a split)."""
     return split_plan(np_max * ps, ps)
 
 
@@ -126,55 +127,54 @@ def _check(name, q, pools, scales, table, lengths, dtype):
             (b, n_pages, ps, table.shape[1], kvh, rep, d, d ** -0.5))
 
 
+def _launch_split(name, q, pools, scales, table, lengths, dtype):
+    """Check, then launch ``name`` over the pools in splits of
+    ``paged_split_plan``'s pages on ``decode_attention``'s workspace;
+    returns the (B, H * D) fp32 output."""
+    require_cuda(name, q)
+    q, lengths, dims = _check(name, q, pools, scales, table, lengths, dtype)
+    if any(p.data_ptr() % ALIGN for p in pools):
+        raise ValueError(f"{name}: pools not {ALIGN}-byte aligned")
+    b, h, d = q.shape
+    np_max, kvh = table.shape[1], pools[0].shape[2]
+    out = torch.empty((b, h * d), dtype=torch.float32, device=q.device)
+    if b and np_max and kvh:
+        per, splits = paged_split_plan(np_max, pools[0].shape[1])
+        count, part = _workspace(q.device, b * kvh,
+                                 b * kvh * splits * (h // kvh) * (d + 2),
+                                 name)
+        operands = (pools[0], scales[0], pools[1], scales[1]) if scales \
+            else pools
+        _build.launch(name, q.device, q, *operands, table, lengths, out,
+                      part, count, *dims[:-1], per, dims[-1])
+    return out
+
+
 def paged_decode_attention(q, k_pool, v_pool, table, lengths):
     """(B, H, D) queries over (NP, PS, KVH, D) bf16 pools through the
     (B, np_max) int32 table -> (B, H * D) fp32.
 
     The kernel takes D in {32, 64, 128}, rep * D <= 2048 and
-    rep * PS <= 8192."""
+    rep * PS <= 8192, pools whose bases are 16-byte aligned (its copies are
+    16 bytes). Each slot's live pages are walked in splits of
+    ``paged_split_plan``'s length, one block each, in one launch; the
+    splits' partials and counters live in ``decode_attention``'s
+    workspace, which grows only eagerly: a CUDA graph capture must follow
+    one eager call at its size."""
     if q.device.type == "cpu":
         return paged_decode_attention_ref(q, k_pool, v_pool, table, lengths)
-    require_cuda("paged_decode_attention", q)
-    q, lengths, dims = _check("paged_decode_attention", q,
-                              (k_pool, v_pool), (), table, lengths,
-                              torch.bfloat16)
-    b, h, d = q.shape
-    out = torch.empty((b, h * d), dtype=torch.float32, device=q.device)
-    if b and table.shape[1] and k_pool.shape[2]:
-        _build.launch("paged_decode_attention", q.device, q, k_pool, v_pool,
-                      table, lengths, out, *dims)
-    return out
+    return _launch_split("paged_decode_attention", q, (k_pool, v_pool), (),
+                         table, lengths, torch.bfloat16)
 
 
 def paged_decode_attention_q8(q, qk_pool, sk_pool, qv_pool, sv_pool, table,
                               lengths):
     """(B, H, D) queries over the KV8 pools: qk, qv (NP, PS, KVH, D) int8,
     sk, sv (NP, PS, KVH) float32, through the (B, np_max) int32 table ->
-    (B, H * D) fp32. The kernel's limits are ``paged_decode_attention``'s,
-    and its pools' bases are 16-byte aligned (its copies are 16 bytes).
-
-    Each slot's live pages are walked in splits of ``paged_split_plan``'s
-    length, one block each, in one launch; the splits' partials and
-    counters live in ``decode_attention``'s workspace, which grows only
-    eagerly: a CUDA graph capture must follow one eager call at its size."""
+    (B, H * D) fp32. The kernel's limits, its walk and its workspace are
+    ``paged_decode_attention``'s."""
     if q.device.type == "cpu":
         return paged_decode_attention_q8_ref(q, qk_pool, sk_pool, qv_pool,
                                              sv_pool, table, lengths)
-    name = "paged_decode_attention_q8"
-    require_cuda(name, q)
-    q, lengths, dims = _check(name, q, (qk_pool, qv_pool),
-                              (sk_pool, sv_pool), table, lengths, torch.int8)
-    if any(p.data_ptr() % ALIGN for p in (qk_pool, qv_pool)):
-        raise ValueError(f"{name}: pools not {ALIGN}-byte aligned")
-    b, h, d = q.shape
-    np_max, kvh = table.shape[1], qk_pool.shape[2]
-    out = torch.empty((b, h * d), dtype=torch.float32, device=q.device)
-    if b and np_max and kvh:
-        per, splits = paged_split_plan(np_max, qk_pool.shape[1])
-        count, part = _workspace(q.device, b * kvh,
-                                 b * kvh * splits * (h // kvh) * (d + 2),
-                                 name)
-        _build.launch(name, q.device, q, qk_pool, sk_pool, qv_pool, sv_pool,
-                      table, lengths, out, part, count, *dims[:-1], per,
-                      dims[-1])
-    return out
+    return _launch_split("paged_decode_attention_q8", q, (qk_pool, qv_pool),
+                         (sk_pool, sv_pool), table, lengths, torch.int8)

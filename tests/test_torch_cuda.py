@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from how_to_optimize_gemm_tpu_torch import _build, convert
+from how_to_optimize_gemm_tpu_torch.harness import profiling
 from how_to_optimize_gemm_tpu_torch.harness.driver import run_sweep
 from how_to_optimize_gemm_tpu_torch.harness.parameters import SweepConfig
 from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
@@ -559,7 +560,13 @@ def test_w4a8_gemm_noc_wgmma_edges(cuda, m, n, k):
     assert torch.equal(int4.mmult_q_w4a8_noc(*args), out)
 
 
-@pytest.mark.parametrize("m", [1, 4, 5, 64])
+# The fused GEMV is one kernel a call (the quantization inside it), EQUAL
+# to its plain version: K = 700 and 11,008 not multiples of 512, N = 1000
+# and 384 not of the 128-column slab, m from 1 to 64 (16: one full row
+# tile; 64: four). At N = 1000 the packed rows are no 16-byte multiple,
+# which the tensor map needs: the wrapper pads them first (a fill and a
+# copy), as it always has.
+@pytest.mark.parametrize("m", [1, 4, 5, 16, 64])
 @pytest.mark.parametrize("n,k", [(384, 700), (1000, 4096), (4096, 11008)])
 def test_w4a8_gemv_fq_equals_plain_version(cuda, m, n, k):
     x = _activations(m, k, 7 * m + k, cuda)
@@ -568,9 +575,35 @@ def test_w4a8_gemv_fq_equals_plain_version(cuda, m, n, k):
     out = int4.mmult_w4a8_fused_noc(x, packed, sw)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["w4a8_gemv_fq"] == before + 1
+    # the kernels the card ran for one call (LAUNCHES counts Python calls)
+    kernels = profiling.call_profile(
+        lambda: int4.mmult_w4a8_fused_noc(x, packed, sw)).kernels
+    assert sum("gemv_fq" in name for name in kernels) == 1, kernels
+    assert len(kernels) == 1 or n % 16, kernels
     ref = int4.mmult_w4a8_fused_noc_ref(x, packed, sw)
     assert out.shape == (m, n)
     assert torch.equal(out, ref), float((out - ref).abs().max())
+
+
+# From a CUDA graph, replayed on new x in place: the same bits as an eager
+# call (no workspace, counter or atomic carries over between calls).
+@pytest.mark.parametrize("m,n,k", [(4, 11008, 4096), (64, 4096, 11008),
+                                   (5, 1000, 700)])
+def test_w4a8_gemv_fq_graph_replays(cuda, m, n, k):
+    packed, sw = _w4a8_weights(k, n, k + n, cuda)
+    x = _activations(m, k, 1, cuda)
+    int4.mmult_w4a8_fused_noc(x, packed, sw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = int4.mmult_w4a8_fused_noc(x, packed, sw)
+    for seed in (2, 3, 4):
+        x.copy_(_activations(m, k, seed, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        ref = int4.mmult_w4a8_fused_noc_ref(x, packed, sw)
+        assert torch.equal(replayed, ref), float((replayed - ref).abs().max())
+        assert torch.equal(replayed, int4.mmult_w4a8_fused_noc(x, packed, sw))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -993,6 +1026,7 @@ def test_paged_decode_attention_matches_plain_version(cuda, kvh, rep, d, ps,
     out = paged_attention.paged_decode_attention(q, k, v, table, lengths)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["paged_decode_attention"] == before + 1
+    assert not decode_attention._WORKSPACE[out.device][0].any()
     ref = paged_attention.paged_decode_attention_ref(q, k, v, table,
                                                      lengths)
     assert torch.isfinite(out).all()
@@ -1084,23 +1118,31 @@ def test_paged_attention_never_reads_past_the_lengths(cuda, kv8):
     err = float((out - ref).abs().max())
     print(f"{name} past the lengths: max|kernel - plain| = {err}")
     assert err < 2e-3, err
+    assert not decode_attention._WORKSPACE[out.device][0].any()
+
+
+# Each paged kernel from a CUDA graph captured at its 7B pool's shape (KV8:
+# one page of 384 a split, 11 splits; bf16: two pages of 128 a split, 16
+# splits), replayed at other lengths: its plan and grid come from np_max
+# and PS alone, so each replay equals an eager call at its lengths bit for
+# bit, within 2e-3 of the plain version, the counters at 0.
+@pytest.mark.parametrize("kv8", [True, False])
+def test_paged_q8_graph_replays_at_other_lengths(cuda, kv8):
+    kvh, rep, d = 32, 1, 128
     if kv8:
-        assert not decode_attention._WORKSPACE[out.device][0].any()
-
-
-# The KV8 kernel from a CUDA graph captured at the 7B pool's shape (one
-# page a split, 11 splits), replayed at other lengths: its plan and grid
-# come from np_max and PS alone, so each replay equals an eager call at its
-# lengths bit for bit, within 2e-3 of the plain version, the counters at 0.
-def test_paged_q8_graph_replays_at_other_lengths(cuda):
-    kvh, rep, d, ps, np_max = 32, 1, 128, 384, 11
-    runs = [[1, 300, 1000, 4096], [0, 384, 385, 4224], [4096, 1, 0, 768]]
+        ps, np_max = 384, 11
+        runs = [[1, 300, 1000, 4096], [0, 384, 385, 4224], [4096, 1, 0, 768]]
+    else:
+        ps, np_max = 128, 32
+        runs = [[1, 300, 1000, 4096], [0, 256, 257, 4096], [4096, 1, 0, 768]]
     q, pools, table, lengths = _paged_case(kvh, rep, d, ps, runs[1],
-                                           np_max, True, 43, cuda)
+                                           np_max, kv8, 43, cuda)
+    name = "paged_decode_attention_q8" if kv8 else "paged_decode_attention"
+    kernel = getattr(paged_attention, name)
+    plain = getattr(paged_attention, name + "_ref")
 
     def call():
-        return paged_attention.paged_decode_attention_q8(q, *pools, table,
-                                                         lengths)
+        return kernel(q, *pools, table, lengths)
     call()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -1116,11 +1158,9 @@ def test_paged_q8_graph_replays_at_other_lengths(cuda):
         torch.cuda.synchronize()
         assert torch.equal(replayed, eager)
         assert not counters.any()
-        ref = paged_attention.paged_decode_attention_q8_ref(q, *pools,
-                                                            table, lengths)
+        ref = plain(q, *pools, table, lengths)
         err = float((replayed - ref).abs().max())
-        print(f"paged_decode_attention_q8 replay at {lens}: max|kernel - "
-              f"plain| = {err}")
+        print(f"{name} replay at {lens}: max|kernel - plain| = {err}")
         assert err < 2e-3, err
 
 

@@ -139,7 +139,11 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
     assert len(_build.KERNELS["grouped_gemm_t4"].argtypes) == 12
     assert len(_build.KERNELS["split_bf16"].argtypes) == 7
     assert len(_build.KERNELS["paged_kv_update"].argtypes) == 10
-    assert len(_build.KERNELS["paged_decode_attention"].argtypes) == 15
+    # the paged bf16 kernel takes the split walk's workspace and its C, as
+    # the KV8 one does (without the two scale pools)
+    assert len(_build.KERNELS["paged_decode_attention"].argtypes) == 18
+    # x, packed, sw, out, M, N, K, ldx, Kp, ldp, cluster, the stream
+    assert len(_build.KERNELS["w4a8_gemv_fq"].argtypes) == 12
     assert len(_build.KERNELS["paged_decode_attention_q8"].argtypes) == 20
     assert len(_build.KERNELS["flash_attention"].argtypes) == 25
     assert len(_build.KERNELS["flash_attention_fwd_lse"].argtypes) == 25

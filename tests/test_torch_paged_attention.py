@@ -18,20 +18,23 @@ rounding boundary can round the other way before the PV product: atol
 5e-4, as for the contiguous kernels (``test_torch_decode_attention.py``).
 ``gather_paged`` and ``good_page_size`` are EQUAL to the reference's.
 
-The card's KV8 kernel walks each slot in splits of whole pages and
-combines the splits' partial sums (``csrc/decode_attention.cuh``'s split
-walk); ``_split_walk_q8`` below models that arithmetic in plain PyTorch,
-held against the plain paged walk and the JAX kernel. A split rounds
-p * sv to bf16 against its own running max, not the slot's, so the two
-walks round each PV operand at other points: each rounding is within
-2^-8 of its operand, so an output differs by at most 2^-7 of the
-softmax-weighted sum of |v| (dequantized) over its slot's keys, plus fp32
-slack (``_rounding_bound``). That per-element bound is the rule; the
-card's rule for the kernel, DECODE_ATOL = 2e-3 (absolute;
-``chip_smoke.py``), is a statistical one: at 64-key slots the model's
-largest difference ran 0.5e-3 to 2.1e-3 over 49 seeds, splits of two
-pages crossing it at one of them (kvh 16 below). The split's length comes from np_max
-and PS alone (``paged_split_plan``), never from the lengths.
+The card's kernels, bf16 and KV8, walk each slot in splits of whole pages
+and combine the splits' partial sums (``csrc/decode_attention.cuh``'s
+split walk); ``_split_walk`` below models that arithmetic in plain
+PyTorch, held against the plain paged walk and the JAX kernel: the KV8
+pool at pages of 16, the bf16 pool at the 7B pool's pages of 128 (splits
+of one page, of two, the S-paged plan ``paged_split_plan(32, 128)``, and
+of the whole table). A split rounds p (KV8: p * sv) to bf16 against its
+own running max, not the slot's, so the two walks round each PV operand
+at other points: each rounding is within 2^-8 of its operand, so an
+output differs by at most 2^-7 of the softmax-weighted sum of |v|
+(dequantized) over its slot's keys, plus fp32 slack
+(``_rounding_bound``). That per-element bound is the rule; the card's
+rule for the kernels, DECODE_ATOL = 2e-3 (absolute; ``chip_smoke.py``),
+is a statistical one: at 64-key slots the model's largest difference ran
+0.5e-3 to 2.1e-3 over 49 seeds, splits of two pages crossing it at one of
+them (kvh 16 below). The split's length comes from np_max and PS alone
+(``paged_split_plan``), never from the lengths.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -171,16 +174,17 @@ def test_paged_attention_refuses_other_devices():
                                              device="meta"))
 
 
-def _split_walk_q8(q, qk, sk, qv, sv, table, lengths, per):
-    """A model of the KV8 kernel's split walk: each run of ``per`` pages
-    of a slot walked alone by the plain walk's arithmetic (from m = -1e30,
-    l = 0, o = 0; scores times sk, the PV operand bf16(p * sv)), only the
-    rows below the slot's length read; the runs' (m, l, o) then combined
-    in run order: m* = max m, l* = sum l exp(m - m*), o* = sum o exp(m -
-    m*), out = o* / max(l*, 1e-30); a slot of length 0 is zeros. Page c of
-    slot b is min(table[b, c], NP - 1)."""
+def _split_walk(q, k, v, table, lengths, per, sk=None, sv=None):
+    """A model of the kernels' split walk: each run of ``per`` pages of a
+    slot walked alone by the plain walk's arithmetic (from m = -1e30,
+    l = 0, o = 0; for KV8 the scores times sk and the PV operand bf16(p *
+    sv), for bf16 the operand bf16(p)), only the rows below the slot's
+    length read; the runs' (m, l, o) then combined in run order: m* = max
+    m, l* = sum l exp(m - m*), o* = sum o exp(m - m*), out = o* /
+    max(l*, 1e-30); a slot of length 0 is zeros. Page c of slot b is
+    min(table[b, c], NP - 1)."""
     b, h, d = q.shape
-    n_pages, ps, kvh, _ = qk.shape
+    n_pages, ps, kvh, _ = k.shape
     rep = h // kvh
     qg = q.reshape(b, kvh, rep, d).to(torch.float32) * d ** -0.5
     out = torch.zeros((b, kvh, rep, d))
@@ -194,16 +198,19 @@ def _split_walk_q8(q, qk, sk, qv, sv, table, lengths, per):
             for c in range(c0, min(c0 + per, nk)):
                 page = min(int(table[bi, c]), n_pages - 1)
                 rows = min(ps, length - c * ps)
-                kb = qk[page, :rows].to(torch.float32)
+                kb = k[page, :rows].to(torch.float32)
                 s = torch.einsum("grd,tgd->grt", qg[bi], kb)
-                s = s * sk[page, :rows].t()[:, None, :]
+                if sk is not None:
+                    s = s * sk[page, :rows].t()[:, None, :]
                 m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
                 alpha = torch.exp(m - m_new)
                 p = torch.exp(s - m_new)
                 l = l * alpha + p.sum(dim=-1, keepdim=True)
-                p = (p * sv[page, :rows].t()[:, None, :]).to(torch.bfloat16)
+                if sv is not None:
+                    p = p * sv[page, :rows].t()[:, None, :]
+                p = p.to(torch.bfloat16)
                 pv = torch.einsum("grt,tgd->grd", p.to(torch.float32),
-                                  qv[page, :rows].to(torch.float32))
+                                  v[page, :rows].to(torch.float32))
                 o = o * alpha + pv
                 m = m_new
             parts.append((m, l, o))
@@ -216,12 +223,12 @@ def _split_walk_q8(q, qk, sk, qv, sv, table, lengths, per):
     return out.reshape(b, h * d)
 
 
-def _rounding_bound(q, qk, sk, qv, sv, table, lengths):
+def _rounding_bound(q, k, v, table, lengths, sk=None, sv=None):
     """Per output element, 2^-7 of the softmax-weighted sum of |v| over
     the slot's keys (in fp64, K and V dequantized) plus 1e-5: how far two
     walks that round each PV operand to bf16 at other scales can differ."""
     b, h, d = q.shape
-    n_pages, ps, kvh, _ = qk.shape
+    n_pages, ps, kvh, _ = k.shape
     rep = h // kvh
     qg = q.reshape(b, kvh, rep, d).double() * d ** -0.5
     out = torch.zeros((b, kvh, rep, d), dtype=torch.float64)
@@ -232,11 +239,13 @@ def _rounding_bound(q, qk, sk, qv, sv, table, lengths):
             continue
 
         def rows(x, s):
-            return (torch.cat([x[p] for p in pages])[:n].double()
-                    * torch.cat([s[p] for p in pages])[:n, :, None])
+            r = torch.cat([x[p] for p in pages])[:n].double()
+            if s is None:
+                return r
+            return r * torch.cat([s[p] for p in pages])[:n, :, None]
         w = torch.softmax(torch.einsum("grd,tgd->grt", qg[bi],
-                                       rows(qk, sk)), -1)
-        out[bi] = torch.einsum("grt,tgd->grd", w, rows(qv, sv).abs())
+                                       rows(k, sk)), -1)
+        out[bi] = torch.einsum("grt,tgd->grd", w, rows(v, sv).abs())
     return (2.0 ** -7 * out + 1e-5).reshape(b, h * d).float()
 
 
@@ -275,13 +284,58 @@ def test_split_walk_q8_matches_plain_walk_and_jax(kvh, rep, per):
                                        20 + kvh + per)
     tq, tt = torch.from_numpy(q), torch.from_numpy(table)
     lengths = np.asarray(SPLIT_LENGTHS, np.int32)
-    got = _split_walk_q8(tq, *pools, tt, SPLIT_LENGTHS, per)
+    qk, sk, qv, sv = pools
+    got = _split_walk(tq, qk, qv, tt, SPLIT_LENGTHS, per, sk, sv)
     plain = pa.paged_decode_attention_q8_ref(tq, *pools, tt,
                                              torch.from_numpy(lengths))
     ref = np.asarray(jpa.paged_decode_attention_q8(
         jnp.asarray(q), *jpools, jnp.asarray(table), jnp.asarray(lengths),
         interpret=True))
-    bound = _rounding_bound(tq, *pools, tt, SPLIT_LENGTHS)
+    bound = _rounding_bound(tq, qk, qv, tt, SPLIT_LENGTHS, sk, sv)
+    err_plain = (got - plain).abs()
+    err_jax = (got - torch.tensor(ref)).abs()
+    print(f"kvh={kvh} rep={rep} per={per}: split walk vs plain "
+          f"{float(err_plain.max()):.3e} (DECODE_ATOL {DECODE_ATOL}), "
+          f"{float((err_plain / bound).max()):.3f} of the rounding bound; "
+          f"vs jax {float(err_jax.max()):.3e}")
+    assert (err_plain <= bound).all()
+    assert (err_jax <= bound + ATOL).all()
+    assert not got[0].any()
+    # one page: one split, no combine
+    assert torch.equal(got[1], plain[1]) and torch.equal(got[2], plain[2])
+
+
+# the bf16 pool at the 7B pool's pages of 128: slots of length 0, 1, a
+# page boundary, one past it, 300 and the table's full 512
+PS_7B, NP_MAX_7B = 128, 4
+SPLIT_LENGTHS_7B = [0, 1, 128, 129, 300, NP_MAX_7B * PS_7B]
+
+
+@pytest.mark.parametrize("per", sorted({1, 2, NP_MAX_7B, pa.paged_split_plan(
+    32, PS_7B)[0], pa.paged_split_plan(NP_MAX_7B, PS_7B)[0]}))
+@pytest.mark.parametrize("kvh,rep", WIDTHS)
+def test_split_walk_matches_plain_walk_and_jax(kvh, rep, per):
+    rng = np.random.default_rng(30 + kvh + per)
+    lens = SPLIT_LENGTHS_7B
+    n_pages = len(lens) * NP_MAX_7B + 1
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    table = np.zeros((len(lens), NP_MAX_7B), np.int32)
+    for b, n in enumerate(lens):
+        for c in range(-(-n // PS_7B)):
+            table[b, c] = free.pop()
+    q = rng.standard_normal((len(lens), kvh * rep, D)).astype(np.float32)
+    k, v = (jnp.asarray(rng.standard_normal((n_pages, PS_7B, kvh, D)),
+                        jnp.bfloat16) for _ in "kv")
+    tk, tv = (convert.params_from_jax(np.asarray(x), "cpu") for x in (k, v))
+    tq, tt = torch.from_numpy(q), torch.from_numpy(table)
+    lengths = np.asarray(lens, np.int32)
+    got = _split_walk(tq, tk, tv, tt, lens, per)
+    plain = pa.paged_decode_attention_ref(tq, tk, tv, tt,
+                                          torch.from_numpy(lengths))
+    ref = np.asarray(jpa.paged_decode_attention(
+        jnp.asarray(q), k, v, jnp.asarray(table), jnp.asarray(lengths),
+        interpret=True))
+    bound = _rounding_bound(tq, tk, tv, tt, lens)
     err_plain = (got - plain).abs()
     err_jax = (got - torch.tensor(ref)).abs()
     print(f"kvh={kvh} rep={rep} per={per}: split walk vs plain "
