@@ -71,7 +71,11 @@ Phases (any failure raises and exits non-zero before the last line):
    384 (KV8); ``flash_attention`` at the 7B prefill, B 4 x 32 heads of
    128 at S = T = 4,096 causal, at 2,048 and at 1,024; ``w4a8_gemm_noc``
    also at a 128-token chunk and at m = 16,384; ``w4a8_gemv_fq`` at m =
-   4, 1, 16 and 64 and at K = 5,000;
+   4, 1, 16 and 64 and at K = 5,000; ``w4a16_gemv`` at m = 4, 1, 16 and
+   64, a second call bit-equal to the first and a CUDA graph replayed on
+   new rows bit-equal to an eager call; ``w4a16_gemm_noc`` at the 4 x 256
+   admission's widths, two calls bit-equal; each rebuilt kernel's time
+   printed beside its time before the rebuild;
    ``decode_attention_q8`` also from a CUDA graph replayed at other
    lengths; the split walks' workspace counters at 0 after every call)
    and at ragged shapes (EQUAL
@@ -922,15 +926,17 @@ FLASH_ULPS = 2.0
 # 14 (K2) and 18 at P_FULL, dK/dV at the soak's row, the serving kernels
 # at their JSON rows (the W4A8 decode GEMV's two launches at m = 4,
 # 4,096 -> 11,008; the bf16 paged attention's one-block walk at the 7B
-# pool) (PERF.md section 6; NVIDIA H100 80GB HBM3, 700.00 W), printed
-# beside this run's
+# pool; the W4A16 GEMV on the CUDA cores at m = 4, 4,096 -> 11,008 and
+# its GEMM on mma.sync at m = 1,024, 4,096 -> 11,008) (PERF.md section 6;
+# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
 BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
              "bf16_gemm_nt": 0.6477, "flash_attention_bwd_dkv": 1.0286,
              "fp32_gemm_nt": 6.6231, "bf16_gemm_nn": 0.5681,
              "fp32_gemm_nn": 4.4085, "paged_decode_attention_q8": 0.8038,
              "w4a8_gemm_noc": 0.5742, "decode_attention_q8": 0.7697,
              "int8_gemm_nt": 0.4099, "int8_ragged_nt": 0.4124,
-             "w4a8_gemv_fq": 0.0201, "paged_decode_attention": 0.5354}
+             "w4a8_gemv_fq": 0.0201, "paged_decode_attention": 0.5354,
+             "w4a16_gemv": 0.0306, "w4a16_gemm_noc": 0.7901}
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0
@@ -1290,19 +1296,40 @@ def _w4a16_args(gen, m, k, n):
 
 def check_w4a16(name: str, shapes, gen: torch.Generator) -> dict:
     """A W4A16 kernel (the GEMM at m > 64, the GEMV at m <= 64) at the
-    int4 path's shapes and a ragged one. No single PyTorch call decodes
-    int4, so the library time is null."""
+    int4 path's shapes and a ragged one, within W4A16_REL of its plain
+    version; a second call must give the first one's bits. The GEMV is
+    also captured in a CUDA graph and replayed on new rows, which must
+    give an eager call's bits. No single PyTorch call decodes int4, so the
+    library time is null."""
     results = []
     for m, k, n in shapes:
         args = _w4a16_args(gen, m, k, n)
         shape = f"m={m} {k}->{n}"
-        err = _close(name, shape, int4.mmult_q_noc(*args),
-                     int4.mmult_q_noc_ref(*args))
+        out = int4.mmult_q_noc(*args)
+        err = _close(name, shape, out, int4.mmult_q_noc_ref(*args))
+        if not torch.equal(out, int4.mmult_q_noc(*args)):
+            raise AssertionError(f"{name} {shape}: a second call differs")
         b = bound_ms(nbytes(*args) + 4 * m * n, 2.0 * m * n * k,
                      PEAK_BF16_FLOPS)
         results.append(timed(name, shape, lambda: int4.mmult_q_noc(*args),
                              lambda: int4.mmult_q_noc_ref(*args), None,
                              *b, err))
+        if len(results) == 1:
+            print(f"{name} {shape}: {results[0]['ms']:.4f} ms; "
+                  f"{BEFORE_MS[name]} ms before the rebuild on the tensor "
+                  "cores")
+        if name == "w4a16_gemv" and len(results) == 1:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                replayed = int4.mmult_q_noc(*args)
+            args[0].copy_(torch.randn(args[0].shape, generator=gen,
+                                      device="cuda"))
+            graph.replay()
+            if not torch.equal(replayed, int4.mmult_q_noc(*args)):
+                raise AssertionError(f"{name} {shape}: a graph replay "
+                                     "differs from an eager call")
+            _close(name, f"{shape} (graph replay)", replayed,
+                   int4.mmult_q_noc_ref(*args))
     return results[0]
 
 
@@ -1611,6 +1638,7 @@ SERVE_CHECKS = {"w4a8_gemm_noc": check_w4a8_noc,
                 "w4a16_gemv": lambda gen: check_w4a16(
                     "w4a16_gemv", ((SLOTS, 4096, 11008), (SLOTS, 4096, 4096),
                                    (SLOTS, 11008, 4096), (1, 4096, 11008),
+                                   (16, 4096, 11008), (64, 4096, 11008),
                                    (5, 1100, 1032)), gen),
                 "decode_attention_q8": check_decode_attention_q8,
                 "paged_kv_update": check_paged_kv_update,

@@ -102,8 +102,8 @@ KERNELS = {
     # (a, packed, sw, out, M, N, K, lda, ldb, ldc, stream): bf16 A
     "w4a16_gemm_noc": Kernel("w4a16_gemm_noc.cu", (_P,) * 4 + (_I,) * 6
                              + (_P,)),
-    # (a, packed, sw, out, M, N, K, Kp, lda, ldp, stream): bf16 A
-    "w4a16_gemv": Kernel("w4a16_gemv.cu", (_P,) * 4 + (_I,) * 6 + (_P,)),
+    # (a, packed, sw, out, M, N, K, lda, Kp, ldp, cluster, stream): bf16 A
+    "w4a16_gemv": Kernel("w4a16_gemv.cu", (_P,) * 4 + (_I,) * 7 + (_P,)),
     # (q, qk, sk, qv, sv, lengths, out, part, count, B, T, KVH, REP, D,
     #  bk, C, scale, stream): part and count decode_attention's workspace,
     #  C the chunks of a split

@@ -1,6 +1,7 @@
 // bf16 tensor-core products with fp32 accumulation on the int8 kernels'
 // tiling (int8_mma.cuh): the bf16 product (MmaBf16) and the walk over a
-// thread's fp32 accumulators, which the W4A16 kernels (w4a16_gemm.cuh) use.
+// thread's fp32 accumulators, which rung 07's W4A16 kernel (w4a16_gemm.cuh)
+// uses.
 //
 // A 64-byte K stage holds 32 bf16 values (BKE), and mma.m16n8k16.bf16
 // reads its fragments at the byte offsets of the int8 m16n8k32, so a

@@ -13,8 +13,9 @@
 // MB, packed weights 8.4 MB, C read and written 134 MB; 0.053 ms at
 // 3.35 TB/s): the tensor cores bound it.
 //
-// Design: w4a16_gemm.cuh's kernel with "+ C" (kAddC = true), the template
-// w4a16_gemm_noc.cu instantiates without it.
+// Design: w4a16_gemm.cuh's mma.sync kernel (128 x 128 tiles, the weights
+// decoded through float and staged in shared memory). The serving linear
+// without C, w4a16_gemm_noc.cu, runs w4a16_wgmma.cuh instead.
 #include "w4a16_gemm.cuh"
 
 // A (M, lda) bf16 with K a multiple of 8 and K <= lda (16-byte rows, the
@@ -24,6 +25,6 @@
 extern "C" int w4a16_gemm(const void* a, const void* packed, const void* sw,
                           const void* c, void* out, int M, int N, int K,
                           int lda, int ldb, int ldc, void* stream) {
-  return htog::launch_w4a16_gemm<true>(a, packed, sw, c, out, M, N, K, lda,
-                                       ldb, ldc, stream);
+  return htog::launch_w4a16_gemm(a, packed, sw, c, out, M, N, K, lda, ldb,
+                                 ldc, stream);
 }

@@ -1,7 +1,7 @@
-// The W4A16 GEMM of w4a16_gemm.cu (rung 07, "+ C" in place) and
-// w4a16_gemm_noc.cu (the serving linear, no C): bf16 A, int4 weights
+// The W4A16 GEMM of w4a16_gemm.cu (rung 07, "+ C" in place; the serving
+// linear w4a16_gemm_noc.cu runs w4a16_wgmma.cuh): bf16 A, int4 weights
 // decoded to bf16, fp32 accumulation,
-//     out[i,j] = acc[i,j] * sw[j] (+ c[i,j] when kAddC),
+//     out[i,j] = acc[i,j] * sw[j] + c[i,j],
 // the reference's order (pallas_int4._kernel's flush: acc * s + c),
 // written with rounding intrinsics so nvcc cannot contract it into an FMA.
 //
@@ -75,7 +75,6 @@ __device__ __forceinline__ void store_w4(int8_t (*dst)[LDS],
   }
 }
 
-template <bool kAddC>
 __global__ void __launch_bounds__(THREADS)
     w4a16_gemm_kernel(const int8_t* a, PackedW4 w, const float* sw,
                       const float* c, float* out, int M, int N, int K,
@@ -117,25 +116,23 @@ __global__ void __launch_bounds__(THREADS)
                [&](float& v, int row, int col) {
                  size_t idx = (size_t)row * ldc + col;
                  float y = __fmul_rn(v, sw[col]);
-                 out[idx] = kAddC ? __fadd_rn(y, c[idx]) : y;
+                 out[idx] = __fadd_rn(y, c[idx]);
                });
 }
 
 // A (M, lda) bf16 with K a multiple of 8 and K <= lda (16-byte rows, the
 // wrapper pads), K <= Kp; ldb (the packed pitch) a multiple of 16, >= N;
-// bases 16-byte aligned; c null when !kAddC. Returns cudaGetLastError()
-// after the launch.
-template <bool kAddC>
-int launch_w4a16_gemm(const void* a, const void* packed, const void* sw,
-                      const void* c, void* out, int M, int N, int K, int lda,
-                      int ldb, int ldc, void* stream) {
+// bases 16-byte aligned. Returns cudaGetLastError() after the launch.
+inline int launch_w4a16_gemm(const void* a, const void* packed,
+                             const void* sw, const void* c, void* out, int M,
+                             int N, int K, int lda, int ldb, int ldc,
+                             void* stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
   PackedW4 w{static_cast<const int8_t*>(packed), K, ldb};
-  w4a16_gemm_kernel<kAddC>
-      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int8_t*>(a), w, static_cast<const float*>(sw),
-          static_cast<const float*>(c), static_cast<float*>(out), M, N, K,
-          lda, ldc);
+  w4a16_gemm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(a), w, static_cast<const float*>(sw),
+      static_cast<const float*>(c), static_cast<float*>(out), M, N, K, lda,
+      ldc);
   return static_cast<int>(cudaGetLastError());
 }
 

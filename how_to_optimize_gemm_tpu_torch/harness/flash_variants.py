@@ -6,7 +6,7 @@ A variant is a copy of the port's ``csrc/`` under
 (each must match exactly once, so a variant that no longer fits the source
 fails), or another tree's ``csrc/`` given with ``--tree NAME=DIR[:BK]`` (a
 parent commit unpacked by ``git archive``; for the forward group its key
-tile BK). Six groups of kernels, one a run (``--group``):
+tile BK). Eight groups of kernels, one a run (``--group``):
 
 - ``forward``: ``flash_attention`` at the 7B prefill row (B 4, H = KVH = 32,
   D 128, S = T = 4,096, causal, (B, S, H, D) views) and
@@ -72,14 +72,28 @@ tile BK). Six groups of kernels, one a run (``--group``):
   (wrong answers, timing probes) leave out the quantization or the
   products (or only their tensor-core part), or (right answers) record
   each block's phases. Each tree's host operations a call (torch.profiler's top-level
-  aten ops and runtime launches) are printed for the GEMV at m = 4.
+  aten ops and runtime launches) are printed for the GEMV at m = 4;
+- ``w4a16``: the W4A16 serving pair. ``w4a16_gemv`` at the 7B decode
+  widths (4,096 -> 11,008 at m = 1, 4, 16 and 64; 4,096 -> 4,096 and
+  11,008 -> 4,096 at m = 4) and at m = 4 on four copies of the 4,096 ->
+  11,008 weights taken in turn (past the L2), and ``w4a16_gemm_noc`` at
+  the 7B prefill widths (M = 1,024, 4,096 -> 11,008 and 11,008 -> 4,096),
+  at chunks of 128 and 256 tokens and at the ragged (1,000, 1,100 ->
+  1,032), each held to its plain version within 2e-5 of max |plain| and
+  two calls bit-equal. An older tree's GEMV (no cluster argument) is
+  launched with its own arguments; its GEMM takes the same. The variants
+  ``cl1``, ``cl2``, ``cl4`` and ``cl8`` force the GEMV's cluster (the
+  plan's where it does not fit), ``bt64`` and ``bt128`` the GEMM's token
+  tile; ``diag_timeline`` (right answers) records each GEMV block's
+  phases. Each tree's host operations a call are printed for the GEMV at
+  m = 4.
 
 Each variant's ptxas lines (registers, spills) are printed after the
 build; the cases run as CUDA-graph replays in rounds that walk the
 variants forwards and then backwards.
 
     python -m how_to_optimize_gemm_tpu_torch.harness.flash_variants \\
-        [--group forward|dkv|gemm|paged|w4a8|int8|gemv] \\
+        [--group forward|dkv|gemm|paged|w4a8|int8|gemv|w4a16] \\
         [--variants shipped ...] \\
         [--tree parent=build/parent/how_to_optimize_gemm_tpu_torch/csrc:64]
 """
@@ -367,6 +381,30 @@ INT8_VARIANTS = {
               "constexpr int SB_COLS = 64;"),),
 }
 _GEMV = "w4a8_gemv_fq.cu"
+# the timeline probes' device side: each block's %globaltimer at phase i
+# (0-8) and its SM (9), and the C entry that reads and clears them
+_STAMP = ("__device__ unsigned long long gemv_t[4096 * 10];\n"
+          "__device__ __forceinline__ void stamp(int i) {\n"
+          "  if (threadIdx.x == 0) {\n"
+          "    unsigned long long t;\n"
+          "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
+          "    int b = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * "
+          "blockIdx.z);\n"
+          "    gemv_t[b * 10 + i] = t;\n"
+          "    unsigned sm;\n"
+          "    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm));\n"
+          "    gemv_t[b * 10 + 9] = sm;\n"
+          "  }\n}\n\n")
+_TIMES = ('extern "C" int gemv_times(void* dst, int n) {\n'
+          '  cudaError_t err = cudaMemcpyFromSymbol(\n'
+          '      dst, htog::fq::gemv_t, n * sizeof(unsigned long long));\n'
+          '  void* t = nullptr;\n'
+          '  if (err == cudaSuccess)\n'
+          '    err = cudaGetSymbolAddress(&t, htog::fq::gemv_t);\n'
+          '  if (err == cudaSuccess)\n'
+          '    err = cudaMemset(t, 0, n * sizeof(unsigned long long));\n'
+          '  return static_cast<int>(err);\n'
+          '}\n\n')
 GEMV_VARIANTS = {
     "shipped": (),
     # the shipped source, its plan's cluster forced (gemv_call)
@@ -405,18 +443,7 @@ GEMV_VARIANTS = {
     # phases' ends and its SM, read back through gemv_times()
     "diag_timeline": (
         (_GEMV, "// Three blocks an SM (72 registers a thread)",
-         "__device__ unsigned long long gemv_t[4096 * 10];\n"
-         "__device__ __forceinline__ void stamp(int i) {\n"
-         "  if (threadIdx.x == 0) {\n"
-         "    unsigned long long t;\n"
-         "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t));\n"
-         "    int b = blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y * "
-         "blockIdx.z);\n"
-         "    gemv_t[b * 10 + i] = t;\n"
-         "    unsigned sm;\n"
-         "    asm volatile(\"mov.u32 %0, %%smid;\" : \"=r\"(sm));\n"
-         "    gemv_t[b * 10 + 9] = sm;\n"
-         "  }\n}\n\n// Three blocks an SM (72 registers a thread)"),
+         _STAMP + "// Three blocks an SM (72 registers a thread)"),
         (_GEMV, "  auto load = [&](int q) {", "  stamp(0);\n"
          "  auto load = [&](int q) {"),
         (_GEMV, "  cluster_sync();   // every block's maxima are in place",
@@ -436,19 +463,43 @@ GEMV_VARIANTS = {
          "scale_s[r]),\n                    __ldg(p.sw + n));\n    }\n  }\n"
          "  stamp(7);\n"),
         (_GEMV, 'extern "C" int w4a8_gemv_fq(',
-         'extern "C" int gemv_times(void* dst, int n) {\n'
-         '  cudaError_t err = cudaMemcpyFromSymbol(\n'
-         '      dst, htog::fq::gemv_t, n * sizeof(unsigned long long));\n'
-         '  void* t = nullptr;\n'
-         '  if (err == cudaSuccess)\n'
-         '    err = cudaGetSymbolAddress(&t, htog::fq::gemv_t);\n'
-         '  if (err == cudaSuccess)\n'
-         '    err = cudaMemset(t, 0, n * sizeof(unsigned long long));\n'
-         '  return static_cast<int>(err);\n'
-         '}\n\nextern "C" int w4a8_gemv_fq(')),
+         _TIMES + 'extern "C" int w4a8_gemv_fq(')),
+}
+_W16V = "w4a16_gemv.cu"
+_W16G = "w4a16_wgmma.cuh"
+_BT = "  *bt = w4::token_tile(M, N, sms);"
+W4A16_VARIANTS = {
+    "shipped": (),
+    # the shipped source, the GEMV's cluster forced (w4a16_gemv_call)
+    "cl1": (), "cl2": (), "cl4": (), "cl8": (),
+    # the GEMM's token tile forced
+    "bt64": ((_W16G, _BT, "  *bt = 64;"),),
+    "bt128": ((_W16G, _BT, "  *bt = 128;"),),
+    # a timing probe (right answers): each GEMV block's %globaltimer at
+    # its phases' ends and its SM, read back through gemv_times()
+    "diag_timeline": (
+        (_W16V, "// Three blocks an SM where their shared memory allows",
+         _STAMP + "// Three blocks an SM where their shared memory allows"),
+        (_W16V, "  if (!producer) load_x(threadIdx.x);",
+         "  stamp(0);\n  if (!producer) load_x(threadIdx.x);"),
+        (_W16V, "    wg::bar_sync(1, CONSUMERS);   // A's slice is in place\n",
+         "    wg::bar_sync(1, CONSUMERS);\n    stamp(1);\n"),
+        (_W16V, "      const uint8_t* stage = ring + (q % ST) * STAGE;\n",
+         "      const uint8_t* stage = ring + (q % ST) * STAGE;\n"
+         "      if (q == nst - 1) stamp(2);\n"),
+        (_W16V, "  cluster_sync();   // every block is done with its ring "
+         "and its A", "  stamp(3);\n  cluster_sync();\n  stamp(4);"),
+        (_W16V, "  cluster_sync();   // every block's partials are in their "
+         "owners' rings", "  stamp(5);\n  cluster_sync();\n  stamp(6);"),
+        (_W16V, "          __fmul_rn(sum, __ldg(p.sw + n));\n    }\n  }\n",
+         "          __fmul_rn(sum, __ldg(p.sw + n));\n    }\n  }\n"
+         "  stamp(7);\n"),
+        (_W16V, 'extern "C" int w4a16_gemv(',
+         _TIMES.replace("htog::fq::", "htog::gv::")
+         + 'extern "C" int w4a16_gemv(')),
 }
 # the headers the variants may change besides the groups' sources
-HEADERS = (_BODY, _GW, _DA, _W4)
+HEADERS = (_BODY, _GW, _DA, _W4, _W16G)
 
 GROUPS = {
     "forward": (("flash_attention.cu", "flash_attention_fwd_lse.cu"),
@@ -459,6 +510,7 @@ GROUPS = {
     "w4a8": (("w4a8_gemm_noc.cu", "decode_attention_q8.cu"), W4A8_VARIANTS),
     "int8": ((_K2, _R18), INT8_VARIANTS),
     "gemv": ((_GEMV, "paged_decode_attention.cu"), GEMV_VARIANTS),
+    "w4a16": ((_W16V, "w4a16_gemm_noc.cu"), W4A16_VARIANTS),
 }
 # the csrc/ tree in use (set by use())
 _ACTIVE: list = [None]
@@ -891,7 +943,8 @@ def _older(name: str) -> bool:
     """Whether the tree in use holds an older ABI of ``name``."""
     text = (_build.CSRC / _build.KERNELS[name].source).read_text()
     marker = {"w4a8_gemv_fq": "int ldx, int Kp, int ldp, int cluster,",
-              "paged_decode_attention": "launch_decode_attention_split"}
+              "paged_decode_attention": "launch_decode_attention_split",
+              "w4a16_gemv": "int ldp, int cluster, void* stream"}
     return marker[name] not in text
 
 
@@ -956,13 +1009,20 @@ def paged_call(q, k, v, table, lengths):
     return out
 
 
-def _timeline(fn) -> str:
-    """One call of ``fn`` on the diag_timeline tree: each phase's end (us
-    after the first block's start) over the blocks, min / median / max,
-    and the blocks an SM."""
+# the phases each timeline probe stamps
+_PHASES = {_GEMV: ("start", "absmax", "cluster", "quantized", "products",
+                   "partials stored", "cluster", "end", "last stage landed"),
+           _W16V: ("start", "A stored", "last stage landed", "products",
+                   "cluster", "partials stored", "cluster", "end")}
+
+
+def _timeline(fn, source: str = _GEMV) -> str:
+    """One call of ``fn`` on a diag_timeline tree of ``source``: each
+    phase's end (us after the first block's start) over the blocks, min /
+    median / max, and the blocks an SM."""
     n = 4096 * 10
     buf = (ctypes.c_ulonglong * n)()
-    times = _build.c_function(_GEMV, "gemv_times",
+    times = _build.c_function(source, "gemv_times",
                               (ctypes.c_void_p, ctypes.c_int))
     for _ in range(3):
         fn()
@@ -974,10 +1034,8 @@ def _timeline(fn) -> str:
         raise RuntimeError("gemv_times failed")
     rows = [buf[i * 10:(i + 1) * 10] for i in range(4096) if buf[i * 10]]
     t0 = min(r[0] for r in rows)
-    names = ("start", "absmax", "cluster", "quantized", "products",
-             "partials stored", "cluster", "end", "last stage landed")
     out = [f"{len(rows)} blocks"]
-    for i, name in enumerate(names):
+    for i, name in enumerate(_PHASES[source]):
         ts = sorted((r[i] - t0) / 1e3 for r in rows)
         out.append(f"{name} {ts[0]:.2f}/{ts[len(ts) // 2]:.2f}/"
                    f"{ts[-1]:.2f}")
@@ -1071,9 +1129,111 @@ def gemv_cases(gen, tiles):
     return cases, check, {}
 
 
+# an older tree's w4a16_gemv (one block a 32-column slab and 4 rows, no
+# cluster): (a, packed, sw, out, M, N, K, Kp, lda, ldp, stream)
+_OLD_W4A16_GEMV = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6
+                   + (ctypes.c_void_p,))
+
+
+def w4a16_gemv_call(a, packed, sw):
+    """w4a16_gemv on the tree in use: its wrapper (the variants' forced
+    cluster in its plan), or an older tree's kernel launched with its own
+    arguments."""
+    name = "w4a16_gemv"
+    m, k = a.shape
+    n = sw.shape[1]
+    kp = packed.shape[0] * 2
+    forced = {"cl1": 1, "cl2": 2, "cl4": 4, "cl8": 8}.get(
+        _ACTIVE[0].parent.name)
+    if not _older(name) and forced is None:
+        return int4.mmult_q_noc(a, packed, sw)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if _older(name):
+        fn = _build.c_function(_build.KERNELS[name].source, name,
+                               _OLD_W4A16_GEMV)
+        err = fn(*(t.data_ptr() for t in (a, packed, sw, out)), m, n, k, kp,
+                 k, packed.shape[1],
+                 torch.cuda.current_stream(a.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name} (older tree) launch failed: "
+                               f"cudaError {err}")
+        return out
+    cluster = forced
+    spc = -(-int4.gemv_stages(k) // forced)
+    if int4.w4a16_gemv_smem(min(m, int4.GEMV_ROWS), spc) > int4.GEMV_SMEM:
+        cluster = int4.w4a16_gemv_plan(m, k, n, int4._sm_count(a.device))
+    _build.launch(name, a.device, a, packed, sw, out, m, n, k, k, kp,
+                  packed.shape[1], cluster)
+    return out
+
+
+def w4a16_cases(gen, tiles):
+    """The W4A16 GEMV at the 7B decode widths (and on weights past the L2)
+    and the GEMM at the 7B prefill widths, chunks and a ragged shape; each
+    within 2e-5 of max |plain|, two calls bit-equal."""
+    cases, refs = {}, {}
+
+    def weights(k, n):
+        w = torch.randn((k, n), generator=gen, device="cuda")
+        return int4.prepare_w4a8(w[:1], w)[2:4]
+
+    def acts(m, k):
+        return torch.randn((m, k), generator=gen, device="cuda").to(
+            torch.bfloat16)
+    for k, n in ((4096, 11008), (4096, 4096), (11008, 4096)):
+        packed, sw = weights(k, n)
+        for m in ((4, 1, 16, 64) if (k, n) == (4096, 11008) else (4,)):
+            args = (acts(m, k), packed, sw)
+            case = f"w4a16_gemv m={m} {k}->{n}"
+            cases[case] = lambda a=args: w4a16_gemv_call(*a)
+            refs[case] = args
+    copies = [weights(4096, 11008) for _ in range(4)]
+    x = acts(4, 4096)
+    turn = [0]
+
+    def cold():
+        packed, sw = copies[turn[0] % 4]
+        turn[0] += 1
+        return w4a16_gemv_call(x, packed, sw)
+    cases["w4a16_gemv m=4 4096->11008, 4 weight copies"] = cold
+    for m, k, n in ((1024, 4096, 11008), (1024, 11008, 4096),
+                    (128, 4096, 11008), (256, 4096, 11008),
+                    (1000, 1100, 1032)):
+        args = (acts(m, k), *weights(k, n))
+        case = f"w4a16_gemm_noc M={m} {k}->{n}"
+        cases[case] = lambda a=args: int4.mmult_q_noc(*a)
+        refs[case] = args
+
+    def check(name):
+        parts = []
+        for case, args in refs.items():
+            fn = cases[case]
+            out = fn()
+            ref = int4.mmult_q_noc_ref(*args)
+            rel = float((out - ref).abs().max() / ref.abs().max())
+            same = torch.equal(out, fn())
+            parts.append(f"{case}: {rel:.3e} of max|plain| "
+                         f"{'ok' if rel <= 2e-5 else 'BEYOND 2e-5'}, repeat "
+                         f"{'equal' if same else 'DIFFERS'}")
+        if _ACTIVE[0].parent.name == "diag_timeline":
+            for case in ("w4a16_gemv m=4 4096->11008",
+                         "w4a16_gemv m=4 4096->11008, 4 weight copies",
+                         "w4a16_gemv m=4 4096->4096",
+                         "w4a16_gemv m=4 11008->4096"):
+                parts.append(f"{case}: {_timeline(cases[case], _W16V)}")
+        for case in ("w4a16_gemv m=4 4096->11008",
+                     "w4a16_gemv m=4 11008->4096"):
+            prof = profiling.call_profile(cases[case])
+            parts.append(f"{case} host ops a call: {len(prof.aten)} aten "
+                         f"{prof.aten}, {len(prof.launches)} launches, "
+                         f"{len(prof.kernels)} kernels")
+        return "; ".join(parts)
+    return cases, check, {}
+
+
 CASES = {"forward": forward_cases, "dkv": dkv_cases, "gemm": gemm_cases,
          "paged": paged_cases, "w4a8": w4a8_cases, "int8": int8_cases,
-         "gemv": gemv_cases}
+         "gemv": gemv_cases, "w4a16": w4a16_cases}
 
 
 def main(argv=None) -> None:

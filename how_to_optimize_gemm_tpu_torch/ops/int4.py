@@ -17,10 +17,12 @@ packed two per byte in 512-row pack blocks (``ops/quant.py``).
   rows done on the card, ``quantize_symmetric(x, axis=1)`` first.
 - ``mmult_q_noc`` (W4A16, the int4 serving linear):
   ``y = (A_bf16 @ W) * sw[j]`` with fp32 sums; kernel ``w4a16_gemv`` at
-  m <= 64, ``w4a16_gemm_noc`` above.
-- ``mmult_q`` (rung 07, W4A16, kernel ``w4a16_gemm``, the template of
-  ``w4a16_gemm_noc`` with "+ C"): ``C = (A_bf16 @ W) * sw[j] + C``, IN
-  PLACE on ``c``; ``prepare`` makes its operands.
+  m <= 64 (the W4A8 GEMV's cluster walk with bf16 products,
+  ``w4a16_gemv_plan``), ``w4a16_gemm_noc`` above (bf16 ``wgmma`` with the
+  decoded weights in registers, the W4A8 GEMM's walk).
+- ``mmult_q`` (rung 07, W4A16, kernel ``w4a16_gemm``, ``mma.sync`` on
+  128 x 128 tiles): ``C = (A_bf16 @ W) * sw[j] + C``, IN PLACE on ``c``;
+  ``prepare`` makes its operands.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``*_ref``) only for CPU tensors. The W4A8 kernels equal their
@@ -28,7 +30,8 @@ plain versions bit for bit (exact int32 sums, the epilogue in the same
 order). The W4A16 kernels' products are exact in fp32 but summed in
 another order (the GEMM's by the tensor cores), so they agree with
 their plain versions to rounding: within 2e-5 of max |y| on the card's
-tests.
+tests. Both W4A16 serving kernels sum in a fixed order: two calls, and a
+CUDA graph's replays, give the same bits.
 """
 from __future__ import annotations
 
@@ -176,7 +179,7 @@ def gemv_smem(rows: int, spc: int, cluster: int) -> int:
             + 4 * cluster * -(-rows * GEMV_SLAB // cluster))
 
 
-def gemv_plan(m: int, k: int, n: int, sms: int) -> int:
+def gemv_plan(m: int, k: int, n: int, sms: int, smem=gemv_smem) -> int:
     """The cluster of the fused GEMV at (m, k, n) on ``sms`` SMs: 1 to 8
     blocks, each with a stage at least, the smallest whose slabs take two
     blocks an SM, else the largest that keeps one row group's blocks in
@@ -184,17 +187,19 @@ def gemv_plan(m: int, k: int, n: int, sms: int) -> int:
     fewer), at most 2 where m takes more than one row group (their blocks
     fill the card: on an H100 clusters of 2 were the fastest at m = 16 and
     64 on five of the six 7B shapes); grown further until a block's shared
-    memory fits (it does up to Kp = GEMV_MAX_KP)."""
+    memory fits (it does up to Kp = GEMV_MAX_KP). ``smem(rows, spc,
+    cluster)``: a block's dynamic shared memory (the W4A16 GEMV's walk
+    passes its own, ``w4a16_gemv_plan``)."""
     stages = gemv_stages(k)
     slabs = -(-n // GEMV_SLAB)
     rows = min(m, GEMV_ROWS)
 
     def fits(cluster):
-        return gemv_smem(rows, -(-stages // cluster), cluster) <= GEMV_SMEM
+        return smem(rows, -(-stages // cluster), cluster) <= GEMV_SMEM
 
     def one_wave(cluster):
-        smem = gemv_smem(rows, -(-stages // cluster), cluster)
-        per_sm = min(GEMV_BLOCKS_PER_SM, GEMV_SM_SMEM // (smem + 1024))
+        size = smem(rows, -(-stages // cluster), cluster)
+        per_sm = min(GEMV_BLOCKS_PER_SM, GEMV_SM_SMEM // (size + 1024))
         return slabs * cluster <= per_sm * sms
 
     cap = GEMV_MAX_CLUSTER if m <= GEMV_ROWS else 2
@@ -266,6 +271,32 @@ def mmult_w4a8_fused_noc(x, packed, sw):
 
 # ------------------------------------------------------------------ W4A16
 
+# The W4A16 decode GEMV (csrc/w4a16_gemv.cu) walks the fused W4A8 GEMV's
+# clusters, slabs, stages, ring and row groups (the GEMV_* constants
+# above); its rows of A are bf16, 256 K rows a stage in 64-byte groups
+# (GROUP_BYTES) and a pad of W4A16_GEMV_ROW_PAD bytes a row (ROW_PAD), and
+# the partials meet in the ring. It serves Kp up to W4A16_GEMV_MAX_KP,
+# where 8 rows of A fit a block's shared memory at clusters of 8 (larger
+# K takes the GEMM).
+W4A16_GEMV_GROUP_BYTES = 64
+W4A16_GEMV_ROW_PAD = 16
+W4A16_GEMV_MAX_KP = 65536
+
+
+def w4a16_gemv_smem(rows: int, spc: int, cluster: int = 1) -> int:
+    """Dynamic shared memory of a W4A16 GEMV block: the 1024-byte
+    alignment, the ring, then ``rows`` rows of A holding ``spc`` stages'
+    K rows (``cluster`` sizes nothing: the partials use the ring)."""
+    return (1024 + GEMV_RING * GEMV_SLAB * GEMV_STAGE_ROWS
+            + rows * (spc * 8 * W4A16_GEMV_GROUP_BYTES + W4A16_GEMV_ROW_PAD))
+
+
+def w4a16_gemv_plan(m: int, k: int, n: int, sms: int) -> int:
+    """The cluster of the W4A16 GEMV at (m, k, n): ``gemv_plan``'s rule on
+    its blocks' shared memory."""
+    return gemv_plan(m, k, n, sms, w4a16_gemv_smem)
+
+
 def mmult_q_noc_ref(a, packed, sw):
     """Plain version of ``mmult_q_noc``: ``(f32(A) @ f32(W)) * sw``, every
     product exact in fp32, the sums in PyTorch's order."""
@@ -318,7 +349,11 @@ def mmult_q_noc(a, packed, sw):
 
     a (M, K) bf16, packed (Kp/2, N) int8 with Kp a multiple of 512 and
     K <= Kp (columns of A past K count as zero), sw (1, N) float32. m <= 64
-    launches ``w4a16_gemv``, larger m ``w4a16_gemm_noc``."""
+    launches ``w4a16_gemv`` (on a's rows as they lie where they are
+    contiguous; ``w4a16_gemv_plan`` sizes its clusters), larger m (or Kp
+    past ``W4A16_GEMV_MAX_KP``) ``w4a16_gemm_noc``: one launch a call,
+    after the pads of a packed pitch that is no 16-byte multiple and, for
+    the GEMM, of rows of A that are not."""
     if a.device.type == "cpu":
         return mmult_q_noc_ref(a, packed, sw)
     require_cuda("mmult_q_noc", a)
@@ -328,10 +363,13 @@ def mmult_q_noc(a, packed, sw):
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if not (m and n):
         return out
-    if m <= GEMV_MAX_M:
-        a = a.contiguous()
+    if m <= GEMV_MAX_M and kp <= W4A16_GEMV_MAX_KP:
+        if a.stride(1) != 1:
+            a = a.contiguous()
+        lda = a.stride(0) if m > 1 else k   # a row's stride is not read
         _build.launch("w4a16_gemv", a.device, a, packed, sw, out, m, n, k,
-                      kp, k, packed.shape[1])
+                      lda, kp, packed.shape[1],
+                      w4a16_gemv_plan(m, k, n, _sm_count(a.device)))
     else:
         a = _rows_aligned("mmult_q_noc", a)
         ka = a.shape[1]

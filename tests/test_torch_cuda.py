@@ -756,11 +756,16 @@ def _w4a16_case(m, n, k, seed, device):
     return a.to(device=device, dtype=torch.bfloat16), packed, sw
 
 
+# The W4A16 pair (the GEMV at m <= 64, the GEMM above): one kernel a call
+# on the card (torch.profiler's kernels; besides it only the pads of a
+# packed pitch that is no 16-byte multiple and, for the GEMM, of rows of A
+# that are not), within W4A16_REL of the plain version.
 @pytest.mark.parametrize("m,n,k", [(1, 9, 40), (4, 11008, 4096),
                                    (4, 4096, 11008), (5, 1032, 1100),
+                                   (16, 11008, 4096), (64, 11008, 4096),
                                    (64, 384, 700), (65, 384, 700),
                                    (300, 136, 72), (1000, 1032, 1100),
-                                   (1024, 11008, 4096)])
+                                   (1024, 11008, 4096), (1024, 4096, 11008)])
 def test_w4a16_kernels_match_plain_version(cuda, m, n, k):
     a, packed, sw = _w4a16_case(m, n, k, m + n + k, cuda)
     name = "w4a16_gemv" if m <= int4.GEMV_MAX_M else "w4a16_gemm_noc"
@@ -768,6 +773,11 @@ def test_w4a16_kernels_match_plain_version(cuda, m, n, k):
     out = int4.mmult_q_noc(a, packed, sw)
     torch.cuda.synchronize()
     assert _build.LAUNCHES[name] == before + 1
+    kernels = profiling.call_profile(
+        lambda: int4.mmult_q_noc(a, packed, sw)).kernels
+    assert sum("w4a16" in kernel for kernel in kernels) == 1, kernels
+    padded = n % 16 or (m > int4.GEMV_MAX_M and k % 8)
+    assert len(kernels) == 1 or padded, kernels
     ref = int4.mmult_q_noc_ref(a, packed, sw)
     assert out.shape == (m, n)
     err = float((out - ref).abs().max())
@@ -775,6 +785,60 @@ def test_w4a16_kernels_match_plain_version(cuda, m, n, k):
     print(f"{name} m={m} n={n} k={k}: max|kernel - plain| = {err:.3e} "
           f"of max|y| {scale:.3e}")
     assert err <= W4A16_REL * scale, err / scale
+
+
+# Both W4A16 serving kernels sum in a fixed order (no workspace, counter
+# or atomic): two calls give the same bits, and a CUDA graph replayed on
+# new A in place gives an eager call's bits.
+@pytest.mark.parametrize("m,n,k", [(4, 11008, 4096), (64, 4096, 11008),
+                                   (5, 1032, 1100), (1024, 11008, 4096),
+                                   (300, 136, 72)])
+def test_w4a16_kernels_are_deterministic_and_replay(cuda, m, n, k):
+    a, packed, sw = _w4a16_case(m, n, k, 1, cuda)
+    first = int4.mmult_q_noc(a, packed, sw)
+    assert torch.equal(first, int4.mmult_q_noc(a, packed, sw))
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = int4.mmult_q_noc(a, packed, sw)
+    for seed in (2, 3):
+        rng = np.random.default_rng(seed)
+        a.copy_(torch.from_numpy(rng.standard_normal((m, k)).astype(
+            np.float32)))
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = int4.mmult_q_noc(a, packed, sw)
+        assert torch.equal(replayed, eager)
+        ref = int4.mmult_q_noc_ref(a, packed, sw)
+        err = float((replayed - ref).abs().max())
+        assert err <= W4A16_REL * float(ref.abs().max()), err
+
+
+def _w4a16_tile_launches():
+    fn = _build.c_function("w4a16_gemm_noc.cu",
+                           "w4a16_gemm_noc_tile_launches", (ctypes.c_int,))
+    return {bt: fn(bt) for bt in (64, 128)}
+
+
+def test_w4a16_gemm_noc_takes_both_token_tiles(cuda):
+    """The GEMM's token tile (w4a8_wgmma.cuh's token_tile): 64 where its
+    tiles take no more rounds of the grid (a 65-token chunk), else 128 (a
+    4 x 256 admission at 4,096 -> 11,008); each EQUAL to itself again and
+    within W4A16_REL of the plain version."""
+    taken = set()
+    for m, n, k in ((65, 384, 700), (1024, 11008, 4096)):
+        a, packed, sw = _w4a16_case(m, n, k, 5, cuda)
+        before = _w4a16_tile_launches()
+        out = int4.mmult_q_noc(a, packed, sw)
+        torch.cuda.synchronize()
+        after = _w4a16_tile_launches()
+        moved = [bt for bt in after if after[bt] != before[bt]]
+        assert len(moved) == 1 and after[moved[0]] == before[moved[0]] + 1
+        taken.add(moved[0])
+        ref = int4.mmult_q_noc_ref(a, packed, sw)
+        assert float((out - ref).abs().max()) <= W4A16_REL * float(
+            ref.abs().max())
+    assert taken == {64, 128}
 
 
 def test_float_wrappers_reject_what_the_kernels_do_not_take(cuda):
