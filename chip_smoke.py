@@ -43,7 +43,10 @@ Phases (any failure raises and exits non-zero before the last line):
    ``WALK``, where K2's persistent grid wraps (two calls at 4,096
    bit-equal), and on subnormal scales and C, EQUAL with C's rows of
    16-byte multiples and at N = 262, each time printed beside the
-   ``mma.sync`` kernel's before the rebuild; then ``int8_gemm_nt``'s time
+   ``mma.sync`` kernel's before the rebuild; K3 ``w4a8_gemm``, on the
+   int8 prefill GEMMs' ``wgmma`` body with C added in place, also at
+   ``WALK``, its time beside its ``mma.sync`` kernel's; then
+   ``int8_gemm_nt``'s time
    right after a call of
    rung 10, 12 or 13, the check that evict_last lines left behind do not
    slow the next kernel, and rungs 12, 13, 14 and 18 at p = 2,048 chained
@@ -74,8 +77,10 @@ Phases (any failure raises and exits non-zero before the last line):
    4, 1, 16 and 64 and at K = 5,000; ``w4a16_gemv`` at m = 4, 1, 16 and
    64, a second call bit-equal to the first and a CUDA graph replayed on
    new rows bit-equal to an eager call; ``w4a16_gemm_noc`` at the 4 x 256
-   admission's widths, two calls bit-equal; each rebuilt kernel's time
-   printed beside its time before the rebuild;
+   admission's widths, two calls bit-equal; ``int8_gemm_noc`` at the
+   same widths (4,096 -> 11,008 and 11,008 -> 4,096) on the int8
+   ``wgmma`` body; each rebuilt kernel's time printed beside its time
+   before the rebuild;
    ``decode_attention_q8`` also from a CUDA graph replayed at other
    lengths; the split walks' workspace counters at 0 after every call)
    and at ragged shapes (EQUAL
@@ -439,7 +444,8 @@ KERNELS = [
          rung="07b_pallas_w4a8", wrapper=int4.mmult_q_w4a8,
          plain=int4.mmult_q_w4a8_ref,
          library=None,   # no single PyTorch call decodes int4
-         unaligned=(1000, 1032, 3584), tol=0.0, peak="int8"),
+         unaligned=(1000, 1032, 3584), more=(WALK,), tol=0.0, peak="int8",
+         own=True),
     dict(name="bf16_gemm_nt", source=SRC + "bf16_gemm_nt.cu",
          replaces="how_to_optimize_gemm_tpu/ops/pallas_tuned.py:178",
          function="pallas_tuned._kernel_bf16_bt (mmult_bf16_bt, rung 15)",
@@ -927,8 +933,9 @@ FLASH_ULPS = 2.0
 # at their JSON rows (the W4A8 decode GEMV's two launches at m = 4,
 # 4,096 -> 11,008; the bf16 paged attention's one-block walk at the 7B
 # pool; the W4A16 GEMV on the CUDA cores at m = 4, 4,096 -> 11,008 and
-# its GEMM on mma.sync at m = 1,024, 4,096 -> 11,008) (PERF.md section 6;
-# NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
+# its GEMM on mma.sync at m = 1,024, 4,096 -> 11,008; int8_gemm_noc on
+# mma.sync at m = 1,024, 4,096 -> 11,008 and K3 at P_FULL) (PERF.md
+# section 6; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
 BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
              "bf16_gemm_nt": 0.6477, "flash_attention_bwd_dkv": 1.0286,
              "fp32_gemm_nt": 6.6231, "bf16_gemm_nn": 0.5681,
@@ -936,7 +943,8 @@ BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
              "w4a8_gemm_noc": 0.5742, "decode_attention_q8": 0.7697,
              "int8_gemm_nt": 0.4099, "int8_ragged_nt": 0.4124,
              "w4a8_gemv_fq": 0.0201, "paged_decode_attention": 0.5354,
-             "w4a16_gemv": 0.0306, "w4a16_gemm_noc": 0.7901}
+             "w4a16_gemv": 0.0306, "w4a16_gemm_noc": 0.7901,
+             "int8_gemm_noc": 0.3395, "w4a8_gemm": 0.6427}
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0
@@ -1271,6 +1279,10 @@ def check_int8_noc(gen: torch.Generator) -> dict:
             lambda: int8.mmult_q_noc_ref(*args),
             (lambda: torch._int_mm(qa, qb).to(torch.float32) * sa * sb)
             if k % 8 == 0 and n % 8 == 0 else None, *b, err))
+        if len(results) == 1:
+            print(f"int8_gemm_noc {shape}: {results[0]['ms']:.4f} ms on "
+                  f"int8 wgmma; {BEFORE_MS['int8_gemm_noc']} ms before the "
+                  "rebuild (mma.sync)")
     return results[0]
 
 

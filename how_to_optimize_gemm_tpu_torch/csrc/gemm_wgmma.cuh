@@ -228,27 +228,6 @@ __device__ __forceinline__ void dequant(int (&d)[NA], const float* sa,
   }
 }
 
-// The shared-memory box at src (OUT_COLS x 64 fp32) added into (kAdd) or
-// stored over the global tensor at (c0, c1), by the tensor-map unit,
-// tracked by this thread's bulk groups.
-template <bool kAdd>
-__device__ __forceinline__ void tma_out_2d(const CUtensorMap* map,
-                                           const void* src, int c0, int c1) {
-  if constexpr (kAdd) {
-    asm volatile(
-        "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group"
-        " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-        "r"(smem_u32(src)), "r"(c0), "r"(c1)
-        : "memory");
-  } else {
-    asm volatile(
-        "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
-        " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-        "r"(smem_u32(src)), "r"(c0), "r"(c1)
-        : "memory");
-  }
-}
-
 // out += d (kAdd) or out = d over a consumer's 64 rows from row0 and the
 // tile's columns from col0 (wgmma's accumulator layout), OUT_COLS columns
 // at a time: the warpgroup writes them into one of its two buffers
@@ -286,7 +265,7 @@ __device__ __forceinline__ void flush_tma(const T (&d)[NA], uint8_t* bufs,
     fence_proxy_async();
     wg::bar_sync(1 + cw, 128);
     if (t == 0) {
-      tma_out_2d<kAdd>(tc, buf, col0 + OUT_COLS * ch, row0);
+      wg::tma_out_2d<kAdd>(tc, buf, col0 + OUT_COLS * ch, row0);
       bulk_commit();
     }
   }

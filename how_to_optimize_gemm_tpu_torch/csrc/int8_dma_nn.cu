@@ -81,8 +81,7 @@ __global__ void __launch_bounds__(THREADS)
       mbar_arrive(&full[s1]);
     }
   }
-  dequant_epilogue<true>(acc, sa, sb, c, out, M, N, ldc, m0, n0, wm, wn,
-                         lane);
+  dequant_epilogue(acc, sa, sb, c, out, M, N, ldc, m0, n0, wm, wn, lane);
 }
 
 }  // namespace

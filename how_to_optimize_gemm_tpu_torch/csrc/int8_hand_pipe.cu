@@ -25,7 +25,7 @@
 //   one-row A copies did;
 // - eight consumer warps (rung 14's 2 x 4, 64 x 32 each) wait on full, run
 //   mma_stage<MmaS8> on the slot and release it on its empty mbarrier;
-//   after a tile's last chunk they apply dequant_epilogue<true> in place,
+//   after a tile's last chunk they apply dequant_epilogue in place,
 //   each thread storing its own elements (C needs no row padding);
 // - the ring has NB = b_buffers (A, B^T) slots (2, 3 or 4): chunk q sits in
 //   slot q % NB, the q / NB-th use of that slot, so every wait's parity is
@@ -141,8 +141,8 @@ __global__ void __launch_bounds__(PIPE_THREADS, 1)
     }
     int m0, n0;
     tile_of(j, m0, n0);
-    dequant_epilogue<true>(acc, p.sa, p.sb, p.c, p.out, p.M, p.N, p.ldc, m0,
-                           n0, wm, wn, lane);
+    dequant_epilogue(acc, p.sa, p.sb, p.c, p.out, p.M, p.N, p.ldc, m0, n0,
+                     wm, wn, lane);
     if (!kLookahead) {
       __syncwarp();
       if (lane == 0) mbar_arrive(done);

@@ -1,9 +1,9 @@
-// Shared building blocks of the mma.sync GEMM kernels (int8_gemm_nn.cu,
-// int8_gemm_noc.cu and w4a8_gemm.cu through gemm_nmajor_body, the
-// hand-pipeline record's manual_dma.cuh, int8_dma_nn.cu and
-// int8_hand_pipe.cu, and, for their tiling, staging and fragment walk, the
-// bf16 tensor-core kernels of bf16_gemm.cuh and w4a16_gemm.cuh; K2 and
-// rung 18 run gemm_wgmma.cuh): block tiling, shared-memory staging, the
+// Shared building blocks of the mma.sync GEMM kernels (int8_gemm_nn.cu
+// through gemm_nmajor_body, the hand-pipeline record's manual_dma.cuh,
+// int8_dma_nn.cu and int8_hand_pipe.cu, and, for their tiling, staging
+// and fragment walk, the bf16 tensor-core kernels of bf16_gemm.cuh and
+// w4a16_gemm.cuh; K2 and rung 18 run gemm_wgmma.cuh, the int8 prefill
+// GEMMs w4a8_wgmma.cuh): block tiling, shared-memory staging, the
 // warp-level tensor-core product and the dequant epilogue.
 //
 // Tiling: one 128x128 output tile per block of 256 threads (8 warps laid
@@ -19,7 +19,6 @@
 // The epilogue is the reference's order, written with explicit rounding
 // intrinsics so nvcc cannot contract it into an FMA:
 //     out[i,j] = (float(acc) * sa[i]) * sb[j] + c[i,j]
-// (without the "+ c" for the no-C serving form, kAddC = false).
 // The int32 accumulation is exact, so each kernel equals its plain
 // PyTorch version bit for bit. c and out may be the same buffer (in-place
 // accumulate): each element is read and written by the same thread.
@@ -266,10 +265,8 @@ __device__ __forceinline__ void mma_stage(Acc (&acc)[4][4][4],
   mma_stage_with<Op>(acc, as, KMajorFrags{bs}, wm, wn, lane);
 }
 
-// out[i,j] = (float(acc) * sa[i]) * sb[j] (+ c[i,j] when kAddC), masked
-// to M x N. c and out may alias (no __restrict__ on either); c is not read
-// when kAddC is false.
-template <bool kAddC>
+// out[i,j] = (float(acc) * sa[i]) * sb[j] + c[i,j], masked to M x N. c
+// and out may alias (no __restrict__ on either).
 __device__ __forceinline__ void dequant_epilogue(
     const int (&acc)[4][4][4], const float* sa, const float* sb,
     const float* c, float* out, int M, int N, int ldc, int m0, int n0,
@@ -293,15 +290,15 @@ __device__ __forceinline__ void dequant_epilogue(
           float v = __fmul_rn(
               __fmul_rn(__int2float_rn(acc[mi][ni][h * 2 + e]), s_row),
               sb[col]);
-          out[idx] = kAddC ? __fadd_rn(v, c[idx]) : v;
+          out[idx] = __fadd_rn(v, c[idx]);
         }
       }
     }
   }
 }
 
-// The N-major B operand of gemm_nmajor_body for a plain row-major int8
-// (K, N) matrix.
+// The N-major B operand of gemm_nmajor_body (and of load_nmajor_regs) for
+// a plain row-major int8 (K, N) matrix.
 struct RowMajorInt8 {
   const int8_t* base;
   int K;   // rows
@@ -312,12 +309,11 @@ struct RowMajorInt8 {
   __device__ uint32_t decode(uint32_t w, int) const { return w; }
 };
 
-// The whole kernel for an N-major B operand (K1 and its no-C form, and
-// K3): A through cp.async, B through registers (load,
-// decode, transpose, store), two stages, the dequant epilogue at the end.
-template <bool kAddC, class Src>
+// The whole kernel for an N-major B operand (K1): A through cp.async, B
+// through registers (load, transpose, store), two stages, the dequant
+// epilogue at the end.
 __device__ __forceinline__ void gemm_nmajor_body(
-    Smem& sm, const int8_t* A, const Src& bsrc, const float* sa,
+    Smem& sm, const int8_t* A, const RowMajorInt8& bsrc, const float* sa,
     const float* sb, const float* c, float* out, int M, int N, int K,
     int lda, int ldc) {
   int m0 = blockIdx.y * BM;
@@ -349,8 +345,7 @@ __device__ __forceinline__ void gemm_nmajor_body(
     cp_async_wait_all();
     __syncthreads();
   }
-  dequant_epilogue<kAddC>(acc, sa, sb, c, out, M, N, ldc, m0, n0, wm, wn,
-                          lane);
+  dequant_epilogue(acc, sa, sb, c, out, M, N, ldc, m0, n0, wm, wn, lane);
 }
 
 }  // namespace htog

@@ -1,6 +1,7 @@
-// The packed int4 weight layout shared by the W4A8 kernels (w4a8_gemm.cu,
-// w4a8_gemm_noc.cu; w4a8_gemv_fq.cu reads the same layout and decodes
-// 16 times the nibbles itself).
+// The packed int4 weight layout shared by the int4-weight kernels
+// (w4a8_gemm.cu and w4a8_gemm_noc.cu through w4a8_wgmma.cuh, w4a16_gemm.cu;
+// w4a8_gemv_fq.cu and the W4A16 pair read the same layout and decode the
+// nibbles their own way).
 //
 // P (Kp/2, N) int8, Kp a multiple of 512: K row k of the logical weight
 // lives in packed row (k / 512) * 256 + (k % 512) % 256, in the low nibble
@@ -24,9 +25,9 @@ __device__ __forceinline__ uint32_t decode_hi4(uint32_t w) {
   return __vsub4(u ^ 0x08080808u, 0x08080808u);
 }
 
-// The N-major B operand of gemm_nmajor_body (int8_mma.cuh) for packed
-// weights: row(k) addresses K row k, decode(w, k) turns the loaded word
-// into four int8 weights. A 64-deep K tile never straddles a half block,
+// Packed weights as an N-major B operand (w4a16_gemm.cuh's loads): row(k)
+// addresses K row k, decode(w, k) turns the loaded word into four int8
+// weights. A 64-deep K tile never straddles a half block,
 // so one tile is all low or all high nibbles.
 struct PackedW4 {
   const int8_t* base;

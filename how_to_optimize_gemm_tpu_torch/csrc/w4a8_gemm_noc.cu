@@ -15,21 +15,21 @@
 // traffic (QA 4.2 MB, packed weights 22.5 MB, out 45 MB; 22 us at
 // 3.35 TB/s): the tensor cores bound it.
 //
-// Design: w4a8_wgmma.cuh, int8 wgmma with the operands swapped (the decoded
-// weights as A from registers, QA as B from its swizzled box), a persistent
-// grid of BT-token x 256-column tiles (BT 128, or 64 where that takes no
-// more rounds of the grid: token_tile) fed by a TMA producer through a ring
-// of stages that each pair a packed box's low and high nibbles, so every
-// packed byte is read once per tile. Before it the kernel was K3's template
-// with the "+ C" left out (int8_mma.cuh's gemm_nmajor_body: mma.sync on 128
-// x 128 tiles, two stages, B through registers one nibble half a stage),
-// 0.5742 ms at the shape above on an H100. The epilogue (float(acc) * sa) *
-// sw is written with __fmul_rn, so the result equals the plain version bit
-// for bit.
+// Design: w4a8_wgmma.cuh on packed weights with the store epilogue: int8
+// wgmma with the operands swapped (the decoded weights as A from
+// registers, QA as B from its swizzled box), a persistent grid of BT-token
+// x 256-column tiles (BT 128, or 64 where that takes no more rounds of the
+// grid: token_tile) fed by a TMA producer through a ring of stages that
+// each pair a packed box's low and high nibbles, so every packed byte is
+// read once per tile. Before it the kernel was K3's template with the
+// "+ C" left out (int8_mma.cuh's gemm_nmajor_body: mma.sync on 128 x 128
+// tiles, two stages, B through registers one nibble half a stage),
+// 0.5742 ms at the shape above on an H100. The epilogue (float(acc) * sa)
+// * sw is written with __fmul_rn, so the result equals the plain version
+// bit for bit.
 #include "w4a8_wgmma.cuh"
 
-// Launches of each token tile's kernel (BT 64, 128) in this process.
-static int tile_launches[2];
+static htog::w4::TileLaunches tile_launches;
 
 // lda and ldb are multiples of 16 and K <= lda (the wrapper pads; the
 // columns past the caller's K are zeros), round_up(K, 512) / 2 packed rows
@@ -40,14 +40,15 @@ extern "C" int w4a8_gemm_noc(const void* qa, const void* packed,
                              int ldb, int ldc, void* stream) {
   (void)c;
   int bt = 0;
-  int err = htog::w4::launch(qa, packed, sa, sw, out, M, N, K, lda, ldb,
-                             ldc, static_cast<cudaStream_t>(stream), &bt);
-  if (err == 0) ++tile_launches[bt == 128];
+  int err = htog::w4::launch<htog::w4::Packed, false>(
+      qa, packed, sa, sw, nullptr, out, M, N, K, lda, ldb, ldc,
+      static_cast<cudaStream_t>(stream), &bt);
+  tile_launches.add(err, bt);
   return err;
 }
 
 // How many times w4a8_gemm_noc launched the kernel of token tile bt (64 or
 // 128; -1 for another bt): the card tests read which tile ran.
 extern "C" int w4a8_gemm_noc_tile_launches(int bt) {
-  return bt == 64 ? tile_launches[0] : bt == 128 ? tile_launches[1] : -1;
+  return tile_launches.of(bt);
 }

@@ -1,14 +1,17 @@
-// The W4A8 prefill GEMM on Hopper's int8 warpgroup MMA: the body of
-// w4a8_gemm_noc.cu, out = f32(QA @ decode(P) as int32) * sa[i] * sw[j].
-// QA (M, K) int8 row-major, P (Kp/2, N) int8 packed nibbles (w4a8.cuh),
-// sa (M, 1) and sw (1, N) float32, out (M, N) float32.
+// The int8 prefill GEMMs on Hopper's int8 warpgroup MMA, one body for
+// three kernels: out = f32(QA @ W as int32) * sa[i] * sw[j] (+ C), W
+// either the packed int4 weights decoded (w4a8.cuh; w4a8_gemm_noc.cu, and
+// K3 w4a8_gemm.cu with C) or a plain (K, N) int8 matrix (int8_gemm_noc.cu).
+// QA (M, K) int8 row-major, sa (M, 1) and sw (1, N) float32, out (M, N)
+// float32, C (M, N) float32 read by the "+ C" epilogue (it may be out).
 //
 // Operands swapped: each output tile is computed as out^T = W^T . QA^T,
-// so the decoded weights are wgmma's A, held in registers, and never go
-// back to shared memory; QA is wgmma's B, K-major as it lies (8-bit types
-// have no transposed form), read from its swizzled box by descriptor.
-// wgmma.m64nBTk32.s32.s8.s8: a 64-row slab of W^T (64 output columns) times
-// BT tokens, 32 K values deep.
+// so the weights are wgmma's A, held in registers, and never go back to
+// shared memory; QA is wgmma's B, K-major as it lies (8-bit types have no
+// transposed form), read from its swizzled box by descriptor. The N-major
+// weights are turned around on their way into the registers, which is
+// where the packed ones are decoded too. wgmma.m64nBTk32.s32.s8.s8: a
+// 64-row slab of W^T (64 output columns) times BT tokens, 32 K values deep.
 //
 // Block: 288 threads, one block an SM, a persistent grid walking tiles of
 // BT tokens x 256 output columns in groups of GROUP_T token tiles (the
@@ -18,41 +21,58 @@
 // nine warps put three on one of the SM's four schedulers, whose quarter
 // of the register file leaves a thread 168, as 384 threads would; BT = 128
 // (128 int32 sums, two sets of A fragments) takes all 168 with a 4-byte
-// spill. ptxas serializes the products where a step's fragments are
-// written while the step before is in flight (its note C7513); on an H100
-// that still ran faster than draining each step first (wait<0>, which
-// clears C7513 but not the register limit), by 2-3%, and than 96-token
-// tiles (145 registers), which lose rounds of the grid
+// spill on the packed weights. ptxas serializes the products where a
+// step's fragments are written while the step before is in flight (its
+// note C7513); on an H100 that still ran faster than draining each step
+// first (wait<0>, which clears C7513 but not the register limit), by 2-3%,
+// and than 96-token tiles (145 registers), which lose rounds of the grid
 // (harness/flash_variants.py --group w4a8; PERF.md).
 //
-// Ring (wgmma.cuh's full and empty barriers, as many stages as fit: 3 at
-// BT = 128, 4 at 64; two ran as fast): stage st of a tile takes the
-// packed rows 256 (st / 2) + 128 (st % 2) .. + 127, one 128 x 128 box for
-// each consumer's columns. Their low nibbles are K rows
-// k = 512 (st / 2) + 128 (st % 2) .. + 127 and their high nibbles K rows
-// k + 256 .. k + 383 (w4a8.cuh), so the stage also takes the two QA boxes
-// of those K columns, and each packed byte is read once per tile. The
-// int32 sums are exact in any order. The QA map's K extent is K: columns
-// past it, and boxes wholly past it, arrive as zeros, so packed rows past K
-// add nothing whatever they hold; rows past M and columns past N are zeros
-// and are not stored.
+// Ring (wgmma.cuh's full and empty barriers, as many stages as fit beside
+// the "+ C" epilogue's staging). A weight box is 128 rows (packed rows, or
+// K rows) x 128 columns, one for each consumer's columns; a QA box is BT
+// tokens x 128 K. A stage holds BOXES QA boxes, then consumer 0's weight
+// boxes, then consumer 1's:
+// - Packed (3 stages at BT = 128, 4 at 64, two ran as fast; adding C 2
+//   and 3): stage st of a tile takes the packed rows 256 (st / 2) +
+//   128 (st % 2) .. + 127. Their low nibbles are K rows k = 512 (st / 2)
+//   + 128 (st % 2) .. + 127 and their high nibbles K rows k + 256 ..
+//   k + 383 (w4a8.cuh), so the stage also takes the two QA boxes of those
+//   K columns, and each packed byte is read once per tile.
+// - PlainS8<B> (B = 1: 4 stages at BT = 128, 5 at 64; B = 2: 2 at both):
+//   stage st takes K rows 128 B st .. + 128 B - 1 of QA and of W, B boxes
+//   of each.
+// The int32 sums are exact in any order. The QA map's K extent is K:
+// columns past it, and boxes wholly past it, arrive as zeros, so weight
+// rows past K add nothing whatever they hold; rows past M and columns past
+// N are zeros and are not stored.
 //
 // Consumer thread (warp w of its warpgroup, lane = 4 g + t): its A
 // fragments hold slab rows g and g + 8 of both slabs, which are the four
 // adjacent output columns c = 4 (8 w + g) .. + 3 of its warpgroup's 128
 // (column c + 2 s + h is slab s's row g + 8 h), at K bytes 4 t .. 4 t + 3
 // and 16 + 4 t .. of each 32-deep step. So per step it loads one 32-bit
-// word (those four columns) from each of the 8 packed rows 4 t + j and
-// 16 + 4 t + j, decodes the low nibbles (this step's fragments for both
-// slabs) and the high ones (the matching step 256 K rows on), and turns
-// each 4 x 4 byte group around with __byte_perm: four fragments, four
-// wgmmas, issued while the step before is still in flight. The same
-// layout makes the epilogue's stores whole: a thread's four columns of a
-// token are one float4, eight lanes a 128-byte line.
+// word (those four columns) from each of the 8 box rows 4 t + j and
+// 16 + 4 t + j of each of its weight boxes, for packed weights decodes
+// the low nibbles (this step's fragments for both slabs) and the high ones
+// (the matching step 256 K rows on), and turns each 4 x 4 byte group
+// around with __byte_perm: two fragments a QA box, as many wgmmas, issued
+// while the step before is still in flight. The same layout makes the
+// epilogue's stores whole: a thread's four columns of a token are one
+// float4, eight lanes a 128-byte line.
 //
 // Epilogue: (float(acc) * sa[i]) * sw[j] with __fmul_rn, the plain
-// version's order, so out equals it bit for bit; each thread stores its
-// own sums while the producer fills the ring with the next tile's stages.
+// version's order, each thread storing its own four columns of a token
+// as one float4 while the producer fills the ring with the next tile's
+// stages. Adding C (in place, rows of 16-byte multiples), a consumer warp
+// owns 32 whole columns of the tile: it stages its products 32 tokens at
+// a time in one of its two shared-memory buffers, and the tensor-map unit
+// adds each buffer into C in L2 (cp.reduce.async.bulk.tensor .add, one
+// round-to-nearest add, so C + y is the plain version's y + C bit for
+// bit) while the consumers go on to the next tile; C is not read into
+// registers, nor held across the main loop. Elsewhere (C's rows no 16-byte
+// multiple) each thread adds c[i, j] with __fadd_rn an element at a time.
+// So out equals the plain version bit for bit.
 #pragma once
 
 #include "w4a8.cuh"
@@ -63,31 +83,71 @@ namespace w4 {
 
 constexpr int THREADS = 288;       // two consumer warpgroups, a producer
 constexpr int TILE_N = 256;        // output columns a tile, 128 a consumer
-constexpr int PACK_ROWS = 128;     // packed rows a stage
+constexpr int PACK_ROWS = 128;     // rows of a weight box
 constexpr int GROUP_T = 8;         // token tiles a group of the walk
-constexpr int PK_BYTES = PACK_ROWS * wg::LINE;   // one consumer's box
+constexpr int PK_BYTES = PACK_ROWS * wg::LINE;   // one weight box
 constexpr int SMEM_LIMIT = 232448;
 
-// Stage layout: QA's low-K box, its high-K box (BT lines of 128 K each),
-// then the two consumers' packed boxes (128 lines of 128 columns).
-template <int BT>
-struct Layout {
-  static constexpr int QA_BYTES = BT * wg::LINE;
-  static constexpr int STAGE = 2 * QA_BYTES + 2 * PK_BYTES;
-  static constexpr int ST =
-      (SMEM_LIMIT - wg::ATOM - 256) / STAGE;   // stages of the ring
-  static constexpr int SMEM = ST * STAGE + wg::ATOM +
-                              static_cast<int>(sizeof(wg::Ring<ST>));
-  static_assert(SMEM <= SMEM_LIMIT, "the ring fits a block's shared memory");
-  static_assert(BT % 16 == 0 && BT <= 256, "a wgmma N for 8-bit types");
-};
-
-// Stages of a tile: pack block b's halves h with K rows from
-// 512 b + 128 h below K.
+// Stages of a tile on packed weights: pack block b's halves h with K rows
+// from 512 b + 128 h below K.
 __device__ __forceinline__ int stages(int K) {
   int rest = K % 512;
   return 2 * (K / 512) + (rest > 128 ? 2 : rest > 0 ? 1 : 0);
 }
+
+// The weight sources. BOXES: QA boxes a stage (two fragments each);
+// W_BOXES: weight boxes a stage and consumer; rows(K): the weight map's
+// rows; nst(K): stages of a tile; qa_k(st, b): the K column of QA box b of
+// stage st; w_row(st, b): the map row of weight box b.
+struct Packed {
+  static constexpr bool PACKED = true;
+  static constexpr int BOXES = 2;
+  static constexpr int W_BOXES = 1;
+  static int rows(int K) { return (K + 511) / 512 * 256; }
+  static __device__ int nst(int K) { return stages(K); }
+  static __device__ int qa_k(int st, int b) {
+    return (st >> 1) * 512 + (st & 1) * 128 + 256 * b;
+  }
+  static __device__ int w_row(int st, int) {
+    return (st >> 1) * 256 + (st & 1) * 128;
+  }
+};
+
+template <int B>
+struct PlainS8 {
+  static constexpr bool PACKED = false;
+  static constexpr int BOXES = B;
+  static constexpr int W_BOXES = B;
+  static int rows(int K) { return K; }
+  static __device__ int nst(int K) { return (K + 128 * B - 1) / (128 * B); }
+  static __device__ int qa_k(int st, int b) { return 128 * (B * st + b); }
+  static __device__ int w_row(int st, int b) { return 128 * (B * st + b); }
+};
+
+// The "+ C" epilogue's staging: per consumer warp two buffers of
+// OUT_TOKENS tokens x the warp's 32 columns fp32 (one 128-byte swizzled
+// line a token), each the source of one tensor-map reduction into C.
+constexpr int OUT_TOKENS = 32;
+constexpr int OUT_BOX = OUT_TOKENS * wg::LINE;
+constexpr int OUT_BYTES = 8 * 2 * OUT_BOX;
+
+// Shared memory: the ring's stages, each QA's boxes (BT lines of 128 K
+// each) then the two consumers' weight boxes (128 lines of 128 columns);
+// then, adding C, the epilogue's staging; then the ring's barriers.
+template <int BT, class Src, bool ADD_C>
+struct Layout {
+  static constexpr int QA_BYTES = BT * wg::LINE;
+  static constexpr int W_OFF = Src::BOXES * QA_BYTES;
+  static constexpr int STAGE = W_OFF + 2 * Src::W_BOXES * PK_BYTES;
+  static constexpr int OUT = ADD_C ? OUT_BYTES : 0;
+  static constexpr int ST =
+      (SMEM_LIMIT - wg::ATOM - 256 - OUT) / STAGE;   // stages of the ring
+  static constexpr int SMEM = ST * STAGE + OUT + wg::ATOM +
+                              static_cast<int>(sizeof(wg::Ring<ST>));
+  static_assert(ST >= 2, "a stage in flight while one is read");
+  static_assert(SMEM <= SMEM_LIMIT, "the ring fits a block's shared memory");
+  static_assert(BT % 16 == 0 && BT <= 256, "a wgmma N for 8-bit types");
+};
 
 // Token tile (BT) for an (M, N) output on `sms` SMs: 64 where its tiles
 // take no more rounds of the persistent grid than 128's, else 128. A
@@ -200,59 +260,72 @@ __device__ __forceinline__ void transpose4(const uint32_t (&w)[4],
   c[3] = __byte_perm(hi01, hi23, 0x7632);
 }
 
-// The four A fragments of 32-deep step i of a stage from the consumer's
-// packed box: f[0], f[1] the low nibbles for slabs 0 and 1 (K rows
-// 32 i .. of the stage's low range), f[2], f[3] the high ones (the same
-// rows of its high range). off[j]: the byte offset of this thread's word
-// in the box's row 4 t + j (swizzled: the 16-byte chunk index XORed with
-// the row's index mod 8, which is (4 t + j) mod 8 for every row read).
-template <int I>
-__device__ __forceinline__ void fragments(const uint8_t* box,
-                                          const int (&off)[4],
-                                          uint32_t (&f)[4][4]) {
-  uint32_t lo[2][4], hi[2][4];
-#pragma unroll
-  for (int grp = 0; grp < 2; ++grp) {
-    uint32_t w[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      w[j] = *reinterpret_cast<const uint32_t*>(
-          box + (32 * I + 16 * grp) * wg::LINE + off[j]);
-    uint32_t dl[4], dh[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      dl[j] = decode_lo4(w[j]);
-      dh[j] = decode_hi4(w[j]);
-    }
-    transpose4(dl, lo[grp]);
-    transpose4(dh, hi[grp]);
-  }
+// The A fragments of slabs 0 and 1 (f[0], f[1]) from the turned-around
+// groups of box rows 4 t .. (g[0]) and 16 + 4 t .. (g[1]): column 2 s + h
+// is slab s's row g + 8 h.
+__device__ __forceinline__ void slab_fragments(const uint32_t (&g)[2][4],
+                                               uint32_t (*f)[4]) {
 #pragma unroll
   for (int s = 0; s < 2; ++s) {
-    f[s][0] = lo[0][2 * s];
-    f[s][1] = lo[0][2 * s + 1];
-    f[s][2] = lo[1][2 * s];
-    f[s][3] = lo[1][2 * s + 1];
-    f[2 + s][0] = hi[0][2 * s];
-    f[2 + s][1] = hi[0][2 * s + 1];
-    f[2 + s][2] = hi[1][2 * s];
-    f[2 + s][3] = hi[1][2 * s + 1];
+    f[s][0] = g[0][2 * s];
+    f[s][1] = g[0][2 * s + 1];
+    f[s][2] = g[1][2 * s];
+    f[s][3] = g[1][2 * s + 1];
   }
 }
 
-// One consumer's wgmmas of step I: f's low fragments against QA's low box,
-// the high ones against its high box, each slab into its own sums.
-template <int BT, int I>
+// The 2 x BOXES A fragments of 32-deep step I of a stage from the
+// consumer's weight boxes (PK_BYTES apart): for packed weights f[0], f[1]
+// the low nibbles for slabs 0 and 1 (K rows 32 I .. of the stage's low
+// range), f[2], f[3] the high ones (the same rows of its high range); for
+// int8 weights f[2 b], f[2 b + 1] from box b. off[j]: the byte offset of
+// this thread's word in the box's row 4 t + j (swizzled: the 16-byte chunk
+// index XORed with the row's index mod 8, which is (4 t + j) mod 8 for
+// every row read).
+template <class Src, int I>
+__device__ __forceinline__ void fragments(const uint8_t* box,
+                                          const int (&off)[4],
+                                          uint32_t (&f)[2 * Src::BOXES][4]) {
+#pragma unroll
+  for (int b = 0; b < Src::W_BOXES; ++b) {
+    uint32_t lo[2][4], hi[2][4];
+#pragma unroll
+    for (int grp = 0; grp < 2; ++grp) {
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w[j] = *reinterpret_cast<const uint32_t*>(
+            box + b * PK_BYTES + (32 * I + 16 * grp) * wg::LINE + off[j]);
+      if constexpr (Src::PACKED) {
+        uint32_t dl[4], dh[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          dl[j] = decode_lo4(w[j]);
+          dh[j] = decode_hi4(w[j]);
+        }
+        transpose4(dl, lo[grp]);
+        transpose4(dh, hi[grp]);
+      } else {
+        transpose4(w, lo[grp]);
+      }
+    }
+    slab_fragments(lo, f + 2 * b);
+    if constexpr (Src::PACKED) slab_fragments(hi, f + 2);
+  }
+}
+
+// One consumer's wgmmas of step I: f[2 b] and f[2 b + 1] against QA box b
+// (QA_BYTES apart from qa), each slab into its own sums.
+template <int BT, int BOXES, int I>
 __device__ __forceinline__ void issue(int (&acc)[2][BT / 2],
-                                      const uint32_t (&f)[4][4],
-                                      uint32_t qa_lo, uint32_t qa_hi,
-                                      int accumulate) {
-  uint64_t dlo = wg::kmajor_desc(qa_lo, I);
-  uint64_t dhi = wg::kmajor_desc(qa_hi, I);
-  WgmmaS8<BT>::rs(acc[0], f[0], dlo, accumulate);
-  WgmmaS8<BT>::rs(acc[1], f[1], dlo, accumulate);
-  WgmmaS8<BT>::rs(acc[0], f[2], dhi, 1);
-  WgmmaS8<BT>::rs(acc[1], f[3], dhi, 1);
+                                      const uint32_t (&f)[2 * BOXES][4],
+                                      uint32_t qa, int accumulate) {
+#pragma unroll
+  for (int b = 0; b < BOXES; ++b) {
+    uint64_t d = wg::kmajor_desc(qa + b * BT * wg::LINE, I);
+    WgmmaS8<BT>::rs(acc[0], f[2 * b], d, b == 0 ? accumulate : 1);
+    WgmmaS8<BT>::rs(acc[1], f[2 * b + 1], d, b == 0 ? accumulate : 1);
+  }
 }
 
 // Keeps the compiler from reading the sums before the wgmma_wait that
@@ -265,22 +338,30 @@ __device__ __forceinline__ void fence_acc(int (&acc)[2][N]) {
     for (int i = 0; i < N; ++i) asm volatile("" : "+r"(acc[s][i])::"memory");
 }
 
-// tqa: QA (M, K) int8, boxes of 128 K x BT tokens; tw: P (rows, N) int8,
-// boxes of 128 columns x 128 packed rows; both with the 128-byte swizzle.
-template <int BT>
+// tqa: QA (M, K) int8, boxes of 128 K x BT tokens; tw: the weights (rows,
+// N) int8, boxes of 128 columns x 128 rows; tc (read where tma_add): out
+// (M, ldc) fp32, boxes of 32 columns x OUT_TOKENS tokens; all with the
+// 128-byte swizzle. c is read only where ADD_C: by the tensor-map unit's
+// reductions into out (tma_add: c is out), else by each thread, an
+// element at a time.
+template <int BT, class Src, bool ADD_C>
 __global__ void __launch_bounds__(THREADS, 1)
-    w4a8_wgmma(const __grid_constant__ CUtensorMap tqa,
-               const __grid_constant__ CUtensorMap tw, const float* sa,
-               const float* sw, float* out, int M, int N, int K, int ldc) {
-  using L = Layout<BT>;
+    int8_wgmma(const __grid_constant__ CUtensorMap tqa,
+               const __grid_constant__ CUtensorMap tw,
+               const __grid_constant__ CUtensorMap tc, const float* sa,
+               const float* sw, const float* c, float* out, int M, int N,
+               int K, int ldc, int tma_add) {
+  using L = Layout<BT, Src, ADD_C>;
   constexpr int ST = L::ST;
+  constexpr int NF = 2 * Src::BOXES;   // A fragments a step
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = wg::align_1024(smem_raw);
-  auto& ring = *reinterpret_cast<wg::Ring<ST>*>(smem + ST * L::STAGE);
+  auto& ring =
+      *reinterpret_cast<wg::Ring<ST>*>(smem + ST * L::STAGE + L::OUT);
   int num_t = (M + BT - 1) / BT;
   int num_n = (N + TILE_N - 1) / TILE_N;
   int tiles = num_t * num_n;
-  int nst = stages(K);
+  int nst = Src::nst(K);
   int warp = threadIdx.x >> 5;
   int lane = threadIdx.x & 31;
   if (threadIdx.x == 0) ring.init();
@@ -296,15 +377,18 @@ __global__ void __launch_bounds__(THREADS, 1)
         int s = q % ST;
         uint8_t* stage = smem + s * L::STAGE;
         uint64_t* full = &ring.full[s];
-        int k0 = (st >> 1) * 512 + (st & 1) * 128;
-        int prow = (st >> 1) * 256 + (st & 1) * 128;
         wg::wait_empty(ring, q);
         mbar_arrive_expect_tx(full, L::STAGE);
-        wg::tma_2d(stage, &tqa, k0, ti * BT, full);
-        wg::tma_2d(stage + L::QA_BYTES, &tqa, k0 + 256, ti * BT, full);
-        wg::tma_2d(stage + 2 * L::QA_BYTES, &tw, tj * TILE_N, prow, full);
-        wg::tma_2d(stage + 2 * L::QA_BYTES + PK_BYTES, &tw,
-                   tj * TILE_N + 128, prow, full);
+#pragma unroll
+        for (int b = 0; b < Src::BOXES; ++b)
+          wg::tma_2d(stage + b * L::QA_BYTES, &tqa, Src::qa_k(st, b),
+                     ti * BT, full);
+#pragma unroll
+        for (int cw = 0; cw < 2; ++cw)
+#pragma unroll
+          for (int b = 0; b < Src::W_BOXES; ++b)
+            wg::tma_2d(stage + L::W_OFF + (cw * Src::W_BOXES + b) * PK_BYTES,
+                       &tw, tj * TILE_N + 128 * cw, Src::w_row(st, b), full);
       }
     }
     return;
@@ -320,10 +404,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     int r = 4 * tq + j;
     off[j] = r * wg::LINE + ((((col >> 4) ^ (r & 7)) << 4) | (col & 15));
   }
-  bool vec = (ldc & 3) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  bool vec = !ADD_C && (ldc & 3) == 0 &&
+             (reinterpret_cast<uintptr_t>(out) & 15) == 0;
   uint32_t base = smem_u32(smem);
   int acc[2][BT / 2];
-  uint32_t f[2][4][4];
+  uint32_t f[2][NF][4];
   int q = 0;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     int ti, tj;
@@ -331,18 +416,17 @@ __global__ void __launch_bounds__(THREADS, 1)
     int prev = -1;   // the slot whose last products may still be in flight
     for (int st = 0; st < nst; ++st, ++q) {
       int s = q % ST;
-      uint32_t qa_lo = base + s * L::STAGE;
-      uint32_t qa_hi = qa_lo + L::QA_BYTES;
-      const uint8_t* box = smem + s * L::STAGE + 2 * L::QA_BYTES +
-                           cw * PK_BYTES;
+      uint32_t qa = base + s * L::STAGE;
+      const uint8_t* box = smem + s * L::STAGE + L::W_OFF +
+                           cw * Src::W_BOXES * PK_BYTES;
       int fresh = st == 0 ? 0 : 1;
       wg::wait(&ring.full[s], (q / ST) & 1);
-      // step i's fragments are decoded while step i - 1's products run;
+      // step i's fragments are made while step i - 1's products run;
       // step i's wait<1> frees the fragments of step i - 1
 #define W4_STEP(I)                                                     \
-  fragments<I>(box, off, f[(I) & 1]);                                  \
+  fragments<Src, I>(box, off, f[(I) & 1]);                             \
   wg::wgmma_fence();                                                   \
-  issue<BT, I>(acc, f[(I) & 1], qa_lo, qa_hi, (I) == 0 ? fresh : 1);   \
+  issue<BT, Src::BOXES, I>(acc, f[(I) & 1], qa, (I) == 0 ? fresh : 1); \
   wg::wgmma_commit();                                                  \
   wg::wgmma_wait<1>();                                                 \
   wg::fence_regs(f[((I) + 1) & 1]);
@@ -365,82 +449,154 @@ __global__ void __launch_bounds__(THREADS, 1)
     int n = tj * TILE_N + 128 * cw + col;
     float w4[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) w4[c] = n + c < N ? sw[n + c] : 0.0f;
+    for (int x = 0; x < 4; ++x) w4[x] = n + x < N ? sw[n + x] : 0.0f;
+    // (float(acc) * sa[tok]) * sw[n + x] of the thread's token j, e (0
+    // past M)
+    auto dequant = [&](int j, int e, int tok, float (&y)[4]) {
+      float s_row = tok < M ? sa[tok] : 0.0f;
+      int v[4] = {acc[0][4 * j + e], acc[0][4 * j + 2 + e],
+                  acc[1][4 * j + e], acc[1][4 * j + 2 + e]};
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        y[x] = __fmul_rn(__fmul_rn(__int2float_rn(v[x]), s_row), w4[x]);
+    };
+    if (ADD_C && tma_add) {
+      // the warp's 32 columns, OUT_TOKENS tokens a pass, into one of its
+      // two buffers (swizzled as the map reads them: the thread's float4
+      // is 16-byte chunk g of the token's line); its lane 0 hands each to
+      // the tensor-map unit, which adds it into C in L2 (clipped at M and
+      // N) while the consumers go on to the next tile. fp32 addition
+      // commutes, so C + y is the plain version's y + C bit for bit.
+      uint8_t* bufs = smem + ST * L::STAGE + warp * 2 * OUT_BOX;
+#pragma unroll
+      for (int p = 0; p < BT / OUT_TOKENS; ++p) {
+        uint8_t* buf = bufs + (p & 1) * OUT_BOX;
+        if (lane == 0) bulk_wait_read<1>();   // buf's copy two passes ago
+        __syncwarp();
+#pragma unroll
+        for (int jj = 0; jj < OUT_TOKENS / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            int j = p * (OUT_TOKENS / 8) + jj;
+            int r = 8 * jj + 2 * tq + e;
+            float y[4];
+            dequant(j, e, ti * BT + 8 * j + 2 * tq + e, y);
+            *reinterpret_cast<float4*>(buf + r * wg::LINE +
+                                       ((g ^ (r & 7)) << 4)) =
+                make_float4(y[0], y[1], y[2], y[3]);
+          }
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          wg::tma_out_2d<true>(&tc, buf, n - 4 * g,
+                               ti * BT + OUT_TOKENS * p);
+          bulk_commit();
+        }
+      }
+      continue;
+    }
 #pragma unroll
     for (int j = 0; j < BT / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         int tok = ti * BT + 8 * j + 2 * tq + e;
         if (tok >= M) continue;
-        float s_row = sa[tok];
-        int v[4] = {acc[0][4 * j + e], acc[0][4 * j + 2 + e],
-                    acc[1][4 * j + e], acc[1][4 * j + 2 + e]};
         float y[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          y[c] = __fmul_rn(__fmul_rn(__int2float_rn(v[c]), s_row), w4[c]);
-        float* o = out + static_cast<size_t>(tok) * ldc + n;
+        dequant(j, e, tok, y);
+        size_t at = static_cast<size_t>(tok) * ldc + n;
         if (vec && n + 3 < N) {
-          *reinterpret_cast<float4*>(o) = make_float4(y[0], y[1], y[2], y[3]);
+          *reinterpret_cast<float4*>(out + at) =
+              make_float4(y[0], y[1], y[2], y[3]);
         } else {
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (n + c < N) o[c] = y[c];
+          for (int x = 0; x < 4; ++x)
+            if (n + x < N)
+              out[at + x] = ADD_C ? __fadd_rn(y[x], c[at + x]) : y[x];
         }
       }
     }
   }
+  if (ADD_C && tma_add && lane == 0) bulk_wait_all();
 }
 
-// Launches w4a8_wgmma<BT> over the (M, N) output: one block an SM, at most
-// one a tile. qa (M, lda) int8 with K <= lda
-// valid columns (a 16-byte pitch), packed (Kp/2, ldb) int8 with
-// round_up(K, 512) <= Kp, out (M, ldc) float32; bases 16-byte aligned.
+// Launches int8_wgmma<BT, Src, ADD_C> over the (M, N) output: one block an
+// SM, at most one a tile. qa (M, lda) int8 with K <= lda valid columns (a
+// 16-byte pitch); w (Src::rows(K), ldb) int8: packed rows (round_up(K,
+// 512) / 2 of them) or K rows of the plain matrix; c and out (M, ldc)
+// float32 (c may be out; null where not ADD_C); bases 16-byte aligned.
 // Returns a cudaError_t as an int.
-template <int BT>
-int launch_bt(const void* qa, const void* packed, const float* sa,
-              const float* sw, float* out, int M, int N, int K, int lda,
-              int ldb, int ldc, int sms, cudaStream_t stream) {
-  using L = Layout<BT>;
-  CUtensorMap tqa, tw;
+template <int BT, class Src, bool ADD_C>
+int launch_bt(const void* qa, const void* w, const float* sa,
+              const float* sw, const float* c, float* out, int M, int N,
+              int K, int lda, int ldb, int ldc, int sms,
+              cudaStream_t stream) {
+  using L = Layout<BT, Src, ADD_C>;
+  CUtensorMap tqa, tw, tc;
   cuuint64_t qdims[2] = {static_cast<cuuint64_t>(K),
                          static_cast<cuuint64_t>(M)};
   cuuint64_t qstrides[1] = {static_cast<cuuint64_t>(lda)};
   cuuint32_t qbox[2] = {128, BT};
-  int rows = (K + 511) / 512 * 256;
   cuuint64_t wdims[2] = {static_cast<cuuint64_t>(N),
-                         static_cast<cuuint64_t>(rows)};
+                         static_cast<cuuint64_t>(Src::rows(K))};
   cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(ldb)};
   cuuint32_t wbox[2] = {128, PACK_ROWS};
   if (!wg::make_map(&tqa, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, qa, qdims,
                     qstrides, qbox, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !wg::make_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, packed, wdims,
+      !wg::make_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wdims,
                     wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
+  // C through the tensor-map unit where c is out, its rows 16-byte
+  // multiples on a 16-byte base
+  cuuint64_t cdims[2] = {static_cast<cuuint64_t>(N),
+                         static_cast<cuuint64_t>(M)};
+  cuuint64_t cstrides[1] = {static_cast<cuuint64_t>(ldc) * 4};
+  cuuint32_t cbox[2] = {32, OUT_TOKENS};
+  int tma_add = ADD_C && c == out && ldc % 4 == 0 &&
+                reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                wg::make_map(&tc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, out,
+                             cdims, cstrides, cbox,
+                             CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!tma_add) tc = tqa;   // not read
   cudaError_t err = cudaFuncSetAttribute(
-      w4a8_wgmma<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+      int8_wgmma<BT, Src, ADD_C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   int tiles = (M + BT - 1) / BT * ((N + TILE_N - 1) / TILE_N);
-  w4a8_wgmma<BT><<<tiles < sms ? tiles : sms, THREADS, L::SMEM, stream>>>(
-      tqa, tw, sa, sw, out, M, N, K, ldc);
+  int8_wgmma<BT, Src, ADD_C>
+      <<<tiles < sms ? tiles : sms, THREADS, L::SMEM, stream>>>(
+          tqa, tw, tc, sa, sw, c, out, M, N, K, ldc, tma_add);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches w4a8_wgmma<token_tile(M, N, SMs)>; *bt is set to that tile.
-inline int launch(const void* qa, const void* packed, const void* sa,
-                  const void* sw, void* out, int M, int N, int K, int lda,
-                  int ldb, int ldc, cudaStream_t stream, int* bt) {
+// Launches int8_wgmma<token_tile(M, N, SMs), Src, ADD_C>; *bt is set to
+// that tile.
+template <class Src, bool ADD_C>
+int launch(const void* qa, const void* w, const void* sa, const void* sw,
+           const void* c, void* out, int M, int N, int K, int lda, int ldb,
+           int ldc, cudaStream_t stream, int* bt) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   *bt = token_tile(M, N, sms);
-  auto run = *bt == 64 ? launch_bt<64> : launch_bt<128>;
-  return run(qa, packed, static_cast<const float*>(sa),
-             static_cast<const float*>(sw), static_cast<float*>(out), M, N,
-             K, lda, ldb, ldc, sms, stream);
+  auto run = *bt == 64 ? launch_bt<64, Src, ADD_C>
+                       : launch_bt<128, Src, ADD_C>;
+  return run(qa, w, static_cast<const float*>(sa),
+             static_cast<const float*>(sw), static_cast<const float*>(c),
+             static_cast<float*>(out), M, N, K, lda, ldb, ldc, sms, stream);
 }
+
+// Launches of each token tile's kernel (BT 64, 128) in this process, one
+// count a kernel file: the card tests read which tile ran.
+struct TileLaunches {
+  int n[2] = {0, 0};
+  void add(int err, int bt) {
+    if (err == 0) ++n[bt == 128];
+  }
+  int of(int bt) const { return bt == 64 ? n[0] : bt == 128 ? n[1] : -1; }
+};
 
 }  // namespace w4
 }  // namespace htog

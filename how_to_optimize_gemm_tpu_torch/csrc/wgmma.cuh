@@ -157,6 +157,28 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The shared-memory box at src (one box of the map, fp32) added into (kAdd)
+// or stored over the global tensor at (c0, c1), by the tensor-map unit,
+// tracked by this thread's bulk groups (global -> shared's counterpart of
+// tma_2d).
+template <bool kAdd>
+__device__ __forceinline__ void tma_out_2d(const CUtensorMap* map,
+                                           const void* src, int c0, int c1) {
+  if constexpr (kAdd) {
+    asm volatile(
+        "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group"
+        " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_u32(src)), "r"(c0), "r"(c1)
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+        " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_u32(src)), "r"(c0), "r"(c1)
+        : "memory");
+  }
+}
+
 __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
                                        int c0, int c1, int c2,
                                        uint64_t* bar) {

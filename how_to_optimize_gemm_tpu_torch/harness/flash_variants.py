@@ -38,23 +38,30 @@ tile BK). Eight groups of kernels, one a run (``--group``):
   -> 11,008 and 11,008 -> 4,096; m = 16,384, 4,096 -> 11,008) and at
   the chunks of 65-512 tokens (m = 65, 128, 256, 512 at 4,096 ->
   11,008; 128 at 11,008 -> 4,096; 256 at 4,096 -> 4,096), each EQUAL to
-  its plain version, and
+  its plain version, K3 ``w4a8_gemm`` (rung 07b, the same body with C
+  added in place) at M = N = K = 4,096 and 2,048, each on a C of its
+  own, EQUAL to its plain version and two calls bit-equal, and
   ``decode_attention_q8`` at the smoke's three shapes (the 7B KV8 cache:
   4 slots, 32 heads of 128, T 4,096, lengths 1, 300, 1,000 and 4,096;
   kvh 8, rep 4; kvh 3, rep 2, D 64, T 1,000), held to its plain version.
   An older tree's ``decode_attention_q8`` (the one-block walk, no
-  workspace) is launched with its own arguments. The variants force a
-  token tile, decode the nibbles in three integer operations a word,
-  shorten the ring to two stages, or (wrong answers, a timing probe)
-  skip the decode;
+  workspace) is launched with its own arguments; an older tree's
+  ``w4a8_gemm`` (the ``mma.sync`` tile) takes the same arguments. The
+  variants force a token tile, decode the nibbles in three integer
+  operations a word, shorten the ring to two stages, or (wrong answers,
+  a timing probe) skip the decode;
 - ``int8``: ``int8_gemm_nt`` (K2, rung 14) at M = N = K = 4,096, 2,048 and
-  3,584 (the headline's sizes) and ``int8_ragged_nt`` (rung 18) at 4,096
-  on its default plan and on the two-piece plan of cap 1,664, each EQUAL
-  to its plain version and two calls bit-equal; ``torch._int_mm`` and the
+  3,584 (the headline's sizes), ``int8_ragged_nt`` (rung 18) at 4,096
+  on its default plan and on the two-piece plan of cap 1,664, and
+  ``int8_gemm_noc`` at the 7B prefill widths (M = 1,024, 4,096 -> 11,008
+  and 11,008 -> 4,096) and at (1,000, 1,100 -> 1,032), each EQUAL to its
+  plain version and two calls bit-equal; ``torch._int_mm`` and the
   epilogue beside them. An older tree's kernels (the ``mma.sync`` tile)
-  take the same arguments. The variants shorten the ring to three or two
+  take the same arguments. The variants shorten K2's ring to three or two
   stages, add C in each thread instead of by tensor-map reductions, walk
-  groups of 4 or 16 row tiles, or stage sb 64 columns a pass;
+  groups of 4 or 16 row tiles, stage sb 64 columns a pass, or give
+  ``int8_gemm_noc`` one box of 128 K a stage (in its ring of 4, or of
+  3);
 - ``gemv``: ``w4a8_gemv_fq`` at the 7B decode widths (4,096 -> 11,008,
   4,096 -> 4,096, 11,008 -> 4,096) at m = 1, 4, 16 and 64, and at m = 4
   on four copies of the 4,096 -> 11,008 weights taken in turn (90 MB, past
@@ -101,6 +108,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import pathlib
 import shutil
 
@@ -317,12 +325,23 @@ PAGED_VARIANTS = {
 }
 _W4 = "w4a8_wgmma.cuh"
 _TOKEN_RULE = "  return rounds(64) <= rounds(128) ? 64 : 128;"
-_DECODE = "      dl[j] = decode_lo4(w[j]);\n      dh[j] = decode_hi4(w[j]);"
+_DECODE = ("          dl[j] = decode_lo4(w[j]);\n"
+           "          dh[j] = decode_hi4(w[j]);")
 _DECODE3 = (_W4, _DECODE,
-            "      dl[j] = (((w[j] & 0x0F0F0F0Fu) | 0x80808080u) - "
+            "          dl[j] = (((w[j] & 0x0F0F0F0Fu) | 0x80808080u) - "
             "0x08080808u) ^ 0x80808080u;\n"
-            "      dh[j] = (((((w[j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u) "
+            "          dh[j] = (((((w[j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u) "
             "| 0x80808080u) - 0x08080808u) ^ 0x80808080u;")
+_NOC = "int8_gemm_noc.cu"
+
+
+def _w4_ring(n: int):
+    """w4a8_wgmma.cuh's ring cut to n stages."""
+    return ((_W4, "  static constexpr int ST =\n      (SMEM_LIMIT - "
+             "wg::ATOM - 256 - OUT) / STAGE;   // stages of the ring",
+             f"  static constexpr int ST = {n};   // stages of the ring"),)
+
+
 _DRAIN = (_W4, "  wg::wgmma_wait<1>();                                 "
           "                \\\n  wg::fence_regs(f[((I) + 1) & 1]);",
           "  wg::wgmma_wait<0>();                                 "
@@ -339,17 +358,15 @@ W4A8_VARIANTS = {
     # written (wait<0>; the two consumers interleave at the tensor cores)
     "drain": (_DRAIN,),
     # a ring of two stages
-    "st2": ((_W4, "  static constexpr int ST =\n      (SMEM_LIMIT - "
-             "wg::ATOM - 256) / STAGE;   // stages of the ring",
-             "  static constexpr int ST = 2;   // stages of the ring"),),
+    "st2": _w4_ring(2),
     # diagnostics, wrong answers: the packed bytes go to the tensor cores
     # undecoded; fixed A fragments (no loads, decode or register writes in
     # the loop: the products and the ring alone)
     "diag_no_decode": ((_W4, _DECODE,
-                        "      dl[j] = w[j];\n      dh[j] = w[j];"),),
+                        "          dl[j] = w[j];\n          dh[j] = w[j];"),),
     "diag_fixed_a": (
-        (_W4, "  fragments<I>(box, off, f[(I) & 1]);", "  (void)box;"),
-        (_W4, "  uint32_t f[2][4][4];", "  uint32_t f[2][4][4] = {};")),
+        (_W4, "  fragments<Src, I>(box, off, f[(I) & 1]);", "  (void)box;"),
+        (_W4, "  uint32_t f[2][NF][4];", "  uint32_t f[2][NF][4] = {};")),
 }
 _K2 = "int8_gemm_nt.cu"
 _R18 = "int8_ragged_nt.cu"
@@ -379,6 +396,12 @@ INT8_VARIANTS = {
     # sb staged 64 columns a pass (four passes a tile)
     "sb64": ((_GW, "constexpr int SB_COLS = 128;",
               "constexpr int SB_COLS = 64;"),),
+    # int8_gemm_noc: one box of 128 K a stage (half the wgmmas a stage, a
+    # ring of 4 at BT 128), alone or in a ring of three
+    "noc_boxes1": ((_NOC, "constexpr int BOXES = 2;",
+                    "constexpr int BOXES = 1;"),),
+    "noc_boxes1_st3": ((_NOC, "constexpr int BOXES = 2;",
+                        "constexpr int BOXES = 1;"), *_w4_ring(3)),
 }
 _GEMV = "w4a8_gemv_fq.cu"
 # the timeline probes' device side: each block's %globaltimer at phase i
@@ -507,8 +530,9 @@ GROUPS = {
     "dkv": ((_DKV,), DKV_VARIANTS),
     "gemm": ((_GEMM, _FP32, _NN, _FP32_NN), GEMM_VARIANTS),
     "paged": ((_PAGED,), PAGED_VARIANTS),
-    "w4a8": (("w4a8_gemm_noc.cu", "decode_attention_q8.cu"), W4A8_VARIANTS),
-    "int8": ((_K2, _R18), INT8_VARIANTS),
+    "w4a8": (("w4a8_gemm_noc.cu", "w4a8_gemm.cu", "decode_attention_q8.cu"),
+             W4A8_VARIANTS),
+    "int8": ((_K2, _R18, _NOC), INT8_VARIANTS),
     "gemv": ((_GEMV, "paged_decode_attention.cu"), GEMV_VARIANTS),
     "w4a16": ((_W16V, "w4a16_gemm_noc.cu"), W4A16_VARIANTS),
 }
@@ -838,12 +862,18 @@ def decode_q8(q, qk, sk, qv, sv, lengths):
     return out
 
 
+def _w4a8_fresh_c(args, c):
+    """K3 on a copy of c."""
+    return int4.mmult_q_w4a8(*args, c.clone())
+
+
 def w4a8_cases(gen, tiles):
     """w4a8_gemm_noc at the 7B prefill widths and at chunks of 65-512
-    tokens (where the token-tile rule picks 64 and where it picks 128), each
-    EQUAL to its plain version (and two calls bit-equal), and
-    decode_attention_q8 at the smoke's three shapes, held to its plain
-    version (max abs)."""
+    tokens (where the token-tile rule picks 64 and where it picks 128) and
+    K3 at 4,096 and 2,048 (timed on a C of its own, checked on fresh
+    copies of C), each EQUAL to its plain version (and two calls
+    bit-equal), and decode_attention_q8 at the smoke's three shapes, held
+    to its plain version (max abs)."""
     from how_to_optimize_gemm_tpu_torch.models import llama
     cases, refs = {}, {}
     for m, k, n in ((1024, 4096, 11008), (1024, 11008, 4096),
@@ -858,6 +888,14 @@ def w4a8_cases(gen, tiles):
         cases[case] = lambda a=args: int4.mmult_q_w4a8_noc(*a)
         refs[case] = (True, int4.mmult_q_w4a8_noc_ref(*args))
         del x, w
+    for p in (4096, 2048):
+        a, b, c = (torch.rand((p, p), generator=gen, device="cuda") * 2 - 1
+                   for _ in "abc")
+        args = int4.prepare_w4a8(a, b)[:4]
+        case = f"w4a8_gemm p={p}"
+        work = c.clone()
+        cases[case] = lambda a=args, work=work: int4.mmult_q_w4a8(*a, work)
+        refs[case] = (True, int4.mmult_q_w4a8_ref(*args, c), args, c)
     for kvh, rep, d, t, lens in ((32, 1, 128, 4096, [1, 300, 1000, 4096]),
                                  (8, 4, 128, 4096, [1, 300, 1000, 4096]),
                                  (3, 2, 64, 1000, [1, 999, 1000, 517])):
@@ -876,7 +914,9 @@ def w4a8_cases(gen, tiles):
     def check(name):
         parts = []
         for case, fn in cases.items():
-            exact, ref = refs[case]
+            exact, ref, *in_place = refs[case]
+            if in_place:   # K3: each call on a fresh copy of its C
+                fn = functools.partial(_w4a8_fresh_c, *in_place)
             out = fn()
             if exact:
                 equal = torch.equal(out, ref)
@@ -892,7 +932,8 @@ def w4a8_cases(gen, tiles):
 
 def int8_cases(gen, tiles):
     """K2 at 4,096, 2,048 and 3,584 and rung 18 at 4,096 on its default
-    plan and at cap 1,664 (two pieces), each on a C of its own, EQUAL to
+    plan and at cap 1,664 (two pieces), each on a C of its own, and
+    int8_gemm_noc at the 7B prefill widths and a ragged shape, EQUAL to
     the plain version and two calls bit-equal; ``torch._int_mm`` and the
     epilogue beside them (graph replays)."""
     cases, rows, library = {}, {}, {}
@@ -916,12 +957,29 @@ def int8_cases(gen, tiles):
             rows[case] = (run, ops, c)
             library[case] = lib
 
+    for m, k, n in ((1024, 4096, 11008), (1024, 11008, 4096),
+                    (1000, 1100, 1032)):
+        x = torch.randn((m, k), generator=gen, device="cuda")
+        w = torch.randn((k, n), generator=gen, device="cuda")
+        ops = int8.prepare(x, w)
+        case = f"int8_gemm_noc M={m} {k}->{n}"
+        cases[case] = lambda o=ops: int8.mmult_q_noc(*o)
+        rows[case] = (lambda _, o=ops: int8.mmult_q_noc(*o), ops, None)
+        if k % 8 == 0 and n % 8 == 0:   # torch._int_mm's rule
+            library[case] = time_calls(
+                lambda o=ops: torch._int_mm(o[0], o[2]).to(torch.float32)
+                * o[1] * o[3], graph=True) * 1e3
+
     def check(name):
         parts = []
         for case, (run, ops, c) in rows.items():
-            out = run(c.clone())
-            again = run(c.clone())
-            equal = torch.equal(out, int8.mmult_q_bt_ref(*ops, c))
+            if c is None:   # int8_gemm_noc: no C
+                out, again = run(None), run(None)
+                ref = int8.mmult_q_noc_ref(*ops)
+            else:
+                out, again = run(c.clone()), run(c.clone())
+                ref = int8.mmult_q_bt_ref(*ops, c)
+            equal = torch.equal(out, ref)
             same = torch.equal(out, again)
             parts.append(f"{case}: {'EQUAL' if equal else 'DIFFERS'}, "
                          f"repeat {'equal' if same else 'DIFFERS'}")

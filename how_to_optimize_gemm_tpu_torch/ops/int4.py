@@ -5,7 +5,8 @@ Counterpart: ``how_to_optimize_gemm_tpu/ops/pallas_int4.py``
 ``mmult_w4a8_fused_noc``, ``mmult_q_noc``). W is decoded from nibbles
 packed two per byte in 512-row pack blocks (``ops/quant.py``).
 
-- ``mmult_q_w4a8`` (rung 07b, K3, ``csrc/w4a8_gemm.cu``):
+- ``mmult_q_w4a8`` (rung 07b, K3, ``csrc/w4a8_gemm.cu``: the kernel of
+  ``mmult_q_w4a8_noc`` below with C added in its epilogue):
   ``C = f32(QA @ W as int32) * sa[i] * sw[j] + C``, IN PLACE on ``c`` as
   the reference aliases C into its output.
 - ``mmult_q_w4a8_noc`` (the serving linear at m > 64, kernel

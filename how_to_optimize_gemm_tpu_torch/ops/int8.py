@@ -14,8 +14,10 @@ compute ``C' = f32(QA @ QB as int32) * sa[i] * sb[j] + C``:
   function and kernel walked over ``ragged_m_plan``'s strips in one
   persistent launch, in place (K2 and rung 18: ``csrc/gemm_wgmma.cuh``'s
   int8 instance, ``wgmma`` on 128 x 256 tiles);
-- ``mmult_q_noc`` (``csrc/int8_gemm_noc.cu``, K1's template without the
-  "+ C") returns ``f32(QA @ QB as int32) * sa[i] * sb[j]``.
+- ``mmult_q_noc`` (``csrc/int8_gemm_noc.cu``, ``csrc/w4a8_wgmma.cuh``'s
+  int8 ``wgmma`` body on plain int8 weights: QB turned K-major into
+  registers as wgmma's A, 64- or 128-token x 256-column tiles) returns
+  ``f32(QA @ QB as int32) * sa[i] * sb[j]``.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``mmult_q_ref``, ``mmult_q_bt_ref``, ``mmult_q_noc_ref``) only

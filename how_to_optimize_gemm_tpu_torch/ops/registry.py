@@ -196,9 +196,9 @@ _register(Rung(
     prepare=int4.prepare_w4a8, effective=_w4a8_effective,
     gate_rel=1e-4, bytes_per_input_elt=0.75,
     bytes_a=1.0, bytes_b=0.5, compute_dtype="int8",
-    doc="W4A8: int8 activations x int4 weights decoded to s8 on their way "
-        "into shared memory, int8 tensor-core product, C in place "
-        "(kernel w4a8_gemm)"))
+    doc="W4A8: int8 activations x int4 weights decoded to s8 in registers "
+        "as wgmma's A (operands swapped), int8 wgmma, C added in the "
+        "epilogue in place (kernel w4a8_gemm)"))
 
 _register(Rung(
     name="08_manual_dma_int8", dtype="int8",

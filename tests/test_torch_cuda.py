@@ -734,6 +734,128 @@ def test_int8_gemm_noc_equals_plain_version(cuda, m, n, k):
     assert torch.equal(out, ref), float((out - ref).abs().max())
 
 
+# The int8 prefill GEMMs on w4a8_wgmma.cuh's int8 wgmma body:
+# int8_gemm_noc (plain int8 weights) and K3 w4a8_gemm (packed weights, C
+# added in place in the epilogue). Each case is one launch of one token
+# tile (the kernel's own count, *_tile_launches), EQUAL to the plain
+# version and to a second call: m at 65 and 128 (64-token tiles), the 7B
+# shapes at m = 1,024 and 4,096 tokens at K = 1,100 (128-token tiles, more
+# tiles than the persistent grid), K not a multiple of 128 (700, 1,100),
+# N not a multiple of 4 (262: C and out by each thread) and ragged past a
+# 256-column tile.
+WGMMA_S8_EDGES = [(65, 384, 700), (128, 262, 1100), (300, 1032, 4096),
+                  (1024, 11008, 4096), (1024, 4096, 11008),
+                  (4096, 4096, 1100)]
+
+
+def _tile_launches(source, name):
+    fn = _build.c_function(source, name, (ctypes.c_int,))
+    return {bt: fn(bt) for bt in (64, 128)}
+
+
+def _one_tile_launch(kernel, source, call):
+    """call() once: its output and the token tile it launched (one launch
+    of the wrapper's kernel, of one tile)."""
+    name = f"{kernel}_tile_launches"
+    before, tiles = _build.LAUNCHES[kernel], _tile_launches(source, name)
+    out = call()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[kernel] == before + 1
+    after = _tile_launches(source, name)
+    moved = [bt for bt in after if after[bt] != tiles[bt]]
+    assert len(moved) == 1 and after[moved[0]] == tiles[moved[0]] + 1, (
+        tiles, after)
+    return out, moved[0]
+
+
+def _int8_noc_case(m, n, k, device):
+    x = _activations(m, k, m + 2 * n, device)
+    qa, sa = int8.quant.quantize_symmetric(x, axis=1)
+    w = torch.from_numpy(np.random.default_rng(k + n).standard_normal(
+        (k, n)).astype(np.float32)).to(device)
+    qb, sb = int8.quant.quantize_symmetric(w, axis=0)
+    return qa, sa, qb, sb
+
+
+def _w4a8_c_case(m, n, k, device):
+    x = _activations(m, k, m + 3 * n, device)
+    qa, sa = int4.quant.quantize_symmetric(x, axis=1)
+    packed, sw = _w4a8_weights(k, n, k + 2 * n, device)
+    c = torch.from_numpy(np.random.default_rng(m * n).uniform(
+        -1, 1, (m, n)).astype(np.float32)).to(device)
+    return qa, sa, packed, sw, c
+
+
+@pytest.mark.parametrize("m,n,k", WGMMA_S8_EDGES)
+def test_int8_gemm_noc_wgmma_edges(cuda, m, n, k):
+    args = _int8_noc_case(m, n, k, cuda)
+    out, _ = _one_tile_launch("int8_gemm_noc", "int8_gemm_noc.cu",
+                              lambda: int8.mmult_q_noc(*args))
+    ref = int8.mmult_q_noc_ref(*args)
+    assert out.shape == (m, n)
+    assert torch.equal(out, ref), float((out - ref).abs().max())
+    assert torch.equal(int8.mmult_q_noc(*args), out)
+
+
+@pytest.mark.parametrize("m,n,k", WGMMA_S8_EDGES)
+def test_w4a8_gemm_wgmma_edges(cuda, m, n, k):
+    qa, sa, packed, sw, c = _w4a8_c_case(m, n, k, cuda)
+    work = c.clone()
+    out, _ = _one_tile_launch(
+        "w4a8_gemm", "w4a8_gemm.cu",
+        lambda: int4.mmult_q_w4a8(qa, sa, packed, sw, work))
+    assert out.data_ptr() == work.data_ptr()
+    ref = int4.mmult_q_w4a8_ref(qa, sa, packed, sw, c)
+    assert torch.equal(work, ref), float((work - ref).abs().max())
+    again = int4.mmult_q_w4a8(qa, sa, packed, sw, c.clone())
+    assert torch.equal(again, work)
+
+
+def test_int8_wgmma_kernels_take_both_token_tiles(cuda):
+    """token_tile picks 64 where its tiles take no more rounds of the grid
+    (65 tokens) and 128 elsewhere (a 4 x 256 admission), for both
+    kernels."""
+    for kernel, source, case, call in (
+            ("int8_gemm_noc", "int8_gemm_noc.cu", _int8_noc_case,
+             int8.mmult_q_noc),
+            ("w4a8_gemm", "w4a8_gemm.cu", _w4a8_c_case, int4.mmult_q_w4a8)):
+        taken = {_one_tile_launch(kernel, source,
+                                  lambda a=case(m, n, k, cuda): call(*a))[1]
+                 for m, n, k in ((65, 384, 700), (1024, 11008, 4096))}
+        assert taken == {64, 128}, kernel
+
+
+@pytest.mark.parametrize("m,n,k", [(1024, 11008, 4096), (65, 262, 700)])
+def test_int8_wgmma_kernels_graph_replays(cuda, m, n, k):
+    """From a CUDA graph, replayed on new QA in place (and, for K3, on C
+    reset before each replay): the same bits as an eager call."""
+    qa, sa, qb, sb = _int8_noc_case(m, n, k, cuda)
+    wqa, wsa, packed, sw, c = _w4a8_c_case(m, n, k, cuda)
+    work = c.clone()
+    int8.mmult_q_noc(qa, sa, qb, sb)
+    int4.mmult_q_w4a8(wqa, wsa, packed, sw, c.clone())
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = int8.mmult_q_noc(qa, sa, qb, sb)
+        int4.mmult_q_w4a8(wqa, wsa, packed, sw, work)
+    for seed in (2, 3):
+        x = _activations(m, k, seed, cuda)
+        q, s_ = int8.quant.quantize_symmetric(x, axis=1)
+        qa.copy_(q)
+        sa.copy_(s_)
+        wqa.copy_(q)
+        wsa.copy_(s_)
+        work.copy_(c)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(replayed, int8.mmult_q_noc(qa, sa, qb, sb))
+        assert torch.equal(
+            work, int4.mmult_q_w4a8(wqa, wsa, packed, sw, c.clone()))
+        assert torch.equal(work, int4.mmult_q_w4a8_ref(wqa, wsa, packed, sw,
+                                                       c))
+
+
 @pytest.mark.parametrize("m,k,n", [(1, 40, 8), (3, 4096, 4096),
                                    (17, 72, 136), (100, 1100, 1032),
                                    (5, 70, 30)])

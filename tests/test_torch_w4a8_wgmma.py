@@ -1,27 +1,33 @@
-"""The W4A8 prefill kernel's data walk (``csrc/w4a8_wgmma.cuh``, kernel
-``w4a8_gemm_noc``) modelled on the CPU, against the JAX package's
-``pallas_int4.mmult_q_w4a8_noc`` in interpret mode.
+"""The int8 prefill kernels' data walk (``csrc/w4a8_wgmma.cuh``, kernels
+``w4a8_gemm_noc``, ``w4a8_gemm`` (K3, rung 07b) and ``int8_gemm_noc``)
+modelled on the CPU, against the JAX package's ``pallas_int4.mmult_q_w4a8_noc``,
+``pallas_int4.mmult_q_w4a8`` and ``pallas_int8.mmult_q_noc`` in interpret
+mode.
 
 The model does what the kernel's threads do, in numpy, vectorised over a
 consumer warpgroup's 128 threads: it builds each stage's shared-memory
-image of a packed box as the tensor-map copy lays it out (the 128-byte
-swizzle), reads each thread's words at the kernel's offsets, decodes the
-low and high nibbles with ``w4a8.cuh``'s bit operations, turns each 4 x 4
-byte group around with ``__byte_perm``'s selectors, assembles the four
-wgmma A fragments, places them by wgmma's A layout, multiplies by the
-stage's two QA boxes (K rows past K zero, as the map's fill), sums in
-int32 stage by stage, and maps the sums to output columns as the epilogue
-stores them: out = (f32(acc) * sa) * sw. The tolerance is none: EQUAL to
-the JAX kernel and to the port's plain version, at K = 700, 1,100 and
-4,096 (pack blocks straddled, a block's high half past K) and N = 300
-(two column tiles, the second ragged).
+image of a weight box as the tensor-map copy lays it out (the 128-byte
+swizzle), reads each thread's words at the kernel's offsets, for packed
+weights decodes the low and high nibbles with ``w4a8.cuh``'s bit
+operations, turns each 4 x 4 byte group around with ``__byte_perm``'s
+selectors, assembles the wgmma A fragments, places them by wgmma's A
+layout, multiplies by the stage's QA boxes (K rows past K zero, as the
+map's fill), sums in int32 stage by stage, and maps the sums to output
+columns as the epilogue stores them: out = (f32(acc) * sa) * sw, + C for
+K3. Packed weights pair a box's low and high nibbles in a stage; plain
+int8 weights (K, N) take one or two boxes of 128 K rows a stage (the
+kernel's BOXES, and the other choice). The tolerance is none: EQUAL to
+the JAX kernels and to the port's plain versions, at K = 700, 1,100 and
+4,096 (pack blocks straddled, a block's high half past K, partial boxes)
+and N = 300 (two column tiles, the second ragged).
 
-Beside it, the host-side pieces: the stage count and the persistent walk
+Beside it, the host-side pieces: the stage counts and the persistent walk
 over (BT, 256) tiles (``tuned.nt_tile_walk``), with the constants read
-from the kernel's source. The kernel, and its choice of token tile, run
-only on the card (tests/test_torch_cuda.py, chip_smoke.py).
+from the kernels' sources. The kernels, and their choice of token tile,
+run only on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 import re
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,9 +35,10 @@ import pytest
 import torch
 
 from how_to_optimize_gemm_tpu.ops import pallas_int4 as jint4
+from how_to_optimize_gemm_tpu.ops import pallas_int8 as jint8
 from how_to_optimize_gemm_tpu.ops import quant as jquant
 from how_to_optimize_gemm_tpu_torch import _build
-from how_to_optimize_gemm_tpu_torch.ops import int4, tuned
+from how_to_optimize_gemm_tpu_torch.ops import int4, int8, tuned
 
 torch.set_num_threads(1)
 
@@ -40,8 +47,8 @@ H100_SMS = 132
 LINE = 128          # bytes of a swizzled line
 
 
-def _const(name):
-    src = (_build.CSRC / SOURCE).read_text()
+def _const(name, source=SOURCE):
+    src = (_build.CSRC / source).read_text()
     return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
 
 
@@ -50,6 +57,17 @@ def stages(k):
     start below K."""
     return sum(1 for st in range(2 * (-(-k // 512)))
                if 512 * (st // 2) + 128 * (st % 2) < k)
+
+
+def s8_stages(k, boxes):
+    """PlainS8<boxes>::nst(K): stages of 128 x boxes K rows."""
+    return -(-k // (128 * boxes))
+
+
+def s8_rows(st, boxes):
+    """The K rows of stage st's boxes b (QA's columns and W's rows):
+    PlainS8's qa_k(st, b) = w_row(st, b)."""
+    return [128 * (boxes * st + b) for b in range(boxes)]
 
 
 # ------------------------------------------------ the threads' operations
@@ -112,10 +130,12 @@ W, G, T = np.meshgrid(np.arange(4), np.arange(8), np.arange(4),
 COL = 4 * (8 * W + G)   # a thread's four columns of its 128
 
 
-def fragments(img, i):
-    """fragments<I>: f[0], f[1] the low nibbles' A fragments of slabs 0
-    and 1, f[2], f[3] the high ones; each four registers a thread."""
-    lo, hi = [], []
+def fragments(img, i, decode=True):
+    """fragments<Src, I> for one weight box: with decode (packed weights)
+    f[0], f[1] the low nibbles' A fragments of slabs 0 and 1, f[2], f[3]
+    the high ones; without (int8 weights) f[0], f[1] the box's bytes as
+    they lie; each four registers a thread."""
+    groups = []
     for grp in range(2):
         words = []
         for j in range(4):
@@ -124,14 +144,16 @@ def fragments(img, i):
             a = (32 * i + 16 * grp) * LINE + off
             words.append(_word([img[a + b].astype(np.uint32)
                                 for b in range(4)]))
-        lo.append(transpose4([decode_lo4(x) for x in words]))
-        hi.append(transpose4([decode_hi4(x) for x in words]))
-    f = [None] * 4
-    for s in range(2):
-        f[s] = [lo[0][2 * s], lo[0][2 * s + 1], lo[1][2 * s],
-                lo[1][2 * s + 1]]
-        f[2 + s] = [hi[0][2 * s], hi[0][2 * s + 1], hi[1][2 * s],
-                    hi[1][2 * s + 1]]
+        groups.append(words)
+    parts = ([[decode_lo4(x) for x in w] for w in groups],
+             [[decode_hi4(x) for x in w] for w in groups]) if decode else (
+        groups,)
+    f = []
+    for part in parts:
+        g = [transpose4(w) for w in part]
+        # slab_fragments: column 2 s + h is slab s's row g + 8 h
+        f += [[g[0][2 * s], g[0][2 * s + 1], g[1][2 * s], g[1][2 * s + 1]]
+              for s in range(2)]
     return f
 
 
@@ -148,35 +170,54 @@ def a_matrix(frag):
     return a
 
 
-def kernel_model(qa, sa, packed, sw):
-    """out as the kernel computes it, stage by stage (int32 sums)."""
+def kernel_model(qa, sa, w, sw, boxes=None):
+    """out as the kernel computes it without C: its int32 sums
+    (kernel_sums), then (f32(acc) * sa) * sw."""
+    return (kernel_sums(qa, w, boxes).astype(np.float32) * sa) * sw
+
+
+def kernel_sums(qa, w, boxes=None):
+    """The kernel's int32 sums, stage by stage, mapped to output columns
+    as the epilogue stores them: w the packed int4 weights (boxes None) or
+    a plain (K, N) int8 matrix read in stages of ``boxes`` boxes of 128 K
+    rows. The operands as the wrappers pass them (K padded to 16 with
+    zeros)."""
     m, k = qa.shape
-    n = packed.shape[1]
+    n = w.shape[1]
     tile_n = _const("TILE_N")
     pack_rows = _const("PACK_ROWS")
     n_pad = -(-n // tile_n) * tile_n
-    # the maps' zero fill: QA columns past K, packed columns past N and
-    # rows past round_up(K, 512) / 2
-    rows = -(-k // 512) * 256
-    pk = np.zeros((rows + pack_rows, n_pad), np.uint8)
-    pk[:rows, :n] = packed[:rows].view(np.uint8)
+    # the maps' zero fill: QA columns past K, weight columns past N and
+    # rows past the map's extent (round_up(K, 512) / 2 packed rows, or K)
+    rows = -(-k // 512) * 256 if boxes is None else k
+    pk = np.zeros((-(-k // 512) * 512 + 512, n_pad), np.uint8)
+    pk[:rows, :n] = w[:rows].view(np.uint8)
     q = np.zeros((m, -(-k // 512) * 512 + 512), np.int64)
     q[:, :k] = qa
+    if boxes is None:
+        plan = [([512 * (st // 2) + 128 * (st % 2) + 256 * b
+                  for b in range(2)],
+                 [256 * (st // 2) + 128 * (st % 2)])
+                for st in range(stages(k))]
+    else:
+        plan = [(s8_rows(st, boxes), s8_rows(st, boxes))
+                for st in range(s8_stages(k, boxes))]
     acc = np.zeros((m, n_pad), np.int64)
     for tj in range(n_pad // tile_n):
         for cw in range(2):
             c0 = tj * tile_n + 128 * cw
             sums = [np.zeros((64, m), np.int64) for _ in range(2)]
-            for st in range(stages(k)):
-                k0 = 512 * (st // 2) + 128 * (st % 2)
-                prow = 256 * (st // 2) + 128 * (st % 2)
-                img = swizzled(pk[prow:prow + pack_rows, c0:c0 + 128])
+            for qa_k, w_rows in plan:
+                imgs = [swizzled(pk[r:r + pack_rows, c0:c0 + 128])
+                        for r in w_rows]
                 for i in range(4):
-                    f = fragments(img, i)
-                    for s in range(2):
-                        for part, kq in ((f[s], k0), (f[2 + s], k0 + 256)):
-                            b = q[:, kq + 32 * i:kq + 32 * i + 32]
-                            sums[s] += a_matrix(part).astype(np.int64) @ b.T
+                    f = sum((fragments(img, i, boxes is None)
+                             for img in imgs), [])
+                    for b, kq in enumerate(qa_k):
+                        bq = q[:, kq + 32 * i:kq + 32 * i + 32]
+                        for s in range(2):
+                            sums[s] += a_matrix(f[2 * b + s]).astype(
+                                np.int64) @ bq.T
             # epilogue: slab s row 16 w + g + 8 h is column
             # 4 (8 w + g) + 2 s + h
             for s in range(2):
@@ -185,8 +226,38 @@ def kernel_model(qa, sa, packed, sw):
                     cols = (COL[:, :, 0] + 2 * s + h).ravel()
                     acc[:, c0 + cols] = sums[s][slab_rows].T
     assert np.abs(acc).max() < 2 ** 31
-    acc32 = acc[:, :n].astype(np.int32)
-    return (acc32.astype(np.float32) * sa) * sw
+    return acc[:, :n].astype(np.int32)
+
+
+def epilogue_add(acc32, sa, sw, c, contract=False):
+    """The "+ C" epilogue: (f32(acc) * sa) * sw + c, each op rounded (the
+    kernel's and the plain version's order), or with the last two
+    contracted into one fused multiply-add, fma(f32(acc) * sa, sw, c),
+    rounded once: what XLA:CPU makes of the JAX kernel's epilogue."""
+    p = acc32.astype(np.float32) * sa
+    if not contract:
+        return p * sw + c
+    out = np.empty(p.shape, np.float32)
+    for idx in np.ndindex(p.shape):
+        out[idx] = f32_round(Fraction(float(p[idx])) * Fraction(
+            float(sw[0, idx[1]])) + Fraction(float(c[idx])))
+    return out
+
+
+def f32_round(x):
+    """The float32 nearest to the rational x, ties to even."""
+    if x == 0:
+        return np.float32(0.0)
+    sign, x = (-1 if x < 0 else 1), abs(x)
+    e = x.numerator.bit_length() - x.denominator.bit_length()
+    if Fraction(2) ** e > x:
+        e -= 1
+    scale = Fraction(2) ** (max(e, -126) - 23)
+    q, r = divmod(x / scale, 1)
+    q = int(q)
+    if r > Fraction(1, 2) or (r == Fraction(1, 2) and q % 2):
+        q += 1
+    return np.float32(sign * float(q * scale))
 
 
 def _operands(m, k, n, seed):
@@ -214,6 +285,114 @@ def test_kernel_model_equals_jax(k):
     np.testing.assert_array_equal(got, ref)
     plain = int4.mmult_q_w4a8_noc_ref(qa, sa, packed, sw)
     np.testing.assert_array_equal(got, plain.numpy())
+
+
+@pytest.mark.parametrize("k", [700, 1100, 4096])
+def test_kernel_model_with_c_equals_jax(k):
+    """K3: the packed walk with the "+ C" epilogue against the JAX rung
+    07b kernel, which adds C in place in its own epilogue. The sums are
+    the kernel's; XLA:CPU contracts the JAX epilogue's last multiply and
+    its add into one fused multiply-add, so the model's sums under that
+    rounding give JAX's bits, and under the kernel's (each op rounded)
+    the port's plain version's."""
+    m, n = 6, 300
+    x, w = _operands(m, k, n, k + 1)
+    c = np.random.default_rng(k).uniform(-1, 1, (m, n)).astype(np.float32)
+    _, _, jpacked, jsw, _ = jint4.prepare_w4a8(jnp.zeros((1, k)),
+                                               jnp.asarray(w))
+    jqa, jsa = jquant.quantize_symmetric(jnp.asarray(x), axis=1)
+    ref = np.asarray(jint4.mmult_q_w4a8(jqa, jsa, jpacked, jsw,
+                                        jnp.asarray(c), interpret=True))
+    qa, sa, packed, sw, _ = int4.prepare_w4a8(torch.from_numpy(x),
+                                              torch.from_numpy(w))
+    sums = kernel_sums(qa.numpy(), packed.numpy())
+    got = epilogue_add(sums, sa.numpy(), sw.numpy(), c)
+    plain = int4.mmult_q_w4a8_ref(qa, sa, packed, sw, torch.from_numpy(c))
+    np.testing.assert_array_equal(got, plain.numpy())
+    np.testing.assert_array_equal(
+        epilogue_add(sums, sa.numpy(), sw.numpy(), c, contract=True), ref)
+
+
+def test_c_staging_is_the_maps_swizzle():
+    """K3's "+ C" epilogue on the tensor-map unit: a consumer warp's
+    threads (g, t) write token r = 8 jj + 2 t + e of a pass, columns
+    4 g .. 4 g + 3 of the warp's 32, as one float4 at 16-byte chunk
+    g ^ (r % 8) of line r; the image is the (OUT_TOKENS, 32) fp32 box as
+    the map's 128-byte swizzle reads it, every element written once."""
+    tokens = _const("OUT_TOKENS")
+    box = np.arange(tokens * 32, dtype=np.float32).reshape(tokens, 32)
+    img = np.full(tokens * LINE, 0xFF, np.uint8)
+    hits = np.zeros(tokens * LINE, np.int64)
+    for g in range(8):
+        for t in range(4):
+            for jj in range(tokens // 8):
+                for e in range(2):
+                    r = 8 * jj + 2 * t + e
+                    at = r * LINE + ((g ^ (r & 7)) << 4)
+                    img[at:at + 16] = box[r, 4 * g:4 * g + 4].view(np.uint8)
+                    hits[at:at + 16] += 1
+    assert (hits == 1).all()
+    np.testing.assert_array_equal(img, swizzled(box.view(np.uint8)))
+
+
+def _wrapper_operands(qa, qb):
+    """QA and QB as int8.mmult_q_noc hands them to the kernel: K padded to
+    a multiple of 16 with zeros (QB's rows too) and QB's columns."""
+    qa = torch.nn.functional.pad(qa, (0, -qa.shape[1] % int8.ALIGN))
+    qb = torch.nn.functional.pad(qb, (0, -qb.shape[1] % int8.ALIGN,
+                                      0, -qb.shape[0] % int8.ALIGN))
+    return qa.numpy(), qb.numpy()
+
+
+@pytest.mark.parametrize("boxes", [1, 2])
+@pytest.mark.parametrize("k", [700, 1100, 4096])
+def test_int8_kernel_model_equals_jax(k, boxes):
+    """int8_gemm_noc: the plain int8 walk, one and two boxes of 128 K a
+    stage, against the JAX package's mmult_q_noc."""
+    m, n = 6, 300
+    x, w = _operands(m, k, n, k + 2)
+    jqa, jsa, jqb, jsb = jint8.prepare(jnp.asarray(x), jnp.asarray(w))
+    ref = np.asarray(jint8.mmult_q_noc(jqa, jsa, jqb, jsb, interpret=True))
+    qa, sa, qb, sb = int8.prepare(torch.from_numpy(x), torch.from_numpy(w))
+    pqa, pqb = _wrapper_operands(qa, qb)
+    got = kernel_model(pqa, sa.numpy(), pqb[:, :n], sb.numpy(), boxes=boxes)
+    np.testing.assert_array_equal(got, ref)
+    plain = int8.mmult_q_noc_ref(qa, sa, qb, sb)
+    np.testing.assert_array_equal(got, plain.numpy())
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_int8_fragments_hold_the_box_k_major(i):
+    """The plain path's pieces on a box of known bytes: the swizzled image,
+    each thread's word offsets, transpose4 and the slab fragments put box
+    row 32 i + kk, column 4 (8 w + g) + 2 s + h at wgmma A's row
+    16 w + g + 8 h, K byte kk of slab s (int8, turned K-major)."""
+    rng = np.random.default_rng(i)
+    box = rng.integers(-128, 128, (128, 128)).astype(np.int8)
+    f = fragments(swizzled(box.view(np.uint8)), i, decode=False)
+    assert len(f) == 2
+    for s in range(2):
+        a = a_matrix(f[s])
+        for w in range(4):
+            for g in range(8):
+                for h in range(2):
+                    col = 4 * (8 * w + g) + 2 * s + h
+                    np.testing.assert_array_equal(
+                        a[16 * w + g + 8 * h], box[32 * i:32 * i + 32, col])
+
+
+@pytest.mark.parametrize("boxes", [1, 2])
+@pytest.mark.parametrize("k", [1, 16, 128, 129, 256, 700, 1100, 4096, 11008])
+def test_int8_stages_cover_every_k_row_once(k, boxes):
+    """PlainS8<boxes>'s stages take K rows 128 boxes st .. of QA and W
+    alike, every row below K once, the last stage's boxes partly (or, at
+    two boxes, wholly) past K: zeros from the maps' fill."""
+    seen = []
+    for st in range(s8_stages(k, boxes)):
+        for k0 in s8_rows(st, boxes):
+            seen += [r for r in range(k0, k0 + 128) if r < k]
+        assert s8_rows(st, boxes)[0] < k
+    assert seen == list(range(k))
 
 
 def test_decode_and_transpose_bits():
@@ -263,6 +442,34 @@ def test_kernel_constants_match_the_host():
     assert _const("GROUP_T") == tuned.NT_GROUP_M
     assert _const("PACK_ROWS") == 128
     assert _const("THREADS") == 288   # two consumer warpgroups, a warp
+
+
+def test_int8_kernel_constants_match_the_host():
+    """int8_gemm_noc's stage depth is one of the two the model walks, its
+    K rows a box are the wrapper's stage (int8.STAGE_K), the wrapper's
+    padding makes the maps' 16-byte pitches, and the rings hold the
+    stages the header states: packed 3 (BT 128) and 4 (BT 64), with K3's
+    staging of C 2 and 3, one int8 box 4 and 5, two int8 boxes 2 and
+    2."""
+    boxes = _const("BOXES", "int8_gemm_noc.cu")
+    assert boxes in (1, 2)
+    assert _const("PACK_ROWS") == int8.STAGE_K == 128
+    assert int8.ALIGN == 16
+    src = (_build.CSRC / SOURCE).read_text()
+    assert "int8_wgmma<BT, Src, ADD_C>" in src
+    assert "htog::w4::PlainS8<BOXES>, false>" in (
+        _build.CSRC / "int8_gemm_noc.cu").read_text()
+    assert "htog::w4::Packed, true>" in (
+        _build.CSRC / "w4a8_gemm.cu").read_text()
+    limit, pk = _const("SMEM_LIMIT"), 128 * LINE
+    staging = 8 * 2 * _const("OUT_TOKENS") * LINE
+    for qa_boxes, w_boxes, out, want in ((2, 1, 0, (3, 4)),
+                                         (2, 1, staging, (2, 3)),
+                                         (1, 1, 0, (4, 5)),
+                                         (2, 2, 0, (2, 2))):
+        for bt, st in zip((128, 64), want):
+            stage = qa_boxes * bt * LINE + 2 * w_boxes * pk
+            assert (limit - 1024 - 256 - out) // stage == st
 
 
 @pytest.mark.parametrize("m,n,bt", [(1024, 11008, 128), (16384, 11008, 128),
