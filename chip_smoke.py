@@ -45,7 +45,12 @@ Phases (any failure raises and exits non-zero before the last line):
    16-byte multiples and at N = 262, each time printed beside the
    ``mma.sync`` kernel's before the rebuild; K3 ``w4a8_gemm``, on the
    int8 prefill GEMMs' ``wgmma`` body with C added in place, also at
-   ``WALK``, its time beside its ``mma.sync`` kernel's; then
+   ``WALK``, its time beside its ``mma.sync`` kernel's; K1
+   ``int8_gemm_nn`` on the same body with C read into a fresh output and
+   rung 07 ``w4a16_gemm`` on the W4A16 prefill GEMM's bf16 ``wgmma`` body
+   with C added in place, both also at ``WALK`` (C's rows no 16-byte
+   multiple: each thread adds C), their times beside their ``mma.sync``
+   kernels'; then
    ``int8_gemm_nt``'s time
    right after a call of
    rung 10, 12 or 13, the check that evict_last lines left behind do not
@@ -358,7 +363,7 @@ KERNELS = [
          function="pallas_int8._kernel (mmult_q, rung 06)",
          rung="06_pallas_int8", wrapper=int8.mmult_q,
          plain=int8.mmult_q_ref, library=_int_mm_nn,
-         unaligned=(1000, 1032, 1100), tol=0.0, peak="int8"),
+         unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8"),
     dict(name="int8_gemm_nt", source=SRC + "int8_gemm_nt.cu",
          replaces="how_to_optimize_gemm_tpu/ops/pallas_int8.py:212",
          function="pallas_int8._kernel_bt + _kernel_bt_1k :259 "
@@ -469,7 +474,8 @@ KERNELS = [
          function="pallas_int4._kernel + _decode_w4 :36 (mmult_q, rung 07)",
          rung="07_pallas_int4", wrapper=int4.mmult_q, plain=int4.mmult_q_ref,
          library=None,   # no single PyTorch call decodes int4
-         unaligned=(1000, 1032, 3584), tol=W4A16_REL, peak="bf16"),
+         unaligned=(1000, 1032, 3584), more=(WALK,), tol=W4A16_REL,
+         peak="bf16"),
     dict(name="bf16_gemm_nn", source=SRC + "bf16_gemm_nn.cu",
          replaces="how_to_optimize_gemm_tpu/ops/pallas_tuned.py:75",
          function="pallas_tuned._make_kernel(DEFAULT) (mmult_bf16 / "
@@ -944,7 +950,8 @@ BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
              "int8_gemm_nt": 0.4099, "int8_ragged_nt": 0.4124,
              "w4a8_gemv_fq": 0.0201, "paged_decode_attention": 0.5354,
              "w4a16_gemv": 0.0306, "w4a16_gemm_noc": 0.7901,
-             "int8_gemm_noc": 0.3395, "w4a8_gemm": 0.6427}
+             "int8_gemm_noc": 0.3395, "w4a8_gemm": 0.6427,
+             "int8_gemm_nn": 0.4896, "w4a16_gemm": 0.9937}
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0

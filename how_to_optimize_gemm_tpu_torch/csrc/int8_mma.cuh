@@ -1,10 +1,8 @@
-// Shared building blocks of the mma.sync GEMM kernels (int8_gemm_nn.cu
-// through gemm_nmajor_body, the hand-pipeline record's manual_dma.cuh,
-// int8_dma_nn.cu and int8_hand_pipe.cu, and, for their tiling, staging
-// and fragment walk, the bf16 tensor-core kernels of bf16_gemm.cuh and
-// w4a16_gemm.cuh; K2 and rung 18 run gemm_wgmma.cuh, the int8 prefill
-// GEMMs w4a8_wgmma.cuh): block tiling, shared-memory staging, the
-// warp-level tensor-core product and the dequant epilogue.
+// Shared building blocks of the mma.sync GEMM kernels (the hand-pipeline
+// record's manual_dma.cuh, int8_dma_nn.cu and int8_hand_pipe.cu; K1, K2
+// and rung 18 run gemm_wgmma.cuh's or w4a8_wgmma.cuh's wgmma bodies):
+// block tiling, shared-memory staging, the warp-level tensor-core product
+// and the dequant epilogue.
 //
 // Tiling: one 128x128 output tile per block of 256 threads (8 warps laid
 // out 2 x 4, each owning a 64x32 sub-tile = 4 x 4 fragments of
@@ -297,8 +295,8 @@ __device__ __forceinline__ void dequant_epilogue(
   }
 }
 
-// The N-major B operand of gemm_nmajor_body (and of load_nmajor_regs) for
-// a plain row-major int8 (K, N) matrix.
+// The N-major B operand of load_nmajor_regs (manual_dma.cuh's rung 08
+// loads) for a plain row-major int8 (K, N) matrix.
 struct RowMajorInt8 {
   const int8_t* base;
   int K;   // rows
@@ -308,44 +306,5 @@ struct RowMajorInt8 {
   }
   __device__ uint32_t decode(uint32_t w, int) const { return w; }
 };
-
-// The whole kernel for an N-major B operand (K1): A through cp.async, B
-// through registers (load, transpose, store), two stages, the dequant
-// epilogue at the end.
-__device__ __forceinline__ void gemm_nmajor_body(
-    Smem& sm, const int8_t* A, const RowMajorInt8& bsrc, const float* sa,
-    const float* sb, const float* c, float* out, int M, int N, int K,
-    int lda, int ldc) {
-  int m0 = blockIdx.y * BM;
-  int n0 = blockIdx.x * BN;
-  int warp = threadIdx.x >> 5;
-  int lane = threadIdx.x & 31;
-  int wm = warp >> 2;
-  int wn = warp & 3;
-  int acc[4][4][4];
-  zero_acc(acc);
-  uint32_t breg[2][4];
-  int nk = (K + BK - 1) / BK;
-  load_kmajor_async(sm.a[0], A, m0, M, 0, K, lda);
-  cp_async_commit();
-  load_nmajor_regs(breg, bsrc, 0, n0);
-  store_nmajor_regs(sm.b[0], breg);
-  cp_async_wait_all();
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    int s = kt & 1;
-    bool more = kt + 1 < nk;
-    if (more) {
-      load_kmajor_async(sm.a[s ^ 1], A, m0, M, (kt + 1) * BK, K, lda);
-      cp_async_commit();
-      load_nmajor_regs(breg, bsrc, (kt + 1) * BK, n0);
-    }
-    mma_stage<MmaS8>(acc, sm.a[s], sm.b[s], wm, wn, lane);
-    if (more) store_nmajor_regs(sm.b[s ^ 1], breg);
-    cp_async_wait_all();
-    __syncthreads();
-  }
-  dequant_epilogue(acc, sa, sb, c, out, M, N, ldc, m0, n0, wm, wn, lane);
-}
 
 }  // namespace htog

@@ -37,8 +37,9 @@ extern "C" int w4a16_gemm_noc(const void* a, const void* packed,
                               const void* sw, void* out, int M, int N, int K,
                               int lda, int ldb, int ldc, void* stream) {
   int bt = 0;
-  int err = htog::w16::launch(a, packed, sw, out, M, N, K, lda, ldb, ldc,
-                              static_cast<cudaStream_t>(stream), &bt);
+  int err = htog::w16::launch<false>(a, packed, sw, nullptr, out, M, N, K,
+                                     lda, ldb, ldc,
+                                     static_cast<cudaStream_t>(stream), &bt);
   if (err == 0) ++tile_launches[bt == 128];
   return err;
 }

@@ -1,8 +1,10 @@
-// The W4A16 prefill GEMM on Hopper's bf16 warpgroup MMA: the body of
-// w4a16_gemm_noc.cu, out = (A @ decode(P)) * sw[j] with fp32 sums. A (M, K)
-// bf16 row-major, P (Kp/2, N) int8 packed nibbles (w4a8.cuh), sw (1, N)
-// float32, out (M, N) float32. Also the bit decode of packed nibbles into
-// bf16 pairs, which the decode GEMV (w4a16_gemv.cu) shares.
+// The W4A16 GEMMs on Hopper's bf16 warpgroup MMA, one body for two
+// kernels: out = (A @ decode(P)) * sw[j] with fp32 sums (w4a16_gemm_noc.cu,
+// the serving linear), and C = (A @ decode(P)) * sw[j] + C in place
+// (w4a16_gemm.cu, rung 07). A (M, K) bf16 row-major, P (Kp/2, N) int8
+// packed nibbles (w4a8.cuh), sw (1, N) float32, out (M, N) float32, C
+// (M, N) float32 read by the "+ C" epilogue. Also the bit decode of packed
+// nibbles into bf16 pairs, which the decode GEMV (w4a16_gemv.cu) shares.
 //
 // w4a8_wgmma.cuh's walk in bf16. Operands swapped: each output tile is
 // computed as out^T = W^T . A^T, so the decoded weights are wgmma's A, held
@@ -18,8 +20,9 @@
 // Warps 0-7 are two consumer warpgroups, 128 output columns (two slabs)
 // each; warp 8's lane 0 is the producer.
 //
-// Ring (wgmma.cuh's full and empty barriers, as many stages as fit: 2 at
-// BT = 128, 3 at 64): stage st of a tile takes the packed rows
+// Ring (wgmma.cuh's full and empty barriers, as many stages as fit beside
+// the "+ C" epilogue's staging: 2 at BT = 128, 3 at 64, with the staging
+// or without): stage st of a tile takes the packed rows
 // 256 (st / 2) + 128 (st % 2) .. + 127, one 128 x 128 box for each
 // consumer's columns. Their low nibbles are K rows
 // k = 512 (st / 2) + 128 (st % 2) .. + 127 and their high nibbles K rows
@@ -49,7 +52,13 @@
 // them in another order than the plain version (and do not round each add
 // as IEEE does), so the two agree to a stated tolerance. Each thread stores
 // its own sums while the producer fills the ring with the next tile's
-// stages.
+// stages. Adding C (ADD_C, w4a8_wgmma.cuh's Epilogue), each consumer warp
+// stages its 32 columns a pass of C_STAGING::T tokens in one of its
+// C_STAGING::B buffers and the tensor-map unit adds each into C in L2 (one
+// round-to-nearest add: the plain version's y + C; each thread adds C
+// where its rows are no 16-byte multiple). K3's staging (two buffers of 32
+// tokens, 64 KB) would leave one 96 KB stage at BT = 128, so rung 07's
+// staging takes 32 KB.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -93,18 +102,28 @@ using w4::SMEM_LIMIT;
 using w4::THREADS;
 using w4::TILE_N;
 
+// Rung 07's "+ C" staging: one buffer of 32 tokens a consumer warp (32 KB
+// in all). It ran 0.3-1.0% faster than two buffers of 16 tokens at M = N =
+// K = 4,096 on an H100 in two calls, within their spread at 2,048
+// (harness/flash_variants.py --group w4a16, variant c16x2; PERF.md).
+using C_STAGING = w4::Staging<32, 1>;
+
 // Stage layout: A's four boxes (BT lines of 64 K values each: the low
 // range's K rows k .. k + 63 and k + 64 .., the high range's k + 256 ..
 // and k + 320 ..), then the two consumers' packed boxes (128 lines of 128
-// columns).
-template <int BT>
+// columns); the ring's stages, then, adding C, the staging, then the
+// barriers.
+template <int BT, bool ADD_C>
 struct Layout {
   static constexpr int A_BYTES = BT * wg::LINE;
   static constexpr int STAGE = 4 * A_BYTES + 2 * PK_BYTES;
+  static constexpr int OUT = ADD_C ? C_STAGING::BYTES : 0;
   static constexpr int ST =
-      (SMEM_LIMIT - wg::ATOM - 256) / STAGE;   // stages of the ring
-  static constexpr int SMEM = ST * STAGE + wg::ATOM +
-                              static_cast<int>(sizeof(wg::Ring<ST>));
+      (SMEM_LIMIT - wg::ATOM - 256 - OUT) / STAGE;   // stages of the ring
+  static constexpr int BARS = static_cast<int>(sizeof(wg::Ring<ST>));
+  static constexpr int SMEM = ST * STAGE + OUT + wg::ATOM + BARS +
+                              (ADD_C ? C_STAGING::BARS : 0);
+  static_assert(BARS + C_STAGING::BARS <= 256, "the barriers' bytes");
   static_assert(ST >= 2, "a stage in flight while one is read");
   static_assert(SMEM <= SMEM_LIMIT, "the ring fits a block's shared memory");
   static_assert(BT % 8 == 0 && BT <= 256, "a wgmma N");
@@ -146,7 +165,7 @@ template <int BT, int I>
 __device__ __forceinline__ void issue(float (&acc)[2][BT / 2],
                                       const uint32_t (&f)[4][4],
                                       uint32_t a_stage, int accumulate) {
-  constexpr int A_BYTES = Layout<BT>::A_BYTES;
+  constexpr int A_BYTES = BT * wg::LINE;
   uint64_t dlo = wg::kmajor_desc(a_stage + (I / 4) * A_BYTES, I % 4);
   uint64_t dhi = wg::kmajor_desc(a_stage + (2 + I / 4) * A_BYTES, I % 4);
   wg::Wgmma<BT>::template rs<0>(acc[0], f[0], dlo, accumulate);
@@ -156,24 +175,38 @@ __device__ __forceinline__ void issue(float (&acc)[2][BT / 2],
 }
 
 // ta: A (M, K) bf16, boxes of 64 K x BT tokens; tw: P (rows, N) int8,
-// boxes of 128 columns x 128 packed rows; both with the 128-byte swizzle.
-template <int BT>
+// boxes of 128 columns x 128 packed rows; tc and tcin (read where the
+// path needs them): out and C (M, ldc) fp32, boxes of 32 columns x
+// C_STAGING::T tokens; all with the 128-byte swizzle. c is read only where
+// ADD_C, along `path` (w4::CPath).
+template <int BT, bool ADD_C>
 __global__ void __launch_bounds__(THREADS, 1)
     w4a16_wgmma(const __grid_constant__ CUtensorMap ta,
-                const __grid_constant__ CUtensorMap tw, const float* sw,
-                float* out, int M, int N, int K, int ldc) {
-  using L = Layout<BT>;
+                const __grid_constant__ CUtensorMap tw,
+                const __grid_constant__ CUtensorMap tc,
+                const __grid_constant__ CUtensorMap tcin, const float* sw,
+                const float* c, float* out, int M, int N, int K, int ldc,
+                int path) {
+  using L = Layout<BT, ADD_C>;
+  using S = C_STAGING;
   constexpr int ST = L::ST;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = wg::align_1024(smem_raw);
-  auto& ring = *reinterpret_cast<wg::Ring<ST>*>(smem + ST * L::STAGE);
+  auto& ring =
+      *reinterpret_cast<wg::Ring<ST>*>(smem + ST * L::STAGE + L::OUT);
+  uint64_t* cbars = reinterpret_cast<uint64_t*>(
+      smem + ST * L::STAGE + L::OUT + L::BARS);
   int num_t = (M + BT - 1) / BT;
   int num_n = (N + TILE_N - 1) / TILE_N;
   int tiles = num_t * num_n;
   int nst = w4::stages(K);
   int warp = threadIdx.x >> 5;
   int lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) ring.init();
+  if (threadIdx.x == 0) {
+    if (ADD_C)
+      for (int b = 0; b < 8 * S::B; ++b) mbar_init(&cbars[b], 1);
+    ring.init();
+  }
   __syncthreads();
 
   if (warp == 8) {
@@ -212,7 +245,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     int r = 2 * tq + (j & 1) + 8 * (j >> 1);
     off[j] = r * wg::LINE + ((((col >> 4) ^ (r & 7)) << 4) | (col & 15));
   }
-  bool vec = (ldc & 3) == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  w4::Epilogue<BT, S, ADD_C> epi{
+      &tc, &tcin, c, out, M, N, ldc, path,
+      !ADD_C && (ldc & 3) == 0 &&
+          (reinterpret_cast<uintptr_t>(out) & 15) == 0,
+      smem + ST * L::STAGE + warp * S::B * S::BOX, cbars + warp * S::B,
+      lane, g, tq, 0u};
   uint32_t base = smem_u32(smem);
   float acc[2][BT / 2];
   uint32_t f[2][4][4];
@@ -220,6 +258,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     int ti, tj;
     w4::tile_of(t, num_t, num_n, ti, tj);
+    epi.prefetch(ti * BT, tj * TILE_N + 128 * cw + col);
     int prev = -1;   // the slot whose last products may still be in flight
     for (int st = 0; st < nst; ++st, ++q) {
       int s = q % ST;
@@ -261,42 +300,29 @@ __global__ void __launch_bounds__(THREADS, 1)
     int n = tj * TILE_N + 128 * cw + col;
     float w4[4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) w4[c] = n + c < N ? sw[n + c] : 0.0f;
+    for (int x = 0; x < 4; ++x) w4[x] = n + x < N ? sw[n + x] : 0.0f;
+    epi.tile(ti * BT, n, [&](int j, int e, int, float (&y)[4]) {
+      float v[4] = {acc[0][4 * j + e], acc[0][4 * j + 2 + e],
+                    acc[1][4 * j + e], acc[1][4 * j + 2 + e]};
 #pragma unroll
-    for (int j = 0; j < BT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        int tok = ti * BT + 8 * j + 2 * tq + e;
-        if (tok >= M) continue;
-        float v[4] = {acc[0][4 * j + e], acc[0][4 * j + 2 + e],
-                      acc[1][4 * j + e], acc[1][4 * j + 2 + e]};
-        float y[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) y[c] = __fmul_rn(v[c], w4[c]);
-        float* o = out + static_cast<size_t>(tok) * ldc + n;
-        if (vec && n + 3 < N) {
-          *reinterpret_cast<float4*>(o) = make_float4(y[0], y[1], y[2], y[3]);
-        } else {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (n + c < N) o[c] = y[c];
-        }
-      }
-    }
+      for (int x = 0; x < 4; ++x) y[x] = __fmul_rn(v[x], w4[x]);
+    });
   }
+  epi.finish();
 }
 
-// Launches w4a16_wgmma<BT> over the (M, N) output: one block an SM, at
-// most one a tile. a (M, lda) bf16 with K <= lda valid columns, lda a
-// multiple of 8 (16-byte rows), packed (Kp/2, ldb) int8 with
-// round_up(K, 512) <= Kp, out (M, ldc) float32; bases 16-byte aligned.
+// Launches w4a16_wgmma<BT, ADD_C> over the (M, N) output: one block an
+// SM, at most one a tile. a (M, lda) bf16 with K <= lda valid columns, lda
+// a multiple of 8 (16-byte rows), packed (Kp/2, ldb) int8 with
+// round_up(K, 512) <= Kp, c and out (M, ldc) float32 (c is out where
+// ADD_C, rung 07 in place; null where not); bases 16-byte aligned.
 // Returns a cudaError_t as an int.
-template <int BT>
+template <int BT, bool ADD_C>
 int launch_bt(const void* a, const void* packed, const float* sw,
-              float* out, int M, int N, int K, int lda, int ldb, int ldc,
-              int sms, cudaStream_t stream) {
-  using L = Layout<BT>;
-  CUtensorMap ta, tw;
+              const float* c, float* out, int M, int N, int K, int lda,
+              int ldb, int ldc, int sms, cudaStream_t stream) {
+  using L = Layout<BT, ADD_C>;
+  CUtensorMap ta, tw, tc, tcin;
   cuuint64_t adims[2] = {static_cast<cuuint64_t>(K),
                          static_cast<cuuint64_t>(M)};
   cuuint64_t astrides[1] = {static_cast<cuuint64_t>(lda) * 2};
@@ -311,29 +337,37 @@ int launch_bt(const void* a, const void* packed, const float* sw,
       !wg::make_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, packed, wdims,
                     wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
+  int path = ADD_C ? w4::c_path<C_STAGING>(c, out, M, N, ldc, &tc, &tcin)
+                   : w4::C_THREADS;
+  if (path != w4::C_LOAD_STORE) tcin = ta;   // not read
+  if (path == w4::C_THREADS) tc = ta;
   cudaError_t err = cudaFuncSetAttribute(
-      w4a16_wgmma<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+      w4a16_wgmma<BT, ADD_C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      L::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   int tiles = (M + BT - 1) / BT * ((N + TILE_N - 1) / TILE_N);
-  w4a16_wgmma<BT><<<tiles < sms ? tiles : sms, THREADS, L::SMEM, stream>>>(
-      ta, tw, sw, out, M, N, K, ldc);
+  w4a16_wgmma<BT, ADD_C>
+      <<<tiles < sms ? tiles : sms, THREADS, L::SMEM, stream>>>(
+          ta, tw, tc, tcin, sw, c, out, M, N, K, ldc, path);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches w4a16_wgmma<w4::token_tile(M, N, SMs)>; *bt is set to that
-// tile.
-inline int launch(const void* a, const void* packed, const void* sw,
-                  void* out, int M, int N, int K, int lda, int ldb, int ldc,
-                  cudaStream_t stream, int* bt) {
+// Launches w4a16_wgmma<w4::token_tile(M, N, SMs), ADD_C>; *bt is set to
+// that tile.
+template <bool ADD_C>
+int launch(const void* a, const void* packed, const void* sw, const void* c,
+           void* out, int M, int N, int K, int lda, int ldb, int ldc,
+           cudaStream_t stream, int* bt) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   *bt = w4::token_tile(M, N, sms);
-  auto run = *bt == 64 ? launch_bt<64> : launch_bt<128>;
+  auto run = *bt == 64 ? launch_bt<64, ADD_C> : launch_bt<128, ADD_C>;
   return run(a, packed, static_cast<const float*>(sw),
-             static_cast<float*>(out), M, N, K, lda, ldb, ldc, sms, stream);
+             static_cast<const float*>(c), static_cast<float*>(out), M, N, K,
+             lda, ldb, ldc, sms, stream);
 }
 
 }  // namespace w16

@@ -1,7 +1,7 @@
 // The packed int4 weight layout shared by the int4-weight kernels
-// (w4a8_gemm.cu and w4a8_gemm_noc.cu through w4a8_wgmma.cuh, w4a16_gemm.cu;
-// w4a8_gemv_fq.cu and the W4A16 pair read the same layout and decode the
-// nibbles their own way).
+// (w4a8_gemm.cu and w4a8_gemm_noc.cu through w4a8_wgmma.cuh; w4a8_gemv_fq.cu
+// and the W4A16 kernels read the same layout and decode the nibbles their
+// own way).
 //
 // P (Kp/2, N) int8, Kp a multiple of 512: K row k of the logical weight
 // lives in packed row (k / 512) * 256 + (k % 512) % 256, in the low nibble
@@ -24,22 +24,5 @@ __device__ __forceinline__ uint32_t decode_hi4(uint32_t w) {
   uint32_t u = (w >> 4) & 0x0F0F0F0Fu;
   return __vsub4(u ^ 0x08080808u, 0x08080808u);
 }
-
-// Packed weights as an N-major B operand (w4a16_gemm.cuh's loads): row(k)
-// addresses K row k, decode(w, k) turns the loaded word into four int8
-// weights. A 64-deep K tile never straddles a half block,
-// so one tile is all low or all high nibbles.
-struct PackedW4 {
-  const int8_t* base;
-  int K;   // K rows of the logical weight that are read (<= Kp)
-  int ld;  // row pitch in bytes (a multiple of 16, >= N)
-  __device__ const int8_t* row(int k) const {
-    int prow = (k >> 9) * 256 + ((k & 511) & 255);
-    return base + (size_t)prow * ld;
-  }
-  __device__ uint32_t decode(uint32_t w, int k) const {
-    return (k & 511) < 256 ? decode_lo4(w) : decode_hi4(w);
-  }
-};
 
 }  // namespace htog

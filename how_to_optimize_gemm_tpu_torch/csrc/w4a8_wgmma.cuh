@@ -64,15 +64,22 @@
 // Epilogue: (float(acc) * sa[i]) * sw[j] with __fmul_rn, the plain
 // version's order, each thread storing its own four columns of a token
 // as one float4 while the producer fills the ring with the next tile's
-// stages. Adding C (in place, rows of 16-byte multiples), a consumer warp
-// owns 32 whole columns of the tile: it stages its products 32 tokens at
-// a time in one of its two shared-memory buffers, and the tensor-map unit
-// adds each buffer into C in L2 (cp.reduce.async.bulk.tensor .add, one
-// round-to-nearest add, so C + y is the plain version's y + C bit for
-// bit) while the consumers go on to the next tile; C is not read into
-// registers, nor held across the main loop. Elsewhere (C's rows no 16-byte
-// multiple) each thread adds c[i, j] with __fadd_rn an element at a time.
-// So out equals the plain version bit for bit.
+// stages. Adding C (class Epilogue below, which w4a16_wgmma.cuh's body
+// shares), a consumer warp owns 32 whole columns of the tile and stages
+// its sums a pass of S::T tokens at a time in one of its S::B
+// shared-memory buffers (the instance's Staging). In place (c is out,
+// rows of 16-byte multiples: K3), the tensor-map unit adds each buffer
+// into C in L2 (cp.reduce.async.bulk.tensor .add, one round-to-nearest
+// add, so C + y is the plain version's y + C bit for bit) while the
+// consumers go on; C is not read into registers, nor held across the main
+// loop. Into a fresh output (K1), the warp's lane 0 loads C's box of the
+// pass into the buffer by tensor map under a barrier of its own (the
+// tile's first S::B passes before its main loop, each later one as soon
+// as the store S::B passes before has read the buffer), the threads add
+// it to their sums with __fadd_rn where they stage them, and the
+// tensor-map unit stores the buffer into out. Elsewhere (C's rows no
+// 16-byte multiple) each thread adds c[i, j] with __fadd_rn an element at
+// a time. So out equals the plain version bit for bit.
 #pragma once
 
 #include "w4a8.cuh"
@@ -95,10 +102,30 @@ __device__ __forceinline__ int stages(int K) {
   return 2 * (K / 512) + (rest > 128 ? 2 : rest > 0 ? 1 : 0);
 }
 
+// The "+ C" epilogue's staging: per consumer warp BUFS buffers of TOKENS
+// tokens x the warp's 32 columns fp32 (one 128-byte swizzled line a
+// token), each the source of one tensor-map reduction into C in place, or
+// (LOAD: C into a fresh output) the target of one load of C and the
+// source of one store into out, with a barrier each for those loads
+// (after the ring's barriers).
+constexpr int OUT_TOKENS = 32;   // K3's pass (two buffers a warp)
+
+template <int TOKENS, int BUFS, bool LOAD = false>
+struct Staging {
+  static constexpr int T = TOKENS;
+  static constexpr int B = BUFS;
+  static constexpr bool LOAD_C = LOAD;
+  static constexpr int BOX = TOKENS * wg::LINE;
+  static constexpr int BYTES = 8 * BUFS * BOX;
+  static constexpr int BARS = 8 * BUFS * 8;
+  static_assert(TOKENS % 8 == 0 && BUFS >= 1, "whole 8-token groups");
+};
+
 // The weight sources. BOXES: QA boxes a stage (two fragments each);
 // W_BOXES: weight boxes a stage and consumer; rows(K): the weight map's
 // rows; nst(K): stages of a tile; qa_k(st, b): the K column of QA box b of
-// stage st; w_row(st, b): the map row of weight box b.
+// stage st; w_row(st, b): the map row of weight box b; Out: the staging
+// of the "+ C" epilogue.
 struct Packed {
   static constexpr bool PACKED = true;
   static constexpr int BOXES = 2;
@@ -111,39 +138,37 @@ struct Packed {
   static __device__ int w_row(int st, int) {
     return (st >> 1) * 256 + (st & 1) * 128;
   }
+  using Out = Staging<OUT_TOKENS, 2>;
 };
 
-template <int B>
+template <int B, class O = Staging<OUT_TOKENS, 2>>
 struct PlainS8 {
   static constexpr bool PACKED = false;
   static constexpr int BOXES = B;
   static constexpr int W_BOXES = B;
+  using Out = O;
   static int rows(int K) { return K; }
   static __device__ int nst(int K) { return (K + 128 * B - 1) / (128 * B); }
   static __device__ int qa_k(int st, int b) { return 128 * (B * st + b); }
   static __device__ int w_row(int st, int b) { return 128 * (B * st + b); }
 };
 
-// The "+ C" epilogue's staging: per consumer warp two buffers of
-// OUT_TOKENS tokens x the warp's 32 columns fp32 (one 128-byte swizzled
-// line a token), each the source of one tensor-map reduction into C.
-constexpr int OUT_TOKENS = 32;
-constexpr int OUT_BOX = OUT_TOKENS * wg::LINE;
-constexpr int OUT_BYTES = 8 * 2 * OUT_BOX;
-
 // Shared memory: the ring's stages, each QA's boxes (BT lines of 128 K
 // each) then the two consumers' weight boxes (128 lines of 128 columns);
-// then, adding C, the epilogue's staging; then the ring's barriers.
+// then, adding C, the epilogue's staging; then the ring's barriers (and
+// C's, within the 256 bytes kept for barriers).
 template <int BT, class Src, bool ADD_C>
 struct Layout {
   static constexpr int QA_BYTES = BT * wg::LINE;
   static constexpr int W_OFF = Src::BOXES * QA_BYTES;
   static constexpr int STAGE = W_OFF + 2 * Src::W_BOXES * PK_BYTES;
-  static constexpr int OUT = ADD_C ? OUT_BYTES : 0;
+  static constexpr int OUT = ADD_C ? Src::Out::BYTES : 0;
   static constexpr int ST =
       (SMEM_LIMIT - wg::ATOM - 256 - OUT) / STAGE;   // stages of the ring
-  static constexpr int SMEM = ST * STAGE + OUT + wg::ATOM +
-                              static_cast<int>(sizeof(wg::Ring<ST>));
+  static constexpr int BARS = static_cast<int>(sizeof(wg::Ring<ST>));
+  static constexpr int SMEM = ST * STAGE + OUT + wg::ATOM + BARS +
+                              (ADD_C ? Src::Out::BARS : 0);
+  static_assert(BARS + Src::Out::BARS <= 256, "the barriers' bytes");
   static_assert(ST >= 2, "a stage in flight while one is read");
   static_assert(SMEM <= SMEM_LIMIT, "the ring fits a block's shared memory");
   static_assert(BT % 16 == 0 && BT <= 256, "a wgmma N for 8-bit types");
@@ -338,20 +363,170 @@ __device__ __forceinline__ void fence_acc(int (&acc)[2][N]) {
     for (int i = 0; i < N; ++i) asm volatile("" : "+r"(acc[s][i])::"memory");
 }
 
+// How the "+ C" epilogue meets C (the launch picks one): each thread adds
+// c itself; the tensor-map unit adds the staged sums into C in place; or C
+// is loaded into the staging by tensor map and the sums stored from it
+// (a staging with LOAD_C).
+enum CPath { C_THREADS = 0, C_REDUCE = 1, C_LOAD_STORE = 2 };
+
+// A consumer thread's epilogue of its tiles (int8_wgmma and
+// w4a16_wgmma.cuh's body): for each token tok = tok0 + 8 j + 2 t + e of
+// the tile, y(j, e, tok, v) gives the thread's four products of columns
+// n .. n + 3 (n - 4 g is its warp's first column), which go to out, with C
+// added where ADD_C along `path`. S: the staging; bufs, bars: the warp's
+// buffers and their load barriers.
+template <int BT, class S, bool ADD_C>
+struct Epilogue {
+  static constexpr int P = BT / S::T;   // staged passes a tile
+  const CUtensorMap* tc;     // out: reductions or stores of the staging
+  const CUtensorMap* tcin;   // C: loads into the staging
+  const float* c;
+  float* out;
+  int M, N, ldc, path;
+  bool vec;                  // out's rows whole float4s (no C)
+  uint8_t* bufs;
+  uint64_t* bars;
+  int lane, g, tq;
+  uint32_t phase;            // bit b: the parity of buffer b's next load
+
+  // lane 0: C's box of pass p of the tile (tok0, n0) into buffer p % S::B
+  // once the store out of it has read it
+  __device__ __forceinline__ void load(int p, int tok0, int n0) {
+    int b = p % S::B;
+    bulk_wait_read<0>();
+    mbar_arrive_expect_tx(bars + b, S::BOX);
+    wg::tma_2d(bufs + b * S::BOX, tcin, n0, tok0 + S::T * p, bars + b);
+  }
+
+  // before a tile's main loop: C's first passes in flight
+  __device__ __forceinline__ void prefetch(int tok0, int n) {
+    if (ADD_C && S::LOAD_C && path == C_LOAD_STORE && lane == 0) {
+#pragma unroll
+      for (int p = 0; p < (S::B < P ? S::B : P); ++p)
+        load(p, tok0, n - 4 * g);
+    }
+  }
+
+  template <class Y>
+  __device__ __forceinline__ void tile(int tok0, int n, Y y) {
+    if (ADD_C && path != C_THREADS) {
+      // the warp's 32 columns, S::T tokens a pass, in buffer p % S::B
+      // (swizzled as the maps read it: the thread's float4 is 16-byte
+      // chunk g of the token's line); lane 0 hands each to the tensor-map
+      // unit, which adds it into C in L2 or stores it over out (clipped at
+      // M and N) while the consumers go on. fp32 addition commutes, so
+      // C + y is the plain version's y + C bit for bit.
+      int n0 = n - 4 * g;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        int b = p % S::B;
+        uint8_t* buf = bufs + b * S::BOX;
+        if constexpr (S::LOAD_C) {
+          wg::wait(bars + b, (phase >> b) & 1);   // C's box is in buf
+          phase ^= 1u << b;
+        } else {
+          if (lane == 0) bulk_wait_read<S::B - 1>();   // buf's last copy
+          __syncwarp();
+        }
+#pragma unroll
+        for (int jj = 0; jj < S::T / 8; ++jj) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            int j = p * (S::T / 8) + jj;
+            int r = 8 * jj + 2 * tq + e;
+            float v[4];
+            y(j, e, tok0 + 8 * j + 2 * tq + e, v);
+            float4* at = reinterpret_cast<float4*>(buf + r * wg::LINE +
+                                                   ((g ^ (r & 7)) << 4));
+            if constexpr (S::LOAD_C) {
+              float4 cv = *at;
+              v[0] = __fadd_rn(v[0], cv.x);
+              v[1] = __fadd_rn(v[1], cv.y);
+              v[2] = __fadd_rn(v[2], cv.z);
+              v[3] = __fadd_rn(v[3], cv.w);
+            }
+            *at = make_float4(v[0], v[1], v[2], v[3]);
+          }
+        }
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) {
+          wg::tma_out_2d<!S::LOAD_C>(tc, buf, n0, tok0 + S::T * p);
+          bulk_commit();
+          if (S::LOAD_C && p + S::B < P) load(p + S::B, tok0, n0);
+        }
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < BT / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        int tok = tok0 + 8 * j + 2 * tq + e;
+        if (tok >= M) continue;
+        float v[4];
+        y(j, e, tok, v);
+        size_t at = static_cast<size_t>(tok) * ldc + n;
+        if (vec && n + 3 < N) {
+          *reinterpret_cast<float4*>(out + at) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            if (n + x < N) out[at + x] = ADD_C ? __fadd_rn(v[x], c[at + x])
+                                               : v[x];
+        }
+      }
+    }
+  }
+
+  // the tensor-map unit done with the staging before the block ends
+  __device__ __forceinline__ void finish() {
+    if (ADD_C && path != C_THREADS && lane == 0) bulk_wait_all();
+  }
+};
+
+// The epilogue's C path for c and out (M, ldc) fp32 and a staging S, and
+// the maps it needs, boxes of 32 columns x S::T tokens with the 128-byte
+// swizzle: the loads of C and the stores into out where S loads C, the
+// reductions into out where c is out, wherever the rows are 16-byte
+// multiples on 16-byte bases; else each thread adds C.
+template <class S>
+int c_path(const float* c, float* out, int M, int N, int ldc,
+           CUtensorMap* tc, CUtensorMap* tcin) {
+  if (c == nullptr || ldc % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(c) % 16 != 0)
+    return C_THREADS;
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
+                        static_cast<cuuint64_t>(M)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldc) * 4};
+  cuuint32_t box[2] = {32, static_cast<cuuint32_t>(S::T)};
+  if (!wg::make_map(tc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, out, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return C_THREADS;
+  if (!S::LOAD_C) return c == out ? C_REDUCE : C_THREADS;
+  if (!wg::make_map(tcin, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, c, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return C_THREADS;
+  return C_LOAD_STORE;
+}
+
 // tqa: QA (M, K) int8, boxes of 128 K x BT tokens; tw: the weights (rows,
-// N) int8, boxes of 128 columns x 128 rows; tc (read where tma_add): out
-// (M, ldc) fp32, boxes of 32 columns x OUT_TOKENS tokens; all with the
-// 128-byte swizzle. c is read only where ADD_C: by the tensor-map unit's
-// reductions into out (tma_add: c is out), else by each thread, an
-// element at a time.
+// N) int8, boxes of 128 columns x 128 rows; tc and tcin (read where the
+// path needs them): out and C (M, ldc) fp32, boxes of 32 columns x
+// Src::Out::T tokens; all with the 128-byte swizzle. c is read only where
+// ADD_C, along `path` (CPath).
 template <int BT, class Src, bool ADD_C>
 __global__ void __launch_bounds__(THREADS, 1)
     int8_wgmma(const __grid_constant__ CUtensorMap tqa,
                const __grid_constant__ CUtensorMap tw,
-               const __grid_constant__ CUtensorMap tc, const float* sa,
+               const __grid_constant__ CUtensorMap tc,
+               const __grid_constant__ CUtensorMap tcin, const float* sa,
                const float* sw, const float* c, float* out, int M, int N,
-               int K, int ldc, int tma_add) {
+               int K, int ldc, int path) {
   using L = Layout<BT, Src, ADD_C>;
+  using S = typename Src::Out;
   constexpr int ST = L::ST;
   constexpr int NF = 2 * Src::BOXES;   // A fragments a step
   extern __shared__ uint8_t smem_raw[];
@@ -362,9 +537,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   int num_n = (N + TILE_N - 1) / TILE_N;
   int tiles = num_t * num_n;
   int nst = Src::nst(K);
+  uint64_t* cbars = reinterpret_cast<uint64_t*>(
+      smem + ST * L::STAGE + L::OUT + L::BARS);
   int warp = threadIdx.x >> 5;
   int lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) ring.init();
+  if (threadIdx.x == 0) {
+    if (ADD_C)
+      for (int b = 0; b < 8 * S::B; ++b) mbar_init(&cbars[b], 1);
+    ring.init();
+  }
   __syncthreads();
 
   if (warp == 8) {
@@ -404,8 +585,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     int r = 4 * tq + j;
     off[j] = r * wg::LINE + ((((col >> 4) ^ (r & 7)) << 4) | (col & 15));
   }
-  bool vec = !ADD_C && (ldc & 3) == 0 &&
-             (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  Epilogue<BT, S, ADD_C> epi{
+      &tc, &tcin, c, out, M, N, ldc, path,
+      !ADD_C && (ldc & 3) == 0 &&
+          (reinterpret_cast<uintptr_t>(out) & 15) == 0,
+      smem + ST * L::STAGE + warp * S::B * S::BOX, cbars + warp * S::B,
+      lane, g, tq, 0u};
   uint32_t base = smem_u32(smem);
   int acc[2][BT / 2];
   uint32_t f[2][NF][4];
@@ -413,6 +598,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     int ti, tj;
     tile_of(t, num_t, num_n, ti, tj);
+    epi.prefetch(ti * BT, tj * TILE_N + 128 * cw + col);
     int prev = -1;   // the slot whose last products may still be in flight
     for (int st = 0; st < nst; ++st, ++q) {
       int s = q % ST;
@@ -452,72 +638,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int x = 0; x < 4; ++x) w4[x] = n + x < N ? sw[n + x] : 0.0f;
     // (float(acc) * sa[tok]) * sw[n + x] of the thread's token j, e (0
     // past M)
-    auto dequant = [&](int j, int e, int tok, float (&y)[4]) {
+    epi.tile(ti * BT, n, [&](int j, int e, int tok, float (&y)[4]) {
       float s_row = tok < M ? sa[tok] : 0.0f;
       int v[4] = {acc[0][4 * j + e], acc[0][4 * j + 2 + e],
                   acc[1][4 * j + e], acc[1][4 * j + 2 + e]};
 #pragma unroll
       for (int x = 0; x < 4; ++x)
         y[x] = __fmul_rn(__fmul_rn(__int2float_rn(v[x]), s_row), w4[x]);
-    };
-    if (ADD_C && tma_add) {
-      // the warp's 32 columns, OUT_TOKENS tokens a pass, into one of its
-      // two buffers (swizzled as the map reads them: the thread's float4
-      // is 16-byte chunk g of the token's line); its lane 0 hands each to
-      // the tensor-map unit, which adds it into C in L2 (clipped at M and
-      // N) while the consumers go on to the next tile. fp32 addition
-      // commutes, so C + y is the plain version's y + C bit for bit.
-      uint8_t* bufs = smem + ST * L::STAGE + warp * 2 * OUT_BOX;
-#pragma unroll
-      for (int p = 0; p < BT / OUT_TOKENS; ++p) {
-        uint8_t* buf = bufs + (p & 1) * OUT_BOX;
-        if (lane == 0) bulk_wait_read<1>();   // buf's copy two passes ago
-        __syncwarp();
-#pragma unroll
-        for (int jj = 0; jj < OUT_TOKENS / 8; ++jj) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            int j = p * (OUT_TOKENS / 8) + jj;
-            int r = 8 * jj + 2 * tq + e;
-            float y[4];
-            dequant(j, e, ti * BT + 8 * j + 2 * tq + e, y);
-            *reinterpret_cast<float4*>(buf + r * wg::LINE +
-                                       ((g ^ (r & 7)) << 4)) =
-                make_float4(y[0], y[1], y[2], y[3]);
-          }
-        }
-        fence_proxy_async();
-        __syncwarp();
-        if (lane == 0) {
-          wg::tma_out_2d<true>(&tc, buf, n - 4 * g,
-                               ti * BT + OUT_TOKENS * p);
-          bulk_commit();
-        }
-      }
-      continue;
-    }
-#pragma unroll
-    for (int j = 0; j < BT / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        int tok = ti * BT + 8 * j + 2 * tq + e;
-        if (tok >= M) continue;
-        float y[4];
-        dequant(j, e, tok, y);
-        size_t at = static_cast<size_t>(tok) * ldc + n;
-        if (vec && n + 3 < N) {
-          *reinterpret_cast<float4*>(out + at) =
-              make_float4(y[0], y[1], y[2], y[3]);
-        } else {
-#pragma unroll
-          for (int x = 0; x < 4; ++x)
-            if (n + x < N)
-              out[at + x] = ADD_C ? __fadd_rn(y[x], c[at + x]) : y[x];
-        }
-      }
-    }
+    });
   }
-  if (ADD_C && tma_add && lane == 0) bulk_wait_all();
+  epi.finish();
 }
 
 // Launches int8_wgmma<BT, Src, ADD_C> over the (M, N) output: one block an
@@ -532,7 +662,7 @@ int launch_bt(const void* qa, const void* w, const float* sa,
               int K, int lda, int ldb, int ldc, int sms,
               cudaStream_t stream) {
   using L = Layout<BT, Src, ADD_C>;
-  CUtensorMap tqa, tw, tc;
+  CUtensorMap tqa, tw, tc, tcin;
   cuuint64_t qdims[2] = {static_cast<cuuint64_t>(K),
                          static_cast<cuuint64_t>(M)};
   cuuint64_t qstrides[1] = {static_cast<cuuint64_t>(lda)};
@@ -546,18 +676,10 @@ int launch_bt(const void* qa, const void* w, const float* sa,
       !wg::make_map(&tw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, wdims,
                     wstrides, wbox, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
-  // C through the tensor-map unit where c is out, its rows 16-byte
-  // multiples on a 16-byte base
-  cuuint64_t cdims[2] = {static_cast<cuuint64_t>(N),
-                         static_cast<cuuint64_t>(M)};
-  cuuint64_t cstrides[1] = {static_cast<cuuint64_t>(ldc) * 4};
-  cuuint32_t cbox[2] = {32, OUT_TOKENS};
-  int tma_add = ADD_C && c == out && ldc % 4 == 0 &&
-                reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-                wg::make_map(&tc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, out,
-                             cdims, cstrides, cbox,
-                             CU_TENSOR_MAP_SWIZZLE_128B);
-  if (!tma_add) tc = tqa;   // not read
+  int path = ADD_C ? c_path<typename Src::Out>(c, out, M, N, ldc, &tc, &tcin)
+                   : C_THREADS;
+  if (path != C_LOAD_STORE) tcin = tqa;   // not read
+  if (path == C_THREADS) tc = tqa;
   cudaError_t err = cudaFuncSetAttribute(
       int8_wgmma<BT, Src, ADD_C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::SMEM);
@@ -565,7 +687,7 @@ int launch_bt(const void* qa, const void* w, const float* sa,
   int tiles = (M + BT - 1) / BT * ((N + TILE_N - 1) / TILE_N);
   int8_wgmma<BT, Src, ADD_C>
       <<<tiles < sms ? tiles : sms, THREADS, L::SMEM, stream>>>(
-          tqa, tw, tc, sa, sw, c, out, M, N, K, ldc, tma_add);
+          tqa, tw, tc, tcin, sa, sw, c, out, M, N, K, ldc, path);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -52,16 +52,19 @@ tile BK). Eight groups of kernels, one a run (``--group``):
   a timing probe) skip the decode;
 - ``int8``: ``int8_gemm_nt`` (K2, rung 14) at M = N = K = 4,096, 2,048 and
   3,584 (the headline's sizes), ``int8_ragged_nt`` (rung 18) at 4,096
-  on its default plan and on the two-piece plan of cap 1,664, and
-  ``int8_gemm_noc`` at the 7B prefill widths (M = 1,024, 4,096 -> 11,008
-  and 11,008 -> 4,096) and at (1,000, 1,100 -> 1,032), each EQUAL to its
-  plain version and two calls bit-equal; ``torch._int_mm`` and the
-  epilogue beside them. An older tree's kernels (the ``mma.sync`` tile)
-  take the same arguments. The variants shorten K2's ring to three or two
-  stages, add C in each thread instead of by tensor-map reductions, walk
-  groups of 4 or 16 row tiles, stage sb 64 columns a pass, or give
-  ``int8_gemm_noc`` one box of 128 K a stage (in its ring of 4, or of
-  3);
+  on its default plan and on the two-piece plan of cap 1,664, K1
+  ``int8_gemm_nn`` (a fresh output, C checked unchanged) at 4,096 and
+  2,048, and ``int8_gemm_noc`` at the 7B prefill widths (M = 1,024, 4,096
+  -> 11,008 and 11,008 -> 4,096) and at (1,000, 1,100 -> 1,032), each
+  EQUAL to its plain version and two calls bit-equal; ``torch._int_mm``
+  and the epilogue beside them. An older tree's kernels (the ``mma.sync``
+  tile) take the same arguments. The variants shorten K2's ring to three
+  or two stages, add C in each thread instead of by tensor-map
+  reductions, walk groups of 4 or 16 row tiles, stage sb 64 columns a
+  pass, give ``int8_gemm_noc`` one box of 128 K a stage (in its ring of
+  4, or of 3), or give K1 another staging of C (one buffer of 32 tokens;
+  one box a stage with two buffers of 32 or 16 tokens) or each thread
+  adding C from float4 loads;
 - ``gemv``: ``w4a8_gemv_fq`` at the 7B decode widths (4,096 -> 11,008,
   4,096 -> 4,096, 11,008 -> 4,096) at m = 1, 4, 16 and 64, and at m = 4
   on four copies of the 4,096 -> 11,008 weights taken in turn (90 MB, past
@@ -86,13 +89,15 @@ tile BK). Eight groups of kernels, one a run (``--group``):
   11,008 weights taken in turn (past the L2), and ``w4a16_gemm_noc`` at
   the 7B prefill widths (M = 1,024, 4,096 -> 11,008 and 11,008 -> 4,096),
   at chunks of 128 and 256 tokens and at the ragged (1,000, 1,100 ->
-  1,032), each held to its plain version within 2e-5 of max |plain| and
-  two calls bit-equal. An older tree's GEMV (no cluster argument) is
-  launched with its own arguments; its GEMM takes the same. The variants
-  ``cl1``, ``cl2``, ``cl4`` and ``cl8`` force the GEMV's cluster (the
-  plan's where it does not fit), ``bt64`` and ``bt128`` the GEMM's token
-  tile; ``diag_timeline`` (right answers) records each GEMV block's
-  phases. Each tree's host operations a call are printed for the GEMV at
+  1,032), and rung 07 ``w4a16_gemm`` (C in place, timed on a C of its
+  own) at M = N = K = 4,096 and 2,048, each held to its plain version
+  within 2e-5 of max |plain| and two calls bit-equal. An older tree's GEMV
+  (no cluster argument) is launched with its own arguments; its GEMMs take
+  the same. The variants ``cl1``, ``cl2``, ``cl4`` and ``cl8`` force the
+  GEMV's cluster (the plan's where it does not fit), ``bt64`` and
+  ``bt128`` the GEMMs' token tile, ``c16x2`` stages rung 07's C in two
+  buffers of 16 tokens a warp and ``c_threads`` has each thread add it;
+  ``diag_timeline`` (right answers) records each GEMV block's phases. Each tree's host operations a call are printed for the GEMV at
   m = 4.
 
 Each variant's ptxas lines (registers, spills) are printed after the
@@ -370,6 +375,28 @@ W4A8_VARIANTS = {
 }
 _K2 = "int8_gemm_nt.cu"
 _R18 = "int8_ragged_nt.cu"
+_NN1 = "int8_gemm_nn.cu"
+
+
+def _float4_c(kernel_file: str):
+    """The epilogue's threads adding C from float4 loads where C's and
+    out's rows are whole float4s (the shipped epilogue stores float4s only
+    where no C is added), in the kernel of ``kernel_file``."""
+    return ((kernel_file, "      !ADD_C && (ldc & 3) == 0 &&\n"
+             "          (reinterpret_cast<uintptr_t>(out) & 15) == 0,",
+             "      (ldc & 3) == 0 && (reinterpret_cast<uintptr_t>(c) & 15) "
+             "== 0 &&\n"
+             "          (reinterpret_cast<uintptr_t>(out) & 15) == 0,"),
+            (_W4, "          *reinterpret_cast<float4*>(out + at) =\n",
+             "          if (ADD_C) {\n"
+             "            float4 cv = *reinterpret_cast<const float4*>(c + "
+             "at);\n"
+             "            v[0] = __fadd_rn(v[0], cv.x);\n"
+             "            v[1] = __fadd_rn(v[1], cv.y);\n"
+             "            v[2] = __fadd_rn(v[2], cv.z);\n"
+             "            v[3] = __fadd_rn(v[3], cv.w);\n"
+             "          }\n"
+             "          *reinterpret_cast<float4*>(out + at) =\n"))
 
 
 def _int8_stages(n: int):
@@ -402,6 +429,22 @@ INT8_VARIANTS = {
                     "constexpr int BOXES = 1;"),),
     "noc_boxes1_st3": ((_NOC, "constexpr int BOXES = 2;",
                         "constexpr int BOXES = 1;"), *_w4_ring(3)),
+    # K1 (int8_gemm_nn): C staged in one buffer of 32 tokens a warp (two
+    # boxes of 128 K a stage, 2 stages); one box a stage with two buffers
+    # of 32 tokens (64 KB, 3 stages) or of 16 (4 stages); each thread
+    # adding C from float4 loads of it (2 stages, no staging read)
+    "nn_c32x1": ((_NN1, "constexpr int OUT_T = 16;",
+                  "constexpr int OUT_T = 32;"),
+                 (_NN1, "constexpr int OUT_B = 2;",
+                  "constexpr int OUT_B = 1;")),
+    "nn_boxes1_c32x2": ((_NN1, "constexpr int BOXES = 2;",
+                         "constexpr int BOXES = 1;"),
+                        (_NN1, "constexpr int OUT_T = 16;",
+                         "constexpr int OUT_T = 32;")),
+    "nn_boxes1": ((_NN1, "constexpr int BOXES = 2;",
+                   "constexpr int BOXES = 1;"),),
+    "nn_threads": ((_W4, "  return C_LOAD_STORE;\n}",
+                    "  return C_THREADS;\n}"), *_float4_c(_W4)),
 }
 _GEMV = "w4a8_gemv_fq.cu"
 # the timeline probes' device side: each block's %globaltimer at phase i
@@ -498,6 +541,14 @@ W4A16_VARIANTS = {
     # the GEMM's token tile forced
     "bt64": ((_W16G, _BT, "  *bt = 64;"),),
     "bt128": ((_W16G, _BT, "  *bt = 128;"),),
+    # rung 07 (w4a16_gemm): C staged in two buffers of 16 tokens a warp
+    # (the same 32 KB), or each thread adding C itself (float4 loads and
+    # stores, 2 stages)
+    "c16x2": ((_W16G, "using C_STAGING = w4::Staging<32, 1>;",
+               "using C_STAGING = w4::Staging<16, 2>;"),),
+    "c_threads": ((_W4, "  if (!S::LOAD_C) return c == out ? C_REDUCE : "
+                   "C_THREADS;", "  if (!S::LOAD_C) return C_THREADS;"),
+                  *_float4_c(_W16G)),
     # a timing probe (right answers): each GEMV block's %globaltimer at
     # its phases' ends and its SM, read back through gemv_times()
     "diag_timeline": (
@@ -532,9 +583,10 @@ GROUPS = {
     "paged": ((_PAGED,), PAGED_VARIANTS),
     "w4a8": (("w4a8_gemm_noc.cu", "w4a8_gemm.cu", "decode_attention_q8.cu"),
              W4A8_VARIANTS),
-    "int8": ((_K2, _R18, _NOC), INT8_VARIANTS),
+    "int8": ((_K2, _R18, _NOC, _NN1), INT8_VARIANTS),
     "gemv": ((_GEMV, "paged_decode_attention.cu"), GEMV_VARIANTS),
-    "w4a16": ((_W16V, "w4a16_gemm_noc.cu"), W4A16_VARIANTS),
+    "w4a16": ((_W16V, "w4a16_gemm_noc.cu", "w4a16_gemm.cu"),
+              W4A16_VARIANTS),
 }
 # the csrc/ tree in use (set by use())
 _ACTIVE: list = [None]
@@ -932,11 +984,22 @@ def w4a8_cases(gen, tiles):
 
 def int8_cases(gen, tiles):
     """K2 at 4,096, 2,048 and 3,584 and rung 18 at 4,096 on its default
-    plan and at cap 1,664 (two pieces), each on a C of its own, and
+    plan and at cap 1,664 (two pieces), each on a C of its own, K1
+    (``int8_gemm_nn``, a fresh output, C unchanged) at 4,096 and 2,048, and
     int8_gemm_noc at the 7B prefill widths and a ragged shape, EQUAL to
     the plain version and two calls bit-equal; ``torch._int_mm`` and the
     epilogue beside them (graph replays)."""
     cases, rows, library = {}, {}, {}
+    for p in (4096, 2048):
+        a, b, c = (torch.rand((p, p), generator=gen, device="cuda") * 2 - 1
+                   for _ in "abc")
+        ops = int8.prepare(a, b)
+        case = f"int8_gemm_nn p={p}"
+        cases[case] = lambda o=ops, c=c: int8.mmult_q(*o, c)
+        rows[case] = (lambda cc, o=ops: int8.mmult_q(*o, cc), ops, c)
+        library[case] = time_calls(
+            lambda o=ops, c=c: int8.dequant_epilogue(
+                torch._int_mm(o[0], o[2]), o[1], o[3], c), graph=True) * 1e3
     for p in (4096, 2048, 3584):
         a, b, c = (torch.rand((p, p), generator=gen, device="cuda") * 2 - 1
                    for _ in "abc")
@@ -976,6 +1039,12 @@ def int8_cases(gen, tiles):
             if c is None:   # int8_gemm_noc: no C
                 out, again = run(None), run(None)
                 ref = int8.mmult_q_noc_ref(*ops)
+            elif case.startswith("int8_gemm_nn"):   # K1: C unchanged
+                kept = c.clone()
+                out, again = run(c), run(c)
+                ref = int8.mmult_q_ref(*ops, c)
+                if not torch.equal(c, kept):
+                    parts.append(f"{case}: C CHANGED")
             else:
                 out, again = run(c.clone()), run(c.clone())
                 ref = int8.mmult_q_bt_ref(*ops, c)
@@ -1226,9 +1295,10 @@ def w4a16_gemv_call(a, packed, sw):
 
 
 def w4a16_cases(gen, tiles):
-    """The W4A16 GEMV at the 7B decode widths (and on weights past the L2)
-    and the GEMM at the 7B prefill widths, chunks and a ragged shape; each
-    within 2e-5 of max |plain|, two calls bit-equal."""
+    """The W4A16 GEMV at the 7B decode widths (and on weights past the L2),
+    the GEMM at the 7B prefill widths, chunks and a ragged shape, and rung
+    07 (``w4a16_gemm``, C in place) at 4,096 and 2,048; each within 2e-5 of
+    max |plain|, two calls bit-equal."""
     cases, refs = {}, {}
 
     def weights(k, n):
@@ -1261,9 +1331,25 @@ def w4a16_cases(gen, tiles):
         case = f"w4a16_gemm_noc M={m} {k}->{n}"
         cases[case] = lambda a=args: int4.mmult_q_noc(*a)
         refs[case] = args
+    # rung 07 in place: timed on a C of its own, checked on fresh copies
+    rung07 = {}
+    for p in (4096, 2048):
+        args = (acts(p, p), *weights(p, p))
+        c = torch.rand((p, p), generator=gen, device="cuda") * 2 - 1
+        case = f"w4a16_gemm p={p}"
+        work = c.clone()
+        cases[case] = lambda a=args, work=work: int4.mmult_q(*a, work)
+        rung07[case] = (args, c)
 
     def check(name):
         parts = []
+        for case, (args, c) in rung07.items():
+            out, again = (int4.mmult_q(*args, c.clone()) for _ in "12")
+            ref = int4.mmult_q_ref(*args, c)
+            rel = float((out - ref).abs().max() / ref.abs().max())
+            parts.append(f"{case}: {rel:.3e} of max|plain| "
+                         f"{'ok' if rel <= 2e-5 else 'BEYOND 2e-5'}, repeat "
+                         f"{'equal' if torch.equal(out, again) else 'DIFFERS'}")
         for case, args in refs.items():
             fn = cases[case]
             out = fn()

@@ -34,6 +34,7 @@ the host's operators and is labelled so: no CPU time is a device time.
 from __future__ import annotations
 
 import dataclasses
+import os
 import pathlib
 
 import torch
@@ -41,6 +42,13 @@ import torch
 from how_to_optimize_gemm_tpu_torch.ops import registry
 from how_to_optimize_gemm_tpu_torch.utils.device import default_device
 from how_to_optimize_gemm_tpu_torch.utils.matrices import make_abc
+
+# CUPTI torn down at the end of each profiler session, which flushes every
+# activity record it holds: left up between sessions, a whole process of
+# card tests lost a short call's kernel from the profile, three tries
+# running, in 1 to 5 of 12 cases (the same cases passed alone, and with
+# idle time padding the window). A setting in the environment wins.
+os.environ.setdefault("TEARDOWN_CUPTI", "1")
 
 # H100 SXM data sheet, dense: int8 and bf16 tensor-core peaks, TF32, the
 # CUDA cores' fp32 FMA rate, HBM3 bandwidth.
@@ -120,9 +128,8 @@ class CallProfile:
 
 def call_profile(fn, tries: int = 3) -> CallProfile:
     """Profile one call of ``fn`` (after a call outside the profile, which
-    builds what it needs) on the card. CUPTI has handed back an empty
-    window for one short kernel; a window without kernels is taken again,
-    up to ``tries`` times."""
+    builds what it needs) on the card. A window without kernels is taken
+    again, up to ``tries`` times."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,

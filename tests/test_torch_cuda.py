@@ -963,6 +963,109 @@ def test_w4a16_gemm_noc_takes_both_token_tiles(cuda):
     assert taken == {64, 128}
 
 
+# The ladder's K1 (int8_gemm_nn, rung 06) and rung 07 (w4a16_gemm) on the
+# prefill bodies: K1 on w4a8_wgmma.cuh's plain int8 instance with C read
+# into a fresh output (C's boxes loaded by tensor map into the staging
+# where its rows are 16-byte multiples, else read by each thread), EQUAL to
+# the plain version with C left as it was; rung 07 on w4a16_wgmma.cuh with
+# C added in place (by tensor-map reductions, or by each thread at N 2,102
+# and 262), within W4A16_REL of max |plain|. Each case is one launch of one
+# token tile (the kernel's own count, *_tile_launches): WALK's 2001 x 2102
+# (144 tiles of 128 x 256 wrap the grid; N no multiple of 4), 4,096 (512
+# tiles), 64-token tiles at 65 rows, K of 700 and 1,100 (no multiple of
+# 128), N of 262 and 1,032 (ragged past a 256-column tile).
+LADDER_C_EDGES = [(2001, 2102, 520), (4096, 4096, 4096), (65, 384, 700),
+                  (300, 1032, 1100), (128, 262, 1100)]
+
+
+def _c(m, n, seed, device):
+    return torch.from_numpy(np.random.default_rng(seed).uniform(
+        -1, 1, (m, n)).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("m,n,k", LADDER_C_EDGES)
+def test_int8_gemm_nn_wgmma_edges(cuda, m, n, k):
+    a, b, c = _abc((m, n, k), m + n + k, cuda)
+    ops = int8.prepare(a, b)
+    kept = c.clone()
+    out, _ = _one_tile_launch("int8_gemm_nn", "int8_gemm_nn.cu",
+                              lambda: int8.mmult_q(*ops, c))
+    assert out.data_ptr() != c.data_ptr()
+    assert torch.equal(c, kept)
+    ref = int8.mmult_q_ref(*ops, c)
+    assert torch.equal(out, ref), float((out - ref).abs().max())
+    assert torch.equal(int8.mmult_q(*ops, c), out)
+
+
+@pytest.mark.parametrize("m,n,k", LADDER_C_EDGES)
+def test_w4a16_gemm_wgmma_edges(cuda, m, n, k):
+    a, packed, sw = _w4a16_case(m, n, k, m + n + k, cuda)
+    c = _c(m, n, k, cuda)
+    work = c.clone()
+    out, _ = _one_tile_launch("w4a16_gemm", "w4a16_gemm.cu",
+                              lambda: int4.mmult_q(a, packed, sw, work))
+    assert out.data_ptr() == work.data_ptr()
+    ref = int4.mmult_q_ref(a, packed, sw, c)
+    err = float((work - ref).abs().max())
+    assert err <= W4A16_REL * float(ref.abs().max()), err
+    assert torch.equal(int4.mmult_q(a, packed, sw, c.clone()), work)
+
+
+def test_ladder_c_kernels_take_both_token_tiles(cuda):
+    """token_tile picks 64 at 65 rows x 384 columns and 128 at a 1,024 x
+    11,008 output, for K1 and rung 07 alike."""
+    for m, n, k in ((65, 384, 700), (1024, 11008, 4096)):
+        ops = int8.prepare(*_abc((m, n, k), 3, cuda)[:2])
+        c = _c(m, n, 4, cuda)
+        a, packed, sw = _w4a16_case(m, n, k, 5, cuda)
+        taken = {_one_tile_launch("int8_gemm_nn", "int8_gemm_nn.cu",
+                                  lambda: int8.mmult_q(*ops, c))[1],
+                 _one_tile_launch("w4a16_gemm", "w4a16_gemm.cu",
+                                  lambda: int4.mmult_q(a, packed, sw,
+                                                       c.clone()))[1]}
+        assert taken == {64 if m == 65 else 128}
+
+
+# Rung 07 sums in a fixed order (the tensor-map reductions add each
+# element of C once, in any order: one add each) and K1's C path waits on
+# barriers whose phases run on across tiles: two calls give the same bits,
+# and a CUDA graph replayed on new A (and C reset before each replay, for
+# rung 07) gives an eager call's bits.
+@pytest.mark.parametrize("m,n,k", [(1024, 11008, 4096), (300, 262, 1100),
+                                   (65, 384, 700)])
+def test_ladder_c_kernels_are_deterministic_and_replay(cuda, m, n, k):
+    a, packed, sw = _w4a16_case(m, n, k, 1, cuda)
+    ops = list(int8.prepare(*_abc((m, n, k), 6, cuda)[:2]))
+    c = _c(m, n, 7, cuda)
+    first = int4.mmult_q(a, packed, sw, c.clone())
+    assert torch.equal(first, int4.mmult_q(a, packed, sw, c.clone()))
+    assert torch.equal(int8.mmult_q(*ops, c), int8.mmult_q(*ops, c))
+    torch.cuda.synchronize()
+    work = c.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        int4.mmult_q(a, packed, sw, work)
+        replayed = int8.mmult_q(*ops, c)
+    for seed in (2, 3):
+        rng = np.random.default_rng(seed)
+        a.copy_(torch.from_numpy(rng.standard_normal((m, k)).astype(
+            np.float32)))
+        x = torch.from_numpy(rng.uniform(-1, 1, (m, k)).astype(
+            np.float32)).to(cuda)
+        qa, sa = int8.quant.quantize_symmetric(x, axis=1)
+        ops[0].copy_(qa)
+        ops[1].copy_(sa)
+        work.copy_(c)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(work, int4.mmult_q(a, packed, sw, c.clone()))
+        ref = int4.mmult_q_ref(a, packed, sw, c)
+        err = float((work - ref).abs().max())
+        assert err <= W4A16_REL * float(ref.abs().max()), err
+        assert torch.equal(replayed, int8.mmult_q(*ops, c))
+        assert torch.equal(replayed, int8.mmult_q_ref(*ops, c))
+
+
 def test_float_wrappers_reject_what_the_kernels_do_not_take(cuda):
     a, b, c = _abc((64, 48, 32), 3, cuda)
     with pytest.raises(ValueError):
@@ -2037,10 +2140,12 @@ def test_grouped_dw_matches_plain_version(cuda, shape):
 
 # The kernels that share csrc/wgmma.cuh with the flash kernels and rung
 # 15 (the MoE grouped products, forward, dx and dW), the flash backward's
-# dQ kernel, rungs 15 and 05 (one wgmma body, gemm_wgmma.cuh) and W4A16
-# (bf16_gemm.cuh): SHA-256 digests of their outputs on fixed inputs, as the
-# tree before each rebuild gave them on an H100 (NVIDIA H100 80GB HBM3);
-# dK/dV's as its wgmma kernel gives them. Rung 05 on wgmma, its
+# dQ kernel, rungs 15 and 05 (one wgmma body, gemm_wgmma.cuh) and rung 07
+# (W4A16, w4a16_wgmma.cuh): SHA-256 digests of their outputs on fixed
+# inputs, as the tree before each rebuild gave them on an H100 (NVIDIA
+# H100 80GB HBM3); dK/dV's and rung 07's as their wgmma kernels give them
+# (rung 07's tensor cores sum in another order than its mma.sync kernel
+# did). Rung 05 on wgmma, its
 # accumulators seeded with C, gives the bits of the mma.sync kernel before
 # it. Rung 16 and decode_attention (the bf16 split walk) as the tree
 # before rung 04 and the paged KV8 kernel joined their templates gave
@@ -2059,7 +2164,7 @@ SHARED_DIGESTS = {
     "flash_attention_bwd_dkv": "bdd0004dac43a8f0",
     "bf16_gemm_nt": "9b459eb9c7cec971",
     "bf16_gemm_nn": "c60e016745fb0762",
-    "w4a16_gemm": "1b52344b433b8dd0",
+    "w4a16_gemm": "f67f248fda56f4fb",
     "fp32_gemm_nt": "ac11ae8d979cada5",
     "fp32_gemm_nn": "02471e1e15245f4e",
     "decode_attention": "2e8ac53d6c0b4578"}

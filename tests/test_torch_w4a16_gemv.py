@@ -633,3 +633,101 @@ def test_gemm_tile_walk_covers_every_tile_once(m, n, bt):
     expected = {(i * bt, j * 256) for i in range(-(-m // bt))
                 for j in range(-(-n // 256))}
     assert len(tiles) == len(expected) and set(tiles) == expected
+
+
+# ------------------------------------------------ rung 07: C added in place
+
+def _c_staging():
+    """(tokens, buffers) of w4a16_wgmma.cuh's C_STAGING."""
+    src = (_build.CSRC / GEMM_SOURCE).read_text()
+    args = re.search(r"using C_STAGING = w4::Staging<(\d+), (\d+)>;", src)
+    return int(args[1]), int(args[2])
+
+
+def staged_add_c(y, c, tokens, bufs, bt):
+    """Rung 07's "+ C" epilogue as each consumer warp stages it: its 32
+    columns of a (bt, 256) tile, ``tokens`` tokens a pass, in buffer pass %
+    ``bufs``; thread (g, t) writes token r = 8 jj + 2 t + e, columns
+    4 g .. + 3 of the warp's, as one float4 at 16-byte chunk g ^ (r % 8) of
+    line r, and the tensor map reads the buffer through the 128-byte
+    swizzle and adds it into C (one rounded fp32 add, clipped at M and N).
+    Each element of the tile is staged once."""
+    m, n = c.shape
+    mp, np_ = -(-m // bt) * bt, -(-n // 256) * 256
+    yp = np.zeros((mp, np_), np.float32)
+    yp[:m, :n] = y
+    out = np.zeros((mp, np_), np.float32)
+    out[:m, :n] = c
+    hits = np.zeros((mp, np_), np.int64)
+    r = np.arange(tokens)[:, None]
+    slot = (r * 8 + (np.arange(8)[None, :] ^ (r & 7))).ravel()
+    images = [np.zeros((tokens * 8, 4), np.float32) for _ in range(bufs)]
+    for ti in range(mp // bt):
+        for tj in range(np_ // 256):
+            for warp in range(8):
+                n0 = tj * 256 + 32 * warp
+                for p in range(bt // tokens):
+                    img = images[p % bufs]
+                    t0 = ti * bt + tokens * p
+                    for g in range(8):
+                        for t in range(4):
+                            for jj in range(tokens // 8):
+                                for e in range(2):
+                                    rr = 8 * jj + 2 * t + e
+                                    cols = slice(n0 + 4 * g, n0 + 4 * g + 4)
+                                    img[rr * 8 + (g ^ (rr & 7))] = \
+                                        yp[t0 + rr, cols]
+                                    hits[t0 + rr, cols] += 1
+                    out[t0:t0 + tokens, n0:n0 + 32] += img[slot].reshape(
+                        tokens, 32)
+    assert (hits == 1).all()
+    return out[:m, :n]
+
+
+@pytest.mark.parametrize("m", [65, 130, 300])
+def test_gemm_walk_with_c_matches_jax(m):
+    """Rung 07 (w4a16_gemm): the GEMM's walk, then C added in place
+    through the staging at the source's geometry (C_STAGING), at both
+    token tiles; within REL of max |y| of the JAX rung 07 kernel in
+    interpret mode (C aliased into its output) and of the port's plain
+    version, and EQUAL to the walk's products plus C (the staging moves
+    the values, the map's add rounds once)."""
+    k, n = 700, 300
+    jpacked, jsw, packed, sw = _weights(k, n)
+    ja, a = _a(m, k, m + 1)
+    c = np.random.default_rng(m).uniform(-1, 1, (m, n)).astype(np.float32)
+    tokens, bufs = _c_staging()
+    y = gemm_model(a, packed.numpy(), sw.numpy())
+    for bt in (64, 128):
+        got = staged_add_c(y, c, tokens, bufs, bt)
+        np.testing.assert_array_equal(got, y + c)
+    ref = np.asarray(jint4.mmult_q(ja, jpacked, jsw, jnp.asarray(c),
+                                   interpret=True))
+    _close(got, ref)
+    plain = int4.mmult_q(a, packed, sw, torch.from_numpy(c.copy()))
+    _close(got, plain.numpy())
+
+
+def test_gemm_with_c_constants_match_the_host():
+    """Rung 07's kernel is the GEMM's body with ADD_C, its staging (one
+    32-token buffer or two 16-token buffers a warp: 32 KB) keeps a ring of
+    two stages at BT 128 and three at 64 beside it, where K3's 64 KB would
+    leave one stage at BT 128; C's barriers fit beside the ring's."""
+    src = (_build.CSRC / GEMM_SOURCE).read_text()
+    assert "htog::w16::launch<true>" in (
+        _build.CSRC / "w4a16_gemm.cu").read_text()
+    assert "htog::w16::launch<false>" in (
+        _build.CSRC / "w4a16_gemm_noc.cu").read_text()
+    assert ("static constexpr int OUT = ADD_C ? C_STAGING::BYTES : 0;"
+            in src)
+    tokens, bufs = _c_staging()
+    limit = _const("w4a8_wgmma.cuh", "SMEM_LIMIT")
+    for staging in (8 * bufs * tokens * LINE, 8 * 2 * 16 * LINE):
+        assert staging == 32 * 1024
+        for bt, st in ((128, 2), (64, 3)):
+            assert bt % tokens == 0
+            stage = 4 * bt * LINE + 2 * ROWS * LINE
+            assert (limit - 1024 - 256 - staging) // stage == st
+            assert 16 * st + 8 * 8 * bufs <= 256
+    assert (limit - 1024 - 256 - 8 * 2 * 32 * LINE) // (
+        4 * 128 * LINE + 2 * ROWS * LINE) == 1

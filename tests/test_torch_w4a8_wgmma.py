@@ -482,3 +482,145 @@ def test_w4a8_tile_walk_covers_every_tile_once(m, n, bt):
                 for j in range(-(-n // tile_n))}
     assert len(tiles) == len(expected) and set(tiles) == expected
     assert max(map(len, walk)) - min(map(len, walk)) <= 1
+
+
+# ------------------------------------------- K1: C read into a fresh output
+
+def _staging(source, name):
+    """(tokens, buffers, loads C) of the Staging<...> that ``name`` names
+    in ``source``."""
+    src = (_build.CSRC / source).read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (\w+) = (\d+);", src)}
+    args = re.search(rf"{name}[^;]*Staging<(\w+), (\w+)(, true)?>", src)
+    return (consts.get(args[1], None) or int(args[1]),
+            consts.get(args[2], None) or int(args[2]), bool(args[3]))
+
+
+def c_epilogue(y, c, tokens, bufs, bt, load):
+    """The "+ C" epilogue as each consumer warp stages it: its 32 columns
+    of a (bt, 256) tile, ``tokens`` tokens a pass, in buffer pass %
+    ``bufs``. Threads (g, t) hold token r = 8 jj + 2 t + e of a pass,
+    columns 4 g .. + 3 of the warp's, at 16-byte chunk g ^ (r % 8) of line
+    r. ``load`` (into a fresh output): the tensor map loads C's box into
+    the buffer through the 128-byte swizzle (zeros past M and N), the
+    threads add their products to what they find at their chunk (fp32,
+    rounded), and the map stores the buffer over out (clipped). Else (in
+    place) the threads write their products and the map adds the buffer
+    into C in L2 (one rounded add). Returns out; every element of the tile
+    passes through exactly one buffer slot once."""
+    m, n = c.shape
+    tile_n = _const("TILE_N")
+    mp, np_ = -(-m // bt) * bt, -(-n // tile_n) * tile_n
+    yp = np.zeros((mp, np_), np.float32)
+    yp[:m, :n] = y
+    cp = np.zeros((mp, np_), np.float32)
+    cp[:m, :n] = c
+    out = cp.copy() if not load else np.zeros((mp, np_), np.float32)
+    hits = np.zeros((mp, np_), np.int64)
+    r = np.arange(tokens)[:, None]            # a pass's lines
+    q = np.arange(8)[None, :]                 # logical 16-byte chunks
+    slot = (r * 8 + (q ^ (r & 7)))            # where chunk q of line r lies
+    images = [np.full((tokens * 8, 4), np.nan, np.float32)
+              for _ in range(bufs)]
+    for ti in range(mp // bt):
+        for tj in range(np_ // tile_n):
+            for warp in range(8):
+                n0 = tj * tile_n + 32 * warp
+                for p in range(bt // tokens):
+                    img = images[p % bufs]
+                    t0 = ti * bt + tokens * p
+                    box_c = cp[t0:t0 + tokens, n0:n0 + 32].reshape(
+                        tokens, 8, 4)
+                    if load:
+                        img[slot.ravel()] = box_c.reshape(-1, 4)
+                    for g in range(8):
+                        for t in range(4):
+                            for jj in range(tokens // 8):
+                                for e in range(2):
+                                    rr = 8 * jj + 2 * t + e
+                                    at = rr * 8 + (g ^ (rr & 7))
+                                    v = yp[t0 + rr, n0 + 4 * g:n0 + 4 * g + 4]
+                                    img[at] = img[at] + v if load else v
+                                    hits[t0 + rr, n0 + 4 * g:
+                                         n0 + 4 * g + 4] += 1
+                    box = img[slot.ravel()].reshape(tokens, 32)
+                    if load:
+                        out[t0:t0 + tokens, n0:n0 + 32] = box
+                    else:
+                        out[t0:t0 + tokens, n0:n0 + 32] += box
+    assert (hits == 1).all()
+    return out[:m, :n]
+
+
+@pytest.mark.parametrize("k", [700, 1100, 4096])
+def test_k1_model_with_c_into_a_fresh_output_equals_jax(k):
+    """K1 (int8_gemm_nn): the plain int8 walk at its source's BOXES, and
+    the out-of-place "+ C" epilogue at its staging (C loaded into each
+    warp's buffers, the products added there, the buffers stored into a
+    fresh output): EQUAL to the port's plain version, each op rounded, and
+    to the JAX rung 06 kernel in interpret mode (XLA:CPU contracts its
+    epilogue's last multiply and add into one fused multiply-add, so the
+    model's sums under that rounding); C is left as it was."""
+    m, n = 6, 300
+    x, w = _operands(m, k, n, k + 3)
+    c = np.random.default_rng(k + 1).uniform(-1, 1, (m, n)).astype(
+        np.float32)
+    kept = c.copy()
+    jqa, jsa, jqb, jsb = jint8.prepare(jnp.asarray(x), jnp.asarray(w))
+    ref = np.asarray(jint8.mmult_q(jqa, jsa, jqb, jsb, jnp.asarray(c),
+                                   interpret=True))
+    qa, sa, qb, sb = int8.prepare(torch.from_numpy(x), torch.from_numpy(w))
+    pqa, pqb = _wrapper_operands(qa, qb)
+    boxes = _const("BOXES", "int8_gemm_nn.cu")
+    tokens, bufs, load = _staging("int8_gemm_nn.cu", "using K1")
+    assert load
+    sums = kernel_sums(pqa, pqb[:, :n], boxes)
+    y = (sums.astype(np.float32) * sa.numpy()) * sb.numpy()
+    for bt in (64, 128):
+        got = c_epilogue(y, c, tokens, bufs, bt, load)
+        np.testing.assert_array_equal(got, epilogue_add(
+            sums, sa.numpy(), sb.numpy(), c))
+    plain = int8.mmult_q_ref(qa, sa, qb, sb, torch.from_numpy(c))
+    np.testing.assert_array_equal(got, plain.numpy())
+    np.testing.assert_array_equal(
+        epilogue_add(sums, sa.numpy(), sb.numpy(), c, contract=True), ref)
+    np.testing.assert_array_equal(c, kept)
+
+
+def test_k3_in_place_staging_model_is_the_plain_add():
+    """The same staging model in place, at K3's geometry (OUT_TOKENS, two
+    buffers, no load): the map's add of each staged box gives y + C."""
+    rng = np.random.default_rng(5)
+    y = rng.standard_normal((70, 300)).astype(np.float32)
+    c = rng.standard_normal((70, 300)).astype(np.float32)
+    for bt in (64, 128):
+        np.testing.assert_array_equal(
+            c_epilogue(y, c, _const("OUT_TOKENS"), 2, bt, False), y + c)
+
+
+def test_k1_constants_match_the_host():
+    """K1's source names PlainS8<BOXES> with a staging that loads C, and
+    its layout keeps a ring of at least two stages beside that staging at
+    both token tiles (the header's Layout: the stages that fit in a
+    block's shared memory after 1,024 bytes of alignment, 256 of
+    barriers and the staging); the other choices the variants time fit
+    too."""
+    src = (_build.CSRC / "int8_gemm_nn.cu").read_text()
+    assert "htog::w4::launch<K1, true>" in src
+    assert "PlainS8<BOXES, htog::w4::Staging<OUT_T, OUT_B, true>>" in src
+    boxes = _const("BOXES", "int8_gemm_nn.cu")
+    tokens, bufs, load = _staging("int8_gemm_nn.cu", "using K1")
+    limit, pk = _const("SMEM_LIMIT"), 128 * LINE
+    for b, t, nb in ((boxes, tokens, bufs), (2, 32, 1), (1, 32, 2),
+                     (1, 16, 2)):
+        staging = 8 * nb * t * LINE
+        for bt in (128, 64):
+            assert bt % t == 0
+            stage = b * bt * LINE + 2 * b * pk
+            assert (limit - 1024 - 256 - staging) // stage >= 2, (b, t, nb)
+    # two boxes beside K3's 64 KB staging: one stage, refused
+    assert (limit - 1024 - 256 - 8 * 2 * 32 * LINE) // (
+        2 * 128 * LINE + 4 * pk) == 1
+    # the barriers: the ring's (two a stage) and C's (one a buffer)
+    assert 16 * 5 + 8 * 8 * bufs <= 256
