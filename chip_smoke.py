@@ -197,7 +197,8 @@ Phases (any failure raises and exits non-zero before the last line):
    and S = 2,048, and at S = 520 (not causal) and 130: out, dq, dk and dv
    each per row within a bound of their own row's max |plain|, lse within
    an absolute bound, and the same rule must refuse planted faults (a key
-   tile skipped, a query head dropped from the dK/dV sum); timed as
+   tile skipped, a query head dropped from the dK/dV sum), and two dQ
+   and two dK/dV calls must give the same bits; timed as
    CUDA-graph replays beside the plain versions, the bounds and SDPA (its
    forward; its whole backward on the dK/dV row);
 10. the training path, ``training.soak_main`` on the TinyLlama-1.1B-shaped
@@ -935,7 +936,8 @@ DECODE_ATOL = 2e-3   # decode_attention vs its plain version (sum order, exp)
 FLASH_ULPS = 2.0
 # the times of the rebuilt kernels before their rebuild: the flash
 # forwards at the 7B prefill row and the soak's row, rungs 15, 16, 05, 04,
-# 14 (K2) and 18 at P_FULL, dK/dV at the soak's row, the serving kernels
+# 14 (K2) and 18 at P_FULL, dK/dV and dQ (its mma.sync kernel) at the
+# soak's row, the serving kernels
 # at their JSON rows (the W4A8 decode GEMV's two launches at m = 4,
 # 4,096 -> 11,008; the bf16 paged attention's one-block walk at the 7B
 # pool; the W4A16 GEMV on the CUDA cores at m = 4, 4,096 -> 11,008 and
@@ -951,7 +953,8 @@ BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
              "w4a8_gemv_fq": 0.0201, "paged_decode_attention": 0.5354,
              "w4a16_gemv": 0.0306, "w4a16_gemm_noc": 0.7901,
              "int8_gemm_noc": 0.3395, "w4a8_gemm": 0.6427,
-             "int8_gemm_nn": 0.4896, "w4a16_gemm": 0.9937}
+             "int8_gemm_nn": 0.4896, "w4a16_gemm": 0.9937,
+             "flash_attention_bwd_dq": 0.3791}
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0
@@ -2465,8 +2468,9 @@ def check_flash_train(gen: torch.Generator) -> dict:
     once) and SDPA: its forward on bf16 q for the forward kernel, its
     whole backward (dq, dk and dv; the replay of its forward and backward
     less its forward's) on the dK/dV row, beside the port's whole backward
-    (delta, dq and dK/dV) as one replay. dK/dV must give the same bits on
-    a second call. Returns the first shape's results by kernel."""
+    (delta, dq and dK/dV) as one replay. dQ and dK/dV must each give the
+    same bits on a second call. Returns the first shape's results by
+    kernel."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rel = attention.row_rel_err
     fwd, dq_k, dkv_k = (s["name"] for s in TRAIN_KERNELS)
@@ -2485,12 +2489,15 @@ def check_flash_train(gen: torch.Generator) -> dict:
         delta = (do * ref["out"]).sum(dim=-1)
         args = (q, k, v, do, ref_lse, delta)
         dq = attention.flash_attention_bwd_dq(*args, causal=causal)
+        dq2 = attention.flash_attention_bwd_dq(*args, causal=causal)
         ref["dq"] = attention.flash_attention_bwd_dq_ref(*args, causal=causal)
         dk, dv = attention.flash_attention_bwd_dkv(*args, causal=causal)
         dk2, dv2 = attention.flash_attention_bwd_dkv(*args, causal=causal)
         ref["dk"], ref["dv"] = attention.flash_attention_bwd_dkv_ref(
             *args, causal=causal)
         torch.cuda.synchronize()
+        if not torch.equal(dq, dq2):
+            raise AssertionError(f"flash train {shape}: two dQ calls differ")
         if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
             raise AssertionError(f"flash train {shape}: two dK/dV calls "
                                  "differ")
@@ -2560,7 +2567,7 @@ def check_flash_train(gen: torch.Generator) -> dict:
         for name, (kernel, plain, library, err) in cases.items():
             r = timed(name, shape, kernel, plain, library, *bounds_ms[name],
                       err)
-            if name in (fwd, dkv_k) and i == 0:
+            if i == 0:
                 print(f"{name} {shape}: {r['ms']:.4f} ms, "
                       f"{BEFORE_MS[name]} ms before the rebuild on "
                       "wgmma")

@@ -6,19 +6,33 @@ A variant is a copy of the port's ``csrc/`` under
 (each must match exactly once, so a variant that no longer fits the source
 fails), or another tree's ``csrc/`` given with ``--tree NAME=DIR[:BK]`` (a
 parent commit unpacked by ``git archive``; for the forward group its key
-tile BK). Eight groups of kernels, one a run (``--group``):
+tile BK). Nine groups of kernels, one a run (``--group``):
 
 - ``forward``: ``flash_attention`` at the 7B prefill row (B 4, H = KVH = 32,
   D 128, S = T = 4,096, causal, (B, S, H, D) views) and
   ``flash_attention_fwd_lse`` at the soak's shape (B 8, H 32, KVH 4,
   S 1,024, D 64, causal, views), each output held to its plain version at
   the variant's key tile (``bf16_row_ulps``; ``row_rel_err`` and the lse's
-  max abs);
+  max abs) and to the bits of the first tree checked at that key tile;
 - ``dkv``: ``flash_attention_bwd_dkv`` at the soak's shape, at the 7B
   training row (B 2, H = KVH = 32, S 2,048, D 128, causal) and at T-moe's
   (B 2, H 32, KVH 8, S 1,025, D 128, causal), dk and dv held to the plain
-  version (``row_rel_err``); SDPA's whole backward beside them, timed as
+  version (``row_rel_err``) and to the first tree's bits; SDPA's whole
+  backward beside them, timed as
   the difference of two graph replays (forward and backward, forward);
+- ``dq``: ``flash_attention_bwd_dq`` at the same three shapes, dq held to
+  the plain version (``row_rel_err``) and two calls bit-equal. An older
+  tree's kernel (``mma.sync``) takes the same arguments. The variants give
+  a consumer tile j's S and dP with tile j - 1's dS K (``overlap``),
+  give a block one consumer (``one_consumer``, ``one_consumer_overlap``),
+  take 32-key tiles at D 128 (``d128_bk32``), keep one buffer of rows at
+  D 64 or copy the next item's rows after this item's
+  last tile (``one_buffer``, ``rows_late``), take every round of items
+  in block order (``round_robin``), let the consumers issue
+  without taking turns (``no_pingpong``), or compute p by expf on natural
+  units (``expf``, the ``mma.sync`` kernel's arithmetic); the ``diag_``
+  ones (wrong answers, timing probes) leave out the lo halves' products
+  or the exps;
 - ``gemm``: ``bf16_gemm_nt`` (rung 15), ``fp32_gemm_nt`` (rung 16) and
   ``fp32_gemm_nn`` (rung 04: each its wrapper with the two splits, and the
   kernel alone on planes split beforehand) and ``bf16_gemm_nn`` (rung 05)
@@ -105,7 +119,7 @@ build; the cases run as CUDA-graph replays in rounds that walk the
 variants forwards and then backwards.
 
     python -m how_to_optimize_gemm_tpu_torch.harness.flash_variants \\
-        [--group forward|dkv|gemm|paged|w4a8|int8|gemv|w4a16] \\
+        [--group forward|dkv|dq|gemm|paged|w4a8|int8|gemv|w4a16] \\
         [--variants shipped ...] \\
         [--tree parent=build/parent/how_to_optimize_gemm_tpu_torch/csrc:64]
 """
@@ -248,6 +262,103 @@ DKV_VARIANTS = {
          "y = expf(x);"),
         (_DKV, "constexpr float LOG2E = 1.4426950408889634f;",
          "constexpr float LOG2E = 1.0f;")),
+}
+
+_DQ = "flash_attention_bwd_dq.cu"
+_DQ_NC = ("  static constexpr int NC = 2;                    "
+          "// consumer warpgroups")
+_DQ_BK = "  static constexpr int BK = 64;                   // keys a tile"
+# a consumer's tile j's S and dP issued with its tile j - 1's dS K, which
+# runs beside tile j's exps (the forward's overlap within a consumer): S,
+# dP, dQ and dS's fragments live at once
+_DQ_LAG = (_DQ, """    for (int j = 0; j < my_n; ++j) {
+      wait_full(j);
+      turn();
+      products(j);
+      pass(j);
+      wg::wgmma_wait<0>();
+      scores(j);
+      pack();
+      dq_product(j);
+      wg::wgmma_wait<0>();
+      dq_done(j);
+    }
+    turn();
+    pass(my_n);
+""", """    wait_full(0);
+    turn();
+    products(0);
+    pass(0);
+    wg::wgmma_wait<0>();
+    scores(0);
+    pack();
+    for (int j = 1; j < my_n; ++j) {
+      wait_full(j);
+      turn();
+      products(j);
+      dq_product(j - 1);
+      pass(j);
+      wg::wgmma_wait<1>();
+      scores(j);
+      wg::wgmma_wait<0>();
+      dq_done(j - 1);
+      pack();
+    }
+    turn();
+    dq_product(my_n - 1);
+    pass(my_n);
+    wg::wgmma_wait<0>();
+    dq_done(my_n - 1);
+""")
+_DQ_ONE = (_DQ, _DQ_NC, "  static constexpr int NC = 1;")
+DQ_VARIANTS = {
+    "shipped": (),
+    "overlap": (_DQ_LAG,),
+    # one consumer (64-query items, blocks of 256 threads: 255 registers),
+    # without and with the overlap within it
+    "one_consumer": (_DQ_ONE,),
+    "one_consumer_overlap": (_DQ_ONE, _DQ_LAG),
+    # 32-key tiles at D 128 (two buffers of rows fit beside them)
+    "d128_bk32": ((_DQ, _DQ_BK,
+                   "  static constexpr int BK = D == 64 ? 64 : 32;"),),
+    # 32-key tiles at both D, without and with the overlap within a
+    # consumer (S, dP, dQ and dS's fragments take 80 registers at D 64)
+    "bk32": ((_DQ, _DQ_BK, "  static constexpr int BK = 32;"),),
+    "bk32_overlap": ((_DQ, _DQ_BK, "  static constexpr int BK = 32;"),
+                     _DQ_LAG),
+    # one buffer of rows: the next item's rows copied after this one's
+    "one_buffer": ((_DQ, "      2 * BUF + 2 * STAGE + 2 * wg::ATOM <= "
+                    "SMEM_LIMIT ? 2 : 1;", "      1;"),),
+    # two buffers, the next item's rows copied after this item's last tile
+    "rows_late": ((_DQ, "    int next = (C::BUFS == 2 ? min(ST, x.n) : "
+                   "x.n) - 1;", "    int next = x.n - 1;"),),
+    # the rounds of items all taken in block order (block i: items i,
+    # i + blocks, ...)
+    "round_robin": ((_DQ, "  int w = it * g + (it & 1 ? g - 1 - blockIdx.x : "
+                     "blockIdx.x);", "  int w = it * g + blockIdx.x;"),),
+    # the consumers do not take turns at the tensor cores
+    "no_pingpong": (
+        (_DQ, "    if constexpr (C::NC == 2) wg::bar_sync(fw::BAR_TURN + cw, "
+         "256);\n", ""),
+        (_DQ, "        if (cw == 0 || t < n) wg::bar_arrive(fw::BAR_TURN + "
+         "(cw ^ 1), 256);", "        (void)t;"),
+        (_DQ, "      wg::bar_arrive(fw::BAR_TURN, 256);   // consumer 0 goes "
+         "first", "      (void)0;")),
+    # diagnostics, wrong answers: without the lo halves' products (S, dP
+    # and dS K on the hi halves alone), or without the exps (p = s)
+    "diag_no_lo": (
+        (_DQ, """    wg::Wgmma<C::BK>::template ss<0, 0>(
+        acc, wg::kmajor_desc(ah + C::LO, k % 4), db, 1);
+""", ""),
+        (_DQ, "    wg::Wgmma<D>::template rs<1>(dq, sl[kk], db, 1);\n", "")),
+    "diag_no_exp": ((_DQ, "float pe = ex2(__fmaf_rn(s[4 * i + e], LOG2E, "
+                     "-lse2[e >> 1]));", "float pe = s[4 * i + e];"),),
+    # p = expf(s - lse) on natural units (the mma.sync kernel's arithmetic)
+    "expf": (
+        (_DQ, "ex2(__fmaf_rn(s[4 * i + e], LOG2E, -lse2[e >> 1]))",
+         "expf(__fsub_rn(s[4 * i + e], lse2[e >> 1]))"),
+        (_DQ, "__fmul_rn(p.lse[rows + qpos[r]], LOG2E)",
+         "p.lse[rows + qpos[r]]")),
 }
 
 _GEMM = "bf16_gemm_nt.cu"
@@ -579,6 +690,7 @@ GROUPS = {
     "forward": (("flash_attention.cu", "flash_attention_fwd_lse.cu"),
                 FORWARD_VARIANTS),
     "dkv": ((_DKV,), DKV_VARIANTS),
+    "dq": ((_DQ,), DQ_VARIANTS),
     "gemm": ((_GEMM, _FP32, _NN, _FP32_NN), GEMM_VARIANTS),
     "paged": ((_PAGED,), PAGED_VARIANTS),
     "w4a8": (("w4a8_gemm_noc.cu", "w4a8_gemm.cu", "decode_attention_q8.cu"),
@@ -643,6 +755,17 @@ def build(trees: dict, sources) -> None:
             print(f"[{name}] {kernel} build:\n  " + "\n  ".join(lines))
 
 
+def _same_bits(seen: dict, key: str, *outs) -> str:
+    """Whether ``outs`` equal bit for bit those of the first tree checked
+    under ``key`` (that tree's are kept)."""
+    if key not in seen:
+        seen[key] = outs
+        return "the first tree's bits"
+    same = all(torch.equal(a, b) for a, b in zip(seen[key], outs))
+    return ("bits equal to the first tree's" if same
+            else "bits DIFFER from the first tree's")
+
+
 def _views(b, n, heads, d, gen, dtype):
     return torch.randn((b, n, heads, d), generator=gen, device="cuda").to(
         dtype).transpose(1, 2)
@@ -660,6 +783,7 @@ def forward_cases(gen, tiles):
     refs = {bk: (attention.flash_attention_ref(q, k, v, bk=bk),
                  attention.flash_attention_fwd_lse_ref(tq, tk, tv, bk=bk))
             for bk in sorted(set(tiles.values()))}
+    seen = {}
 
     def check(name):
         out = cases["flash_attention"]()
@@ -669,7 +793,8 @@ def forward_cases(gen, tiles):
                 f"{float(attention.bf16_row_ulps(out, ref).max()):.3f} bf16 "
                 f"ulps of its row's max |plain|; fwd_lse out "
                 f"{float(attention.row_rel_err(o2, ref2).max()):.3e} of its "
-                f"row's max, lse {float((lse - ref_lse).abs().max()):.3e}")
+                f"row's max, lse {float((lse - ref_lse).abs().max()):.3e}; "
+                f"{_same_bits(seen, tiles[name], out, o2, lse)}")
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library = {
@@ -716,6 +841,8 @@ def dkv_cases(gen, tiles):
         library[case] = sdpa_backward_ms(q.to(torch.bfloat16), k, v,
                                          do.to(torch.bfloat16))
 
+    seen = {}
+
     def check(name):
         rel = attention.row_rel_err
         parts = []
@@ -726,9 +853,35 @@ def dkv_cases(gen, tiles):
             ek = float(rel(dk, refs[case][0]).max())
             ev = float(rel(dv, refs[case][1]).max())
             parts.append(f"{case}: dk {ek:.3e}, dv {ev:.3e} of the row's "
-                         f"max, repeat {'equal' if same else 'DIFFERS'}")
+                         f"max, repeat {'equal' if same else 'DIFFERS'}, "
+                         f"{_same_bits(seen, case, dk, dv)}")
         return "; ".join(parts)
     return cases, check, library
+
+
+def dq_cases(gen, tiles):
+    """dq at ``DKV_SHAPES``, held to its plain version (``row_rel_err``),
+    two calls bit-equal."""
+    cases, refs = {}, {}
+    for b, h, kvh, s, d in DKV_SHAPES:
+        q, do = (_views(b, s, h, d, gen, torch.float32) for _ in "qd")
+        k, v = (_views(b, s, kvh, d, gen, torch.bfloat16) for _ in "kv")
+        out, lse = attention.flash_attention_fwd_lse_ref(q, k, v, bk=64)
+        args = (q, k, v, do, lse, (do * out).sum(dim=-1))
+        case = f"dq B={b} H={h} KVH={kvh} S={s} D={d}"
+        cases[case] = (lambda a=args: attention.flash_attention_bwd_dq(*a))
+        refs[case] = attention.flash_attention_bwd_dq_ref(*args)
+
+    def check(name):
+        parts = []
+        for case, fn in cases.items():
+            dq = fn()
+            same = torch.equal(dq, fn())
+            err = float(attention.row_rel_err(dq, refs[case]).max())
+            parts.append(f"{case}: {err:.3e} of the row's max, repeat "
+                         f"{'equal' if same else 'DIFFERS'}")
+        return "; ".join(parts)
+    return cases, check, {}
 
 
 def _split_route(source: str = _FP32) -> bool:
@@ -1375,9 +1528,9 @@ def w4a16_cases(gen, tiles):
     return cases, check, {}
 
 
-CASES = {"forward": forward_cases, "dkv": dkv_cases, "gemm": gemm_cases,
-         "paged": paged_cases, "w4a8": w4a8_cases, "int8": int8_cases,
-         "gemv": gemv_cases, "w4a16": w4a16_cases}
+CASES = {"forward": forward_cases, "dkv": dkv_cases, "dq": dq_cases,
+         "gemm": gemm_cases, "paged": paged_cases, "w4a8": w4a8_cases,
+         "int8": int8_cases, "gemv": gemv_cases, "w4a16": w4a16_cases}
 
 
 def main(argv=None) -> None:

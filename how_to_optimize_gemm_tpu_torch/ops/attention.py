@@ -59,8 +59,9 @@ The reference pads an S that is no block multiple outside its custom VJP
 and masks the padded keys; the kernels and plain versions take any S, so
 nothing is padded: no key at or past S enters a softmax, and there are
 no padded query rows. The forward kernel's tiles are ``KERNEL_BQ`` queries
-by ``KERNEL_BK_LSE`` keys, the dQ kernel's ``KERNEL_BLOCK`` by
-``KERNEL_BLOCK``; the dK/dV kernel walks ``KERNEL_BLOCK`` queries a step
+by ``KERNEL_BK_LSE`` keys, the dQ kernel's ``KERNEL_DQ_ROWS`` by
+``KERNEL_BLOCK`` (a persistent ``wgmma`` kernel, ``dq_walk``); the dK/dV
+kernel walks ``KERNEL_BLOCK`` queries a step
 (a ``wgmma`` kernel whose blocks hold 128 keys at D 64 and 64 at D 128,
 csrc/flash_attention_bwd_dkv.cu). The plain versions walk the reference's blocks:
 ``train_block(S)``, the least-waste of 512, 256 and 128, unless told
@@ -84,9 +85,12 @@ DEFAULT_BLOCK = 512
 KERNEL_BQ = 128
 KERNEL_BK = 64
 KERNEL_BK_LSE = 64
-# the dQ kernel's query and key tiles (flash_attention_bwd_dq.cu) and the
-# dK/dV kernel's query step (flash_attention_bwd_dkv.cu)
+# the dQ kernel's key tile (flash_attention_bwd_dq.cu) and the dK/dV
+# kernel's query step (flash_attention_bwd_dkv.cu)
 KERNEL_BLOCK = 64
+# the dQ kernel's query rows an item (64 each of its two consumer
+# warpgroups)
+KERNEL_DQ_ROWS = 128
 HEAD_DIMS = (64, 128)
 # the reference's training blocks (mha_flash_train's least-waste choice)
 TRAIN_BLOCKS = (512, 256, 128)
@@ -318,6 +322,30 @@ def flash_attention_fwd_lse_ref(q, k, v, *, causal: bool = True,
     l = torch.clamp_min(l, 1e-30)
     out = (o / l).reshape(b, kvh * rep, s, d).to(q.dtype)
     return out, (m + torch.log(l)).reshape(b, kvh * rep, s)
+
+
+def dq_walk(s: int, h: int, b: int, blocks: int) -> list:
+    """The (first query row, head, batch) items that each block of the
+    dQ kernel's persistent grid takes, in order, for S = ``s``: items of
+    ``KERNEL_DQ_ROWS`` query rows, the last query tile (the longest
+    causal walk) first, heads fastest, then batches; the kernel launches
+    ``min(blocks, items)`` blocks (one an SM) and walks rounds of that many
+    items, block i taking a round's item i in even rounds and its item
+    blocks - 1 - i in odd ones, so that the longest of one round and the
+    shortest of the next go to the same block."""
+    bq = KERNEL_DQ_ROWS
+    nq, hb = -(-s // bq), h * b
+    total = nq * hb
+    g = min(blocks, total)
+
+    def item(w):
+        return (nq - 1 - w // hb) * bq, w % hb % h, w % hb // h
+    walk = []
+    for i in range(g):
+        ws = [k * g + (g - 1 - i if k % 2 else i)
+              for k in range(-(-total // g))]
+        walk.append([item(w) for w in ws if w < total])
+    return walk
 
 
 def flash_attention_bwd_dq_ref(q, k, v, do, lse, delta, *,

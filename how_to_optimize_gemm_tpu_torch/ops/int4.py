@@ -21,9 +21,10 @@ packed two per byte in 512-row pack blocks (``ops/quant.py``).
   m <= 64 (the W4A8 GEMV's cluster walk with bf16 products,
   ``w4a16_gemv_plan``), ``w4a16_gemm_noc`` above (bf16 ``wgmma`` with the
   decoded weights in registers, the W4A8 GEMM's walk).
-- ``mmult_q`` (rung 07, W4A16, kernel ``w4a16_gemm``, ``mma.sync`` on
-  128 x 128 tiles): ``C = (A_bf16 @ W) * sw[j] + C``, IN PLACE on ``c``;
-  ``prepare`` makes its operands.
+- ``mmult_q`` (rung 07, W4A16, kernel ``w4a16_gemm``: the prefill GEMM's
+  bf16 ``wgmma`` body, ``csrc/w4a16_wgmma.cuh``, with C added in place by
+  tensor-map reductions): ``C = (A_bf16 @ W) * sw[j] + C``, IN PLACE on
+  ``c``; ``prepare`` makes its operands.
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (``*_ref``) only for CPU tensors. The W4A8 kernels equal their

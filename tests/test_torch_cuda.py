@@ -1879,6 +1879,50 @@ def test_flash_bwd_dkv_edges_repeat_their_bits(cuda, b, h, kvh, s, d,
     assert float(rel(dv, ref_dv).max()) <= TRAIN_GRAD_REL
 
 
+# dQ's wgmma kernel (a persistent grid of 128-query items, two consumers
+# of 64 rows; 64-key tiles): S of 1, 63, 65, 130 and 1,025, rep 1, 4 and
+# 8, D 64 and 128, causal and not; within TRAIN_GRAD_REL of the plain
+# version, two calls bit-equal (no atomics: each query row's sum has one
+# owner), and the rule refuses chip_smoke.py's planted dQ fault (the last
+# 64 queries with one key tile before them skipped). At S = 1 the
+# consistent delta cancels dp (dq is 0 in exact arithmetic, both sides
+# rounding noise), so there delta is drawn at random: the kernel computes
+# the same function of any delta.
+@pytest.mark.parametrize("b,h,kvh,s,d,causal", [
+    (1, 8, 1, 1, 64, True), (2, 4, 4, 1, 128, False),
+    (1, 16, 4, 63, 128, True), (1, 8, 8, 63, 64, False),
+    (2, 8, 2, 65, 64, True), (1, 8, 1, 65, 128, False),
+    (2, 4, 1, 130, 64, True), (1, 8, 8, 130, 128, False),
+    (1, 8, 1, 1025, 64, False), (1, 16, 4, 1025, 128, True),
+    (1, 8, 8, 1025, 64, True)])
+def test_flash_bwd_dq_edges_repeat_their_bits(cuda, b, h, kvh, s, d,
+                                              causal):
+    q, k, v, do = _train_inputs(b, h, kvh, s, d, s + d + h + 3, cuda)
+    ref_out, lse = attention.flash_attention_fwd_lse_ref(
+        q, k, v, causal=causal, bk=attention.KERNEL_BK_LSE)
+    delta = (do * ref_out).sum(dim=-1)
+    if s == 1:
+        delta = torch.randn(delta.shape, device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(h))
+    args = (q, k, v, do, lse, delta)
+    dq = attention.flash_attention_bwd_dq(*args, causal=causal)
+    dq2 = attention.flash_attention_bwd_dq(*args, causal=causal)
+    ref = attention.flash_attention_bwd_dq_ref(*args, causal=causal)
+    bk = attention.KERNEL_BK_LSE
+    j0 = s // 2 // bk * bk
+    keep = torch.cat([torch.arange(j0, device=cuda),
+                      torch.arange(min(j0 + bk, s), s, device=cuda)])
+    last = slice(max(s - bk, 0), s)
+    fault = attention.flash_attention_bwd_dq_ref(
+        q[:, :, last], k[:, :, keep], v[:, :, keep], do[:, :, last],
+        lse[:, :, last], delta[:, :, last], causal=causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dq).all() and torch.equal(dq, dq2)
+    rel = attention.row_rel_err
+    assert float(rel(dq, ref).max()) <= TRAIN_GRAD_REL
+    assert float(rel(fault, ref[:, :, last]).max()) > TRAIN_GRAD_REL
+
+
 def test_mha_flash_train_on_the_card_matches_the_cpu(cuda):
     """The autograd function end to end: mha_flash_train and its
     gradients on the card (the three kernels) against the CPU (the plain
@@ -2143,8 +2187,8 @@ def test_grouped_dw_matches_plain_version(cuda, shape):
 # dQ kernel, rungs 15 and 05 (one wgmma body, gemm_wgmma.cuh) and rung 07
 # (W4A16, w4a16_wgmma.cuh): SHA-256 digests of their outputs on fixed
 # inputs, as the tree before each rebuild gave them on an H100 (NVIDIA
-# H100 80GB HBM3); dK/dV's and rung 07's as their wgmma kernels give them
-# (rung 07's tensor cores sum in another order than its mma.sync kernel
+# H100 80GB HBM3); dK/dV's, rung 07's and dQ's as their wgmma kernels give
+# them (their tensor cores sum in another order than the mma.sync kernels
 # did). Rung 05 on wgmma, its
 # accumulators seeded with C, gives the bits of the mma.sync kernel before
 # it. Rung 16 and decode_attention (the bf16 split walk) as the tree
@@ -2160,7 +2204,7 @@ SHARED_DIGESTS = {
     "grouped_gemm int4": "bb7834b80eba8fa1",
     "grouped_gemm_t int4": "b632e42c32bbc2bc",
     "grouped_dw": "cfcc1f7fabba2333",
-    "flash_attention_bwd_dq": "391e127c542a3a53",
+    "flash_attention_bwd_dq": "8cc13d53b23aad3e",
     "flash_attention_bwd_dkv": "bdd0004dac43a8f0",
     "bf16_gemm_nt": "9b459eb9c7cec971",
     "bf16_gemm_nn": "c60e016745fb0762",
