@@ -58,9 +58,12 @@ Phases (any failure raises and exits non-zero before the last line):
    beside a CUDA-graph replay, the host's share of a call), the bf16 and
    W4A16 kernels' within W4A16_REL, and rungs 16's and 04's (three bf16
    products of split operands on ``wgmma``: bf16x3, XLA's Precision.HIGH,
-   where the reference runs HIGHEST) and the FFMA kernels' (rungs 03/03b,
-   02 and the naive rung 00) within FP32_REL of max |plain| (fp32 sums in
-   another order), and every output under its rung's gate_rel against an
+   where the reference runs HIGHEST), rungs 02's and 03's (bf16x3 on
+   ``mma.sync``, the split inside the kernel; within FP32_REL / 2 at K
+   4,096, two calls bit-equal, 03b also at 03's shapes and timed beside
+   it) and the naive rung 00's (FFMA) within FP32_REL of max |plain|
+   (fp32 sums in another order), and every output under its rung's
+   gate_rel against an
    fp64 oracle on the card; then its time at 4096 beside the plain
    version's, the library call's (where one PyTorch call computes the
    same function: ``torch._int_mm`` and the epilogue for int8, the vendor
@@ -321,9 +324,11 @@ P_DRIVER = 2048
 # w4a16 and bf16 kernels vs their plain version: exact products, fp32 sums
 # in another order (the GEMM's by the tensor cores), relative to max |y|
 W4A16_REL = 2e-5
-# the fp32 kernels vs their plain version: one fmaf chain over K (FFMA) or
-# three bf16 products of split operands (rung 16) against cuBLAS's fp32
-# order, relative to max |y|
+# the fp32 kernels vs their plain version (cuBLAS's fp32 product),
+# relative to max |y|: rung 00's one fmaf chain over K (FFMA), or three
+# bf16 products of split operands (bf16x3: rungs 16 and 04 on wgmma,
+# rungs 02 and 03/03b on mma.sync with the split inside the kernel),
+# those within FP32_REL / 2 at K 4,096
 FP32_REL = 1e-5
 
 SRC = "how_to_optimize_gemm_tpu_torch/csrc/"
@@ -493,8 +498,9 @@ KERNELS = [
          unaligned=(1000, 1032, 1100),
          more=((1024, 1024, 1024), (2048, 2048, 2048)),
          tol=FP32_REL, peak="fp32", extra=("fp32_parts",)),
-    # the rungs below 04, on the CUDA cores; an unaligned shape whose K
-    # and N rows are not 16-byte multiples (03's wrapper pads them)
+    # the rungs below 04: 00 on the CUDA cores, 02 and 03/03b bf16x3 on
+    # mma.sync; an unaligned shape whose K and N rows are not 16-byte
+    # multiples (02's and 03's wrappers pad them)
     dict(name="naive_gemm", source=SRC + "naive_gemm.cu",
          replaces="how_to_optimize_gemm_tpu/ops/naive_vpu.py:21",
          function="naive_vpu.mmult (plain JAX, K rank-1 updates; rung 00)",
@@ -506,13 +512,17 @@ KERNELS = [
          function="pallas_mn_tile._kernel (mmult, rung 02)",
          rung="02_pallas_mn_tile", wrapper=mn_tile.mmult,
          plain=mn_tile.mn_tile_ref, library=vendor.mmult,
-         unaligned=(999, 1030, 1101), tol=FP32_REL, peak="fp32", ffma=True),
+         unaligned=(999, 1030, 1101),
+         more=((1024, 1024, 1024), (2048, 2048, 2048)), tol=FP32_REL,
+         peak="fp32", extra=("bf16x3",)),
     dict(name="fp32_gemm_k_blocked", source=SRC + "fp32_gemm_k_blocked.cu",
          replaces="how_to_optimize_gemm_tpu/ops/pallas_k_blocked.py:31",
          function="pallas_k_blocked._kernel (mmult, rungs 03 and 03b)",
          rung="03_pallas_k_blocked", wrapper=k_blocked.mmult,
          plain=k_blocked.k_blocked_ref, library=vendor.mmult,
-         unaligned=(999, 1030, 1101), tol=FP32_REL, peak="fp32", ffma=True),
+         unaligned=(999, 1030, 1101),
+         more=((1024, 1024, 1024), (2048, 2048, 2048)), tol=FP32_REL,
+         peak="fp32", extra=("bf16x3",)),
 ]
 
 
@@ -793,6 +803,52 @@ def check_fp32_parts(name: str, ops, c, gen: torch.Generator) -> None:
           f"(bound {b_ms:.4f} by {b_by}), bits equal to the wrapper's")
 
 
+def check_bf16x3(name: str, ops, c, gen: torch.Generator) -> None:
+    """Rungs 02, 03 and 03b (bf16x3 on mma.sync, the split inside the
+    kernel) at P_FULL: within FP32_REL / 2 of max |plain| at K 4,096, two
+    calls bit-equal, one launch a call and no split_bf16. Rung 03b (03's
+    kernel at half the block edge) also at 03's shapes, within FP32_REL
+    and under its gate against fp64, and timed beside 03 at P_FULL."""
+    rungs = {"fp32_gemm_mn_tile": {"02_pallas_mn_tile": mn_tile.mn_tile_ref},
+             "fp32_gemm_k_blocked": dict.fromkeys(
+                 ("03_pallas_k_blocked", "03b_pallas_small_blocks"),
+                 k_blocked.k_blocked_ref)}[name]
+    shapes = {"03b_pallas_small_blocks": ((999, 1030, 1101),
+                                          (1024, 1024, 1024),
+                                          (2048, 2048, 2048))}
+    for rung_name, plain in rungs.items():
+        rung = registry.get(rung_name)
+        cases = [(*make_abc(gen, *s, "cuda"), FP32_REL)
+                 for s in shapes.get(rung_name, ())]
+        cases.append((*ops, c, FP32_REL / 2))
+        for a, b, cc, tol in cases:
+            before = dict(_build.LAUNCHES)
+            out = rung.run(a, b, cc)
+            again = rung.run(a, b, cc)
+            ref = plain(a, b, cc)
+            torch.cuda.synchronize()
+            got = (_build.LAUNCHES[name] - before[name],
+                   _build.LAUNCHES["split_bf16"] - before["split_bf16"])
+            err = float((out - ref).abs().max() / ref.abs().max())
+            oracle = a.double() @ b.double() + cc.double()
+            rel = float((out.double() - oracle).abs().max()
+                        / oracle.abs().max())
+            shape = (*cc.shape, a.shape[1])
+            print(f"{rung_name} {shape}: {err:.3e} of max|plain| (bound "
+                  f"{tol}), {rel:.3e} against fp64, two calls "
+                  f"{'bit-equal' if torch.equal(out, again) else 'DIFFER'}")
+            if not (got == (2, 0) and err <= tol and rel < rung.gate_rel
+                    and torch.equal(out, again)):
+                raise AssertionError(f"{rung_name} {shape}: launches "
+                                     f"{got}, err {err}, rel {rel}")
+    if name == "fp32_gemm_k_blocked":
+        ms = {fn.__name__: time_chained(fn, ops, c, inner_iters=20,
+                                        outer_repeats=3, warmup=2) * 1e3
+              for fn in (k_blocked.mmult_small, k_blocked.mmult)}
+        print(f"03b_pallas_small_blocks p={P_FULL}: {ms['mmult_small']:.4f} "
+              f"ms (03: {ms['mmult']:.4f})")
+
+
 def _launched_with_splits(name: str, before: dict) -> None:
     """``name`` launched once and ``split_bf16`` twice since ``before``:
     rungs 16's and 04's wrappers split both operands, then take the
@@ -807,6 +863,7 @@ def _launched_with_splits(name: str, before: dict) -> None:
 EXTRA_CHECKS = {"knobs": check_knobs, "two_piece": check_two_piece,
                 "residue": check_residue, "host": check_host,
                 "nt_walk": check_nt_walk, "fp32_parts": check_fp32_parts,
+                "bf16x3": check_bf16x3,
                 "int8_walk": check_int8_walk, "subnormal": check_subnormal}
 
 
@@ -861,7 +918,7 @@ def check_kernel(spec: dict, gen: torch.Generator) -> dict:
         ffma_ms = bound(ops, P_FULL, P_FULL, P_FULL, PEAK_FFMA_FLOPS)[0]
         ffma = f"; the FFMA ceiling {ffma_ms:.4f}"
     tops = 2.0 * P_FULL ** 3 / result["ms"] * 1e-9
-    before = (f"; {BEFORE_MS[name]} ms before the rebuild on wgmma"
+    before = (f"; {BEFORE_MS[name]} ms before its rebuild"
               if name in BEFORE_MS else "")
     print(f"{name} p={P_FULL}: {result['ms']:.4f} ms = {tops:.1f} Tops/s "
           f"(plain {result['plain_ms']:.4f}, library {lib_ms}, bound "
@@ -942,7 +999,8 @@ FLASH_ULPS = 2.0
 # 4,096 -> 11,008; the bf16 paged attention's one-block walk at the 7B
 # pool; the W4A16 GEMV on the CUDA cores at m = 4, 4,096 -> 11,008 and
 # its GEMM on mma.sync at m = 1,024, 4,096 -> 11,008; int8_gemm_noc on
-# mma.sync at m = 1,024, 4,096 -> 11,008 and K3 at P_FULL) (PERF.md
+# mma.sync at m = 1,024, 4,096 -> 11,008 and K3 at P_FULL; the float
+# ladder's rungs 02 and 03 on the CUDA cores (FFMA) at P_FULL) (PERF.md
 # section 6; NVIDIA H100 80GB HBM3, 700.00 W), printed beside this run's
 BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
              "bf16_gemm_nt": 0.6477, "flash_attention_bwd_dkv": 1.0286,
@@ -954,7 +1012,8 @@ BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
              "w4a16_gemv": 0.0306, "w4a16_gemm_noc": 0.7901,
              "int8_gemm_noc": 0.3395, "w4a8_gemm": 0.6427,
              "int8_gemm_nn": 0.4896, "w4a16_gemm": 0.9937,
-             "flash_attention_bwd_dq": 0.3791}
+             "flash_attention_bwd_dq": 0.3791, "fp32_gemm_mn_tile": 16.0474,
+             "fp32_gemm_k_blocked": 3.9921}
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0

@@ -1,8 +1,10 @@
 // fp32 GEMMs on the CUDA cores (FFMA) at full fp32 accuracy: the main loop
 // of the grouped GEMM's fp32-stack instances (grouped_gemm.cu kind 3, B
 // N-major; grouped_gemm_t.cu kind 3, B given as BT), and nothing else. The
-// ladder's fp32 rungs 04 and 16 run three bf16 products of split operands
-// on gemm_wgmma.cuh instead (fp32_gemm_nn.cu, fp32_gemm_nt.cu).
+// ladder's fp32 rungs run three bf16 products of split operands on the
+// tensor cores instead: 04 and 16 on gemm_wgmma.cuh (fp32_gemm_nn.cu,
+// fp32_gemm_nt.cu), 02 and 03/03b on mma.sync with the split inside the
+// kernel (bf16x3_mma.cuh: fp32_gemm_mn_tile.cu, fp32_gemm_k_blocked.cu).
 //
 // The reference computes these at Precision.HIGHEST (a 6-pass bf16
 // product on the TPU's MXU, about fp32 accurate; gate_rel 1e-4). On

@@ -1,5 +1,6 @@
-// fp32_gemm_k_blocked: out = C + A @ B in fp32, register-blocked with K
-// staged through shared memory: rungs 03 (128 x 128 blocks) and 03b
+// fp32_gemm_k_blocked: out = C + A @ B on fp32 operands as three bf16
+// products of their hi + lo splits, K pipelined through a ring of shared
+// memory, the sums seeded with C: rungs 03 (128 x 128 blocks) and 03b
 // (64 x 64).
 //
 // Replaces: how_to_optimize_gemm_tpu/ops/pallas_k_blocked.py, _kernel (via
@@ -9,130 +10,110 @@
 // (the reference's documented regression). A (M, K) and B (K, N) fp32,
 // row-major, C (M, N) fp32 read, out (M, N) fp32 written.
 //
-// Bound on an H100 SXM at M = N = K = 4096: 1.37e11 operations; three
-// bf16 products of split operands at 989/3 TFLOP/s, 0.417 ms, are the
-// fastest route that meets the rungs' gate (1e-4); FFMA's ceiling is 67
-// TFLOP/s, 2.05 ms. Traffic (268 MB once) takes 0.080 ms at 3.35 TB/s:
-// the arithmetic bounds it.
+// Precision: NOT the reference's (HIGHEST, six bf16 passes on the MXU):
+// three bf16 products of operands split inside the kernel (hi.hi + hi.lo +
+// lo.hi, XLA's HIGH; bf16x3_mma.cuh), as rung 02. The sums start at C, as
+// the reference's _init does, and every 128 K (CH steps) the tensor cores'
+// partial is added into them in fp32, in K's order as the reference adds
+// one 256-deep dot a K step. Held to FP32_REL = 1e-5 of max |plain| (cuBLAS's
+// fp32 product), FP32_REL / 2 at K 4,096 and the rungs' gate (1e-4 against
+// fp64); a time against cuBLAS's fp32 product is one at different
+// precision.
 //
-// Design: the tutorial's register-blocked SGEMM (MMult_cuda_9), one step
-// below fp32_gemm.cuh's FFMA main loop (rung 04's kernel until it moved to
-// bf16 products of split operands). A block owns a BM x BM C tile
-// and each thread an 8 x 8 micro-tile of it (rows ty*8 .. +7, columns
-// tx*8 .. +7), held in registers and seeded with C before the first K
-// step. K is walked in steps of 8: the block loads A's BM x 8 and B's
-// 8 x BM by plain synchronous 16-byte loads (A transposed to [k][m] on its
-// way into shared memory, B as it lies), a barrier, 8 x 64 fmaf per
-// thread from float4 reads of shared memory, a barrier. One stage, no
-// cp.async: fp32_gemm.cuh adds those. The TPU's sequential K grid dimension
-// becomes this loop inside the block; its scratch accumulator, the
-// registers. The two rungs are one template at two block edges:
-//   BM = 128  rung 03, 256 threads;
-//   BM =  64  rung 03b, half the edge, 64 threads: the same work per
-//             thread, half the reuse of each staged tile.
-// Each output is one fmaf chain over k, started at C. Needs K, lda and ldb
-// multiples of 4 and 16-byte aligned bases (the wrapper pads).
-#include <cuda_runtime.h>
+// Bound on an H100 SXM at M = N = K = 4096: 1.37e11 operations at a third
+// of the 989 TFLOP/s bf16 peak, 0.417 ms; traffic (268 MB once) 0.080 ms at
+// 3.35 TB/s: the arithmetic bounds it.
+//
+// Design: rung 02's products and warp fragments, plus the TPU rung's one
+// idea: the sequential K axis pipelined (Mosaic's double buffer) into sums
+// seeded with C. The TPU's K grid dimension becomes a loop inside the
+// block; its scratch accumulator, the registers. K goes through a ring of
+// ST stages of fp32 tiles (A's BM x 32 and B's 32 x BM, as they lie) filled
+// by 16-byte cp.async, each step's copy issued ST steps ahead of its
+// products, one barrier a step. After a stage lands the block splits it
+// once into one of two buffers of bf16 planes, which the warps read by
+// ldmatrix a step later: the split of step k + 1 beside the products of
+// step k. (Each warp splitting the fp32 values it reads into its own
+// fragments, every value split by every warp that reads it, measured
+// 11-13% slower on rung 03: harness/flash_variants.py --group ladder.)
+// The two rungs are one template at two block edges:
+//   BM = 128  rung 03, 8 warps 4 x 2 of 32 x 64 (2 x 4 of 64 x 32: 3-4%
+//             slower);
+//   BM =  64  rung 03b, half the edge, 4 warps of 32 x 32: more blocks,
+//             half the reuse of each staged tile.
+// Stays on mma.sync and cp.async: wgmma, the tensor-map unit and a
+// persistent grid are rung 04's lesson. Needs K, lda and ldb multiples of
+// 4 and 16-byte aligned bases (the wrapper pads).
+#include "bf16x3_mma.cuh"
 
 namespace {
 
-constexpr int BK = 8;  // K step
-constexpr int TM = 8;  // micro-tile edge (rows and columns a thread)
+using namespace htog::x3;
+using htog::cp_async_commit;
+using htog::cp_async_wait;
 
-template <int BM>
-__global__ void __launch_bounds__((BM / TM) * (BM / TM))
+constexpr int ST = 3;  // stages of the ring
+static_assert(ST >= 2, "a ring");
+
+using Rung03 = Tile<128, 4, 2>;
+using Rung03b = Tile<64, 2, 2>;
+
+template <class T>
+constexpr int smem_bytes() {
+  return static_cast<int>(ST * sizeof(Stage<T>) + 2 * sizeof(Planes<T>));
+}
+static_assert(smem_bytes<Rung03>() <= 232448, "227 KB a block");
+
+template <class T>
+__global__ void __launch_bounds__(T::THREADS, 1)
     fp32_gemm_k_blocked_kernel(const float* a, const float* b,
                                const float* c, float* out, int M, int N,
                                int K, int lda, int ldb, int ldc) {
-  constexpr int TX = BM / TM;          // threads along N (and along M)
-  constexpr int THREADS = TX * TX;
-  constexpr int QK = BK / 4;           // float4 chunks in one A row step
-  constexpr int QN = BM / 4;           // float4 chunks in one B row
-  static_assert(BM * QK % THREADS == 0 && BK * QN % THREADS == 0,
-                "every thread stages the same number of chunks");
-  __shared__ __align__(16) float sa[BK][BM];  // A transposed: [k][m]
-  __shared__ __align__(16) float sb[BK][BM];  // B as it lies: [k][n]
-  int tid = threadIdx.x;
-  int tx = tid % TX;
-  int ty = tid / TX;
-  int m0 = blockIdx.y * BM;
-  int n0 = blockIdx.x * BM;
-  float acc[TM][TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    int row = m0 + ty * TM + i;
-#pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      int col = n0 + tx * TM + j;
-      acc[i][j] = row < M && col < N ? c[(size_t)row * ldc + col] : 0.0f;
+  extern __shared__ __align__(16) unsigned char smem[];
+  Stage<T>* ring = reinterpret_cast<Stage<T>*>(smem);
+  const Operands op{a, b, M, N, K, lda, ldb,
+                    static_cast<int>(blockIdx.y) * T::BM,
+                    static_cast<int>(blockIdx.x) * T::BM};
+  Sums<T> s;
+  s.init(op.m0, op.n0);
+  // Every step copies one cp.async group, past K zeros (never read), so
+  // that cp_async_wait counts steps and a step's body has no branch: the
+  // split, the copies and the products are one stretch that ptxas can
+  // interleave. K is walked in partials of CH steps.
+  const int nk = (K + BK - 1) / BK;
+  const int per = partial_steps(nk);
+  auto copy = [&](int j) { copy_stage(ring[j % ST], op, j * BK); };
+  Planes<T>* planes =
+      reinterpret_cast<Planes<T>*>(smem + ST * sizeof(Stage<T>));
+  for (int j = 0; j < ST; ++j) copy(j);
+  s.seed(c, M, N, ldc);
+  cp_async_wait<ST - 1>();
+  __syncthreads();
+  split_stage(planes[0], ring[0]);
+  for (int kt = 0; kt < nk; s.promote()) {
+    for (const int end = min(nk, kt + per); kt < end; ++kt) {
+      // step kt + 1 landed; step kt's planes written and step kt - 1's
+      // read by every warp
+      cp_async_wait<ST - 2>();
+      __syncthreads();
+      copy(kt + ST);  // into step kt's slot, split a step ago
+      s.step_planes(planes[kt & 1]);
+      split_stage(planes[(kt + 1) & 1], ring[(kt + 1) % ST]);
     }
   }
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // out-of-range chunks are zeros: they add nothing to a sum
-#pragma unroll
-    for (int i = 0; i < BM * QK / THREADS; ++i) {
-      int q = tid + i * THREADS;
-      int r = q / QK;
-      int kq = (q % QK) * 4;
-      int gr = m0 + r;
-      int gk = k0 + kq;
-      float4 v = gr < M && gk < K
-                     ? *reinterpret_cast<const float4*>(
-                           a + (size_t)gr * lda + gk)
-                     : zero;
-      sa[kq][r] = v.x;
-      sa[kq + 1][r] = v.y;
-      sa[kq + 2][r] = v.z;
-      sa[kq + 3][r] = v.w;
-    }
-#pragma unroll
-    for (int i = 0; i < BK * QN / THREADS; ++i) {
-      int q = tid + i * THREADS;
-      int kr = q / QN;
-      int cn = (q % QN) * 4;
-      int gk = k0 + kr;
-      int gn = n0 + cn;
-      *reinterpret_cast<float4*>(&sb[kr][cn]) =
-          gk < K && gn < N ? *reinterpret_cast<const float4*>(
-                                 b + (size_t)gk * ldb + gn)
-                           : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float4 a0 = *reinterpret_cast<const float4*>(&sa[k][ty * TM]);
-      float4 a1 = *reinterpret_cast<const float4*>(&sa[k][ty * TM + 4]);
-      float4 b0 = *reinterpret_cast<const float4*>(&sb[k][tx * TM]);
-      float4 b1 = *reinterpret_cast<const float4*>(&sb[k][tx * TM + 4]);
-      float av[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float bv[TM] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TM; ++j)
-          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    int row = m0 + ty * TM + i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TM; ++j) {
-      int col = n0 + tx * TM + j;
-      if (col < N) out[(size_t)row * ldc + col] = acc[i][j];
-    }
-  }
+  s.store(out, nullptr, M, N, ldc);
 }
 
-template <int BM>
+template <class T>
 int launch(const void* a, const void* b, const void* c, void* out, int M,
            int N, int K, int lda, int ldb, int ldc, cudaStream_t stream) {
-  dim3 grid((N + BM - 1) / BM, (M + BM - 1) / BM);
-  constexpr int threads = (BM / TM) * (BM / TM);
-  fp32_gemm_k_blocked_kernel<BM><<<grid, threads, 0, stream>>>(
+  constexpr int smem = smem_bytes<T>();
+  auto kernel = fp32_gemm_k_blocked_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((N + T::BM - 1) / T::BM, (M + T::BM - 1) / T::BM);
+  kernel<<<grid, T::THREADS, smem, stream>>>(
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<const float*>(c), static_cast<float*>(out), M, N, K, lda,
       ldb, ldc);
@@ -152,8 +133,8 @@ extern "C" int fp32_gemm_k_blocked(const void* a, const void* b,
                                    int block, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (block == 128)
-    return launch<128>(a, b, c, out, M, N, K, lda, ldb, ldc, s);
+    return launch<Rung03>(a, b, c, out, M, N, K, lda, ldb, ldc, s);
   if (block == 64)
-    return launch<64>(a, b, c, out, M, N, K, lda, ldb, ldc, s);
+    return launch<Rung03b>(a, b, c, out, M, N, K, lda, ldb, ldc, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -6,7 +6,7 @@ A variant is a copy of the port's ``csrc/`` under
 (each must match exactly once, so a variant that no longer fits the source
 fails), or another tree's ``csrc/`` given with ``--tree NAME=DIR[:BK]`` (a
 parent commit unpacked by ``git archive``; for the forward group its key
-tile BK). Nine groups of kernels, one a run (``--group``):
+tile BK). Ten groups of kernels, one a run (``--group``):
 
 - ``forward``: ``flash_attention`` at the 7B prefill row (B 4, H = KVH = 32,
   D 128, S = T = 4,096, causal, (B, S, H, D) views) and
@@ -112,14 +112,27 @@ tile BK). Nine groups of kernels, one a run (``--group``):
   ``bt128`` the GEMMs' token tile, ``c16x2`` stages rung 07's C in two
   buffers of 16 tokens a warp and ``c_threads`` has each thread add it;
   ``diag_timeline`` (right answers) records each GEMV block's phases. Each tree's host operations a call are printed for the GEMV at
-  m = 4.
+  m = 4;
+- ``ladder``: the float ladder's rungs 02 (``fp32_gemm_mn_tile``), 03 and
+  03b (``fp32_gemm_k_blocked`` at blocks of 128 and 64), each its
+  wrapper at M = N = K = 4,096 and 2,048, held to its plain version
+  relative to max |plain| and to the fp64 product, two calls bit-equal,
+  C unchanged; 01's call (cuBLAS's fp32 product) beside them. An older
+  tree's kernels (the FFMA kernels before the bf16x3 route) take the
+  same arguments. The variants give rung 03 a ring of 2 or 4 stages,
+  split in each warp's fragments instead of in a pass into bf16 planes
+  (at 3 and 4 stages), add the tensor cores' partials every 2, 8 or 16
+  K steps instead of 4 or only at the end (``straight``), or lay the
+  128-wide blocks' 8 warps out 2 x 4 (64 x 32 each) instead of 4 x 2;
+  the ``diag_`` ones (wrong answers, timing probes) leave out rung 03's
+  split pass or the lo products.
 
 Each variant's ptxas lines (registers, spills) are printed after the
 build; the cases run as CUDA-graph replays in rounds that walk the
 variants forwards and then backwards.
 
     python -m how_to_optimize_gemm_tpu_torch.harness.flash_variants \\
-        [--group forward|dkv|dq|gemm|paged|w4a8|int8|gemv|w4a16] \\
+        [--group forward|dkv|dq|gemm|paged|w4a8|int8|gemv|w4a16|ladder] \\
         [--variants shipped ...] \\
         [--tree parent=build/parent/how_to_optimize_gemm_tpu_torch/csrc:64]
 """
@@ -137,6 +150,7 @@ from how_to_optimize_gemm_tpu_torch import _build
 from how_to_optimize_gemm_tpu_torch.harness import profiling
 from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
                                                grouped_gemm, int4, int8,
+                                               k_blocked, mn_tile,
                                                paged_attention, tuned,
                                                vendor)
 from how_to_optimize_gemm_tpu_torch.utils.timing import time_calls
@@ -683,8 +697,121 @@ W4A16_VARIANTS = {
          _TIMES.replace("htog::fq::", "htog::gv::")
          + 'extern "C" int w4a16_gemv(')),
 }
+_MN = "fp32_gemm_mn_tile.cu"
+_KB = "fp32_gemm_k_blocked.cu"
+_X3 = "bf16x3_mma.cuh"
+_KB_ST = (_KB, "constexpr int ST = 3; ")
+_PLANES_LOOP = """  Planes<T>* planes =
+      reinterpret_cast<Planes<T>*>(smem + ST * sizeof(Stage<T>));
+  for (int j = 0; j < ST; ++j) copy(j);
+  s.seed(c, M, N, ldc);
+  cp_async_wait<ST - 1>();
+  __syncthreads();
+  split_stage(planes[0], ring[0]);
+  for (int kt = 0; kt < nk; s.promote()) {
+    for (const int end = min(nk, kt + per); kt < end; ++kt) {
+      // step kt + 1 landed; step kt's planes written and step kt - 1's
+      // read by every warp
+      cp_async_wait<ST - 2>();
+      __syncthreads();
+      copy(kt + ST);  // into step kt's slot, split a step ago
+      s.step_planes(planes[kt & 1]);
+      split_stage(planes[(kt + 1) & 1], ring[(kt + 1) % ST]);
+    }
+  }
+"""
+# rung 03 with no split pass and no planes: each warp splits the fp32
+# values it reads from the ring into its own fragments (A by float2, B
+# down its columns), one step ahead of ST - 1 copies
+_KB_FRAGMENTS = (
+    (_X3, "  // out = tot (+ c when c is given), masked to M x N.",
+     """  // One K step from an fp32 stage, each warp splitting the values it
+  // reads into its fragments.
+  __device__ __forceinline__ void step_fp32(const Stage<T>& st) {
+    int lane = threadIdx.x & 31;
+    int g = lane >> 2, t = lane & 3;
+    int warp = threadIdx.x >> 5;
+    int wr = (warp / T::WN) * T::MI * 16;
+    int wc = (warp % T::WN) * T::NI * 8;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[2][T::MI][4];
+      uint32_t b[2][T::NI][2];
+#pragma unroll
+      for (int mi = 0; mi < T::MI; ++mi) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // registers a0..a3: (g, k), (g + 8, k), (g, k + 8), (g + 8, k + 8)
+          int r = wr + mi * 16 + g + (j & 1) * 8;
+          int k = kk + 2 * t + (j >> 1) * 8;
+          const float2 v = *reinterpret_cast<const float2*>(&st.a[r][k]);
+          fa::split_pack(v.x, v.y, a[0][mi][j], a[1][mi][j]);
+        }
+      }
+#pragma unroll
+      for (int ni = 0; ni < T::NI; ++ni) {
+        int n = wc + ni * 8 + g;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          int k = kk + 2 * t + j * 8;
+          fa::split_pack(st.b[k][n], st.b[k + 1][n], b[0][ni][j],
+                         b[1][ni][j]);
+        }
+      }
+      products(a, b);
+    }
+  }
+
+  // out = tot (+ c when c is given), masked to M x N."""),
+    (_KB, "ST * sizeof(Stage<T>) + 2 * sizeof(Planes<T>)",
+     "ST * sizeof(Stage<T>)"),
+    (_KB, _PLANES_LOOP, """  for (int j = 0; j < ST - 1; ++j) copy(j);
+  s.seed(c, M, N, ldc);
+  for (int kt = 0; kt < nk; s.promote()) {
+    for (const int end = min(nk, kt + per); kt < end; ++kt) {
+      // step kt landed; step kt - 1's slot read by every warp
+      cp_async_wait<ST - 2>();
+      __syncthreads();
+      copy(kt + ST - 1);
+      s.step_fp32(ring[kt % ST]);
+    }
+  }
+"""))
+
+
+def _ladder_ch(steps: int):
+    return ((_X3, "constexpr int CH = 4; ", f"constexpr int CH = {steps}; "),)
+
+
+LADDER_VARIANTS = {
+    "shipped": (),
+    # rung 03's ring of 2 or 4 stages
+    "st2": ((*_KB_ST, "constexpr int ST = 2; "),),
+    "st4": ((*_KB_ST, "constexpr int ST = 4; "),),
+    # each warp splits the fp32 values it reads into its fragments (no
+    # split pass, no planes), at 3 and 4 stages
+    "split_in_fragments": _KB_FRAGMENTS,
+    "split_in_fragments_st4": (*_KB_FRAGMENTS,
+                               (*_KB_ST, "constexpr int ST = 4; ")),
+    # the tensor cores' partials of 2, 8 or 16 K steps (64, 256, 512 K),
+    # and one sum over all of K (CH 0: never promoted before the end)
+    "ch2": _ladder_ch(2),
+    "ch8": _ladder_ch(8),
+    "ch16": _ladder_ch(16),
+    "straight": _ladder_ch(0),
+    # the 128-wide blocks' 8 warps 2 x 4 (64 x 32 each, int8_mma.cuh's
+    # layout), rungs 02 and 03
+    "warps_2x4": ((_MN, "Tile<128, 4, 2>", "Tile<128, 2, 4>"),
+                  (_KB, "Tile<128, 4, 2>", "Tile<128, 2, 4>")),
+    # diagnostics, wrong answers: rung 03 without its split pass (the
+    # planes left as they were), and every rung with hi.hi alone
+    "diag_no_split": ((_KB, "      split_stage(planes[(kt + 1) & 1], "
+                       "ring[(kt + 1) % ST]);\n", ""),),
+    "diag_hi_only": ((_X3, "for (int p = 0; p < 3; ++p)",
+                      "for (int p = 0; p < 1; ++p)"),),
+}
 # the headers the variants may change besides the groups' sources
-HEADERS = (_BODY, _GW, _DA, _W4, _W16G)
+HEADERS = (_BODY, _GW, _DA, _W4, _W16G, _X3)
 
 GROUPS = {
     "forward": (("flash_attention.cu", "flash_attention_fwd_lse.cu"),
@@ -699,6 +826,7 @@ GROUPS = {
     "gemv": ((_GEMV, "paged_decode_attention.cu"), GEMV_VARIANTS),
     "w4a16": ((_W16V, "w4a16_gemm_noc.cu", "w4a16_gemm.cu"),
               W4A16_VARIANTS),
+    "ladder": ((_MN, _KB), LADDER_VARIANTS),
 }
 # the csrc/ tree in use (set by use())
 _ACTIVE: list = [None]
@@ -1528,9 +1656,50 @@ def w4a16_cases(gen, tiles):
     return cases, check, {}
 
 
+def ladder_cases(gen, tiles):
+    """Rungs 02, 03 and 03b (their wrappers, fresh outputs) at 4,096 and
+    2,048: each held to its plain version relative to max |plain| and to
+    the fp64 product, two calls bit-equal, C left as it was; 01's call
+    (cuBLAS's fp32 product) beside them."""
+    cases, rows, library = {}, {}, {}
+    for p in (4096, 2048):
+        a, b, c = (torch.rand((p, p), generator=gen, device="cuda") * 2 - 1
+                   for _ in "abc")
+        for name, run, plain in (
+                ("02 fp32_gemm_mn_tile", mn_tile.mmult, mn_tile.mn_tile_ref),
+                ("03 fp32_gemm_k_blocked", k_blocked.mmult,
+                 k_blocked.k_blocked_ref),
+                ("03b fp32_gemm_k_blocked", k_blocked.mmult_small,
+                 k_blocked.k_blocked_ref)):
+            case = f"{name} p={p}"
+            cases[case] = lambda run=run, a=a, b=b, c=c: run(a, b, c)
+            rows[case] = (run, plain, a, b, c)
+            library[case] = time_calls(
+                lambda a=a, b=b, c=c: vendor.mmult(a, b, c), graph=True) * 1e3
+
+    def check(name):
+        parts = []
+        for case, (run, plain, a, b, c) in rows.items():
+            ref = plain(a, b, c)
+            cin = c.clone()
+            out = run(a, b, c)
+            same = torch.equal(out, run(a, b, c))
+            err = float((out - ref).abs().max() / ref.abs().max())
+            oracle = a.double() @ b.double() + c.double()
+            rel = float((out.double() - oracle).abs().max()
+                        / oracle.abs().max())
+            kept = "unchanged" if torch.equal(cin, c) else "CHANGED"
+            parts.append(f"{case}: {err:.3e} of max |plain|, {rel:.3e} "
+                         f"against fp64, repeat "
+                         f"{'equal' if same else 'DIFFERS'}, C {kept}")
+        return "; ".join(parts)
+    return cases, check, library
+
+
 CASES = {"forward": forward_cases, "dkv": dkv_cases, "dq": dq_cases,
          "gemm": gemm_cases, "paged": paged_cases, "w4a8": w4a8_cases,
-         "int8": int8_cases, "gemv": gemv_cases, "w4a16": w4a16_cases}
+         "int8": int8_cases, "gemv": gemv_cases, "w4a16": w4a16_cases,
+         "ladder": ladder_cases}
 
 
 def main(argv=None) -> None:

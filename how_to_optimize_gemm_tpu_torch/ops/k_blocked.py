@@ -5,11 +5,13 @@ Counterpart of ``how_to_optimize_gemm_tpu/ops/pallas_k_blocked.py``
 an fp32 VMEM scratch accumulator set to C at the first K step and flushed
 at the last; 256-cubed blocks for rung 03, 128-cubed for 03b (the
 reference's documented regression). ``mmult`` launches
-``csrc/fp32_gemm_k_blocked.cu``, the tutorial's register-blocked SGEMM:
-one BLOCK x BLOCK C tile a block, an 8 x 8 micro-tile a thread held in
-registers from C on, K staged through shared memory in steps of 8 by
-synchronous loads. ``BLOCK`` is 128 for rung 03 and ``SMALL_BLOCK`` (64,
-half the edge) for 03b.
+``csrc/fp32_gemm_k_blocked.cu``: one BLOCK x BLOCK C tile a block, K
+pipelined in steps of 32 through a ``cp.async`` ring of fp32 stages, A
+and B split inside the kernel into bf16 hi + lo and multiplied by
+``mma.sync`` as three bf16 products (bf16x3, XLA's Precision.HIGH,
+within FP32_REL of the fp32 product), the sums seeded with C and the
+tensor cores' partials added in every 128 K. ``BLOCK`` is 128 for rung
+03 and ``SMALL_BLOCK`` (64, half the edge) for 03b.
 
 The wrapper launches its kernel for CUDA tensors and runs its plain
 version (``k_blocked_ref``) only for CPU tensors.

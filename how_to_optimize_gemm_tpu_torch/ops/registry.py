@@ -128,17 +128,19 @@ _register(Rung(
     run=mn_tile.mmult,
     prepare=_identity_prepare, effective=_identity_effective,
     gate_rel=1e-4,
-    doc="one 32x32 C tile a block, one output a thread, K tiles of 32 "
-        "staged in shared memory, + C at the end (cuda_3; kernel "
-        "fp32_gemm_mn_tile)"))
+    doc="one 128x128 C tile a block of 8 warps, K steps of 32 by "
+        "synchronous loads, A and B split in the kernel into bf16 hi + lo "
+        "and three mma.sync products (bf16x3), nothing overlapped, + C at "
+        "the end (kernel fp32_gemm_mn_tile)"))
 
 _register(Rung(
     name="03_pallas_k_blocked", dtype="fp32",
     run=k_blocked.mmult,
     prepare=_identity_prepare, effective=_identity_effective,
     gate_rel=1e-4,
-    doc="128x128 block, 8x8 register accumulator a thread seeded with C, "
-        "K steps of 8 staged by synchronous loads (cuda_9; kernel "
+    doc="128x128 block, K pipelined through a 3-stage cp.async ring of "
+        "fp32 tiles, each split once into bf16 hi + lo planes for three "
+        "mma.sync products (bf16x3), the sums seeded with C (kernel "
         "fp32_gemm_k_blocked)"))
 
 _register(Rung(
@@ -147,11 +149,12 @@ _register(Rung(
     prepare=_identity_prepare, effective=_identity_effective,
     gate_rel=1e-4, regression=True,
     doc="REGRESSION (kept honestly, like cuda_6/4x4_15/vk_3): rung 03 at "
-        "half the block edge (64x64, kernel fp32_gemm_k_blocked): more "
-        "blocks, half the reuse of each staged tile. On an NVIDIA H100 "
-        "80GB HBM3 at 700 W (chip_smoke.py) slower than 03 at p=2048 and "
-        "4096 (19,962 and 27,686 vs 32,516 and 34,413 GFLOPS), faster at "
-        "1024 (16,603 vs 12,517), where 03's 64 blocks leave SMs idle"))
+        "half the block edge (64x64, 4 warps, kernel fp32_gemm_k_blocked): "
+        "more blocks, half the reuse of each staged tile and twice the "
+        "split work a product. On an NVIDIA H100 80GB HBM3 at 700 W "
+        "(chip_smoke.py's sweep) slower than 03 at p=2048 and 4096 (56,175 "
+        "and 60,575 vs 78,021 and 86,795 GFLOPS), faster at 1024 (44,029 "
+        "vs 34,311), where 03's 64 blocks leave SMs idle"))
 
 _register(Rung(
     name="04_pallas_tuned_fp32", dtype="fp32",
