@@ -32,13 +32,18 @@ Phases (any failure raises and exits non-zero before the last line):
    M=N=K=4096 and at an unaligned shape (the hand-pipeline kernels of
    rungs 08-13, 17 and 18 also at ``WALK``, where their persistent walks
    and rings wrap; their tiles, derived from a block's shared memory and a
-   thread's registers, rung 11's cluster size, the L2 residency budget of
-   rungs 12 and 13 and rung 18's default cap and plan at 4,096 printed
-   first): the int8 kernels' outputs must
-   be EQUAL (rung 13's repack ``int8_pretile`` byte for byte; rungs 12 and
+   thread's registers, rung 11's cluster size (its kernel's own, which
+   must be ``manual_dma.CLUSTER``) and the clusters the card runs at once,
+   the L2 residency budget of rungs 12 and 13 and rung 18's default cap
+   and plan at 4,096 printed first): the int8 kernels' outputs must
+   be EQUAL (rung 11, on K2's int8 ``wgmma`` body with A multicast across
+   a cluster and C loaded into a fresh output, with C unchanged; rung
+   13's repack ``int8_pretile`` byte for byte; rungs 12 and
    13 must launch their own kernels at 4,096, not rung 11's; rung 17's six
-   knob instances EQUAL to ``int8_gemm_nt``'s output at ``WALK``, each
-   timed at 4,096; rung 18 also at 4,096 with cap 1,664, a two-piece plan,
+   knob instances, K2's body at each ring depth with and without
+   lookahead, EQUAL to ``int8_gemm_nt``'s output at ``WALK`` and 4,096,
+   each timed at 4,096; rungs 11 and 17 printed beside their ``mma.sync``
+   kernels' times; rung 18 also at 4,096 with cap 1,664, a two-piece plan,
    on its own kernel; K2 and rung 18, one int8 ``wgmma`` body, also at
    ``WALK``, where K2's persistent grid wraps (two calls at 4,096
    bit-equal), and on subnormal scales and C, EQUAL with C's rows of
@@ -378,7 +383,8 @@ KERNELS = [
          plain=int8.mmult_q_bt_ref, library=_int_mm_nt,
          unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8",
          extra=("int8_walk", "subnormal")),
-    # the hand-pipeline record (rungs 08-11): fresh outputs, EQUAL
+    # the hand-pipeline record (rungs 08-11): fresh outputs, EQUAL (rung
+    # 11, on K2's int8 wgmma body in clusters, also C unchanged)
     dict(name="int8_dma_nn", source=SRC + "int8_dma_nn.cu",
          replaces=MANUAL_DMA + ":71",
          function="pallas_manual_dma._make_kernel (mmult_q :118, rung 08)",
@@ -405,7 +411,8 @@ KERNELS = [
                   ":670, rung 11)",
          rung="11_strip_resident_int8", wrapper=manual_dma.mmult_q_strip,
          plain=manual_dma.mmult_q_strip_ref, library=_int_mm_nt,
-         unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8"),
+         unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8",
+         fresh=True),
     # the operand-resident rungs 12 and 13 (fresh outputs) and rung 13's
     # repack, the hand pipeline 17 and the ragged plan 18 (in place): EQUAL
     dict(name="int8_resident_nt", source=SRC + "int8_resident.cu",
@@ -542,15 +549,19 @@ def print_fat_tiles() -> None:
     """The hand-pipeline kernels' tiles, derived from a block's shared
     memory and a thread's registers (``manual_dma.fat_tile``)."""
     fat = {"09": (*manual_dma.fat_tile(1), 1),
-           "10 and 11": (*manual_dma.choose_blocks_fat(
-               P_FULL, P_FULL, P_FULL)[:2], 2)}
+           "10": (*manual_dma.choose_blocks_fat(P_FULL, P_FULL, P_FULL)[:2],
+                  2)}
     for rungs, (bm, bn, buffers) in fat.items():
         print(f"rung {rungs}: C tile {bm}x{bn} with {buffers} C/out "
               f"buffer(s), {manual_dma.fat_smem_bytes(bm, bn, buffers):,} "
               f"of {manual_dma.SMEM_BLOCK:,} bytes of shared memory, "
               f"~{manual_dma.fat_regs(bm, bn)} registers a thread")
-    print(f"rung 11: clusters of {manual_dma.CLUSTER} blocks along N share "
-          "each A chunk")
+    size, active = manual_dma.strip_clusters()
+    if size != manual_dma.CLUSTER:
+        raise AssertionError(f"rung 11: the kernel's cluster {size} is not "
+                             f"manual_dma.CLUSTER {manual_dma.CLUSTER}")
+    print(f"rung 11: clusters of {size} blocks along N share each A box by "
+          f"multicast, {active} clusters at once on the card")
     budget = int8.l2_budget("cuda")
     l2 = torch.cuda.get_device_properties(0).L2_cache_size
     for rung, tiled in (("12", False), ("13", True)):
@@ -881,9 +892,12 @@ def check_kernel(spec: dict, gen: torch.Generator) -> dict:
         # the kernel's operands: 07b's and 07's prepare add kdim
         ops = [x for x in prepared if isinstance(x, torch.Tensor)]
         before = dict(_build.LAUNCHES)
-        out = spec["wrapper"](*ops, c.clone())
+        cin = c.clone()
+        out = spec["wrapper"](*ops, cin)
         ref = spec["plain"](*ops, c)
         torch.cuda.synchronize()
+        if spec.get("fresh") and not torch.equal(cin, c):
+            raise AssertionError(f"{name} {m}x{n}x{k} changed C")
         if spec.get("own"):
             _launched(name, before)
         if "fp32_parts" in spec.get("extra", ()):
@@ -993,7 +1007,7 @@ DECODE_ATOL = 2e-3   # decode_attention vs its plain version (sum order, exp)
 FLASH_ULPS = 2.0
 # the times of the rebuilt kernels before their rebuild: the flash
 # forwards at the 7B prefill row and the soak's row, rungs 15, 16, 05, 04,
-# 14 (K2) and 18 at P_FULL, dK/dV and dQ (its mma.sync kernel) at the
+# 14 (K2), 18, 11 and 17 (its b_buffers 3 with lookahead) at P_FULL, dK/dV and dQ (its mma.sync kernel) at the
 # soak's row, the serving kernels
 # at their JSON rows (the W4A8 decode GEMV's two launches at m = 4,
 # 4,096 -> 11,008; the bf16 paged attention's one-block walk at the 7B
@@ -1013,7 +1027,8 @@ BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
              "int8_gemm_noc": 0.3395, "w4a8_gemm": 0.6427,
              "int8_gemm_nn": 0.4896, "w4a16_gemm": 0.9937,
              "flash_attention_bwd_dq": 0.3791, "fp32_gemm_mn_tile": 16.0474,
-             "fp32_gemm_k_blocked": 3.9921}
+             "fp32_gemm_k_blocked": 3.9921, "int8_strip_nt": 1.4485,
+             "int8_hand_pipe_nt": 0.6475}
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0

@@ -3,9 +3,11 @@
 // split operands), rung 05 (bf16_gemm_nn.cu, B read N-major), rung 04
 // (fp32_gemm_nn.cu, three bf16 products on split operands with B read
 // N-major, the partial sums seeded with C), and the int8 summit K2
-// (int8_gemm_nt.cu, rung 14) and rung 18 (int8_ragged_nt.cu, K2 walked
-// over a strip plan). Each of those files names its instance's constants
-// in a struct P:
+// (int8_gemm_nt.cu, rung 14), rung 18 (int8_ragged_nt.cu, K2 walked
+// over a strip plan), rung 11 (int8_strip_nt.cu, K2's body in clusters
+// sharing A, into a fresh output) and rung 17 (int8_hand_pipe.cu, K2's
+// body under two schedule knobs). Each of those files names its instance's
+// constants in a struct P:
 //   S8        int8 operands (QA and QBT, K-major): wgmma.m64nBNk32.s32.s8,
 //             int32 sums, 128 K values a stage, and K2's dequant epilogue
 //             (below); else bf16 operands, fp32 sums, 64 K values a stage
@@ -24,6 +26,15 @@
 //             with CH = 0, the partial-sum array with CH > 0; else they
 //             start at 0 and out = sums + C at the flush (its _flush /
 //             _make_kernel_bt)
+// and, where it names them (else 1, true and false):
+//   CL        blocks of a thread-block cluster along N (below)
+//   LOOKAHEAD the producer may run into a tile's stages while the
+//             consumers finish the tile before; false: it waits on the
+//             `done` barrier, on which both consumer warpgroups arrive once
+//             their flush has been issued
+//   LOAD_C    out is a fresh output (never c): C is loaded by tensor map
+//             into the epilogue's staging (below), the C_LOAD path, in
+//             place of the in-place paths
 //
 // Block (wgmma.cuh's shape, 384 threads): a persistent grid, one block an
 // SM, walking BM x BN output tiles in an order the launch passes as a
@@ -49,11 +60,32 @@
 // restarts the wgmma sum: the fixed order of a fixed tiling, the same bits
 // on every run.
 //
+// Clusters (CL > 1, int8 only): the CL blocks of a cluster take CL
+// neighbouring tiles of one row of output tiles (block rank r the tile
+// n0 + BN r of a cluster tile of BM x CL BN, the walk's unit) and share
+// each stage's A box: rank r copies rows [r BM / CL, (r + 1) BM / CL) of
+// it, whole 1,024-byte swizzle atoms, with one tensor-map multicast that
+// lands at the same offset in every block's slot and pays off each
+// block's own full barrier, so A is read from L2 once a cluster. Each
+// block still copies its own BT box; a block whose tile lies past N (N's
+// tiles no multiple of CL) copies zeros and stores nothing. A slot is
+// refilled once the consumers of every block have released it (Ring's
+// and release's cluster forms in wgmma.cuh: CL x 8 warp arrivals); the
+// blocks meet at a cluster barrier after their barriers' init and before
+// any leaves.
+//
 // Epilogue: where out's rows are 16-byte multiples (and, adding C, C is out
 // itself), each consumer stages its sums in shared memory 32 columns at a
 // time and the tensor-map unit adds them into C (cp.reduce.async.bulk.tensor
 // .add) or stores them, in L2, while the consumers go on to the next tile.
-// Elsewhere each element is read and written by the thread that owns it.
+// Into a fresh output (C_LOAD: c is not out, rows of 16-byte multiples),
+// before a tile's main loop each consumer's first thread loads C's first
+// two boxes (64 rows x OUT_COLS) into its two staging buffers by tensor
+// map, each under a barrier of its own; at the flush the threads add their
+// sums to C there with __fadd_rn and the tensor-map unit stores each
+// buffer into out, the next box loaded once that store has read the
+// buffer (K1's path, w4a8_wgmma.cuh). Elsewhere each element is read and
+// written by the thread that owns it.
 // int8 (K2): first each int32 sum becomes (float(acc) * sa[i]) * sb[j] in
 // its own registers, __fmul_rn each (the plain version's order, never an
 // FMA), sb's values of the tile staged once in shared memory; the add of
@@ -81,6 +113,28 @@ constexpr int OUT_BYTES = 2 * 2 * OUT_BOX;
 // int8: a consumer's staging of sb, SB_COLS of the tile's columns at a
 // time (at most one a consumer thread)
 constexpr int SB_COLS = 128;
+
+// How the epilogue meets C and out (the launch picks one): each thread
+// writes its own elements; the tensor-map unit adds the staged sums into
+// C in place (or stores them, SEED_C); C loaded into the staging by tensor
+// map and the sums stored from it (a fresh output).
+enum CPath { C_THREADS = 0, C_TMA = 1, C_LOAD = 2 };
+
+// An instance's CL, LOOKAHEAD and LOAD_C where it names them, else 1,
+// true and false.
+template <class P, class = void>
+constexpr int cl_of = 1;
+template <class P>
+constexpr int cl_of<P, std::void_t<decltype(P::CL)>> = P::CL;
+template <class P, class = void>
+constexpr bool lookahead_of = true;
+template <class P>
+constexpr bool lookahead_of<P, std::void_t<decltype(P::LOOKAHEAD)>> =
+    P::LOOKAHEAD;
+template <class P, class = void>
+constexpr bool load_c_of = false;
+template <class P>
+constexpr bool load_c_of<P, std::void_t<decltype(P::LOAD_C)>> = P::LOAD_C;
 
 // ------------------------------------------------------------- host side
 
@@ -271,6 +325,67 @@ __device__ __forceinline__ void flush_tma(const T (&d)[NA], uint8_t* bufs,
   }
 }
 
+// A consumer's first thread: C's box ch (64 rows from row0, OUT_COLS
+// columns from col0 + OUT_COLS ch) into its staging buffer ch % 2 by
+// tensor map under that buffer's barrier, once every store out of the
+// staging has read it.
+__device__ __forceinline__ void load_c(const CUtensorMap* tcin,
+                                       uint8_t* bufs, uint64_t* cbar, int ch,
+                                       int row0, int col0) {
+  int b = ch & 1;
+  bulk_wait_read<0>();
+  mbar_arrive_expect_tx(cbar + b, OUT_BOX);
+  wg::tma_2d(bufs + b * OUT_BOX, tcin, col0 + OUT_COLS * ch, row0, cbar + b);
+}
+
+// out = d + C into a fresh output over a consumer's 64 rows from row0 and
+// the tile's columns from col0, OUT_COLS columns at a time: box ch of C is
+// in buffer ch % 2 (load_c, its first two before the tile's main loop;
+// `phase` bit b the parity of buffer b's next load), each thread adds its
+// sums to C where they lie with __fadd_rn (the plain version's d + C, one
+// round-to-nearest add), the warpgroup meets (named barrier 1 + cw) and
+// its first thread hands the buffer to the tensor-map unit to store over
+// out (clipped at M and N), then loads box ch + 2 into it.
+template <class T, int NA>
+__device__ __forceinline__ void flush_load(const T (&d)[NA], uint8_t* bufs,
+                                           uint64_t* cbar, uint32_t& phase,
+                                           const CUtensorMap* tc,
+                                           const CUtensorMap* tcin, int row0,
+                                           int col0, int cw) {
+  int t = threadIdx.x & 127;
+  int lane = t & 31;
+  int r0 = 16 * (t >> 5) + (lane >> 2);
+#pragma unroll
+  for (int ch = 0; ch < NA / 16; ++ch) {
+    int b = ch & 1;
+    uint8_t* buf = bufs + b * OUT_BOX;
+    wg::wait(cbar + b, (phase >> b) & 1);   // C's box is in buf
+    phase ^= 1u << b;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      int j = 4 * ch + jj;
+      int col = 8 * jj + 2 * (lane & 3);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int r = r0 + 8 * h;
+        uint32_t off = r * wg::LINE + ((((col >> 2) ^ (r & 7)) << 4) |
+                                       ((col & 3) << 2));
+        float2* at = reinterpret_cast<float2*>(buf + off);
+        float2 cv = *at;
+        *at = make_float2(__fadd_rn(as_f32(d[4 * j + 2 * h]), cv.x),
+                          __fadd_rn(as_f32(d[4 * j + 2 * h + 1]), cv.y));
+      }
+    }
+    fence_proxy_async();
+    wg::bar_sync(1 + cw, 128);
+    if (t == 0) {
+      wg::tma_out_2d<false>(tc, buf, col0 + OUT_COLS * ch, row0);
+      bulk_commit();
+      if (ch + 2 < NA / 16) load_c(tcin, bufs, cbar, ch + 2, row0, col0);
+    }
+  }
+}
+
 // f(v0, v1, crow, orow, col) for each pair of a consumer's accumulators
 // with row < M: rows from row0, columns col, col + 1 from col0 (wgmma's
 // accumulator layout), crow and orow that row of c and out.
@@ -344,6 +459,9 @@ __device__ __forceinline__ void seed_c(float (&d)[NA], const float* c, int M,
 
 template <class P>
 struct Layout {
+  static constexpr int CL = cl_of<P>;
+  static constexpr bool LOOKAHEAD = lookahead_of<P>;
+  static constexpr bool LOAD_C = load_c_of<P>;
   static constexpr int NP = P::PRODUCTS == 3 ? 2 : 1;   // planes of A, of B
   // a B plane: BN K-major rows, or BN / 64 N-major boxes of HALF_TILE
   static constexpr int B_BYTES = P::BN * wg::LINE;
@@ -355,13 +473,21 @@ struct Layout {
   // stage (k16 bf16, k32 int8)
   static constexpr int KV = P::S8 ? wg::LINE : wg::KT;
   static constexpr int STEPS = wg::LINE / 32;
-  // after the stages: the epilogue's staging, sb's (int8), the ring
+  // after the stages: the epilogue's staging, sb's (int8), the ring, then
+  // C's loads' barriers (two a consumer) and `done`
   static constexpr int SB = P::ST * STAGE + OUT_BYTES;
   static constexpr int RING = SB + (P::S8 ? 2 * SB_COLS * 4 : 0);
-  static constexpr int SMEM = RING +
-                              static_cast<int>(sizeof(wg::Ring<P::ST>)) +
-                              wg::ATOM;
+  static constexpr int BARS =
+      RING + static_cast<int>(sizeof(wg::Ring<P::ST, CL>));
+  static constexpr int SMEM = BARS + 5 * 8 + wg::ATOM;
+  // a block's share of an A box (CL > 1: one multicast each)
+  static constexpr int A_SLICE = A_BYTES / CL;
   static_assert(SMEM <= 232448, "the ring fits a block's shared memory");
+  static_assert(A_SLICE % wg::ATOM == 0,
+                "a block's slice of A is whole 1,024-byte swizzle atoms");
+  static_assert(CL == 1 || (P::S8 && CL <= 8),
+                "clusters (of at most 8) share the int8 A box");
+  static_assert(!LOAD_C || !P::SEED_C, "C loaded where it is added last");
   static_assert(P::PRODUCTS == 1 || P::PRODUCTS == 3,
                 "one product, or three of split planes");
   static_assert(P::BN % 64 == 0, "an N-major B is whole 64-column boxes");
@@ -372,68 +498,98 @@ struct Layout {
 
 // ta: A (M, K) K-major, or its split planes (3-D); tb: BT (N, K) K-major,
 // or B (K, N) N-major, or the split planes of either; tc: out (M, ldc)
-// fp32 in boxes of 64 rows x OUT_COLS, read when tma_out (else each thread
-// writes out); sa (M), sb (N): int8's scales (not read otherwise); walk:
-// the order of the tiles.
+// fp32 in boxes of 64 rows x OUT_COLS, read on the tensor-map paths; tcin:
+// C the same, read on C_LOAD; path: CPath; sa (M), sb (N): int8's scales
+// (not read otherwise); walk: the order of the tiles (CL > 1: of the
+// cluster tiles, BM x CL BN).
 template <class P, class Walk>
 __global__ void __launch_bounds__(wg::BLOCK, 1)
     gemm_wgmma(const __grid_constant__ CUtensorMap ta,
                const __grid_constant__ CUtensorMap tb,
-               const __grid_constant__ CUtensorMap tc, const float* c,
+               const __grid_constant__ CUtensorMap tc,
+               const __grid_constant__ CUtensorMap tcin, const float* c,
                float* out, const float* sa, const float* sb, int M, int N,
-               int K, int ldc, int tma_out, const Walk walk) {
+               int K, int ldc, int path, const Walk walk) {
   using L = Layout<P>;
   constexpr int BN = P::BN;
   constexpr int ST = P::ST;
+  constexpr int CL = L::CL;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = wg::align_1024(smem_raw);
-  auto& ring = *reinterpret_cast<wg::Ring<ST>*>(smem + L::RING);
+  auto& ring = *reinterpret_cast<wg::Ring<ST, CL>*>(smem + L::RING);
+  uint64_t* cbars = reinterpret_cast<uint64_t*>(smem + L::BARS);
+  uint64_t* done = cbars + 4;
   int tiles = walk.tiles();
   int stages = (K + L::KV - 1) / L::KV;     // ring uses a tile
   int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) ring.init();
-  __syncthreads();
+  // the block's rank in its cluster, its tiles' column offset in the
+  // walk's unit, the first unit and the units' stride
+  int rank = 0;
+  if constexpr (CL > 1) rank = static_cast<int>(cluster_rank());
+  int first = blockIdx.x / CL, step = gridDim.x / CL;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 4; ++b) mbar_init(&cbars[b], 1);
+    mbar_init(done, 2);
+    ring.init();
+  }
+  if constexpr (CL > 1)
+    cluster_sync();   // every block's barriers exist before peers use them
+  else
+    __syncthreads();
 
   if (warp < 4) {
-    if (threadIdx.x != 0) return;
-    int q = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      int m0, n0;
-      walk.tile(t, m0, n0);
-      for (int kq = 0; kq < stages; ++kq, ++q) {
-        int s = q % ST;
-        uint8_t* st = smem + s * L::STAGE;
-        uint64_t* full = &ring.full[s];
-        int k0 = kq * L::KV;
-        wg::wait_empty(ring, q);
-        mbar_arrive_expect_tx(full, L::STAGE);
-        if constexpr (P::PRODUCTS == 3) {        // hi, lo of A; of B
-          wg::tma_3d(st, &ta, k0, m0, 0, full);
-          wg::tma_3d(st + A_BYTES, &ta, k0, m0, 1, full);
+    if (threadIdx.x == 0) {
+      int q = 0, j = 0;
+      for (int t = first; t < tiles; t += step, ++j) {
+        int m0, n0;
+        walk.tile(t, m0, n0);
+        n0 += BN * rank;
+        if (!L::LOOKAHEAD && j > 0)   // the consumers' flush of tile j - 1
+          wg::wait(done, (j - 1) & 1);
+        for (int kq = 0; kq < stages; ++kq, ++q) {
+          int s = q % ST;
+          uint8_t* st = smem + s * L::STAGE;
+          uint64_t* full = &ring.full[s];
+          int k0 = kq * L::KV;
+          wg::wait_empty(ring, q);
+          mbar_arrive_expect_tx(full, L::STAGE);
+          if constexpr (P::PRODUCTS == 3) {        // hi, lo of A; of B
+            wg::tma_3d(st, &ta, k0, m0, 0, full);
+            wg::tma_3d(st + A_BYTES, &ta, k0, m0, 1, full);
 #pragma unroll
-          for (int p = 0; p < 2; ++p) {
-            uint8_t* bp = st + L::B + p * L::B_BYTES;
+            for (int p = 0; p < 2; ++p) {
+              uint8_t* bp = st + L::B + p * L::B_BYTES;
+              if constexpr (P::B_MN) {
+#pragma unroll
+                for (int jb = 0; jb < BN / 64; ++jb)
+                  wg::tma_3d(bp + jb * wg::HALF_TILE, &tb, n0 + 64 * jb, k0,
+                             p, full);
+              } else {
+                wg::tma_3d(bp, &tb, k0, n0, p, full);
+              }
+            }
+          } else {
+            if constexpr (CL > 1)   // this block's slice, to every block
+              wg::tma_2d_multicast(st + rank * L::A_SLICE, &ta, k0,
+                                   m0 + rank * (BM / CL), full,
+                                   static_cast<uint16_t>((1u << CL) - 1));
+            else
+              wg::tma_2d(st, &ta, k0, m0, full);
             if constexpr (P::B_MN) {
 #pragma unroll
-              for (int j = 0; j < BN / 64; ++j)
-                wg::tma_3d(bp + j * wg::HALF_TILE, &tb, n0 + 64 * j, k0, p,
-                           full);
+              for (int jb = 0; jb < BN / 64; ++jb)
+                wg::tma_2d(st + L::B + jb * wg::HALF_TILE, &tb, n0 + 64 * jb,
+                           k0, full);
             } else {
-              wg::tma_3d(bp, &tb, k0, n0, p, full);
+              wg::tma_2d(st + L::B, &tb, k0, n0, full);
             }
-          }
-        } else {
-          wg::tma_2d(st, &ta, k0, m0, full);
-          if constexpr (P::B_MN) {
-#pragma unroll
-            for (int j = 0; j < BN / 64; ++j)
-              wg::tma_2d(st + L::B + j * wg::HALF_TILE, &tb, n0 + 64 * j, k0,
-                         full);
-          } else {
-            wg::tma_2d(st + L::B, &tb, k0, n0, full);
           }
         }
       }
+    }
+    if constexpr (CL > 1) {
+      __syncwarp();
+      cluster_sync();   // no block leaves while peers may still reach it
     }
     return;
   }
@@ -442,14 +598,26 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
   uint32_t base = smem_u32(smem);
   uint8_t* bufs = smem + ST * L::STAGE + cw * 2 * OUT_BOX;
   float* sbuf = reinterpret_cast<float*>(smem + L::SB) + cw * SB_COLS;
+  uint64_t* cbar = cbars + 2 * cw;
+  uint32_t phase = 0;   // bit b: the parity of buffer b's next load of C
+  bool lead = (threadIdx.x & 127) == 0;
   int chunk = P::CH > 0 ? P::CH : stages;
   int q = 0;
   typename L::Acc acc[L::ACC];
   float tot[P::CH > 0 ? L::ACC : 1];   // CH > 0: the sum of the partials
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+  for (int t = first; t < tiles; t += step) {
     int m0, n0;
     walk.tile(t, m0, n0);
+    n0 += BN * rank;
     int row0 = m0 + 64 * cw;
+    // a tile past N (a cluster's surplus) stores nothing
+    bool live = CL == 1 || n0 < N;
+    if constexpr (L::LOAD_C) {
+      if (path == C_LOAD && live && lead) {   // C's first boxes in flight
+        load_c(&tcin, bufs, cbar, 0, row0, n0);
+        load_c(&tcin, bufs, cbar, 1, row0, n0);
+      }
+    }
     if constexpr (P::SEED_C && P::CH == 0)
       seed_c(acc, c, M, N, ldc, row0, n0);
     else
@@ -503,62 +671,135 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
         for (int i = 0; i < L::ACC; ++i) tot[i] = __fadd_rn(tot[i], acc[i]);
       }
     }
-    if constexpr (P::S8) dequant(acc, sa, sb, sbuf, M, N, row0, n0, cw);
-    auto finish = [&](const auto& d) {
-      constexpr bool kAdd = !P::SEED_C;
-      if (tma_out)
-        flush_tma<kAdd>(d, bufs, &tc, row0, n0, cw);
+    if (live) {
+      if constexpr (P::S8) dequant(acc, sa, sb, sbuf, M, N, row0, n0, cw);
+      auto finish = [&](const auto& d) {
+        constexpr bool kAdd = !P::SEED_C;
+        if (L::LOAD_C && path == C_LOAD)
+          flush_load(d, bufs, cbar, phase, &tc, &tcin, row0, n0, cw);
+        else if (!L::LOAD_C && path == C_TMA)
+          flush_tma<kAdd>(d, bufs, &tc, row0, n0, cw);
+        else
+          flush_threads<kAdd>(d, c, out, M, N, ldc, row0, n0);
+      };
+      if constexpr (P::CH > 0)
+        finish(tot);
       else
-        flush_threads<kAdd>(d, c, out, M, N, ldc, row0, n0);
-    };
-    if constexpr (P::CH > 0)
-      finish(tot);
-    else
-      finish(acc);
+        finish(acc);
+    }
+    if (!L::LOOKAHEAD && lead) mbar_arrive(done);   // the flush is issued
   }
-  if ((threadIdx.x & 127) == 0) bulk_wait_all();
+  if (lead) bulk_wait_all();
+  if constexpr (CL > 1) {
+    __syncwarp();
+    cluster_sync();   // no block leaves while peers may still reach it
+  }
 }
 
-// Launches gemm_wgmma<P> over the (M, N) output in the order of `walk`,
-// one block an SM, at most one a tile, on the maps of A and B. c and out
+// The epilogue's path (CPath) for c and out (M, ldc) fp32 and the maps it
+// reads, boxes of 64 rows x OUT_COLS with the 128-byte swizzle: tc over
+// out where out's rows are 16-byte multiples on a 16-byte base; C_TMA
+// where out is C (or SEED_C stores it), C_LOAD with tcin over C where the
+// instance loads C (LOAD_C, c on a 16-byte base); else C_THREADS.
+template <class P>
+int c_path(const void* c, void* out, int M, int N, int ldc, CUtensorMap* tc,
+           CUtensorMap* tcin) {
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
+                        static_cast<cuuint64_t>(M)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldc) * 4};
+  cuuint32_t box[2] = {OUT_COLS, 64};
+  auto map = [&](CUtensorMap* m, const void* base) {
+    return reinterpret_cast<uintptr_t>(base) % 16 == 0 &&
+           wg::make_map(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims,
+                        strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  };
+  int tma_out = ldc % 4 == 0 && map(tc, out);
+  if (!tma_out) return C_THREADS;
+  if (Layout<P>::LOAD_C) return map(tcin, c) ? C_LOAD : C_THREADS;
+  return P::SEED_C || c == out ? C_TMA : C_THREADS;
+}
+
+// Blocks of gemm_wgmma<P, Walk> the card runs at once: one an SM, or CL x
+// the clusters of CL it holds at once (cudaOccupancyMaxActiveClusters:
+// clusters of 4 need not fill every GPC). Sets the kernel's shared memory
+// first. Returns a cudaError_t as an int.
+template <class P, class Walk>
+int resident_blocks(int* blocks) {
+  using L = Layout<P>;
+  auto kernel = gemm_wgmma<P, Walk>;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *blocks = sms;
+  if constexpr (L::CL > 1) {
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = L::CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(L::CL * (sms / L::CL));
+    cfg.blockDim = dim3(wg::BLOCK);
+    cfg.dynamicSmemBytes = L::SMEM;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(
+        &clusters, reinterpret_cast<const void*>(kernel), &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    *blocks = L::CL * clusters;
+  }
+  return 0;
+}
+
+// Launches gemm_wgmma<P> over the (M, N) output in the order of `walk`
+// (its units: tiles, or with CL > 1 cluster tiles), as many blocks as the
+// card runs at once (resident_blocks), at most CL a unit, on the maps of A
+// (with CL > 1 its boxes BM / CL rows, a block's slice) and B. c and out
 // (M, ldc) fp32: with SEED_C, out = C + A.B (C + p1 + p2 + ... with
 // CH > 0); else out = A.B + C (int8: dequant(A.B) + C, with sa and sb),
-// c and out one buffer or two.
-// The epilogue goes through the tensor-map unit where out's rows are
-// 16-byte multiples on a 16-byte base (and, adding C, c is out). Returns a
+// c and out one buffer or two. The epilogue's path is c_path's. Returns a
 // cudaError_t as an int.
 template <class P, class Walk>
 int launch(const CUtensorMap& ta, const CUtensorMap& tb, const void* c,
            void* out, const void* sa, const void* sb, int M, int N, int K,
            int ldc, const Walk& walk, cudaStream_t stream) {
   using L = Layout<P>;
-  CUtensorMap tc;
-  cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
-                        static_cast<cuuint64_t>(M)};
-  cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldc) * 4};
-  cuuint32_t box[2] = {OUT_COLS, 64};
-  int tma_out = (P::SEED_C || c == out) && ldc % 4 == 0 &&
-                reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-                wg::make_map(&tc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, out,
-                             dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (!tma_out) tc = ta;   // not read
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(gemm_wgmma<P, Walk>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               L::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int tiles = walk.tiles();
-  if (tiles < 1) return 0;   // no work
-  gemm_wgmma<P, Walk>
-      <<<tiles < sms ? tiles : sms, wg::BLOCK, L::SMEM, stream>>>(
-          ta, tb, tc, static_cast<const float*>(c), static_cast<float*>(out),
-          static_cast<const float*>(sa), static_cast<const float*>(sb), M, N,
-          K, ldc, tma_out, walk);
-  return static_cast<int>(cudaGetLastError());
+  CUtensorMap tc, tcin;
+  int path = c_path<P>(c, out, M, N, ldc, &tc, &tcin);
+  if (path == C_THREADS) tc = ta;   // not read
+  if (path != C_LOAD) tcin = ta;
+  int slots = 0;
+  int err = resident_blocks<P, Walk>(&slots);
+  if (err != 0) return err;
+  int units = walk.tiles();
+  if (units < 1) return 0;   // no work
+  int grid = L::CL * (units < slots / L::CL ? units : slots / L::CL);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = L::CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(wg::BLOCK);
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = L::CL > 1 ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, gemm_wgmma<P, Walk>, ta, tb, tc, tcin,
+      static_cast<const float*>(c), static_cast<float*>(out),
+      static_cast<const float*>(sa), static_cast<const float*>(sb), M, N, K,
+      ldc, path, walk);
+  cudaError_t last = cudaGetLastError();
+  return static_cast<int>(e != cudaSuccess ? e : last);
 }
 
 // launch on the grouped walk, no scales (the bf16 and fp32 rungs)

@@ -43,14 +43,14 @@ extern "C" int int8_fat_nn(const void* qa, const void* qb, const void* sa,
                            const void* sb, const void* c, void* out, int M,
                            int N, int K, int lda, int ldb, int ldc,
                            void* stream) {
-  return htog::launch_fat<false, 256, 1, 1>(qa, qb, sa, sb, c, out, M, N, K,
-                                            lda, ldb, ldc, stream);
+  return htog::launch_fat<false, 256, 1>(qa, qb, sa, sb, c, out, M, N, K,
+                                         lda, ldb, ldc, stream);
 }
 
 extern "C" int int8_fat_nt(const void* qa, const void* qbt, const void* sa,
                            const void* sb, const void* c, void* out, int M,
                            int N, int K, int lda, int ldb, int ldc,
                            void* stream) {
-  return htog::launch_fat<true, 128, 2, 1>(qa, qbt, sa, sb, c, out, M, N, K,
-                                           lda, ldb, ldc, stream);
+  return htog::launch_fat<true, 128, 2>(qa, qbt, sa, sb, c, out, M, N, K,
+                                        lda, ldb, ldc, stream);
 }

@@ -90,7 +90,7 @@ extern "C" int int8_resident_nt(const void* qa, const void* qbt,
                                 const void* sa, const void* sb, const void* c,
                                 void* out, int M, int N, int K, int lda,
                                 int ldb, int ldc, void* stream) {
-  return htog::launch_fat<true, 128, 2, 1, htog::FEED_RESIDENT>(
+  return htog::launch_fat<true, 128, 2, htog::FEED_RESIDENT>(
       qa, qbt, sa, sb, c, out, M, N, K, lda, ldb, ldc, stream);
 }
 
@@ -123,6 +123,6 @@ extern "C" int int8_tiled_resident_nt(const void* at, const void* bt,
                                       const void* c, void* out, int M, int N,
                                       int K, int lda, int ldb, int ldc,
                                       void* stream) {
-  return htog::launch_fat<true, 128, 2, 1, htog::FEED_TILED>(
+  return htog::launch_fat<true, 128, 2, htog::FEED_TILED>(
       at, bt, sa, sb, c, out, M, N, K, lda, ldb, ldc, stream);
 }

@@ -1,6 +1,6 @@
 // Rung 11 int8_strip_nt: C' = f32(QA @ QBT^T as int32) * sa * sb + C, B
-// packed transposed (N, K), into a fresh output; rung 10 (int8_fat_nt)
-// with A shared across a thread-block cluster.
+// packed transposed (N, K), into a fresh output (c is not written): K2's
+// int8 wgmma body with the A strip shared across a thread-block cluster.
 //
 // Replaces: how_to_optimize_gemm_tpu/ops/pallas_manual_dma.py,
 // _make_strip_kernel (via mmult_q_strip, rung 11_strip_resident_int8):
@@ -11,34 +11,74 @@
 // at the 1,979 TOP/s dense int8 peak) against 168 MB of traffic (50 us at
 // 3.35 TB/s): the tensor cores bound it.
 //
-// Design: a strip of 128 x 4,096 int8 is 512 KB, more than the 227 KB a
-// block may use, so the strip's reuse goes to a thread-block cluster of
-// CLUSTER blocks along N: the blocks of a cluster take CLUSTER neighbouring
-// tiles of one row of C tiles, and every A chunk (128 rows x 64 bytes) is
-// read from device memory once per cluster, not once per tile. Each block
-// loads every CLUSTER-th row of the chunk with a 1-D bulk copy multicast to
-// the whole cluster (cp.async.bulk ... .multicast::cluster), which lands at
-// the same offset in every block's slot and pays off every block's full
-// mbarrier. A slot is refilled only when all the cluster's warps have
-// released it: each warp arrives on the empty barrier of every block, lane
-// k on block k's (mapa + mbarrier.arrive.release.cluster; one lane
-// arriving on every block in turn took half again as long, NVIDIA H100
-// 80GB HBM3, 700.00 W, harness/ab.py). B^T, C's fetch, the staged
-// epilogue, the two C/out buffers and the persistent walk are rung 10's.
-// A block ends on a cluster barrier, so none leaves while a peer may still
-// arrive on its barriers. When N's tiles are not a multiple of CLUSTER,
-// the last cluster's surplus blocks multiply zeros and store nothing.
-#include "manual_dma.cuh"
+// Design: gemm_wgmma.cuh's int8 instance (K2's wgmma.m64n256k32 on QA and
+// QBT K-major, fed by tensor maps through a warp-specialised ring of four
+// 48 KB stages, a persistent grouped walk) with the rung's one idea in the
+// card's form. A 128 x 4,096 strip (512 KB) fits no block, so the strip's
+// reuse goes to a cluster of CL blocks along N: the cluster walks tiles of
+// 128 x (CL x 256) in groups of row tiles, block rank r taking the
+// 256-column tile n0 + 256 r, and each stage's 128-row A box is read once
+// a cluster, rank r copying rows [r 128 / CL, (r + 1) 128 / CL) with one
+// tensor-map multicast into every block's slot (whole 1,024-byte swizzle
+// atoms). A slot is refilled once the consumers of all CL blocks have
+// released it. Each block copies its own B^T box; a block whose tile lies
+// past N copies zeros and stores nothing. The grid is CL x the clusters
+// the card holds at once (cudaOccupancyMaxActiveClusters), at most one a
+// cluster tile. The output is fresh: each consumer loads C's boxes by
+// tensor map into its staging, adds its dequantized sums there with
+// __fadd_rn and the tensor-map unit stores the staging into out (K1's
+// path), where C's rows are 16-byte multiples (the wrapper pads them);
+// elsewhere each thread adds C. The int32 sums are exact and the epilogue
+// is (float(acc) * sa) * sb with __fmul_rn each, then one __fadd_rn of C,
+// so the output equals the plain version bit for bit. CL = 1 (the control,
+// harness/flash_variants.py --group strip) shares A through the L2 alone.
+#include "gemm_wgmma.cuh"
 
-namespace {
-constexpr int CLUSTER = 4;
-}
+namespace htog {
 
-// As int8_fat_nt. Returns a cudaError_t.
+struct Rung11 {
+  static constexpr int BN = 256;         // output columns a tile
+  static constexpr int CH = 0;           // stages a partial sum (0: one sum)
+  static constexpr int ST = 4;           // stages of the ring
+  static constexpr int PRODUCTS = 1;
+  static constexpr bool B_MN = false;
+  static constexpr bool SEED_C = false;
+  static constexpr bool S8 = true;       // int8 operands, int32 sums
+  static constexpr int CL = 2;           // blocks of a cluster along N
+  static constexpr bool LOAD_C = true;   // a fresh output, C loaded
+};
+
+using StripWalk = gw::GroupWalk<Rung11::CL * Rung11::BN>;
+
+}  // namespace htog
+
+// As int8_fat_nt: K, lda and ldb multiples of 16, the int8 bases 16-byte
+// aligned, c and out (M, ldc) two buffers (the wrapper pads ldc to a
+// multiple of 4). Returns a cudaError_t (cudaErrorInvalidValue for a
+// tensor map the CUDA driver refuses).
 extern "C" int int8_strip_nt(const void* qa, const void* qbt, const void* sa,
                              const void* sb, const void* c, void* out, int M,
                              int N, int K, int lda, int ldb, int ldc,
                              void* stream) {
-  return htog::launch_fat<true, 128, 2, CLUSTER>(qa, qbt, sa, sb, c, out, M,
-                                                 N, K, lda, ldb, ldc, stream);
+  using namespace htog;
+  constexpr int CL = Rung11::CL;
+  CUtensorMap ta, tb;
+  if (!gw::kmajor_map_s8(&ta, qa, M, K, lda, gw::BM / CL) ||
+      !gw::kmajor_map_s8(&tb, qbt, N, K, ldb, Rung11::BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int num_n = (N + Rung11::BN - 1) / Rung11::BN;
+  StripWalk walk{(M + gw::BM - 1) / gw::BM, (num_n + CL - 1) / CL};
+  return gw::launch<Rung11>(ta, tb, c, out, sa, sb, M, N, K, ldc, walk,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// The cluster's blocks (CL) and the clusters the card runs at once; a
+// negative cudaError_t where the card cannot say.
+extern "C" int int8_strip_nt_cluster() { return htog::Rung11::CL; }
+
+extern "C" int int8_strip_nt_active_clusters() {
+  using namespace htog;
+  int blocks = 0;
+  int err = gw::resident_blocks<Rung11, StripWalk>(&blocks);
+  return err != 0 ? -err : blocks / Rung11::CL;
 }

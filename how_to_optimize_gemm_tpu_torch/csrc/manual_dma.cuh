@@ -1,7 +1,8 @@
 // The hand-pipeline record's rungs on shared-memory rings (int8_dma_nn.cu,
-// int8_fat.cu, int8_strip_nt.cu, int8_resident.cu, int8_hand_pipe.cu):
-// rings tracked per slot by mbarriers, bulk copies, L2 cache policies, and
-// the persistent fat-tile kernel template of rungs 09, 10, 11, 12 and 13.
+// int8_fat.cu, int8_resident.cu): rings tracked per slot by mbarriers,
+// bulk copies, L2 cache policies, and the persistent fat-tile kernel
+// template of rungs 09, 10, 12 and 13. (Rungs 11 and 17 run on
+// gemm_wgmma.cuh's int8 body.)
 //
 // Every thread of a block is a producer and a consumer; there is no warp
 // specialisation. A ring slot has two mbarriers:
@@ -11,9 +12,8 @@
 //             arrive after storing B bytes it staged through registers
 //             (rungs 08 and 09), and for bulk copies one arrive.expect_tx
 //             whose byte count the copies' complete_tx pays off.
-//   empty[s]: completes when every warp (of every block of the cluster) has
-//             finished its MMAs on slot s; a producer waits on it before
-//             writing the slot again.
+//   empty[s]: completes when every warp has finished its MMAs on slot s;
+//             a producer waits on it before writing the slot again.
 // The q-th use of a slot is phase q / S of its barriers, so a wait names
 // the parity (q / S) & 1. A wait on the wrong parity passes a phase early:
 // every wait below derives its parity from the chunk counter q alone.
@@ -47,19 +47,6 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
-// Arrive on the barrier at the same offset in block `cta` of the cluster.
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
-                                                    uint32_t cta) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(smem_u32(bar)), "r"(cta));
-  asm volatile(
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
-          remote)
-      : "memory");
-}
-
 // One arrival that also adds `bytes` to the phase's pending transactions.
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
                                                       uint32_t bytes) {
@@ -77,35 +64,22 @@ __device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
                : "memory");
 }
 
-template <bool kCluster>
 __device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
   uint32_t ok;
-  if (kCluster) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } else {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(ok)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  }
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(addr), "r"(parity)
+      : "memory");
   return ok != 0;
 }
 
-// Wait until the phase of parity `parity` has completed. kCluster: the
-// arrivals came from other blocks of the cluster (acquire at cluster scope).
-template <bool kCluster = false>
+// Wait until the phase of parity `parity` has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   uint32_t addr = smem_u32(bar);
-  while (!mbar_try_wait<kCluster>(addr, parity)) {
+  while (!mbar_try_wait(addr, parity)) {
   }
 }
 
@@ -117,19 +91,6 @@ __device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// The same copy landing at the same offset in every block of `mask`, each
-// block's barrier at `bar`'s offset paid off.
-__device__ __forceinline__ void bulk_g2s_multicast(void* dst, const void* src,
-                                                   uint32_t bytes,
-                                                   uint64_t* bar,
-                                                   uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes."
-      "multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
       : "memory");
 }
 
@@ -237,19 +198,6 @@ __device__ __forceinline__ void l2_evict_normal_grid(const void* src,
                  : "memory");
 }
 
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::
-          : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
 // mma_stage's fragment walk for a warp tile of 64 x (NI x 8): one 64-byte
 // K chunk from a K-major A slot and a K-major B slot (NI = 4 is exactly
 // mma_stage<MmaS8>; NI = 8 serves the 128 x 256 fat tile, whose warps own
@@ -350,11 +298,9 @@ __device__ __forceinline__ void staged_epilogue(const int (&acc)[4][NI][4],
   }
 }
 
-// The persistent fat-tile kernel (rungs 09, 10, 11). Each block (each
-// cluster of CL blocks along N) walks work units unit0, unit0 + stride,
-// ...; a unit is one BM x BNT tile (CL = 1) or a row of CL tiles whose
-// blocks share every A chunk (CL > 1: block `rank` takes tile CL * u + rank
-// of the row). The K chunks of all the block's tiles form one stream
+// The persistent fat-tile kernel (rungs 09, 10, 12, 13). Each block walks
+// the BM x BNT tiles blockIdx.x, blockIdx.x + gridDim.x, ... in row-major
+// order. The K chunks of all the block's tiles form one stream
 // q = 0, 1, ...: chunk q + 1 is issued before chunk q is waited on, also
 // across a tile boundary, so the next tile's first chunks load while this
 // tile's epilogue runs.
@@ -367,9 +313,7 @@ __device__ __forceinline__ void staged_epilogue(const int (&acc)[4][NI][4],
 // copies, which drain while the next tiles run. With one buffer the next
 // tile's C fetch waits until that store has read the buffer; with two,
 // tile j fetches into buffer j % 2 while tile j - 1's store reads the
-// other (the reference's accumulator ping-pong). CL > 1: each block loads
-// every CL-th row of the tile row's A chunk and multicasts it to the whole
-// cluster, so an A chunk is read from device memory once per cluster.
+// other (the reference's accumulator ping-pong).
 //
 // kFeed: how the A and B^T chunks reach the ring (Feed). FEED_RESIDENT
 // (rung 12) first prefetches the grid's share of A and B^T into the L2
@@ -379,18 +323,16 @@ __device__ __forceinline__ void staged_epilogue(const int (&acc)[4][NI][4],
 // of the lines back to evict_normal. FEED_TILED (rung 13) reads pretiled
 // operands (int8_pretile): a chunk is one slot image of BM x LDS bytes,
 // one bulk copy a chunk and operand, issued by thread 0.
-template <bool kNT, int BNT, int NBUF, int CL, int kFeed = FEED_STREAM>
+template <bool kNT, int BNT, int NBUF, int kFeed = FEED_STREAM>
 __global__ void __launch_bounds__(THREADS, 1)
     int8_fat_kernel(const FatArgs p) {
-  static_assert(kNT || CL == 1, "a cluster shares A of a K-major B only");
-  static_assert(kFeed == FEED_STREAM || (kNT && CL == 1 && BNT == BM),
-                "the resident feeds take B^T on 128 x 128 tiles, no cluster");
+  static_assert(kFeed == FEED_STREAM || (kNT && BNT == BM),
+                "the resident feeds take B^T on 128 x 128 tiles");
   constexpr bool kHint = kFeed != FEED_STREAM;
   using L = FatLayout<BNT, NBUF>;
   constexpr int NI = BNT / 32;  // 8-column fragments a warp, 4 warps on N
   constexpr int NH = BNT / 128;  // 128-row halves of a B slot
   constexpr int PITCH = L::CPITCH / 4;
-  constexpr bool kMulti = CL > 1;
   extern __shared__ __align__(128) uint8_t smem[];
   auto a_slot = [&](int s) {
     return reinterpret_cast<int8_t(*)[LDS]>(smem + s * L::A_BYTES);
@@ -410,7 +352,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int lane = threadIdx.x & 31;
   const int wm = warp >> 2;
   const int wn = warp & 3;
-  const int rank = kMulti ? static_cast<int>(cluster_rank()) : 0;
   uint64_t keep = 0, pass = 0;  // L2 policies: the operands, C and out
   if constexpr (kHint) {
     keep = l2_evict_last();
@@ -424,35 +365,31 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int s = 0; s < RING_SLOTS; ++s) {
       mbar_init(&full[s], kFeed == FEED_TILED
                               ? 1
-                              : THREADS * (kNT ? 1 : 2) + (kMulti ? 1 : 0));
-      mbar_init(&empty[s], WARPS * CL);
+                              : THREADS * (kNT ? 1 : 2));
+      mbar_init(&empty[s], WARPS);
     }
     for (int b = 0; b < NBUF; ++b) mbar_init(&cbar[b], 1);
     mbar_fence_init();
   }
-  if (kMulti)
-    cluster_sync();  // every block's barriers exist before peers use them
-  else
-    __syncthreads();
+  __syncthreads();
 
-  const int ncn = (p.ntn + CL - 1) / CL;
-  const int units = p.ntm * ncn;
-  const int unit0 = blockIdx.x / CL;
-  const int stride = gridDim.x / CL;
+  const int units = p.ntm * p.ntn;
+  const int unit0 = blockIdx.x;
+  const int stride = gridDim.x;
   const int jobs = unit0 < units ? (units - 1 - unit0) / stride + 1 : 0;
   const int nk = (p.K + BK - 1) / BK;
   const int total = jobs * nk;
   auto tile_of = [&](int j, int& m0, int& n0) {
     int u = unit0 + j * stride;
-    m0 = (u / ncn) * BM;
-    n0 = ((u % ncn) * CL + rank) * BNT;
+    m0 = (u / p.ntn) * BM;
+    n0 = (u % p.ntn) * BNT;
   };
 
   uint32_t breg[NH][2][4];  // NN: the next B chunk on its way to its slot
   auto issue = [&](int q) {
     int s = q % RING_SLOTS;
     int use = q / RING_SLOTS;
-    if (use > 0) mbar_wait<kMulti>(&empty[s], (use - 1) & 1);
+    if (use > 0) mbar_wait(&empty[s], (use - 1) & 1);
     int m0, n0;
     tile_of(q / nk, m0, n0);
     int k0 = (q % nk) * BK;
@@ -467,22 +404,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       return;
     }
-    if (kMulti) {
-      if (warp == 0) {
-        int rows = min(BM, p.M - m0);
-        uint32_t bytes = static_cast<uint32_t>(min(BK, p.K - k0));
-        if (lane == 0) mbar_arrive_expect_tx(&full[s], rows * bytes);
-        __syncwarp();
-        for (int r = rank + CL * lane; r < rows; r += CL * 32)
-          bulk_g2s_multicast(&a_slot(s)[r][0],
-                             p.a + static_cast<size_t>(m0 + r) * p.lda + k0,
-                             bytes, &full[s],
-                             static_cast<uint16_t>((1u << CL) - 1));
-      }
-    } else {
-      load_kmajor_tile<THREADS, kHint>(a_slot(s), p.a, m0, p.M, k0, p.K,
-                                       p.lda, threadIdx.x, keep);
-    }
+    load_kmajor_tile<THREADS, kHint>(a_slot(s), p.a, m0, p.M, k0, p.K,
+                                     p.lda, threadIdx.x, keep);
 #pragma unroll
     for (int h = 0; h < NH; ++h) {
       if (kNT)
@@ -547,11 +470,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     mbar_wait(&full[s], (q / RING_SLOTS) & 1);
     mma_chunk<NI>(acc, a_slot(s), b_slot(s), wm, wn, lane);
     __syncwarp();
-    if (kMulti) {
-      if (lane < CL) mbar_arrive_cluster(&empty[s], lane);  // lane k: block k
-    } else if (lane == 0) {
-      mbar_arrive(&empty[s]);
-    }
+    if (lane == 0) mbar_arrive(&empty[s]);
     if (!kNT && q + 1 < total) store_b(q + 1);
     if (kt == nk - 1) {
       // the flush: C has landed, epilogue in place, bulk store
@@ -579,7 +498,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   }
   if (warp == 0) bulk_wait_all();
-  if (kMulti) cluster_sync();  // no block leaves while peers arrive on it
   if constexpr (kFeed == FEED_RESIDENT) {
     l2_evict_normal_grid(p.a, static_cast<size_t>(p.M) * p.lda);
     l2_evict_normal_grid(p.b, static_cast<size_t>(p.N) * p.ldb);
@@ -589,15 +507,15 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// Launch the fat-tile kernel: as many blocks (clusters) as the card holds
-// at once, at most one per work unit. Returns a cudaError_t as an int.
-template <bool kNT, int BNT, int NBUF, int CL, int kFeed = FEED_STREAM>
+// Launch the fat-tile kernel: as many blocks as the card holds at once
+// (one an SM), at most one a tile. Returns a cudaError_t as an int.
+template <bool kNT, int BNT, int NBUF, int kFeed = FEED_STREAM>
 int launch_fat(const void* qa, const void* b, const void* sa, const void* sb,
                const void* c, void* out, int M, int N, int K, int lda,
                int ldb, int ldc, void* stream) {
   using L = FatLayout<BNT, NBUF>;
   static_assert(L::SMEM <= 232448, "a block's shared memory is 227 KB");
-  auto kernel = int8_fat_kernel<kNT, BNT, NBUF, CL, kFeed>;
+  auto kernel = int8_fat_kernel<kNT, BNT, NBUF, kFeed>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -605,40 +523,14 @@ int launch_fat(const void* qa, const void* b, const void* sa, const void* sb,
             static_cast<const float*>(sa),  static_cast<const float*>(sb),
             static_cast<const float*>(c),   static_cast<float*>(out),
             M, N, K, lda, ldb, ldc, (M + BM - 1) / BM, (N + BNT - 1) / BNT};
-  int units = p.ntm * ((p.ntn + CL - 1) / CL);
+  int units = p.ntm * p.ntn;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = L::SMEM;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = CL > 1 ? 1 : 0;
-  int slots = sms;  // blocks the card holds at once: one an SM
-  if (CL > 1) {
-    int clusters = 0;
-    cfg.gridDim = dim3(CL * (sms / CL));
-    if (cudaOccupancyMaxActiveClusters(
-            &clusters, reinterpret_cast<const void*>(kernel), &cfg) !=
-            cudaSuccess ||
-        clusters < 1) {
-      cudaGetLastError();  // clear it: a launch that cannot run says so below
-      clusters = sms / CL;
-    }
-    slots = clusters;
-  }
-  int grid = units < slots ? units : slots;
+  int grid = units < sms ? units : sms;
   if (grid < 1) return 0;  // no work
-  cfg.gridDim = dim3(grid * CL);
-  err = cudaLaunchKernelEx(&cfg, kernel, p);
-  cudaError_t last = cudaGetLastError();
-  return static_cast<int>(err != cudaSuccess ? err : last);
+  kernel<<<grid, THREADS, L::SMEM, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace htog

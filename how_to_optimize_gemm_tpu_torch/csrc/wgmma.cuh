@@ -7,7 +7,9 @@
 // consumers; its own block layout, described there), of flash dK/dV
 // (flash_attention_bwd_dkv.cu, N 32 to 128) and of rungs 15, 16, 05, 04,
 // K2 (rung 14) and 18 (gemm_wgmma.cuh, N 256 and 128; K2 and 18 on int8,
-// m64n256k32.s8), each with its own block layout.
+// m64n256k32.s8; rung 11 on that body in clusters of blocks sharing A by
+// multicast, Ring's and release's cluster forms below), each with its own
+// block layout.
 //
 // ptxas serializes the wgmmas of a loop shaped like consume() below (its
 // note C7518, "wgmma.mma_async instructions are serialized due to program
@@ -177,6 +179,23 @@ __device__ __forceinline__ void tma_out_2d(const CUtensorMap* map,
         "r"(smem_u32(src)), "r"(c0), "r"(c1)
         : "memory");
   }
+}
+
+// tma_2d's box landing at dst's offset in every block of the cluster named
+// by `mask` (bit r: block rank r), each block's barrier at bar's offset
+// paid off with the bytes that land in that block.
+__device__ __forceinline__ void tma_2d_multicast(void* dst,
+                                                 const CUtensorMap* map,
+                                                 int c0, int c1,
+                                                 uint64_t* bar,
+                                                 uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
+      "r"(c0), "r"(c1)
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
@@ -641,17 +660,55 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-// The ring's barriers, after the stages in shared memory.
-template <int ST>
+}  // namespace wg
+
+// Arrive on the barrier at the same offset in block `cta` of the cluster,
+// at the default release.cta (CUTLASS's ClusterBarrier::arrive): what the
+// arrival publishes is that reads of this block's shared memory, wgmma's,
+// have completed (wgmma's wait came first), not data. A release at
+// cluster scope made rung 11 1.55x slower (NVIDIA H100 80GB HBM3,
+// 700.00 W; harness/flash_variants.py --group strip, release_cluster).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t cta) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(bar)), "r"(cta));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+               : "memory");
+}
+
+// Every thread of the cluster's blocks meets here (each warp converged).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+namespace wg {
+
+// The ring's barriers, after the stages in shared memory. CL > 1: a ring
+// of each block of a cluster of CL blocks whose stages peers' multicasts
+// fill too, so a slot is empty once the consumer warps of all CL blocks
+// have released it.
+template <int ST, int CL = 1>
 struct Ring {
   uint64_t full[ST];
   uint64_t empty[ST];
 
-  // by one thread, before the block's __syncthreads
+  // by one thread, before the block's __syncthreads (CL > 1: before the
+  // cluster's barrier)
   __device__ void init() {
     for (int s = 0; s < ST; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CONSUMERS / 32);
+      mbar_init(&empty[s], CL * CONSUMERS / 32);
     }
     mbar_fence_init();
   }
@@ -661,22 +718,31 @@ struct Ring {
 // spinning forever on a phase that never completes.
 __device__ __forceinline__ void wait(uint64_t* bar, uint32_t parity) {
   uint32_t addr = smem_u32(bar);
-  for (uint32_t n = 0; !mbar_try_wait<false>(addr, parity); ++n)
+  for (uint32_t n = 0; !mbar_try_wait(addr, parity); ++n)
     if (n == (1u << 28)) __trap();
 }
 
 // The producer's wait before it fills use q of a slot: the slots start
 // empty.
-template <int ST>
-__device__ __forceinline__ void wait_empty(Ring<ST>& ring, int q) {
+template <int ST, int CL>
+__device__ __forceinline__ void wait_empty(Ring<ST, CL>& ring, int q) {
   if (q >= ST) wait(&ring.empty[q % ST], ((q / ST) - 1) & 1);
 }
 
-// One consumer warp's release of a slot once its wgmmas have completed.
-template <int ST>
-__device__ __forceinline__ void release(Ring<ST>& ring, int s) {
+// One consumer warp's release of a slot once its wgmmas have completed;
+// CL > 1: on the slot's empty barrier in every block of the cluster, lane
+// k on block k's (one lane arriving on each block in turn took half again
+// as long in the mma.sync rung 11 this replaced, NVIDIA H100 80GB HBM3,
+// 700.00 W).
+template <int ST, int CL>
+__device__ __forceinline__ void release(Ring<ST, CL>& ring, int s) {
   __syncwarp();
-  if ((threadIdx.x & 31) == 0) mbar_arrive(&ring.empty[s]);
+  int lane = threadIdx.x & 31;
+  if constexpr (CL == 1) {
+    if (lane == 0) mbar_arrive(&ring.empty[s]);
+  } else {
+    if (lane < CL) mbar_arrive_cluster(&ring.empty[s], lane);
+  }
 }
 
 // A consumer warpgroup's walk over nk stages: issue(s, q, first) issues

@@ -6,7 +6,7 @@ A variant is a copy of the port's ``csrc/`` under
 (each must match exactly once, so a variant that no longer fits the source
 fails), or another tree's ``csrc/`` given with ``--tree NAME=DIR[:BK]`` (a
 parent commit unpacked by ``git archive``; for the forward group its key
-tile BK). Ten groups of kernels, one a run (``--group``):
+tile BK). Eleven groups of kernels, one a run (``--group``):
 
 - ``forward``: ``flash_attention`` at the 7B prefill row (B 4, H = KVH = 32,
   D 128, S = T = 4,096, causal, (B, S, H, D) views) and
@@ -113,6 +113,16 @@ tile BK). Ten groups of kernels, one a run (``--group``):
   buffers of 16 tokens a warp and ``c_threads`` has each thread add it;
   ``diag_timeline`` (right answers) records each GEMV block's phases. Each tree's host operations a call are printed for the GEMV at
   m = 4;
+- ``strip``: rung 11 ``int8_strip_nt`` (the A box multicast across a
+  cluster of ``CL`` blocks along N, C loaded into a fresh output) at
+  M = N = K = 4,096 and 2,048, EQUAL to its plain version, C unchanged,
+  two calls bit-equal; rung 17 ``int8_hand_pipe_nt`` at 4,096 in its six
+  knob instances (``b_buffers`` 2, 3, 4 x ``a_lookahead``), each EQUAL to
+  ``int8_gemm_nt``'s output, which is timed beside them; ``torch._int_mm``
+  and the epilogue beside all. An older tree's kernels (the ``mma.sync``
+  ones) take the same arguments. The variants build rung 11 at ``CL`` 1
+  (no multicast: the L2 alone shares A, the lesson's control) and 4, or
+  with each thread adding C (``c_threads``);
 - ``ladder``: the float ladder's rungs 02 (``fp32_gemm_mn_tile``), 03 and
   03b (``fp32_gemm_k_blocked`` at blocks of 128 and 64), each its
   wrapper at M = N = K = 4,096 and 2,048, held to its plain version
@@ -132,7 +142,7 @@ build; the cases run as CUDA-graph replays in rounds that walk the
 variants forwards and then backwards.
 
     python -m how_to_optimize_gemm_tpu_torch.harness.flash_variants \\
-        [--group forward|dkv|dq|gemm|paged|w4a8|int8|gemv|w4a16|ladder] \\
+        [--group forward|dkv|dq|gemm|paged|w4a8|int8|gemv|w4a16|strip|ladder] \\
         [--variants shipped ...] \\
         [--tree parent=build/parent/how_to_optimize_gemm_tpu_torch/csrc:64]
 """
@@ -149,8 +159,9 @@ import torch
 from how_to_optimize_gemm_tpu_torch import _build
 from how_to_optimize_gemm_tpu_torch.harness import profiling
 from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
-                                               grouped_gemm, int4, int8,
-                                               k_blocked, mn_tile,
+                                               grouped_gemm, hand_pipeline,
+                                               int4, int8, k_blocked,
+                                               manual_dma, mn_tile,
                                                paged_attention, tuned,
                                                vendor)
 from how_to_optimize_gemm_tpu_torch.utils.timing import time_calls
@@ -420,7 +431,7 @@ GEMM_VARIANTS = {
     # each consumer thread adds C to its sums (or stores them) itself, as
     # it does where the tensor-map unit cannot (out's rows no 16-byte
     # multiple)
-    "register_epilogue": ((_GW, "  int tma_out = (P::SEED_C || c == out) && ",
+    "register_epilogue": ((_GW, "  int tma_out = ldc % 4 == 0 && ",
                            "  int tma_out = false && "),),
     # rung 15 on 128 x 128 tiles, the straight sum
     "tile128": (_TILE128,),
@@ -570,6 +581,31 @@ INT8_VARIANTS = {
                    "constexpr int BOXES = 1;"),),
     "nn_threads": ((_W4, "  return C_LOAD_STORE;\n}",
                     "  return C_THREADS;\n}"), *_float4_c(_W4)),
+}
+_STRIP = "int8_strip_nt.cu"
+_WG = "wgmma.cuh"
+_STRIP_CL = "  static constexpr int CL = 2; "
+STRIP_VARIANTS = {
+    "shipped": (),
+    # rung 11's cluster of 1 (no multicast, the L2 alone sharing A) or 4
+    "cl1": ((_STRIP, _STRIP_CL, "  static constexpr int CL = 1; "),),
+    "cl4": ((_STRIP, _STRIP_CL, "  static constexpr int CL = 4; "),),
+    # each consumer thread adds C to its dequantized sums and stores them
+    # itself, as where C's rows are no 16-byte multiple
+    "c_threads": ((_GW, "  if (Layout<P>::LOAD_C) return map(tcin, c) ? "
+                   "C_LOAD : C_THREADS;",
+                   "  if (Layout<P>::LOAD_C) return C_THREADS;"),),
+    # the consumers' arrivals on the cluster's empty barriers at
+    # release.cluster (the mma.sync rung 11's form) in place of the default
+    # release.cta
+    "release_cluster": ((_WG, "mbarrier.arrive.shared::cluster.b64",
+                         "mbarrier.arrive.release.cluster.shared::cluster"
+                         ".b64"),),
+    # each block copies the whole A box itself (no multicast), the cluster
+    # still releasing each slot together
+    "own_a": ((_GW, "if constexpr (CL > 1)   // this block's slice, to every "
+               "block", "if constexpr (false)"),
+              (_STRIP, "lda, gw::BM / CL)", "lda, gw::BM)")),
 }
 _GEMV = "w4a8_gemv_fq.cu"
 # the timeline probes' device side: each block's %globaltimer at phase i
@@ -811,7 +847,7 @@ LADDER_VARIANTS = {
                       "for (int p = 0; p < 1; ++p)"),),
 }
 # the headers the variants may change besides the groups' sources
-HEADERS = (_BODY, _GW, _DA, _W4, _W16G, _X3)
+HEADERS = (_BODY, _GW, _DA, _W4, _W16G, _X3, _WG)
 
 GROUPS = {
     "forward": (("flash_attention.cu", "flash_attention_fwd_lse.cu"),
@@ -826,6 +862,7 @@ GROUPS = {
     "gemv": ((_GEMV, "paged_decode_attention.cu"), GEMV_VARIANTS),
     "w4a16": ((_W16V, "w4a16_gemm_noc.cu", "w4a16_gemm.cu"),
               W4A16_VARIANTS),
+    "strip": ((_STRIP, "int8_hand_pipe.cu", _K2), STRIP_VARIANTS),
     "ladder": ((_MN, _KB), LADDER_VARIANTS),
 }
 # the csrc/ tree in use (set by use())
@@ -1337,6 +1374,71 @@ def int8_cases(gen, tiles):
     return cases, check, library
 
 
+def strip_cases(gen, tiles):
+    """Rung 11 at 4,096 and 2,048 (a fresh output: EQUAL to its plain
+    version, C unchanged, two calls bit-equal) and rung 17's six knobs
+    and K2 at 4,096, each on a C of its own (EQUAL to K2's output and to
+    the plain version); ``torch._int_mm`` and the epilogue beside them
+    (graph replays)."""
+    cases, rows, library = {}, {}, {}
+    knobs = [(nb, la) for nb in hand_pipeline.B_BUFFERS
+             for la in (False, True)]
+    for p in (4096, 2048):
+        a, b, c = (torch.rand((p, p), generator=gen, device="cuda") * 2 - 1
+                   for _ in "abc")
+        ops = int8.prepare_packed(a, b)
+        qa, sa, qbt, sb = ops
+        lib = time_calls(lambda: int8.dequant_epilogue(
+            torch._int_mm(qa, qbt.t()), sa, sb, c), graph=True) * 1e3
+        case = f"int8_strip_nt p={p}"
+        cases[case] = lambda o=ops, c=c: manual_dma.mmult_q_strip(*o, c)
+        rows[case] = (None, ops, c)
+        library[case] = lib
+        if p != 4096:
+            continue
+        runs = {f"int8_gemm_nt p={p}": lambda cc, o=ops:
+                int8.mmult_q_bt(*o, cc)}
+        for nb, la in knobs:
+            runs[f"int8_hand_pipe_nt p={p} b_buffers={nb} a_lookahead="
+                 f"{la}"] = (lambda cc, o=ops, nb=nb, la=la:
+                             hand_pipeline.mmult_q_bt_hand(
+                                 *o, cc, b_buffers=nb, a_lookahead=la))
+        for case, run in runs.items():
+            work = c.clone()
+            cases[case] = lambda run=run, work=work: run(work)
+            rows[case] = (run, ops, c)
+            library[case] = lib
+
+    def check(name):
+        parts = []
+        src = (_build.CSRC / _STRIP).read_text()
+        if "int8_strip_nt_active_clusters" in src:
+            parts.append("rung 11: clusters of {} blocks, {} at once".format(
+                *manual_dma.strip_clusters()))
+        k2 = {}
+        for case, (run, ops, c) in rows.items():
+            ref = int8.mmult_q_bt_ref(*ops, c)
+            if run is None:   # rung 11: a fresh output, C unchanged
+                kept = c.clone()
+                out = manual_dma.mmult_q_strip(*ops, c)
+                again = manual_dma.mmult_q_strip(*ops, c)
+                torch.cuda.synchronize()
+                if not torch.equal(c, kept):
+                    parts.append(f"{case}: C CHANGED")
+            else:
+                out, again = run(c.clone()), run(c.clone())
+                if case.startswith("int8_gemm_nt"):
+                    k2[case.split()[1]] = out
+                elif not torch.equal(out, k2[case.split()[1]]):
+                    parts.append(f"{case}: DIFFERS from int8_gemm_nt")
+            parts.append(f"{case}: "
+                         f"{'EQUAL' if torch.equal(out, ref) else 'DIFFERS'}"
+                         f", repeat "
+                         f"{'equal' if torch.equal(out, again) else 'DIFFERS'}")
+        return "; ".join(parts)
+    return cases, check, library
+
+
 # an older tree's w4a8_gemv_fq (a quantize pass, then the GEMV): (x,
 # packed, sw, qa, sa, out, M, N, Kp, ldp, stream); its paged bf16 kernel
 # (the one-block walk): (q, k, v, table, lengths, out, B, NP, PS, np_max,
@@ -1699,7 +1801,7 @@ def ladder_cases(gen, tiles):
 CASES = {"forward": forward_cases, "dkv": dkv_cases, "dq": dq_cases,
          "gemm": gemm_cases, "paged": paged_cases, "w4a8": w4a8_cases,
          "int8": int8_cases, "gemv": gemv_cases, "w4a16": w4a16_cases,
-         "ladder": ladder_cases}
+         "strip": strip_cases, "ladder": ladder_cases}
 
 
 def main(argv=None) -> None:

@@ -4,14 +4,17 @@ Counterpart of ``how_to_optimize_gemm_tpu/ops/pallas_emit_pipeline.py``.
 ``mmult_q_bt_hand`` computes rung 14's ``C = f32(QA @ QBT^T as int32) *
 sa[i] * sb[j] + C`` IN PLACE on ``c`` (the reference aliases C into its
 output), B packed transposed (N, K), and keeps the reference's two schedule
-knobs: ``b_buffers``, the depth of the (A, B^T) chunk ring, and
+knobs: ``b_buffers``, the depth of the (A, B^T) stage ring, and
 ``a_lookahead``, whether the copies may run into the next tile before the
-MMA warps have finished this one. The kernel (``csrc/int8_hand_pipe.cu``,
-``int8_hand_pipe_nt``) is warp-specialised: one producer warp issues
-every copy into the ring (``cp.async``, mbarriers per slot), eight MMA
-warps run rung 14's tile, persistent over its 128 x 128 tiles. The
-reference's ``bm``, ``bn`` and ``vmem_limit_mb`` size VMEM blocks and have
-no counterpart here (``ops/tuned.py`` leaves the VMEM choosers out the same
+consumers have finished this one. The kernel (``csrc/int8_hand_pipe.cu``,
+``int8_hand_pipe_nt``) is K2's int8 ``wgmma`` body
+(``csrc/gemm_wgmma.cuh``), a warp-specialised ring that one producer
+thread fills by tensor map, persistent over 128 x 256 tiles, with the two
+knobs as compile-time instances: ``b_buffers`` stages, and without
+lookahead the producer waiting for both consumers' flush before a tile's
+first stage (``b_buffers`` 4 with lookahead is K2 itself). The reference's
+``bm``, ``bn`` and ``vmem_limit_mb`` size VMEM blocks and have no
+counterpart here (``ops/tuned.py`` leaves the VMEM choosers out the same
 way).
 
 For CUDA tensors the wrapper launches its kernel; for CPU tensors it runs

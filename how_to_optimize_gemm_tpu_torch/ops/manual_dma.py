@@ -15,9 +15,12 @@ nothing) and adds one idea to the rung before it:
 - ``mmult_q_packed`` (rung 10, ``int8_fat_nt``, B^T (N, K) from
   ``int8.prepare_packed``): rung 09 with both operands K-major and two C/out
   buffers, the reference's accumulator ping-pong;
-- ``mmult_q_strip`` (rung 11, ``int8_strip_nt``, B^T): rung 10 with each A
-  chunk read once per thread-block cluster of ``CLUSTER`` tiles along N and
-  multicast to all of them, the card's form of a resident A strip;
+- ``mmult_q_strip`` (rung 11, ``int8_strip_nt``, B^T): the A strip read
+  once per thread-block cluster of ``CLUSTER`` tiles along N, each stage's
+  A box multicast by tensor map to all of them, the card's form of a
+  resident A strip; on K2's int8 ``wgmma`` body (``csrc/gemm_wgmma.cuh``),
+  C loaded by tensor map into the epilogue's staging and the output
+  stored from it;
 - ``mmult_q_resident`` (rung 12, ``int8_resident_nt``, B^T): rung 10's walk
   with both operands held in the L2, the card's on-chip store of their
   size: prefetched once, every chunk copied under evict_last, C and the
@@ -29,8 +32,9 @@ nothing) and adds one idea to the rung before it:
 Rungs 12 and 13 take rung 11 (``mmult_q_strip``) when their resident bytes
 exceed the L2 budget (``fits_resident``), the reference's rule above its
 VMEM budget. The kernels are in ``csrc/int8_dma_nn.cu``, ``csrc/int8_fat.cu``
-(09 and 10), ``csrc/int8_strip_nt.cu`` and ``csrc/int8_resident.cu`` (12,
-13 and the repack) on ``csrc/manual_dma.cuh``. Each wrapper launches its
+(09 and 10) and ``csrc/int8_resident.cu`` (12, 13 and the repack) on
+``csrc/manual_dma.cuh``, and ``csrc/int8_strip_nt.cu`` (11) on
+``csrc/gemm_wgmma.cuh``. Each wrapper launches its
 kernel for CUDA tensors and runs its plain version (``*_ref``: exact int32
 products, then the rank-1 dequant epilogue plus C; ``pretile_ref``) only for
 CPU tensors; the kernels equal their plain versions bit for bit.
@@ -55,7 +59,7 @@ SLOTS = 2
 # registers a thread needs beside its accumulators: fragments, addresses,
 # the B chunk staged through registers (rung 09)
 REG_OVERHEAD = 64
-CLUSTER = 4            # rung 11's blocks sharing an A chunk
+CLUSTER = 2            # rung 11's blocks sharing an A box (csrc CL)
 ALIGN = int8.ALIGN     # K rows start on 16-byte boundaries
 C_ALIGN = 4            # C/out rows are bulk-copied: pitch a multiple of 16 B
 # rungs 12 and 13 stay resident while their bytes fit this much of the L2
@@ -96,7 +100,7 @@ FAT_BM, FAT_BN = fat_tile(1)
 
 
 def choose_blocks_fat(m: int, n: int, k: int) -> tuple[int, int, int]:
-    """(bm, bn, bk) of rungs 10 and 11 (two C/out buffers): bn the
+    """(bm, bn, bk) of rung 10 (two C/out buffers): bn the
     least-waste multiple of 128 under ``fat_tile(2)``'s cap (the
     reference's rule, ``bounds._least_waste``), bk the kernel's 64-byte K
     chunk (K is zero-padded to a multiple of 16)."""
@@ -241,13 +245,27 @@ def mmult_q_packed(qa, sa, qbt, sb, c):
 
 
 def mmult_q_strip(qa, sa, qbt, sb, c):
-    """Rung 11: rung 10 with each A chunk shared by a cluster of
-    ``CLUSTER`` blocks along N. Operands as ``mmult_q_packed``."""
+    """Rung 11: rung 10's function with each A box shared by a cluster of
+    ``CLUSTER`` blocks along N, on K2's int8 ``wgmma`` body, a fresh (M, N)
+    float32. Operands as ``mmult_q_packed``."""
     if c.device.type == "cpu":
         return mmult_q_strip_ref(qa, sa, qbt, sb, c)
     int8.require_cuda("mmult_q_strip", c)
     qa, qbt = _operands("mmult_q_strip", qa, sa, qbt, sb, c, True)
     return _launch("int8_strip_nt", qa, qbt, sa, sb, c, True)
+
+
+def strip_clusters() -> tuple[int, int]:
+    """Rung 11's kernel on the card: (blocks of its cluster, clusters the
+    card runs at once), from its own C entries (``cudaOccupancyMaxActive
+    Clusters``); RuntimeError where the card cannot say."""
+    src = _build.KERNELS["int8_strip_nt"].source
+    size = _build.c_function(src, "int8_strip_nt_cluster", ())()
+    active = _build.c_function(src, "int8_strip_nt_active_clusters", ())()
+    if active < 1:
+        raise RuntimeError(f"int8_strip_nt: no cluster fits (cudaError "
+                           f"{-active})")
+    return size, active
 
 
 def mmult_q_resident(qa, sa, qbt, sb, c):

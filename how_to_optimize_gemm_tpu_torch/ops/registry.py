@@ -248,15 +248,16 @@ _register(Rung(
     run=manual_dma.mmult_q_strip,
     prepare=int8.prepare_packed, effective=_packed_effective,
     gate_rel=1e-4, bytes_per_input_elt=1.0,
-    doc="rung 10 + the A strip's reuse: a cluster of 4 blocks along N "
-        "multicasts each A chunk to all of them, so A is read once per "
-        "cluster, not once per tile (kernel int8_strip_nt). A LOSS on "
-        "Hopper (kept): on an NVIDIA H100 80GB HBM3 at 700 W "
-        "(harness/ab.py) it loses every round to 10, 67.7k and 95.9k GFLOPS "
-        "at p=2048 and 4096 against 227.7k and 274.4k: a slot is refilled "
-        "only when all 32 warps of the cluster have released it, and A "
-        "comes as one-row 64-byte bulk copies; the A bytes it saves never "
-        "bound an MMA-bound kernel"))
+    doc="rung 10 + the A strip's reuse: a cluster of 2 blocks along N "
+        "shares each stage's A box by tensor-map multicast, so A is read "
+        "once per cluster, not once per tile, on K2's int8 wgmma body with "
+        "C loaded into a fresh output (kernel int8_strip_nt). A LOSS "
+        "against its own control (kept): on an NVIDIA H100 80GB HBM3 at "
+        "700 W (harness/flash_variants.py --group strip) 0.134 ms at "
+        "p=4096 against 0.124 with no cluster (the L2 alone sharing A) and "
+        "0.154 with clusters of 4: a slot is refilled only when both "
+        "blocks' consumers have released it, and the A bytes it saves "
+        "never bound an MMA-bound kernel"))
 
 _register(Rung(
     name="12_resident_int8", dtype="int8",
@@ -303,14 +304,14 @@ _register(Rung(
     prepare=int8.prepare_packed, effective=_packed_effective,
     gate_rel=1e-4, bytes_per_input_elt=1.0, regression=True,
     doc="REGRESSION (kept): rung 14's tile math under a hand stream "
-        "schedule: one producer warp keeps a ring of 3 chunk slots full "
-        "for 8 MMA warps, persistent, the next tile's copies issued ahead "
-        "(kernel int8_hand_pipe_nt; b_buffers 2-4, a_lookahead). On an "
-        "NVIDIA H100 80GB HBM3 at 700 W (harness/ab.py, 5 rounds) it loses "
-        "every round to 14 in every knob: 168.5k and 213.6k GFLOPS at "
-        "p=2048 and 4096 against 249.5k and 337.9k, the best knob "
-        "(b_buffers=4) 169.4k and 214.9k: one block an SM, 8 MMA warps "
-        "against 14's 16"))
+        "schedule: K2's int8 wgmma body with its ring b_buffers (2-4) "
+        "stages deep and, with a_lookahead, the producer running into the "
+        "next tile (kernel int8_hand_pipe_nt; b_buffers 4 with lookahead "
+        "is K2 itself). On an NVIDIA H100 80GB HBM3 at 700 W "
+        "(harness/flash_variants.py --group strip) no knob beats K2's "
+        "schedule: at p=4096 0.138 ms at the default b_buffers=3 against "
+        "K2's 0.127, 0.190-0.194 at 2, and 4-5% slower without "
+        "lookahead"))
 
 _register(Rung(
     name="18_ragged_m_int8", dtype="int8",

@@ -160,7 +160,8 @@ def test_in_place_kernels_write_c(cuda):
 
 # More tiles than the persistent grid holds, and not a multiple of it
 # (rung 09: 16 x 9 tiles of 128 x 256; 10: 16 x 17 of 128 x 128; 11: 16 x 5
-# clusters of 4, the last with one live block); 9 K chunks (K a multiple of
+# cluster tiles of 2 x 256 columns, the last with one live block); 9 K
+# chunks (K a multiple of
 # 16, not of 64), over four times the ring's two slots; N not a multiple
 # of 4 (C's rows padded for the bulk copies); M not a multiple of 128.
 WALK_SHAPES = [(2001, 2102, 520), (4096, 4096, 4096)]
@@ -269,17 +270,55 @@ def test_rebuilt_fp32_and_nn_kernels(cuda, kernel, shape):
 
 @pytest.mark.parametrize("b_buffers", hand_pipeline.B_BUFFERS)
 @pytest.mark.parametrize("a_lookahead", [False, True])
-@pytest.mark.parametrize("shape", [(2001, 2102, 520), (17, 9, 40)])
+@pytest.mark.parametrize("shape", [(2001, 2102, 520), (17, 9, 40),
+                                   (4096, 4096, 4096)])
 def test_hand_pipeline_equals_rung_14(cuda, b_buffers, a_lookahead, shape):
-    """Every built instance of rung 17 equals int8_gemm_nt's output bit for
-    bit (the reference's test_bit_identical_to_rung14)."""
+    """Every built instance of rung 17 (K2's body at ring depth b_buffers,
+    with or without lookahead) equals int8_gemm_nt's output bit for bit
+    (the reference's test_bit_identical_to_rung14) and the plain version,
+    in one launch of its own kernel."""
     a, b, c = _abc(shape, 4, cuda)
     ops = int8.prepare_packed(a, b)
     want = int8.mmult_q_bt(*ops, c.clone())
+    before = dict(_build.LAUNCHES)
     got = hand_pipeline.mmult_q_bt_hand(*ops, c.clone(), b_buffers=b_buffers,
                                         a_lookahead=a_lookahead)
     torch.cuda.synchronize()
+    assert (_build.LAUNCHES["int8_hand_pipe_nt"]
+            == before["int8_hand_pipe_nt"] + 1)
+    assert _build.LAUNCHES["int8_gemm_nt"] == before["int8_gemm_nt"]
     assert torch.equal(got, want)
+    assert torch.equal(got, int8.mmult_q_bt_ref(*ops, c))
+
+
+# Rung 11 on K2's body in clusters of manual_dma.CLUSTER blocks along N,
+# into a fresh output through C loaded by tensor map: N's 256-column tiles
+# one past a multiple of the cluster (the last cluster's surplus block
+# copies zeros and stores nothing), rows fewer than a consumer's 64 and
+# past a multiple of 128, K no multiple of the 128-byte stage, C's rows no
+# 16-byte multiple (the wrapper pads them) and 4,096.
+STRIP_SHAPES = [(300, 262, 520), (129, 520, 1100), (1, 300, 16),
+                (1000, 1032, 1100), (200, 256 * (2 * manual_dma.CLUSTER + 1),
+                                     200), (4096, 4096, 4096)]
+
+
+@pytest.mark.parametrize("shape", STRIP_SHAPES)
+def test_strip_cluster_equals_plain_version(cuda, shape):
+    """EQUAL, C unchanged, two calls bit-equal, one launch; the kernel's
+    cluster is manual_dma.CLUSTER blocks and the card runs some at once."""
+    a, b, c = _abc(shape, 8, cuda)
+    ops = int8.prepare_packed(a, b)
+    kept = c.clone()
+    before = dict(_build.LAUNCHES)
+    out = manual_dma.mmult_q_strip(*ops, c)
+    again = manual_dma.mmult_q_strip(*ops, c)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["int8_strip_nt"] == before["int8_strip_nt"] + 2
+    assert torch.equal(c, kept)
+    assert torch.equal(out, manual_dma.mmult_q_strip_ref(*ops, c))
+    assert torch.equal(again, out)
+    size, active = manual_dma.strip_clusters()
+    assert size == manual_dma.CLUSTER and active >= 1
 
 
 @pytest.mark.parametrize("shape,cap", [((4096, 1024, 520), 1664),
