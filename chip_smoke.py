@@ -37,13 +37,15 @@ Phases (any failure raises and exits non-zero before the last line):
    the L2 residency budget of rungs 12 and 13 and rung 18's default cap
    and plan at 4,096 printed first): the int8 kernels' outputs must
    be EQUAL (rung 11, on K2's int8 ``wgmma`` body with A multicast across
-   a cluster and C loaded into a fresh output, with C unchanged; rung
+   a cluster and C loaded into a fresh output, and rungs 10 and 12, that
+   body with its two consumers taking whole tiles in turn (12 with the
+   operands kept in the L2), with C unchanged; rung
    13's repack ``int8_pretile`` byte for byte; rungs 12 and
    13 must launch their own kernels at 4,096, not rung 11's; rung 17's six
    knob instances, K2's body at each ring depth with and without
    lookahead, EQUAL to ``int8_gemm_nt``'s output at ``WALK`` and 4,096,
-   each timed at 4,096; rungs 11 and 17 printed beside their ``mma.sync``
-   kernels' times; rung 18 also at 4,096 with cap 1,664, a two-piece plan,
+   each timed at 4,096; rungs 10, 11, 12 and 17 printed beside their
+   ``mma.sync`` kernels' times; rung 18 also at 4,096 with cap 1,664, a two-piece plan,
    on its own kernel; K2 and rung 18, one int8 ``wgmma`` body, also at
    ``WALK``, where K2's persistent grid wraps (two calls at 4,096
    bit-equal), and on subnormal scales and C, EQUAL with C's rows of
@@ -383,8 +385,9 @@ KERNELS = [
          plain=int8.mmult_q_bt_ref, library=_int_mm_nt,
          unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8",
          extra=("int8_walk", "subnormal")),
-    # the hand-pipeline record (rungs 08-11): fresh outputs, EQUAL (rung
-    # 11, on K2's int8 wgmma body in clusters, also C unchanged)
+    # the hand-pipeline record (rungs 08-11): fresh outputs, EQUAL (rungs
+    # 10 and 11, on K2's int8 wgmma body as a ping-pong and in clusters,
+    # also C unchanged; rung 10 on its own kernel)
     dict(name="int8_dma_nn", source=SRC + "int8_dma_nn.cu",
          replaces=MANUAL_DMA + ":71",
          function="pallas_manual_dma._make_kernel (mmult_q :118, rung 08)",
@@ -404,7 +407,8 @@ KERNELS = [
                   ":498, rung 10)",
          rung="10_packed_fat_int8", wrapper=manual_dma.mmult_q_packed,
          plain=manual_dma.mmult_q_packed_ref, library=_int_mm_nt,
-         unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8"),
+         unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8",
+         fresh=True, own=True),
     dict(name="int8_strip_nt", source=SRC + "int8_strip_nt.cu",
          replaces=MANUAL_DMA + ":559",
          function="pallas_manual_dma._make_strip_kernel (mmult_q_strip "
@@ -413,7 +417,8 @@ KERNELS = [
          plain=manual_dma.mmult_q_strip_ref, library=_int_mm_nt,
          unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8",
          fresh=True),
-    # the operand-resident rungs 12 and 13 (fresh outputs) and rung 13's
+    # the operand-resident rungs 12 (rung 10's kernel, C unchanged) and 13
+    # (fresh outputs) and rung 13's
     # repack, the hand pipeline 17 and the ragged plan 18 (in place): EQUAL
     dict(name="int8_resident_nt", source=SRC + "int8_resident.cu",
          replaces=MANUAL_DMA + ":724",
@@ -422,7 +427,7 @@ KERNELS = [
          rung="12_resident_int8", wrapper=manual_dma.mmult_q_resident,
          plain=manual_dma.mmult_q_resident_ref, library=_int_mm_nt,
          unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8",
-         own=True),
+         fresh=True, own=True),
     dict(name="int8_tiled_resident_nt", source=SRC + "int8_resident.cu",
          replaces=MANUAL_DMA + ":881",
          function="pallas_manual_dma._make_tiled_resident_kernel "
@@ -546,16 +551,23 @@ def bound(ops, m: int, n: int, k: int, peak: float = PEAK_INT8_OPS):
 
 
 def print_fat_tiles() -> None:
-    """The hand-pipeline kernels' tiles, derived from a block's shared
-    memory and a thread's registers (``manual_dma.fat_tile``)."""
+    """The hand-pipeline kernels' tiles: rungs 09's and 13's fat tiles,
+    derived from a block's shared memory and a thread's registers
+    (``manual_dma.fat_tile``), and rungs 10's and 12's ping-pong tile."""
     fat = {"09": (*manual_dma.fat_tile(1), 1),
-           "10": (*manual_dma.choose_blocks_fat(P_FULL, P_FULL, P_FULL)[:2],
+           "13": (*manual_dma.choose_blocks_fat(P_FULL, P_FULL, P_FULL)[:2],
                   2)}
     for rungs, (bm, bn, buffers) in fat.items():
         print(f"rung {rungs}: C tile {bm}x{bn} with {buffers} C/out "
               f"buffer(s), {manual_dma.fat_smem_bytes(bm, bn, buffers):,} "
               f"of {manual_dma.SMEM_BLOCK:,} bytes of shared memory, "
               f"~{manual_dma.fat_regs(bm, bn)} registers a thread")
+    tm, tn = manual_dma.PINGPONG_TILE
+    print(f"rungs 10 and 12: {tm}x{tn} a consumer warpgroup, the two taking "
+          f"a block's tiles in turn, {manual_dma.PINGPONG_STAGES} stages of "
+          f"{(tm + tn) * int8.STAGE_K // 1024} KB, "
+          f"{manual_dma.pingpong_smem_bytes():,} of "
+          f"{manual_dma.SMEM_BLOCK:,} bytes of shared memory")
     size, active = manual_dma.strip_clusters()
     if size != manual_dma.CLUSTER:
         raise AssertionError(f"rung 11: the kernel's cluster {size} is not "
@@ -1007,7 +1019,8 @@ DECODE_ATOL = 2e-3   # decode_attention vs its plain version (sum order, exp)
 FLASH_ULPS = 2.0
 # the times of the rebuilt kernels before their rebuild: the flash
 # forwards at the 7B prefill row and the soak's row, rungs 15, 16, 05, 04,
-# 14 (K2), 18, 11 and 17 (its b_buffers 3 with lookahead) at P_FULL, dK/dV and dQ (its mma.sync kernel) at the
+# 14 (K2), 18, 11, 17 (its b_buffers 3 with lookahead), 10 and 12 (their
+# mma.sync fat kernel) at P_FULL, dK/dV and dQ (its mma.sync kernel) at the
 # soak's row, the serving kernels
 # at their JSON rows (the W4A8 decode GEMV's two launches at m = 4,
 # 4,096 -> 11,008; the bf16 paged attention's one-block walk at the 7B
@@ -1028,7 +1041,8 @@ BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
              "int8_gemm_nn": 0.4896, "w4a16_gemm": 0.9937,
              "flash_attention_bwd_dq": 0.3791, "fp32_gemm_mn_tile": 16.0474,
              "fp32_gemm_k_blocked": 3.9921, "int8_strip_nt": 1.4485,
-             "int8_hand_pipe_nt": 0.6475}
+             "int8_hand_pipe_nt": 0.6475, "int8_fat_nt": 0.5114,
+             "int8_resident_nt": 0.5076}
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0

@@ -5,8 +5,9 @@ with a plain C interface (no PyTorch headers: seconds, not minutes),
 cached under ``build/torch_kernels/`` at the repository root by a hash of
 its sources and flags, and loaded with ctypes. A source may hold more than
 one kernel (``grouped_gemm_t.cu``: ``grouped_gemm_t`` and
-``grouped_gemm_t4``; ``int8_resident.cu``: rungs 12 and 13 and
-``int8_pretile``); its kernels share one library. Nothing is compiled
+``grouped_gemm_t4``; ``int8_fat.cu``: rungs 09 and 10;
+``int8_resident.cu``: rungs 12 and 13 and ``int8_pretile``); its kernels
+share one library. Nothing is compiled
 when this module is imported; the first launch of a kernel builds its
 library, and ``build_all`` builds every library at once, one nvcc process
 per source, all started together.

@@ -5,9 +5,12 @@
 // N-major, the partial sums seeded with C), and the int8 summit K2
 // (int8_gemm_nt.cu, rung 14), rung 18 (int8_ragged_nt.cu, K2 walked
 // over a strip plan), rung 11 (int8_strip_nt.cu, K2's body in clusters
-// sharing A, into a fresh output) and rung 17 (int8_hand_pipe.cu, K2's
-// body under two schedule knobs). Each of those files names its instance's
-// constants in a struct P:
+// sharing A, into a fresh output), rung 17 (int8_hand_pipe.cu, K2's
+// body under two schedule knobs), rung 10 (int8_fat.cu, K2's body with
+// each consumer warpgroup taking whole tiles, into a fresh output) and
+// rung 12 (int8_resident.cu, rung 10's instance with the operands kept in
+// the L2). Each of those files names its instance's constants in a struct
+// P:
 //   S8        int8 operands (QA and QBT, K-major): wgmma.m64nBNk32.s32.s8,
 //             int32 sums, 128 K values a stage, and K2's dequant epilogue
 //             (below); else bf16 operands, fp32 sums, 64 K values a stage
@@ -26,7 +29,7 @@
 //             with CH = 0, the partial-sum array with CH > 0; else they
 //             start at 0 and out = sums + C at the flush (its _flush /
 //             _make_kernel_bt)
-// and, where it names them (else 1, true and false):
+// and, where it names them (else 1, true, false, false and false):
 //   CL        blocks of a thread-block cluster along N (below)
 //   LOOKAHEAD the producer may run into a tile's stages while the
 //             consumers finish the tile before; false: it waits on the
@@ -35,6 +38,9 @@
 //   LOAD_C    out is a fresh output (never c): C is loaded by tensor map
 //             into the epilogue's staging (below), the C_LOAD path, in
 //             place of the in-place paths
+//   PINGPONG  int8: each consumer warpgroup computes whole BM x 128 tiles,
+//             the two taking the block's tiles in turn (below)
+//   RESIDENT  with PINGPONG: the operands kept in the L2 (rung 12, below)
 //
 // Block (wgmma.cuh's shape, 384 threads): a persistent grid, one block an
 // SM, walking BM x BN output tiles in an order the launch passes as a
@@ -73,6 +79,38 @@
 // and release's cluster forms in wgmma.cuh: CL x 8 warp arrivals); the
 // blocks meet at a cluster barrier after their barriers' init and before
 // any leaves.
+//
+// Ping-pong (PINGPONG, int8, CL 1): the reference's accumulator ping-pong
+// (rung 10: tile t sums into one accumulator while tile t - 1's result
+// leaves from the other) in the card's form, the accumulators being the
+// consumers' registers. Consumer cw takes the block's tiles j (its j-th
+// of first, first + step, ...) with j % 2 == cw, the whole BM x 128 tile,
+// two m64n128k32 products a 32-byte K step (2 x 64 int32 sums a thread,
+// as K2's 128), so one consumer's dequant and flush overlap the other's
+// products. The producer
+// fills the ring in the block's tile order as before; tile j's stages are
+// ring uses j x stages .. (j + 1) x stages - 1, so a consumer starts each
+// of its tiles at ring use j x stages, and a slot is released by the one
+// warpgroup that read it (4 warp arrivals). Each consumer has a full
+// barrier of its own a slot (the ring's for consumer 0, full1 for 1), on
+// which the producer pays off the stages of that consumer's tiles, and
+// keeps each one's parity in a bit of its own (fphase): a wait names only
+// the parity of a phase, so on one shared barrier consumer 1's wait for
+// use u of a slot, made as it starts its tile while use u - 1 (consumer
+// 0's) has not landed, would pass on phase u - 2. The ring's order
+// staggers the two product loops: tile j + 1's first stage lands only as
+// tile j's last stages are released (CUTLASS's ordering barrier, which
+// makes the loops take turns, moved rung 10 by under 1% on an H100:
+// flash_variants.py's `order`).
+//
+// Resident (RESIDENT, rung 12, its walk a ResidentWalk that carries the
+// operands' ranges): before the walk the grid prefetches A and
+// B^T into the L2 under evict_last (cp.async.bulk.prefetch.L2 over their
+// rows, 16 KB pieces, piece i by block i % gridDim.x), every stage's copy
+// carries evict_last and C's loads and out's stores evict_first, so C and
+// out stream past the operands; at its end each block's consumers set its
+// share of the operands' lines back to evict_normal. No process-wide
+// state is set.
 //
 // Epilogue: where out's rows are 16-byte multiples (and, adding C, C is out
 // itself), each consumer stages its sums in shared memory 32 columns at a
@@ -120,8 +158,8 @@ constexpr int SB_COLS = 128;
 // map and the sums stored from it (a fresh output).
 enum CPath { C_THREADS = 0, C_TMA = 1, C_LOAD = 2 };
 
-// An instance's CL, LOOKAHEAD and LOAD_C where it names them, else 1,
-// true and false.
+// An instance's CL, LOOKAHEAD, LOAD_C, PINGPONG and RESIDENT where it
+// names them, else 1, true, false, false and false.
 template <class P, class = void>
 constexpr int cl_of = 1;
 template <class P>
@@ -135,6 +173,16 @@ template <class P, class = void>
 constexpr bool load_c_of = false;
 template <class P>
 constexpr bool load_c_of<P, std::void_t<decltype(P::LOAD_C)>> = P::LOAD_C;
+template <class P, class = void>
+constexpr bool pingpong_of = false;
+template <class P>
+constexpr bool pingpong_of<P, std::void_t<decltype(P::PINGPONG)>> =
+    P::PINGPONG;
+template <class P, class = void>
+constexpr bool resident_of = false;
+template <class P>
+constexpr bool resident_of<P, std::void_t<decltype(P::RESIDENT)>> =
+    P::RESIDENT;
 
 // ------------------------------------------------------------- host side
 
@@ -231,6 +279,16 @@ struct GroupWalk {
   }
 };
 
+// RESIDENT's walk: the grouped walk and the operands as they lie (their
+// rows, pitch included), whose L2 lines the kernel prefetches and sets
+// back to evict_normal.
+template <int BN>
+struct ResidentWalk : GroupWalk<BN> {
+  const void* a;
+  const void* b;
+  size_t a_bytes, b_bytes;
+};
+
 template <class T, int N>
 __device__ __forceinline__ void zero(T (&d)[N]) {
 #pragma unroll
@@ -241,15 +299,17 @@ __device__ __forceinline__ void zero(T (&d)[N]) {
 __device__ __forceinline__ float as_f32(float x) { return x; }
 __device__ __forceinline__ float as_f32(int x) { return __int_as_float(x); }
 
-// K2's dequant of a consumer's int32 sums, in place: d[i] becomes the bits
-// of (float(d[i]) * sa[row]) * sb[col], __fmul_rn each (the plain
-// version's order, never an FMA), rows from row0 and columns from col0 in
-// wgmma's accumulator layout. sa's two values a thread are read once; sb's
-// values are staged in the consumer's buffer sbuf, SB_COLS columns at a
-// time (named barrier 1 + cw, the one flush_tma takes: the pass before
-// has been read). 0 past M and N (those rows and columns are not stored).
-template <int NA>
-__device__ __forceinline__ void dequant(int (&d)[NA], const float* sa,
+// K2's dequant of a consumer's int32 sums, in place: d[h][i] becomes the
+// bits of (float(d[h][i]) * sa[row]) * sb[col], __fmul_rn each (the plain
+// version's order, never an FMA), in wgmma's accumulator layout: rows from
+// row0 + 64 h (the consumer's MH products of 64 rows), columns from col0.
+// sa's two values a thread and product are read once; sb's values are
+// staged in the consumer's buffer sbuf, SB_COLS columns at a time, for
+// all MH products (named barrier 1 + cw, the one flush_tma takes: the pass
+// before has been read). 0 past M and N (those rows and columns are not
+// stored).
+template <int MH, int NA>
+__device__ __forceinline__ void dequant(int (&d)[MH][NA], const float* sa,
                                         const float* sb, float* sbuf, int M,
                                         int N, int row0, int col0, int cw) {
   constexpr int PASS = SB_COLS / 2;   // accumulators a pass, 4 a block of 8
@@ -257,8 +317,12 @@ __device__ __forceinline__ void dequant(int (&d)[NA], const float* sa,
   int t = threadIdx.x & 127;
   int lane = t & 31;
   int r = row0 + 16 * (t >> 5) + (lane >> 2);
-  float s0 = r < M ? sa[r] : 0.0f;
-  float s1 = r + 8 < M ? sa[r + 8] : 0.0f;
+  float s0[MH], s1[MH];
+#pragma unroll
+  for (int h = 0; h < MH; ++h) {
+    s0[h] = r + 64 * h < M ? sa[r + 64 * h] : 0.0f;
+    s1[h] = r + 64 * h + 8 < M ? sa[r + 64 * h + 8] : 0.0f;
+  }
   const float* sbt = sbuf + 2 * (lane & 3);
 #pragma unroll
   for (int pass = 0; pass < NA / PASS; ++pass) {
@@ -274,10 +338,13 @@ __device__ __forceinline__ void dequant(int (&d)[NA], const float* sa,
         return __float_as_int(__fmul_rn(__fmul_rn(__int2float_rn(acc), s),
                                         sc));
       };
-      d[4 * j] = deq(d[4 * j], s0, b.x);
-      d[4 * j + 1] = deq(d[4 * j + 1], s0, b.y);
-      d[4 * j + 2] = deq(d[4 * j + 2], s1, b.x);
-      d[4 * j + 3] = deq(d[4 * j + 3], s1, b.y);
+#pragma unroll
+      for (int h = 0; h < MH; ++h) {
+        d[h][4 * j] = deq(d[h][4 * j], s0[h], b.x);
+        d[h][4 * j + 1] = deq(d[h][4 * j + 1], s0[h], b.y);
+        d[h][4 * j + 2] = deq(d[h][4 * j + 2], s1[h], b.x);
+        d[h][4 * j + 3] = deq(d[h][4 * j + 3], s1[h], b.y);
+      }
     }
   }
 }
@@ -325,39 +392,51 @@ __device__ __forceinline__ void flush_tma(const T (&d)[NA], uint8_t* bufs,
   }
 }
 
-// A consumer's first thread: C's box ch (64 rows from row0, OUT_COLS
-// columns from col0 + OUT_COLS ch) into its staging buffer ch % 2 by
-// tensor map under that buffer's barrier, once every store out of the
-// staging has read it.
+// A consumer's first thread: C's box i (NB boxes a 64-row product: rows
+// from row0 + 64 (i / NB), OUT_COLS columns from col0 + OUT_COLS (i % NB))
+// into its staging buffer i % 2 by tensor map under that buffer's barrier,
+// once every store out of the staging has read it; kHint: under the L2
+// `policy`.
+template <int NB, bool kHint>
 __device__ __forceinline__ void load_c(const CUtensorMap* tcin,
-                                       uint8_t* bufs, uint64_t* cbar, int ch,
-                                       int row0, int col0) {
-  int b = ch & 1;
+                                       uint8_t* bufs, uint64_t* cbar, int i,
+                                       int row0, int col0, uint64_t policy) {
+  int b = i & 1;
+  int c0 = col0 + OUT_COLS * (i % NB), c1 = row0 + 64 * (i / NB);
   bulk_wait_read<0>();
   mbar_arrive_expect_tx(cbar + b, OUT_BOX);
-  wg::tma_2d(bufs + b * OUT_BOX, tcin, col0 + OUT_COLS * ch, row0, cbar + b);
+  if constexpr (kHint)
+    wg::tma_2d_hint(bufs + b * OUT_BOX, tcin, c0, c1, cbar + b, policy);
+  else
+    wg::tma_2d(bufs + b * OUT_BOX, tcin, c0, c1, cbar + b);
 }
 
-// out = d + C into a fresh output over a consumer's 64 rows from row0 and
-// the tile's columns from col0, OUT_COLS columns at a time: box ch of C is
-// in buffer ch % 2 (load_c, its first two before the tile's main loop;
-// `phase` bit b the parity of buffer b's next load), each thread adds its
-// sums to C where they lie with __fadd_rn (the plain version's d + C, one
-// round-to-nearest add), the warpgroup meets (named barrier 1 + cw) and
-// its first thread hands the buffer to the tensor-map unit to store over
-// out (clipped at M and N), then loads box ch + 2 into it.
-template <class T, int NA>
-__device__ __forceinline__ void flush_load(const T (&d)[NA], uint8_t* bufs,
-                                           uint64_t* cbar, uint32_t& phase,
+// out = d + C into a fresh output over a consumer's MH products of 64 rows
+// (rows from row0 + 64 h) and the tile's columns from col0, OUT_COLS
+// columns at a time: box i of C (load_c's numbering) is in buffer i % 2
+// (its first two loaded before the tile's main loop; `phase` bit b the
+// parity of buffer b's next load), each thread adds its sums to C where
+// they lie with __fadd_rn (the plain version's d + C, one round-to-nearest
+// add), the warpgroup meets (named barrier 1 + cw) and its first thread
+// hands the buffer to the tensor-map unit to store over out (clipped at M
+// and N), then loads box i + 2 into it. kHint: C's loads and out's stores
+// under the L2 `policy`.
+template <bool kHint, class T, int MH, int NA>
+__device__ __forceinline__ void flush_load(const T (&d)[MH][NA],
+                                           uint8_t* bufs, uint64_t* cbar,
+                                           uint32_t& phase,
                                            const CUtensorMap* tc,
                                            const CUtensorMap* tcin, int row0,
-                                           int col0, int cw) {
+                                           int col0, int cw,
+                                           uint64_t policy) {
+  constexpr int NB = NA / 16;   // boxes a product: 4 accumulator blocks
   int t = threadIdx.x & 127;
   int lane = t & 31;
   int r0 = 16 * (t >> 5) + (lane >> 2);
 #pragma unroll
-  for (int ch = 0; ch < NA / 16; ++ch) {
-    int b = ch & 1;
+  for (int i = 0; i < MH * NB; ++i) {
+    int hm = i / NB, ch = i % NB;
+    int b = i & 1;
     uint8_t* buf = bufs + b * OUT_BOX;
     wg::wait(cbar + b, (phase >> b) & 1);   // C's box is in buf
     phase ^= 1u << b;
@@ -372,16 +451,21 @@ __device__ __forceinline__ void flush_load(const T (&d)[NA], uint8_t* bufs,
                                        ((col & 3) << 2));
         float2* at = reinterpret_cast<float2*>(buf + off);
         float2 cv = *at;
-        *at = make_float2(__fadd_rn(as_f32(d[4 * j + 2 * h]), cv.x),
-                          __fadd_rn(as_f32(d[4 * j + 2 * h + 1]), cv.y));
+        *at = make_float2(__fadd_rn(as_f32(d[hm][4 * j + 2 * h]), cv.x),
+                          __fadd_rn(as_f32(d[hm][4 * j + 2 * h + 1]), cv.y));
       }
     }
     fence_proxy_async();
     wg::bar_sync(1 + cw, 128);
     if (t == 0) {
-      wg::tma_out_2d<false>(tc, buf, col0 + OUT_COLS * ch, row0);
+      int c0 = col0 + OUT_COLS * ch, c1 = row0 + 64 * hm;
+      if constexpr (kHint)
+        wg::tma_store_2d_hint(tc, buf, c0, c1, policy);
+      else
+        wg::tma_out_2d<false>(tc, buf, c0, c1);
       bulk_commit();
-      if (ch + 2 < NA / 16) load_c(tcin, bufs, cbar, ch + 2, row0, col0);
+      if (i + 2 < MH * NB)
+        load_c<NB, kHint>(tcin, bufs, cbar, i + 2, row0, col0, policy);
     }
   }
 }
@@ -462,6 +546,12 @@ struct Layout {
   static constexpr int CL = cl_of<P>;
   static constexpr bool LOOKAHEAD = lookahead_of<P>;
   static constexpr bool LOAD_C = load_c_of<P>;
+  static constexpr bool PP = pingpong_of<P>;
+  static constexpr bool RES = resident_of<P>;
+  // products of 64 rows a consumer takes each K step (its rows of a tile:
+  // all BM with PINGPONG, else half) and the warps that release a slot
+  static constexpr int MH = PP ? 2 : 1;
+  static constexpr int WARPS = (PP ? 1 : 2) * 4;
   static constexpr int NP = P::PRODUCTS == 3 ? 2 : 1;   // planes of A, of B
   // a B plane: BN K-major rows, or BN / 64 N-major boxes of HALF_TILE
   static constexpr int B_BYTES = P::BN * wg::LINE;
@@ -477,8 +567,10 @@ struct Layout {
   // C's loads' barriers (two a consumer) and `done`
   static constexpr int SB = P::ST * STAGE + OUT_BYTES;
   static constexpr int RING = SB + (P::S8 ? 2 * SB_COLS * 4 : 0);
-  static constexpr int BARS =
+  // PINGPONG: consumer 1's full barriers after the ring's
+  static constexpr int FULL1 =
       RING + static_cast<int>(sizeof(wg::Ring<P::ST, CL>));
+  static constexpr int BARS = FULL1 + (PP ? 8 * P::ST : 0);
   static constexpr int SMEM = BARS + 5 * 8 + wg::ATOM;
   // a block's share of an A box (CL > 1: one multicast each)
   static constexpr int A_SLICE = A_BYTES / CL;
@@ -491,9 +583,14 @@ struct Layout {
   static_assert(P::PRODUCTS == 1 || P::PRODUCTS == 3,
                 "one product, or three of split planes");
   static_assert(P::BN % 64 == 0, "an N-major B is whole 64-column boxes");
-  static_assert(!P::S8 || (P::BN == 256 && P::CH == 0 &&
+  static_assert(!P::S8 || (P::BN == (PP ? 128 : 256) && P::CH == 0 &&
                            P::PRODUCTS == 1 && !P::B_MN && !P::SEED_C),
-                "int8: K2's tile, both operands K-major, C added at the end");
+                "int8: K2's tile (BM x 128 a ping-pong consumer), both "
+                "operands K-major, C added at the end");
+  static_assert(!PP || (P::S8 && CL == 1 && LOOKAHEAD && P::ST <= 32),
+                "ping-pong: int8, no cluster, the producer running ahead, "
+                "a parity bit a slot");
+  static_assert(!RES || PP, "the resident operands: the ping-pong instance");
 };
 
 // ta: A (M, K) K-major, or its split planes (3-D); tb: BT (N, K) K-major,
@@ -501,7 +598,7 @@ struct Layout {
 // fp32 in boxes of 64 rows x OUT_COLS, read on the tensor-map paths; tcin:
 // C the same, read on C_LOAD; path: CPath; sa (M), sb (N): int8's scales
 // (not read otherwise); walk: the order of the tiles (CL > 1: of the
-// cluster tiles, BM x CL BN).
+// cluster tiles, BM x CL BN; RESIDENT: a ResidentWalk).
 template <class P, class Walk>
 __global__ void __launch_bounds__(wg::BLOCK, 1)
     gemm_wgmma(const __grid_constant__ CUtensorMap ta,
@@ -514,9 +611,11 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
   constexpr int BN = P::BN;
   constexpr int ST = P::ST;
   constexpr int CL = L::CL;
+  constexpr int MH = L::MH;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = wg::align_1024(smem_raw);
   auto& ring = *reinterpret_cast<wg::Ring<ST, CL>*>(smem + L::RING);
+  uint64_t* full1 = reinterpret_cast<uint64_t*>(smem + L::FULL1);
   uint64_t* cbars = reinterpret_cast<uint64_t*>(smem + L::BARS);
   uint64_t* done = cbars + 4;
   int tiles = walk.tiles();
@@ -527,10 +626,20 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
   int rank = 0;
   if constexpr (CL > 1) rank = static_cast<int>(cluster_rank());
   int first = blockIdx.x / CL, step = gridDim.x / CL;
+  // L2 policies (RESIDENT): the operands' copies, C's and out's
+  uint64_t keep = 0, pass = 0;
+  if constexpr (L::RES) {
+    keep = l2_evict_last();
+    pass = l2_evict_first();
+    l2_prefetch_grid(walk.a, walk.a_bytes, keep);
+    l2_prefetch_grid(walk.b, walk.b_bytes, keep);
+  }
   if (threadIdx.x == 0) {
     for (int b = 0; b < 4; ++b) mbar_init(&cbars[b], 1);
     mbar_init(done, 2);
-    ring.init();
+    if constexpr (L::PP)
+      for (int s = 0; s < ST; ++s) mbar_init(&full1[s], 1);
+    ring.init(L::WARPS);
   }
   if constexpr (CL > 1)
     cluster_sync();   // every block's barriers exist before peers use them
@@ -549,7 +658,8 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
         for (int kq = 0; kq < stages; ++kq, ++q) {
           int s = q % ST;
           uint8_t* st = smem + s * L::STAGE;
-          uint64_t* full = &ring.full[s];
+          // PINGPONG: the full barrier of the tile's consumer
+          uint64_t* full = L::PP && (j & 1) ? &full1[s] : &ring.full[s];
           int k0 = kq * L::KV;
           wg::wait_empty(ring, q);
           mbar_arrive_expect_tx(full, L::STAGE);
@@ -568,6 +678,9 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
                 wg::tma_3d(bp, &tb, k0, n0, p, full);
               }
             }
+          } else if constexpr (L::RES) {   // both under evict_last
+            wg::tma_2d_hint(st, &ta, k0, m0, full, keep);
+            wg::tma_2d_hint(st + L::B, &tb, k0, n0, full, keep);
           } else {
             if constexpr (CL > 1)   // this block's slice, to every block
               wg::tma_2d_multicast(st + rank * L::A_SLICE, &ta, k0,
@@ -603,59 +716,79 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
   bool lead = (threadIdx.x & 127) == 0;
   int chunk = P::CH > 0 ? P::CH : stages;
   int q = 0;
-  typename L::Acc acc[L::ACC];
-  float tot[P::CH > 0 ? L::ACC : 1];   // CH > 0: the sum of the partials
-  for (int t = first; t < tiles; t += step) {
+  // PINGPONG: this consumer's full barriers and (bit s) each one's parity
+  uint64_t* fulls = L::PP && cw == 1 ? full1 : ring.full;
+  uint32_t fphase = 0;
+  typename L::Acc acc[MH][L::ACC];
+  float tot[P::CH > 0 ? MH : 1][P::CH > 0 ? L::ACC : 1];   // CH > 0: the
+                                                           // partials' sum
+  int j = 0;   // the tile's place in the block's walk
+  for (int t = first; t < tiles; t += step, ++j) {
+    if (L::PP && (j & 1) != cw) continue;   // the other consumer's tile
     int m0, n0;
     walk.tile(t, m0, n0);
     n0 += BN * rank;
-    int row0 = m0 + 64 * cw;
+    // the consumer's first row: the tile's (ping-pong) or its half's
+    int row0 = m0 + (L::PP ? 0 : 64 * cw);
+    if constexpr (L::PP) q = j * stages;   // the tile's first ring use
     // a tile past N (a cluster's surplus) stores nothing
     bool live = CL == 1 || n0 < N;
     if constexpr (L::LOAD_C) {
       if (path == C_LOAD && live && lead) {   // C's first boxes in flight
-        load_c(&tcin, bufs, cbar, 0, row0, n0);
-        load_c(&tcin, bufs, cbar, 1, row0, n0);
+        load_c<L::ACC / 16, L::RES>(&tcin, bufs, cbar, 0, row0, n0, pass);
+        load_c<L::ACC / 16, L::RES>(&tcin, bufs, cbar, 1, row0, n0, pass);
       }
     }
-    if constexpr (P::SEED_C && P::CH == 0)
-      seed_c(acc, c, M, N, ldc, row0, n0);
-    else
-      zero(acc);
-    if constexpr (P::CH > 0) {
-      if constexpr (P::SEED_C)
-        seed_c(tot, c, M, N, ldc, row0, n0);
+#pragma unroll
+    for (int h = 0; h < MH; ++h) {
+      if constexpr (P::SEED_C && P::CH == 0)
+        seed_c(acc[h], c, M, N, ldc, row0 + 64 * h, n0);
       else
-        zero(tot);
+        zero(acc[h]);
+      if constexpr (P::CH > 0) {
+        if constexpr (P::SEED_C)
+          seed_c(tot[h], c, M, N, ldc, row0 + 64 * h, n0);
+        else
+          zero(tot[h]);
+      }
     }
     for (int kc = 0; kc < stages; kc += chunk) {
       int kend = min(stages, kc + chunk);
       int prev = -1;   // the slot of the products still in flight
       for (int kq = kc; kq < kend; ++kq, ++q) {
         int s = q % ST;
-        uint32_t a = base + s * L::STAGE + cw * (A_BYTES / 2);
+        uint32_t a = base + s * L::STAGE + (L::PP ? 0 : cw * (64 * wg::LINE));
         uint32_t b = base + s * L::STAGE + L::B;
-        wg::wait(&ring.full[s], (q / ST) & 1);
+        if constexpr (L::PP) {
+          wg::wait(&fulls[s], (fphase >> s) & 1);
+          fphase ^= 1u << s;
+        } else {
+          wg::wait(&ring.full[s], (q / ST) & 1);
+        }
         // (acc unfenced: the group before still writes it)
         wg::wgmma_fence();
         bool fresh = P::CH > 0 && kq == kc;
 #pragma unroll
         for (int k = 0; k < L::STEPS; ++k) {
           constexpr int TB = P::B_MN ? 1 : 0;
-          uint64_t da = wg::kmajor_desc(a, k);
           uint64_t db = P::B_MN ? wg::mnmajor_desc(b, k)
                                 : wg::kmajor_desc(b, k);
-          if constexpr (P::S8)
-            wg::WgmmaS8<BN>::ss(acc, da, db, 1);
-          else
-            wg::Wgmma<BN>::template ss<0, TB>(acc, da, db,
-                                              fresh && k == 0 ? 0 : 1);
-          if constexpr (P::PRODUCTS == 3) {
-            uint64_t db_lo = P::B_MN ? wg::mnmajor_desc(b + L::B_BYTES, k)
-                                     : wg::kmajor_desc(b + L::B_BYTES, k);
-            wg::Wgmma<BN>::template ss<0, TB>(acc, da, db_lo, 1);
-            wg::Wgmma<BN>::template ss<0, TB>(
-                acc, wg::kmajor_desc(a + A_BYTES, k), db, 1);
+#pragma unroll
+          for (int h = 0; h < MH; ++h) {
+            uint32_t ah = a + h * (64 * wg::LINE);   // the product's rows
+            uint64_t da = wg::kmajor_desc(ah, k);
+            if constexpr (P::S8)
+              wg::WgmmaS8<BN>::ss(acc[h], da, db, 1);
+            else
+              wg::Wgmma<BN>::template ss<0, TB>(acc[h], da, db,
+                                                fresh && k == 0 ? 0 : 1);
+            if constexpr (P::PRODUCTS == 3) {
+              uint64_t db_lo = P::B_MN ? wg::mnmajor_desc(b + L::B_BYTES, k)
+                                       : wg::kmajor_desc(b + L::B_BYTES, k);
+              wg::Wgmma<BN>::template ss<0, TB>(acc[h], da, db_lo, 1);
+              wg::Wgmma<BN>::template ss<0, TB>(
+                  acc[h], wg::kmajor_desc(ah + A_BYTES, k), db, 1);
+            }
           }
         }
         wg::wgmma_commit();
@@ -664,23 +797,33 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
         prev = s;
       }
       wg::wgmma_wait<0>();
-      wg::fence_regs(acc);
+#pragma unroll
+      for (int h = 0; h < MH; ++h) wg::fence_regs(acc[h]);
       wg::release(ring, prev);
       if constexpr (P::CH > 0) {
 #pragma unroll
-        for (int i = 0; i < L::ACC; ++i) tot[i] = __fadd_rn(tot[i], acc[i]);
+        for (int h = 0; h < MH; ++h)
+#pragma unroll
+          for (int i = 0; i < L::ACC; ++i)
+            tot[h][i] = __fadd_rn(tot[h][i], acc[h][i]);
       }
     }
     if (live) {
       if constexpr (P::S8) dequant(acc, sa, sb, sbuf, M, N, row0, n0, cw);
       auto finish = [&](const auto& d) {
         constexpr bool kAdd = !P::SEED_C;
-        if (L::LOAD_C && path == C_LOAD)
-          flush_load(d, bufs, cbar, phase, &tc, &tcin, row0, n0, cw);
-        else if (!L::LOAD_C && path == C_TMA)
-          flush_tma<kAdd>(d, bufs, &tc, row0, n0, cw);
-        else
-          flush_threads<kAdd>(d, c, out, M, N, ldc, row0, n0);
+        if (L::LOAD_C && path == C_LOAD) {
+          flush_load<L::RES>(d, bufs, cbar, phase, &tc, &tcin, row0, n0, cw,
+                             pass);
+          return;
+        }
+#pragma unroll
+        for (int h = 0; h < MH; ++h) {
+          if (!L::LOAD_C && path == C_TMA)
+            flush_tma<kAdd>(d[h], bufs, &tc, row0 + 64 * h, n0, cw);
+          else
+            flush_threads<kAdd>(d[h], c, out, M, N, ldc, row0 + 64 * h, n0);
+        }
       };
       if constexpr (P::CH > 0)
         finish(tot);
@@ -690,6 +833,11 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
     if (!L::LOOKAHEAD && lead) mbar_arrive(done);   // the flush is issued
   }
   if (lead) bulk_wait_all();
+  if constexpr (L::RES) {   // this block's share of the lines, by consumers
+    int tid = static_cast<int>(threadIdx.x) - (wg::BLOCK - wg::CONSUMERS);
+    l2_evict_normal_grid(walk.a, walk.a_bytes, tid, wg::CONSUMERS);
+    l2_evict_normal_grid(walk.b, walk.b_bytes, tid, wg::CONSUMERS);
+  }
   if constexpr (CL > 1) {
     __syncwarp();
     cluster_sync();   // no block leaves while peers may still reach it
@@ -800,6 +948,28 @@ int launch(const CUtensorMap& ta, const CUtensorMap& tb, const void* c,
       ldc, path, walk);
   cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
+}
+
+// An int8 ping-pong instance (rungs 10 and 12) on QA (M, K) and QBT (N,
+// K) K-major, row pitches lda and ldb, on the grouped walk of its BM x BN
+// tiles (RESIDENT: with the operands' ranges): cudaErrorInvalidValue for
+// a tensor map the CUDA driver refuses, else launch's result.
+template <class P>
+int launch_pingpong(const void* qa, const void* qbt, const void* sa,
+                    const void* sb, const void* c, void* out, int M, int N,
+                    int K, int lda, int ldb, int ldc, cudaStream_t stream) {
+  CUtensorMap ta, tb;
+  if (!kmajor_map_s8(&ta, qa, M, K, lda, BM) ||
+      !kmajor_map_s8(&tb, qbt, N, K, ldb, P::BN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  GroupWalk<P::BN> grid{(M + BM - 1) / BM, (N + P::BN - 1) / P::BN};
+  if constexpr (resident_of<P>) {
+    ResidentWalk<P::BN> walk{grid, qa, qbt, static_cast<size_t>(M) * lda,
+                             static_cast<size_t>(N) * ldb};
+    return launch<P>(ta, tb, c, out, sa, sb, M, N, K, ldc, walk, stream);
+  } else {
+    return launch<P>(ta, tb, c, out, sa, sb, M, N, K, ldc, grid, stream);
+  }
 }
 
 // launch on the grouped walk, no scales (the bf16 and fp32 rungs)

@@ -46,17 +46,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(src_bytes));
 }
 
-// cp_async16 under an L2 cache policy (a createpolicy value).
-__device__ __forceinline__ void cp_async16_l2(void* smem, const void* gmem,
-                                              bool valid, uint64_t policy) {
-  unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int src_bytes = valid ? 16 : 0;
-  asm volatile(
-      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::
-          "r"(dst),
-      "l"(gmem), "r"(src_bytes), "l"(policy));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -74,38 +63,24 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Stage a 128-row x 64-byte K-major tile of a row-major int8 matrix
 // (rows x K, row pitch ld bytes, ld and the base 16-byte aligned, K a
-// multiple of 16) by kThreads threads, thread tid taking 16-byte chunks
-// tid, tid + kThreads, ... of the 512. Rows >= rows and K chunks >= K are
-// zero-filled. kHint: every copy under the L2 cache `policy`.
-template <int kThreads, bool kHint>
-__device__ __forceinline__ void load_kmajor_tile(int8_t (*dst)[LDS],
-                                                 const int8_t* src, int row0,
-                                                 int rows, int k0, int K,
-                                                 int ld, int tid,
-                                                 uint64_t policy) {
+// multiple of 16) by the block's THREADS threads, thread t taking 16-byte
+// chunks t, t + THREADS, ... of the 512. Rows >= rows and K chunks >= K
+// are zero-filled.
+__device__ __forceinline__ void load_kmajor_async(int8_t (*dst)[LDS],
+                                                  const int8_t* src, int row0,
+                                                  int rows, int k0, int K,
+                                                  int ld) {
 #pragma unroll
-  for (int i = 0; i < 512 / kThreads; ++i) {
-    int chunk = tid + i * kThreads;
+  for (int i = 0; i < 512 / THREADS; ++i) {
+    int chunk = threadIdx.x + i * THREADS;
     int r = chunk >> 2;
     int kc = (chunk & 3) * 16;
     int gr = row0 + r;
     int gk = k0 + kc;
     bool valid = gr < rows && gk < K;
     const int8_t* p = valid ? src + (size_t)gr * ld + gk : src;
-    if constexpr (kHint)
-      cp_async16_l2(&dst[r][kc], p, valid, policy);
-    else
-      cp_async16(&dst[r][kc], p, valid);
+    cp_async16(&dst[r][kc], p, valid);
   }
-}
-
-// load_kmajor_tile by the block's THREADS threads, no cache policy.
-__device__ __forceinline__ void load_kmajor_async(int8_t (*dst)[LDS],
-                                                  const int8_t* src, int row0,
-                                                  int rows, int k0, int K,
-                                                  int ld) {
-  load_kmajor_tile<THREADS, false>(dst, src, row0, rows, k0, K, ld,
-                                   threadIdx.x, 0);
 }
 
 // N-major operand (B stored K rows x N columns, row-major): each thread

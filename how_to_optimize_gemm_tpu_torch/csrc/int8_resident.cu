@@ -1,12 +1,13 @@
-// Rungs 12 and 13, the operand-resident hand pipelines, on manual_dma.cuh's
-// persistent fat-tile kernel (rung 10's 128 x 128 tiles, two-slot ring, two
-// C/out buffers), each into a fresh output:
+// Rungs 12 and 13, the operand-resident hand pipelines, each into a fresh
+// output:
 //   int8_resident_nt (rung 12): C' = f32(QA @ QBT^T as int32) * sa * sb + C
-//     with A and B^T held in the L2;
+//     with A and B^T held in the L2, on rung 10's ping-pong instance of
+//     gemm_wgmma.cuh's int8 wgmma body;
 //   int8_pretile (rung 13's first launch): an int8 matrix (rows, K) into
 //     tile-contiguous slot images (tiles, nk, 128, LDS);
 //   int8_tiled_resident_nt (rung 13): rung 12's function on the pretiled
-//     operands.
+//     operands, on manual_dma.cuh's persistent fat-tile kernel (128 x 128
+//     tiles, a two-slot ring, two C/out buffers).
 //
 // Replaces: how_to_optimize_gemm_tpu/ops/pallas_manual_dma.py,
 // _make_resident_kernel (via mmult_q_resident, rung 12_resident_int8) and
@@ -25,15 +26,17 @@
 // there). A block's 227 KB of shared memory holds no 16 MB operand, and a
 // cluster's shared memory (at most 16 x 227 KB) would fall back at every
 // sweep size; the card's on-chip store of that size is the 50 MB L2. So:
-// - rung 12 is rung 10's walk with the L2 told what to keep: before its
-//   walk each block prefetches its share of A and B^T into the L2
-//   (cp.async.bulk.prefetch.L2 under an evict_last policy: the reference's
-//   "DMA each operand once"), every chunk copy carries evict_last, and C's
-//   fetch and the output's store carry evict_first, so 128 MB of C and out
-//   stream past the 33.5 MB of operands. No process-wide state is set (no
-//   persisting-L2 limit, no access-policy window): the policy rides on each
-//   copy, and each block sets its share of the lines back to evict_normal
-//   at its end;
+// - rung 12 is rung 10's walk with the L2 told what to keep (RESIDENT,
+//   gemm_wgmma.cuh): before its walk the grid prefetches A and B^T into
+//   the L2 (cp.async.bulk.prefetch.L2 under an evict_last policy, each
+//   block its share: the reference's "DMA each operand once"), every
+//   stage's tensor-map copy carries evict_last, and C's loads and the
+//   output's stores carry evict_first, so 128 MB of C and out stream past
+//   the 33.5 MB of operands. No process-wide state is set (no persisting-L2
+//   limit, no access-policy window): the policy rides on each copy, and
+//   each block sets its share of the lines back to evict_normal at its
+//   end. Its sums and epilogue are rung 10's: the output equals the plain
+//   version bit for bit;
 // - rung 13 repacks first (int8_pretile), writing each operand once into
 //   scratch laid out as the ring slot's exact image: 128 rows of 64 K
 //   bytes in the padded 80-byte pitch, edges zero-filled. A chunk is then
@@ -45,7 +48,26 @@
 //   per-chunk waits: no grid barrier, no cooperative launch.
 // The wrapper routes a call whose resident bytes exceed RESIDENT_BUDGET (a
 // share of the L2) to rung 11, as the reference does above its VMEM budget.
+#include "gemm_wgmma.cuh"
 #include "manual_dma.cuh"
+
+namespace htog {
+
+// rung 10's instance (int8_fat.cu) with the operands kept in the L2
+struct Rung12 {
+  static constexpr int BN = 128;         // output columns a tile
+  static constexpr int CH = 0;           // stages a partial sum (0: one sum)
+  static constexpr int ST = 6;           // stages of the ring
+  static constexpr int PRODUCTS = 1;
+  static constexpr bool B_MN = false;
+  static constexpr bool SEED_C = false;
+  static constexpr bool S8 = true;       // int8 operands, int32 sums
+  static constexpr bool LOAD_C = true;   // a fresh output, C loaded
+  static constexpr bool PINGPONG = true;   // a consumer's whole tiles
+  static constexpr bool RESIDENT = true;   // A and B^T kept in the L2
+};
+
+}  // namespace htog
 
 namespace {
 
@@ -85,13 +107,15 @@ __global__ void __launch_bounds__(htog::THREADS)
 
 // As int8_fat_nt: K and lda, ldb multiples of 16, ldc (the row pitch of c
 // and out, >= N) a multiple of 4, every base 16-byte aligned. Returns a
-// cudaError_t.
+// cudaError_t (cudaErrorInvalidValue for a tensor map the CUDA driver
+// refuses).
 extern "C" int int8_resident_nt(const void* qa, const void* qbt,
                                 const void* sa, const void* sb, const void* c,
                                 void* out, int M, int N, int K, int lda,
                                 int ldb, int ldc, void* stream) {
-  return htog::launch_fat<true, 128, 2, htog::FEED_RESIDENT>(
-      qa, qbt, sa, sb, c, out, M, N, K, lda, ldb, ldc, stream);
+  return htog::gw::launch_pingpong<htog::Rung12>(
+      qa, qbt, sa, sb, c, out, M, N, K, lda, ldb, ldc,
+      static_cast<cudaStream_t>(stream));
 }
 
 // src (rows, K) int8 with row pitch ld (K and ld multiples of 16, src

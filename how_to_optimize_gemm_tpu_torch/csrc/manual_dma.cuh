@@ -1,8 +1,9 @@
 // The hand-pipeline record's rungs on shared-memory rings (int8_dma_nn.cu,
 // int8_fat.cu, int8_resident.cu): rings tracked per slot by mbarriers,
-// bulk copies, L2 cache policies, and the persistent fat-tile kernel
-// template of rungs 09, 10, 12 and 13. (Rungs 11 and 17 run on
-// gemm_wgmma.cuh's int8 body.)
+// bulk copies, L2 cache policies (also gemm_wgmma.cuh's, rung 12's), and
+// the persistent fat-tile kernel template of the two rungs left on
+// mma.sync, 09 and 13. (Rungs 10, 11, 12 and 17 run on gemm_wgmma.cuh's
+// int8 body.)
 //
 // Every thread of a block is a producer and a consumer; there is no warp
 // specialisation. A ring slot has two mbarriers:
@@ -183,15 +184,17 @@ __device__ __forceinline__ void l2_prefetch_grid(const void* src, size_t bytes,
 }
 
 // Set the L2 lines of [src, src + bytes) back to evict_normal, the grid's
-// blocks taking lines in turn: an evict_last line left behind would keep
-// its place against the next kernel's data.
+// blocks taking lines in turn (line i: block i % gridDim.x, its thread tid
+// of `threads` taking part): an evict_last line left behind would keep its
+// place against the next kernel's data.
 __device__ __forceinline__ void l2_evict_normal_grid(const void* src,
-                                                     size_t bytes) {
+                                                     size_t bytes, int tid,
+                                                     int threads) {
   const uintptr_t lo = reinterpret_cast<uintptr_t>(src) & ~uintptr_t(127);
   const uintptr_t hi = reinterpret_cast<uintptr_t>(src) + bytes;
   const size_t lines = (hi - lo + 127) / 128;
-  const size_t step = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (size_t i = blockIdx.x + static_cast<size_t>(gridDim.x) * threadIdx.x;
+  const size_t step = static_cast<size_t>(gridDim.x) * threads;
+  for (size_t i = blockIdx.x + static_cast<size_t>(gridDim.x) * tid;
        i < lines; i += step)
     asm volatile("applypriority.global.L2::evict_normal [%0], 128;\n" ::"l"(
                      lo + i * 128)
@@ -233,9 +236,8 @@ __device__ __forceinline__ void mma_chunk(int (&acc)[4][NI][4],
 
 // How the fat kernel's A and B^T chunks reach its ring.
 enum Feed : int {
-  FEED_STREAM = 0,    // cp.async from the operands as stored (rungs 09-11)
-  FEED_RESIDENT = 1,  // the same under L2 evict_last, after a prefetch (12)
-  FEED_TILED = 2,     // one bulk copy a chunk of pretiled slot images (13)
+  FEED_STREAM = 0,    // cp.async from the operands as stored (rung 09)
+  FEED_TILED = 1,     // one bulk copy a chunk of pretiled slot images (13)
 };
 
 // The fat-tile kernel's shared memory: a ring of RING_SLOTS (A, B) chunk
@@ -298,36 +300,35 @@ __device__ __forceinline__ void staged_epilogue(const int (&acc)[4][NI][4],
   }
 }
 
-// The persistent fat-tile kernel (rungs 09, 10, 12, 13). Each block walks
+// The persistent fat-tile kernel (rungs 09 and 13). Each block walks
 // the BM x BNT tiles blockIdx.x, blockIdx.x + gridDim.x, ... in row-major
 // order. The K chunks of all the block's tiles form one stream
 // q = 0, 1, ...: chunk q + 1 is issued before chunk q is waited on, also
 // across a tile boundary, so the next tile's first chunks load while this
 // tile's epilogue runs.
 //
-// kNT: B arrives as B^T (N, K), K-major, straight into shared memory
-// through cp.async; otherwise B (K, N) is transposed through registers
-// (int8_gemm_nn's way). NBUF: C/out buffers. A tile's C is fetched into
-// buffer b with bulk copies at the tile's start and awaited at its flush;
-// the flush computes the epilogue in place and stores the buffer with bulk
-// copies, which drain while the next tiles run. With one buffer the next
-// tile's C fetch waits until that store has read the buffer; with two,
-// tile j fetches into buffer j % 2 while tile j - 1's store reads the
-// other (the reference's accumulator ping-pong).
+// kNT: B arrives as B^T (N, K), K-major (rung 13: its slot images);
+// otherwise B (K, N) is transposed through registers (int8_gemm_nn's way).
+// NBUF: C/out buffers. A tile's C is fetched into buffer b with bulk
+// copies at the tile's start and awaited at its flush; the flush computes
+// the epilogue in place and stores the buffer with bulk copies, which
+// drain while the next tiles run. With one buffer (rung 09) the next
+// tile's C fetch waits until that store has read the buffer; with two
+// (rung 13), tile j fetches into buffer j % 2 while tile j - 1's store
+// reads the other.
 //
-// kFeed: how the A and B^T chunks reach the ring (Feed). FEED_RESIDENT
-// (rung 12) first prefetches the grid's share of A and B^T into the L2
-// under evict_last and copies every chunk under evict_last, C's fetch and
-// the output's store under evict_first, so the operands stay in the L2
-// while C and out stream past them; at its end each block sets its share
-// of the lines back to evict_normal. FEED_TILED (rung 13) reads pretiled
-// operands (int8_pretile): a chunk is one slot image of BM x LDS bytes,
-// one bulk copy a chunk and operand, issued by thread 0.
+// kFeed: how the A and B^T chunks reach the ring (Feed). FEED_TILED (rung
+// 13) reads pretiled operands (int8_pretile): a chunk is one slot image
+// of BM x LDS bytes, one bulk copy a chunk and operand, issued by thread
+// 0, under evict_last, C's fetch and the output's store under evict_first,
+// so the images stay in the L2 while C and out stream past them; at its
+// end each block sets its share of the lines back to evict_normal.
 template <bool kNT, int BNT, int NBUF, int kFeed = FEED_STREAM>
 __global__ void __launch_bounds__(THREADS, 1)
     int8_fat_kernel(const FatArgs p) {
-  static_assert(kFeed == FEED_STREAM || (kNT && BNT == BM),
-                "the resident feeds take B^T on 128 x 128 tiles");
+  static_assert(kNT == (kFeed == FEED_TILED) &&
+                    (kFeed == FEED_STREAM || BNT == BM),
+                "B^T comes as 128 x 128 slot images (13), B as it lies (09)");
   constexpr bool kHint = kFeed != FEED_STREAM;
   using L = FatLayout<BNT, NBUF>;
   constexpr int NI = BNT / 32;  // 8-column fragments a warp, 4 warps on N
@@ -357,15 +358,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     keep = l2_evict_last();
     pass = l2_evict_first();
   }
-  if constexpr (kFeed == FEED_RESIDENT) {
-    l2_prefetch_grid(p.a, static_cast<size_t>(p.M) * p.lda, keep);
-    l2_prefetch_grid(p.b, static_cast<size_t>(p.N) * p.ldb, keep);
-  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < RING_SLOTS; ++s) {
-      mbar_init(&full[s], kFeed == FEED_TILED
-                              ? 1
-                              : THREADS * (kNT ? 1 : 2));
+      mbar_init(&full[s], kFeed == FEED_TILED ? 1 : 2 * THREADS);
       mbar_init(&empty[s], WARPS);
     }
     for (int b = 0; b < NBUF; ++b) mbar_init(&cbar[b], 1);
@@ -404,18 +399,11 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
       return;
     }
-    load_kmajor_tile<THREADS, kHint>(a_slot(s), p.a, m0, p.M, k0, p.K,
-                                     p.lda, threadIdx.x, keep);
+    load_kmajor_async(a_slot(s), p.a, m0, p.M, k0, p.K, p.lda);
 #pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      if (kNT)
-        load_kmajor_tile<THREADS, kHint>(b_slot(s) + 128 * h, p.b,
-                                         n0 + 128 * h, p.N, k0, p.K, p.ldb,
-                                         threadIdx.x, keep);
-      else
-        load_nmajor_regs(breg[h], RowMajorInt8{p.b, p.K, p.ldb}, k0,
-                         n0 + 128 * h);
-    }
+    for (int h = 0; h < NH; ++h)
+      load_nmajor_regs(breg[h], RowMajorInt8{p.b, p.K, p.ldb}, k0,
+                       n0 + 128 * h);
     cp_async_arrive_noinc(&full[s]);
   };
   auto store_b = [&](int q) {  // NN: chunk q's B registers into its slot
@@ -498,12 +486,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   }
   if (warp == 0) bulk_wait_all();
-  if constexpr (kFeed == FEED_RESIDENT) {
-    l2_evict_normal_grid(p.a, static_cast<size_t>(p.M) * p.lda);
-    l2_evict_normal_grid(p.b, static_cast<size_t>(p.N) * p.ldb);
-  } else if constexpr (kFeed == FEED_TILED) {
-    l2_evict_normal_grid(p.a, static_cast<size_t>(p.ntm) * nk * L::A_BYTES);
-    l2_evict_normal_grid(p.b, static_cast<size_t>(p.ntn) * nk * L::B_BYTES);
+  if constexpr (kFeed == FEED_TILED) {
+    l2_evict_normal_grid(p.a, static_cast<size_t>(p.ntm) * nk * L::A_BYTES,
+                         threadIdx.x, blockDim.x);
+    l2_evict_normal_grid(p.b, static_cast<size_t>(p.ntn) * nk * L::B_BYTES,
+                         threadIdx.x, blockDim.x);
   }
 }
 

@@ -159,6 +159,31 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// tma_2d and tma_out_2d's store under an L2 cache policy (createpolicy's
+// handle: manual_dma.cuh's l2_evict_last, l2_evict_first) on every line
+// the copy touches.
+__device__ __forceinline__ void tma_2d_hint(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar,
+                                            uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d_hint(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint"
+      " [%0, {%2, %3}], [%1], %4;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "l"(policy)
+      : "memory");
+}
+
 // The shared-memory box at src (one box of the map, fp32) added into (kAdd)
 // or stored over the global tensor at (c0, c1), by the tensor-map unit,
 // tracked by this thread's bulk groups (global -> shared's counterpart of
@@ -567,9 +592,9 @@ struct Wgmma<256> {
   }
 };
 
-// wgmma.m64n256k32.s32.s8.s8 with A and B from shared memory by
-// descriptor, both K-major (8-bit types have no transposed form), d holding
-// 128 int32 sums a thread in the fp32 accumulator layout above
+// wgmma.m64nNk32.s32.s8.s8 for N 256 and 128 with A and B from shared
+// memory by descriptor, both K-major (8-bit types have no transposed form),
+// d holding N / 2 int32 sums a thread in the fp32 accumulator layout above
 // (for_each_pair). A 32-byte K step of a 128-byte swizzled line, as
 // m64nNk16's bf16 step: kmajor_desc(addr, k) names both. accumulate = 0
 // ignores d's old value. (w4a8_wgmma.cuh's w4::WgmmaS8 takes A from
@@ -623,6 +648,37 @@ struct WgmmaS8<256> {
           "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
           "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]),
           "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+        : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaS8<128> {
+  static __device__ __forceinline__ void ss(int (&d)[64], uint64_t da,
+                                            uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+          "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+          "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+          "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+          "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+          "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+          "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+          "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+          "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+          "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
         : "l"(da), "l"(db), "r"(accumulate));
   }
 };
@@ -694,10 +750,12 @@ __device__ __forceinline__ uint32_t cluster_rank() {
 
 namespace wg {
 
-// The ring's barriers, after the stages in shared memory. CL > 1: a ring
-// of each block of a cluster of CL blocks whose stages peers' multicasts
-// fill too, so a slot is empty once the consumer warps of all CL blocks
-// have released it.
+// The ring's barriers, after the stages in shared memory. A slot is empty
+// once the `warps` consumer warps that read it have released it (both
+// consumer warpgroups', or one's where each takes whole tiles). CL > 1: a
+// ring of each block of a cluster of CL blocks whose stages peers'
+// multicasts fill too, so a slot is empty once the consumer warps of all
+// CL blocks have released it.
 template <int ST, int CL = 1>
 struct Ring {
   uint64_t full[ST];
@@ -705,10 +763,10 @@ struct Ring {
 
   // by one thread, before the block's __syncthreads (CL > 1: before the
   // cluster's barrier)
-  __device__ void init() {
+  __device__ void init(int warps = CONSUMERS / 32) {
     for (int s = 0; s < ST; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], CL * CONSUMERS / 32);
+      mbar_init(&empty[s], CL * warps);
     }
     mbar_fence_init();
   }

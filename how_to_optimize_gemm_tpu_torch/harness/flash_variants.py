@@ -123,6 +123,16 @@ tile BK). Eleven groups of kernels, one a run (``--group``):
   ones) take the same arguments. The variants build rung 11 at ``CL`` 1
   (no multicast: the L2 alone shares A, the lesson's control) and 4, or
   with each thread adding C (``c_threads``);
+- ``pingpong``: rungs 10 ``int8_fat_nt`` and 12 ``int8_resident_nt`` (K2's
+  body with each consumer warpgroup taking whole tiles in turn; 12 with
+  the operands kept in the L2) and rung 11 ``int8_strip_nt`` at M = N = K
+  = 4,096 and 2,048, EQUAL to their plain version, C unchanged, two calls
+  bit-equal, and ``int8_gemm_nt`` at 4,096; ``torch._int_mm`` and the
+  epilogue beside all. An older tree's kernels (the ``mma.sync`` ones)
+  take the same arguments. The variants order the two consumers' product
+  loops (``order``), give each consumer 64 x 256 tiles (``tile64x256``),
+  drop rung 12's prefetch (``no_prefetch``), or build rung 11 at ``CL`` 1
+  (``cl1``: the cooperative body into a fresh output, rung 10's control);
 - ``ladder``: the float ladder's rungs 02 (``fp32_gemm_mn_tile``), 03 and
   03b (``fp32_gemm_k_blocked`` at blocks of 128 and 64), each its
   wrapper at M = N = K = 4,096 and 2,048, held to its plain version
@@ -142,7 +152,7 @@ build; the cases run as CUDA-graph replays in rounds that walk the
 variants forwards and then backwards.
 
     python -m how_to_optimize_gemm_tpu_torch.harness.flash_variants \\
-        [--group forward|dkv|dq|gemm|paged|w4a8|int8|gemv|w4a16|strip|ladder] \\
+        [--group forward|dkv|dq|gemm|paged|w4a8|int8|gemv|w4a16|strip|pingpong|ladder] \\
         [--variants shipped ...] \\
         [--tree parent=build/parent/how_to_optimize_gemm_tpu_torch/csrc:64]
 """
@@ -407,18 +417,19 @@ GEMM_VARIANTS = {
     # note C7518)
     "consume_shape": (
         (_GW, """        // (acc unfenced: the group before still writes it)
-        wg::wgmma_fence();""", """        wg::fence_regs(acc);
+        wg::wgmma_fence();""", """        for (int h = 0; h < MH; ++h) wg::fence_regs(acc[h]);
         wg::wgmma_fence();"""),
         (_GW, """        wg::wgmma_wait<1>();
         if (prev >= 0) wg::release(ring, prev);
         prev = s;
       }
       wg::wgmma_wait<0>();
-      wg::fence_regs(acc);
+#pragma unroll
+      for (int h = 0; h < MH; ++h) wg::fence_regs(acc[h]);
       wg::release(ring, prev);
 """, """        if (kq + 1 == kend) {
           wg::wgmma_wait<0>();
-          wg::fence_regs(acc);
+          for (int h = 0; h < MH; ++h) wg::fence_regs(acc[h]);
           if (prev >= 0) wg::release(ring, prev);
           wg::release(ring, s);
         } else {
@@ -606,6 +617,76 @@ STRIP_VARIANTS = {
     "own_a": ((_GW, "if constexpr (CL > 1)   // this block's slice, to every "
                "block", "if constexpr (false)"),
               (_STRIP, "lda, gw::BM / CL)", "lda, gw::BM)")),
+}
+_FAT = "int8_fat.cu"
+_RES = "int8_resident.cu"
+
+
+def _pingpong(old: str, new: str):
+    """The same change to rung 10's instance and rung 12's."""
+    return tuple((src, old, new) for src in (_FAT, _RES))
+
+
+# the ping-pong tile's rows a consumer (64 in tile64x256): the walk's
+# origins, A's box and plane, the products a K step
+_PP_HALF = """template <int BN>
+struct ResidentWalk : GroupWalk<BN> {"""
+_HALF_WALK = """// the grouped walk of 64-row tiles: tile_of's origins, rows halved
+template <int BN>
+struct HalfWalk : GroupWalk<BN> {
+  __device__ __forceinline__ void tile(int t, int& m0, int& n0) const {
+    GroupWalk<BN>::tile(t, m0, n0);
+    m0 /= 2;
+  }
+};
+template <int BN>
+struct ResidentWalk : HalfWalk<BN> {"""
+
+PINGPONG_VARIANTS = {
+    "shipped": (),
+    # the two consumers' product loops taking turns (CUTLASS's ordering
+    # barrier): consumer cw waits before tile j > 0's products until the
+    # other has issued tile j - 1's (named barrier 3 + cw, 256 threads),
+    # and arrives on the other's once it has issued its own
+    "order": (
+        (_GW, "    for (int kc = 0; kc < stages; kc += chunk) {\n",
+         "    if (L::PP && j > 0) wg::bar_sync(3 + cw, 2 * 128);\n"
+         "    for (int kc = 0; kc < stages; kc += chunk) {\n"),
+        (_GW, "        prev = s;\n      }\n      wg::wgmma_wait<0>();\n",
+         "        prev = s;\n      }\n"
+         "      if (L::PP && t + step < tiles)\n"
+         "        wg::bar_arrive(3 + (cw ^ 1), 2 * 128);\n"
+         "      wg::wgmma_wait<0>();\n")),
+    # 64 x 256 a consumer (one m64n256k32 a K step, 40 KB stages, 4 of
+    # them) in place of 128 x 128
+    "tile64x256": (
+        *_pingpong("  static constexpr int BN = 128; ",
+                   "  static constexpr int BN = 256; "),
+        *_pingpong("  static constexpr int ST = 6; ",
+                   "  static constexpr int ST = 4; "),
+        (_GW, _PP_HALF, _HALF_WALK),
+        (_GW, "  static constexpr int MH = PP ? 2 : 1;",
+         "  static constexpr int MH = 1;"),
+        (_GW, "  static constexpr int B = NP * A_BYTES; ",
+         "  static constexpr int B = NP * (PP ? A_BYTES / 2 : A_BYTES); "),
+        (_GW, "  static constexpr int STAGE = NP * (A_BYTES + B_BYTES);",
+         "  static constexpr int STAGE = NP * ((PP ? A_BYTES / 2 : A_BYTES)"
+         " + B_BYTES);"),
+        (_GW, "P::BN == (PP ? 128 : 256)", "P::BN == 256"),
+        (_GW, "  if (!kmajor_map_s8(&ta, qa, M, K, lda, BM) ||",
+         "  if (!kmajor_map_s8(&ta, qa, M, K, lda, BM / 2) ||"),
+        (_GW, "  GroupWalk<P::BN> grid{(M + BM - 1) / BM,",
+         "  HalfWalk<P::BN> grid{{(M + BM / 2 - 1) / (BM / 2),"),
+        (_GW, "(N + P::BN - 1) / P::BN};\n  if constexpr (resident_of<P>)",
+         "(N + P::BN - 1) / P::BN}};\n  if constexpr (resident_of<P>)")),
+    # rung 12 without its prefetch of the operands (the copies' evict_last
+    # and C's and out's evict_first kept)
+    "no_prefetch": ((_GW, "    l2_prefetch_grid(walk.a, walk.a_bytes, keep);\n"
+                     "    l2_prefetch_grid(walk.b, walk.b_bytes, keep);\n",
+                     ""),),
+    # the control: rung 11's body cooperative (no cluster) into a fresh
+    # output, read off rung 11's rows
+    "cl1": ((_STRIP, _STRIP_CL, "  static constexpr int CL = 1; "),),
 }
 _GEMV = "w4a8_gemv_fq.cu"
 # the timeline probes' device side: each block's %globaltimer at phase i
@@ -863,6 +944,7 @@ GROUPS = {
     "w4a16": ((_W16V, "w4a16_gemm_noc.cu", "w4a16_gemm.cu"),
               W4A16_VARIANTS),
     "strip": ((_STRIP, "int8_hand_pipe.cu", _K2), STRIP_VARIANTS),
+    "pingpong": ((_FAT, _RES, _STRIP, _K2), PINGPONG_VARIANTS),
     "ladder": ((_MN, _KB), LADDER_VARIANTS),
 }
 # the csrc/ tree in use (set by use())
@@ -1439,6 +1521,54 @@ def strip_cases(gen, tiles):
     return cases, check, library
 
 
+def pingpong_cases(gen, tiles):
+    """Rungs 10 and 12 (fresh outputs) and rung 11 at 4,096 and 2,048, and
+    K2 at 4,096 on a C of its own: each EQUAL to the plain version, rungs
+    10-12 with C unchanged, two calls bit-equal; ``torch._int_mm`` and the
+    epilogue beside them (graph replays)."""
+    cases, rows, library = {}, {}, {}
+    fresh = {"int8_fat_nt": manual_dma.mmult_q_packed,
+             "int8_resident_nt": manual_dma.mmult_q_resident,
+             "int8_strip_nt": manual_dma.mmult_q_strip}
+    for p in (4096, 2048):
+        a, b, c = (torch.rand((p, p), generator=gen, device="cuda") * 2 - 1
+                   for _ in "abc")
+        ops = int8.prepare_packed(a, b)
+        qa, sa, qbt, sb = ops
+        lib = time_calls(lambda: int8.dequant_epilogue(
+            torch._int_mm(qa, qbt.t()), sa, sb, c), graph=True) * 1e3
+        for kernel, fn in fresh.items():
+            case = f"{kernel} p={p}"
+            cases[case] = lambda fn=fn, o=ops, c=c: fn(*o, c)
+            rows[case] = (fn, ops, c, False)
+            library[case] = lib
+        if p == 4096:
+            case = f"int8_gemm_nt p={p}"
+            work = c.clone()
+            cases[case] = lambda o=ops, work=work: int8.mmult_q_bt(*o, work)
+            rows[case] = (int8.mmult_q_bt, ops, c, True)
+            library[case] = lib
+
+    def check(name):
+        parts = []
+        for case, (fn, ops, c, in_place) in rows.items():
+            ref = int8.mmult_q_bt_ref(*ops, c)
+            kept = c.clone()
+            if in_place:
+                out, again = fn(*ops, c.clone()), fn(*ops, c.clone())
+            else:
+                out, again = fn(*ops, c), fn(*ops, c)
+            torch.cuda.synchronize()
+            if not torch.equal(c, kept):
+                parts.append(f"{case}: C CHANGED")
+            parts.append(f"{case}: "
+                         f"{'EQUAL' if torch.equal(out, ref) else 'DIFFERS'}"
+                         f", repeat "
+                         f"{'equal' if torch.equal(out, again) else 'DIFFERS'}")
+        return "; ".join(parts)
+    return cases, check, library
+
+
 # an older tree's w4a8_gemv_fq (a quantize pass, then the GEMV): (x,
 # packed, sw, qa, sa, out, M, N, Kp, ldp, stream); its paged bf16 kernel
 # (the one-block walk): (q, k, v, table, lengths, out, B, NP, PS, np_max,
@@ -1801,7 +1931,8 @@ def ladder_cases(gen, tiles):
 CASES = {"forward": forward_cases, "dkv": dkv_cases, "dq": dq_cases,
          "gemm": gemm_cases, "paged": paged_cases, "w4a8": w4a8_cases,
          "int8": int8_cases, "gemv": gemv_cases, "w4a16": w4a16_cases,
-         "strip": strip_cases, "ladder": ladder_cases}
+         "strip": strip_cases, "pingpong": pingpong_cases,
+         "ladder": ladder_cases}
 
 
 def main(argv=None) -> None:

@@ -13,28 +13,34 @@ nothing) and adds one idea to the rung before it:
   at its flush, the output stored by bulk copies that drain during the next
   tile's K loop; a persistent kernel;
 - ``mmult_q_packed`` (rung 10, ``int8_fat_nt``, B^T (N, K) from
-  ``int8.prepare_packed``): rung 09 with both operands K-major and two C/out
-  buffers, the reference's accumulator ping-pong;
+  ``int8.prepare_packed``): rung 09 with both operands K-major and the
+  reference's accumulator ping-pong, on K2's int8 ``wgmma`` body
+  (``csrc/gemm_wgmma.cuh``): two consumer warpgroups, each computing whole
+  ``PINGPONG_TILE`` tiles, take a block's tiles in turn, so one's epilogue
+  runs under the other's products; C loaded by tensor map into the
+  epilogue's staging and the output stored from it;
 - ``mmult_q_strip`` (rung 11, ``int8_strip_nt``, B^T): the A strip read
   once per thread-block cluster of ``CLUSTER`` tiles along N, each stage's
   A box multicast by tensor map to all of them, the card's form of a
   resident A strip; on K2's int8 ``wgmma`` body (``csrc/gemm_wgmma.cuh``),
   C loaded by tensor map into the epilogue's staging and the output
   stored from it;
-- ``mmult_q_resident`` (rung 12, ``int8_resident_nt``, B^T): rung 10's walk
-  with both operands held in the L2, the card's on-chip store of their
-  size: prefetched once, every chunk copied under evict_last, C and the
-  output under evict_first;
+- ``mmult_q_resident`` (rung 12, ``int8_resident_nt``, B^T): rung 10's
+  kernel with both operands held in the L2, the card's on-chip store of
+  their size: prefetched once, every stage copied under evict_last, C and
+  the output under evict_first;
 - ``mmult_q_tiled_resident`` (rung 13, ``int8_pretile`` then
   ``int8_tiled_resident_nt``): rung 12 on operands repacked once
   (``pretile``) into the ring slot's exact image, one bulk copy a chunk.
 
 Rungs 12 and 13 take rung 11 (``mmult_q_strip``) when their resident bytes
 exceed the L2 budget (``fits_resident``), the reference's rule above its
-VMEM budget. The kernels are in ``csrc/int8_dma_nn.cu``, ``csrc/int8_fat.cu``
-(09 and 10) and ``csrc/int8_resident.cu`` (12, 13 and the repack) on
-``csrc/manual_dma.cuh``, and ``csrc/int8_strip_nt.cu`` (11) on
-``csrc/gemm_wgmma.cuh``. Each wrapper launches its
+VMEM budget. The kernels are in ``csrc/int8_dma_nn.cu`` (08),
+``csrc/int8_fat.cu`` (09 on ``csrc/manual_dma.cuh``, 10 on
+``csrc/gemm_wgmma.cuh``), ``csrc/int8_strip_nt.cu`` (11, on
+``csrc/gemm_wgmma.cuh``) and ``csrc/int8_resident.cu`` (12 on
+``csrc/gemm_wgmma.cuh``; 13 and the repack on ``csrc/manual_dma.cuh``).
+Each wrapper launches its
 kernel for CUDA tensors and runs its plain version (``*_ref``: exact int32
 products, then the rank-1 dequant epilogue plus C; ``pretile_ref``) only for
 CPU tensors; the kernels equal their plain versions bit for bit.
@@ -50,8 +56,9 @@ from how_to_optimize_gemm_tpu_torch.ops import bounds, int8
 SMEM_BLOCK = 232_448
 MAX_REGS = 255
 THREADS = 256
-# the fat kernels' tiling (csrc/manual_dma.cuh): 8 warps, 2 on M x 4 on N,
-# 64-byte K chunks in a two-slot ring, rows padded to 80 bytes
+# the fat kernels' tiling (csrc/manual_dma.cuh: rungs 09 and 13): 8 warps,
+# 2 on M x 4 on N, 64-byte K chunks in a two-slot ring, rows padded to 80
+# bytes
 BM = 128
 BK = 64
 LDS = BK + 16
@@ -60,6 +67,11 @@ SLOTS = 2
 # the B chunk staged through registers (rung 09)
 REG_OVERHEAD = 64
 CLUSTER = 2            # rung 11's blocks sharing an A box (csrc CL)
+# rungs 10 and 12 (csrc/int8_fat.cu Rung10, int8_resident.cu Rung12 on
+# csrc/gemm_wgmma.cuh): a consumer warpgroup's whole tile, the ring's
+# stages (a 128-row A box and a 128-row B^T box of int8.STAGE_K bytes each)
+PINGPONG_TILE = (128, 128)
+PINGPONG_STAGES = 6
 ALIGN = int8.ALIGN     # K rows start on 16-byte boundaries
 C_ALIGN = 4            # C/out rows are bulk-copied: pitch a multiple of 16 B
 # rungs 12 and 13 stay resident while their bytes fit this much of the L2
@@ -83,10 +95,12 @@ def fat_regs(bm: int, bn: int) -> int:
 
 
 def fat_tile(buffers: int) -> tuple[int, int]:
-    """The largest (bm, bn) C tile, bm = 128 (two warps of 64 rows) and bn
-    a multiple of 128 (four warps), whose ring and ``buffers`` C/out
-    buffers fit a block's shared memory and whose accumulators fit the
-    register file: (128, 256) with one buffer, (128, 128) with two."""
+    """The largest (bm, bn) C tile of the fat kernel, bm = 128 (two warps
+    of 64 rows) and bn a multiple of 128 (four warps), whose ring and
+    ``buffers`` C/out buffers fit a block's shared memory and whose
+    accumulators fit the register file: (128, 256) with one buffer (rung
+    09), (128, 128) with two (rung 13's tile; rung 10, which it described,
+    runs on ``wgmma`` since)."""
     fits = [bn for bn in (512, 384, 256, 128)
             if fat_smem_bytes(BM, bn, buffers) <= SMEM_BLOCK
             and fat_regs(BM, bn) <= MAX_REGS]
@@ -100,13 +114,26 @@ FAT_BM, FAT_BN = fat_tile(1)
 
 
 def choose_blocks_fat(m: int, n: int, k: int) -> tuple[int, int, int]:
-    """(bm, bn, bk) of rung 10 (two C/out buffers): bn the
-    least-waste multiple of 128 under ``fat_tile(2)``'s cap (the
-    reference's rule, ``bounds._least_waste``), bk the kernel's 64-byte K
-    chunk (K is zero-padded to a multiple of 16)."""
+    """(bm, bn, bk) of the fat kernel with two C/out buffers, rung 13's
+    tile (rung 10 takes ``PINGPONG_TILE`` on ``wgmma``): bn the least-waste
+    multiple of 128 under ``fat_tile(2)``'s cap (the reference's rule,
+    ``bounds._least_waste``), bk the kernel's 64-byte K chunk (K is
+    zero-padded to a multiple of 16)."""
     bm, cap = fat_tile(2)
     bn = bounds._least_waste(bounds.round_up(n, 128), cap, 128)
     return bm, bn, BK
+
+
+def pingpong_smem_bytes(tile=PINGPONG_TILE,
+                        stages: int = PINGPONG_STAGES) -> int:
+    """Shared memory of rungs 10 and 12's ``wgmma`` body (csrc/
+    gemm_wgmma.cuh ``Layout``): the ring's stages, two consumers' two
+    staging boxes of 64 rows x 32 fp32, their sb staging of 128 columns,
+    the ring's barriers and consumer 1's full barriers, the C-load and
+    ``done`` barriers, and 1 KB to align the stages."""
+    tm, tn = tile
+    return (stages * (tm + tn) * int8.STAGE_K + 2 * 2 * 64 * 32 * 4
+            + 2 * 128 * 4 + 3 * 8 * stages + 5 * 8 + 1024)
 
 
 def mmult_q_ref(qa, sa, qb, sb, c):
@@ -235,8 +262,8 @@ def mmult_q_fat(qa, sa, qb, sb, c):
 
 def mmult_q_packed(qa, sa, qbt, sb, c):
     """Rung 10: C' = dequant(QA @ QBT^T) + C with B packed transposed
-    (N, K) (``int8.prepare_packed``), a fresh (M, N) float32; tiles of
-    ``choose_blocks_fat``."""
+    (N, K) (``int8.prepare_packed``), a fresh (M, N) float32; two consumer
+    warpgroups taking whole ``PINGPONG_TILE`` tiles in turn."""
     if c.device.type == "cpu":
         return mmult_q_packed_ref(qa, sa, qbt, sb, c)
     int8.require_cuda("mmult_q_packed", c)
@@ -269,7 +296,7 @@ def strip_clusters() -> tuple[int, int]:
 
 
 def mmult_q_resident(qa, sa, qbt, sb, c):
-    """Rung 12: rung 10's function with A and B^T kept in the L2, a fresh
+    """Rung 12: rung 10's kernel with A and B^T kept in the L2, a fresh
     (M, N) float32; rung 11 (``mmult_q_strip``) when the operands do not
     fit the card's budget (``fits_resident``). Operands as
     ``mmult_q_packed``."""

@@ -234,14 +234,17 @@ _register(Rung(
     run=manual_dma.mmult_q_packed,
     prepare=int8.prepare_packed, effective=_packed_effective,
     gate_rel=1e-4, bytes_per_input_elt=1.0,
-    doc="rung 09 on B packed transposed offline (N,K): both operands "
-        "K-major into shared memory as they are, and two C/out buffers "
-        "(the accumulator ping-pong), which cap the tile at 128x128 "
-        "(kernel int8_fat_nt). A LOSS on Hopper (kept, like 03b): on an "
-        "NVIDIA H100 80GB HBM3 at 700 W (harness/ab.py) it loses every "
-        "round to 09 (228.0k and 273.9k GFLOPS at p=2048 and 4096 against "
-        "269.4k and 320.0k) and to 14 (245.8k and 340.4k): the second "
-        "buffer costs the fat tile, and the tile's reuse is what pays"))
+    doc="rung 09 on B packed transposed offline (N,K), both operands "
+        "K-major, with the accumulator ping-pong: on K2's int8 wgmma body "
+        "two consumer warpgroups each compute whole 128x128 tiles and take "
+        "a block's tiles in turn, so one's dequant and store run under the "
+        "other's products; C loaded into a fresh output (kernel "
+        "int8_fat_nt). On an NVIDIA H100 80GB HBM3 at 700 W "
+        "(harness/flash_variants.py --group pingpong) 0.113 ms at p=4096 "
+        "against 0.125 for the same body cooperative into a fresh output "
+        "(rung 11 at one block a cluster), 0.127 for K2 in place and 0.51 "
+        "for the mma.sync fat kernel before it; 0.023 against 0.027 at "
+        "p=2048"))
 
 _register(Rung(
     name="11_strip_resident_int8", dtype="int8",
@@ -264,16 +267,16 @@ _register(Rung(
     run=manual_dma.mmult_q_resident,
     prepare=int8.prepare_packed, effective=_packed_effective,
     gate_rel=1e-4, bytes_per_input_elt=1.0, regression=True,
-    doc="REGRESSION (kept, as the reference keeps it): rung 10's walk with "
-        "A and B^T held in the L2, the card's on-chip store of their size "
-        "(a block's 227 KB holds no 16 MB operand): prefetched once, every "
-        "chunk under evict_last, C and out under evict_first (kernel "
+    doc="REGRESSION (kept, as the reference keeps it): rung 10's kernel "
+        "with A and B^T held in the L2, the card's on-chip store of their "
+        "size (a block's 227 KB holds no 16 MB operand): prefetched once, "
+        "every stage under evict_last, C and out under evict_first (kernel "
         "int8_resident_nt); rung 11 when the operands exceed the L2 "
-        "budget. On an NVIDIA H100 80GB HBM3 at 700 W (harness/ab.py, 5 "
-        "rounds) it beats 11 every round, 233.3k and 278.0k GFLOPS at "
-        "p=2048 and 4096 against 67.5k and 96.0k, but is rung 10's speed "
-        "(0.508 against 0.511 ms at 4096, chip_smoke.py) and loses to 14: "
-        "an MMA-issue-bound kernel gains nothing from bytes kept on chip"))
+        "budget. On an NVIDIA H100 80GB HBM3 at 700 W "
+        "(harness/flash_variants.py --group pingpong) 0.125-0.130 ms at "
+        "p=4096 against rung 10's 0.113 (0.117 without the prefetch): a "
+        "product-bound kernel gains nothing from bytes kept on chip, and "
+        "the prefetch and the cache policies cost it"))
 
 _register(Rung(
     name="13_tiled_resident_int8", dtype="int8",

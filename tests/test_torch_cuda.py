@@ -159,7 +159,8 @@ def test_in_place_kernels_write_c(cuda):
 
 
 # More tiles than the persistent grid holds, and not a multiple of it
-# (rung 09: 16 x 9 tiles of 128 x 256; 10: 16 x 17 of 128 x 128; 11: 16 x 5
+# (rung 09: 16 x 9 tiles of 128 x 256; 10 and 12: 16 x 17 of 128 x 128,
+# some blocks 3 tiles; 11: 16 x 5
 # cluster tiles of 2 x 256 columns, the last with one live block); 9 K
 # chunks (K a multiple of
 # 16, not of 64), over four times the ring's two slots; N not a multiple
@@ -319,6 +320,56 @@ def test_strip_cluster_equals_plain_version(cuda, shape):
     assert torch.equal(again, out)
     size, active = manual_dma.strip_clusters()
     assert size == manual_dma.CLUSTER and active >= 1
+
+
+# Rungs 10 and 12 on K2's body as a ping-pong (csrc/int8_fat.cu,
+# int8_resident.cu on gemm_wgmma.cuh): each consumer warpgroup computes
+# whole 128 x 128 tiles, the two taking a block's tiles in turn. Rows fewer
+# than a product's 64 and past a multiple of 128, K no multiple of the
+# 128-byte stage, C's rows no 16-byte multiple (the wrapper pads them), the
+# walk wrapping the grid (WALK: some blocks take 3 tiles, some 2) and
+# 4,096; "odd" is 3 x the card's SMs tiles: every block takes three,
+# consumer 0 two of them.
+PINGPONG_SHAPES = [(300, 262, 520), (129, 520, 1100), (1, 300, 16),
+                   (2001, 2102, 520), "odd", (4096, 4096, 4096)]
+PINGPONG = {"int8_fat_nt": manual_dma.mmult_q_packed,
+            "int8_resident_nt": manual_dma.mmult_q_resident}
+
+
+@pytest.mark.parametrize("shape", PINGPONG_SHAPES)
+@pytest.mark.parametrize("kernel", sorted(PINGPONG))
+def test_pingpong_equals_plain_version(cuda, kernel, shape):
+    """EQUAL, C unchanged, two calls bit-equal, one launch of its own
+    kernel a call (rung 12 stays resident at every shape here)."""
+    if shape == "odd":
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        tm, tn = manual_dma.PINGPONG_TILE
+        shape = (3 * tm, sms * tn, 520)
+    a, b, c = _abc(shape, 9, cuda)
+    ops = int8.prepare_packed(a, b)
+    kept = c.clone()
+    before = dict(_build.LAUNCHES)
+    out = PINGPONG[kernel](*ops, c)
+    again = PINGPONG[kernel](*ops, c)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[kernel] == before[kernel] + 2
+    assert _build.LAUNCHES["int8_strip_nt"] == before["int8_strip_nt"]
+    assert torch.equal(c, kept)
+    assert torch.equal(out, manual_dma.mmult_q_packed_ref(*ops, c))
+    assert torch.equal(again, out)
+
+
+def test_k2_right_after_rung_12(cuda):
+    """K2 right after rung 12 at 4,096 (whose operands' L2 lines rung 12
+    set back to evict_normal): both EQUAL to the plain version."""
+    a, b, c = _abc((4096, 4096, 4096), 10, cuda)
+    ops = int8.prepare_packed(a, b)
+    res = manual_dma.mmult_q_resident(*ops, c)
+    k2 = int8.mmult_q_bt(*ops, c.clone())
+    torch.cuda.synchronize()
+    ref = int8.mmult_q_bt_ref(*ops, c)
+    assert torch.equal(res, ref)
+    assert torch.equal(k2, ref)
 
 
 @pytest.mark.parametrize("shape,cap", [((4096, 1024, 520), 1664),
