@@ -37,14 +37,16 @@ Phases (any failure raises and exits non-zero before the last line):
    the L2 residency budget of rungs 12 and 13 and rung 18's default cap
    and plan at 4,096 printed first): the int8 kernels' outputs must
    be EQUAL (rung 11, on K2's int8 ``wgmma`` body with A multicast across
-   a cluster and C loaded into a fresh output, and rungs 10 and 12, that
-   body with its two consumers taking whole tiles in turn (12 with the
-   operands kept in the L2), with C unchanged; rung
-   13's repack ``int8_pretile`` byte for byte; rungs 12 and
+   a cluster and C loaded into a fresh output, and rungs 10, 12 and 13,
+   that body with its two consumers taking whole tiles in turn (12 with
+   the operands kept in the L2, 13 fed by 1-D bulk copies of its repack's
+   swizzled stage images), with C unchanged; rung
+   13's repack ``int8_pretile`` byte for byte, its time beside its time
+   before the rebuild; rungs 12 and
    13 must launch their own kernels at 4,096, not rung 11's; rung 17's six
    knob instances, K2's body at each ring depth with and without
    lookahead, EQUAL to ``int8_gemm_nt``'s output at ``WALK`` and 4,096,
-   each timed at 4,096; rungs 10, 11, 12 and 17 printed beside their
+   each timed at 4,096; rungs 10, 11, 12, 13 and 17 printed beside their
    ``mma.sync`` kernels' times; rung 18 also at 4,096 with cap 1,664, a two-piece plan,
    on its own kernel; K2 and rung 18, one int8 ``wgmma`` body, also at
    ``WALK``, where K2's persistent grid wraps (two calls at 4,096
@@ -95,7 +97,8 @@ Phases (any failure raises and exits non-zero before the last line):
    admission's widths, two calls bit-equal; ``int8_gemm_noc`` at the
    same widths (4,096 -> 11,008 and 11,008 -> 4,096) on the int8
    ``wgmma`` body; each rebuilt kernel's time printed beside its time
-   before the rebuild;
+   before the rebuild (``paged_kv_update``: one launch a call since its
+   rebuild);
    ``decode_attention_q8`` also from a CUDA graph replayed at other
    lengths; the split walks' workspace counters at 0 after every call)
    and at ragged shapes (EQUAL
@@ -417,8 +420,8 @@ KERNELS = [
          plain=manual_dma.mmult_q_strip_ref, library=_int_mm_nt,
          unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8",
          fresh=True),
-    # the operand-resident rungs 12 (rung 10's kernel, C unchanged) and 13
-    # (fresh outputs) and rung 13's
+    # the operand-resident rungs 12 and 13 (rung 10's body, fresh outputs,
+    # C unchanged) and rung 13's
     # repack, the hand pipeline 17 and the ragged plan 18 (in place): EQUAL
     dict(name="int8_resident_nt", source=SRC + "int8_resident.cu",
          replaces=MANUAL_DMA + ":724",
@@ -437,7 +440,7 @@ KERNELS = [
          wrapper=manual_dma.mmult_q_tiled_resident,
          plain=manual_dma.mmult_q_tiled_resident_ref, library=_int_mm_nt,
          unaligned=(1000, 1032, 1100), more=(WALK,), tol=0.0, peak="int8",
-         own=True, extra=("residue",)),
+         fresh=True, own=True, extra=("residue",)),
     dict(name="int8_pretile", source=SRC + "int8_resident.cu",
          replaces=MANUAL_DMA + ":881",
          function="pallas_manual_dma._make_tiled_resident_kernel's one-time "
@@ -551,21 +554,20 @@ def bound(ops, m: int, n: int, k: int, peak: float = PEAK_INT8_OPS):
 
 
 def print_fat_tiles() -> None:
-    """The hand-pipeline kernels' tiles: rungs 09's and 13's fat tiles,
-    derived from a block's shared memory and a thread's registers
-    (``manual_dma.fat_tile``), and rungs 10's and 12's ping-pong tile."""
-    fat = {"09": (*manual_dma.fat_tile(1), 1),
-           "13": (*manual_dma.choose_blocks_fat(P_FULL, P_FULL, P_FULL)[:2],
-                  2)}
-    for rungs, (bm, bn, buffers) in fat.items():
-        print(f"rung {rungs}: C tile {bm}x{bn} with {buffers} C/out "
-              f"buffer(s), {manual_dma.fat_smem_bytes(bm, bn, buffers):,} "
-              f"of {manual_dma.SMEM_BLOCK:,} bytes of shared memory, "
-              f"~{manual_dma.fat_regs(bm, bn)} registers a thread")
+    """The hand-pipeline kernels' tiles: rung 09's fat tile, derived from
+    a block's shared memory and a thread's registers
+    (``manual_dma.fat_tile``), and rungs 10's, 12's and 13's ping-pong
+    tile, stages and shared memory."""
+    bm, bn = manual_dma.fat_tile(1)
+    print(f"rung 09: C tile {bm}x{bn} with 1 C/out buffer, "
+          f"{manual_dma.fat_smem_bytes(bm, bn, 1):,} of "
+          f"{manual_dma.SMEM_BLOCK:,} bytes of shared memory, "
+          f"~{manual_dma.fat_regs(bm, bn)} registers a thread")
     tm, tn = manual_dma.PINGPONG_TILE
-    print(f"rungs 10 and 12: {tm}x{tn} a consumer warpgroup, the two taking "
-          f"a block's tiles in turn, {manual_dma.PINGPONG_STAGES} stages of "
-          f"{(tm + tn) * int8.STAGE_K // 1024} KB, "
+    print(f"rungs 10, 12 and 13: {tm}x{tn} a consumer warpgroup, the two "
+          f"taking a block's tiles in turn, {manual_dma.PINGPONG_STAGES} "
+          f"stages of {(tm + tn) * int8.STAGE_K // 1024} KB (13: one 1-D "
+          f"bulk copy of a {tm * int8.STAGE_K:,}-byte image an operand), "
           f"{manual_dma.pingpong_smem_bytes():,} of "
           f"{manual_dma.SMEM_BLOCK:,} bytes of shared memory")
     size, active = manual_dma.strip_clusters()
@@ -620,7 +622,9 @@ def check_pretile(spec: dict, gen: torch.Generator) -> dict:
          for fn in (manual_dma.pretile, manual_dma.pretile_ref)}
     b_ms, b_by = bound_ms(nbytes(x, ref), 0, PEAK_INT8_OPS)
     print(f"{name} {tuple(x.shape)}: {t['pretile']:.4f} ms (plain "
-          f"{t['pretile_ref']:.4f}, bound {b_ms:.4f} by {b_by})")
+          f"{t['pretile_ref']:.4f}, bound {b_ms:.4f} by {b_by}; "
+          f"{BEFORE_MS[name]} ms before the rebuild into swizzled stage "
+          "images)")
     return {"max_abs_err": 0.0, "ms": t["pretile"],
             "plain_ms": t["pretile_ref"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
@@ -1019,10 +1023,11 @@ DECODE_ATOL = 2e-3   # decode_attention vs its plain version (sum order, exp)
 FLASH_ULPS = 2.0
 # the times of the rebuilt kernels before their rebuild: the flash
 # forwards at the 7B prefill row and the soak's row, rungs 15, 16, 05, 04,
-# 14 (K2), 18, 11, 17 (its b_buffers 3 with lookahead), 10 and 12 (their
-# mma.sync fat kernel) at P_FULL, dK/dV and dQ (its mma.sync kernel) at the
-# soak's row, the serving kernels
-# at their JSON rows (the W4A8 decode GEMV's two launches at m = 4,
+# 14 (K2), 18, 11, 17 (its b_buffers 3 with lookahead), 10, 12 and 13
+# (their mma.sync fat kernel; 13's repack a launch on A) at P_FULL, dK/dV
+# and dQ (its mma.sync kernel) at the soak's row, the serving kernels
+# at their JSON rows (paged_kv_update with its stacked table at the 7B
+# bf16 pool; the W4A8 decode GEMV's two launches at m = 4,
 # 4,096 -> 11,008; the bf16 paged attention's one-block walk at the 7B
 # pool; the W4A16 GEMV on the CUDA cores at m = 4, 4,096 -> 11,008 and
 # its GEMM on mma.sync at m = 1,024, 4,096 -> 11,008; int8_gemm_noc on
@@ -1042,7 +1047,8 @@ BEFORE_MS = {"flash_attention": 2.8005, "flash_attention_fwd_lse": 0.2761,
              "flash_attention_bwd_dq": 0.3791, "fp32_gemm_mn_tile": 16.0474,
              "fp32_gemm_k_blocked": 3.9921, "int8_strip_nt": 1.4485,
              "int8_hand_pipe_nt": 0.6475, "int8_fat_nt": 0.5114,
-             "int8_resident_nt": 0.5076}
+             "int8_resident_nt": 0.5076, "int8_tiled_resident_nt": 0.4951,
+             "int8_pretile": 0.0485, "paged_kv_update": 0.0036}
 # card vs CPU logits on the same routes: at most PARITY_SENSITIVITY x the
 # CPU's own response to a PERTURB relative perturbation of the embeddings
 PARITY_SENSITIVITY = 3.0

@@ -71,7 +71,7 @@ KERNELS = {
     "int8_fat_nt": Kernel("int8_fat.cu", _GEMM),
     "int8_strip_nt": Kernel("int8_strip_nt.cu", _GEMM),
     # the operand-resident rungs 12 and 13, out fresh; the tiled kernel's
-    # qa and b are int8_pretile's images (lda, ldb not read)
+    # qa and b are int8_pretile's swizzled stage images (lda, ldb not read)
     "int8_resident_nt": Kernel("int8_resident.cu", _GEMM),
     "int8_tiled_resident_nt": Kernel("int8_resident.cu", _GEMM),
     # (src, dst, rows, K, ld, tiles, nk, stream)
@@ -110,8 +110,8 @@ KERNELS = {
     #  C the chunks of a split
     "decode_attention_q8": Kernel("decode_attention_q8.cu", (_P,) * 9
                                   + (_I,) * 7 + (_F, _P)),
-    # (pool, new, tab, mask, B, S, NP, PS, row_bytes, stream)
-    "paged_kv_update": Kernel("paged_kv_update.cu", (_P,) * 4 + (_I,) * 5
+    # (pool, new, pages, offs, mask, B, S, NP, PS, row_bytes, stream)
+    "paged_kv_update": Kernel("paged_kv_update.cu", (_P,) * 5 + (_I,) * 5
                               + (_P,)),
     # (q, k_pool, v_pool, table, lengths, out, part, count, B, NP, PS,
     #  np_max, KVH, REP, D, C, scale, stream): part and count the split

@@ -7,10 +7,11 @@
 // over a strip plan), rung 11 (int8_strip_nt.cu, K2's body in clusters
 // sharing A, into a fresh output), rung 17 (int8_hand_pipe.cu, K2's
 // body under two schedule knobs), rung 10 (int8_fat.cu, K2's body with
-// each consumer warpgroup taking whole tiles, into a fresh output) and
-// rung 12 (int8_resident.cu, rung 10's instance with the operands kept in
-// the L2). Each of those files names its instance's constants in a struct
-// P:
+// each consumer warpgroup taking whole tiles, into a fresh output), rung
+// 12 (int8_resident.cu, rung 10's instance with the operands kept in the
+// L2) and rung 13 (int8_resident.cu, rung 12's instance fed by 1-D bulk
+// copies of pretiled stage images). Each of those files names its
+// instance's constants in a struct P:
 //   S8        int8 operands (QA and QBT, K-major): wgmma.m64nBNk32.s32.s8,
 //             int32 sums, 128 K values a stage, and K2's dequant epilogue
 //             (below); else bf16 operands, fp32 sums, 64 K values a stage
@@ -41,6 +42,9 @@
 //   PINGPONG  int8: each consumer warpgroup computes whole BM x 128 tiles,
 //             the two taking the block's tiles in turn (below)
 //   RESIDENT  with PINGPONG: the operands kept in the L2 (rung 12, below)
+//   TILED     with RESIDENT: the operands come as int8_pretile's stage
+//             images, one 1-D bulk copy a stage and operand (rung 13,
+//             below)
 //
 // Block (wgmma.cuh's shape, 384 threads): a persistent grid, one block an
 // SM, walking BM x BN output tiles in an order the launch passes as a
@@ -112,6 +116,15 @@
 // share of the operands' lines back to evict_normal. No process-wide
 // state is set.
 //
+// Tiled (TILED, rung 13): the operands come as int8_pretile's images
+// (int8_resident.cu), each stage's 128 rows x 128 K bytes laid out as the
+// 16 KB the tensor-map copy would land (the 128-byte swizzle, zeros past
+// the edges), the images of a row tile in K order. The producer copies a
+// stage with one 1-D bulk copy an operand (cp.async.bulk, under
+// evict_last) in place of the tensor-map copies; the walk's ranges are
+// the images, so the prefetch and the evict_normal pass cover exactly the
+// bytes the stages read. The consumers are rung 12's.
+//
 // Epilogue: where out's rows are 16-byte multiples (and, adding C, C is out
 // itself), each consumer stages its sums in shared memory 32 columns at a
 // time and the tensor-map unit adds them into C (cp.reduce.async.bulk.tensor
@@ -158,8 +171,8 @@ constexpr int SB_COLS = 128;
 // map and the sums stored from it (a fresh output).
 enum CPath { C_THREADS = 0, C_TMA = 1, C_LOAD = 2 };
 
-// An instance's CL, LOOKAHEAD, LOAD_C, PINGPONG and RESIDENT where it
-// names them, else 1, true, false, false and false.
+// An instance's CL, LOOKAHEAD, LOAD_C, PINGPONG, RESIDENT and TILED where
+// it names them, else 1, true, false, false, false and false.
 template <class P, class = void>
 constexpr int cl_of = 1;
 template <class P>
@@ -183,6 +196,10 @@ constexpr bool resident_of = false;
 template <class P>
 constexpr bool resident_of<P, std::void_t<decltype(P::RESIDENT)>> =
     P::RESIDENT;
+template <class P, class = void>
+constexpr bool tiled_of = false;
+template <class P>
+constexpr bool tiled_of<P, std::void_t<decltype(P::TILED)>> = P::TILED;
 
 // ------------------------------------------------------------- host side
 
@@ -280,8 +297,8 @@ struct GroupWalk {
 };
 
 // RESIDENT's walk: the grouped walk and the operands as they lie (their
-// rows, pitch included), whose L2 lines the kernel prefetches and sets
-// back to evict_normal.
+// rows, pitch included; TILED: their images), whose L2 lines the kernel
+// prefetches and sets back to evict_normal.
 template <int BN>
 struct ResidentWalk : GroupWalk<BN> {
   const void* a;
@@ -548,6 +565,7 @@ struct Layout {
   static constexpr bool LOAD_C = load_c_of<P>;
   static constexpr bool PP = pingpong_of<P>;
   static constexpr bool RES = resident_of<P>;
+  static constexpr bool TILED = tiled_of<P>;
   // products of 64 rows a consumer takes each K step (its rows of a tile:
   // all BM with PINGPONG, else half) and the warps that release a slot
   static constexpr int MH = PP ? 2 : 1;
@@ -591,6 +609,8 @@ struct Layout {
                 "ping-pong: int8, no cluster, the producer running ahead, "
                 "a parity bit a slot");
   static_assert(!RES || PP, "the resident operands: the ping-pong instance");
+  static_assert(!TILED || RES, "pretiled images: the resident instance");
+  static_assert(!TILED || P::BN == BM, "pretiled images are BM-row tiles");
 };
 
 // ta: A (M, K) K-major, or its split planes (3-D); tb: BT (N, K) K-major,
@@ -598,7 +618,8 @@ struct Layout {
 // fp32 in boxes of 64 rows x OUT_COLS, read on the tensor-map paths; tcin:
 // C the same, read on C_LOAD; path: CPath; sa (M), sb (N): int8's scales
 // (not read otherwise); walk: the order of the tiles (CL > 1: of the
-// cluster tiles, BM x CL BN; RESIDENT: a ResidentWalk).
+// cluster tiles, BM x CL BN; RESIDENT: a ResidentWalk). TILED reads
+// neither ta nor tb: the stages come from walk.a and walk.b.
 template <class P, class Walk>
 __global__ void __launch_bounds__(wg::BLOCK, 1)
     gemm_wgmma(const __grid_constant__ CUtensorMap ta,
@@ -678,6 +699,13 @@ __global__ void __launch_bounds__(wg::BLOCK, 1)
                 wg::tma_3d(bp, &tb, k0, n0, p, full);
               }
             }
+          } else if constexpr (L::TILED) {   // one image an operand
+            const auto* ia = static_cast<const uint8_t*>(walk.a) +
+                (static_cast<size_t>(m0 / BM) * stages + kq) * A_BYTES;
+            const auto* ib = static_cast<const uint8_t*>(walk.b) +
+                (static_cast<size_t>(n0 / BN) * stages + kq) * L::B_BYTES;
+            bulk_g2s_l2(st, ia, A_BYTES, full, keep);
+            bulk_g2s_l2(st + L::B, ib, L::B_BYTES, full, keep);
           } else if constexpr (L::RES) {   // both under evict_last
             wg::tma_2d_hint(st, &ta, k0, m0, full, keep);
             wg::tma_2d_hint(st + L::B, &tb, k0, n0, full, keep);
@@ -970,6 +998,24 @@ int launch_pingpong(const void* qa, const void* qbt, const void* sa,
   } else {
     return launch<P>(ta, tb, c, out, sa, sb, M, N, K, ldc, grid, stream);
   }
+}
+
+// Rung 13's instance (TILED) on int8_pretile's images of QA and QBT
+// (ceil(M / BM), nk, BM, 128) and (ceil(N / BN), nk, BN, 128), nk =
+// ceil(K / 128): the walk's ranges are the images; no tensor map of them
+// is made (ta and tb are not read). Returns launch's result.
+template <class P>
+int launch_tiled(const void* at, const void* bt, const void* sa,
+                 const void* sb, const void* c, void* out, int M, int N,
+                 int K, int ldc, cudaStream_t stream) {
+  static_assert(tiled_of<P>, "the pretiled instance");
+  CUtensorMap none{};
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + P::BN - 1) / P::BN;
+  const size_t nk = (K + wg::LINE - 1) / wg::LINE;
+  ResidentWalk<P::BN> walk{{tiles_m, tiles_n}, at, bt,
+                           tiles_m * nk * A_BYTES,
+                           tiles_n * nk * Layout<P>::B_BYTES};
+  return launch<P>(none, none, c, out, sa, sb, M, N, K, ldc, walk, stream);
 }
 
 // launch on the grouped walk, no scales (the bf16 and fp32 rungs)

@@ -74,8 +74,8 @@ extern "C" int int8_fat_nn(const void* qa, const void* qb, const void* sa,
                            const void* sb, const void* c, void* out, int M,
                            int N, int K, int lda, int ldb, int ldc,
                            void* stream) {
-  return htog::launch_fat<false, 256, 1>(qa, qb, sa, sb, c, out, M, N, K,
-                                         lda, ldb, ldc, stream);
+  return htog::launch_fat<256>(qa, qb, sa, sb, c, out, M, N, K, lda, ldb,
+                               ldc, stream);
 }
 
 // As int8_fat_nn, B as QBT (N, K); c and out two buffers. Returns a

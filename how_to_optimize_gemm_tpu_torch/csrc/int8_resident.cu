@@ -1,13 +1,13 @@
 // Rungs 12 and 13, the operand-resident hand pipelines, each into a fresh
-// output:
+// output, both on rung 10's ping-pong instance of gemm_wgmma.cuh's int8
+// wgmma body:
 //   int8_resident_nt (rung 12): C' = f32(QA @ QBT^T as int32) * sa * sb + C
-//     with A and B^T held in the L2, on rung 10's ping-pong instance of
-//     gemm_wgmma.cuh's int8 wgmma body;
+//     with A and B^T held in the L2;
 //   int8_pretile (rung 13's first launch): an int8 matrix (rows, K) into
-//     tile-contiguous slot images (tiles, nk, 128, LDS);
+//     stage images (tiles, nk, 128, 128), each the 16 KB a tensor-map copy
+//     of its 128 x 128 box would land (the 128-byte swizzle);
 //   int8_tiled_resident_nt (rung 13): rung 12's function on the pretiled
-//     operands, on manual_dma.cuh's persistent fat-tile kernel (128 x 128
-//     tiles, a two-slot ring, two C/out buffers).
+//     operands, each stage one 1-D bulk copy an operand (TILED).
 //
 // Replaces: how_to_optimize_gemm_tpu/ops/pallas_manual_dma.py,
 // _make_resident_kernel (via mmult_q_resident, rung 12_resident_int8) and
@@ -19,8 +19,8 @@
 //
 // Bound on an H100 SXM at M = N = K = 4096: 1.37e11 int operations (69 us
 // at the 1,979 TOP/s dense int8 peak) against 168 MB (50 us at 3.35 TB/s):
-// the tensor cores bound both; int8_pretile moves bytes only (A and B^T
-// read, 1.25 times their bytes written: 76 MB, 23 us).
+// the tensor cores bound both; int8_pretile moves bytes only (an operand
+// read and its image written: 33.5 MB, 10 us).
 //
 // Design. On the TPU the resident store is VMEM (the reference keeps 96 MB
 // there). A block's 227 KB of shared memory holds no 16 MB operand, and a
@@ -38,18 +38,22 @@
 //   end. Its sums and epilogue are rung 10's: the output equals the plain
 //   version bit for bit;
 // - rung 13 repacks first (int8_pretile), writing each operand once into
-//   scratch laid out as the ring slot's exact image: 128 rows of 64 K
-//   bytes in the padded 80-byte pitch, edges zero-filled. A chunk is then
-//   ONE 1-D bulk copy of 10,240 bytes, not 512 16-byte cp.async copies or
-//   128 row copies (the reference's packA/packB: operands repacked into the
-//   layout the inner kernel consumes). The repack's stores carry
-//   evict_last, so the scratch is written into the L2 it is read from. The
-//   stream orders the two launches, the card's form of the reference's
-//   per-chunk waits: no grid barrier, no cooperative launch.
+//   scratch laid out as the stage's exact image, the reference's packA /
+//   packB ("the layout the micro-kernel consumes"): on this card that is
+//   the 128-byte-swizzled box the tensor-map copy lands, 16-byte chunk c
+//   of row r at chunk c ^ (r & 7), zeros past the rows and K. A stage is
+//   then one 1-D bulk copy of 16,384 bytes an operand (TILED), the tensor
+//   map's address walk spared; the prefetch, the policies and the
+//   consumers are rung 12's. The repack gives a 128-byte image line to 8
+//   consecutive threads, thread c' loading the source's chunk c' ^ (r & 7)
+//   and storing chunk c', so a warp reads 4 whole 128-byte source segments
+//   and writes 4 whole lines; its stores carry evict_last, so the images
+//   are written into the L2 they are read from. The stream orders the
+//   launches, the card's form of the reference's per-chunk waits: no grid
+//   barrier, no cooperative launch.
 // The wrapper routes a call whose resident bytes exceed RESIDENT_BUDGET (a
 // share of the L2) to rung 11, as the reference does above its VMEM budget.
 #include "gemm_wgmma.cuh"
-#include "manual_dma.cuh"
 
 namespace htog {
 
@@ -67,39 +71,54 @@ struct Rung12 {
   static constexpr bool RESIDENT = true;   // A and B^T kept in the L2
 };
 
+// rung 12's instance fed by 1-D bulk copies of int8_pretile's images
+struct Rung13 : Rung12 {
+  static constexpr bool TILED = true;
+};
+
 }  // namespace htog
 
 namespace {
 
-// Each 16 bytes of the (tiles, nk, 128, LDS) image: bytes [16 s, 16 s + 16)
-// of slot row r of chunk kt of tile t, source row t * 128 + r and K bytes
-// kt * 64 + 16 s; segment 4 of a row (bytes 64-79) and anything past rows
-// or K is zero. Grid-stride over the image's 16-byte words.
+// 16-byte words of the (tiles, nk, 128, 128) image a thread, their loads
+// in flight together
+constexpr int PRETILE_WORDS = 4;
+
+// Word w of the image: chunk c' = w % 8 of line r of image (t, kq) holds
+// source row t * 128 + r, K bytes kq * 128 + 16 (c' ^ (r & 7)) .. + 16;
+// zero past rows or K. A block takes THREADS x PRETILE_WORDS consecutive
+// words, thread x words x, x + THREADS, ...
 __global__ void __launch_bounds__(htog::THREADS)
     int8_pretile_kernel(const int8_t* src, int8_t* dst, int rows, int K,
-                        int ld, int tiles, int nk) {
+                        int ld, unsigned nk, size_t words) {
   using namespace htog;
-  constexpr int SEGS = LDS / 16;  // 5
   const uint64_t keep = l2_evict_last();
-  const size_t words = static_cast<size_t>(tiles) * nk * BM * SEGS;
-  for (size_t w = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       w < words; w += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const int seg = static_cast<int>(w % SEGS);
-    const int r = static_cast<int>((w / SEGS) % BM);
-    const size_t tk = w / (SEGS * BM);
-    const int kt = static_cast<int>(tk % nk);
-    const int t = static_cast<int>(tk / nk);
-    const int gr = t * BM + r;
-    const int gk = kt * BK + seg * 16;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (seg < 4 && gr < rows && gk < K)
-      v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(gr) * ld +
-                                          gk);
-    asm volatile(
-        "st.global.L2::cache_hint.v4.b32 [%0], {%1, %2, %3, %4}, %5;\n" ::"l"(
-            dst + w * 16),
-        "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "l"(keep)
-        : "memory");
+  const size_t w0 = static_cast<size_t>(blockIdx.x) * THREADS *
+                        PRETILE_WORDS + threadIdx.x;
+  uint4 v[PRETILE_WORDS];
+#pragma unroll
+  for (int i = 0; i < PRETILE_WORDS; ++i) {
+    const size_t w = w0 + static_cast<size_t>(i) * THREADS;
+    const int c = static_cast<int>(w & 7);
+    const size_t line = w >> 3;
+    const int r = static_cast<int>(line % BM);
+    const unsigned img = static_cast<unsigned>(line / BM);   // t nk + kq
+    const int gr = static_cast<int>(img / nk) * BM + r;
+    const int gk = static_cast<int>(img % nk) * wg::LINE + 16 * (c ^ (r & 7));
+    v[i] = make_uint4(0, 0, 0, 0);
+    if (w < words && gr < rows && gk < K)
+      v[i] = *reinterpret_cast<const uint4*>(
+          src + static_cast<size_t>(gr) * ld + gk);
+  }
+#pragma unroll
+  for (int i = 0; i < PRETILE_WORDS; ++i) {
+    const size_t w = w0 + static_cast<size_t>(i) * THREADS;
+    if (w < words)
+      asm volatile(
+          "st.global.L2::cache_hint.v4.b32 [%0], {%1, %2, %3, %4}, %5;\n" ::
+              "l"(dst + w * 16),
+          "r"(v[i].x), "r"(v[i].y), "r"(v[i].z), "r"(v[i].w), "l"(keep)
+          : "memory");
   }
 }
 
@@ -119,34 +138,31 @@ extern "C" int int8_resident_nt(const void* qa, const void* qbt,
 }
 
 // src (rows, K) int8 with row pitch ld (K and ld multiples of 16, src
-// 16-byte aligned) -> dst (tiles, nk, 128, LDS), tiles = ceil(rows / 128),
-// nk = ceil(K / 64), dst 16-byte aligned. Returns a cudaError_t.
+// 16-byte aligned) -> dst (tiles, nk, 128, 128), tiles = ceil(rows / 128),
+// nk = ceil(K / 128), dst 16-byte aligned. Returns a cudaError_t.
 extern "C" int int8_pretile(const void* src, void* dst, int rows, int K,
                             int ld, int tiles, int nk, void* stream) {
   using namespace htog;
-  const size_t words = static_cast<size_t>(tiles) * nk * BM * (LDS / 16);
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  size_t blocks = (words + THREADS - 1) / THREADS;
-  const size_t cap = static_cast<size_t>(sms) * 8;
-  if (blocks > cap) blocks = cap;
+  const size_t words = static_cast<size_t>(tiles) * nk * BM * 8;
+  const size_t per_block = static_cast<size_t>(THREADS) * PRETILE_WORDS;
+  const size_t blocks = (words + per_block - 1) / per_block;
   if (blocks == 0) return 0;
   int8_pretile_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(src), static_cast<int8_t*>(dst), rows, K, ld,
-      tiles, nk);
+      nk, words);
   return static_cast<int>(cudaGetLastError());
 }
 
-// at, bt: int8_pretile's images of QA (ceil(M / 128), nk, 128, LDS) and
-// QBT (ceil(N / 128), nk, 128, LDS), nk = ceil(K / 64); lda and ldb are
+// at, bt: int8_pretile's images of QA (ceil(M / 128), nk, 128, 128) and
+// QBT (ceil(N / 128), nk, 128, 128), nk = ceil(K / 128); lda and ldb are
 // not read. c and out as int8_resident_nt. Returns a cudaError_t.
 extern "C" int int8_tiled_resident_nt(const void* at, const void* bt,
                                       const void* sa, const void* sb,
                                       const void* c, void* out, int M, int N,
                                       int K, int lda, int ldb, int ldc,
                                       void* stream) {
-  return htog::launch_fat<true, 128, 2, htog::FEED_TILED>(
-      at, bt, sa, sb, c, out, M, N, K, lda, ldb, ldc, stream);
+  return htog::gw::launch_tiled<htog::Rung13>(
+      at, bt, sa, sb, c, out, M, N, K, ldc,
+      static_cast<cudaStream_t>(stream));
 }

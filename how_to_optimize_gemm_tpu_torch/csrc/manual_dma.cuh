@@ -1,18 +1,16 @@
 // The hand-pipeline record's rungs on shared-memory rings (int8_dma_nn.cu,
-// int8_fat.cu, int8_resident.cu): rings tracked per slot by mbarriers,
-// bulk copies, L2 cache policies (also gemm_wgmma.cuh's, rung 12's), and
-// the persistent fat-tile kernel template of the two rungs left on
-// mma.sync, 09 and 13. (Rungs 10, 11, 12 and 17 run on gemm_wgmma.cuh's
-// int8 body.)
+// int8_fat.cu): rings tracked per slot by mbarriers, bulk copies, L2 cache
+// policies (also gemm_wgmma.cuh's, rungs 12 and 13's, and int8_pretile's),
+// and the persistent fat-tile kernel of rung 09, the one rung left on it.
+// (Rungs 10, 11, 12, 13 and 17 run on gemm_wgmma.cuh's int8 body.)
 //
 // Every thread of a block is a producer and a consumer; there is no warp
 // specialisation. A ring slot has two mbarriers:
 //   full[s]:  completes when chunk q's bytes have landed in slot s = q % S.
 //             Arrivals: each thread's cp.async.mbarrier.arrive.noinc (fires
-//             when that thread's cp.async copies are done), each thread's
-//             arrive after storing B bytes it staged through registers
-//             (rungs 08 and 09), and for bulk copies one arrive.expect_tx
-//             whose byte count the copies' complete_tx pays off.
+//             when that thread's cp.async copies are done) and each
+//             thread's arrive after storing B bytes it staged through
+//             registers (rungs 08 and 09).
 //   empty[s]: completes when every warp has finished its MMAs on slot s;
 //             a producer waits on it before writing the slot again.
 // The q-th use of a slot is phase q / S of its barriers, so a wait names
@@ -142,7 +140,7 @@ __device__ __forceinline__ uint64_t l2_evict_first() {
   return policy;
 }
 
-// bulk_g2s and bulk_s2g under an L2 policy.
+// bulk_g2s under an L2 policy.
 __device__ __forceinline__ void bulk_g2s_l2(void* dst, const void* src,
                                             uint32_t bytes, uint64_t* bar,
                                             uint64_t policy) {
@@ -150,15 +148,6 @@ __device__ __forceinline__ void bulk_g2s_l2(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes."
       "L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_s2g_l2(void* dst, const void* src,
-                                            uint32_t bytes, uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], [%1], "
-      "%2, %3;\n" ::"l"(dst),
-      "r"(smem_u32(src)), "r"(bytes), "l"(policy)
       : "memory");
 }
 
@@ -234,30 +223,25 @@ __device__ __forceinline__ void mma_chunk(int (&acc)[4][NI][4],
   }
 }
 
-// How the fat kernel's A and B^T chunks reach its ring.
-enum Feed : int {
-  FEED_STREAM = 0,    // cp.async from the operands as stored (rung 09)
-  FEED_TILED = 1,     // one bulk copy a chunk of pretiled slot images (13)
-};
 
-// The fat-tile kernel's shared memory: a ring of RING_SLOTS (A, B) chunk
-// slots, NBUF C/out buffers of BM x BNT fp32 (row pitch padded by 32 bytes
-// against bank conflicts, 16-byte aligned for the bulk copies), then the
-// barriers.
-template <int BNT, int NBUF>
+// The fat-tile kernel's shared memory at a BM x BN tile: a ring of
+// RING_SLOTS (A, B) chunk slots, one C/out buffer of BM x BN fp32 (row
+// pitch padded by 32 bytes against bank conflicts, 16-byte aligned for the
+// bulk copies), then the barriers.
+template <int BN>
 struct FatLayout {
-  static constexpr int CPITCH = BNT * 4 + 32;  // bytes a C/out buffer row
+  static constexpr int CPITCH = BN * 4 + 32;   // bytes a C/out buffer row
   static constexpr int A_BYTES = BM * LDS;
-  static constexpr int B_BYTES = BNT * LDS;
+  static constexpr int B_BYTES = BN * LDS;
   static constexpr int C_BYTES = BM * CPITCH;
   static constexpr int RING = RING_SLOTS * (A_BYTES + B_BYTES);
-  static constexpr int BARS = RING + NBUF * C_BYTES;
-  static constexpr int SMEM = BARS + 8 * (2 * RING_SLOTS + NBUF);
+  static constexpr int BARS = RING + C_BYTES;
+  static constexpr int SMEM = BARS + 8 * (2 * RING_SLOTS + 1);
 };
 
 struct FatArgs {
   const int8_t* a;   // (M, K) int8, row pitch lda
-  const int8_t* b;   // B (K, N) with row pitch ldb (NN) or B^T (N, K) (NT)
+  const int8_t* b;   // B (K, N), row pitch ldb
   const float* sa;   // (M,)
   const float* sb;   // (N,)
   const float* c;    // (M, ldc)
@@ -300,38 +284,23 @@ __device__ __forceinline__ void staged_epilogue(const int (&acc)[4][NI][4],
   }
 }
 
-// The persistent fat-tile kernel (rungs 09 and 13). Each block walks
-// the BM x BNT tiles blockIdx.x, blockIdx.x + gridDim.x, ... in row-major
+// The persistent fat-tile kernel (rung 09, BNT 256). Each block walks the
+// BM x BNT tiles blockIdx.x, blockIdx.x + gridDim.x, ... in row-major
 // order. The K chunks of all the block's tiles form one stream
 // q = 0, 1, ...: chunk q + 1 is issued before chunk q is waited on, also
 // across a tile boundary, so the next tile's first chunks load while this
-// tile's epilogue runs.
-//
-// kNT: B arrives as B^T (N, K), K-major (rung 13: its slot images);
-// otherwise B (K, N) is transposed through registers (int8_gemm_nn's way).
-// NBUF: C/out buffers. A tile's C is fetched into buffer b with bulk
-// copies at the tile's start and awaited at its flush; the flush computes
-// the epilogue in place and stores the buffer with bulk copies, which
-// drain while the next tiles run. With one buffer (rung 09) the next
-// tile's C fetch waits until that store has read the buffer; with two
-// (rung 13), tile j fetches into buffer j % 2 while tile j - 1's store
-// reads the other.
-//
-// kFeed: how the A and B^T chunks reach the ring (Feed). FEED_TILED (rung
-// 13) reads pretiled operands (int8_pretile): a chunk is one slot image
-// of BM x LDS bytes, one bulk copy a chunk and operand, issued by thread
-// 0, under evict_last, C's fetch and the output's store under evict_first,
-// so the images stay in the L2 while C and out stream past them; at its
-// end each block sets its share of the lines back to evict_normal.
-template <bool kNT, int BNT, int NBUF, int kFeed = FEED_STREAM>
+// tile's epilogue runs. A comes by cp.async; B (K, N) is transposed through
+// registers (int8_gemm_nn's way). A tile's C is fetched into the one
+// C/out buffer with bulk copies at the tile's start and awaited at its
+// flush; the flush computes the epilogue in place and stores the buffer
+// with bulk copies, which drain while the next tile's chunks are
+// multiplied; the next tile's C fetch waits until that store has read the
+// buffer.
+template <int BNT>
 __global__ void __launch_bounds__(THREADS, 1)
     int8_fat_kernel(const FatArgs p) {
-  static_assert(kNT == (kFeed == FEED_TILED) &&
-                    (kFeed == FEED_STREAM || BNT == BM),
-                "B^T comes as 128 x 128 slot images (13), B as it lies (09)");
-  constexpr bool kHint = kFeed != FEED_STREAM;
-  using L = FatLayout<BNT, NBUF>;
-  constexpr int NI = BNT / 32;  // 8-column fragments a warp, 4 warps on N
+  using L = FatLayout<BNT>;
+  constexpr int NI = BNT / 32;   // 8-column fragments a warp, 4 warps on N
   constexpr int NH = BNT / 128;  // 128-row halves of a B slot
   constexpr int PITCH = L::CPITCH / 4;
   extern __shared__ __align__(128) uint8_t smem[];
@@ -342,9 +311,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     return reinterpret_cast<int8_t(*)[LDS]>(smem + RING_SLOTS * L::A_BYTES +
                                             s * L::B_BYTES);
   };
-  auto c_buf = [&](int b) {
-    return reinterpret_cast<float*>(smem + L::RING + b * L::C_BYTES);
-  };
+  float* cb = reinterpret_cast<float*>(smem + L::RING);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BARS);
   uint64_t* empty = full + RING_SLOTS;
   uint64_t* cbar = empty + RING_SLOTS;
@@ -353,17 +320,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int lane = threadIdx.x & 31;
   const int wm = warp >> 2;
   const int wn = warp & 3;
-  uint64_t keep = 0, pass = 0;  // L2 policies: the operands, C and out
-  if constexpr (kHint) {
-    keep = l2_evict_last();
-    pass = l2_evict_first();
-  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < RING_SLOTS; ++s) {
-      mbar_init(&full[s], kFeed == FEED_TILED ? 1 : 2 * THREADS);
+      mbar_init(&full[s], 2 * THREADS);
       mbar_init(&empty[s], WARPS);
     }
-    for (int b = 0; b < NBUF; ++b) mbar_init(&cbar[b], 1);
+    mbar_init(cbar, 1);
     mbar_fence_init();
   }
   __syncthreads();
@@ -380,7 +342,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     n0 = (u % p.ntn) * BNT;
   };
 
-  uint32_t breg[NH][2][4];  // NN: the next B chunk on its way to its slot
+  uint32_t breg[NH][2][4];  // the next B chunk on its way to its slot
   auto issue = [&](int q) {
     int s = q % RING_SLOTS;
     int use = q / RING_SLOTS;
@@ -388,17 +350,6 @@ __global__ void __launch_bounds__(THREADS, 1)
     int m0, n0;
     tile_of(q / nk, m0, n0);
     int k0 = (q % nk) * BK;
-    if constexpr (kFeed == FEED_TILED) {
-      if (threadIdx.x == 0) {
-        const size_t kt = q % nk;
-        mbar_arrive_expect_tx(&full[s], L::A_BYTES + L::B_BYTES);
-        bulk_g2s_l2(a_slot(s), p.a + ((m0 / BM) * nk + kt) * L::A_BYTES,
-                    L::A_BYTES, &full[s], keep);
-        bulk_g2s_l2(b_slot(s), p.b + ((n0 / BNT) * nk + kt) * L::B_BYTES,
-                    L::B_BYTES, &full[s], keep);
-      }
-      return;
-    }
     load_kmajor_async(a_slot(s), p.a, m0, p.M, k0, p.K, p.lda);
 #pragma unroll
     for (int h = 0; h < NH; ++h)
@@ -406,7 +357,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                        n0 + 128 * h);
     cp_async_arrive_noinc(&full[s]);
   };
-  auto store_b = [&](int q) {  // NN: chunk q's B registers into its slot
+  auto store_b = [&](int q) {  // chunk q's B registers into its slot
     int s = q % RING_SLOTS;
 #pragma unroll
     for (int h = 0; h < NH; ++h) store_nmajor_regs(b_slot(s) + 128 * h, breg[h]);
@@ -423,35 +374,28 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   if (total > 0) {
     issue(0);
-    if (!kNT) store_b(0);
+    store_b(0);
   }
   for (int q = 0; q < total; ++q) {
     const int j = q / nk;
     const int kt = q - j * nk;
-    const int buf = NBUF == 1 ? 0 : (j & 1);
-    float* cb = c_buf(buf);
     int m0, n0;
     tile_of(j, m0, n0);
     const int rows = min(BM, p.M - m0);
     const int cols = n0 < p.N ? min(BNT, p.ldc - n0) : 0;
     const uint32_t cbytes = static_cast<uint32_t>(cols) * 4;
     if (kt == 0 && warp == 0) {
-      // C's fetch at the tile's start. Lane l stores and fetches rows
-      // l, l + 32, ...; its bulk groups are its own rows' stores.
-      if (NBUF == 1)
-        bulk_wait_read<0>();  // the one buffer: the last store has read it
-      else
-        bulk_wait_read<1>();  // this buffer's last store was tile j - 2's
-      if (lane == 0) mbar_arrive_expect_tx(&cbar[buf], rows * cbytes);
+      // C's fetch at the tile's start, once the last store has read the
+      // buffer. Lane l stores and fetches rows l, l + 32, ...; its bulk
+      // groups are its own rows' stores.
+      bulk_wait_read<0>();
+      if (lane == 0) mbar_arrive_expect_tx(cbar, rows * cbytes);
       __syncwarp();
       if (cols > 0)
-        for (int r = lane; r < rows; r += 32) {
-          const float* src = p.c + static_cast<size_t>(m0 + r) * p.ldc + n0;
-          if constexpr (kHint)
-            bulk_g2s_l2(cb + r * PITCH, src, cbytes, &cbar[buf], pass);
-          else
-            bulk_g2s(cb + r * PITCH, src, cbytes, &cbar[buf]);
-        }
+        for (int r = lane; r < rows; r += 32)
+          bulk_g2s(cb + r * PITCH,
+                   p.c + static_cast<size_t>(m0 + r) * p.ldc + n0, cbytes,
+                   cbar);
     }
     if (q + 1 < total) issue(q + 1);
     const int s = q % RING_SLOTS;
@@ -459,22 +403,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     mma_chunk<NI>(acc, a_slot(s), b_slot(s), wm, wn, lane);
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[s]);
-    if (!kNT && q + 1 < total) store_b(q + 1);
+    if (q + 1 < total) store_b(q + 1);
     if (kt == nk - 1) {
       // the flush: C has landed, epilogue in place, bulk store
-      mbar_wait(&cbar[buf], (NBUF == 1 ? j : j >> 1) & 1);
+      mbar_wait(cbar, j & 1);
       staged_epilogue<NI>(acc, cb, PITCH, p, m0, n0, wm, wn, lane);
       fence_proxy_async();
       __syncthreads();
       if (warp == 0) {
         if (cols > 0)
-          for (int r = lane; r < rows; r += 32) {
-            float* dst = p.out + static_cast<size_t>(m0 + r) * p.ldc + n0;
-            if constexpr (kHint)
-              bulk_s2g_l2(dst, cb + r * PITCH, cbytes, pass);
-            else
-              bulk_s2g(dst, cb + r * PITCH, cbytes);
-          }
+          for (int r = lane; r < rows; r += 32)
+            bulk_s2g(p.out + static_cast<size_t>(m0 + r) * p.ldc + n0,
+                     cb + r * PITCH, cbytes);
         bulk_commit();
       }
 #pragma unroll
@@ -486,23 +426,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   }
   if (warp == 0) bulk_wait_all();
-  if constexpr (kFeed == FEED_TILED) {
-    l2_evict_normal_grid(p.a, static_cast<size_t>(p.ntm) * nk * L::A_BYTES,
-                         threadIdx.x, blockDim.x);
-    l2_evict_normal_grid(p.b, static_cast<size_t>(p.ntn) * nk * L::B_BYTES,
-                         threadIdx.x, blockDim.x);
-  }
 }
 
-// Launch the fat-tile kernel: as many blocks as the card holds at once
-// (one an SM), at most one a tile. Returns a cudaError_t as an int.
-template <bool kNT, int BNT, int NBUF, int kFeed = FEED_STREAM>
+// Launch the fat-tile kernel at BM x BNT tiles: as many blocks as the card
+// holds at once (one an SM), at most one a tile. Returns a cudaError_t as
+// an int.
+template <int BNT>
 int launch_fat(const void* qa, const void* b, const void* sa, const void* sb,
                const void* c, void* out, int M, int N, int K, int lda,
                int ldb, int ldc, void* stream) {
-  using L = FatLayout<BNT, NBUF>;
+  using L = FatLayout<BNT>;
   static_assert(L::SMEM <= 232448, "a block's shared memory is 227 KB");
-  auto kernel = int8_fat_kernel<kNT, BNT, NBUF, kFeed>;
+  auto kernel = int8_fat_kernel<BNT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);

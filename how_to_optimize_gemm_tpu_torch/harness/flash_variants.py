@@ -6,7 +6,7 @@ A variant is a copy of the port's ``csrc/`` under
 (each must match exactly once, so a variant that no longer fits the source
 fails), or another tree's ``csrc/`` given with ``--tree NAME=DIR[:BK]`` (a
 parent commit unpacked by ``git archive``; for the forward group its key
-tile BK). Eleven groups of kernels, one a run (``--group``):
+tile BK). Thirteen groups of kernels, one a run (``--group``):
 
 - ``forward``: ``flash_attention`` at the 7B prefill row (B 4, H = KVH = 32,
   D 128, S = T = 4,096, causal, (B, S, H, D) views) and
@@ -133,6 +133,24 @@ tile BK). Eleven groups of kernels, one a run (``--group``):
   loops (``order``), give each consumer 64 x 256 tiles (``tile64x256``),
   drop rung 12's prefetch (``no_prefetch``), or build rung 11 at ``CL`` 1
   (``cl1``: the cooperative body into a fresh output, rung 10's control);
+- ``tiled``: rung 13 ``int8_tiled_resident_nt`` (rung 12's ping-pong fed
+  by 1-D bulk copies of ``int8_pretile``'s stage images) at M = N = K =
+  4,096 and 2,048, the whole call (two repacks and the GEMM) and the GEMM
+  alone on images made beforehand, each EQUAL to the plain version and two
+  calls bit-equal, with rung 12 ``int8_resident_nt``'s call in the same
+  run; the repack alone on A at both sizes (EQUAL to ``pretile_ref``); and
+  ``paged_kv_update`` at the 7B pools (4 slots, one token each: the bf16
+  pool of 128-token pages, the KV8 pool's int8 values and fp32 scales of
+  384-token pages) beside ``kv_update`` into a contiguous cache of the same
+  rows, each EQUAL to its plain version; ``torch._int_mm`` and the
+  epilogue, and ``index_put_``, beside them. An older tree's rung 13 (the
+  ``mma.sync`` fat kernel) reads its own images ((tiles, ceil(K / 64), 128,
+  80)), made by its own ``int8_pretile`` (the same arguments); its
+  ``paged_kv_update`` (a stacked (B, S, 2) table) is timed as its wrapper
+  called it, the stack included. The variants drop the prefetch of rungs
+  12 and 13 (``no_prefetch``) or repack by the copy engine
+  (``tma_repack``: a tensor-map load of each 128 x 128 box into shared
+  memory, then one bulk store of its 16 KB image);
 - ``ladder``: the float ladder's rungs 02 (``fp32_gemm_mn_tile``), 03 and
   03b (``fp32_gemm_k_blocked`` at blocks of 128 and 64), each its
   wrapper at M = N = K = 4,096 and 2,048, held to its plain version
@@ -152,7 +170,7 @@ build; the cases run as CUDA-graph replays in rounds that walk the
 variants forwards and then backwards.
 
     python -m how_to_optimize_gemm_tpu_torch.harness.flash_variants \\
-        [--group forward|dkv|dq|gemm|paged|w4a8|int8|gemv|w4a16|strip|pingpong|ladder] \\
+        [--group forward|dkv|dq|gemm|paged|w4a8|int8|gemv|w4a16|strip|pingpong|tiled|ladder] \\
         [--variants shipped ...] \\
         [--tree parent=build/parent/how_to_optimize_gemm_tpu_torch/csrc:64]
 """
@@ -171,6 +189,7 @@ from how_to_optimize_gemm_tpu_torch.harness import profiling
 from how_to_optimize_gemm_tpu_torch.ops import (attention, decode_attention,
                                                grouped_gemm, hand_pipeline,
                                                int4, int8, k_blocked,
+                                               kv_update,
                                                manual_dma, mn_tile,
                                                paged_attention, tuned,
                                                vendor)
@@ -688,6 +707,66 @@ PINGPONG_VARIANTS = {
     # output, read off rung 11's rows
     "cl1": ((_STRIP, _STRIP_CL, "  static constexpr int CL = 1; "),),
 }
+_TMA_REPACK = """// the copy engine's repack: block i takes image i, one tensor-map load of
+// its 128 x 128 box (the 128-byte swizzle, zeros past the edges) into
+// shared memory, then one bulk store of the 16 KB under evict_last
+__global__ void __launch_bounds__(32)
+    int8_pretile_tma(const __grid_constant__ CUtensorMap map, int8_t* dst,
+                     int nk) {
+  using namespace htog;
+  extern __shared__ uint8_t raw[];
+  __shared__ uint64_t bar;
+  uint8_t* img = wg::align_1024(raw);
+  if (threadIdx.x != 0) return;
+  mbar_init(&bar, 1);
+  mbar_fence_init();
+  mbar_arrive_expect_tx(&bar, BM * wg::LINE);
+  wg::tma_2d(img, &map, (blockIdx.x % nk) * wg::LINE,
+             (blockIdx.x / nk) * BM, &bar);
+  mbar_wait(&bar, 0);
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], "
+      "[%1], %2, %3;\\n" ::"l"(dst + static_cast<size_t>(blockIdx.x) * BM *
+                                   wg::LINE),
+      "r"(smem_u32(img)), "r"(BM * wg::LINE), "l"(l2_evict_last())
+      : "memory");
+  bulk_commit();
+  bulk_wait_all();
+}
+
+int pretile_tma(const void* src, void* dst, int rows, int K, int ld,
+                int tiles, int nk, void* stream) {
+  using namespace htog;
+  const int images = tiles * nk;
+  if (images == 0) return 0;
+  CUtensorMap map;
+  if (!gw::kmajor_map_s8(&map, src, rows, K, ld, BM))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int SMEM = BM * wg::LINE + wg::ATOM;
+  cudaFuncSetAttribute(int8_pretile_tma,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  int8_pretile_tma<<<images, 32, SMEM, static_cast<cudaStream_t>(stream)>>>(
+      map, static_cast<int8_t*>(dst), nk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+"""
+
+TILED_VARIANTS = {
+    "shipped": (),
+    # rungs 12 and 13 without the prefetch of their operands (the copies'
+    # evict_last and C's and out's evict_first kept)
+    "no_prefetch": PINGPONG_VARIANTS["no_prefetch"],
+    # int8_pretile by the copy engine (its threads' form left unlaunched)
+    "tma_repack": (
+        (_RES, "// src (rows, K) int8 with row pitch ld",
+         _TMA_REPACK + "// src (rows, K) int8 with row pitch ld"),
+        (_RES, "  const size_t words = static_cast<size_t>(tiles) * nk * BM"
+         " * 8;\n",
+         "  return pretile_tma(src, dst, rows, K, ld, tiles, nk, stream);\n"
+         "  const size_t words = static_cast<size_t>(tiles) * nk * BM"
+         " * 8;\n")),
+}
 _GEMV = "w4a8_gemv_fq.cu"
 # the timeline probes' device side: each block's %globaltimer at phase i
 # (0-8) and its SM (9), and the C entry that reads and clears them
@@ -945,6 +1024,7 @@ GROUPS = {
               W4A16_VARIANTS),
     "strip": ((_STRIP, "int8_hand_pipe.cu", _K2), STRIP_VARIANTS),
     "pingpong": ((_FAT, _RES, _STRIP, _K2), PINGPONG_VARIANTS),
+    "tiled": ((_RES, "paged_kv_update.cu", "kv_update.cu"), TILED_VARIANTS),
     "ladder": ((_MN, _KB), LADDER_VARIANTS),
 }
 # the csrc/ tree in use (set by use())
@@ -1584,8 +1664,160 @@ def _older(name: str) -> bool:
     text = (_build.CSRC / _build.KERNELS[name].source).read_text()
     marker = {"w4a8_gemv_fq": "int ldx, int Kp, int ldp, int cluster,",
               "paged_decode_attention": "launch_decode_attention_split",
-              "w4a16_gemv": "int ldp, int cluster, void* stream"}
+              "w4a16_gemv": "int ldp, int cluster, void* stream",
+              "int8_tiled_resident_nt": "launch_tiled<htog::Rung13>",
+              "paged_kv_update": "const void* pages, const void* offs,"}
     return marker[name] not in text
+
+
+def tiled_images(x):
+    """x (rows, K) int8 as the tree in use's int8_pretile lays it out:
+    (tiles, ceil(K / 128), 128, 128) stage images, or an older tree's
+    (tiles, ceil(K / 64), 128, 80) slot images."""
+    rows, k = x.shape
+    kq, width = ((64, 80) if _older("int8_tiled_resident_nt")
+                 else (int8.STAGE_K, int8.STAGE_K))
+    tiles, nk = -(-rows // manual_dma.BM), -(-k // kq)
+    out = torch.empty((tiles, nk, manual_dma.BM, width), dtype=torch.int8,
+                      device=x.device)
+    _build.launch("int8_pretile", x.device, x, out, rows, k, k, tiles, nk)
+    return out
+
+
+def tiled_gemm(at, bt, sa, sb, c, k):
+    """Rung 13's GEMM on images of the tree in use (lda, ldb not read;
+    N a multiple of 4 and K of 16: no padding), a fresh output."""
+    m, n = c.shape
+    out = torch.empty_like(c)
+    _build.launch("int8_tiled_resident_nt", c.device, at, bt, sa, sb, c,
+                  out, m, n, k, 0, 0, n)
+    return out
+
+
+# an older tree's paged_kv_update: (pool, new, tab, mask, B, S, NP, PS,
+# row_bytes, stream), tab the (B, S, 2) stack of pages and offs
+_STACKED_PAGED = ((ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5
+                  + (ctypes.c_void_p,))
+
+
+def paged_update_call(pool, new, pages, offs, tab=None):
+    """paged_kv_update on the tree in use: its wrapper, or an older tree's
+    kernel on a stacked table as its wrapper called it (the stack made in
+    the call, or ``tab`` made beforehand)."""
+    name = "paged_kv_update"
+    if not _older(name):
+        return kv_update.paged_kv_update(pool, new, pages, offs)
+    if tab is None:
+        tab = torch.stack([pages, offs], -1)
+    fn = _build.c_function(_build.KERNELS[name].source, name,
+                           _STACKED_PAGED)
+    b, s = new.shape[:2]
+    row = new[0, 0].numel() * new.element_size()
+    err = fn(pool.data_ptr(), new.data_ptr(), tab.data_ptr(), None, b, s,
+             pool.shape[0], pool.shape[1], row,
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return pool
+
+
+def tiled_cases(gen, tiles):
+    """Rung 13 (the call, and the GEMM alone on images made beforehand by
+    the tree's own repack) and rung 12 at 4,096 and 2,048, the repack alone
+    on A, and paged_kv_update beside kv_update at the 7B pools (graph
+    replays); each held to its plain version, two calls bit-equal."""
+    from how_to_optimize_gemm_tpu_torch.models import llama
+    cases, checks, library = {}, {}, {}
+    for p in (4096, 2048):
+        a, b, c = (torch.rand((p, p), generator=gen, device="cuda") * 2 - 1
+                   for _ in "abc")
+        ops = int8.prepare_packed(a, b)
+        qa, sa, qbt, sb = ops
+        ref = int8.mmult_q_bt_ref(*ops, c)
+        lib = time_calls(lambda: int8.dequant_epilogue(
+            torch._int_mm(qa, qbt.t()), sa, sb, c), graph=True) * 1e3
+        imgs = {}
+
+        def call(o=ops, c=c, p=p):
+            return tiled_gemm(tiled_images(o[0]), tiled_images(o[2]), o[1],
+                              o[3], c, p)
+
+        def gemm(o=ops, c=c, p=p, imgs=imgs):
+            return tiled_gemm(*imgs[_ACTIVE[0]], o[1], o[3], c, p)
+
+        def prepare_images(o=ops, imgs=imgs):
+            imgs[_ACTIVE[0]] = (tiled_images(o[0]), tiled_images(o[2]))
+        rows = {f"int8_tiled_resident_nt call p={p}": call,
+                f"int8_tiled_resident_nt gemm p={p}": gemm,
+                f"int8_resident_nt call p={p}":
+                    lambda o=ops, c=c: manual_dma.mmult_q_resident(*o, c)}
+        for case, fn in rows.items():
+            cases[case] = fn
+            library[case] = lib
+            checks[case] = (fn, ref, prepare_images if "gemm" in case
+                            else None)
+        case = f"int8_pretile A p={p}"
+        cases[case] = lambda x=qa: tiled_images(x)
+        checks[case] = (cases[case], manual_dma.pretile_ref(qa), None)
+    heads = (32, 128)
+    for label, ps in (("bf16", 128), ("int8", 384), ("fp32 scales", 384)):
+        n_pages = 4 * -(-4096 // ps) + 1
+        pool = torch.randn((n_pages, ps, *heads), generator=gen,
+                           device="cuda")
+        new = torch.randn((4, 1, *heads), generator=gen, device="cuda")
+        cache = torch.randn((4, 4096, *heads), generator=gen, device="cuda")
+        if label == "bf16":
+            pool, new, cache = (x.to(torch.bfloat16)
+                                for x in (pool, new, cache))
+        else:
+            (pool, spool), (new, snew), (cache, scache) = (
+                llama.quantize_kv(x) for x in (pool, new, cache))
+            if label == "fp32 scales":
+                pool, new, cache = spool, snew, scache
+        pages = torch.tensor([[7], [0], [n_pages - 1], [3]],
+                             dtype=torch.int32, device="cuda")
+        offs = torch.tensor([[5], [9], [ps - 1], [0]], dtype=torch.int32,
+                            device="cuda")
+        pos = torch.tensor([5, 300, 4095, 1000], dtype=torch.int32,
+                           device="cuda")
+        tab = torch.stack([pages, offs], -1)
+        ref = kv_update.paged_kv_update_ref(pool.clone(), new, pages, offs)
+        work = pool.clone()
+        case = f"paged_kv_update {label} pool {tuple(pool.shape)}"
+        cases[case] = (lambda w=work, n=new, pg=pages, of=offs:
+                       paged_update_call(w, n, pg, of))
+        checks[case] = (lambda w=work, n=new, pg=pages, of=offs:
+                        paged_update_call(w, n, pg, of), ref, None)
+        case = f"paged_kv_update {label} kernel alone"
+        cases[case] = (lambda w=work, n=new, pg=pages, of=offs, t=tab:
+                       paged_update_call(w, n, pg, of, t))
+        rows_b = torch.tensor([0, 2, 3], device="cuda")
+        idx = (pages[rows_b, 0].long(), offs[rows_b, 0].long())
+        vals = new[rows_b, 0]
+        library[case] = time_calls(
+            lambda: work.index_put_(idx, vals), graph=True) * 1e3
+        ccache = cache.clone()
+        case = f"kv_update {label} cache {tuple(cache.shape)}"
+        cases[case] = (lambda w=ccache, n=new, q=pos:
+                       kv_update.kv_update(w, n, q))
+        checks[case] = (cases[case], kv_update.kv_update_ref(
+            cache.clone(), new, pos), None)
+
+    def check(name):
+        parts = []
+        for case, (fn, ref, setup) in checks.items():
+            if setup is not None:
+                setup()
+            out, again = fn(), fn()
+            torch.cuda.synchronize()
+            if "int8_pretile" in case and _older("int8_tiled_resident_nt"):
+                verdict = "its own layout"     # an older tree's images
+            else:
+                verdict = "EQUAL" if torch.equal(out, ref) else "DIFFERS"
+            parts.append(f"{case}: {verdict}, repeat "
+                         f"{'equal' if torch.equal(out, again) else 'DIFFERS'}")
+        return "; ".join(parts)
+    return cases, check, library
 
 
 def gemv_call(x, packed, sw):
@@ -1932,6 +2164,7 @@ CASES = {"forward": forward_cases, "dkv": dkv_cases, "dq": dq_cases,
          "gemm": gemm_cases, "paged": paged_cases, "w4a8": w4a8_cases,
          "int8": int8_cases, "gemv": gemv_cases, "w4a16": w4a16_cases,
          "strip": strip_cases, "pingpong": pingpong_cases,
+         "tiled": tiled_cases,
          "ladder": ladder_cases}
 
 

@@ -114,7 +114,10 @@ def paged_kv_update(pool, new, pages, offs, write_mask=None):
 
     pool (NP, PS, *rest) contiguous, new (B, S, *rest) of any float dtype
     (cast to the pool's), pages and offs (B, S) ints, write_mask None or
-    (B,) bools."""
+    (B,) bools. With ``new`` of the pool's dtype and contiguous, pages and
+    offs contiguous int32 and no mask (the engine's call,
+    ``llama._write_paged``) the call launches the kernel and nothing
+    else."""
     if pool.device.type == "cpu":
         return paged_kv_update_ref(pool, new, pages, offs, write_mask)
     require_cuda("paged_kv_update", pool)
@@ -131,12 +134,14 @@ def paged_kv_update(pool, new, pages, offs, write_mask=None):
         if x.device != pool.device:
             raise ValueError(f"paged_kv_update: an operand on {x.device}, "
                              f"pool on {pool.device}")
+    # each a no-op (no launch) on what already has that dtype and layout
     new = new.to(pool.dtype).contiguous()
-    tab = torch.stack([pages.to(torch.int32), offs.to(torch.int32)], dim=-1)
+    pages = pages.to(torch.int32).contiguous()
+    offs = offs.to(torch.int32).contiguous()
     mask = (None if write_mask is None
             else _slot_vector(write_mask, b, pool.device, torch.int32))
     row_bytes = math.prod(pool.shape[2:]) * pool.element_size()
     if b and s and row_bytes:
-        _build.launch("paged_kv_update", pool.device, pool, new, tab, mask,
-                      b, s, n_pages, ps, row_bytes)
+        _build.launch("paged_kv_update", pool.device, pool, new, pages, offs,
+                      mask, b, s, n_pages, ps, row_bytes)
     return pool

@@ -31,16 +31,17 @@ nothing) and adds one idea to the rung before it:
   the output under evict_first;
 - ``mmult_q_tiled_resident`` (rung 13, ``int8_pretile`` then
   ``int8_tiled_resident_nt``): rung 12 on operands repacked once
-  (``pretile``) into the ring slot's exact image, one bulk copy a chunk.
+  (``pretile``) into the exact image of the body's stage (the 128-byte
+  swizzled box its tensor-map copy would land), one 1-D bulk copy a stage
+  and operand.
 
 Rungs 12 and 13 take rung 11 (``mmult_q_strip``) when their resident bytes
 exceed the L2 budget (``fits_resident``), the reference's rule above its
 VMEM budget. The kernels are in ``csrc/int8_dma_nn.cu`` (08),
-``csrc/int8_fat.cu`` (09 on ``csrc/manual_dma.cuh``, 10 on
-``csrc/gemm_wgmma.cuh``), ``csrc/int8_strip_nt.cu`` (11, on
-``csrc/gemm_wgmma.cuh``) and ``csrc/int8_resident.cu`` (12 on
-``csrc/gemm_wgmma.cuh``; 13 and the repack on ``csrc/manual_dma.cuh``).
-Each wrapper launches its
+``csrc/int8_fat.cu`` (09 on ``csrc/manual_dma.cuh``'s fat-tile kernel, 10
+on ``csrc/gemm_wgmma.cuh``), ``csrc/int8_strip_nt.cu`` (11, on
+``csrc/gemm_wgmma.cuh``) and ``csrc/int8_resident.cu`` (12 and 13 on
+``csrc/gemm_wgmma.cuh``, and the repack). Each wrapper launches its
 kernel for CUDA tensors and runs its plain version (``*_ref``: exact int32
 products, then the rank-1 dequant epilogue plus C; ``pretile_ref``) only for
 CPU tensors; the kernels equal their plain versions bit for bit.
@@ -56,9 +57,9 @@ from how_to_optimize_gemm_tpu_torch.ops import bounds, int8
 SMEM_BLOCK = 232_448
 MAX_REGS = 255
 THREADS = 256
-# the fat kernels' tiling (csrc/manual_dma.cuh: rungs 09 and 13): 8 warps,
-# 2 on M x 4 on N, 64-byte K chunks in a two-slot ring, rows padded to 80
-# bytes
+# the fat kernel's tiling (csrc/manual_dma.cuh: rung 09; with two C/out
+# buffers the reference's rule for its rungs 10 and 13): 8 warps, 2 on M x
+# 4 on N, 64-byte K chunks in a two-slot ring, rows padded to 80 bytes
 BM = 128
 BK = 64
 LDS = BK + 16
@@ -67,9 +68,10 @@ SLOTS = 2
 # the B chunk staged through registers (rung 09)
 REG_OVERHEAD = 64
 CLUSTER = 2            # rung 11's blocks sharing an A box (csrc CL)
-# rungs 10 and 12 (csrc/int8_fat.cu Rung10, int8_resident.cu Rung12 on
-# csrc/gemm_wgmma.cuh): a consumer warpgroup's whole tile, the ring's
-# stages (a 128-row A box and a 128-row B^T box of int8.STAGE_K bytes each)
+# rungs 10, 12 and 13 (csrc/int8_fat.cu Rung10, int8_resident.cu Rung12
+# and Rung13 on csrc/gemm_wgmma.cuh): a consumer warpgroup's whole tile,
+# the ring's stages (a 128-row A box and a 128-row B^T box of
+# int8.STAGE_K bytes each; rung 13's stage images)
 PINGPONG_TILE = (128, 128)
 PINGPONG_STAGES = 6
 ALIGN = int8.ALIGN     # K rows start on 16-byte boundaries
@@ -83,7 +85,8 @@ RESIDENT_BUDGET = int(int8.L2_SHARE * int8.L2_BYTES)
 def fat_smem_bytes(bm: int, bn: int, buffers: int) -> int:
     """Shared memory of the fat kernel at a bm x bn tile with ``buffers``
     C/out buffers: the (A, B) ring, the fp32 buffers (rows padded by 32
-    bytes) and the mbarriers (csrc/manual_dma.cuh, ``FatLayout``)."""
+    bytes) and the mbarriers (csrc/manual_dma.cuh ``FatLayout`` at one
+    buffer, rung 09)."""
     return (SLOTS * (bm + bn) * LDS + buffers * bm * (4 * bn + 32)
             + 8 * (2 * SLOTS + buffers))
 
@@ -99,8 +102,8 @@ def fat_tile(buffers: int) -> tuple[int, int]:
     of 64 rows) and bn a multiple of 128 (four warps), whose ring and
     ``buffers`` C/out buffers fit a block's shared memory and whose
     accumulators fit the register file: (128, 256) with one buffer (rung
-    09), (128, 128) with two (rung 13's tile; rung 10, which it described,
-    runs on ``wgmma`` since)."""
+    09), (128, 128) with two (the reference's rule for its rungs 10 and
+    13, which run on ``wgmma`` here)."""
     fits = [bn for bn in (512, 384, 256, 128)
             if fat_smem_bytes(BM, bn, buffers) <= SMEM_BLOCK
             and fat_regs(BM, bn) <= MAX_REGS]
@@ -114,11 +117,11 @@ FAT_BM, FAT_BN = fat_tile(1)
 
 
 def choose_blocks_fat(m: int, n: int, k: int) -> tuple[int, int, int]:
-    """(bm, bn, bk) of the fat kernel with two C/out buffers, rung 13's
-    tile (rung 10 takes ``PINGPONG_TILE`` on ``wgmma``): bn the least-waste
-    multiple of 128 under ``fat_tile(2)``'s cap (the reference's rule,
-    ``bounds._least_waste``), bk the kernel's 64-byte K chunk (K is
-    zero-padded to a multiple of 16)."""
+    """(bm, bn, bk) of the fat kernel with two C/out buffers, the
+    reference's rule for its rungs 10 and 13 (here both take
+    ``PINGPONG_TILE`` on ``wgmma``): bn the least-waste multiple of 128
+    under ``fat_tile(2)``'s cap (``bounds._least_waste``), bk the fat
+    kernel's 64-byte K chunk (K is zero-padded to a multiple of 16)."""
     bm, cap = fat_tile(2)
     bn = bounds._least_waste(bounds.round_up(n, 128), cap, 128)
     return bm, bn, BK
@@ -126,7 +129,7 @@ def choose_blocks_fat(m: int, n: int, k: int) -> tuple[int, int, int]:
 
 def pingpong_smem_bytes(tile=PINGPONG_TILE,
                         stages: int = PINGPONG_STAGES) -> int:
-    """Shared memory of rungs 10 and 12's ``wgmma`` body (csrc/
+    """Shared memory of rungs 10, 12 and 13's ``wgmma`` body (csrc/
     gemm_wgmma.cuh ``Layout``): the ring's stages, two consumers' two
     staging boxes of 64 rows x 32 fp32, their sb staging of 128 columns,
     the ring's barriers and consumer 1's full barriers, the C-load and
@@ -156,12 +159,12 @@ mmult_q_tiled_resident_ref = mmult_q_packed_ref
 
 def resident_bytes(m: int, n: int, k: int, tiled: bool) -> int:
     """The L2 bytes rungs 12 (``tiled`` False) and 13 keep resident: the
-    reference's ``mp * kp + np * kp`` on the card's tiles (rows rounded up
-    to BM, K to BK), rung 13's slot images with their rows padded to LDS
-    bytes. The reference adds its VMEM tile buffers, which live in shared
-    memory here."""
+    reference's ``mp * kp + np * kp`` on the card's tiles, rows rounded up
+    to BM and K to BK (rung 12) or to the stage's ``int8.STAGE_K`` (rung
+    13's images). The reference adds its VMEM tile buffers, which live in
+    shared memory here."""
     rows = bounds.round_up(m, BM) + bounds.round_up(n, BM)
-    return rows * bounds.round_up(k, BK) * (LDS if tiled else BK) // BK
+    return rows * bounds.round_up(k, int8.STAGE_K if tiled else BK)
 
 
 def fits_resident(m: int, n: int, k: int, *, tiled: bool,
@@ -172,20 +175,29 @@ def fits_resident(m: int, n: int, k: int, *, tiled: bool,
     return resident_bytes(m, n, k, tiled) <= budget
 
 
+# rung 13's images: a stage's BM rows of int8.STAGE_K bytes in SWIZZLE-byte
+# lines of 16-byte chunks, chunk c of row r stored at c ^ (r % SWIZZLE_ROWS)
+SWIZZLE_ROWS = 8
+
+
 def pretile_ref(x: torch.Tensor) -> torch.Tensor:
     """Plain version of ``pretile``: (rows, K) int8 -> (ceil(rows / BM),
-    ceil(K / BK), BM, LDS), chunk (t, kt) the ring slot's image of rows
-    t * BM.. and K bytes kt * BK..: zero-padded to whole tiles and chunks,
-    each row padded by LDS - BK zero bytes."""
+    ceil(K / STAGE_K), BM, STAGE_K), image (t, kq) the stage of rows
+    t * BM.. and K bytes kq * STAGE_K.. as the body's tensor-map copy lands
+    it: zero-padded to whole tiles and stages, 16-byte chunk c' of row r
+    holding the source's chunk c' ^ (r % 8) (the 128-byte swizzle)."""
     rows, k = x.shape
-    tiles, nk = -(-rows // BM), -(-k // BK)
-    full = torch.nn.functional.pad(x, (0, nk * BK - k, 0, tiles * BM - rows))
-    img = full.reshape(tiles, BM, nk, BK).permute(0, 2, 1, 3)
-    return torch.nn.functional.pad(img, (0, LDS - BK)).contiguous()
+    sk = int8.STAGE_K
+    tiles, nk = -(-rows // BM), -(-k // sk)
+    full = torch.nn.functional.pad(x, (0, nk * sk - k, 0, tiles * BM - rows))
+    chunks = full.reshape(tiles, BM, nk, sk // 16, 16).permute(0, 2, 1, 3, 4)
+    r = torch.arange(BM)[:, None]
+    src = torch.arange(sk // 16)[None, :] ^ (r % SWIZZLE_ROWS)
+    return chunks[:, :, r, src].reshape(tiles, nk, BM, sk).contiguous()
 
 
 def pretile(x: torch.Tensor) -> torch.Tensor:
-    """Rung 13's repack (kernel ``int8_pretile``): ``pretile_ref``'s image
+    """Rung 13's repack (kernel ``int8_pretile``): ``pretile_ref``'s images
     of a contiguous int8 (rows, K), K a multiple of 16, in fresh scratch."""
     if x.device.type == "cpu":
         return pretile_ref(x)
@@ -195,8 +207,8 @@ def pretile(x: torch.Tensor) -> torch.Tensor:
             or x.data_ptr() % ALIGN):
         raise ValueError(f"pretile: takes a contiguous, 16-byte aligned "
                          f"int8 (rows, K), K a multiple of {ALIGN}")
-    tiles, nk = -(-rows // BM), -(-k // BK)
-    out = torch.empty((tiles, nk, BM, LDS), dtype=torch.int8,
+    tiles, nk = -(-rows // BM), -(-k // int8.STAGE_K)
+    out = torch.empty((tiles, nk, BM, int8.STAGE_K), dtype=torch.int8,
                       device=x.device)
     if out.numel():
         _build.launch("int8_pretile", x.device, x, out, rows, k, k, tiles,
@@ -224,7 +236,8 @@ def _launch(kernel: str, qa, b, sa, sb, c, pad_c: bool, k_ld=None):
     so both get a row pitch that is a multiple of 16 bytes (C is copied
     only when N is not a multiple of 4) and 16-byte aligned bases. k_ld:
     (K, lda, ldb) when qa and b are not the row-major operands (rung 13's
-    images); else qa's width and the row pitches."""
+    images, whose lda and ldb the kernel does not read); else qa's width
+    and the row pitches."""
     m, n = c.shape
     if pad_c:
         c = bounds.pad_dim(c, 1, C_ALIGN)
@@ -312,9 +325,10 @@ def mmult_q_resident(qa, sa, qbt, sb, c):
 
 
 def mmult_q_tiled_resident(qa, sa, qbt, sb, c):
-    """Rung 13: rung 12 on operands repacked once into slot images
-    (``pretile``, scratch freed after the call), a fresh (M, N) float32;
-    rung 11 above the budget. Operands as ``mmult_q_packed``."""
+    """Rung 13: rung 12 on operands repacked once into stage images
+    (``pretile``, scratch freed after the call), each stage one 1-D bulk
+    copy an operand, a fresh (M, N) float32; rung 11 above the budget.
+    Operands as ``mmult_q_packed``."""
     m, n = c.shape
     if not fits_resident(m, n, qa.shape[1], tiled=True,
                          budget=int8.l2_budget(c.device)):
@@ -325,7 +339,7 @@ def mmult_q_tiled_resident(qa, sa, qbt, sb, c):
     qa, qbt = _operands("mmult_q_tiled_resident", qa, sa, qbt, sb, c, True)
     kp = qa.shape[1]
     return _launch("int8_tiled_resident_nt", pretile(qa), pretile(qbt), sa,
-                   sb, c, True, (kp, LDS, LDS))
+                   sb, c, True, (kp, int8.STAGE_K, int8.STAGE_K))
 
 
 def mmult(a, b, c):

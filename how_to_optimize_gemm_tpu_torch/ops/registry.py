@@ -284,13 +284,15 @@ _register(Rung(
     prepare=int8.prepare_packed, effective=_packed_effective,
     gate_rel=1e-4, bytes_per_input_elt=1.0,
     doc="REGRESSION (kept; the flag unset, as in the reference): rung 12 on "
-        "operands repacked once into the ring slot's exact image (kernels "
-        "int8_pretile, int8_tiled_resident_nt), one 10 KB bulk copy a "
-        "chunk. On an NVIDIA H100 80GB HBM3 at 700 W (harness/ab.py, 5 "
-        "rounds) it beats 12 every round at p=4096 (286.0k against 277.7k "
-        "GFLOPS) and loses every round at 2048 (143.4k against 229.9k: "
-        "three launches and two scratch allocations a call), and loses "
-        "to 14 at both"))
+        "operands repacked once into the exact image of the body's stage, "
+        "the 128-byte-swizzled 16 KB box its tensor-map copy would land "
+        "(kernels int8_pretile, int8_tiled_resident_nt), one 1-D bulk copy "
+        "a stage and operand. On an NVIDIA H100 80GB HBM3 at 700 W "
+        "(harness/ab.py, 5 rounds) it loses to 12 every round at p=4096 "
+        "(median 862.7k against 995.1k GFLOPS) and at 2048 (117.7k "
+        "against 295.2k): the two repacks and their scratch allocations a "
+        "call; its GEMM alone is within 5% of 12's (harness/"
+        "flash_variants.py --group tiled)"))
 
 _register(Rung(
     name="14_packed_alias_int8", dtype="int8",

@@ -322,8 +322,9 @@ def test_strip_cluster_equals_plain_version(cuda, shape):
     assert size == manual_dma.CLUSTER and active >= 1
 
 
-# Rungs 10 and 12 on K2's body as a ping-pong (csrc/int8_fat.cu,
-# int8_resident.cu on gemm_wgmma.cuh): each consumer warpgroup computes
+# Rungs 10, 12 and 13 on K2's body as a ping-pong (csrc/int8_fat.cu,
+# int8_resident.cu on gemm_wgmma.cuh; 13 fed by 1-D bulk copies of
+# int8_pretile's stage images): each consumer warpgroup computes
 # whole 128 x 128 tiles, the two taking a block's tiles in turn. Rows fewer
 # than a product's 64 and past a multiple of 128, K no multiple of the
 # 128-byte stage, C's rows no 16-byte multiple (the wrapper pads them), the
@@ -333,14 +334,16 @@ def test_strip_cluster_equals_plain_version(cuda, shape):
 PINGPONG_SHAPES = [(300, 262, 520), (129, 520, 1100), (1, 300, 16),
                    (2001, 2102, 520), "odd", (4096, 4096, 4096)]
 PINGPONG = {"int8_fat_nt": manual_dma.mmult_q_packed,
-            "int8_resident_nt": manual_dma.mmult_q_resident}
+            "int8_resident_nt": manual_dma.mmult_q_resident,
+            "int8_tiled_resident_nt": manual_dma.mmult_q_tiled_resident}
 
 
 @pytest.mark.parametrize("shape", PINGPONG_SHAPES)
 @pytest.mark.parametrize("kernel", sorted(PINGPONG))
 def test_pingpong_equals_plain_version(cuda, kernel, shape):
     """EQUAL, C unchanged, two calls bit-equal, one launch of its own
-    kernel a call (rung 12 stays resident at every shape here)."""
+    kernel a call (rungs 12 and 13 stay resident at every shape here;
+    13's two repacks a call)."""
     if shape == "odd":
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         tm, tn = manual_dma.PINGPONG_TILE
@@ -354,6 +357,8 @@ def test_pingpong_equals_plain_version(cuda, kernel, shape):
     torch.cuda.synchronize()
     assert _build.LAUNCHES[kernel] == before[kernel] + 2
     assert _build.LAUNCHES["int8_strip_nt"] == before["int8_strip_nt"]
+    assert (_build.LAUNCHES["int8_pretile"] - before["int8_pretile"]
+            == (4 if kernel == "int8_tiled_resident_nt" else 0))
     assert torch.equal(c, kept)
     assert torch.equal(out, manual_dma.mmult_q_packed_ref(*ops, c))
     assert torch.equal(again, out)
@@ -369,6 +374,19 @@ def test_k2_right_after_rung_12(cuda):
     torch.cuda.synchronize()
     ref = int8.mmult_q_bt_ref(*ops, c)
     assert torch.equal(res, ref)
+    assert torch.equal(k2, ref)
+
+
+def test_k2_right_after_rung_13(cuda):
+    """K2 right after rung 13 at 4,096 (whose images' L2 lines rung 13 set
+    back to evict_normal): both EQUAL to the plain version."""
+    a, b, c = _abc((4096, 4096, 4096), 11, cuda)
+    ops = int8.prepare_packed(a, b)
+    tiled = manual_dma.mmult_q_tiled_resident(*ops, c)
+    k2 = int8.mmult_q_bt(*ops, c.clone())
+    torch.cuda.synchronize()
+    ref = int8.mmult_q_bt_ref(*ops, c)
+    assert torch.equal(tiled, ref)
     assert torch.equal(k2, ref)
 
 
@@ -464,9 +482,11 @@ def test_int8_wgmma_keeps_subnormals(cuda, kernel, n):
 
 
 @pytest.mark.parametrize("shape", [(1000, 1104), (2102, 528), (1, 16),
-                                   (4096, 4096)])
+                                   (4096, 4096), (300, 1104)])
 def test_pretile_equals_plain_version(cuda, shape):
-    """Byte for byte; K must be a multiple of 16 (the wrappers pad it)."""
+    """Byte for byte (the swizzled stage images, zeros past the rows and
+    K; 300 rows: a tile count that is odd); K must be a multiple of 16
+    (the wrappers pad it)."""
     rng = np.random.default_rng(6)
     x = torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
     got = manual_dma.pretile(x.to(cuda))
@@ -1402,12 +1422,19 @@ def test_paged_kv_update_equals_plain_version(cuda, kind, s):
     pages = torch.from_numpy(perm[:b * s].reshape(b, s).astype(np.int32))
     pages[0, 0] = 0                                 # a trash-page row
     offs = torch.from_numpy(rng.integers(0, ps, (b, s)).astype(np.int32))
+    if s > 1:
+        pages[-1, -1] = n_pages                     # a row past NP
     mask = torch.tensor([True, False, True], device=cuda)
     pages, offs = pages.to(cuda), offs.to(cuda)
-    for wm in (None, mask):
+    # the engine's int32 tables, int64 ones, and views of wider ones
+    wide = torch.stack([pages, offs], -1)
+    tables = [(pages, offs), (pages.long(), offs.long()),
+              (wide[..., 0], wide[..., 1])]
+    assert not tables[2][0].is_contiguous()
+    for (pg, of), wm in [(t, w) for t in tables for w in (None, mask)]:
         got = pool.clone()
         before = _build.LAUNCHES["paged_kv_update"]
-        out = kv_update.paged_kv_update(got, new, pages, offs, wm)
+        out = kv_update.paged_kv_update(got, new, pg, of, wm)
         torch.cuda.synchronize()
         assert out.data_ptr() == got.data_ptr()
         assert _build.LAUNCHES["paged_kv_update"] == before + 1
@@ -1416,6 +1443,27 @@ def test_paged_kv_update_equals_plain_version(cuda, kind, s):
         assert torch.equal(got, ref)
         assert torch.equal(got[0], pool[0])         # page 0 untouched
         assert not torch.equal(got, pool)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8,
+                                   torch.float32])
+def test_paged_kv_update_is_one_kernel_a_call(cuda, dtype):
+    """The engine's call (int32 tables, rows of the pool's dtype, no
+    mask) at the 7B pools' rows (bf16 values, KV8 values, KV8 scales):
+    torch.profiler sees exactly one device kernel, the wrapper's."""
+    row = (32,) if dtype == torch.float32 else (32, 128)
+    pool = torch.zeros((9, 16, *row), dtype=dtype, device=cuda)
+    new = torch.ones((4, 1, *row), dtype=dtype, device=cuda)
+    pages = torch.tensor([[1], [3], [0], [8]], dtype=torch.int32,
+                         device=cuda)
+    offs = torch.tensor([[0], [5], [2], [15]], dtype=torch.int32,
+                        device=cuda)
+    kernels = profiling.call_profile(
+        lambda: kv_update.paged_kv_update(pool, new, pages, offs)).kernels
+    assert len(kernels) == 1 and "paged_kv_update" in kernels[0], kernels
+    ref = kv_update.paged_kv_update_ref(torch.zeros_like(pool), new, pages,
+                                        offs)
+    assert torch.equal(pool, ref)
 
 
 # (kvh, rep, d, page, lengths): GQA and wide widths, pages of 16 and 128,

@@ -138,7 +138,9 @@ def test_kernel_loader_imports_without_nvcc(monkeypatch):
     assert len(_build.KERNELS["grouped_gemm_t"].argtypes) == 13
     assert len(_build.KERNELS["grouped_gemm_t4"].argtypes) == 12
     assert len(_build.KERNELS["split_bf16"].argtypes) == 7
-    assert len(_build.KERNELS["paged_kv_update"].argtypes) == 10
+    # pool, new, pages, offs (unstacked), mask, B, S, NP, PS, row_bytes,
+    # the stream
+    assert len(_build.KERNELS["paged_kv_update"].argtypes) == 11
     # the paged bf16 kernel takes the split walk's workspace and its C, as
     # the KV8 one does (without the two scale pools)
     assert len(_build.KERNELS["paged_decode_attention"].argtypes) == 18

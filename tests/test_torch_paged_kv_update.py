@@ -14,7 +14,10 @@ on both routes: ``use_pallas=False`` (an indexing write that sends masked
 slots and unallocated chunks to page 0) and the kernel route. Where bucket
 padding passes the table, the reference clips it into the slot's last
 page and overwrites live rows there; the port sends it to page 0 (ROADMAP
-C.4), which the last test shows.
+C.4), which a test shows. The last test holds what the paged engine
+hands the kernel's wrapper: rows of the pool's dtype, contiguous, and
+int32 contiguous pages and offsets, so that on the card the call launches
+the kernel alone.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +29,7 @@ from how_to_optimize_gemm_tpu.ops import pallas_kv_update as jkvu
 from how_to_optimize_gemm_tpu_torch import convert
 from how_to_optimize_gemm_tpu_torch.models import llama
 from how_to_optimize_gemm_tpu_torch.ops import kv_update
+from how_to_optimize_gemm_tpu_torch.parallel import serving
 
 torch.set_num_threads(1)
 
@@ -144,3 +148,40 @@ def test_padding_past_the_table_goes_to_the_trash_page():
     assert torch.equal(got[5, 8:16], rows[:8])           # positions 40..47
     assert torch.equal(got[5, :8], before[5, :8])        # 32..39 kept
     assert torch.equal(_port_array(ref, "bf16")[5, :4], rows[8:12])
+
+
+# a tiny model for the engine (tests/test_torch_paged_serving.py's)
+CFG = dict(vocab=64, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+           d_ff=128, max_seq=32)
+PROMPTS = [[3, 5, 7], [11, 2], [40, 41, 42, 43]]
+
+
+@pytest.mark.parametrize("cache_kind", ["bf16", "int8"])
+def test_engine_hands_the_kernel_its_rows_as_they_lie(cache_kind,
+                                                      monkeypatch):
+    """The paged engine on its kernel route (on the CPU the wrappers' plain
+    versions), over a bf16 pool and a KV8 pool's values and scales: every
+    ``paged_kv_update`` call gets new rows of the pool's dtype, contiguous,
+    (B, S) int32 contiguous pages and offsets, and no mask, so on the card
+    the wrapper converts nothing and launches its kernel alone."""
+    cfg = llama.LlamaConfig(**CFG, weight_kind="w4a8")
+    params = llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    calls = []
+    real = llama.paged_kv_update
+
+    def record(pool, new, pages, offs, write_mask=None):
+        calls.append((new.dtype == pool.dtype, new.is_contiguous(),
+                      pages.dtype, offs.dtype, pages.is_contiguous(),
+                      offs.is_contiguous(), tuple(pages.shape) ==
+                      tuple(new.shape[:2]), write_mask))
+        return real(pool, new, pages, offs, write_mask)
+    monkeypatch.setattr(llama, "paged_kv_update", record)
+    eng = serving.ServingEngine(cfg, params, batch_slots=2, device="cpu",
+                                cache_kind=cache_kind, paged=True,
+                                kernel_routes=True)
+    eng.run([serving.Request(uid=i, prompt=list(p), max_new=4)
+             for i, p in enumerate(PROMPTS)])
+    pools = 2 * (2 if cache_kind == "int8" else 1)   # K and V (and scales)
+    assert len(calls) >= pools * CFG["n_layers"] * 3
+    assert set(calls) == {(True, True, torch.int32, torch.int32, True, True,
+                           True, None)}

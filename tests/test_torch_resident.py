@@ -12,7 +12,9 @@ Tolerances:
   into an FMA, the port rounds each op on its own);
 - both stay under the rung's gate_rel against the fp64 oracle;
 - the rungs return a fresh output and leave C as it was;
-- rung 13's repack (``pretile``) is a layout: exact.
+- rung 13's repack (``pretile``) is a layout: exact (the stage's
+  128-byte-swizzled image; tests/test_torch_tiled_wgmma.py models how the
+  body reads it).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -99,14 +101,17 @@ def test_budget_is_a_share_of_the_l2():
 
 @pytest.mark.parametrize("tiled", [False, True])
 def test_resident_bytes_follow_the_references_need(tiled):
-    """mp * kp + np * kp on 128-row tiles and 64-byte K chunks; rung 13's
-    slot images carry 80 bytes a row."""
-    width = manual_dma.LDS if tiled else manual_dma.BK
+    """mp * kp + np * kp on 128-row tiles, K in 64-byte chunks (rung 12)
+    or in the 128-byte stages of rung 13's images."""
+    kq = int8.STAGE_K if tiled else manual_dma.BK
+    assert kq == (128 if tiled else 64)
     assert manual_dma.resident_bytes(4096, 4096, 4096, tiled) \
-        == 8192 * 64 * width
+        == 8192 * 4096
     assert manual_dma.resident_bytes(200, 136, 72, tiled) \
-        == (256 + 256) * 2 * width
-    assert manual_dma.resident_bytes(1, 1, 1, tiled) == 256 * width
+        == (256 + 256) * kq * (2 if kq == 64 else 1)
+    assert manual_dma.resident_bytes(1, 1, 1, tiled) == 256 * kq
+    assert manual_dma.resident_bytes(128, 128, 136, tiled) \
+        == 256 * (192 if kq == 64 else 256)
 
 
 @pytest.mark.parametrize("tiled", [False, True])
@@ -150,36 +155,44 @@ def test_above_the_budget_the_rung_takes_rung_11(name, over, monkeypatch):
 @pytest.mark.parametrize("rows,k", [(200, 72), (128, 64), (1, 16),
                                     (384, 1024), (0, 32)])
 def test_pretile_layout(rows, k):
-    """pretile_ref's (tiles, nk, 128, LDS) image: chunk (t, kt) row r holds
-    source row t * 128 + r, bytes kt * 64 .. + 64, then 16 zero bytes;
-    rows and K past the source are zero."""
+    """pretile_ref's (tiles, nk, 128, 128) images: image (t, kq) row r
+    holds source row t * 128 + r, bytes kq * 128 .. + 128, its 16-byte
+    chunk c at c ^ (r % 8); rows and K past the source are zero."""
     rng = np.random.default_rng(rows + k)
     x = torch.from_numpy(rng.integers(-127, 128, (rows, k)).astype(np.int8))
     img = manual_dma.pretile_ref(x)
-    tiles, nk = -(-rows // 128), -(-k // 64)
-    assert img.shape == (tiles, nk, 128, manual_dma.LDS)
+    tiles, nk = -(-rows // 128), -(-k // 128)
+    assert img.shape == (tiles, nk, 128, 128)
     assert img.dtype == torch.int8 and img.is_contiguous()
     assert torch.equal(manual_dma.pretile(x), img)   # CPU: the plain version
-    full = torch.zeros((tiles * 128, nk * 64), dtype=torch.int8)
+    full = torch.zeros((tiles * 128, nk * 128), dtype=torch.int8)
     full[:rows, :k] = x
     for t in range(tiles):
-        for kt in range(nk):
-            assert torch.equal(img[t, kt, :, :64],
-                               full[t * 128:(t + 1) * 128,
-                                    kt * 64:(kt + 1) * 64])
-    assert not img[..., 64:].any()
+        for kq in range(nk):
+            for r in range(128):
+                line = full[t * 128 + r, kq * 128:(kq + 1) * 128]
+                for c in range(8):
+                    at = 16 * (c ^ (r % 8))
+                    assert torch.equal(img[t, kq, r, at:at + 16],
+                                       line[16 * c:16 * c + 16])
 
 
 def test_pretile_chunk_is_one_contiguous_slot_image():
-    """Each chunk is 128 x 80 = 10,240 contiguous bytes: one bulk copy."""
-    x = torch.arange(256 * 128, dtype=torch.int32).remainder(127).to(
-        torch.int8).reshape(256, 128)
+    """Each image is 128 x 128 = 16,384 contiguous bytes, the A (or B^T)
+    plane of one stage: one bulk copy. Image (0, 1) is rows 0-127, K bytes
+    128-255; its row 0 unswizzled, its row 1 chunks swapped in pairs."""
+    x = torch.arange(256 * 256, dtype=torch.int32).remainder(127).to(
+        torch.int8).reshape(256, 256)
     img = manual_dma.pretile_ref(x)
     flat = img.reshape(-1)
-    chunk = 128 * manual_dma.LDS
-    assert chunk == 10_240
-    second = flat[chunk:2 * chunk].reshape(128, manual_dma.LDS)  # (0, 1)
-    assert torch.equal(second[:, :64], x[:128, 64:128])
+    chunk = 128 * int8.STAGE_K
+    assert chunk == 16_384
+    second = flat[chunk:2 * chunk].reshape(128, 128)  # (0, 1)
+    assert torch.equal(second[0], x[0, 128:256])
+    assert torch.equal(second[1, :16], x[1, 144:160])
+    assert torch.equal(second[1, 16:32], x[1, 128:144])
+    third = flat[2 * chunk:3 * chunk].reshape(128, 128)  # (1, 0)
+    assert torch.equal(third[8], x[136, :128])
 
 
 @pytest.mark.parametrize("fn", [manual_dma.mmult_q_resident,
